@@ -1,0 +1,98 @@
+"""PaddedCOO: a row-sorted COO sparse matrix padded to a fixed capacity.
+
+Port of ``paddle_sparse_tpu/core/matrix.py::PaddedCOO``. The padding
+convention is kept: the ``capacity - nnz`` padding entries are ``(row=M,
+col=N, value=0)`` and sort after every real entry. The JAX version sums
+padding into a dead output row M and slices it off; here :meth:`rowptr` covers
+only the M real rows (``rowptr[M] == nnz``), so the SpMM kernel never reads a
+padding entry, whose ``col == N`` would lie outside ``x``.
+"""
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..ops.convert import ind2ptr
+from ..ops.spmm import spmm_csr
+
+
+@dataclasses.dataclass(frozen=True)
+class PaddedCOO:
+    row: torch.Tensor               # (capacity,) int, sorted; padding = M
+    col: torch.Tensor               # (capacity,) int; padding = N
+    value: Optional[torch.Tensor]   # (capacity,) or None; padding = 0
+    nnz: int                        # number of real entries
+    shape: Tuple[int, int]          # (M, N)
+
+    @property
+    def capacity(self) -> int:
+        return int(self.row.shape[0])
+
+    @property
+    def M(self) -> int:
+        return self.shape[0]
+
+    @property
+    def N(self) -> int:
+        return self.shape[1]
+
+    def valid_mask(self) -> torch.Tensor:
+        return self.row < self.M
+
+    def rowptr(self) -> torch.Tensor:
+        """CSR pointer over the M real rows; padding lies past ``rowptr[M]``."""
+        return ind2ptr(self.row, self.M)
+
+    @classmethod
+    def from_arrays(cls, row, col, value, shape: Tuple[int, int],
+                    capacity: Optional[int] = None,
+                    index_dtype: torch.dtype = torch.int32,
+                    device=None) -> "PaddedCOO":
+        """Build from exact row-sorted COO arrays (numpy or torch), padding to
+        ``capacity`` (default: the exact nnz). Raises on unsorted rows or
+        indices outside ``shape``: the CUDA kernel trusts them."""
+        row = torch.as_tensor(row, dtype=index_dtype, device=device)
+        col = torch.as_tensor(col, dtype=index_dtype, device=row.device)
+        n = int(row.shape[0])
+        cap = n if capacity is None else int(capacity)
+        if cap < n:
+            raise ValueError(f"capacity {cap} < nnz {n}")
+        if col.shape != row.shape:
+            raise ValueError(f"row {tuple(row.shape)} and col "
+                             f"{tuple(col.shape)} differ in shape")
+        M, N = int(shape[0]), int(shape[1])
+        if n and bool((row.min() < 0) | (row.max() >= M) | (col.min() < 0)
+                      | (col.max() >= N) | (row[1:] < row[:-1]).any()):
+            raise ValueError(f"rows must be sorted, with row in [0, {M}) and "
+                             f"col in [0, {N})")
+        if value is not None:
+            value = torch.as_tensor(value, device=row.device)
+        pad = cap - n
+        if pad:
+            row = torch.cat([row, row.new_full((pad,), M)])
+            col = torch.cat([col, col.new_full((pad,), N)])
+            if value is not None:
+                value = torch.cat([value, value.new_zeros(
+                    (pad,) + tuple(value.shape[1:]))])
+        return cls(row=row, col=col, value=value, nnz=n, shape=(M, N))
+
+    def to(self, device) -> "PaddedCOO":
+        return dataclasses.replace(
+            self, row=self.row.to(device), col=self.col.to(device),
+            value=None if self.value is None else self.value.to(device))
+
+    def spmm(self, x: torch.Tensor, reduce: str = "sum") -> torch.Tensor:
+        """``self @ x`` for dense ``x`` of shape (N, ...)."""
+        return spmm_csr(self.rowptr(), self.col, self.value, x, reduce)
+
+    def with_value(self, value: Optional[torch.Tensor]) -> "PaddedCOO":
+        """Replace the values, zeroing them at padding entries."""
+        if value is not None:
+            mask = self.valid_mask().reshape((-1,) + (1,) * (value.dim() - 1))
+            value = torch.where(mask, value, torch.zeros((), dtype=value.dtype,
+                                                         device=value.device))
+        return dataclasses.replace(self, value=value)
+
+    def degree(self) -> torch.Tensor:
+        """Entries per row (padding excluded)."""
+        return torch.bincount(self.row.long(), minlength=self.M + 1)[:self.M]

@@ -1,0 +1,115 @@
+"""Port parity: paddle_sparse_tpu_torch.PaddedCOO against the JAX
+paddle_sparse_tpu.core.PaddedCOO, with padding, on the same numpy inputs."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_sparse_tpu.core import PaddedCOO as JPaddedCOO
+from paddle_sparse_tpu_torch import PaddedCOO
+
+M, N = 120, 90
+
+
+def _coo(nnz=700, seed=11):
+    rng = np.random.default_rng(seed)
+    row = np.sort(rng.integers(0, M - 1, nnz))    # the last row stays empty
+    col = rng.integers(0, N, nnz)
+    order = np.lexsort((col, row))
+    return (row[order].astype(np.int32), col[order].astype(np.int32),
+            rng.standard_normal(nnz).astype(np.float32), rng)
+
+
+def _pair(capacity, with_value=True):
+    row, col, val, rng = _coo()
+    v = val if with_value else None
+    t = PaddedCOO.from_arrays(row, col, v, (M, N), capacity=capacity)
+    j = JPaddedCOO.from_arrays(jnp.asarray(row), jnp.asarray(col),
+                               None if v is None else jnp.asarray(v),
+                               (M, N), capacity=capacity)
+    return t, j, rng
+
+
+def _eq(t, j):
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("capacity", [None, 700, 1000])
+@pytest.mark.parametrize("with_value", [True, False])
+def test_from_arrays_layout(capacity, with_value):
+    t, j, _ = _pair(capacity, with_value)
+    assert t.shape == j.shape and t.capacity == j.capacity
+    assert t.nnz == int(j.nnz)
+    _eq(t.row, j.row)
+    _eq(t.col, j.col)
+    assert (t.value is None) == (j.value is None)
+    if with_value:
+        _eq(t.value, j.value)
+    _eq(t.valid_mask(), j.valid_mask())
+    _eq(t.rowptr(), j.rowptr())
+    _eq(t.degree(), j.degree())
+    assert int(t.rowptr()[-1]) == t.nnz    # padding lies past rowptr[M]
+
+
+@pytest.mark.parametrize("capacity", [None, 1000])
+def test_with_value_zeroes_padding(capacity):
+    t, j, rng = _pair(capacity)
+    new = rng.standard_normal(t.capacity).astype(np.float32)
+    tv = t.with_value(torch.from_numpy(new))
+    jv = j.with_value(jnp.asarray(new))
+    _eq(tv.value, jv.value)
+    assert not tv.value[t.nnz:].any()
+    assert t.with_value(None).value is None
+
+
+@pytest.mark.parametrize("capacity", [None, 1000])
+@pytest.mark.parametrize("with_value", [True, False])
+@pytest.mark.parametrize("K", [1, 33])
+def test_spmm(capacity, with_value, K):
+    t, j, rng = _pair(capacity, with_value)
+    x = rng.standard_normal((N, K)).astype(np.float32)
+    with torch.no_grad():
+        out = t.spmm(torch.from_numpy(x))
+    ref = j.spmm(jnp.asarray(x))
+    assert out.shape == (M, K)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_spmm_never_reads_padding():
+    """Padding col set far outside x: the result is unchanged, because the
+    row pointer ends before the padding."""
+    t, j, rng = _pair(1000)
+    x = torch.from_numpy(rng.standard_normal((N, 8)).astype(np.float32))
+    poisoned = dataclasses.replace(t, col=torch.where(
+        t.valid_mask(), t.col, torch.full_like(t.col, 1 << 30)))
+    with torch.no_grad():
+        np.testing.assert_array_equal(poisoned.spmm(x).numpy(),
+                                      t.spmm(x).numpy())
+
+
+def test_to_device_roundtrip():
+    t, _, _ = _pair(1000)
+    u = t.to("cpu")
+    assert u.row.device == u.col.device == torch.device("cpu")
+    assert u.shape == t.shape
+    assert torch.equal(u.row, t.row) and torch.equal(u.value, t.value)
+
+
+@pytest.mark.parametrize("bad", ["unsorted", "row_range", "col_range",
+                                 "capacity"])
+def test_from_arrays_rejects_bad_input(bad):
+    row, col, val, _ = _coo(nnz=50)
+    shape, cap = (M, N), None
+    if bad == "unsorted":
+        row = row[::-1].copy()
+    elif bad == "row_range":
+        row[-1] = M
+    elif bad == "col_range":
+        col[0] = N
+    else:
+        cap = 10
+    with pytest.raises(ValueError):
+        PaddedCOO.from_arrays(row, col, val, shape, capacity=cap)
