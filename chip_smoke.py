@@ -8,22 +8,37 @@ Phases, one or more printed lines each:
 
 1. Device and build: the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, then the CUDA kernels built from ``csrc/`` with nvcc.
-2. Kernel vs plain: ``spmm_csr_cuda`` against ``spmm_csr_reference`` run in
-   f64 on the card, over K, dtypes, ``value=None``, empty rows, a row of over
-   1M edges and a padded ``PaddedCOO``.
+2. SpMM kernel vs plain: ``spmm_csr_cuda`` against ``spmm_csr_reference``
+   run in f64 on the card, over K, dtypes, ``value=None``, empty rows, a row
+   of over 1M edges and a padded ``PaddedCOO``.
+2b. SDDMM kernel vs plain: ``sddmm_csr_cuda`` against
+   ``sddmm_csr_reference`` run in f64 on the card, over K, f32 and bf16
+   inputs, empty rows, a padded ``PaddedCOO`` with poisoned padding cols
+   (padding reads back 0), a row of over 1M edges, and the identity
+   structure (where the kernel is ``mul_rowsum``).
 3. Toy slice: ``entry("cuda")``'s GCN forward against the same model run on
    the CPU through the plain path.
+3b. Toy train step: ``train_entry("cuda")`` against ``train_entry("cpu")``:
+   loss, every parameter's grad and d value, then 20 SGD steps.
 4. GCN inference at ogbn-products scale (2,449,029 nodes, degree 50, the OGB
    products GCN baseline 100 -> 256 -> 256 -> 47): 1 warm-up and 3 timed
    forwards, the kernel's launch count, per-layer times, a sampled-row check
    against f64, and the K=256 SpMM timed through the kernel and the plain
+   version.
+5. GCN train step at the same scale, on phase 4's graph, features and model,
+   with labels and ``adj.value.requires_grad_()``: the CSC view's build time,
+   1 warm-up and 3 timed steps (forward + backward + SGD), peak memory, the
+   launch counts (SpMM 3 forward + 2 backward, SDDMM 3 per step), per-part
+   times, d value on sampled edges and d x on sampled columns against f64,
+   and the K=256 and K=100 SDDMM timed through the kernel and the plain
    version.
 
 Then the kernels' JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; so does a
 machine where ``torch.cuda.is_available()`` is False.
 
-f32 matrix products run in full f32: TF32 is switched off below.
+f32 matrix products run in full f32: TF32 is switched off below, for the
+forward and the backward GEMMs alike.
 """
 import dataclasses
 import json
@@ -31,13 +46,22 @@ import subprocess
 import sys
 import time
 
+import torch
+
 F32_TOL = dict(rtol=1e-5, atol=1e-4)    # f32 sums taken in another order
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)   # output rounded to bf16
+# gradients at scale are tiny (the loss is a mean over 2.4M nodes), so their
+# f64 checks bound the error by 1e-5 of the sum of |terms| of each dot or
+# row-sum: f32 rounding of K-term sums stays far below that
+GRAD_REL = 1e-5
 
 PRODUCTS_NODES = 2_449_029              # ogbn-products, as bench.py
 PRODUCTS_DEG = 50                       # 122,451,450 nnz
 GCN_DIMS = (100, 256, 47)               # in, hidden, classes; 3 layers
 SAMPLED_ROWS = 4096
+SAMPLED_EDGES = 4096
+SAMPLED_COLS = 1024
+LR = 0.1
 
 
 def check(ok: bool, msg: str) -> None:
@@ -45,42 +69,57 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke failed: {msg}")
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device visible "
-              "(torch.cuda.is_available() is False); nothing was run",
-              file=sys.stderr)
-        return 1
+def _event():
+    return torch.cuda.Event(enable_timing=True)
 
-    from paddle_sparse_tpu_torch import (PaddedCOO, entry, gcn_normalize,
-                                         init_gcn, spmm_csr_cuda,
+
+def timed(fn, reps):
+    """Mean ms of ``reps`` calls after one warm-up, by CUDA events; and the
+    last result."""
+    fn()
+    a, b = _event(), _event()
+    a.record()
+    for _ in range(reps):
+        res = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps, res
+
+
+def in_turns(run_p, run_k, reps_p, reps_k):
+    """Plain, kernel, kernel, plain: ``(p1, k1, k2, p2, out_p, out_k)``."""
+    p1, out_p = timed(run_p, reps_p)
+    k1, out_k = timed(run_k, reps_k)
+    k2, _ = timed(run_k, reps_k)
+    p2, _ = timed(run_p, reps_p)
+    return p1, k1, k2, p2, out_p, out_k
+
+
+def random_csr(gen, dev, M, N, max_deg):
+    deg = torch.randint(0, max_deg + 1, (M,), generator=gen, device=dev)
+    deg[[0, M // 3, M - 1]] = 0                  # empty, last row too
+    rowptr = torch.zeros(M + 1, dtype=torch.int32, device=dev)
+    rowptr[1:] = deg.cumsum(0)
+    nnz = int(rowptr[-1])
+    col = torch.randint(0, N, (nnz,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    value = torch.rand(nnz, generator=gen, device=dev) * 2 - 1
+    return rowptr, col, value
+
+
+def long_row_csr(gen, dev, N):
+    """One row of 1,100,000 edges among short and empty ones."""
+    deg = torch.tensor([3, 0, 1_100_000, 5, 7, 0], device=dev)
+    lrp = torch.zeros(deg.numel() + 1, dtype=torch.int32, device=dev)
+    lrp[1:] = deg.cumsum(0)
+    lcol = torch.randint(0, N, (int(lrp[-1]),), generator=gen, device=dev,
+                         dtype=torch.int32)
+    return lrp, lcol
+
+
+def phase2_spmm(gen, dev):
+    from paddle_sparse_tpu_torch import (PaddedCOO, spmm_csr_cuda,
                                          spmm_csr_reference)
-    from paddle_sparse_tpu_torch.ops.kernels import _build
-
-    torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 h @ w
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-
-    # ---- phase 1: device and build ---------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    card = f"[{smi}]"
-    print(f"phase 1 device: {smi} | torch {torch.__version__} | CUDA "
-          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} | "
-          f"count {torch.cuda.device_count()}", flush=True)
-    t0 = time.perf_counter()
-    so = _build.build_library(_build.sources(), _build.BUILD_DIR)
-    _build.load_library()
-    build_s = time.perf_counter() - t0
-    print(f"phase 1 build: {so.name} from {len(_build.sources())} source(s) "
-          f"with nvcc for sm_90a in {build_s:.2f} s {card}", flush=True)
-
-    # ---- phase 2: kernel vs plain ----------------------------------------
-    gen = torch.Generator(device=dev).manual_seed(1)
 
     def compare(name, out, rowptr, col, value, x, tol):
         ref = spmm_csr_reference(rowptr, col,
@@ -94,19 +133,8 @@ def main() -> int:
         check(ok, f"kernel disagrees with plain f64 on {name} (max abs err "
                   f"{err:.3e}, tol {tol})")
 
-    def random_csr(M, N, max_deg):
-        deg = torch.randint(0, max_deg + 1, (M,), generator=gen, device=dev)
-        deg[[0, M // 3, M - 1]] = 0                  # empty, last row too
-        rowptr = torch.zeros(M + 1, dtype=torch.int32, device=dev)
-        rowptr[1:] = deg.cumsum(0)
-        nnz = int(rowptr[-1])
-        col = torch.randint(0, N, (nnz,), generator=gen, device=dev,
-                            dtype=torch.int32)
-        value = torch.rand(nnz, generator=gen, device=dev) * 2 - 1
-        return rowptr, col, value
-
     M, N = 3000, 2000
-    rowptr, col, value = random_csr(M, N, 40)
+    rowptr, col, value = random_csr(gen, dev, M, N, 40)
     for K in (1, 8, 47, 100, 256):
         x = torch.randn(N, K, generator=gen, device=dev)
         out = spmm_csr_cuda(rowptr, col, value, x)
@@ -129,13 +157,9 @@ def main() -> int:
 
     # one row of 1,100,000 edges; small-integer inputs keep every sum exact
     # in f32, so this case checks the long walk and not rounding
-    deg = torch.tensor([3, 0, 1_100_000, 5, 7, 0], device=dev)
-    lrp = torch.zeros(deg.numel() + 1, dtype=torch.int32, device=dev)
-    lrp[1:] = deg.cumsum(0)
-    lnnz = int(lrp[-1])
-    lcol = torch.randint(0, N, (lnnz,), generator=gen, device=dev,
-                         dtype=torch.int32)
-    lval = torch.randint(-2, 3, (lnnz,), generator=gen, device=dev).float()
+    lrp, lcol = long_row_csr(gen, dev, N)
+    lval = torch.randint(-2, 3, (lcol.numel(),), generator=gen,
+                         device=dev).float()
     for K, dt, tol in ((256, torch.float32, F32_TOL),
                        (47, torch.float32, F32_TOL),
                        (8, torch.bfloat16, BF16_TOL)):
@@ -161,8 +185,78 @@ def main() -> int:
         compare("PaddedCOO pads col=2**30 K=64", out, rowptr, col, value, x,
                 F32_TOL)
 
-    # ---- phase 3: toy slice, card vs CPU ---------------------------------
-    model_c, adj_c, x_c = entry("cuda")
+
+def phase2b_sddmm(gen, dev):
+    from paddle_sparse_tpu_torch import (PaddedCOO, sddmm_csr_cuda,
+                                         sddmm_csr_reference)
+
+    def compare(name, out, rowptr, col, g, x, tol):
+        ref = sddmm_csr_reference(rowptr, col, g.double(), x.double(),
+                                  out_dtype=torch.float64)
+        got = out.double()
+        err = float((got - ref).abs().max()) if ref.numel() else 0.0
+        ok = bool(torch.allclose(got, ref, **tol))
+        print(f"phase 2b {name}: dv {tuple(out.shape)} {out.dtype} "
+              f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"SDDMM kernel disagrees with plain f64 on {name} (max abs "
+                  f"err {err:.3e}, tol {tol})")
+
+    M, N = 3000, 2000
+    rowptr, col, _ = random_csr(gen, dev, M, N, 40)      # with empty rows
+    for K in (1, 8, 47, 100, 256):
+        g = torch.randn(M, K, generator=gen, device=dev)
+        x = torch.randn(N, K, generator=gen, device=dev)
+        compare(f"K={K} f32", sddmm_csr_cuda(rowptr, col, g, x), rowptr,
+                col, g, x, F32_TOL)
+        gb, xb = g.bfloat16(), x.bfloat16()
+        compare(f"K={K} bf16 in, f32 out", sddmm_csr_cuda(rowptr, col, gb, xb),
+                rowptr, col, gb, xb, F32_TOL)
+        out = sddmm_csr_cuda(rowptr, col, gb, xb, out_dtype=torch.bfloat16)
+        check(out.dtype == torch.bfloat16, "out_dtype bf16 not honoured")
+        compare(f"K={K} bf16 in, bf16 out", out, rowptr, col, gb, xb,
+                BF16_TOL)
+
+    # padded PaddedCOO: pad slots read back 0, poisoned pad cols never read
+    prow = torch.repeat_interleave(
+        torch.arange(M, device=dev), (rowptr[1:] - rowptr[:-1]).long())
+    adj = PaddedCOO.from_arrays(prow, col, None, (M, N),
+                                capacity=col.numel() + 1000, device=dev)
+    poisoned = dataclasses.replace(adj, col=torch.where(
+        adj.valid_mask(), adj.col, torch.full_like(adj.col, 1 << 30)))
+    g = torch.randn(M, 64, generator=gen, device=dev)
+    x = torch.randn(N, 64, generator=gen, device=dev)
+    out = sddmm_csr_cuda(poisoned.rowptr(), poisoned.col, g, x)
+    torch.cuda.synchronize()
+    check(out.numel() == col.numel() + 1000 and not out[col.numel():].any(),
+          "SDDMM pad slots must read back 0")
+    compare("PaddedCOO +1000 pads col=2**30 K=64", out[:col.numel()],
+            rowptr, col, g, x, F32_TOL)
+
+    # one row of 1,100,000 edges; small-integer inputs make every dot exact
+    lrp, lcol = long_row_csr(gen, dev, N)
+    for K, dt in ((256, torch.float32), (100, torch.float32),
+                  (8, torch.bfloat16)):
+        g = torch.randint(-4, 5, (lrp.numel() - 1, K), generator=gen,
+                          device=dev).to(dt)
+        x = torch.randint(-4, 5, (N, K), generator=gen, device=dev).to(dt)
+        compare(f"1.1M-edge row K={K} {dt}", sddmm_csr_cuda(lrp, lcol, g, x),
+                lrp, lcol, g, x, dict(rtol=0, atol=0))
+
+    # identity structure: the kernel is mul_rowsum(a, b)
+    L = 50_000
+    ident_ptr = torch.arange(L + 1, dtype=torch.int32, device=dev)
+    ident_col = torch.arange(L, dtype=torch.int32, device=dev)
+    for K in (47, 256):
+        a = torch.randn(L, K, generator=gen, device=dev)
+        b = torch.randn(L, K, generator=gen, device=dev)
+        compare(f"identity (mul_rowsum) L={L} K={K}",
+                sddmm_csr_cuda(ident_ptr, ident_col, a, b), ident_ptr,
+                ident_col, a, b, F32_TOL)
+
+
+def phase3_toy(dev):
+    from paddle_sparse_tpu_torch import entry
+    model_c, adj_c, x_c = entry(dev)
     model_h, adj_h, x_h = entry("cpu")
     with torch.inference_mode():
         out_c = model_c(adj_c, x_c)
@@ -173,7 +267,39 @@ def main() -> int:
           f"{err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
     check(ok, f"toy GCN on the card disagrees with the CPU ({err:.3e})")
 
-    # ---- phase 4: GCN inference at ogbn-products scale -------------------
+
+def phase3b_toy_train(dev):
+    from paddle_sparse_tpu_torch import gcn_loss, train_entry, train_step
+    runs = {}
+    for where in (dev, "cpu"):
+        model, adj, x, y = train_entry(where)
+        adj.value.requires_grad_()
+        loss0 = gcn_loss(model, adj, x, y)
+        loss0.backward()
+        # copies: .cpu() of a CPU tensor is the tensor itself, and the
+        # SGD steps below accumulate into adj.value.grad in place
+        grads = [p.grad.cpu().clone() for p in model.parameters()]
+        grads.append(adj.value.grad.cpu().clone())
+        losses = [float(train_step(model, adj, x, y, LR)) for _ in range(20)]
+        runs[str(where)] = (float(loss0.detach()), grads, losses)
+    (lc, gc, sc), (lh, gh, sh) = runs[str(dev)], runs["cpu"]
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(gc, gh))
+    step_err = max(abs(a - b) for a, b in zip(sc, sh))
+    ok = (abs(lc - lh) <= 1e-5 and step_err <= 1e-4
+          and all(torch.allclose(a, b, **F32_TOL) for a, b in zip(gc, gh)))
+    print(f"phase 3b toy train step 32->64->8: loss cuda {lc:.6f} cpu "
+          f"{lh:.6f}; {len(gc)} grads (params + d value) max_abs_err "
+          f"{grad_err:.3e}; 20 SGD steps (lr {LR}) loss {sc[0]:.6f} -> "
+          f"{sc[-1]:.6f}, cuda vs cpu max diff {step_err:.3e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "toy train step on the card disagrees with the CPU")
+    check(sc[-1] < sc[0], "toy SGD did not decrease the loss")
+
+
+def phase4_forward(dev, card):
+    from paddle_sparse_tpu_torch import (PaddedCOO, gcn_normalize, init_gcn,
+                                         sddmm_csr_cuda, spmm_csr_cuda,
+                                         spmm_csr_reference)
     n, deg_ = PRODUCTS_NODES, PRODUCTS_DEG
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -196,7 +322,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     times = []
     with torch.inference_mode():
-        spmm_csr_cuda.launches = 0
+        spmm_csr_cuda.launches = sddmm_csr_cuda.launches = 0
         out = model(adj, x)                                     # warm-up
         for _ in range(3):
             torch.cuda.synchronize()
@@ -204,15 +330,19 @@ def main() -> int:
             out = model(adj, x)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        launches = spmm_csr_cuda.launches
+        launches, sddmm_launches = (spmm_csr_cuda.launches,
+                                    sddmm_csr_cuda.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"phase 4 forward ms: {' '.join(f'{t:.3f}' for t in times)} "
           f"(mean {sum(times) / len(times):.3f}) peak mem {peak_gb:.2f} GB "
           f"{card}", flush=True)
-    print(f"phase 4 spmm_csr launches in 4 forwards: {launches} "
-          f"({launches / 4:g} per forward)", flush=True)
+    print(f"phase 4 launches in 4 forwards: spmm_csr {launches} "
+          f"({launches / 4:g} per forward), sddmm_csr {sddmm_launches}",
+          flush=True)
     check(launches == 3 * 4, f"expected 3 kernel launches per forward, "
                              f"counted {launches} in 4 forwards")
+    check(sddmm_launches == 0, f"the forward launched the SDDMM kernel "
+                               f"{sddmm_launches} times")
     check(out.shape == (n, GCN_DIMS[2]) and bool(torch.isfinite(out).all()),
           f"forward output not finite or of shape {tuple(out.shape)}")
 
@@ -231,7 +361,7 @@ def main() -> int:
     sub_val = adj.value[edge].double()
     h = x
     layer_inputs = []
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev = [_event() for _ in range(3)]
     with torch.inference_mode():
         for i, (w, b) in enumerate(zip(model.weight, model.bias)):
             layer_inputs.append(h)
@@ -261,25 +391,10 @@ def main() -> int:
     # one K=256 SpMM, kernel vs plain, timed in turns plain/kernel/kernel/plain
     h2 = layer_inputs[1]
     col, value = adj.col, adj.value
-
-    def timed(fn, reps):
-        fn()
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        for _ in range(reps):
-            res = fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps, res
-
-    run_k = lambda: spmm_csr_cuda(rowptr, col, value, h2)       # noqa: E731
-    run_p = lambda: spmm_csr_reference(rowptr, col, value, h2)  # noqa: E731
     with torch.inference_mode():
-        p1, out_p = timed(run_p, 2)
-        k1, out_k = timed(run_k, 5)
-        k2, _ = timed(run_k, 5)
-        p2, _ = timed(run_p, 2)
-    kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        p1, k1, k2, p2, out_p, out_k = in_turns(
+            lambda: spmm_csr_reference(rowptr, col, value, h2),
+            lambda: spmm_csr_cuda(rowptr, col, value, h2), 2, 5)
     max_err = float((out_k - out_p).abs().max())
     ok = bool(torch.allclose(out_k, out_p, **F32_TOL))
     print(f"phase 4 spmm K=256 at {adj.nnz} nnz: kernel {k1:.3f} / "
@@ -287,13 +402,257 @@ def main() -> int:
           f"max_abs_err {max_err:.3e} {'ok' if ok else 'FAIL'} {card}",
           flush=True)
     check(ok, "kernel and plain K=256 SpMM disagree at scale")
+    stats = {"launches": launches, "sddmm_launches": sddmm_launches,
+             "max_abs_err": max_err,
+             "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+    return adj, x, model, stats
 
-    print(json.dumps({"kernels": [{
-        "name": "spmm_csr", "route": "cuda",
-        "source": "paddle_sparse_tpu_torch/csrc/spmm_csr.cu",
-        "replaces": "paddle_sparse_tpu/ops/kernels/spmm_pallas.py:45",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+
+def _grad_close(got, ref, scale):
+    """Max abs error and whether ``|got - ref| <= GRAD_REL * scale``, with
+    ``scale`` the sum of |terms| of each entry (all f64)."""
+    err = (got.double() - ref).abs()
+    return float(err.max()), bool((err <= GRAD_REL * scale + 1e-30).all())
+
+
+def phase5_train(dev, card, adj, x, model):
+    from paddle_sparse_tpu_torch import (gcn_loss, sddmm_csr_cuda,
+                                         sddmm_csr_reference, spmm_csr_cuda,
+                                         train_step)
+    n, nnz, L = PRODUCTS_NODES, adj.nnz, len(model.weight)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    y = torch.randint(0, GCN_DIMS[2], (n,), generator=gen, device=dev)
+    adj.value.requires_grad_()      # d value, through the SDDMM kernel
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = adj.structure()
+    torch.cuda.synchronize()
+    csc_gb = sum(t.numel() * t.element_size()
+                 for t in (s.perm, s.col_t, s.colptr)) / 1e9
+    print(f"phase 5 CSC view (perm, col_t, colptr): built in "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms, {csc_gb:.2f} GB "
+          f"{card}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    spmm_csr_cuda.launches = sddmm_csr_cuda.launches = 0
+    times, losses = [], []
+    for _ in range(4):                                  # 1 warm-up + 3
+        adj.value.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = train_step(model, adj, x, y, LR)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    k1_launches, k2_launches = spmm_csr_cuda.launches, sddmm_csr_cuda.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = sum(times[1:]) / 3
+    print(f"phase 5 train step ms (forward + backward + SGD): warm-up "
+          f"{times[0]:.3f}, timed {' '.join(f'{t:.3f}' for t in times[1:])} "
+          f"(mean {step_ms:.3f}); losses "
+          f"{' '.join(f'{v:.6f}' for v in losses)}; peak mem "
+          f"{peak_gb:.2f} GB {card}", flush=True)
+    print(f"phase 5 launches in 4 steps: spmm_csr {k1_launches} "
+          f"({k1_launches / 4:g} per step), sddmm_csr {k2_launches} "
+          f"({k2_launches / 4:g} per step)", flush=True)
+    check(k1_launches == 5 * 4, f"expected 5 spmm_csr launches per step (3 "
+                                f"forward, 2 backward), counted {k1_launches}")
+    check(k2_launches == 3 * 4, f"expected 3 sddmm_csr launches per step, "
+                                f"counted {k2_launches}")
+    grads = [p.grad for p in model.parameters()] + [adj.value.grad]
+    check(all(bool(torch.isfinite(v).all()) for v in grads)
+          and all(v == v and abs(v) < float("inf") for v in losses),
+          "train step loss or grads not finite")
+
+    # one more step's forward and backward, layer by layer, with CUDA events
+    # around each part; the SpMM outputs and inputs keep their grads
+    model.zero_grad(set_to_none=True)
+    adj.value.grad = None
+    ev = [_event() for _ in range(2 * L + 3)]
+    hs, ss = [], []
+    h = x
+    ev[0].record()
+    for i, (w, b) in enumerate(zip(model.weight, model.bias)):
+        hs.append(h)
+        if h.requires_grad:
+            h.retain_grad()
+        sp = adj.spmm(h)
+        sp.retain_grad()
+        ss.append(sp)
+        ev[2 * i + 1].record()
+        h = sp @ w + b
+        if i < L - 1:
+            h = torch.relu(h)
+        ev[2 * i + 2].record()
+    loss = -torch.log_softmax(h, dim=-1).gather(1, y[:, None]).mean()
+    ev[2 * L + 1].record()
+    loss.backward()
+    ev[2 * L + 2].record()
+    torch.cuda.synchronize()
+    check(torch.allclose(loss.detach(),
+                         gcn_loss(model, adj, x, y).detach(), rtol=1e-6,
+                         atol=0),
+          "layer-by-layer loss disagrees with gcn_loss")
+    fwd_parts = []
+    for i in range(L):
+        fwd_parts.append((f"fwd layer {i} spmm K={hs[i].shape[1]}",
+                          ev[2 * i].elapsed_time(ev[2 * i + 1])))
+        fwd_parts.append((f"fwd layer {i} dense",
+                          ev[2 * i + 1].elapsed_time(ev[2 * i + 2])))
+    fwd_parts.append(("loss (log_softmax + nll)",
+                      ev[2 * L].elapsed_time(ev[2 * L + 1])))
+    bwd_ms = ev[2 * L + 1].elapsed_time(ev[2 * L + 2])
+
+    # the backward's kernels replayed alone on this step's own inputs
+    rowptr, col = adj.rowptr(), adj.col
+    value = adj.value.detach()
+    gs = [sp.grad for sp in ss]
+    bwd_parts = []
+    for i in range(L):
+        ms, _ = timed(lambda: sddmm_csr_cuda(rowptr, col, gs[i], hs[i]), 1)
+        bwd_parts.append((f"bwd layer {i} sddmm K={hs[i].shape[1]}", ms))
+        if hs[i].requires_grad:
+            ms, value_t = timed(lambda: value.index_select(0, s.perm), 1)
+            bwd_parts.append((f"bwd layer {i} value[perm]", ms))
+            ms, _ = timed(lambda: spmm_csr_cuda(s.colptr, s.col_t, value_t,
+                                                gs[i]), 1)
+            bwd_parts.append((f"bwd layer {i} spmm (CSC) K="
+                              f"{hs[i].shape[1]}", ms))
+    rest = bwd_ms - sum(ms for _, ms in bwd_parts)
+    bwd_parts.append(("bwd dense/autograd rest", rest))
+    total = sum(ms for _, ms in fwd_parts) + bwd_ms
+    for name, ms in fwd_parts + bwd_parts:
+        print(f"phase 5 part {name}: {ms:.3f} ms ({100 * ms / total:.1f}% of "
+              f"{total:.3f} ms forward + backward) {card}", flush=True)
+
+    # d value on sampled edges: the sum over layers of g_i[row] . h_i[col]
+    gen_h = torch.Generator().manual_seed(6)
+    e = torch.randint(0, nnz, (SAMPLED_EDGES,), generator=gen_h).to(dev)
+    er = torch.searchsorted(rowptr.long(), e, right=True) - 1
+    ec = col[e].long()
+    ref = torch.zeros(SAMPLED_EDGES, dtype=torch.float64, device=dev)
+    scale = torch.zeros_like(ref)
+    for gi, hi in zip(gs, hs):
+        terms = gi[er].double() * hi.detach()[ec].double()
+        ref += terms.sum(1)
+        scale += terms.abs().sum(1)
+    err_dv, ok = _grad_close(adj.value.grad[e], ref, scale)
+    print(f"phase 5 d value on {SAMPLED_EDGES} sampled edges vs f64: "
+          f"max_abs_err {err_dv:.3e} (max |dv| {float(ref.abs().max()):.3e}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "d value disagrees with f64 on sampled edges")
+
+    # d x on sampled columns: sum over the column's edges of value * g[row]
+    cols = torch.randperm(n, generator=gen_h)[:SAMPLED_COLS].to(dev)
+    slot = torch.full((n,), -1, dtype=torch.long, device=dev)
+    slot[cols] = torch.arange(SAMPLED_COLS, device=dev)
+    edges = torch.nonzero(slot[col[:nnz].long()] >= 0).squeeze(1)
+    erow = torch.searchsorted(rowptr.long(), edges, right=True) - 1
+    eslot = slot[col[edges].long()]
+    for i in range(L):
+        if not hs[i].requires_grad:
+            continue
+        terms = value[edges].double()[:, None] * gs[i][erow].double()
+        ref = torch.zeros(SAMPLED_COLS, terms.shape[1], dtype=torch.float64,
+                          device=dev).index_add_(0, eslot, terms)
+        scale = torch.zeros_like(ref).index_add_(0, eslot, terms.abs())
+        err_dx, ok = _grad_close(hs[i].grad[cols], ref, scale)
+        print(f"phase 5 layer {i} d x on {SAMPLED_COLS} sampled columns "
+              f"({edges.numel()} edges) vs f64: max_abs_err {err_dx:.3e} "
+              f"(max |dx| {float(ref.abs().max()):.3e}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"layer {i} d x disagrees with f64 on sampled columns")
+
+    # the SDDMM at K=256 (layer 1) and K=100 (layer 0), kernel vs plain,
+    # timed in turns plain/kernel/kernel/plain
+    sddmm_stats = {}
+    for i in (1, 0):
+        gi, hi = gs[i], hs[i].detach()
+        K = hi.shape[1]
+        p1, k1, k2, p2, out_p, out_k = in_turns(
+            lambda: sddmm_csr_reference(rowptr, col, gi, hi),
+            lambda: sddmm_csr_cuda(rowptr, col, gi, hi), 2, 5)
+        max_err = float((out_k - out_p).abs().max())
+        scale = float(out_p.abs().max())
+        ok = bool(torch.allclose(out_k, out_p, rtol=1e-4,
+                                 atol=GRAD_REL * scale))
+        print(f"phase 5 sddmm K={K} at {nnz} nnz: kernel {k1:.3f} / "
+              f"{k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms; kernel vs plain "
+              f"max_abs_err {max_err:.3e} (max |dv| {scale:.3e}) "
+              f"{'ok' if ok else 'FAIL'} {card}", flush=True)
+        check(ok, f"kernel and plain K={K} SDDMM disagree at scale")
+        sddmm_stats[K] = {"max_abs_err": max_err, "ms": (k1 + k2) / 2,
+                          "plain_ms": (p1 + p2) / 2}
+    return {"spmm_launches": k1_launches, "sddmm_launches": k2_launches,
+            "sddmm": sddmm_stats}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible "
+              "(torch.cuda.is_available() is False); nothing was run",
+              file=sys.stderr)
+        return 1
+
+    from paddle_sparse_tpu_torch.ops.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 h @ w
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    # ---- phase 1: device and build ---------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    card = f"[{smi}]"
+    print(f"phase 1 device: {smi} | torch {torch.__version__} | CUDA "
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} | "
+          f"count {torch.cuda.device_count()}", flush=True)
+    t0 = time.perf_counter()
+    so = _build.build_library(_build.sources(), _build.BUILD_DIR)
+    _build.load_library()
+    build_s = time.perf_counter() - t0
+    print(f"phase 1 build: {so.name} from {len(_build.sources())} source(s) "
+          f"with nvcc for sm_90a in {build_s:.2f} s {card}", flush=True)
+
+    # ---- phases 2-3b: kernels vs plain, toy slices -----------------------
+    gen = torch.Generator(device=dev).manual_seed(1)
+    phase2_spmm(gen, dev)
+    phase2b_sddmm(gen, dev)
+    phase3_toy(dev)
+    phase3b_toy_train(dev)
+
+    # ---- phases 4-5: GCN inference and train step at scale ---------------
+    adj, x, model, fwd = phase4_forward(dev, card)
+    torch.cuda.empty_cache()
+    train = phase5_train(dev, card, adj, x, model)
+
+    k256 = train["sddmm"][256]
+    print(json.dumps({"kernels": [
+        {"name": "spmm_csr", "route": "cuda",
+         "source": "paddle_sparse_tpu_torch/csrc/spmm_csr.cu",
+         "replaces": "paddle_sparse_tpu/ops/kernels/spmm_pallas.py:45",
+         "launches": train["spmm_launches"],
+         "launches_by_path": {"gcn_forward": fwd["launches"],
+                              "gcn_train_step": train["spmm_launches"]},
+         "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
+         "plain_ms": fwd["plain_ms"], "K": 256},
+        {"name": "sddmm_csr", "route": "cuda",
+         "source": "paddle_sparse_tpu_torch/csrc/sddmm_csr.cu",
+         "replaces": "paddle_sparse_tpu/ops/kernels/spmm_pallas.py:877",
+         "replaces_note": "K2 as ops/spmm_seg2.py:559 calls it; on the JAX "
+                          "GCN train path d value is an XLA gather-dot "
+                          "(ops/spmm.py:102-105, spmm_pallas.py:564-566)",
+         "launches": train["sddmm_launches"],
+         "launches_by_path": {"gcn_forward": fwd["sddmm_launches"],
+                              "gcn_train_step": train["sddmm_launches"]},
+         "max_abs_err": k256["max_abs_err"], "ms": k256["ms"],
+         "plain_ms": k256["plain_ms"], "K": 256,
+         "ms_K100": train["sddmm"][100]["ms"],
+         "plain_ms_K100": train["sddmm"][100]["plain_ms"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,14 +6,20 @@ col=N, value=0)`` and sort after every real entry. The JAX version sums
 padding into a dead output row M and slices it off; here :meth:`rowptr` covers
 only the M real rows (``rowptr[M] == nnz``), so the SpMM kernel never reads a
 padding entry, whose ``col == N`` would lie outside ``x``.
+
+A ``PaddedCOO`` builds its row pointer and its CSC view
+(:class:`~..ops.spmm.SpmmStructure`) once, at first use, and keeps them, as the
+reference's plan cache keeps them per structure. ``with_value`` keeps them
+(same structure); ``to`` and ``dataclasses.replace`` drop them, so a copy with
+other indices or on another device builds its own.
 """
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..ops.convert import ind2ptr
-from ..ops.spmm import spmm_csr
+from ..ops.convert import ind2ptr, ptr2ind_capped
+from ..ops.spmm import SpmmStructure, spmm_structure, spmm_with_structure
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +29,10 @@ class PaddedCOO:
     value: Optional[torch.Tensor]   # (capacity,) or None; padding = 0
     nnz: int                        # number of real entries
     shape: Tuple[int, int]          # (M, N)
+    # "rowptr" and "structure", built at first use; not an init field, so
+    # dataclasses.replace starts a copy with an empty cache
+    _cache: Dict[str, object] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def capacity(self) -> int:
@@ -40,8 +50,19 @@ class PaddedCOO:
         return self.row < self.M
 
     def rowptr(self) -> torch.Tensor:
-        """CSR pointer over the M real rows; padding lies past ``rowptr[M]``."""
-        return ind2ptr(self.row, self.M)
+        """CSR pointer over the M real rows; padding lies past ``rowptr[M]``.
+        Cached: do not write to it."""
+        if "rowptr" not in self._cache:
+            self._cache["rowptr"] = ind2ptr(self.row, self.M)
+        return self._cache["rowptr"]
+
+    def structure(self) -> SpmmStructure:
+        """Row pointer and CSC view (``perm``, ``col_t``, ``colptr``), built
+        once and cached. Cached: do not write to it."""
+        if "structure" not in self._cache:
+            self._cache["structure"] = spmm_structure(
+                self.rowptr(), self.row, self.col, self.N)
+        return self._cache["structure"]
 
     @classmethod
     def from_arrays(cls, row, col, value, shape: Tuple[int, int],
@@ -82,16 +103,35 @@ class PaddedCOO:
             value=None if self.value is None else self.value.to(device))
 
     def spmm(self, x: torch.Tensor, reduce: str = "sum") -> torch.Tensor:
-        """``self @ x`` for dense ``x`` of shape (N, ...)."""
-        return spmm_csr(self.rowptr(), self.col, self.value, x, reduce)
+        """``self @ x`` for dense ``x`` of shape (N, ...), differentiable in
+        ``value`` and ``x``; the backward's ``d x`` runs over the cached CSC
+        view."""
+        return spmm_with_structure(self.rowptr(), self.col, self.value, x,
+                                   self.structure, reduce)
+
+    def transpose(self) -> "PaddedCOO":
+        """Swap axes, re-sorted canonically: a stable sort by ``(col, row)``
+        (the cached ``perm``). Padding ``(M, N)`` becomes ``(N, M)`` and still
+        sorts last. The result starts its cache with ``rowptr = colptr``."""
+        s = self.structure()
+        value = None if self.value is None else self.value.index_select(
+            0, s.perm)
+        t = PaddedCOO(row=ptr2ind_capped(s.colptr, self.capacity),
+                      col=s.col_t, value=value, nnz=self.nnz,
+                      shape=(self.N, self.M))
+        t._cache["rowptr"] = s.colptr
+        return t
 
     def with_value(self, value: Optional[torch.Tensor]) -> "PaddedCOO":
-        """Replace the values, zeroing them at padding entries."""
+        """Replace the values, zeroing them at padding entries. The structure
+        is unchanged, so the copy shares the cache."""
         if value is not None:
             mask = self.valid_mask().reshape((-1,) + (1,) * (value.dim() - 1))
             value = torch.where(mask, value, torch.zeros((), dtype=value.dtype,
                                                          device=value.device))
-        return dataclasses.replace(self, value=value)
+        out = dataclasses.replace(self, value=value)
+        out._cache.update(self._cache)
+        return out
 
     def degree(self) -> torch.Tensor:
         """Entries per row (padding excluded)."""

@@ -29,38 +29,14 @@
 // every col[e] for e < rowptr[M] lies in [0, N), and x is a contiguous (N, K)
 // array. Offsets into x and out are computed in 64 bits.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "vec_load.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;  // one output row per warp
+using psp::aligned16;
+using psp::load_vec;
 
-template <typename T, int V>
-__device__ __forceinline__ void load_vec(const T* p, float (&v)[V]) {
-  if constexpr (V == 1) {
-    if constexpr (sizeof(T) == 4) {
-      v[0] = __ldg(reinterpret_cast<const float*>(p));
-    } else {
-      v[0] = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
-    }
-  } else if constexpr (sizeof(T) == 4) {
-    static_assert(V == 4, "f32 vectors are float4");
-    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-  } else {
-    static_assert(V == 8, "bf16 vectors are 8 x bf16 (16 bytes)");
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-}
+constexpr int kWarpsPerBlock = 4;  // one output row per warp
 
 template <typename T, int V>
 __device__ __forceinline__ void store_vec(T* p, const float (&v)[V]) {
@@ -164,10 +140,6 @@ void launch(const int* rowptr, const int* col, const float* value,
     spmm_csr_kernel<TX, TO, V, 4><<<grid, block, 0, stream>>>(
         rowptr, col, value, x, out, M, K);
   }
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 }  // namespace

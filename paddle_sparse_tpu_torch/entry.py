@@ -1,14 +1,16 @@
-"""Toy GCN forward of the port: the counterpart of ``__graft_entry__.entry``.
+"""Toy GCN of the port: the counterpart of ``__graft_entry__.entry`` and of
+the JAX GCN train step (``tests/test_models.py``, ``__graft_entry__.py``).
 
 ``entry(device)`` returns ``(model, adj, x)`` for a 2-layer GCN (32 -> 64 -> 8)
 on a 256-node synthetic graph; ``model(adj, x)`` under
-``torch.inference_mode()`` runs the forward.
+``torch.inference_mode()`` runs the forward. ``train_entry(device)`` adds the
+labels ``y``, and ``train_step(model, adj, x, y, lr)`` takes one SGD step.
 """
 import numpy as np
 import torch
 
 from .core.matrix import PaddedCOO
-from .models.gcn import gcn_normalize, init_gcn
+from .models.gcn import GCN, gcn_normalize, init_gcn
 
 
 def _toy_graph(num_nodes=256, avg_deg=8, feat=32, classes=8, seed=0):
@@ -26,14 +28,43 @@ def _toy_graph(num_nodes=256, avg_deg=8, feat=32, classes=8, seed=0):
     return row, col, val, x, y
 
 
-def entry(device="cpu"):
-    """``(model, adj, x)`` for the toy GCN on ``device``. The weights come
-    from a CPU ``torch.Generator`` seeded with 0, so every device gets the
-    same model."""
-    row, col, val, x, _ = _toy_graph()
+def train_entry(device="cpu"):
+    """``(model, adj, x, y)`` for the toy GCN on ``device``, ``y`` the int64
+    class labels of ``_toy_graph``. The weights come from a CPU
+    ``torch.Generator`` seeded with 0, so every device gets the same model."""
+    row, col, val, x, y = _toy_graph()
     adj = PaddedCOO.from_arrays(row, col, val, (256, 256), capacity=2304,
                                 device=device)
     adj = gcn_normalize(adj)
     model = init_gcn(torch.Generator().manual_seed(0), 32, 64, 8,
                      device=device)
-    return model, adj, torch.as_tensor(x, device=device)
+    return (model, adj, torch.as_tensor(x, device=device),
+            torch.as_tensor(y, device=device))
+
+
+def entry(device="cpu"):
+    """``(model, adj, x)`` for the toy GCN on ``device``: ``train_entry``
+    without the labels."""
+    return train_entry(device)[:3]
+
+
+def gcn_loss(model: GCN, adj: PaddedCOO, x: torch.Tensor,
+             y: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``log_softmax(model(adj, x))`` at the
+    labels ``y``, over all nodes."""
+    logp = torch.log_softmax(model(adj, x), dim=-1)
+    return -logp.gather(1, y[:, None]).mean()
+
+
+def train_step(model: GCN, adj: PaddedCOO, x: torch.Tensor, y: torch.Tensor,
+               lr: float) -> torch.Tensor:
+    """One SGD step in place, ``p -= lr * grad`` for every parameter of
+    ``model``; returns the loss before the step (detached). Gradients of
+    ``adj.value``, if it requires them, accumulate in ``adj.value.grad``."""
+    model.zero_grad(set_to_none=True)
+    loss = gcn_loss(model, adj, x, y)
+    loss.backward()
+    with torch.no_grad():
+        for p in model.parameters():
+            p -= lr * p.grad
+    return loss.detach()

@@ -1,9 +1,13 @@
-"""GCN on the PaddedCOO core (forward).
+"""GCN on the PaddedCOO core, differentiable end to end.
 
 Port of ``paddle_sparse_tpu/models/gcn.py``: ``gcn_normalize``, ``GCN`` (an
 ``nn.Module`` here) and ``init_gcn``. A layer's weight keeps the JAX layout,
 ``(d_in, d_out)``, as a plain ``Parameter`` (not ``nn.Linear``), so a layer is
 ``h @ w + b`` in both packages and JAX params load without a transpose.
+
+Under autograd, every weight and bias gets its gradient, and so does
+``adj.value`` when the caller sets ``requires_grad`` on it (before or after
+``gcn_normalize``), as ``jax.grad`` reaches the values of the JAX pytree.
 """
 from typing import Any, Dict
 
@@ -33,8 +37,7 @@ def gcn_normalize(adj: PaddedCOO) -> PaddedCOO:
 
 class GCN(nn.Module):
     """Kipf-Welling GCN: ``H' = relu(A_norm @ H @ W + b)`` stacked, no relu
-    after the last layer. ``weight[i]`` is ``(d_in, d_out)``. Forward only:
-    call it under ``torch.no_grad()`` or ``torch.inference_mode()``."""
+    after the last layer. ``weight[i]`` is ``(d_in, d_out)``."""
 
     def __init__(self, in_dim: int, hidden: int, out_dim: int,
                  num_layers: int = 2, device=None):

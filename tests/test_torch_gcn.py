@@ -1,11 +1,15 @@
 """Port parity: the GCN of paddle_sparse_tpu_torch against the JAX
 paddle_sparse_tpu.models on the same numpy graph and the same (JAX-initialised)
-params, at f32 with ``rtol=atol=1e-5``.
+params: forward at f32 with ``rtol=atol=1e-5``; loss and gradients (every
+param and ``adj.value``) against ``jax.value_and_grad`` with
+``rtol=atol=1e-5``, and SGD trajectories, where f32 rounding compounds over
+the steps, with ``rtol=atol=1e-4``.
 
 Both run their matrix products in full f32 on the CPU. On a CUDA card the
 port's ``h @ w`` is full f32 only while
 ``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's default);
 ``chip_smoke.py`` sets it so."""
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -19,11 +23,13 @@ from paddle_sparse_tpu.core import PaddedCOO as JPaddedCOO
 from paddle_sparse_tpu.models import GCN as jGCN
 from paddle_sparse_tpu.models import gcn_normalize as j_normalize
 from paddle_sparse_tpu.models import init_gcn as j_init
-from paddle_sparse_tpu_torch import (GCN, PaddedCOO, entry, gcn_normalize,
-                                     gcn_params_from_jax, init_gcn)
+from paddle_sparse_tpu_torch import (GCN, PaddedCOO, entry, gcn_loss,
+                                     gcn_normalize, gcn_params_from_jax,
+                                     init_gcn, train_entry, train_step)
 from paddle_sparse_tpu_torch.entry import _toy_graph
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+SGD_TOL = dict(rtol=1e-4, atol=1e-4)
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -74,15 +80,6 @@ def test_gcn_forward(num_layers, with_value):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
-def test_gcn_forward_under_grad_raises():
-    """Training is not ported: the second layer's SpMM sees an input that
-    requires grad and refuses rather than detaching."""
-    t, _, x = _graph()
-    model = init_gcn(torch.Generator().manual_seed(0), 12, 16, 5)
-    with pytest.raises(NotImplementedError, match="backward"):
-        model(gcn_normalize(t), torch.from_numpy(x))
-
-
 def test_init_gcn():
     a = init_gcn(torch.Generator().manual_seed(4), 64, 128, 10, num_layers=3)
     b = init_gcn(torch.Generator().manual_seed(4), 64, 128, 10, num_layers=3)
@@ -129,3 +126,111 @@ def test_entry_matches_graft_entry():
         out = model(adj, x)
     np.testing.assert_allclose(out.numpy(), np.asarray(fn(params, jadj, jx)),
                                **TOL)
+
+
+def _jax_loss(params, adj, x, y):
+    logp = jax.nn.log_softmax(jGCN(params, adj, x))
+    return -jnp.take_along_axis(logp, y[:, None], axis=1).mean()
+
+
+def _jax_value_and_grad(params, jadj, x, y):
+    """Loss and grads w.r.t. the params and the adjacency's values."""
+    return jax.value_and_grad(
+        lambda p, v: _jax_loss(p, dataclasses.replace(jadj, value=v), x, y),
+        argnums=(0, 1))(params, jadj.value)
+
+
+def _check_grads(model, adj, jgrads):
+    jp, jv = jgrads
+    for i, layer in enumerate(jp["layers"]):
+        np.testing.assert_allclose(model.weight[i].grad.numpy(),
+                                   np.asarray(layer["w"]), **TOL)
+        np.testing.assert_allclose(model.bias[i].grad.numpy(),
+                                   np.asarray(layer["b"]), **TOL)
+    np.testing.assert_allclose(adj.value.grad.numpy(), np.asarray(jv), **TOL)
+    assert not adj.value.grad[adj.nnz:].any()
+
+
+@pytest.mark.parametrize("num_layers", [2, 3])
+@pytest.mark.parametrize("with_value", [True, False])
+def test_gcn_loss_and_grads(num_layers, with_value):
+    t, j, x = _graph(with_value=with_value)
+    tn, jn = gcn_normalize(t), j_normalize(j)
+    y = np.random.default_rng(num_layers).integers(0, 5, 150)
+    params = j_init(jax.random.PRNGKey(num_layers), 12, 16, 5,
+                    num_layers=num_layers)
+    jloss, jgrads = _jax_value_and_grad(params, jn, jnp.asarray(x),
+                                        jnp.asarray(y))
+    model = _load_jax_params(params, num_layers)
+    tn.value.requires_grad_()
+    loss = gcn_loss(model, tn, torch.from_numpy(x), torch.from_numpy(y))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), **TOL)
+    _check_grads(model, tn, jgrads)
+
+
+def test_gcn_grad_reaches_raw_value_through_normalize():
+    """``requires_grad`` on the raw values: the grad flows back through
+    ``gcn_normalize``, as ``jax.grad`` through the JAX ``gcn_normalize``."""
+    t, j, x = _graph()
+    y = np.random.default_rng(0).integers(0, 5, 150)
+    params = j_init(jax.random.PRNGKey(0), 12, 16, 5)
+    jv = jax.grad(lambda v: _jax_loss(
+        params, j_normalize(dataclasses.replace(j, value=v)), jnp.asarray(x),
+        jnp.asarray(y)))(j.value)
+    model = _load_jax_params(params, 2)
+    t.value.requires_grad_()
+    gcn_loss(model, gcn_normalize(t), torch.from_numpy(x),
+             torch.from_numpy(y)).backward()
+    np.testing.assert_allclose(t.value.grad.numpy(), np.asarray(jv), **TOL)
+
+
+def test_sgd_tracks_jax():
+    """20 SGD steps (lr 0.1): the port's losses follow JAX's step by step,
+    and the loss decreases, as ``tests/test_models.py`` asserts."""
+    t, j, x = _graph()
+    tn, jn = gcn_normalize(t), j_normalize(j)
+    y = np.random.default_rng(5).integers(0, 5, 150)
+    params = j_init(jax.random.PRNGKey(5), 12, 16, 5)
+    model = _load_jax_params(params, 2)
+    grad_fn = jax.jit(jax.value_and_grad(
+        lambda p: _jax_loss(p, jn, jnp.asarray(x), jnp.asarray(y))))
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    losses = []
+    for _ in range(20):
+        jloss, grads = grad_fn(params)
+        params = jax.tree_util.tree_map(lambda p, g: p - 0.1 * g, params,
+                                        grads)
+        loss = train_step(model, tn, xt, yt, 0.1)
+        np.testing.assert_allclose(float(loss), float(jloss), **SGD_TOL)
+        losses.append(float(loss))
+    for i, layer in enumerate(params["layers"]):
+        np.testing.assert_allclose(model.weight[i].detach().numpy(),
+                                   np.asarray(layer["w"]), **SGD_TOL)
+    assert losses[-1] < losses[0]
+
+
+def test_toy_train_step_matches_graft_entry():
+    """``train_entry('cpu')`` with the JAX entry's params: one
+    ``train_step`` gives JAX's loss, grads (params and ``adj.value``) and
+    updated params on ``__graft_entry__._toy_graph``."""
+    _, (params, jadj, jx) = _graft_entry().entry()
+    y = _toy_graph()[4]
+    jloss, jgrads = _jax_value_and_grad(params, jadj, jx, jnp.asarray(y))
+    model, adj, x, yt = train_entry("cpu")
+    np.testing.assert_array_equal(yt.numpy(), y)
+    assert yt.dtype == torch.int64
+    model.load_state_dict(gcn_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    adj.value.requires_grad_()
+    loss = train_step(model, adj, x, yt, 0.1)
+    np.testing.assert_allclose(float(loss), float(jloss), **TOL)
+    _check_grads(model, adj, jgrads)
+    for i, (layer, grad) in enumerate(zip(params["layers"],
+                                          jgrads[0]["layers"])):
+        np.testing.assert_allclose(model.weight[i].detach().numpy(),
+                                   np.asarray(layer["w"] - 0.1 * grad["w"]),
+                                   **TOL)
+        np.testing.assert_allclose(model.bias[i].detach().numpy(),
+                                   np.asarray(layer["b"] - 0.1 * grad["b"]),
+                                   **TOL)

@@ -8,7 +8,9 @@ import pytest
 import torch
 
 from paddle_sparse_tpu.core import PaddedCOO as JPaddedCOO
+from paddle_sparse_tpu.ops.spmm import _spmm_structure
 from paddle_sparse_tpu_torch import PaddedCOO
+from paddle_sparse_tpu_torch.ops.convert import ptr2ind_capped
 
 M, N = 120, 90
 
@@ -113,3 +115,72 @@ def test_from_arrays_rejects_bad_input(bad):
         cap = 10
     with pytest.raises(ValueError):
         PaddedCOO.from_arrays(row, col, val, shape, capacity=cap)
+
+
+@pytest.mark.parametrize("capacity", [None, 1000])
+@pytest.mark.parametrize("with_value", [True, False])
+def test_transpose(capacity, with_value):
+    """Array for array the JAX transpose: stable (col, row) order, padding
+    (M, N) -> (N, M) last; its spmm agrees too."""
+    t, j, rng = _pair(capacity, with_value)
+    tt, jt = t.transpose(), j.transpose()
+    assert tt.shape == jt.shape == (N, M) and tt.nnz == int(jt.nnz)
+    _eq(tt.row, jt.row)
+    _eq(tt.col, jt.col)
+    if with_value:
+        _eq(tt.value, jt.value)
+    _eq(tt.rowptr(), jt.rowptr())
+    x = rng.standard_normal((M, 5)).astype(np.float32)
+    with torch.no_grad():
+        out = tt.spmm(torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(),
+                               np.asarray(jt.spmm(jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-5)
+    back = tt.transpose()
+    _eq(back.row, j.row)
+    _eq(back.col, j.col)
+
+
+@pytest.mark.parametrize("capacity", [None, 1000])
+def test_structure_matches_jax(capacity):
+    """The cached CSR + CSC view equals the reference's ``_spmm_structure``
+    array for array (``row_t``, not cached, is expanded from ``colptr``);
+    padding lies past ``colptr[N]``."""
+    t, j, _ = _pair(capacity)
+    s = t.structure()
+    rowptr, perm, row_t, col_t, colptr = _spmm_structure(
+        j.row, j.col, num_rows=M, num_cols=N)
+    for a, b in ((s.rowptr, rowptr), (s.perm, perm),
+                 (ptr2ind_capped(s.colptr, t.capacity), row_t),
+                 (s.col_t, col_t), (s.colptr, colptr)):
+        _eq(a, b)
+    assert s.perm.dtype == torch.int32
+    assert int(s.colptr[-1]) == t.nnz
+
+
+def test_structure_cache():
+    """Built once; ``with_value`` keeps it (same structure); ``to`` and
+    ``dataclasses.replace`` start a copy with none, built on the copy's own
+    device."""
+    t, _, rng = _pair(1000)
+    s = t.structure()
+    assert t.structure() is s and t.rowptr() is s.rowptr
+    v = t.with_value(torch.from_numpy(
+        rng.standard_normal(t.capacity).astype(np.float32)))
+    assert v.structure() is s
+    for copy in (t.to("cpu"), dataclasses.replace(t)):
+        assert not copy._cache
+        s2 = copy.structure()
+        assert s2 is not s and s2.perm.device == copy.row.device
+        _eq(s2.perm, s.perm.numpy())
+
+
+def test_structure_ignores_padding_cols():
+    """Poisoned padding cols still sort last: the CSC view is built from
+    the real entries."""
+    t, _, _ = _pair(1000)
+    poisoned = dataclasses.replace(t, col=torch.where(
+        t.valid_mask(), t.col, torch.full_like(t.col, 1 << 30)))
+    a, b = t.structure(), poisoned.structure()
+    for u, w in zip(a, b):
+        assert torch.equal(u, w)

@@ -22,8 +22,8 @@ def _run(code_or_args, cwd=REPO, env=None, timeout=120):
 
 
 def test_port_never_imports_jax():
-    """With ``jax`` blocked, the package imports and the toy forward runs;
-    neither jax nor the JAX package is loaded."""
+    """With ``jax`` blocked, the package imports and the toy forward and one
+    toy train step run; neither jax nor the JAX package is loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -32,6 +32,9 @@ def test_port_never_imports_jax():
         "with torch.inference_mode():\n"
         "    out = model(adj, x)\n"
         "assert out.shape == (256, 8) and bool(torch.isfinite(out).all())\n"
+        "model, adj, x, y = p.train_entry('cpu')\n"
+        "loss = p.train_step(model, adj, x, y, 0.1)\n"
+        "assert bool(torch.isfinite(loss)) and loss.dim() == 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_sparse_tpu') and sys.modules[m]]\n"
         "assert not bad, bad\n"
@@ -98,12 +101,46 @@ def test_build_reruns_only_when_a_source_is_newer(tmp_path, monkeypatch):
     so = _build.build_library([src], tmp_path / "build")
     assert so.read_text() == "lib\n"
     _build.build_library([src], tmp_path / "build")
-    assert len(log.read_text().splitlines()) == 1
-    assert "arch=compute_90a,code=sm_90a" in log.read_text()
+    calls = log.read_text().splitlines()
+    assert len(calls) == 2                    # compile, link
+    assert "arch=compute_90a,code=sm_90a" in calls[0] and "-c" in calls[0]
+    assert "-shared" in calls[1]
+    assert [p.name for p in (tmp_path / "build").iterdir()] == [so.name]
     later = so.stat().st_mtime + 10
     os.utime(src, (later, later))
     _build.build_library([src], tmp_path / "build")
-    assert len(log.read_text().splitlines()) == 2
+    assert len(log.read_text().splitlines()) == 4
+    header = tmp_path / "k.cuh"               # a header beside the source
+    header.write_text("")
+    os.utime(header, (later + 10, later + 10))
+    _build.build_library([src], tmp_path / "build")
+    assert len(log.read_text().splitlines()) == 6
+
+
+def test_build_compiles_sources_in_parallel(tmp_path, monkeypatch):
+    """Every source gets its own nvcc, all running at once: each fake
+    compile waits until all have started."""
+    log = tmp_path / "calls.log"
+    n = 3
+    home = _fake_cuda_home(
+        tmp_path, f'echo "$@" >> {log}\n'
+                  'case "$*" in *" -c "*)\n'
+                  f'  touch {tmp_path}/started.$$\n'
+                  f'  i=0; while [ $(ls {tmp_path} | grep -c started)'
+                  f' -lt {n} ]; do\n'
+                  '    i=$((i+1)); [ $i -gt 200 ] && exit 3; sleep 0.05\n'
+                  '  done;;\n'
+                  'esac\n'
+                  'while [ "$1" != "-o" ]; do shift; done\n'
+                  'echo lib > "$2"\n')
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    srcs = []
+    for i in range(n):
+        srcs.append(tmp_path / f"k{i}.cu")
+        shutil.copy(_build.sources()[0], srcs[-1])
+    so = _build.build_library(srcs, tmp_path / "build")
+    assert so.read_text() == "lib\n"
+    assert len(log.read_text().splitlines()) == n + 1
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

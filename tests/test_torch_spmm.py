@@ -167,17 +167,6 @@ def test_unknown_reduction():
         spmm_csr(_t(rowptr), _t(col), _t(val), torch.ones(200, 4), "prod")
 
 
-@pytest.mark.parametrize("which", ["x", "value"])
-def test_under_grad_raises(which):
-    row, col, _, val, _ = _graph(nnz=100)
-    x = torch.ones(200, 4, requires_grad=which == "x")
-    v = _t(val).requires_grad_(which == "value")
-    with pytest.raises(NotImplementedError, match="backward"):
-        spmm_coo(_t(row), _t(col), v, x, 300)
-    with torch.no_grad():      # the same call without grad runs
-        assert spmm_coo(_t(row), _t(col), v, x, 300).shape == (300, 4)
-
-
 def test_wrapper_rejects_other_devices():
     """The kernel wrapper takes the plain path only for CPU tensors."""
     x = torch.ones(4, 4, device="meta")
