@@ -32,6 +32,23 @@ Phases, one or more printed lines each:
    times, d value on sampled edges and d x on sampled columns against f64,
    and the K=256 and K=100 SDDMM timed through the kernel and the plain
    version.
+6a. Run compaction (K5) vs plain: ``compact_runs_cuda`` against
+   ``compact_runs_reference`` in f64 on the card, over per-row-sorted grids,
+   a row block's grid, a flat (row, col)-sorted stream, runs across many
+   tiles and one of over 1M elements, ``out_capacity`` truncation and
+   structure only.
+6b. Toy SpGEMM: ``spgemm_entry("cuda")``'s A @ A through the three variants
+   against the CPU: structure, values and value grads.
+6c. SpGEMM at the JAX package's probe sizes (``bench.py::spgemm_probe``):
+   A of 50,000 nodes x 16 (800k nnz) through ``plan_spgemm_rows`` +
+   ``spspmm_rowsorted``; A of 625,000 x 16 (10M nnz) through
+   ``spspmm_rowsorted`` and ``plan_spgemm_blocked`` + ``spspmm_rowblocked``;
+   a zipf (alpha 1.5) A of 100,000 nodes through the path the planners
+   choose. For each A @ A: plan seconds, 1 warm-up and 3 timed calls, C's
+   nnz, output Mnnz/s, peak memory, K5 launches, no overflow, sampled rows
+   of C against scipy in f64, and K5 timed alone on the call's own compress
+   input against the plain version. At 800k also the value grads of
+   ``sum(G * C)`` on sampled entries against f64.
 
 Then the kernels' JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; so does a
@@ -588,6 +605,391 @@ def phase5_train(dev, card, adj, x, model):
             "sddmm": sddmm_stats}
 
 
+def _launch_counts():
+    from paddle_sparse_tpu_torch import (compact_runs_cuda, sddmm_csr_cuda,
+                                         spmm_csr_cuda)
+    return {"spmm_csr": spmm_csr_cuda.launches,
+            "sddmm_csr": sddmm_csr_cuda.launches,
+            "segcompact": compact_runs_cuda.launches}
+
+
+def _zero_launch_counts():
+    from paddle_sparse_tpu_torch import (compact_runs_cuda, sddmm_csr_cuda,
+                                         spmm_csr_cuda)
+    spmm_csr_cuda.launches = sddmm_csr_cuda.launches = 0
+    compact_runs_cuda.launches = 0
+
+
+def _same_compacted(got, ref, tol):
+    """Max abs value error and whether K5's output equals the plain one's:
+    count, coordinates and seg exact, values within ``tol``."""
+    err = 0.0
+    ok = (int(got.count) == int(ref.count) and torch.equal(got.row, ref.row)
+          and torch.equal(got.col, ref.col)
+          and (ref.seg is None or torch.equal(got.seg, ref.seg)))
+    if ref.value is not None:
+        g, r = got.value.double(), ref.value.double()
+        err = float((g - r).abs().max()) if r.numel() else 0.0
+        ok = ok and bool(torch.allclose(g, r, **tol))
+    return err, ok
+
+
+def phase6a_segcompact(gen, dev):
+    from paddle_sparse_tpu_torch import (compact_runs_cuda,
+                                         compact_runs_reference)
+    f64_sums = dict(rtol=1e-12, atol=1e-12)   # f64 sums in another order
+
+    def compare(name, col, rows, value, shape, cap, tol=f64_sums):
+        got = compact_runs_cuda(col, rows, value, shape, cap, seg=True)
+        ref = compact_runs_reference(
+            col, rows, None if value is None else value.double(), shape, cap,
+            seg=True)
+        torch.cuda.synchronize()
+        err, ok = _same_compacted(got, ref, tol)
+        print(f"phase 6a {name}: {col.numel()} elements, {int(ref.count)} "
+              f"runs, cap {cap}: max_abs_err {err:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"K5 disagrees with plain f64 on {name}")
+        return int(ref.count)
+
+    def grid(R, F, N, dtype=torch.float64):
+        fill = torch.randint(0, F + 1, (R,), generator=gen, device=dev)
+        fill[0], fill[-1] = 0, F                       # empty, full rows
+        key = torch.randint(0, N, (R, F), generator=gen, device=dev,
+                            dtype=torch.int32)
+        key = torch.where(torch.arange(F, device=dev) < fill[:, None], key, N)
+        key = key.sort(dim=1).values.contiguous()
+        val = torch.randn(R, F, generator=gen, device=dev, dtype=torch.float64)
+        return key, torch.where(key < N, val, 0.0).to(dtype).contiguous()
+
+    for R, F, N in ((7, 16, 12), (5, 32, 6), (3000, 64, 500),
+                    (20_000, 256, 100_000), (64, 1, 3)):
+        key, val = grid(R, F, N)
+        rows = torch.arange(R, dtype=torch.int32, device=dev)
+        cap = int((key < N).sum()) + 5
+        compare(f"grid ({R}, {F}) N={N} f64", key, rows, val, (R, N), cap)
+        count = compare(f"grid ({R}, {F}) N={N} structure only", key, rows,
+                        None, (R, N), cap)
+        if count > 1000:
+            compare(f"grid ({R}, {F}) N={N} out_capacity count-1000", key,
+                    rows, val, (R, N), count - 1000)
+    key, val = grid(3000, 64, 500, torch.float32)
+    compare("grid (3000, 64) N=500 f32", key,
+            torch.arange(3000, dtype=torch.int32, device=dev), val,
+            (3000, 500), 200_000, dict(rtol=1e-5, atol=1e-5))
+    key, val = grid(777, 40, 90)
+    compare("row block: grid rows 5000..5776", key,
+            torch.arange(5000, 5777, dtype=torch.int32, device=dev), val,
+            (6000, 90), 40_000)
+    M, N, L, pads = 3000, 400, 200_000, 3001
+    k = (torch.randint(0, M, (L,), generator=gen, device=dev) * (N + 1)
+         + torch.randint(0, N, (L,), generator=gen, device=dev)).sort().values
+    k = torch.cat([k, torch.full((pads,), M * (N + 1) + N, device=dev)])
+    val = torch.randn(L + pads, generator=gen, device=dev, dtype=torch.float64)
+    val[L:] = 0
+    compare("flat (row, col)-sorted stream", (k % (N + 1)).int(),
+            (k // (N + 1)).int(), val, (M, N), L + 10)
+    for run in (100_000, 1_100_000):
+        # small integers keep the f32 sum of the long run exact
+        col = torch.cat([torch.tensor([0, 0, 1], device=dev),
+                         torch.full((run,), 2, device=dev),
+                         torch.tensor([3, 3, 5], device=dev)]).int()
+        v = torch.randint(-3, 4, (col.numel(),), generator=gen,
+                          device=dev).float()
+        compare(f"one run of {run} elements f32", col, torch.zeros_like(col),
+                v, (1, 6), 8, dict(rtol=0, atol=0))
+
+
+def phase6b_toy_spgemm(dev):
+    from paddle_sparse_tpu_torch import (plan_spgemm, plan_spgemm_blocked,
+                                         plan_spgemm_rows, spgemm_entry,
+                                         spspmm_padded, spspmm_rowblocked,
+                                         spspmm_rowsorted)
+    runs = {}
+    for where in (dev, "cpu"):
+        A = spgemm_entry(where)
+        v = A.value.clone().requires_grad_()
+        Ai = A.with_value(v)
+        F, oc = plan_spgemm_rows(Ai, Ai)
+        fc, oc2 = plan_spgemm(Ai, Ai)
+        blocked = plan_spgemm_blocked(Ai, Ai)
+        G = torch.linspace(-1, 1, 20_000, device=where)
+        for name, res in (
+                ("rowsorted", spspmm_rowsorted(Ai, Ai, F, oc)),
+                ("padded", spspmm_padded(Ai, Ai, fc, oc2)),
+                ("rowblocked", spspmm_rowblocked(Ai, Ai, blocked[0],
+                                                 blocked[1], 64, Ai.capacity,
+                                                 blocked[4]))):
+            (res.matrix.value * G[:res.matrix.capacity]).sum().backward(
+                retain_graph=True)
+            C = res.matrix
+            runs[str(where), name] = (C.nnz, res.overflowed, C.row.cpu(),
+                                      C.col.cpu(), C.value.detach().cpu(),
+                                      v.grad.cpu().clone())
+            v.grad = None
+    for name in ("rowsorted", "padded", "rowblocked"):
+        c, h = runs[str(dev), name], runs["cpu", name]
+        err_v = float((c[4] - h[4]).abs().max())
+        err_g = float((c[5] - h[5]).abs().max())
+        ok = (c[0] == h[0] and not c[1] and not h[1]
+              and torch.equal(c[2], h[2]) and torch.equal(c[3], h[3])
+              and torch.allclose(c[4], h[4], **F32_TOL)
+              and torch.allclose(c[5], h[5], **F32_TOL))
+        print(f"phase 6b toy A @ A ({name}), 256 nodes: nnz {c[0]}; cuda vs "
+              f"cpu structure equal, values max_abs_err {err_v:.3e}, d value "
+              f"max_abs_err {err_g:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"toy A @ A ({name}) on the card disagrees with the CPU")
+
+
+def spgemm_operand(dev, num_nodes, deg, zipf_alpha=None):
+    """``bench.py::_spgemm_operand`` in torch: rows ``arange // deg`` (or
+    zipf degrees from numpy seed 0, as there), uniform random cols and
+    U(0, 1) values from a seeded generator, then ``from_arrays`` and
+    ``coalesce()`` (adjacent duplicates merge; cols within a row stay
+    unsorted, as in the JAX operand)."""
+    import numpy as np
+
+    from paddle_sparse_tpu_torch import PaddedCOO
+    g = torch.Generator(device=dev).manual_seed(1 if zipf_alpha is None
+                                                else 2)
+    if zipf_alpha is None:
+        nnz = num_nodes * deg
+        row = torch.arange(nnz, device=dev, dtype=torch.int32) // deg
+    else:
+        w = np.random.default_rng(0).zipf(zipf_alpha, num_nodes).astype(
+            np.float64)
+        degs = np.maximum(1, np.floor(w * (num_nodes * deg / w.sum())))
+        degs = torch.as_tensor(degs.astype(np.int64), device=dev)
+        row = torch.arange(num_nodes, device=dev,
+                           dtype=torch.int32).repeat_interleave(degs)
+        nnz = row.numel()
+    col = torch.randint(0, num_nodes, (nnz,), generator=g, device=dev,
+                        dtype=torch.int32)
+    val = torch.rand(nnz, generator=g, device=dev)
+    return PaddedCOO.from_arrays(row, col, val,
+                                 (num_nodes, num_nodes)).coalesce()
+
+
+class _RecordCompress:
+    """Keeps the arguments of every K5 call made inside the ``with``: the
+    compress inputs exactly as the SpGEMM path hands them over. Launches
+    inside count on the recorder, not on the wrapper's counter."""
+
+    def __enter__(self):
+        from paddle_sparse_tpu_torch.ops.kernels import segcompact_cuda
+        self.module, self.orig, self.calls = (
+            segcompact_cuda, segcompact_cuda.compact_runs_cuda, [])
+
+        def record(*args, **kw):
+            self.calls.append((args, kw))
+            return self.orig(*args, **kw)
+
+        record.launches = 0
+        segcompact_cuda.compact_runs_cuda = record
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.module.compact_runs_cuda = self.orig
+
+
+def _check_sampled_rows(A, C, rows):
+    """C's ``rows`` against scipy's f64 ``A[rows] @ A`` from host copies of
+    A's entries: structure exact, values within f32 rounding."""
+    import numpy as np
+    import scipy.sparse as sp
+    n = A.nnz
+    a = sp.csr_matrix((A.value[:n].double().cpu().numpy(),
+                       (A.row[:n].cpu().numpy(), A.col[:n].cpu().numpy())),
+                      shape=A.shape)
+    want = (a[rows.cpu().numpy()] @ a).tocsr()
+    want.sort_indices()
+    rp = C.rowptr().long()
+    lo, hi = rp[rows], rp[rows + 1]
+    cnt = hi - lo
+    idx = (torch.repeat_interleave(lo - torch.cumsum(cnt, 0) + cnt, cnt)
+           + torch.arange(int(cnt.sum()), device=lo.device))
+    got_ptr = np.concatenate([[0], torch.cumsum(cnt, 0).cpu().numpy()])
+    got_col = C.col[idx].cpu().numpy()
+    got_val = C.value[idx].detach().double().cpu().numpy()
+    ok = (np.array_equal(got_ptr, want.indptr)
+          and np.array_equal(got_col, want.indices))
+    err = float(np.abs(got_val - want.data).max()) if ok else float("inf")
+    ok = ok and bool(np.allclose(got_val, want.data, rtol=1e-5, atol=1e-6))
+    return err, ok, int(cnt.sum())
+
+
+def _sampled_rows(A, n_rows=1024, seed=3):
+    """1024 random rows of A, with its row of most entries among them."""
+    n, M = A.nnz, A.shape[0]
+    deg = torch.bincount(A.row[:n].long(), minlength=M)
+    rows = torch.randperm(M, generator=torch.Generator().manual_seed(seed))
+    rows = torch.cat([deg.argmax().view(1).cpu(), rows[:n_rows - 1]])
+    return rows.unique().to(A.row.device)
+
+
+def phase6c_spgemm_path(dev, card, name, A, kind):
+    """Plan and run one A @ A path at scale: times, launches, checks, and
+    K5 alone on the path's own compress input, kernel vs plain."""
+    from paddle_sparse_tpu_torch import (compact_runs_cuda,
+                                         compact_runs_reference, plan_spgemm,
+                                         plan_spgemm_blocked, plan_spgemm_rows,
+                                         spspmm_padded, spspmm_rowblocked,
+                                         spspmm_rowsorted)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if kind == "rowsorted":
+        F, oc = plan_spgemm_rows(A, A)
+        check(F is not None, f"{name}: plan_spgemm_rows refused")
+
+        def call():
+            return spspmm_rowsorted(A, A, F, oc)
+        plan = {"F": F, "out_cap": oc}
+    elif kind == "rowblocked":
+        blocked = plan_spgemm_blocked(A, A)
+        check(blocked is not None, f"{name}: plan_spgemm_blocked refused")
+
+        def call():
+            return spspmm_rowblocked(A, A, *blocked)
+        plan = dict(zip(("F", "out_cap", "MB", "EB", "BOC"), blocked))
+    else:       # the planners' choice, as bench.py's power-law probe
+        check(plan_spgemm_blocked(A, A) is None
+              and plan_spgemm_rows(A, A)[0] is None,
+              f"{name}: the grid planners accepted the skewed operand")
+        fc, oc = plan_spgemm(A, A, exact_out=False)
+
+        def call():
+            return spspmm_padded(A, A, fc, oc)
+        plan = {"flop_cap": fc, "out_cap": oc}
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    _zero_launch_counts()
+    times = []
+    with torch.inference_mode():
+        for _ in range(4):                              # 1 warm-up + 3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = call()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = sum(times[1:]) / 3
+    C = res.matrix
+    rate = C.nnz / ms / 1e3
+    print(f"phase 6c {name}: A {A.nnz} nnz {A.shape}, plan {plan} in "
+          f"{plan_s:.3f} s; ms per call: warm-up {times[0]:.3f}, timed "
+          f"{' '.join(f'{t:.3f}' for t in times[1:])} (mean {ms:.3f}); "
+          f"c_nnz {C.nnz}, {rate:.1f} output Mnnz/s; peak mem {peak_gb:.2f} "
+          f"GB (A and the plan {base_gb:.2f} GB); overflowed "
+          f"{res.overflowed} {card}", flush=True)
+    print(f"phase 6c {name} launches in 4 calls: segcompact "
+          f"{launches['segcompact']}, spmm_csr {launches['spmm_csr']}, "
+          f"sddmm_csr {launches['sddmm_csr']}", flush=True)
+    per_call = -(-A.shape[0] // plan["MB"]) if "MB" in plan else 1
+    check(launches["segcompact"] == 4 * per_call,
+          f"{name}: expected {4 * per_call} K5 launches (one per call and "
+          f"row block), counted {launches['segcompact']}")
+    check(not res.overflowed, f"{name}: overflowed")
+    check(bool(torch.isfinite(C.value[:C.nnz]).all()), f"{name}: not finite")
+
+    rows = _sampled_rows(A)
+    err, ok, n_cmp = _check_sampled_rows(A, C, rows)
+    print(f"phase 6c {name}: {rows.numel()} sampled rows of C ({n_cmp} "
+          f"entries, A's longest row among them) vs "
+          f"scipy f64 A[rows] @ A: max_abs_err {err:.3e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"{name}: sampled rows of C disagree with f64")
+
+    # K5 alone on this path's own (largest) compress input, in turns
+    c_nnz = C.nnz
+    del res, C
+    with torch.inference_mode(), _RecordCompress() as calls:
+        call()
+    args, kw = max(calls, key=lambda c: c[0][0].numel())
+    del calls
+    with torch.inference_mode():
+        p1, k1, k2, p2, out_p, out_k = in_turns(
+            lambda: compact_runs_reference(*args, **kw),
+            lambda: compact_runs_cuda(*args, **kw), 3, 10)
+    err, ok = _same_compacted(out_k, out_p, F32_TOL)
+    print(f"phase 6c {name} compress (K5) on the call's "
+          f"{tuple(args[0].shape)} input, {int(out_p.count)} runs: kernel "
+          f"{k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms; kernel vs "
+          f"plain max_abs_err {err:.3e} {'ok' if ok else 'FAIL'} {card}",
+          flush=True)
+    check(ok, f"{name}: K5 and its plain version disagree at scale")
+    return {"launches": launches, "ms": ms, "c_nnz": c_nnz,
+            "k5": {"max_abs_err": err, "ms": (k1 + k2) / 2,
+                   "plain_ms": (p1 + p2) / 2}}
+
+
+def phase6c_value_grad(dev, A):
+    """d value of ``sum(G * C)``, C = A @ A with the two operands as
+    separate leaves, on sampled entries of each against f64."""
+    from paddle_sparse_tpu_torch import plan_spgemm_rows, spspmm_rowsorted
+    F, oc = plan_spgemm_rows(A, A)
+    va = A.value.clone().requires_grad_()
+    vb = A.value.clone().requires_grad_()
+    C = spspmm_rowsorted(A.with_value(va), A.with_value(vb), F, oc).matrix
+    G = torch.randn(C.capacity, generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+    (C.value * G).sum().backward()
+
+    n, N = A.nnz, A.shape[1]
+    row, col = A.row[:n].long(), A.col[:n].long()
+    val = A.value[:n].double()
+    rowptr = A.rowptr().long()
+    ckey = C.row[:C.nnz].long() * (N + 1) + C.col[:C.nnz].long()
+    Gd = G.double()
+
+    def g_at(r, c):
+        return Gd[torch.searchsorted(ckey, r * (N + 1) + c)]
+
+    e = torch.randperm(n, generator=torch.Generator().manual_seed(8))[
+        :SAMPLED_EDGES // 16].to(dev)
+    worst, ok = 0.0, True
+    for side, grad in (("left", va.grad), ("right", vb.grad)):
+        refs, scales = [], []
+        for i in e.tolist():
+            if side == "left":      # sum over B's row col[i]
+                lo, hi = rowptr[col[i]], rowptr[col[i] + 1]
+                t = g_at(row[i], col[lo:hi]) * val[lo:hi]
+            else:                   # sum over A's entries in column row[i]
+                a = torch.nonzero(col == row[i]).squeeze(1)
+                t = g_at(row[a], col[i]) * val[a]
+            refs.append(t.sum())
+            scales.append(t.abs().sum())
+        err, good = _grad_close(grad[e], torch.stack(refs),
+                                torch.stack(scales))
+        worst, ok = max(worst, err), ok and good
+        print(f"phase 6c 800k d value ({side} operand) on {e.numel()} sampled "
+              f"entries vs f64: max_abs_err {err:.3e} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+    check(ok, "SpGEMM value grads disagree with f64 on sampled entries")
+
+
+def phase6c_spgemm(dev, card):
+    paths = {}
+    A = spgemm_operand(dev, 50_000, 16)
+    paths["spgemm_800k_rowsorted"] = phase6c_spgemm_path(
+        dev, card, "800k rowsorted", A, "rowsorted")
+    phase6c_value_grad(dev, A)
+    del A
+    A = spgemm_operand(dev, 625_000, 16)
+    for kind in ("rowsorted", "rowblocked"):
+        paths[f"spgemm_10M_{kind}"] = phase6c_spgemm_path(
+            dev, card, f"10M {kind}", A, kind)
+    del A
+    A = spgemm_operand(dev, 100_000, 16, zipf_alpha=1.5)
+    paths["spgemm_zipf_padded"] = phase6c_spgemm_path(
+        dev, card, "zipf padded (planners' fallback)", A, "padded")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible "
@@ -629,6 +1031,17 @@ def main() -> int:
     adj, x, model, fwd = phase4_forward(dev, card)
     torch.cuda.empty_cache()
     train = phase5_train(dev, card, adj, x, model)
+    del adj, x, model
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: run compaction (K5) and SpGEMM --------------------------
+    phase6a_segcompact(gen, dev)
+    phase6b_toy_spgemm(dev)
+    spgemm = phase6c_spgemm(dev, card)
+    k5 = spgemm["spgemm_10M_rowsorted"]["k5"]
+
+    def by_path(kernel):
+        return {p: v["launches"][kernel] for p, v in spgemm.items()}
 
     k256 = train["sddmm"][256]
     print(json.dumps({"kernels": [
@@ -637,7 +1050,8 @@ def main() -> int:
          "replaces": "paddle_sparse_tpu/ops/kernels/spmm_pallas.py:45",
          "launches": train["spmm_launches"],
          "launches_by_path": {"gcn_forward": fwd["launches"],
-                              "gcn_train_step": train["spmm_launches"]},
+                              "gcn_train_step": train["spmm_launches"],
+                              **by_path("spmm_csr")},
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
          "plain_ms": fwd["plain_ms"], "K": 256},
         {"name": "sddmm_csr", "route": "cuda",
@@ -648,11 +1062,26 @@ def main() -> int:
                           "(ops/spmm.py:102-105, spmm_pallas.py:564-566)",
          "launches": train["sddmm_launches"],
          "launches_by_path": {"gcn_forward": fwd["sddmm_launches"],
-                              "gcn_train_step": train["sddmm_launches"]},
+                              "gcn_train_step": train["sddmm_launches"],
+                              **by_path("sddmm_csr")},
          "max_abs_err": k256["max_abs_err"], "ms": k256["ms"],
          "plain_ms": k256["plain_ms"], "K": 256,
          "ms_K100": train["sddmm"][100]["ms"],
-         "plain_ms_K100": train["sddmm"][100]["plain_ms"]}]}))
+         "plain_ms_K100": train["sddmm"][100]["plain_ms"]},
+        {"name": "segcompact", "route": "cuda",
+         "source": "paddle_sparse_tpu_torch/csrc/segcompact.cu",
+         "replaces": "paddle_sparse_tpu/ops/kernels/segcompact.py:42",
+         "replaces_note": "the JAX package runs K5 only under "
+                          "PSP_SPGEMM_COMPRESS=kernel "
+                          "(core/spgemm.py:363-386); its default compress "
+                          "is XLA segment ops, which "
+                          "this kernel also stands for, as it does for "
+                          "spspmm_padded, spspmm_rowblocked and coalesce",
+         "launches": sum(by_path("segcompact").values()),
+         "launches_by_path": by_path("segcompact"),
+         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
+         "plain_ms": k5["plain_ms"], "at": "10M-nnz A @ A rowsorted grid",
+         "by_path": {p: v["k5"] for p, v in spgemm.items()}}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

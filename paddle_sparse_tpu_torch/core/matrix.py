@@ -16,9 +16,11 @@ other indices or on another device builds its own.
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.convert import ind2ptr, ptr2ind_capped
+from ..ops.kernels.segcompact_cuda import compact_runs
 from ..ops.spmm import SpmmStructure, spmm_structure, spmm_with_structure
 
 
@@ -122,6 +124,37 @@ class PaddedCOO:
         t._cache["rowptr"] = s.colptr
         return t
 
+    def sort(self) -> "PaddedCOO":
+        """Stable lexicographic sort by ``(row, col)``, padding ``(M, N)``
+        last; as the JAX ``jnp.lexsort((col, row))``."""
+        by_col = torch.argsort(self.col, stable=True)
+        perm = by_col[torch.argsort(self.row[by_col], stable=True)]
+        value = None if self.value is None else self.value[perm]
+        return PaddedCOO(row=self.row[perm], col=self.col[perm], value=value,
+                         nnz=self.nnz, shape=self.shape)
+
+    def coalesce(self, assume_sorted: bool = True) -> "PaddedCOO":
+        """Merge adjacent duplicate coordinates, summing their values;
+        capacity kept, padding ``(M, N, 0)`` past the new ``nnz``, the number
+        of unique entries. Without ``assume_sorted`` it sorts first; with it,
+        only adjacent duplicates merge, as in the JAX version.
+
+        The sum runs through the run-compaction kernel
+        (``ops/kernels/segcompact_cuda.py``) on a CUDA tensor, differentiable
+        in ``value``; the kernel takes 1-D f32/f64 values (the plain version,
+        on a CPU tensor, any float and trailing dims). ``nnz`` is a Python
+        int, so this reads the unique count from the device: one host
+        sync."""
+        mat = self if assume_sorted else self.sort()
+        out = compact_runs(mat.col.int().contiguous(),
+                           mat.row.int().contiguous(),
+                           None if mat.value is None
+                           else mat.value.contiguous(),
+                           self.shape, self.capacity)
+        idx = self.row.dtype
+        return PaddedCOO(row=out.row.to(idx), col=out.col.to(idx),
+                         value=out.value, nnz=int(out.count), shape=self.shape)
+
     def with_value(self, value: Optional[torch.Tensor]) -> "PaddedCOO":
         """Replace the values, zeroing them at padding entries. The structure
         is unchanged, so the copy shares the cache."""
@@ -136,3 +169,16 @@ class PaddedCOO:
     def degree(self) -> torch.Tensor:
         """Entries per row (padding excluded)."""
         return torch.bincount(self.row.long(), minlength=self.M + 1)[:self.M]
+
+
+def padded_coo_from_jax(mat, device=None) -> PaddedCOO:
+    """A JAX ``paddle_sparse_tpu.core.PaddedCOO`` (or any object with its
+    fields, arrays convertible with ``np.asarray``) -> the port's
+    ``PaddedCOO``, array for array: capacity, padding and ``nnz`` kept, the
+    entries copied as they are (not validated or re-sorted)."""
+    value = None if mat.value is None else torch.from_numpy(
+        np.array(mat.value)).to(device)
+    return PaddedCOO(row=torch.from_numpy(np.array(mat.row)).to(device),
+                     col=torch.from_numpy(np.array(mat.col)).to(device),
+                     value=value, nnz=int(mat.nnz),
+                     shape=(int(mat.shape[0]), int(mat.shape[1])))

@@ -5,6 +5,8 @@ the JAX GCN train step (``tests/test_models.py``, ``__graft_entry__.py``).
 on a 256-node synthetic graph; ``model(adj, x)`` under
 ``torch.inference_mode()`` runs the forward. ``train_entry(device)`` adds the
 labels ``y``, and ``train_step(model, adj, x, y, lr)`` takes one SGD step.
+``spgemm_entry(device)`` returns the toy adjacency for ``A @ A`` (the
+SpGEMM cross-check of ``__graft_entry__.dryrun_multichip``).
 """
 import numpy as np
 import torch
@@ -46,6 +48,19 @@ def entry(device="cpu"):
     """``(model, adj, x)`` for the toy GCN on ``device``: ``train_entry``
     without the labels."""
     return train_entry(device)[:3]
+
+
+def spgemm_entry(device="cpu") -> PaddedCOO:
+    """The adjacency of ``_toy_graph`` (256 nodes, 2048 entries, values in
+    [0, 1)) on ``device``, padded to capacity 2304 and coalesced, ready for
+    ``A @ A``::
+
+        F, cap = plan_spgemm_rows(A, A)
+        C = spspmm_rowsorted(A, A, F, cap).matrix
+    """
+    row, col, val, _, _ = _toy_graph()
+    return PaddedCOO.from_arrays(row, col, val, (256, 256), capacity=2304,
+                                 device=device).coalesce()
 
 
 def gcn_loss(model: GCN, adj: PaddedCOO, x: torch.Tensor,

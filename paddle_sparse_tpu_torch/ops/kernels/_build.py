@@ -103,5 +103,13 @@ def load_library() -> ctypes.CDLL:
             lib.psp_spmm_csr.restype = ctypes.c_int
             lib.psp_sddmm_csr.argtypes = [p, p, p, p, p, i64, i64, i32, i32, p]
             lib.psp_sddmm_csr.restype = ctypes.c_int
+            lib.psp_segcompact_tile.argtypes = []
+            lib.psp_segcompact_tile.restype = i64
+            lib.psp_segcompact_count.argtypes = [p, p, i64, i64, i64, i64, p,
+                                                 p]
+            lib.psp_segcompact_count.restype = ctypes.c_int
+            lib.psp_segcompact_write.argtypes = [p, p, i64, i64, i64, i64, p,
+                                                 i32, p, i64, p, p, p, p, p]
+            lib.psp_segcompact_write.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -1,5 +1,6 @@
 """The CUDA kernels of paddle_sparse_tpu_torch against their plain versions,
-and the SpMM autograd and the toy train step on the card against the CPU.
+and the SpMM autograd, the toy train step and SpGEMM on the card against the
+CPU.
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False. This file imports no JAX, so on a
 machine with a card and no JAX it runs alone:
@@ -7,18 +8,24 @@ machine with a card and no JAX it runs alone:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 ``rtol=1e-5, atol=1e-4`` (sums in another order); bf16
-output ``rtol=atol=2e-2`` (output rounded to bf16). TF32 stays off, so the
+output ``rtol=atol=2e-2`` (output rounded to bf16); run compaction with
+f64 values against the plain version in f64 ``rtol=atol=1e-12`` (the plain
+version's ``index_add`` sums in another order). TF32 stays off, so the
 GCN's ``h @ w`` and its backward GEMMs are full f32 on the card."""
 import dataclasses
 
 import pytest
 import torch
 
-from paddle_sparse_tpu_torch import (PaddedCOO, entry, gcn_loss,
-                                     sddmm_csr_cuda, sddmm_csr_reference,
+from paddle_sparse_tpu_torch import (PaddedCOO, compact_runs_cuda,
+                                     compact_runs_reference, entry, gcn_loss,
+                                     plan_spgemm, plan_spgemm_blocked,
+                                     plan_spgemm_rows, sddmm_csr_cuda,
+                                     sddmm_csr_reference, spgemm_entry,
                                      spmm_coo, spmm_csr_cuda,
-                                     spmm_csr_reference, train_entry,
-                                     train_step)
+                                     spmm_csr_reference, spspmm_padded,
+                                     spspmm_rowblocked, spspmm_rowsorted,
+                                     train_entry, train_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -303,3 +310,220 @@ def test_toy_train_step_card_vs_cpu(dev):
         torch.testing.assert_close(a, b, **F32)
     torch.testing.assert_close(torch.tensor(sc), torch.tensor(sh), **F32)
     assert sc[-1] < sc[0]
+
+
+# ---- run compaction (K5) and SpGEMM ---------------------------------------
+
+def _sorted_grid(dev, R, F, N, seed=0, dtype=torch.float64):
+    """An (R, F) grid, each row's columns sorted with pads (N) last, random
+    row fill (empty and full rows included), and values of ``dtype``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fill = torch.randint(0, F + 1, (R,), generator=g, device=dev)
+    fill[0], fill[-1] = 0, F
+    key = torch.randint(0, N, (R, F), generator=g, device=dev,
+                        dtype=torch.int32)
+    key = torch.where(torch.arange(F, device=dev) < fill[:, None], key, N)
+    key = key.sort(dim=1).values
+    val = torch.randn(R, F, generator=g, device=dev, dtype=torch.float64)
+    val = torch.where(key < N, val, 0.0).to(dtype)
+    return key.contiguous(), val.contiguous()
+
+
+def _flat_sorted(dev, M, N, L, pads, seed=0):
+    """A flat stream sorted by (row, col) with ``pads`` trailing pads."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    row = torch.randint(0, M, (L,), generator=g, device=dev)
+    col = torch.randint(0, N, (L,), generator=g, device=dev)
+    key = (row * (N + 1) + col).sort().values
+    key = torch.cat([key, torch.full((pads,), M * (N + 1) + N, device=dev)])
+    val = torch.randn(L + pads, generator=g, device=dev, dtype=torch.float64)
+    val[L:] = 0
+    return ((key % (N + 1)).int(), (key // (N + 1)).int(), val)
+
+
+def _same_compact(got, ref, val_tol):
+    assert int(got.count) == int(ref.count)
+    assert torch.equal(got.row, ref.row) and torch.equal(got.col, ref.col)
+    if ref.value is None:
+        assert got.value is None
+    else:
+        torch.testing.assert_close(got.value.double(), ref.value.double(),
+                                   **val_tol)
+    if ref.seg is not None:
+        assert torch.equal(got.seg, ref.seg)
+
+
+F64_SUMS = dict(rtol=1e-12, atol=1e-12)   # f64 sums in another order
+
+
+@pytest.mark.parametrize("R,F,N", [(7, 16, 12), (5, 32, 6), (1, 8, 4),
+                                   (3000, 64, 500), (20000, 256, 100000),
+                                   (64, 1, 3)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_segcompact_grid_vs_plain(dev, R, F, N, dtype):
+    """K5 on per-row-sorted grids against the plain version in f64: tiles
+    of 2048 cut through runs and rows; f32 values summed in f32."""
+    key, val = _sorted_grid(dev, R, F, N, seed=R + F, dtype=dtype)
+    rows = torch.arange(R, dtype=torch.int32, device=dev)
+    cap = int((key < N).sum()) + 5
+    got = compact_runs_cuda(key, rows, val, (R, N), cap, seg=True)
+    ref = compact_runs_reference(key, rows, val.double(), (R, N), cap,
+                                 seg=True)
+    torch.cuda.synchronize()
+    tol = F64_SUMS if dtype == torch.float64 else dict(rtol=1e-5, atol=1e-5)
+    _same_compact(got, ref, tol)
+    assert got.value.dtype == dtype
+
+
+@pytest.mark.parametrize("with_value", [True, False])
+def test_segcompact_flat_vs_plain(dev, with_value):
+    col, row, val = _flat_sorted(dev, 3000, 400, 200_000, 3001, seed=2)
+    val = val if with_value else None
+    cap = 200_100
+    got = compact_runs_cuda(col, row, val, (3000, 400), cap, seg=True)
+    ref = compact_runs_reference(col, row, val, (3000, 400), cap, seg=True)
+    _same_compact(got, ref, F64_SUMS)
+
+
+@pytest.mark.parametrize("run", [100_000, 1_100_000])
+def test_segcompact_long_runs_exact(dev, run):
+    """One run across many tiles (and one of over 1M elements, walked by one
+    thread) between short ones; small integers keep f32 sums exact."""
+    parts = [torch.tensor([0, 0, 1], dtype=torch.int32, device=dev),
+             torch.full((run,), 2, dtype=torch.int32, device=dev),
+             torch.tensor([3, 3, 5], dtype=torch.int32, device=dev)]
+    col = torch.cat(parts)
+    row = torch.zeros_like(col)
+    g = torch.Generator(device=dev).manual_seed(7)
+    val = torch.randint(-3, 4, (col.numel(),), generator=g,
+                        device=dev).float()
+    got = compact_runs_cuda(col, row, val, (1, 6), 8, seg=True)
+    ref = compact_runs_reference(col, row, val.double(), (1, 6), 8, seg=True)
+    _same_compact(got, ref, dict(rtol=0, atol=0))
+    assert int(got.count) == 5
+
+
+@pytest.mark.parametrize("cut", [1, 1000, 50_000])
+def test_segcompact_truncation(dev, cut):
+    key, val = _sorted_grid(dev, 3000, 64, 500, seed=3)
+    rows = torch.arange(3000, dtype=torch.int32, device=dev)
+    count = int(compact_runs_reference(key, rows, None, (3000, 500),
+                                       0).count)
+    cap = count - cut
+    got = compact_runs_cuda(key, rows, val, (3000, 500), cap, seg=True)
+    ref = compact_runs_reference(key, rows, val, (3000, 500), cap, seg=True)
+    _same_compact(got, ref, F64_SUMS)
+    assert got.row.numel() == cap and int(got.seg.max()) == cap - 1
+
+
+def test_segcompact_structure_only_and_row_block(dev):
+    """No values; grid rows mapped to ``r0 + arange`` as a row block."""
+    key, _ = _sorted_grid(dev, 777, 40, 90, seed=4)
+    rows = torch.arange(5000, 5777, dtype=torch.int32, device=dev)
+    got = compact_runs_cuda(key, rows, None, (6000, 90), 40_000)
+    ref = compact_runs_reference(key, rows, None, (6000, 90), 40_000)
+    _same_compact(got, ref, F64_SUMS)
+
+
+def test_segcompact_launch_counter(dev):
+    key, val = _sorted_grid(dev, 50, 16, 20)
+    rows = torch.arange(50, dtype=torch.int32, device=dev)
+    before = compact_runs_cuda.launches
+    compact_runs_cuda(key, rows, val, (50, 20), 900)
+    compact_runs_reference(key, rows, val, (50, 20), 900)
+    assert compact_runs_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("bad", ["int64", "bf16", "noncontig", "device",
+                                 "shape", "rows", "3d", "capacity"])
+def test_segcompact_rejects(dev, bad):
+    key, val = _sorted_grid(dev, 50, 16, 20, dtype=torch.float32)
+    rows = torch.arange(50, dtype=torch.int32, device=dev)
+    cap = 900
+    if bad == "int64":
+        key = key.long()
+    elif bad == "bf16":
+        val = val.bfloat16()
+    elif bad == "noncontig":
+        key = key.t()
+    elif bad == "device":
+        val = val.cpu()
+    elif bad == "shape":
+        val = val[:, :8].contiguous()
+    elif bad == "rows":
+        rows = rows[:49]
+    elif bad == "3d":
+        key = key.view(50, 4, 4)
+    else:
+        cap = 2 ** 31
+    with pytest.raises((TypeError, ValueError)):
+        compact_runs_cuda(key, rows, val, (50, 20), cap)
+
+
+def _spgemm_pair(where):
+    """Random A (300, 200) and B (200, 250), B with empty rows, coalesced."""
+    g = torch.Generator().manual_seed(11)
+    mats = []
+    for m, k, nnz in ((300, 200, 3000), (200, 250, 2500)):
+        row = torch.randint(0, m, (nnz,), generator=g)
+        if m == 200:
+            row = row - row % 5           # rows not divisible by 5 empty
+        col = torch.randint(0, k, (nnz,), generator=g)
+        key = (row * k + col).sort().values
+        mats.append(PaddedCOO.from_arrays(
+            key // k, key % k, torch.randn(nnz, generator=g), (m, k),
+            capacity=nnz + 40, device=where).coalesce())
+    return mats
+
+
+def _spgemm_runs(A, B):
+    F, oc = plan_spgemm_rows(A, B)
+    fc, oc2 = plan_spgemm(A, B)
+    blocked = plan_spgemm_blocked(A, B)
+    return {"rowsorted": spspmm_rowsorted(A, B, F, oc),
+            "padded": spspmm_padded(A, B, fc, oc2),
+            "rowblocked": spspmm_rowblocked(A, B, blocked[0], blocked[1], 32,
+                                            A.capacity, blocked[4])}
+
+
+def test_spgemm_card_vs_cpu(dev):
+    """Every variant on the card against the CPU: nnz, flag, coordinates
+    exact, values F32; each launches K5 (the blocked one once per block);
+    sort and coalesce too."""
+    (Ac, Bc), (Ah, Bh) = _spgemm_pair("cuda"), _spgemm_pair("cpu")
+    assert Ac.nnz == Ah.nnz and torch.equal(Ac.row.cpu(), Ah.row)
+    before = compact_runs_cuda.launches
+    on_card = _spgemm_runs(Ac, Bc)
+    launches = compact_runs_cuda.launches - before
+    on_cpu = _spgemm_runs(Ah, Bh)
+    for name, res in on_card.items():
+        ref = on_cpu[name]
+        assert res.matrix.nnz == ref.matrix.nnz > 0
+        assert res.overflowed == ref.overflowed is False
+        assert torch.equal(res.matrix.row.cpu(), ref.matrix.row)
+        assert torch.equal(res.matrix.col.cpu(), ref.matrix.col)
+        torch.testing.assert_close(res.matrix.value.cpu(), ref.matrix.value,
+                                   **F32)
+    # planners: 1 structural padded product; variants: 1 + 1 + 10 blocks
+    assert launches == 1 + 1 + 1 + 10
+    sc, sh = Ac.sort(), Ah.sort()
+    assert torch.equal(sc.row.cpu(), sh.row) and torch.equal(sc.col.cpu(),
+                                                             sh.col)
+
+
+def test_spgemm_grads_card_vs_cpu(dev):
+    """Value grads of A @ A (the toy entry) through each variant."""
+    grads = {}
+    for where in ("cuda", "cpu"):
+        A = spgemm_entry(where)
+        v = A.value.clone().requires_grad_()
+        Ai = A.with_value(v)
+        G = torch.linspace(-1, 1, 20000, device=where)
+        for name, res in _spgemm_runs(Ai, Ai).items():
+            (res.matrix.value * G[:res.matrix.capacity]).sum().backward(
+                retain_graph=True)
+            grads[where, name] = v.grad.cpu().clone()
+            v.grad = None
+    for name in ("rowsorted", "padded", "rowblocked"):
+        torch.testing.assert_close(grads["cuda", name], grads["cpu", name],
+                                   **F32)

@@ -2,6 +2,7 @@
 paddle_sparse_tpu.core.PaddedCOO, with padding, on the same numpy inputs."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,7 +10,7 @@ import torch
 
 from paddle_sparse_tpu.core import PaddedCOO as JPaddedCOO
 from paddle_sparse_tpu.ops.spmm import _spmm_structure
-from paddle_sparse_tpu_torch import PaddedCOO
+from paddle_sparse_tpu_torch import PaddedCOO, padded_coo_from_jax
 from paddle_sparse_tpu_torch.ops.convert import ptr2ind_capped
 
 M, N = 120, 90
@@ -184,3 +185,113 @@ def test_structure_ignores_padding_cols():
     a, b = t.structure(), poisoned.structure()
     for u, w in zip(a, b):
         assert torch.equal(u, w)
+
+
+def _unsorted(seed, nnz=300, capacity=400, dups=60, with_value=True):
+    """A JAX PaddedCOO with entries in random order, duplicate coordinates
+    and interleaved pads (rows M, cols N), and its port copy."""
+    rng = np.random.default_rng(seed)
+    row = rng.integers(0, M, nnz)
+    col = rng.integers(0, N, nnz)
+    pick = rng.integers(0, nnz, dups)              # repeated coordinates
+    row, col = np.concatenate([row, row[pick]]), np.concatenate([col,
+                                                                 col[pick]])
+    pad = capacity - row.size
+    row = np.concatenate([row, np.full(pad, M)])
+    col = np.concatenate([col, np.full(pad, N)])
+    order = rng.permutation(capacity)
+    val = rng.standard_normal(capacity).astype(np.float32)
+    val[row[order] == M] = 0
+    j = JPaddedCOO(row=jnp.asarray(row[order].astype(np.int32)),
+                   col=jnp.asarray(col[order].astype(np.int32)),
+                   value=jnp.asarray(val) if with_value else None,
+                   nnz=jnp.asarray(nnz + dups, jnp.int32), shape=(M, N))
+    return padded_coo_from_jax(j), j
+
+
+def _same_coo(t, j, **tol):
+    assert t.shape == j.shape and t.capacity == j.capacity
+    assert t.nnz == int(j.nnz)
+    _eq(t.row, j.row)
+    _eq(t.col, j.col)
+    assert (t.value is None) == (j.value is None)
+    if t.value is not None:
+        if tol:
+            np.testing.assert_allclose(t.value.detach().numpy(),
+                                       np.asarray(j.value), **tol)
+        else:
+            _eq(t.value, j.value)
+
+
+def test_padded_coo_from_jax_round_trips():
+    """JAX -> port -> JAX gives the arrays back, padding and nnz kept."""
+    for with_value in (True, False):
+        t, j = _unsorted(1, with_value=with_value)
+        _same_coo(t, j)
+        back = JPaddedCOO(row=jnp.asarray(t.row.numpy()),
+                          col=jnp.asarray(t.col.numpy()),
+                          value=None if t.value is None
+                          else jnp.asarray(t.value.numpy()),
+                          nnz=jnp.asarray(t.nnz, jnp.int32), shape=t.shape)
+        _same_coo(padded_coo_from_jax(back), j)
+    assert t.row.dtype == torch.int32
+
+
+@pytest.mark.parametrize("with_value", [True, False])
+def test_sort_matches_jax(with_value):
+    t, j = _unsorted(2, with_value=with_value)
+    _same_coo(t.sort(), j.sort())
+
+
+@pytest.mark.parametrize("with_value", [True, False])
+@pytest.mark.parametrize("assume_sorted", [True, False])
+def test_coalesce_matches_jax(with_value, assume_sorted):
+    """Duplicates summed, capacity kept, pads (M, N, 0), nnz the unique
+    count; sorting first or not (then only adjacent duplicates merge).
+    Values ``rtol=1e-6``: f32 sums of at most a few terms."""
+    t, j = _unsorted(3, with_value=with_value)
+    if assume_sorted:
+        t, j = t.sort(), j.sort()
+    tc, jc = t.coalesce(assume_sorted), j.coalesce(assume_sorted)
+    _same_coo(tc, jc, rtol=1e-6, atol=1e-6)
+    if with_value:
+        assert not tc.value[tc.nnz:].any()
+    assert tc.nnz < t.nnz
+
+
+def test_coalesce_of_from_arrays():
+    """A row-sorted ``from_arrays`` matrix: JAX's coalesce array for array,
+    and coalescing again changes nothing."""
+    t, j, _ = _pair(900)
+    c = t.coalesce()
+    _same_coo(c, j.coalesce(), rtol=1e-6, atol=1e-6)
+    again = c.coalesce()
+    assert again.nnz == c.nnz and torch.equal(again.row, c.row)
+    assert torch.equal(again.col, c.col) and torch.equal(again.value,
+                                                         c.value)
+
+
+def test_coalesce_trailing_dims_and_grad():
+    """A (capacity, 3) value coalesces row by row (plain version); d value
+    of a 1-D coalesce equals ``jax.grad`` of the JAX coalesce."""
+    t, j = _unsorted(4)
+    t, j = t.sort(), j.sort()
+    rng = np.random.default_rng(5)
+    wide = rng.standard_normal((t.capacity, 3)).astype(np.float32)
+    wide[t.row.numpy() == M] = 0
+    tw = dataclasses.replace(t, value=torch.from_numpy(wide)).coalesce()
+    jw = dataclasses.replace(j, value=jnp.asarray(wide)).coalesce()
+    np.testing.assert_allclose(tw.value.numpy(), np.asarray(jw.value),
+                               rtol=1e-6, atol=1e-6)
+    weight = rng.standard_normal(t.capacity).astype(np.float32)
+
+    def j_loss(v):
+        return (dataclasses.replace(j, value=v).coalesce().value
+                * jnp.asarray(weight)).sum()
+
+    g_ref = jax.grad(j_loss)(j.value)
+    v = t.value.clone().requires_grad_()
+    (dataclasses.replace(t, value=v).coalesce().value
+     * torch.from_numpy(weight)).sum().backward()
+    np.testing.assert_allclose(v.grad.numpy(), np.asarray(g_ref), rtol=1e-6,
+                               atol=1e-6)

@@ -22,8 +22,9 @@ def _run(code_or_args, cwd=REPO, env=None, timeout=120):
 
 
 def test_port_never_imports_jax():
-    """With ``jax`` blocked, the package imports and the toy forward and one
-    toy train step run; neither jax nor the JAX package is loaded."""
+    """With ``jax`` blocked, the package imports and the toy forward, one
+    toy train step and the toy A @ A run; neither jax nor the JAX package is
+    loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -35,6 +36,10 @@ def test_port_never_imports_jax():
         "model, adj, x, y = p.train_entry('cpu')\n"
         "loss = p.train_step(model, adj, x, y, 0.1)\n"
         "assert bool(torch.isfinite(loss)) and loss.dim() == 0\n"
+        "A = p.spgemm_entry('cpu')\n"
+        "F, cap = p.plan_spgemm_rows(A, A)\n"
+        "res = p.spspmm_rowsorted(A, A, F, cap)\n"
+        "assert not res.overflowed and res.matrix.nnz > A.nnz\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_sparse_tpu') and sys.modules[m]]\n"
         "assert not bad, bad\n"
