@@ -49,6 +49,37 @@ Phases, one or more printed lines each:
    of C against scipy in f64, and K5 timed alone on the call's own compress
    input against the plain version. At 800k also the value grads of
    ``sum(G * C)`` on sampled entries against f64.
+7a. Multi-span SpMM (``spmm_spans_cuda``, the counterpart of K3/K4) and
+   span SDDMM (``sddmm_spans_cuda``, K2's span form) against their plain
+   versions in f64 over S in 1 3 19 40 and K in 1 47 64 100 256 300, f32 and
+   bf16, with slice bases, empty rows and spans; S = 1 against K1's wrapper
+   (``spmm_csr_cuda``, the same kernel over a CSR pointer) bit for bit; the
+   stream form with a row of 1.1M edges, exact; ``tilespan_call`` (K3's
+   entry point) on seg3's own tables of a 200k-node graph; and
+   ``band_reduce_call`` (K4's) at ``experiments/r4_band_cost.py``'s sizes,
+   timed against its plain version and ``torch.sparse.mm`` of the 0/1 span
+   CSR.
+7b. Toy packed SpMMs: ``spmm_entry`` for seg2, seg3 and split, forward and
+   grads, card vs CPU.
+7c. The bench's packed-SpMM cells at full width, on torch rewrites of
+   ``bench.py``'s generators: seg2 on the uniform graph at full
+   ogbn-products scale (2,449,029 nodes, 122,451,450 nnz, K=256) with the
+   f32 and the bf16 stream, seg3 there (bf16), seg2 at K=64 and 1/8 scale
+   (``dim64``), split on the clustered graph (bf16), and seg2 on zipf at 1/8
+   scale after seg3's refusal. For each: plan seconds, 1 warm-up and 3
+   timed forwards and forward+backwards, peak memory, the launches (counts
+   zeroed just before, read just after), sampled rows, ``d value`` and
+   ``d x`` against f64; the first path's first forward+backward runs under
+   the profiler. On the f32 path the two span kernels alone, kernel
+   vs plain in turns, with their bounds, K1 on the same graph and the
+   library calls computing the same products (``torch.sparse.mm``,
+   ``torch.sparse.sampled_addmm``), which the port never calls.
+
+Every kernel in the JSON line carries its time, launches, plain time,
+bound (the larger of the bytes each input and output moves once over
+3.35 TB/s and its f32 operations over 67 TFLOP/s; ``gather_bound_ms`` is
+the gathered rows alone) and library time (null where no single call
+computes the same function).
 
 Then the kernels' JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; so does a
@@ -71,6 +102,10 @@ BF16_TOL = dict(rtol=2e-2, atol=2e-2)   # output rounded to bf16
 # f64 checks bound the error by 1e-5 of the sum of |terms| of each dot or
 # row-sum: f32 rounding of K-term sums stays far below that
 GRAD_REL = 1e-5
+
+# published H100 SXM peaks (NVIDIA's data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 PRODUCTS_NODES = 2_449_029              # ogbn-products, as bench.py
 PRODUCTS_DEG = 50                       # 122,451,450 nnz
@@ -110,6 +145,41 @@ def in_turns(run_p, run_k, reps_p, reps_k):
     k2, _ = timed(run_k, reps_k)
     p2, _ = timed(run_p, reps_p)
     return p1, k1, k2, p2, out_p, out_k
+
+
+def bound_ms(nbytes: float, flops: float):
+    """The least time the card could take: the larger of ``nbytes`` over the
+    HBM rate and ``flops`` over the f32 rate (the kernels' FMAs run in f32
+    on the CUDA cores), with which of the two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def library_timed(name, fn, reps, ref=None):
+    """A PyTorch library call timed as a yardstick (never used by the
+    port): mean ms over ``reps`` after a warm-up, and its max abs
+    difference from ``ref``; ``(None, None)`` with the error printed if the
+    call fails or runs out of memory."""
+    try:
+        ms, out = timed(fn, reps)
+    except (RuntimeError, ValueError, TypeError) as e:
+        print(f"library {name}: failed, {type(e).__name__}: "
+              f"{str(e).splitlines()[0][:200]}", flush=True)
+        torch.cuda.empty_cache()
+        return None, None
+    if out.layout == torch.sparse_csr:
+        out = out.values()
+    err = (None if ref is None
+           else float((out.double() - ref.double()).abs().max()))
+    del out
+    torch.cuda.empty_cache()
+    return ms, err
 
 
 def random_csr(gen, dev, M, N, max_deg):
@@ -315,8 +385,7 @@ def phase3b_toy_train(dev):
 
 def phase4_forward(dev, card):
     from paddle_sparse_tpu_torch import (PaddedCOO, gcn_normalize, init_gcn,
-                                         sddmm_csr_cuda, spmm_csr_cuda,
-                                         spmm_csr_reference)
+                                         spmm_csr_cuda, spmm_csr_reference)
     n, deg_ = PRODUCTS_NODES, PRODUCTS_DEG
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -339,7 +408,7 @@ def phase4_forward(dev, card):
     torch.cuda.reset_peak_memory_stats()
     times = []
     with torch.inference_mode():
-        spmm_csr_cuda.launches = sddmm_csr_cuda.launches = 0
+        _zero_launch_counts()
         out = model(adj, x)                                     # warm-up
         for _ in range(3):
             torch.cuda.synchronize()
@@ -347,8 +416,8 @@ def phase4_forward(dev, card):
             out = model(adj, x)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        launches, sddmm_launches = (spmm_csr_cuda.launches,
-                                    sddmm_csr_cuda.launches)
+        counts = _launch_counts()
+        launches, sddmm_launches = counts["spmm_csr"], counts["sddmm_csr"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"phase 4 forward ms: {' '.join(f'{t:.3f}' for t in times)} "
           f"(mean {sum(times) / len(times):.3f}) peak mem {peak_gb:.2f} GB "
@@ -419,9 +488,25 @@ def phase4_forward(dev, card):
           f"max_abs_err {max_err:.3e} {'ok' if ok else 'FAIL'} {card}",
           flush=True)
     check(ok, "kernel and plain K=256 SpMM disagree at scale")
+    # the same product through torch.sparse.mm on the CSR: the yardstick
+    nnz = adj.nnz
+    csr = torch.sparse_csr_tensor(rowptr, col[:nnz], value[:nnz], (n, n))
+    with torch.inference_mode():
+        lib_ms, lib_err = library_timed(
+            "torch.sparse.mm (K1's product)",
+            lambda: torch.sparse.mm(csr, h2), 3, out_k)
+    bound, by = bound_ms(nbytes(rowptr, col[:nnz], value[:nnz], h2, out_k),
+                         2 * nnz * h2.shape[1])
+    print(f"phase 4 spmm K=256: bound {bound:.3f} ms ({by}); "
+          f"torch.sparse.mm {lib_ms} ms (vs kernel max_abs_err {lib_err}) "
+          f"{card}", flush=True)
+    del csr
     stats = {"launches": launches, "sddmm_launches": sddmm_launches,
-             "max_abs_err": max_err,
-             "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+             "counts": counts, "max_abs_err": max_err,
+             "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+             "gather_bound_ms": nnz * h2.shape[1] * h2.element_size()
+             / HBM_BYTES_PER_S * 1e3}
     return adj, x, model, stats
 
 
@@ -452,7 +537,7 @@ def phase5_train(dev, card, adj, x, model):
           f"{card}", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    spmm_csr_cuda.launches = sddmm_csr_cuda.launches = 0
+    _zero_launch_counts()
     times, losses = [], []
     for _ in range(4):                                  # 1 warm-up + 3
         adj.value.grad = None
@@ -462,7 +547,8 @@ def phase5_train(dev, card, adj, x, model):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
-    k1_launches, k2_launches = spmm_csr_cuda.launches, sddmm_csr_cuda.launches
+    counts = _launch_counts()
+    k1_launches, k2_launches = counts["spmm_csr"], counts["sddmm_csr"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = sum(times[1:]) / 3
     print(f"phase 5 train step ms (forward + backward + SGD): warm-up "
@@ -601,23 +687,46 @@ def phase5_train(dev, card, adj, x, model):
         check(ok, f"kernel and plain K={K} SDDMM disagree at scale")
         sddmm_stats[K] = {"max_abs_err": max_err, "ms": (k1 + k2) / 2,
                           "plain_ms": (p1 + p2) / 2}
+    # K=256 through torch.sparse.sampled_addmm on the CSR: the yardstick
+    gi, hi = gs[1], hs[1].detach()
+    hi_t = hi.t().contiguous()
+    csr = torch.sparse_csr_tensor(rowptr, col[:nnz], value[:nnz], (n, n))
+    with torch.no_grad():
+        lib_ms, lib_err = library_timed(
+            "torch.sparse.sampled_addmm (K2's product)",
+            lambda: torch.sparse.sampled_addmm(csr, gi, hi_t, beta=0.0), 2,
+            sddmm_csr_cuda(rowptr, col, gi, hi)[:nnz])
+    del csr, hi_t
+    bound, by = bound_ms(nbytes(rowptr, col[:nnz], gi, hi) + 4 * nnz,
+                         2 * nnz * hi.shape[1])
+    print(f"phase 5 sddmm K=256: bound {bound:.3f} ms ({by}); "
+          f"torch.sparse.sampled_addmm {lib_ms} ms (vs kernel max_abs_err "
+          f"{lib_err}) {card}", flush=True)
+    sddmm_stats[256].update(bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                            gather_bound_ms=nnz * hi.shape[1] * 4
+                            / HBM_BYTES_PER_S * 1e3)
     return {"spmm_launches": k1_launches, "sddmm_launches": k2_launches,
-            "sddmm": sddmm_stats}
+            "counts": counts, "sddmm": sddmm_stats}
 
 
 def _launch_counts():
     from paddle_sparse_tpu_torch import (compact_runs_cuda, sddmm_csr_cuda,
-                                         spmm_csr_cuda)
+                                         sddmm_spans_cuda, spmm_csr_cuda,
+                                         spmm_spans_cuda)
     return {"spmm_csr": spmm_csr_cuda.launches,
             "sddmm_csr": sddmm_csr_cuda.launches,
-            "segcompact": compact_runs_cuda.launches}
+            "segcompact": compact_runs_cuda.launches,
+            "spmm_spans": spmm_spans_cuda.launches,
+            "sddmm_spans": sddmm_spans_cuda.launches}
 
 
 def _zero_launch_counts():
     from paddle_sparse_tpu_torch import (compact_runs_cuda, sddmm_csr_cuda,
-                                         spmm_csr_cuda)
+                                         sddmm_spans_cuda, spmm_csr_cuda,
+                                         spmm_spans_cuda)
     spmm_csr_cuda.launches = sddmm_csr_cuda.launches = 0
     compact_runs_cuda.launches = 0
+    spmm_spans_cuda.launches = sddmm_spans_cuda.launches = 0
 
 
 def _same_compacted(got, ref, tol):
@@ -922,9 +1031,13 @@ def phase6c_spgemm_path(dev, card, name, A, kind):
           f"plain max_abs_err {err:.3e} {'ok' if ok else 'FAIL'} {card}",
           flush=True)
     check(ok, f"{name}: K5 and its plain version disagree at scale")
+    ins = [a for a in (*args, *kw.values()) if isinstance(a, torch.Tensor)]
+    moved = nbytes(*ins, out_k.row, out_k.col, out_k.value, out_k.seg)
+    bound, by = bound_ms(moved, args[0].numel())     # one add per element
     return {"launches": launches, "ms": ms, "c_nnz": c_nnz,
             "k5": {"max_abs_err": err, "ms": (k1 + k2) / 2,
-                   "plain_ms": (p1 + p2) / 2}}
+                   "plain_ms": (p1 + p2) / 2, "bound_ms": bound,
+                   "bound_by": by}}
 
 
 def phase6c_value_grad(dev, A):
@@ -989,6 +1102,644 @@ def phase6c_spgemm(dev, card):
         dev, card, "zipf padded (planners' fallback)", A, "padded")
     return paths
 
+# ---- phase 7: packed-layout SpMMs (seg2, seg3, split) ----------------------
+
+BENCH_NODES = 2_449_029                 # bench.py::get_config defaults
+BENCH_NNZ = 123_718_280
+# experiments/r4_band_cost.py:21-28: S, BAND, E, K, CAP (edges per span)
+R4_BAND_SIZES = (19, 28672, 512, 256, 77824)
+TILESPAN_NODES = 200_000                # phase 7a's seg3 graph, degree 10
+
+
+def span_ptrs(gen, dev, S, M, max_len, empty_rows=(0,)):
+    """(S, M+1) int32 row pointers of contiguous spans, span-major, each of
+    0..max_len edges, with ``empty_rows`` empty in every span."""
+    lens = torch.randint(0, max_len + 1, (S, M), generator=gen, device=dev)
+    lens[:, list(empty_rows)] = 0
+    ptr = torch.zeros(S * M + 1, dtype=torch.int64, device=dev)
+    ptr[1:] = lens.reshape(-1).cumsum(0)
+    return ptr.as_strided((S, M + 1), (M, 1)).to(torch.int32)
+
+
+def spans_csr(start, end, n_cols, dtype):
+    """The (M, n_cols) 0/1 CSR whose row m holds the positions of row m's
+    (S, M) spans: a library SpMM of it with the stream is the spans' sum.
+    The spans of a row must be disjoint and increasing in s (no duplicate
+    or unsorted columns), as K4's are."""
+    lens = (end.long() - start.long()).clamp_min(0).t().reshape(-1)
+    first = start.long().t().reshape(-1)
+    M = start.shape[1]
+    crow = torch.zeros(M + 1, dtype=torch.int64, device=start.device)
+    torch.cumsum(lens.view(M, -1).sum(1), 0, out=crow[1:])
+    total = int(crow[-1])
+    excl = torch.cumsum(lens, 0) - lens
+    col = (torch.repeat_interleave(first - excl, lens)
+           + torch.arange(total, device=start.device))
+    return torch.sparse_csr_tensor(
+        crow, col, torch.ones(total, dtype=dtype, device=start.device),
+        (M, n_cols))
+
+
+def phase7a_spans(gen, dev, card):
+    """The multi-span SpMM and the span SDDMM against their plain versions
+    in f64; S = 1 against K1 bit for bit; K3's and K4's entry points."""
+    from paddle_sparse_tpu_torch import (band_reduce_call, make_seg3_plan,
+                                         sddmm_spans_cuda,
+                                         sddmm_spans_reference,
+                                         spmm_csr_cuda, spmm_spans_cuda,
+                                         spmm_spans_reference, tilespan_call,
+                                         tilespan_tables)
+    M, N = 3000, 2000
+    worst = 0.0
+    for S in (1, 3, 19, 40):
+        rp = span_ptrs(gen, dev, S, M, 3, empty_rows=(0, M // 3, M - 1))
+        nnz = int(rp[-1, -1])
+        base = torch.randint(0, 100, (S,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        idx = torch.randint(0, N - 100, (nnz,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        val = torch.rand(nnz, generator=gen, device=dev) * 2 - 1
+        errs = []
+        for K in (1, 47, 64, 100, 256, 300):
+            for dt in (torch.float32, torch.bfloat16):   # f32 out, f32 sums
+                x = torch.randn(N, K, generator=gen, device=dev).to(dt)
+                v = None if K == 47 else val
+                out = spmm_spans_cuda(rp[:, :-1], rp[:, 1:], idx, v, base, x,
+                                      out_dtype=torch.float32)
+                ref = spmm_spans_reference(
+                    rp[:, :-1], rp[:, 1:], idx,
+                    None if v is None else v.double(), base, x.double())
+                gm = torch.randn(M, K, generator=gen, device=dev).to(dt)
+                dv = sddmm_spans_cuda(rp[:, :-1], rp[:, 1:], idx, base, gm,
+                                      x)
+                dref = sddmm_spans_reference(rp[:, :-1], rp[:, 1:], idx, base,
+                                             gm.double(), x.double(),
+                                             torch.float64)
+                torch.cuda.synchronize()
+                e1 = float((out.double() - ref).abs().max())
+                e2 = float((dv.double() - dref).abs().max())
+                errs.append(max(e1, e2))
+                check(torch.allclose(out.double(), ref, **F32_TOL)
+                      and torch.allclose(dv.double(), dref, **F32_TOL)
+                      and not out[[0, M // 3, M - 1]].any(),
+                      f"span kernels disagree with plain f64 at S={S} K={K} "
+                      f"{dt} ({e1:.3e}, {e2:.3e})")
+        worst = max(worst, *errs)
+        print(f"phase 7a S={S} ({nnz} edges, empty rows and spans), K in 1 "
+              f"47 64 100 256 300, f32 and bf16: spmm_spans and sddmm_spans "
+              f"vs plain f64 max_abs_err {max(errs):.3e} ok", flush=True)
+
+    # one span: K1's edges, order and operations, so the same bits
+    rowptr, col, value = random_csr(gen, dev, M, N, 40)
+    rp = rowptr[None]
+    for K in (1, 8, 47, 100, 256):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(N, K, generator=gen, device=dev).to(dt)
+            for v in (value, None):
+                a = spmm_spans_cuda(rp[:, :-1], rp[:, 1:], col, v, None, x)
+                check(torch.equal(a, spmm_csr_cuda(rowptr, col, v, x)),
+                      f"S=1 spans differ from K1 at K={K} {dt}")
+    print("phase 7a S=1: spmm_spans equals spmm_csr (K1) bit for bit at K 1 "
+          "8 47 100 256, f32 and bf16, with and without values ok",
+          flush=True)
+
+    # one row of 1.1M edges over 3 spans in the stream form, overlapping
+    # and reversed spans elsewhere; small integers keep every sum exact
+    L, K = 1_200_000, 64
+    src = torch.randint(-3, 4, (L, K), generator=gen, device=dev).float()
+    start = torch.randint(0, L - 100, (3, 500), generator=gen, device=dev)
+    end = start + torch.randint(-5, 60, (3, 500), generator=gen, device=dev)
+    start[:, 7] = torch.tensor([0, 400_000, 800_000], device=dev)
+    end[:, 7] = torch.tensor([366_000, 766_000, 1_168_000], device=dev)
+    out = spmm_spans_cuda(start.int(), end.int(), None, None, None, src)
+    ref = spmm_spans_reference(start, end, None, None, None, src.double())
+    check(torch.equal(out.double(), ref), "1.1M-edge stream row not exact")
+    print("phase 7a stream form, a row of 1,100,000 edges over 3 spans, "
+          "overlapping and reversed spans: exact ok", flush=True)
+
+    # K3: tilespan_call on seg3's own tables of a 200k-node graph
+    g = torch.Generator(device=dev).manual_seed(70)
+    n = TILESPAN_NODES
+    row = torch.arange(n * 10, device=dev, dtype=torch.int32) // 10
+    col = torch.randint(0, n, (n * 10,), generator=g, device=dev,
+                        dtype=torch.int32)
+    plan, s = make_seg3_plan(row, col, n, n, feat_dim=256, stream="bf16",
+                             sr=16384)
+    e0a, bst, ben = tilespan_tables(s.rp_f, S=plan.S, BAND=plan.BAND,
+                                    cap=plan.cap, CAP_TS=plan.CAP_TS)
+    R, T_B = 128, plan.BAND // 128
+    for b in (0, e0a.shape[0] - 1):
+        stream = torch.randn(plan.S * plan.cap + plan.CAP_TS, 256,
+                             generator=g, device=dev).bfloat16()
+        got = tilespan_call(e0a[b], bst[b], ben[b], stream, S=plan.S,
+                            T_B=T_B, CAP_TS=plan.CAP_TS, K=256, R=R)
+        band = s.rp_f[:, b * plan.BAND:(b + 1) * plan.BAND + 1].long()
+        loc = band - band[:, :1] + (torch.arange(plan.S, device=dev)
+                                    * plan.cap)[:, None]
+        ref = spmm_spans_reference(loc[:, :-1], loc[:, 1:], None, None,
+                                   None, stream.double())
+        err = float((got.double() - ref).abs().max())
+        check(torch.allclose(got.double(), ref, **F32_TOL),
+              f"tilespan_call band {b} disagrees ({err:.3e})")
+        print(f"phase 7a tilespan_call (K3) band {b} of seg3's tables: "
+              f"S={plan.S} T_B={T_B} CAP_TS={plan.CAP_TS} bf16 stream "
+              f"{tuple(stream.shape)} vs plain f64 from the row pointers "
+              f"max_abs_err {err:.3e} ok", flush=True)
+    del plan, s, e0a, bst, ben, stream, row, col
+
+    # K4: band_reduce_call at experiments/r4_band_cost.py's own sizes
+    S, BAND, E, K, CAP = R4_BAND_SIZES
+    TMAX = 4
+    BR_pad = BAND + R
+    stream = torch.randn(S * CAP, K, generator=g, device=dev).bfloat16()
+    loc = torch.clamp((torch.arange(BAND + 1, device=dev) * (CAP / BAND))
+                      .to(torch.int32), 0, CAP)
+    offs = (torch.arange(S, device=dev, dtype=torch.int32) * CAP)[:, None]
+    lb = torch.cat([loc, loc[-1:].expand(R)])            # pad rows empty
+    bounds_start = (lb[None, :BR_pad] + offs).reshape(-1, R)
+    bounds_end = (torch.cat([loc[1:], loc[-1:].expand(R + 1)])[None, :BR_pad]
+                  + offs).reshape(-1, R)
+    sched = [torch.zeros(1, dtype=torch.int32, device=dev)] * 3
+    st, en = bounds_start.reshape(S, BR_pad), bounds_end.reshape(S, BR_pad)
+    p1, k1, k2, p2, out_p, out_k = in_turns(
+        lambda: spmm_spans_reference(st, en, None, None, None, stream,
+                                     torch.float32),
+        lambda: band_reduce_call(*sched, bounds_start, bounds_end, stream,
+                                 S=S, BR_pad=BR_pad, E=E, K=K, TMAX=TMAX),
+        1, 5)
+    ref = spmm_spans_reference(st, en, None, None, None, stream.double())
+    err = float((out_k.double() - ref).abs().max())
+    check(torch.allclose(out_k.double(), ref, **F32_TOL)
+          and torch.allclose(out_k, out_p, **F32_TOL),
+          f"band_reduce_call disagrees with plain f64 ({err:.3e})")
+    moved = nbytes(stream, bounds_start, bounds_end, out_k)
+    bound, by = bound_ms(moved, S * CAP * K)
+    # the library yardstick: the 0/1 span CSR (built outside the timing)
+    # times the stream, in the stream's dtype, else in an f32 copy
+    lib = "torch.sparse.mm of the 0/1 span CSR, bf16"
+    P = spans_csr(st, en, stream.shape[0], stream.dtype)
+    lib_ms, lib_err = library_timed(f"{lib} (K4's sum)",
+                                    lambda: torch.sparse.mm(P, stream), 5,
+                                    out_k)
+    if lib_ms is None:
+        lib = "torch.sparse.mm of the 0/1 span CSR, f32 copy of the stream"
+        P, s32 = spans_csr(st, en, stream.shape[0], torch.float32), \
+            stream.float()
+        lib_ms, lib_err = library_timed(f"{lib} (K4's sum)",
+                                        lambda: torch.sparse.mm(P, s32), 5,
+                                        out_k)
+        del s32
+    del P
+    print(f"phase 7a band_reduce_call (K4) at r4_band_cost sizes: S={S} "
+          f"BAND={BAND} E={E} K={K} bf16 stream {tuple(stream.shape)} "
+          f"({nbytes(stream) / 1e9:.2f} GB): kernel {k1:.3f} / {k2:.3f} ms, "
+          f"plain {p1:.3f} / {p2:.3f} ms, bound {bound:.3f} ms ({by}); "
+          f"library ({lib}) {lib_ms} ms (max_abs_err {lib_err}); vs plain "
+          f"f64 max_abs_err {err:.3e} ok {card}", flush=True)
+    return {"max_abs_err": worst,
+            "band_reduce": {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                            "bound_ms": bound, "bound_by": by,
+                            "max_abs_err": err, "library_ms": lib_ms,
+                            "library": lib}}
+
+
+def _packed_fns(backend):
+    import paddle_sparse_tpu_torch as p
+    if backend == "seg2split":
+        return (p.make_split_plan, p.pack_values_split, p.spmm_split,
+                p.unpack_values_split)
+    plan_fn = p.make_seg3_plan if backend == "seg3" else p.make_seg2_plan
+    fn = p.spmm_seg3 if backend == "seg3" else p.spmm_seg2
+    return plan_fn, p.pack_values, fn, p.unpack_values
+
+
+def _leaves(packed):
+    if isinstance(packed, tuple):
+        return tuple(t.detach().requires_grad_() for t in packed)
+    return packed.detach().requires_grad_()
+
+
+def _grads(leaves):
+    return (tuple(t.grad for t in leaves) if isinstance(leaves, tuple)
+            else leaves.grad)
+
+
+def phase7b_toy(dev):
+    """``spmm_entry`` for each backend: forward and grads, card vs CPU."""
+    from paddle_sparse_tpu_torch import SPMM_BACKENDS, spmm_entry
+    for backend in SPMM_BACKENDS:
+        fn = _packed_fns(backend)[2]
+        runs = {}
+        for where in (dev, "cpu"):
+            plan, s, packed, x = spmm_entry(backend, where)
+            pv, xx = _leaves(packed), x.clone().requires_grad_()
+            out = fn(plan, s, pv, xx)
+            w = torch.linspace(-1, 1, out.numel(), device=where).view(
+                out.shape)
+            (out * w).sum().backward()
+            gv = _grads(pv)
+            gv = gv if isinstance(gv, tuple) else (gv,)
+            runs[str(where)] = [t.detach().cpu() for t in (out, xx.grad,
+                                                           *gv)]
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(runs[str(dev)], runs["cpu"]))
+        ok = all(torch.allclose(a, b, **F32_TOL)
+                 for a, b in zip(runs[str(dev)], runs["cpu"]))
+        print(f"phase 7b toy {backend}, 256 nodes, K=32: forward, d packed "
+              f"and d x cuda vs cpu max_abs_err {err:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"toy {backend} on the card disagrees with the CPU")
+
+
+def bench_graph(dev, kind, scale, dim):
+    """``bench.py``'s generators (``synthetic_graph``, ``zipf_graph``,
+    ``clustered_graph``, ``:122-220``) in torch at ``get_config(scale)``'s
+    size: rows ``arange // deg`` (zipf: degrees from numpy seed 0, as
+    there), uniform cols (clustered: 80% inside the row's 2048-node
+    community), U(0,1) values and N(0,1) features from a seeded
+    generator. Returns row-sorted int32 ``row``/``col``, ``val``, ``x``."""
+    import numpy as np
+    n = max(1024, int(BENCH_NODES * scale))
+    e = max(16384, int(BENCH_NNZ * scale))
+    g = torch.Generator(device=dev).manual_seed(0)
+    if kind == "zipf":
+        w = np.random.default_rng(0).zipf(1.5, size=n).astype(np.float64)
+        deg = np.maximum(1, np.floor(w * (e / w.sum()))).astype(np.int64)
+        row = torch.arange(n, device=dev, dtype=torch.int32).repeat_interleave(
+            torch.as_tensor(deg, device=dev))
+    else:
+        deg = max(1, e // n)
+        row = torch.arange(deg * n, device=dev, dtype=torch.int32) // deg
+    nnz = row.numel()
+    col = torch.randint(0, n, (nnz,), generator=g, device=dev,
+                        dtype=torch.int32)
+    if kind == "clustered":
+        c = 2048
+        v_in = torch.clamp(row // c * c + torch.randint(
+            0, c, (nnz,), generator=g, device=dev, dtype=torch.int32),
+            max=n - 1)
+        col = torch.where(torch.rand(nnz, generator=g, device=dev) < 0.8,
+                          v_in, col)
+    val = torch.rand(nnz, generator=g, device=dev)
+    x = torch.randn(n, dim, generator=g, device=dev)
+    return row, col, val, x
+
+
+def _sub_csr(rowptr, rows):
+    """COO positions of ``rows``' edges and the sub-CSR pointer over them."""
+    start = rowptr[rows].long()
+    cnt = (rowptr[rows + 1] - rowptr[rows]).long()
+    sub_ptr = torch.zeros(rows.numel() + 1, dtype=torch.long,
+                          device=rows.device)
+    sub_ptr[1:] = cnt.cumsum(0)
+    edge = (torch.repeat_interleave(start - sub_ptr[:-1], cnt)
+            + torch.arange(int(sub_ptr[-1]), device=rows.device))
+    return edge, sub_ptr
+
+
+def check_packed_grads(name, row, col, val, x, gw, out, d_val, d_x, pdt,
+                       rowptr):
+    """Sampled rows of ``out``, edges of ``d value`` (COO order) and
+    columns of ``d x`` against f64, each within GRAD_REL of the sum of
+    |terms| of its entry; sources rounded to ``pdt`` as the port gathers
+    them (the plain version widens each window to f64)."""
+    from paddle_sparse_tpu_torch import spmm_csr_reference
+    dev, n = x.device, x.shape[0]
+    xs = x.to(pdt)
+    gen = torch.Generator().manual_seed(11)
+    deg = rowptr[1:] - rowptr[:-1]
+    rows = torch.cat([deg.argmax().view(1).cpu(), torch.randperm(
+        n, generator=gen)[:SAMPLED_ROWS - 1]]).unique().to(dev)
+    edge, sub_ptr = _sub_csr(rowptr, rows)
+    sub_col, sub_val = col[edge], val[edge].double()
+    ref = spmm_csr_reference(sub_ptr, sub_col, sub_val, xs)
+    scale = spmm_csr_reference(sub_ptr, sub_col, sub_val.abs(), xs.abs())
+    err_o, ok_o = _grad_close(out[rows], ref, scale)
+    e = torch.randint(0, row.numel(), (SAMPLED_EDGES,), generator=gen).to(dev)
+    terms = (gw[row[e].long()].to(pdt).double()
+             * xs[col[e].long()].double())
+    err_v, ok_v = _grad_close(d_val[e], terms.sum(1), terms.abs().sum(1))
+    cols = torch.randperm(n, generator=gen)[:SAMPLED_COLS].to(dev)
+    slot = torch.full((n,), -1, dtype=torch.long, device=dev)
+    slot[cols] = torch.arange(SAMPLED_COLS, device=dev)
+    edges = torch.nonzero(slot[col.long()] >= 0).squeeze(1)
+    t = (val[edges].double()[:, None]
+         * gw[row[edges].long()].to(pdt).double())
+    eslot = slot[col[edges].long()]
+    ref_x = torch.zeros(SAMPLED_COLS, x.shape[1], dtype=torch.float64,
+                        device=dev).index_add_(0, eslot, t)
+    sc_x = torch.zeros_like(ref_x).index_add_(0, eslot, t.abs())
+    err_x, ok_x = _grad_close(d_x[cols], ref_x, sc_x)
+    ok = ok_o and ok_v and ok_x
+    print(f"phase 7c {name}: {rows.numel()} sampled rows ({edge.numel()} "
+          f"edges, the longest row among them) max_abs_err {err_o:.3e}; "
+          f"d value on {SAMPLED_EDGES} edges {err_v:.3e}; d x on "
+          f"{SAMPLED_COLS} columns ({edges.numel()} edges) {err_x:.3e}; vs "
+          f"f64 within {GRAD_REL} of the sum of |terms| "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"{name}: output or grads disagree with f64 on samples")
+
+
+def first_fwd_bwd(name, card, run_fwd, run_bwd):
+    """A path's first forward+backward under ``torch.profiler``, launched
+    as the timed calls launch it (no synchronize between forward and
+    backward): when the host's calls returned, when the device finished,
+    the device time, the ops that took the most host time and the
+    allocator's device allocations and retries, to show where a slow first
+    call goes. Returns its ms and the output."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    m0 = torch.cuda.memory_stats()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run_fwd()
+        t1 = time.perf_counter()
+        run_bwd(out)
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    m1 = torch.cuda.memory_stats()
+    ev = prof.key_averages()
+    dev_ms = sum(getattr(e, "self_device_time_total", 0) for e in ev
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    top = sorted(ev, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
+    delta = {k: m1.get(k, 0) - m0.get(k, 0)
+             for k in ("num_device_alloc", "num_device_free",
+                       "num_alloc_retries")}
+    print(f"phase 7c {name} first forward+backward, profiled: host "
+          f"returns from the forward after {(t1 - t0) * 1e3:.3f} ms and "
+          f"from backward() after {(t2 - t0) * 1e3:.3f} ms, device done "
+          f"after {(t3 - t0) * 1e3:.3f} ms; kernel time {dev_ms:.3f} ms; "
+          f"allocator {delta}; most host time: " + "; ".join(
+              f"{e.key[:60]} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}"
+              for e in top) + f" {card}", flush=True)
+    return (t3 - t0) * 1e3, out
+
+
+def phase7c_path(dev, card, name, backend, graph, stream, reps=3,
+                 profile_first=False, **plan_kw):
+    """Plan once, then 1 warm-up + ``reps`` forwards and forward+backwards
+    of ``backend`` on ``graph``: times, peak memory, launches (counts
+    zeroed just before and read just after), sampled f64 checks. With
+    ``profile_first`` the first forward+backward runs under the profiler
+    (:func:`first_fwd_bwd`)."""
+    from paddle_sparse_tpu_torch import ind2ptr, product_dtype
+    row, col, val, x = graph
+    n, K = x.shape
+    plan_fn, pack_fn, fn, unpack_fn = _packed_fns(backend)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan, s = plan_fn(row, col, n, n, feat_dim=K, stream=stream, **plan_kw)
+    packed = pack_fn(s, val)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    plans = [plan.local, plan.resid] if backend == "seg2split" else [plan]
+    desc = "; ".join(f"S={q.S} SR={q.SR} S_t={q.S_t}" for q in plans)
+    if backend == "seg2split":
+        desc += (f"; local {s.idx_local.numel()} / resid "
+                 f"{s.idx_resid.numel()} edges")
+    if backend == "seg3":
+        desc += f"; BAND={plan.BAND} cap={plan.cap} CAP_TS={plan.CAP_TS}"
+    gw = torch.randn(n, K, generator=torch.Generator(device=dev).manual_seed(
+        12), device=dev)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    fwd, fwdbwd = [], []
+    with torch.inference_mode():
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(plan, s, packed, x)
+            torch.cuda.synchronize()
+            fwd.append((time.perf_counter() - t0) * 1e3)
+    del out
+    pv, xx = _leaves(packed), x.detach().requires_grad_()
+    for i in range(reps + 1):
+        xx.grad = None
+        for t in (pv if isinstance(pv, tuple) else (pv,)):
+            t.grad = None
+        if i == 0 and profile_first:
+            ms, out = first_fwd_bwd(name, card, lambda: fn(plan, s, pv, xx),
+                                    lambda o: o.backward(gw))
+            fwdbwd.append(ms)
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(plan, s, pv, xx)
+        out.backward(gw)
+        torch.cuda.synchronize()
+        fwdbwd.append((time.perf_counter() - t0) * 1e3)
+    counts = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    f_ms, fb_ms = sum(fwd[1:]) / reps, sum(fwdbwd[1:]) / reps
+    print(f"phase 7c {name}: {n} nodes, {row.numel()} nnz, K={K}, stream "
+          f"{stream}; plan ({desc}) in {plan_s:.3f} s; forward ms warm-up "
+          f"{fwd[0]:.3f}, timed {' '.join(f'{t:.3f}' for t in fwd[1:])} "
+          f"(mean {f_ms:.3f}); forward+backward ms warm-up {fwdbwd[0]:.3f}, "
+          f"timed {' '.join(f'{t:.3f}' for t in fwdbwd[1:])} (mean "
+          f"{fb_ms:.3f}); peak mem {peak_gb:.2f} GB {card}", flush=True)
+    calls = len(plans)
+    runs = reps + 1
+    print(f"phase 7c {name} launches in {runs} forwards + {runs} "
+          f"forward+backwards: " + ", ".join(f"{k} {v}" for k, v in
+                                             counts.items()), flush=True)
+    want = {"spmm_spans": 3 * runs * calls, "sddmm_spans": runs * calls}
+    check(all(counts[k] == want.get(k, 0) for k in counts),
+          f"{name}: expected launches {want} (spans 1 per forward, 2 per "
+          f"forward+backward, span SDDMM 1, per seg2 call), counted "
+          f"{counts}")
+    check(bool(torch.isfinite(out).all()) and out.shape == (n, K),
+          f"{name}: output not finite or of shape {tuple(out.shape)}")
+    d_val = unpack_fn(s, _grads(pv))
+    pdt = product_dtype(val, x, stream)
+    check_packed_grads(name, row, col, val, x, gw, out.detach(), d_val,
+                       xx.grad, pdt, ind2ptr(row, n))
+    return {"plan": plan, "s": s, "packed": packed, "gw": gw,
+            "stats": {"plan_s": plan_s, "fwd_ms": f_ms, "fwd_bwd_ms": fb_ms,
+                      "peak_gb": peak_gb, "launches": counts}}
+
+
+def phase7c_kernels(dev, card, run, graph):
+    """The multi-span SpMM and the span SDDMM alone on the seg2 f32 path's
+    own inputs, kernel vs plain in turns, with their bounds, K1 on the same
+    graph, and the library calls computing the same products."""
+    from paddle_sparse_tpu_torch import (ind2ptr, sddmm_spans_cuda,
+                                         sddmm_spans_reference, spmm_csr_cuda,
+                                         spmm_spans_cuda,
+                                         spmm_spans_reference, unpack_values)
+    row, col, val, x = graph
+    plan, s, packed, gw = run["plan"], run["s"], run["packed"], run["gw"]
+    M, nnz, K = plan.num_rows, row.numel(), x.shape[1]
+    st, en = s.rp_f[:, :M], s.rp_f[:, 1:M + 1]
+    res = {}
+    with torch.inference_mode():
+        p1, k1, k2, p2, out_p, out_k = in_turns(
+            lambda: spmm_spans_reference(st, en, s.col_f, packed, s.sbase_f,
+                                         x),
+            lambda: spmm_spans_cuda(st, en, s.col_f, packed, s.sbase_f, x),
+            1, 5)
+        err = float((out_k - out_p).abs().max())
+        check(torch.allclose(out_k, out_p, **F32_TOL),
+              f"spmm_spans kernel and plain disagree at scale ({err:.3e})")
+        b, by = bound_ms(nbytes(s.rp_f, s.col_f, packed, s.sbase_f, x, out_k),
+                         2 * nnz * K)
+        res["spmm_spans"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                             "max_abs_err": err, "bound_ms": b,
+                             "bound_by": by, "gather_bound_ms":
+                             nnz * K * 4 / HBM_BYTES_PER_S * 1e3}
+        print(f"phase 7c spmm_spans on seg2's forward (S={plan.S}, K={K}, "
+              f"f32): kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / "
+              f"{p2:.3f} ms, bound {b:.3f} ms ({by}), the gathered rows "
+              f"alone {res['spmm_spans']['gather_bound_ms']:.3f} ms; max_abs_"
+              f"err {err:.3e} ok {card}", flush=True)
+        xb = x.bfloat16()
+        ms_b, out_b = timed(lambda: spmm_spans_cuda(st, en, s.col_f, packed,
+                                                    s.sbase_f, xb), 5)
+        res["spmm_spans"]["ms_bf16"] = ms_b
+        del out_b
+
+        p1, k1, k2, p2, dv_p, dv_k = in_turns(
+            lambda: sddmm_spans_reference(st, en, s.col_f, s.sbase_f, gw, x),
+            lambda: sddmm_spans_cuda(st, en, s.col_f, s.sbase_f, gw, x),
+            1, 5)
+        err = float((dv_k - dv_p).abs().max())
+        scale = float(dv_p.abs().max())
+        check(torch.allclose(dv_k, dv_p, rtol=1e-4, atol=GRAD_REL * scale),
+              f"sddmm_spans kernel and plain disagree at scale ({err:.3e})")
+        b, by = bound_ms(nbytes(s.rp_f, s.col_f, s.sbase_f, gw, x, dv_k),
+                         2 * nnz * K)
+        res["sddmm_spans"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                              "max_abs_err": err, "bound_ms": b,
+                              "bound_by": by, "gather_bound_ms":
+                              nnz * K * 4 / HBM_BYTES_PER_S * 1e3}
+        print(f"phase 7c sddmm_spans on seg2's backward (K={K}, f32): kernel "
+              f"{k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms, bound "
+              f"{b:.3f} ms ({by}); max_abs_err {err:.3e} (max |dv| "
+              f"{scale:.3e}) ok {card}", flush=True)
+        del dv_p, out_p
+
+        # yardsticks on the same graph in CSR (COO) order, never on the path
+        rowptr = ind2ptr(row, M).to(torch.int32)
+        out_csr = out_k
+        k1_ms, out_k1 = timed(lambda: spmm_csr_cuda(rowptr, col, val, x), 5)
+        k1_err = float((out_k1 - out_csr).abs().max())
+        del out_k1
+        csr = torch.sparse_csr_tensor(rowptr, col, val, (M, M))
+        lib_mm, lib_mm_err = library_timed(
+            "torch.sparse.mm (the spans' product)",
+            lambda: torch.sparse.mm(csr, x), 3, out_csr)
+        x_t = x.t().contiguous()
+        dv_coo = unpack_values(s, dv_k)
+    lib_sd, lib_sd_err = library_timed(
+        "torch.sparse.sampled_addmm (the span SDDMM's product)",
+        lambda: torch.sparse.sampled_addmm(csr, gw, x_t, beta=0.0), 2, dv_coo)
+    del csr, x_t, dv_coo
+    torch.cuda.empty_cache()
+    res["spmm_spans"].update(library_ms=lib_mm, k1_same_graph_ms=k1_ms)
+    res["sddmm_spans"]["library_ms"] = lib_sd
+    print(f"phase 7c yardsticks on the same graph (CSR order, f32, K={K}): "
+          f"K1 spmm_csr {k1_ms:.3f} ms (vs spans max_abs_err {k1_err:.3e}); "
+          f"torch.sparse.mm {lib_mm} ms (max_abs_err {lib_mm_err}); "
+          f"torch.sparse.sampled_addmm {lib_sd} ms (max_abs_err "
+          f"{lib_sd_err}); spans with a bf16 x {ms_b:.3f} ms {card}",
+          flush=True)
+    return res
+
+
+def phase7c_scale(dev, card):
+    """The bench's seg2/seg3/split cells at full width (K=256, K=64 for
+    dim64): plan, times, launches and sampled f64 checks for each."""
+    from paddle_sparse_tpu_torch import Seg3Infeasible, make_seg3_plan
+    paths = {}
+    graph = bench_graph(dev, "uniform", 1.0, 256)
+    run = phase7c_path(dev, card, "seg2 uniform f32", "seg2", graph, "f32",
+                       profile_first=True)
+    paths["seg2_uniform_f32"] = run["stats"]
+    kernels = phase7c_kernels(dev, card, run, graph)
+    del run
+    torch.cuda.empty_cache()
+    paths["seg2_uniform_bf16"] = phase7c_path(
+        dev, card, "seg2 uniform bf16", "seg2", graph, "bf16")["stats"]
+    torch.cuda.empty_cache()
+    paths["seg3_uniform_bf16"] = phase7c_path(
+        dev, card, "seg3 uniform bf16", "seg3", graph, "bf16")["stats"]
+    del graph
+    torch.cuda.empty_cache()
+    graph = bench_graph(dev, "uniform", 0.125, 64)
+    paths["seg2_dim64_bf16"] = phase7c_path(
+        dev, card, "seg2 dim64 1/8 bf16", "seg2", graph, "bf16")["stats"]
+    del graph
+    graph = bench_graph(dev, "clustered", 1.0, 256)
+    torch.cuda.empty_cache()
+    paths["split_clustered_bf16"] = phase7c_path(
+        dev, card, "split clustered bf16", "seg2split", graph, "bf16",
+        block=2048)["stats"]
+    del graph
+    torch.cuda.empty_cache()
+    graph = bench_graph(dev, "zipf", 0.125, 256)
+    row, col, _, x = graph
+    try:
+        make_seg3_plan(row, col, x.shape[0], x.shape[0], feat_dim=256,
+                       stream="bf16")
+        refused = None
+    except Seg3Infeasible as e:
+        refused = str(e)
+    check(refused is not None, "seg3 planned the 1/8 zipf graph")
+    deg = torch.bincount(row.long(), minlength=x.shape[0])
+    print(f"phase 7c zipf 1/8 ({row.numel()} nnz, hub row of "
+          f"{int(deg.max())} edges): make_seg3_plan refused "
+          f"(Seg3Infeasible: {refused}); the bench falls back to seg2",
+          flush=True)
+    run = phase7c_path(dev, card, "seg2 zipf 1/8 bf16", "seg2", graph,
+                       "bf16")
+    paths["seg2_zipf_bf16"] = run["stats"]
+    kernels["zipf"] = phase7c_zipf_kernels(dev, card, run, graph)
+    del graph, run
+    torch.cuda.empty_cache()
+    return paths, kernels
+
+
+def phase7c_zipf_kernels(dev, card, run, graph):
+    """On the zipf path, where one warp walks the hub row: the two span
+    kernels alone on the path's own inputs, K1 on the same graph in CSR
+    order, and ``torch.sparse.mm`` computing the same product."""
+    from paddle_sparse_tpu_torch import (ind2ptr, sddmm_spans_cuda,
+                                         spmm_csr_cuda, spmm_spans_cuda)
+    row, col, val, x = graph
+    plan, s, packed, gw = run["plan"], run["s"], run["packed"], run["gw"]
+    M, K = plan.num_rows, x.shape[1]
+    st, en = s.rp_f[:, :M], s.rp_f[:, 1:M + 1]
+    xb, gb = x.bfloat16(), gw.bfloat16()
+    rowptr = ind2ptr(row, M).to(torch.int32)
+    with torch.inference_mode():
+        sp_ms, out = timed(lambda: spmm_spans_cuda(st, en, s.col_f, packed,
+                                                   s.sbase_f, xb), 1)
+        sd_ms, _ = timed(lambda: sddmm_spans_cuda(st, en, s.col_f, s.sbase_f,
+                                                  gb, xb), 1)
+        k1_ms, out_k1 = timed(lambda: spmm_csr_cuda(rowptr, col, val, xb), 1)
+        k1_err = float((out_k1 - out).abs().max())
+        del out_k1
+        csr = torch.sparse_csr_tensor(rowptr, col, val, (M, M))
+        lib_ms, lib_err = library_timed(
+            "torch.sparse.mm on the zipf CSR (f32 x)",
+            lambda: torch.sparse.mm(csr, x), 3, out)
+    del csr, out
+    moved = nbytes(s.rp_f, s.col_f, packed, s.sbase_f, xb) + M * K * 4
+    bound, by = bound_ms(moved, 2 * row.numel() * K)
+    print(f"phase 7c zipf 1/8 kernels alone (bf16 x, K={K}, hub row of "
+          f"{int((rowptr[1:] - rowptr[:-1]).max())} edges): spmm_spans "
+          f"{sp_ms:.3f} ms, sddmm_spans {sd_ms:.3f} ms, K1 on the CSR "
+          f"{k1_ms:.3f} ms (vs spans max_abs_err {k1_err:.3e}), bound "
+          f"{bound:.3f} ms ({by}); torch.sparse.mm (f32 x) {lib_ms} ms "
+          f"(max_abs_err {lib_err}) {card}", flush=True)
+    return {"spmm_spans_ms": sp_ms, "sddmm_spans_ms": sd_ms, "k1_ms": k1_ms,
+            "bound_ms": bound, "library_ms": lib_ms}
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1040,32 +1791,54 @@ def main() -> int:
     spgemm = phase6c_spgemm(dev, card)
     k5 = spgemm["spgemm_10M_rowsorted"]["k5"]
 
+    # ---- phase 7: packed-layout SpMMs (seg2, seg3, split) -----------------
+    spans = phase7a_spans(gen, dev, card)
+    phase7b_toy(dev)
+    packed_paths, span_k = phase7c_scale(dev, card)
+    print("phase 7c summary " + json.dumps(
+        {p: {k: v for k, v in st.items() if k != "launches"}
+         for p, st in packed_paths.items()}), flush=True)
+
+    launches = {"gcn_forward": fwd["counts"],
+                "gcn_train_step": train["counts"],
+                **{p: v["launches"] for p, v in spgemm.items()},
+                **{p: v["launches"] for p, v in packed_paths.items()}}
+
     def by_path(kernel):
-        return {p: v["launches"][kernel] for p, v in spgemm.items()}
+        return {p: c[kernel] for p, c in launches.items()}
 
     k256 = train["sddmm"][256]
+    sp, sd = span_k["spmm_spans"], span_k["sddmm_spans"]
     print(json.dumps({"kernels": [
         {"name": "spmm_csr", "route": "cuda",
-         "source": "paddle_sparse_tpu_torch/csrc/spmm_csr.cu",
+         "source": "paddle_sparse_tpu_torch/csrc/spmm_spans.cu",
+         "source_note": "the multi-span kernel at S = 1 over the CSR "
+                        "pointer, through spmm_csr_cuda",
          "replaces": "paddle_sparse_tpu/ops/kernels/spmm_pallas.py:45",
          "launches": train["spmm_launches"],
-         "launches_by_path": {"gcn_forward": fwd["launches"],
-                              "gcn_train_step": train["spmm_launches"],
-                              **by_path("spmm_csr")},
+         "launches_by_path": by_path("spmm_csr"),
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
-         "plain_ms": fwd["plain_ms"], "K": 256},
+         "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
+         "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
+         "library": "torch.sparse.mm on the CSR",
+         "gather_bound_ms": fwd["gather_bound_ms"], "K": 256,
+         "ms_on_seg2_graph": sp["k1_same_graph_ms"]},
         {"name": "sddmm_csr", "route": "cuda",
-         "source": "paddle_sparse_tpu_torch/csrc/sddmm_csr.cu",
+         "source": "paddle_sparse_tpu_torch/csrc/sddmm_spans.cu",
+         "source_note": "the span SDDMM at S = 1 over the CSR pointer, "
+                        "through sddmm_csr_cuda",
          "replaces": "paddle_sparse_tpu/ops/kernels/spmm_pallas.py:877",
          "replaces_note": "K2 as ops/spmm_seg2.py:559 calls it; on the JAX "
                           "GCN train path d value is an XLA gather-dot "
-                          "(ops/spmm.py:102-105, spmm_pallas.py:564-566)",
+                          "(ops/spmm.py:102-105, spmm_pallas.py:564-566); "
+                          "its span form is sddmm_spans",
          "launches": train["sddmm_launches"],
-         "launches_by_path": {"gcn_forward": fwd["sddmm_launches"],
-                              "gcn_train_step": train["sddmm_launches"],
-                              **by_path("sddmm_csr")},
+         "launches_by_path": by_path("sddmm_csr"),
          "max_abs_err": k256["max_abs_err"], "ms": k256["ms"],
-         "plain_ms": k256["plain_ms"], "K": 256,
+         "plain_ms": k256["plain_ms"], "bound_ms": k256["bound_ms"],
+         "bound_by": k256["bound_by"], "library_ms": k256["library_ms"],
+         "library": "torch.sparse.sampled_addmm on the CSR",
+         "gather_bound_ms": k256["gather_bound_ms"], "K": 256,
          "ms_K100": train["sddmm"][100]["ms"],
          "plain_ms_K100": train["sddmm"][100]["plain_ms"]},
         {"name": "segcompact", "route": "cuda",
@@ -1077,11 +1850,49 @@ def main() -> int:
                           "is XLA segment ops, which "
                           "this kernel also stands for, as it does for "
                           "spspmm_padded, spspmm_rowblocked and coalesce",
-         "launches": sum(by_path("segcompact").values()),
+         "launches": sum(v["launches"]["segcompact"]
+                         for v in spgemm.values()),
          "launches_by_path": by_path("segcompact"),
          "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
-         "plain_ms": k5["plain_ms"], "at": "10M-nnz A @ A rowsorted grid",
-         "by_path": {p: v["k5"] for p, v in spgemm.items()}}]}))
+         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+         "bound_by": k5["bound_by"], "library_ms": None,
+         "library": "none: no single PyTorch call compacts runs",
+         "at": "10M-nnz A @ A rowsorted grid",
+         "by_path": {p: v["k5"] for p, v in spgemm.items()}},
+        {"name": "spmm_spans", "route": "cuda",
+         "source": "paddle_sparse_tpu_torch/csrc/spmm_spans.cu",
+         "replaces": "paddle_sparse_tpu/ops/kernels/spmm_pallas.py:708",
+         "replaces_also": ["paddle_sparse_tpu/ops/kernels/spmm_pallas.py:601"],
+         "replaces_note": "K3 through tilespan_call, K4 through "
+                          "band_reduce_call, and the windowed _reduce_call "
+                          "passes of ops/spmm_seg2.py::_seg_pass",
+         "launches": packed_paths["seg2_uniform_f32"]["launches"][
+             "spmm_spans"],
+         "launches_by_path": by_path("spmm_spans"),
+         "max_abs_err": sp["max_abs_err"], "ms": sp["ms"],
+         "plain_ms": sp["plain_ms"], "bound_ms": sp["bound_ms"],
+         "bound_by": sp["bound_by"], "library_ms": sp["library_ms"],
+         "library": "torch.sparse.mm on the CSR of the same matrix",
+         "gather_bound_ms": sp["gather_bound_ms"], "K": 256,
+         "at": "seg2 forward, uniform 2,449,029 nodes, f32",
+         "ms_bf16_x": sp["ms_bf16"], "zipf_1_8": span_k["zipf"],
+         "k1_same_graph_ms": sp["k1_same_graph_ms"],
+         "band_reduce_r4_sizes": spans["band_reduce"],
+         "max_abs_err_vs_f64_sweep": spans["max_abs_err"]},
+        {"name": "sddmm_spans", "route": "cuda",
+         "source": "paddle_sparse_tpu_torch/csrc/sddmm_spans.cu",
+         "replaces": "paddle_sparse_tpu/ops/kernels/spmm_pallas.py:877",
+         "replaces_note": "K2 at its one JAX call site, "
+                          "ops/spmm_seg2.py:559 (_sddmm_pass)",
+         "launches": packed_paths["seg2_uniform_f32"]["launches"][
+             "sddmm_spans"],
+         "launches_by_path": by_path("sddmm_spans"),
+         "max_abs_err": sd["max_abs_err"], "ms": sd["ms"],
+         "plain_ms": sd["plain_ms"], "bound_ms": sd["bound_ms"],
+         "bound_by": sd["bound_by"], "library_ms": sd["library_ms"],
+         "library": "torch.sparse.sampled_addmm on the CSR",
+         "gather_bound_ms": sd["gather_bound_ms"], "K": 256,
+         "at": "seg2 backward, uniform 2,449,029 nodes, f32"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

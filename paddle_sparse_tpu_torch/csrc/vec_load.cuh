@@ -1,7 +1,7 @@
-// Vector loads shared by the CSR kernels: V consecutive elements of an f32 or
-// bf16 row, widened to f32 registers. V == 1 is a scalar load; V == 4 (f32)
-// and V == 8 (bf16) are one 16-byte load, so the pointer must be 16-byte
-// aligned.
+// Vector loads and stores shared by the kernels: V consecutive elements of an
+// f32 or bf16 row, widened to (or narrowed from) f32 registers. V == 1 is a
+// scalar access; V == 4 (f32) and V == 8 (bf16) are one 16-byte access, so the
+// pointer must be 16-byte aligned.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,6 +33,40 @@ __device__ __forceinline__ void load_vec(const T* p, float (&v)[V]) {
       v[2 * i + 1] = f.y;
     }
   }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[V]) {
+  if constexpr (sizeof(T) == 4) {
+    if constexpr (V == 1) {
+      *reinterpret_cast<float*>(p) = v[0];
+    } else {
+      float4* q = reinterpret_cast<float4*>(p);
+#pragma unroll
+      for (int i = 0; i < V / 4; ++i) {
+        q[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+      }
+    }
+  } else {
+    if constexpr (V == 1) {
+      *reinterpret_cast<__nv_bfloat16*>(p) = __float2bfloat16_rn(v[0]);
+    } else {
+      static_assert(V == 8, "bf16 vectors are 8 x bf16 (16 bytes)");
+      uint4 u;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      }
+      *reinterpret_cast<uint4*>(p) = u;
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_scalar(T* p, float v) {
+  const float one[1] = {v};
+  store_vec<T, 1>(p, one);
 }
 
 inline bool aligned16(const void* p) {

@@ -99,10 +99,12 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library(sources(), BUILD_DIR)))
             p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            lib.psp_spmm_csr.argtypes = [p, p, p, p, p, i64, i64, i32, i32, p]
-            lib.psp_spmm_csr.restype = ctypes.c_int
-            lib.psp_sddmm_csr.argtypes = [p, p, p, p, p, i64, i64, i32, i32, p]
-            lib.psp_sddmm_csr.restype = ctypes.c_int
+            lib.psp_spmm_spans.argtypes = [p, p, i64, p, p, p, p, p, i64,
+                                           i64, i64, i32, i32, p]
+            lib.psp_spmm_spans.restype = ctypes.c_int
+            lib.psp_sddmm_spans.argtypes = [p, p, i64, p, p, p, p, p, i64,
+                                            i64, i64, i32, i32, p]
+            lib.psp_sddmm_spans.restype = ctypes.c_int
             lib.psp_segcompact_tile.argtypes = []
             lib.psp_segcompact_tile.restype = i64
             lib.psp_segcompact_count.argtypes = [p, p, i64, i64, i64, i64, p,

@@ -4,19 +4,29 @@
 Port of ``paddle_sparse_tpu/ops/kernels/spmm_pallas.py::mul_rowsum_call``,
 whose Pallas kernel ``_mulreduce_kernel`` takes the per-row dot of two (L, K)
 streams that XLA has gathered into device memory (``g[row]`` and ``x[col]``).
-Here one hand-written CUDA kernel (``csrc/sddmm_csr.cu``) does both gathers
-and the dot, so neither stream exists. With ``rowptr = arange(L + 1)`` and
-``col = arange(L)`` it is exactly ``mul_rowsum_call(g, x)``.
+Here one hand-written CUDA kernel does both gathers and the dot, so neither
+stream exists: the span SDDMM of ``csrc/sddmm_spans.cu`` with one span per row
+(S = 1, ``start = rowptr[:-1]``, ``end = rowptr[1:]``). With
+``rowptr = arange(L + 1)`` and ``col = arange(L)`` it is exactly
+``mul_rowsum_call(g, x)``.
 
 Dtype contract: ``g`` and ``x`` are f32 or bf16 (a mixed pair is computed in
 f32; f64 only in the plain version), dots are summed in f32 (f64 in the plain
 version when an input is f64) and written in ``out_dtype``. The output has
 one slot per entry of ``col``; slots outside ``[rowptr[0], rowptr[M])``, such
 as the padding of a ``PaddedCOO``, are 0.
+
+:func:`sddmm_spans_cuda` is the span form, the value gradient of the
+packed-layout SpMMs written in the packed order: it
+replaces ``mul_rowsum_call`` at its one call site in the JAX package,
+``ops/spmm_seg2.py::_sddmm_pass``.
 """
+from typing import Optional
+
 import torch
 
 from . import _build, spmm_cuda
+from .spmm_spans_cuda import check_span_args, span_windows
 
 
 def sddmm_csr_reference(rowptr: torch.Tensor, col: torch.Tensor,
@@ -76,7 +86,7 @@ def _check_cuda_args(rowptr, col, g, x, out_dtype):
 def sddmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor, g: torch.Tensor,
                    x: torch.Tensor,
                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """CSR SDDMM through the CUDA kernel ``csrc/sddmm_csr.cu``.
+    """CSR SDDMM through the CUDA kernel ``csrc/sddmm_spans.cu`` at S = 1.
 
     ``rowptr`` (M+1,) is a CSR pointer into ``col``; ``g`` is a contiguous
     (M, K) and ``x`` a contiguous (N, K) tensor, each f32 or bf16, and every
@@ -101,10 +111,11 @@ def sddmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor, g: torch.Tensor,
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.psp_sddmm_csr(
-            rowptr.data_ptr(), col.data_ptr(), g.data_ptr(), x.data_ptr(),
-            out.data_ptr(), M, K, int(x.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), stream)
+        err = lib.psp_sddmm_spans(
+            rowptr.data_ptr(), rowptr[1:].data_ptr(), M + 1, col.data_ptr(),
+            None, g.data_ptr(), x.data_ptr(), out.data_ptr(), 1, M, K,
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            stream)
     if err != 0:
         raise RuntimeError(f"sddmm_csr kernel launch failed: CUDA error {err}")
     sddmm_csr_cuda.launches += 1
@@ -112,3 +123,92 @@ def sddmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor, g: torch.Tensor,
 
 
 sddmm_csr_cuda.launches = 0
+
+
+def sddmm_spans_reference(start: torch.Tensor, end: torch.Tensor,
+                          col: torch.Tensor, base: Optional[torch.Tensor],
+                          g: torch.Tensor, x: torch.Tensor,
+                          out_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sddmm_spans_cuda`, on any device:
+    each span row in bounded windows, two row gathers and a row-wise sum,
+    in f32, or in f64 when ``g`` or ``x`` is f64."""
+    acc_dtype = (torch.float64 if torch.float64 in (g.dtype, x.dtype)
+                 else torch.float32)
+    out = torch.zeros(col.numel(), dtype=acc_dtype, device=x.device)
+    for s, rows, e in span_windows(start, end, 2 * x.shape[1]
+                                   * out.element_size()):
+        c = col[e].long()
+        if base is not None:
+            c = c + int(base[s])
+        out[e] = (g[rows].to(acc_dtype) * x[c].to(acc_dtype)).sum(1)
+    return out.to(out_dtype)
+
+
+def sddmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
+                     col: torch.Tensor, base: Optional[torch.Tensor],
+                     g: torch.Tensor, x: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The span form of :func:`sddmm_csr_cuda`, through the same CUDA kernel
+    ``csrc/sddmm_spans.cu``: ``dv[e] = g[m] . x[base[s] + col[e]]`` for
+    every position ``e`` with ``start[s, m] <= e < end[s, m]``.
+
+    ``start``/``end`` are (S, M) int32 tensors sharing one row stride (the
+    (S, M+1) row pointers ``rp`` of a packed layout pass as ``rp[:, :-1]``,
+    ``rp[:, 1:]``); ``base`` (S,) or ``None`` for 0; ``g`` a contiguous
+    (M, K) and ``x`` a contiguous (N, K) tensor, each f32 or bf16 (a mixed
+    pair is computed in f32). Returns ``(col.numel(),)`` in ``out_dtype``, 0
+    at positions outside every span. On a CPU tensor this runs
+    :func:`sddmm_spans_reference`; on a CUDA tensor it launches the kernel
+    or raises. ``sddmm_spans_cuda.launches`` counts kernel launches."""
+    if x.device.type == "cpu":
+        return sddmm_spans_reference(start, end, col, base, g, x, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"sddmm_spans_cuda runs on cpu or cuda, not "
+                         f"{x.device}")
+    start, end, base = check_span_args("sddmm_spans_cuda", start, end, base,
+                                       x.device, ("col", col), ("g", g),
+                                       ("x", x))
+    for name, t in (("g", g), ("x", x)):
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 2-D tensor, got "
+                             f"shape {tuple(t.shape)} "
+                             f"(contiguous={t.is_contiguous()})")
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"sddmm_spans_cuda takes f32 or bf16 {name}, "
+                            f"got {t.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"sddmm_spans_cuda writes f32 or bf16, not "
+                        f"{out_dtype}")
+    (S, M), K = start.shape, x.shape[1]
+    if g.shape != (M, K):
+        raise ValueError(f"g {tuple(g.shape)} must be (M, K) = ({M}, {K})")
+    if col.dim() != 1 or col.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"col must be 1-D int32 or int64, got {col.dtype} "
+                        f"{tuple(col.shape)}")
+    if K >= 2 ** 31:
+        raise ValueError("sddmm_spans_cuda indexes with int32: K must be "
+                         "below 2**31")
+    if g.dtype != x.dtype:                # a mixed pair is summed in f32
+        g, x = g.float(), x.float()
+    out = torch.zeros(col.numel(), dtype=out_dtype, device=x.device)
+    if S == 0 or M == 0 or col.numel() == 0:
+        return out
+    col = col.to(torch.int32).contiguous()
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.psp_sddmm_spans(
+            start.data_ptr(), end.data_ptr(), start.stride(0),
+            col.data_ptr(), None if base is None else base.data_ptr(),
+            g.data_ptr(), x.data_ptr(), out.data_ptr(), S, M, K,
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"sddmm_spans kernel launch failed: CUDA error "
+                           f"{err}")
+    sddmm_spans_cuda.launches += 1
+    return out
+
+
+sddmm_spans_cuda.launches = 0

@@ -3,8 +3,10 @@
 
 Port of ``paddle_sparse_tpu/ops/kernels/spmm_pallas.py::spmm_pallas``, which
 gathers and scales ``x`` rows with XLA and row-sums the product stream with the
-Pallas kernel ``_reduce_kernel``. Here one hand-written CUDA kernel
-(``csrc/spmm_csr.cu``) does the gather, the scale and the row-sum.
+Pallas kernel ``_reduce_kernel``. Here one hand-written CUDA kernel does the
+gather, the scale and the row-sum: the multi-span kernel of
+``csrc/spmm_spans.cu`` with one span per row (S = 1, ``start = rowptr[:-1]``,
+``end = rowptr[1:]``), which walks a CSR row in edge order.
 
 Dtype contract, as in ``spmm_pallas``: the output has the promoted dtype of
 ``value`` and ``x``; sums are taken in f32 (f64 in the plain version when the
@@ -81,7 +83,7 @@ def _check_cuda_args(rowptr, col, value, x):
 def spmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor,
                   value: Optional[torch.Tensor],
                   x: torch.Tensor) -> torch.Tensor:
-    """CSR SpMM through the CUDA kernel ``csrc/spmm_csr.cu``.
+    """CSR SpMM through the CUDA kernel ``csrc/spmm_spans.cu`` at S = 1.
 
     ``rowptr`` (M+1,) is a canonical CSR pointer into ``col``/``value``;
     ``x`` is a contiguous (N, K) f32 or bf16 tensor and every ``col[e]`` with
@@ -105,10 +107,10 @@ def spmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor,
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.psp_spmm_csr(
-            rowptr.data_ptr(), col.data_ptr(),
-            None if value is None else value.data_ptr(), x.data_ptr(),
-            out.data_ptr(), M, K, int(x.dtype == torch.bfloat16),
+        err = lib.psp_spmm_spans(
+            rowptr.data_ptr(), rowptr[1:].data_ptr(), M + 1, col.data_ptr(),
+            None if value is None else value.data_ptr(), None, x.data_ptr(),
+            out.data_ptr(), 1, M, K, int(x.dtype == torch.bfloat16),
             int(out_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"spmm_csr kernel launch failed: CUDA error {err}")

@@ -1,6 +1,6 @@
 """The CUDA kernels of paddle_sparse_tpu_torch against their plain versions,
-and the SpMM autograd, the toy train step and SpGEMM on the card against the
-CPU.
+and the SpMM autograd, the toy train step, SpGEMM and the packed-layout SpMMs
+(seg2, seg3, split) on the card against the CPU.
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False. This file imports no JAX, so on a
 machine with a card and no JAX it runs alone:
@@ -17,14 +17,19 @@ import dataclasses
 import pytest
 import torch
 
-from paddle_sparse_tpu_torch import (PaddedCOO, compact_runs_cuda,
+from paddle_sparse_tpu_torch import (SPMM_BACKENDS, PaddedCOO,
+                                     band_reduce_call, compact_runs_cuda,
                                      compact_runs_reference, entry, gcn_loss,
                                      plan_spgemm, plan_spgemm_blocked,
                                      plan_spgemm_rows, sddmm_csr_cuda,
-                                     sddmm_csr_reference, spgemm_entry,
+                                     sddmm_csr_reference, sddmm_spans_cuda,
+                                     sddmm_spans_reference, spgemm_entry,
                                      spmm_coo, spmm_csr_cuda,
-                                     spmm_csr_reference, spspmm_padded,
-                                     spspmm_rowblocked, spspmm_rowsorted,
+                                     spmm_csr_reference, spmm_entry,
+                                     spmm_seg2, spmm_seg3, spmm_spans_cuda,
+                                     spmm_spans_reference, spmm_split,
+                                     spspmm_padded, spspmm_rowblocked,
+                                     spspmm_rowsorted, tilespan_call,
                                      train_entry, train_step)
 
 pytestmark = pytest.mark.cuda
@@ -527,3 +532,215 @@ def test_spgemm_grads_card_vs_cpu(dev):
     for name in ("rowsorted", "padded", "rowblocked"):
         torch.testing.assert_close(grads["cuda", name], grads["cpu", name],
                                    **F32)
+
+
+# ---- multi-span SpMM (K3/K4), span SDDMM (K2's span form), seg2/seg3/split
+
+def _span_ptrs(dev, S, M, max_len, seed=0):
+    """(S, M+1) int32 row pointers of contiguous spans, span-major, with
+    empty spans and empty rows (0 and M-1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lens = torch.randint(0, max_len + 1, (S, M), generator=g, device=dev)
+    lens[:, [0, M - 1]] = 0
+    ptr = torch.zeros(S * M + 1, dtype=torch.int64, device=dev)
+    ptr[1:] = lens.reshape(-1).cumsum(0)
+    return ptr.as_strided((S, M + 1), (M, 1)).to(torch.int32), g
+
+
+@pytest.mark.parametrize("S", [1, 3, 19, 40])
+@pytest.mark.parametrize("K", [1, 47, 64, 100, 256, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spans_kernel_vs_plain(dev, S, K, dtype):
+    """Multi-span SpMM and span SDDMM against their plain versions in f64,
+    with slice bases, empty spans and rows; ``value=None`` at K=47."""
+    M, N = 400, 300
+    rp, g = _span_ptrs(dev, S, M, 4, seed=S * 7 + K)
+    nnz = int(rp[-1, -1])
+    base = torch.randint(0, 50, (S,), generator=g, device=dev,
+                         dtype=torch.int32)
+    idx = torch.randint(0, N - 50, (nnz,), generator=g, device=dev,
+                        dtype=torch.int32)
+    val = None if K == 47 else torch.rand(nnz, generator=g, device=dev)
+    x = torch.randn(N, K, generator=g, device=dev).to(dtype)
+    out = spmm_spans_cuda(rp[:, :-1], rp[:, 1:], idx, val, base, x)
+    ref = spmm_spans_reference(rp[:, :-1], rp[:, 1:], idx,
+                               None if val is None else val.double(), base,
+                               x.double())
+    torch.cuda.synchronize()
+    assert out.dtype == (dtype if val is None else torch.float32)
+    tol = F32 if out.dtype == torch.float32 else BF16
+    torch.testing.assert_close(out.double(), ref, **tol)
+    assert not out[[0, M - 1]].any()
+    gm = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    dv = sddmm_spans_cuda(rp[:, :-1], rp[:, 1:], idx, base, gm, x)
+    dref = sddmm_spans_reference(rp[:, :-1], rp[:, 1:], idx, base,
+                                 gm.double(), x.double(), torch.float64)
+    torch.testing.assert_close(dv.double(), dref, **F32)
+
+
+@pytest.mark.parametrize("K", [1, 8, 47, 100, 256, 600])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spans_s1_equals_k1_bitwise(dev, K, dtype):
+    """With one span the multi-span kernel sums the same edges in the same
+    order with the same operations as K1."""
+    rowptr, col, value, g = _csr(dev)
+    x = torch.randn(300, K, generator=g, device=dev).to(dtype)
+    rp = rowptr[None]
+    for v in (value, None):
+        a = spmm_spans_cuda(rp[:, :-1], rp[:, 1:], col, v, None, x)
+        b = spmm_csr_cuda(rowptr, col, v, x)
+        assert torch.equal(a, b)
+
+
+def test_spans_stream_form_and_long_row(dev):
+    """The stream form (idx=None) with overlapping spans, reversed (empty)
+    spans, and one row of 1.1M edges over 3 spans; small-integer inputs
+    keep every f32 sum exact."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    L, K = 1_200_000, 64
+    src = torch.randint(-3, 4, (L, K), generator=g, device=dev).float()
+    start = torch.randint(0, L - 100, (3, 500), generator=g, device=dev)
+    end = start + torch.randint(-5, 60, (3, 500), generator=g, device=dev)
+    start[:, 7], end[:, 7] = torch.tensor([0, 400_000, 800_000]), torch.tensor(
+        [366_000, 766_000, 1_168_000])
+    out = spmm_spans_cuda(start.int(), end.int(), None, None, None, src)
+    ref = spmm_spans_reference(start, end, None, None, None, src.double())
+    assert torch.equal(out.double(), ref)
+
+
+def test_tilespan_and_band_reduce_entry_points(dev):
+    """K3's and K4's entry points on the card against their plain versions
+    on the CPU, on tables of the JAX layout (a stream with pads past the
+    staged slices)."""
+    from paddle_sparse_tpu_torch import make_seg3_plan, tilespan_tables
+    g = torch.Generator().manual_seed(10)
+    row = torch.sort(torch.randint(0, 600, (6000,), generator=g)).values
+    col = torch.randint(0, 500, (6000,), generator=g)
+    plan, s = make_seg3_plan(row, col, 600, 500, feat_dim=64, sr=64,
+                             band_rows=256)
+    e0a, bst, ben = tilespan_tables(s.rp_f, S=plan.S, BAND=plan.BAND,
+                                    cap=plan.cap, CAP_TS=plan.CAP_TS)
+    L = plan.S * plan.cap + plan.CAP_TS
+    kw = dict(S=plan.S, T_B=plan.BAND // 128, CAP_TS=plan.CAP_TS, K=64)
+    for b in range(e0a.shape[0]):
+        stream = torch.randn(L, 64, generator=g)
+        for dt in (torch.float32, torch.bfloat16):
+            got = tilespan_call(e0a[b].to(dev), bst[b].to(dev),
+                                ben[b].to(dev), stream.to(dev, dt), **kw)
+            ref = tilespan_call(e0a[b], bst[b], ben[b],
+                                stream.to(dt).double(), **kw)
+            torch.testing.assert_close(got.cpu(), ref, **F32)
+    S, BR_pad, E = 3, 384, 64
+    bounds = torch.sort(torch.randint(0, S * 448, (S, BR_pad + 1),
+                                      generator=g), dim=1).values
+    bs, be = bounds[:, :-1].reshape(-1, 128), bounds[:, 1:].reshape(-1, 128)
+    stream = torch.randn(S * 448, 32, generator=g)
+    sched = [torch.zeros(1, dtype=torch.int32)] * 3
+    got = band_reduce_call(*(t.to(dev) for t in sched), bs.to(dev),
+                           be.to(dev), stream.to(dev), S=S, BR_pad=BR_pad,
+                           E=E, K=32, TMAX=4)
+    ref = band_reduce_call(*sched, bs, be, stream.double(), S=S,
+                           BR_pad=BR_pad, E=E, K=32, TMAX=4)
+    torch.testing.assert_close(got.cpu(), ref, **F32)
+
+
+def test_spans_launch_counters(dev):
+    rp, g = _span_ptrs(dev, 3, 100, 3)
+    nnz = int(rp[-1, -1])
+    idx = torch.randint(0, 50, (nnz,), generator=g, device=dev)
+    x = torch.randn(50, 16, generator=g, device=dev)
+    gm = torch.randn(100, 16, generator=g, device=dev)
+    before = (spmm_spans_cuda.launches, sddmm_spans_cuda.launches)
+    spmm_spans_cuda(rp[:, :-1], rp[:, 1:], idx, None, None, x)
+    spmm_spans_reference(rp[:, :-1], rp[:, 1:], idx, None, None, x)
+    sddmm_spans_cuda(rp[:, :-1], rp[:, 1:], idx, None, gm, x)
+    sddmm_spans_reference(rp[:, :-1], rp[:, 1:], idx, None, gm, x)
+    assert (spmm_spans_cuda.launches, sddmm_spans_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("bad", ["f64", "noncontig", "device", "3d",
+                                 "f32_to_bf16", "bounds_shape", "base_short",
+                                 "value_shape"])
+def test_spans_rejects(dev, bad):
+    rp, g = _span_ptrs(dev, 3, 100, 3)
+    nnz = int(rp[-1, -1])
+    idx = torch.randint(0, 50, (nnz,), generator=g, device=dev)
+    val = torch.rand(nnz, generator=g, device=dev)
+    base = torch.zeros(3, dtype=torch.int32, device=dev)
+    x = torch.randn(50, 16, generator=g, device=dev)
+    start, end, kw = rp[:, :-1], rp[:, 1:], {}
+    if bad == "f64":
+        x = x.double()
+    elif bad == "noncontig":
+        x = torch.randn(16, 50, generator=g, device=dev).t()
+    elif bad == "device":
+        idx = idx.cpu()
+    elif bad == "3d":
+        x = x.view(50, 4, 4)
+    elif bad == "f32_to_bf16":
+        kw["out_dtype"] = torch.bfloat16
+    elif bad == "bounds_shape":
+        end = rp[:, 2:]
+    elif bad == "base_short":
+        base = base[:2]
+    else:
+        val = val[:-1]
+    with pytest.raises((TypeError, ValueError)):
+        spmm_spans_cuda(start, end, idx, val, base, x, **kw)
+
+
+@pytest.mark.parametrize("bad", ["f64", "g_shape", "device", "out_f16"])
+def test_sddmm_spans_rejects(dev, bad):
+    rp, g = _span_ptrs(dev, 3, 100, 3)
+    nnz = int(rp[-1, -1])
+    idx = torch.randint(0, 50, (nnz,), generator=g, device=dev)
+    x = torch.randn(50, 16, generator=g, device=dev)
+    gm = torch.randn(100, 16, generator=g, device=dev)
+    kw = {}
+    if bad == "f64":
+        x = x.double()
+    elif bad == "g_shape":
+        gm = gm[:99]
+    elif bad == "device":
+        gm = gm.cpu()
+    else:
+        kw["out_dtype"] = torch.float16
+    with pytest.raises((TypeError, ValueError)):
+        sddmm_spans_cuda(rp[:, :-1], rp[:, 1:], idx, None, gm, x, **kw)
+
+
+_PACKED_FNS = {"seg2": spmm_seg2, "seg3": spmm_seg3, "seg2split": spmm_split}
+
+
+@pytest.mark.parametrize("backend", SPMM_BACKENDS)
+@pytest.mark.parametrize("stream", ["f32", "bf16"])
+def test_packed_spmm_card_vs_cpu(dev, backend, stream):
+    """``spmm_entry``'s toy for each backend: forward, d packed and d x on
+    the card against the CPU; launches: spans 1 per forward and 1 for d x,
+    span SDDMM 1 for d value, per seg2 call (split: two calls)."""
+    runs = {}
+    for where in ("cuda", "cpu"):
+        plan, s, packed, x = spmm_entry(backend, where)
+        if stream == "bf16":
+            plan = (plan._replace(stream="bf16") if backend != "seg2split"
+                    else plan._replace(local=plan.local._replace(
+                        stream="bf16"), resid=plan.resid._replace(
+                        stream="bf16")))
+        pv = (tuple(t.clone().requires_grad_() for t in packed)
+              if backend == "seg2split" else packed.clone().requires_grad_())
+        xx = x.clone().requires_grad_()
+        w = torch.linspace(-1, 1, 256 * 32, device=where).view(256, 32)
+        k = (spmm_spans_cuda.launches, sddmm_spans_cuda.launches)
+        out = _PACKED_FNS[backend](plan, s, pv, xx)
+        (out * w).sum().backward()
+        launches = (spmm_spans_cuda.launches - k[0],
+                    sddmm_spans_cuda.launches - k[1])
+        grads = [t.grad for t in pv] if backend == "seg2split" else [pv.grad]
+        runs[where] = ([out.detach().cpu(), xx.grad.cpu()]
+                       + [t.cpu() for t in grads], launches)
+    calls = 2 if backend == "seg2split" else 1
+    assert runs["cuda"][1] == (2 * calls, calls)
+    assert runs["cpu"][1] == (0, 0)
+    for c, h in zip(runs["cuda"][0], runs["cpu"][0]):
+        torch.testing.assert_close(c, h, **F32)

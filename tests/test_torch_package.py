@@ -23,8 +23,8 @@ def _run(code_or_args, cwd=REPO, env=None, timeout=120):
 
 def test_port_never_imports_jax():
     """With ``jax`` blocked, the package imports and the toy forward, one
-    toy train step and the toy A @ A run; neither jax nor the JAX package is
-    loaded."""
+    toy train step, the toy A @ A and a toy ``spmm_seg2`` forward and
+    backward run; neither jax nor the JAX package is loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -40,6 +40,12 @@ def test_port_never_imports_jax():
         "F, cap = p.plan_spgemm_rows(A, A)\n"
         "res = p.spspmm_rowsorted(A, A, F, cap)\n"
         "assert not res.overflowed and res.matrix.nnz > A.nnz\n"
+        "plan, s, packed, x = p.spmm_entry('seg2', 'cpu')\n"
+        "x.requires_grad_()\n"
+        "out = p.spmm_seg2(plan, s, packed.requires_grad_(), x)\n"
+        "out.sum().backward()\n"
+        "assert out.shape == (256, 32) and x.grad.shape == (256, 32)\n"
+        "assert bool(torch.isfinite(packed.grad).all())\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_sparse_tpu') and sys.modules[m]]\n"
         "assert not bad, bad\n"
@@ -47,6 +53,24 @@ def test_port_never_imports_jax():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Every entry point defaults to ``device="cuda"`` and, without a card,
+    raises naming the missing device instead of running on the CPU."""
+    import inspect
+
+    import torch
+
+    import paddle_sparse_tpu_torch as p
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn, args in ((p.entry, ()), (p.train_entry, ()),
+                     (p.spgemm_entry, ()), (p.spmm_entry, ("seg2",))):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(*args)
+    with pytest.raises(ValueError, match="unknown SpMM backend"):
+        p.spmm_entry("sell", "cpu")
 
 
 def test_kernel_module_imports_without_nvcc(tmp_path):
