@@ -47,8 +47,10 @@ Phases, one or more printed lines each:
    choose. For each A @ A: plan seconds, 1 warm-up and 3 timed calls, C's
    nnz, output Mnnz/s, peak memory, K5 launches, no overflow, sampled rows
    of C against scipy in f64, and K5 timed alone on the call's own compress
-   input against the plain version. At 800k also the value grads of
-   ``sum(G * C)`` on sampled entries against f64.
+   input against the plain version and against its library call,
+   ``torch.sparse_coo_tensor(...).coalesce()`` on the same stream, in turns.
+   At 800k also the value grads of ``sum(G * C)`` on sampled entries against
+   f64.
 7a. Multi-span SpMM (``spmm_spans_cuda``, the counterpart of K3/K4) and
    span SDDMM (``sddmm_spans_cuda``, K2's span form) against their plain
    versions in f64 over S in 1 3 19 40 and K in 1 47 64 100 256 300, f32 and
@@ -58,22 +60,32 @@ Phases, one or more printed lines each:
    entry point) on seg3's own tables of a 200k-node graph; and
    ``band_reduce_call`` (K4's) at ``experiments/r4_band_cost.py``'s sizes,
    timed against its plain version and ``torch.sparse.mm`` of the 0/1 span
-   CSR.
+   CSR. Then the long-row split (``RowSplit`` pieces, one warp each, and the
+   fold pass) of both span kernels against plain f64 at S = 1 and S = 38:
+   rows of CAP-1, CAP, CAP+1 and 2*CAP+3 edges, K 1 47 256 300, f32 and
+   bf16; a row of 10M edges over spans that cross 32-span chunks, with empty
+   spans and rows around it, exact; and the fold alone against its plain
+   version.
 7b. Toy packed SpMMs: ``spmm_entry`` for seg2, seg3 and split, forward and
    grads, card vs CPU.
 7c. The bench's packed-SpMM cells at full width, on torch rewrites of
    ``bench.py``'s generators: seg2 on the uniform graph at full
    ogbn-products scale (2,449,029 nodes, 122,451,450 nnz, K=256) with the
    f32 and the bf16 stream, seg3 there (bf16), seg2 at K=64 and 1/8 scale
-   (``dim64``), split on the clustered graph (bf16), and seg2 on zipf at 1/8
-   scale after seg3's refusal. For each: plan seconds, 1 warm-up and 3
+   (``dim64``), split on the clustered graph (bf16), seg2 on zipf at 1/8
+   scale after seg3's refusal, and seg2 on zipf at full scale (bf16, hub
+   rows of 18.6M and 17.7M edges). For each: plan seconds, 1 warm-up and 3
    timed forwards and forward+backwards, peak memory, the launches (counts
-   zeroed just before, read just after), sampled rows, ``d value`` and
-   ``d x`` against f64; the first path's first forward+backward runs under
-   the profiler. On the f32 path the two span kernels alone, kernel
-   vs plain in turns, with their bounds, K1 on the same graph and the
-   library calls computing the same products (``torch.sparse.mm``,
-   ``torch.sparse.sampled_addmm``), which the port never calls.
+   zeroed just before, read just after; the fold pass runs exactly where a
+   plan has split rows, so never on the uniform graphs), sampled rows
+   (the longest among them), ``d value`` and ``d x`` against f64; the first
+   path's first forward+backward runs under the profiler. On the f32 path
+   the two span kernels alone, kernel vs plain in turns, with their bounds,
+   K1 on the same graph and the library calls computing the same products
+   (``torch.sparse.mm``, ``torch.sparse.sampled_addmm``), which the port
+   never calls. On zipf 1/8 the span kernels, K1 and K2 alone in f32 and
+   bf16, each in turns with its library call in the same dtype, two launches
+   of each bit for bit equal, and the fold alone on the hub's partials.
 
 Every kernel in the JSON line carries its time, launches, plain time,
 bound (the larger of the bytes each input and output moves once over
@@ -125,10 +137,11 @@ def _event():
     return torch.cuda.Event(enable_timing=True)
 
 
-def timed(fn, reps):
-    """Mean ms of ``reps`` calls after one warm-up, by CUDA events; and the
-    last result."""
-    fn()
+def timed(fn, reps, warm=True):
+    """Mean ms of ``reps`` calls after one warm-up (none with ``warm``
+    False), by CUDA events; and the last result."""
+    if warm:
+        fn()
     a, b = _event(), _event()
     a.record()
     for _ in range(reps):
@@ -161,25 +174,39 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
-def library_timed(name, fn, reps, ref=None):
+def library_timed(name, fn, reps, ref=None, warm=True):
     """A PyTorch library call timed as a yardstick (never used by the
-    port): mean ms over ``reps`` after a warm-up, and its max abs
-    difference from ``ref``; ``(None, None)`` with the error printed if the
-    call fails or runs out of memory."""
+    port): mean ms over ``reps`` after a warm-up (if ``warm``), and its max
+    abs difference from ``ref`` (a sparse result by its values); ``(None,
+    None)`` with the error printed if the call fails or runs out of
+    memory."""
     try:
-        ms, out = timed(fn, reps)
+        ms, out = timed(fn, reps, warm)
     except (RuntimeError, ValueError, TypeError) as e:
         print(f"library {name}: failed, {type(e).__name__}: "
               f"{str(e).splitlines()[0][:200]}", flush=True)
         torch.cuda.empty_cache()
         return None, None
-    if out.layout == torch.sparse_csr:
+    if out.layout in (torch.sparse_csr, torch.sparse_coo):
         out = out.values()
-    err = (None if ref is None
+    err = (None if ref is None or out.shape != ref.shape
            else float((out.double() - ref.double()).abs().max()))
     del out
     torch.cuda.empty_cache()
     return ms, err
+
+
+def library_in_turns(name, run_lib, run_k, reps, ref=None):
+    """A library call and a kernel in turns, library, kernel, kernel,
+    library: ``(library ms or None, kernel ms, library max abs error)``,
+    each ms the mean of its two turns."""
+    l1, err = library_timed(name, run_lib, reps, ref)
+    k1, _ = timed(run_k, reps)
+    k2, _ = timed(run_k, reps)
+    l2, _ = library_timed(name, run_lib, reps) if l1 is not None else (
+        None, None)
+    lib = None if l1 is None or l2 is None else (l1 + l2) / 2
+    return lib, (k1 + k2) / 2, err
 
 
 def random_csr(gen, dev, M, N, max_deg):
@@ -384,8 +411,9 @@ def phase3b_toy_train(dev):
 
 
 def phase4_forward(dev, card):
-    from paddle_sparse_tpu_torch import (PaddedCOO, gcn_normalize, init_gcn,
-                                         spmm_csr_cuda, spmm_csr_reference)
+    from paddle_sparse_tpu_torch import (CAP, PaddedCOO, gcn_normalize,
+                                         init_gcn, spmm_csr_cuda,
+                                         spmm_csr_reference)
     n, deg_ = PRODUCTS_NODES, PRODUCTS_DEG
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -419,12 +447,17 @@ def phase4_forward(dev, card):
         counts = _launch_counts()
         launches, sddmm_launches = counts["spmm_csr"], counts["sddmm_csr"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    split = adj.row_split()
     print(f"phase 4 forward ms: {' '.join(f'{t:.3f}' for t in times)} "
           f"(mean {sum(times) / len(times):.3f}) peak mem {peak_gb:.2f} GB "
           f"{card}", flush=True)
     print(f"phase 4 launches in 4 forwards: spmm_csr {launches} "
-          f"({launches / 4:g} per forward), sddmm_csr {sddmm_launches}",
-          flush=True)
+          f"({launches / 4:g} per forward), sddmm_csr {sddmm_launches}, "
+          f"fold_pieces {counts['fold_pieces']} (longest row "
+          f"{int(torch.diff(adj.rowptr()).max())} edges, CAP {CAP}: row "
+          f"table {split})", flush=True)
+    check(split is None and counts["fold_pieces"] == 0,
+          "the uniform graph split rows or launched the fold pass")
     check(launches == 3 * 4, f"expected 3 kernel launches per forward, "
                              f"counted {launches} in 4 forwards")
     check(sddmm_launches == 0, f"the forward launched the SDDMM kernel "
@@ -480,7 +513,7 @@ def phase4_forward(dev, card):
     with torch.inference_mode():
         p1, k1, k2, p2, out_p, out_k = in_turns(
             lambda: spmm_csr_reference(rowptr, col, value, h2),
-            lambda: spmm_csr_cuda(rowptr, col, value, h2), 2, 5)
+            lambda: spmm_csr_cuda(rowptr, col, value, h2, split=split), 2, 5)
     max_err = float((out_k - out_p).abs().max())
     ok = bool(torch.allclose(out_k, out_p, **F32_TOL))
     print(f"phase 4 spmm K=256 at {adj.nnz} nnz: kernel {k1:.3f} / "
@@ -510,11 +543,14 @@ def phase4_forward(dev, card):
     return adj, x, model, stats
 
 
-def _grad_close(got, ref, scale):
-    """Max abs error and whether ``|got - ref| <= GRAD_REL * scale``, with
-    ``scale`` the sum of |terms| of each entry (all f64)."""
+def _grad_close(got, ref, scale, out_rel=0.0):
+    """Max abs error and whether ``|got - ref| <= GRAD_REL * scale +
+    out_rel * |ref|``, with ``scale`` the sum of |terms| of each entry (all
+    f64) and ``out_rel`` the rounding of a narrower output."""
+    ref = ref.double()
     err = (got.double() - ref).abs()
-    return float(err.max()), bool((err <= GRAD_REL * scale + 1e-30).all())
+    bound = GRAD_REL * scale + out_rel * ref.abs() + 1e-30
+    return float(err.max()), bool((err <= bound).all())
 
 
 def phase5_train(dev, card, adj, x, model):
@@ -563,6 +599,10 @@ def phase5_train(dev, card, adj, x, model):
                                 f"forward, 2 backward), counted {k1_launches}")
     check(k2_launches == 3 * 4, f"expected 3 sddmm_csr launches per step, "
                                 f"counted {k2_launches}")
+    check(counts["fold_pieces"] == 0 and s.row_split is None
+          and s.col_split is None,
+          f"the uniform graph's rows or columns split (fold_pieces "
+          f"{counts['fold_pieces']})")
     grads = [p.grad for p in model.parameters()] + [adj.value.grad]
     check(all(bool(torch.isfinite(v).all()) for v in grads)
           and all(v == v and abs(v) < float("inf") for v in losses),
@@ -613,13 +653,14 @@ def phase5_train(dev, card, adj, x, model):
     gs = [sp.grad for sp in ss]
     bwd_parts = []
     for i in range(L):
-        ms, _ = timed(lambda: sddmm_csr_cuda(rowptr, col, gs[i], hs[i]), 1)
+        ms, _ = timed(lambda: sddmm_csr_cuda(rowptr, col, gs[i], hs[i],
+                                             split=s.row_split), 1)
         bwd_parts.append((f"bwd layer {i} sddmm K={hs[i].shape[1]}", ms))
         if hs[i].requires_grad:
             ms, value_t = timed(lambda: value.index_select(0, s.perm), 1)
             bwd_parts.append((f"bwd layer {i} value[perm]", ms))
             ms, _ = timed(lambda: spmm_csr_cuda(s.colptr, s.col_t, value_t,
-                                                gs[i]), 1)
+                                                gs[i], split=s.col_split), 1)
             bwd_parts.append((f"bwd layer {i} spmm (CSC) K="
                               f"{hs[i].shape[1]}", ms))
     rest = bwd_ms - sum(ms for _, ms in bwd_parts)
@@ -675,7 +716,8 @@ def phase5_train(dev, card, adj, x, model):
         K = hi.shape[1]
         p1, k1, k2, p2, out_p, out_k = in_turns(
             lambda: sddmm_csr_reference(rowptr, col, gi, hi),
-            lambda: sddmm_csr_cuda(rowptr, col, gi, hi), 2, 5)
+            lambda: sddmm_csr_cuda(rowptr, col, gi, hi, split=s.row_split),
+            2, 5)
         max_err = float((out_k - out_p).abs().max())
         scale = float(out_p.abs().max())
         ok = bool(torch.allclose(out_k, out_p, rtol=1e-4,
@@ -710,22 +752,23 @@ def phase5_train(dev, card, adj, x, model):
 
 
 def _launch_counts():
-    from paddle_sparse_tpu_torch import (compact_runs_cuda, sddmm_csr_cuda,
-                                         sddmm_spans_cuda, spmm_csr_cuda,
-                                         spmm_spans_cuda)
+    from paddle_sparse_tpu_torch import (compact_runs_cuda, fold_pieces_cuda,
+                                         sddmm_csr_cuda, sddmm_spans_cuda,
+                                         spmm_csr_cuda, spmm_spans_cuda)
     return {"spmm_csr": spmm_csr_cuda.launches,
             "sddmm_csr": sddmm_csr_cuda.launches,
             "segcompact": compact_runs_cuda.launches,
             "spmm_spans": spmm_spans_cuda.launches,
-            "sddmm_spans": sddmm_spans_cuda.launches}
+            "sddmm_spans": sddmm_spans_cuda.launches,
+            "fold_pieces": fold_pieces_cuda.launches}
 
 
 def _zero_launch_counts():
-    from paddle_sparse_tpu_torch import (compact_runs_cuda, sddmm_csr_cuda,
-                                         sddmm_spans_cuda, spmm_csr_cuda,
-                                         spmm_spans_cuda)
+    from paddle_sparse_tpu_torch import (compact_runs_cuda, fold_pieces_cuda,
+                                         sddmm_csr_cuda, sddmm_spans_cuda,
+                                         spmm_csr_cuda, spmm_spans_cuda)
     spmm_csr_cuda.launches = sddmm_csr_cuda.launches = 0
-    compact_runs_cuda.launches = 0
+    compact_runs_cuda.launches = fold_pieces_cuda.launches = 0
     spmm_spans_cuda.launches = sddmm_spans_cuda.launches = 0
 
 
@@ -1034,10 +1077,38 @@ def phase6c_spgemm_path(dev, card, name, A, kind):
     ins = [a for a in (*args, *kw.values()) if isinstance(a, torch.Tensor)]
     moved = nbytes(*ins, out_k.row, out_k.col, out_k.value, out_k.seg)
     bound, by = bound_ms(moved, args[0].numel())     # one add per element
+    lib_ms, lib_k_ms, lib_err = k5_library(name, card, args, kw, out_k)
     return {"launches": launches, "ms": ms, "c_nnz": c_nnz,
             "k5": {"max_abs_err": err, "ms": (k1 + k2) / 2,
                    "plain_ms": (p1 + p2) / 2, "bound_ms": bound,
-                   "bound_by": by}}
+                   "bound_by": by, "library_ms": lib_ms,
+                   "ms_beside_library": lib_k_ms,
+                   "library_max_abs_err": lib_err}}
+
+
+def k5_library(name, card, args, kw, out_k):
+    """K5's library call on K5's own input stream: ``torch.sparse_coo_tensor
+    (...).coalesce()`` sums the runs of equal coordinates (and sorts, which
+    the stream already is), in turns with K5. The COO indices of the
+    stream's real elements are made outside the timing."""
+    from paddle_sparse_tpu_torch import compact_runs_cuda
+    col, rows, value, shape = args[:4]
+    r = rows[:, None].expand_as(col) if col.dim() == 2 else rows
+    keep = (col < shape[1]) & (r < shape[0])
+    idx = torch.stack([r[keep], col[keep]]).long()
+    vals = (torch.ones(idx.shape[1], device=idx.device) if value is None
+            else value[keep])
+    n = int(out_k.count)
+    with torch.inference_mode():
+        lib_ms, k_ms, err = library_in_turns(
+            "torch.sparse_coo_tensor(...).coalesce() (K5's function)",
+            lambda: torch.sparse_coo_tensor(idx, vals, shape).coalesce(),
+            lambda: compact_runs_cuda(*args, **kw), 5, out_k.value[:n])
+    print(f"phase 6c {name} K5's library call, torch.sparse_coo_tensor"
+          f"(...).coalesce() on the same {idx.shape[1]} elements: "
+          f"{lib_ms} ms vs K5 {k_ms:.3f} ms in turns (values max_abs_err "
+          f"{err}) {card}", flush=True)
+    return lib_ms, k_ms, err
 
 
 def phase6c_value_grad(dev, A):
@@ -1303,6 +1374,125 @@ def phase7a_spans(gen, dev, card):
                             "library": lib}}
 
 
+def long_row_bounds(gen, dev, S, totals, empty_spans=0.0):
+    """(S, M) span bounds whose row m holds ``totals[m]`` flat edges cut at
+    random points over the S spans, a share ``empty_spans`` of the cuts
+    collapsed (empty spans), span-major as a packed layout lays them out."""
+    lens = torch.zeros(S, len(totals), dtype=torch.int64, device=dev)
+    for m, n in enumerate(totals):
+        if n:
+            cut = torch.sort(torch.randint(0, n + 1, (S - 1,), generator=gen,
+                                           device=dev)).values
+            if S > 1 and empty_spans:
+                drop = torch.rand(S - 1, generator=gen, device=dev)
+                cut = torch.sort(torch.where(drop < empty_spans,
+                                             cut.roll(1), cut)).values
+            edges = torch.cat([cut.new_zeros(1), cut, cut.new_full((1,), n)])
+            lens[:, m] = torch.diff(edges)
+    M = len(totals)
+    ptr = torch.zeros(lens.numel() + 1, dtype=torch.int64, device=dev)
+    ptr[1:] = lens.reshape(-1).cumsum(0)
+    rp = ptr.as_strided((S, M + 1), (M, 1)).to(torch.int32)
+    return rp[:, :-1], rp[:, 1:], int(ptr[-1])
+
+
+def phase7a_long_rows(gen, dev, card):
+    """The long-row split of both span kernels against plain f64: rows
+    around CAP at S = 1 and 38 over K and dtypes, then a row of 10M edges
+    whose spans cross 32-span chunks, exact with small-integer inputs. A
+    row sum of thousands of f32 terms is held within GRAD_REL of its sum of
+    |terms| (f32 rounding in another order), the K-term dots to F32_TOL."""
+    from paddle_sparse_tpu_torch import (CAP, fold_pieces_cuda,
+                                         sddmm_spans_cuda,
+                                         sddmm_spans_reference, split_rows,
+                                         spmm_spans_cuda,
+                                         spmm_spans_reference)
+    N = 2000
+    worst = 0.0
+    totals = [0, CAP - 1, 3, CAP, 0, CAP + 1, 7, 2 * CAP + 3, 0, 1]
+    for S in (1, 38):
+        start, end, nnz = long_row_bounds(gen, dev, S, totals, 0.2)
+        t = split_rows(start, end)
+        check(t is not None and t.fold_row.tolist() == [5, 7]
+              and t.num_slots == 5, f"S={S}: rows CAP+1 and 2*CAP+3 must "
+                                    f"split into 2 and 3 pieces")
+        base = torch.randint(0, 100, (S,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        idx = torch.randint(0, N - 100, (nnz,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        val = torch.rand(nnz, generator=gen, device=dev) * 2 - 1
+        errs = []
+        for K in (1, 47, 256, 300):
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn(N, K, generator=gen, device=dev).to(dt)
+                gm = torch.randn(len(totals), K, generator=gen,
+                                 device=dev).to(dt)
+                folds = fold_pieces_cuda.launches
+                out = spmm_spans_cuda(start, end, idx, val, base, x,
+                                      out_dtype=torch.float32, split=t)
+                check(fold_pieces_cuda.launches == folds + 1,
+                      "a split spans launch must run the fold once")
+                ref = spmm_spans_reference(start, end, idx, val.double(),
+                                           base, x.double())
+                scale = spmm_spans_reference(start, end, idx,
+                                             val.double().abs(), base,
+                                             x.double().abs())
+                dv = sddmm_spans_cuda(start, end, idx, base, gm, x, split=t)
+                dref = sddmm_spans_reference(start, end, idx, base,
+                                             gm.double(), x.double(),
+                                             torch.float64)
+                torch.cuda.synchronize()
+                e1, ok1 = _grad_close(out, ref, scale)
+                e2 = float((dv.double() - dref).abs().max())
+                errs.append(max(e1, e2))
+                check(ok1 and torch.allclose(dv.double(), dref, **F32_TOL),
+                      f"split span kernels disagree with plain f64 at S={S} "
+                      f"K={K} {dt} ({e1:.3e}, {e2:.3e})")
+        worst = max(worst, *errs)
+        print(f"phase 7a split S={S}: rows of {CAP - 1}, {CAP}, {CAP + 1}, "
+              f"{2 * CAP + 3} edges (CAP {CAP}) among short and empty rows, "
+              f"20% empty spans, K in 1 47 256 300, f32 and bf16: "
+              f"spmm_spans (+ fold) and sddmm_spans vs plain f64 max_abs_err "
+              f"{max(errs):.3e} (rows within {GRAD_REL} of their sums of "
+              f"|terms|) ok", flush=True)
+
+    # a row of 10M edges among short and empty rows; at S = 38 its spans
+    # cross the 32-span chunk boundary and some are empty. Values and x in
+    # {-1, 0, 1} keep every f32 sum (|sum| < 2**24) and every dot exact.
+    totals = [3, 0, 10_000_000, 5, 0, CAP + 1, 2]
+    for S, cases in ((1, ((300, torch.float32), (1, torch.bfloat16))),
+                     (38, ((1, torch.float32), (300, torch.bfloat16)))):
+        start, end, nnz = long_row_bounds(gen, dev, S, totals, 0.3)
+        t = split_rows(start, end)
+        base = torch.randint(0, 100, (S,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        idx = torch.randint(0, N - 100, (nnz,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        val = torch.randint(-1, 2, (nnz,), generator=gen, device=dev).float()
+        for K, dt in cases:
+            x = torch.randint(-1, 2, (N, K), generator=gen, device=dev).to(dt)
+            gm = torch.randint(-1, 2, (len(totals), K), generator=gen,
+                               device=dev).to(dt)
+            out = spmm_spans_cuda(start, end, idx, val.to(dt), base, x,
+                                  out_dtype=torch.float32, split=t)
+            ref = spmm_spans_reference(start, end, idx, val.double(), base,
+                                       x.double())
+            dv = sddmm_spans_cuda(start, end, idx, base, gm, x, split=t)
+            dref = sddmm_spans_reference(start, end, idx, base, gm.double(),
+                                         x.double(), torch.float64)
+            torch.cuda.synchronize()
+            check(torch.equal(out.double(), ref)
+                  and torch.equal(dv.double(), dref),
+                  f"10M-edge row at S={S} K={K} {dt} not exact")
+            del out, ref, dv, dref
+        print(f"phase 7a split S={S}: a row of 10,000,000 edges "
+              f"({int(t.fold_ptr[-1])} workspace rows; 30% empty spans) "
+              f"among short and empty rows, K/dtype "
+              f"{[(K, str(dt)[6:]) for K, dt in cases]}: spmm_spans and "
+              f"sddmm_spans exact vs plain f64 ok {card}", flush=True)
+    return worst
+
+
 def _packed_fns(backend):
     import paddle_sparse_tpu_torch as p
     if backend == "seg2split":
@@ -1502,6 +1692,12 @@ def phase7c_path(dev, card, name, backend, graph, stream, reps=3,
                  f"{s.idx_resid.numel()} edges")
     if backend == "seg3":
         desc += f"; BAND={plan.BAND} cap={plan.cap} CAP_TS={plan.CAP_TS}"
+    structs = [s.local, s.resid] if backend == "seg2split" else [s]
+    for q in structs:
+        for side, t in (("rows", q.split_f), ("x rows", q.split_t)):
+            desc += (f"; no {side} split" if t is None else
+                     f"; {t.fold_row.numel()} {side} split into "
+                     f"{t.num_slots} pieces")
     gw = torch.randn(n, K, generator=torch.Generator(device=dev).manual_seed(
         12), device=dev)
 
@@ -1547,11 +1743,16 @@ def phase7c_path(dev, card, name, backend, graph, stream, reps=3,
     print(f"phase 7c {name} launches in {runs} forwards + {runs} "
           f"forward+backwards: " + ", ".join(f"{k} {v}" for k, v in
                                              counts.items()), flush=True)
-    want = {"spmm_spans": 3 * runs * calls, "sddmm_spans": runs * calls}
+    # the fold follows each spans launch over a split layout: the forward's
+    # in every run, the transpose's in the forward+backwards
+    folds = sum(runs * (2 * (q.split_f is not None)
+                        + (q.split_t is not None)) for q in structs)
+    want = {"spmm_spans": 3 * runs * calls, "sddmm_spans": runs * calls,
+            "fold_pieces": folds}
     check(all(counts[k] == want.get(k, 0) for k in counts),
           f"{name}: expected launches {want} (spans 1 per forward, 2 per "
-          f"forward+backward, span SDDMM 1, per seg2 call), counted "
-          f"{counts}")
+          f"forward+backward, span SDDMM 1, per seg2 call; the fold after "
+          f"each spans launch over a split layout), counted {counts}")
     check(bool(torch.isfinite(out).all()) and out.shape == (n, K),
           f"{name}: output not finite or of shape {tuple(out.shape)}")
     d_val = unpack_fn(s, _grads(pv))
@@ -1570,7 +1771,8 @@ def phase7c_kernels(dev, card, run, graph):
     from paddle_sparse_tpu_torch import (ind2ptr, sddmm_spans_cuda,
                                          sddmm_spans_reference, spmm_csr_cuda,
                                          spmm_spans_cuda,
-                                         spmm_spans_reference, unpack_values)
+                                         spmm_spans_reference, split_rows,
+                                         unpack_values)
     row, col, val, x = graph
     plan, s, packed, gw = run["plan"], run["s"], run["packed"], run["gw"]
     M, nnz, K = plan.num_rows, row.numel(), x.shape[1]
@@ -1580,8 +1782,8 @@ def phase7c_kernels(dev, card, run, graph):
         p1, k1, k2, p2, out_p, out_k = in_turns(
             lambda: spmm_spans_reference(st, en, s.col_f, packed, s.sbase_f,
                                          x),
-            lambda: spmm_spans_cuda(st, en, s.col_f, packed, s.sbase_f, x),
-            1, 5)
+            lambda: spmm_spans_cuda(st, en, s.col_f, packed, s.sbase_f, x,
+                                    split=s.split_f), 1, 5)
         err = float((out_k - out_p).abs().max())
         check(torch.allclose(out_k, out_p, **F32_TOL),
               f"spmm_spans kernel and plain disagree at scale ({err:.3e})")
@@ -1598,14 +1800,15 @@ def phase7c_kernels(dev, card, run, graph):
               f"err {err:.3e} ok {card}", flush=True)
         xb = x.bfloat16()
         ms_b, out_b = timed(lambda: spmm_spans_cuda(st, en, s.col_f, packed,
-                                                    s.sbase_f, xb), 5)
+                                                    s.sbase_f, xb,
+                                                    split=s.split_f), 5)
         res["spmm_spans"]["ms_bf16"] = ms_b
         del out_b
 
         p1, k1, k2, p2, dv_p, dv_k = in_turns(
             lambda: sddmm_spans_reference(st, en, s.col_f, s.sbase_f, gw, x),
-            lambda: sddmm_spans_cuda(st, en, s.col_f, s.sbase_f, gw, x),
-            1, 5)
+            lambda: sddmm_spans_cuda(st, en, s.col_f, s.sbase_f, gw, x,
+                                     split=s.split_f), 1, 5)
         err = float((dv_k - dv_p).abs().max())
         scale = float(dv_p.abs().max())
         check(torch.allclose(dv_k, dv_p, rtol=1e-4, atol=GRAD_REL * scale),
@@ -1624,8 +1827,10 @@ def phase7c_kernels(dev, card, run, graph):
 
         # yardsticks on the same graph in CSR (COO) order, never on the path
         rowptr = ind2ptr(row, M).to(torch.int32)
+        t_csr = split_rows(rowptr[None, :-1], rowptr[None, 1:])
         out_csr = out_k
-        k1_ms, out_k1 = timed(lambda: spmm_csr_cuda(rowptr, col, val, x), 5)
+        k1_ms, out_k1 = timed(lambda: spmm_csr_cuda(rowptr, col, val, x,
+                                                    split=t_csr), 5)
         k1_err = float((out_k1 - out_csr).abs().max())
         del out_k1
         csr = torch.sparse_csr_tensor(rowptr, col, val, (M, M))
@@ -1653,7 +1858,7 @@ def phase7c_kernels(dev, card, run, graph):
 def phase7c_scale(dev, card):
     """The bench's seg2/seg3/split cells at full width (K=256, K=64 for
     dim64): plan, times, launches and sampled f64 checks for each."""
-    from paddle_sparse_tpu_torch import Seg3Infeasible, make_seg3_plan
+    from paddle_sparse_tpu_torch import CAP, Seg3Infeasible, make_seg3_plan
     paths = {}
     graph = bench_graph(dev, "uniform", 1.0, 256)
     run = phase7c_path(dev, card, "seg2 uniform f32", "seg2", graph, "f32",
@@ -1700,45 +1905,166 @@ def phase7c_scale(dev, card):
     kernels["zipf"] = phase7c_zipf_kernels(dev, card, run, graph)
     del graph, run
     torch.cuda.empty_cache()
+    graph = bench_graph(dev, "zipf", 1.0, 256)
+    deg = torch.bincount(graph[0].long(), minlength=graph[3].shape[0])
+    top = torch.topk(deg, 2).values.tolist()
+    print(f"phase 7c zipf full scale: {graph[0].numel()} nnz, top rows "
+          f"{top[0]} and {top[1]} edges, {int((deg > CAP).sum())} rows of "
+          f"more than CAP = {CAP} edges holding "
+          f"{int(deg[deg > CAP].sum())}", flush=True)
+    paths["seg2_zipf_full_bf16"] = phase7c_path(
+        dev, card, "seg2 zipf full bf16", "seg2", graph, "bf16")["stats"]
+    del graph, deg
+    torch.cuda.empty_cache()
     return paths, kernels
 
 
 def phase7c_zipf_kernels(dev, card, run, graph):
-    """On the zipf path, where one warp walks the hub row: the two span
-    kernels alone on the path's own inputs, K1 on the same graph in CSR
-    order, and ``torch.sparse.mm`` computing the same product."""
-    from paddle_sparse_tpu_torch import (ind2ptr, sddmm_spans_cuda,
-                                         spmm_csr_cuda, spmm_spans_cuda)
+    """On the zipf 1/8 path, whose hub rows split: the two span kernels
+    alone on the path's own inputs, K1 and K2 on the same graph's CSR, each
+    in f32 and bf16 in turns with its library call in the same dtype
+    (``torch.sparse.mm``, ``torch.sparse.sampled_addmm``); two launches of
+    each bit for bit equal; and the fold alone on the hub's partials
+    against its plain version and ``index_add_``."""
+    from paddle_sparse_tpu_torch import (fold_pieces_cuda, ind2ptr,
+                                         sddmm_csr_cuda, sddmm_spans_cuda,
+                                         spmm_csr_cuda, spmm_spans_cuda,
+                                         split_rows, unpack_values)
+    from paddle_sparse_tpu_torch.ops.kernels.row_split import \
+        fold_pieces_reference
     row, col, val, x = graph
     plan, s, packed, gw = run["plan"], run["s"], run["packed"], run["gw"]
-    M, K = plan.num_rows, x.shape[1]
+    M, K, nnz = plan.num_rows, x.shape[1], row.numel()
     st, en = s.rp_f[:, :M], s.rp_f[:, 1:M + 1]
-    xb, gb = x.bfloat16(), gw.bfloat16()
     rowptr = ind2ptr(row, M).to(torch.int32)
-    with torch.inference_mode():
-        sp_ms, out = timed(lambda: spmm_spans_cuda(st, en, s.col_f, packed,
-                                                   s.sbase_f, xb), 1)
-        sd_ms, _ = timed(lambda: sddmm_spans_cuda(st, en, s.col_f, s.sbase_f,
-                                                  gb, xb), 1)
-        k1_ms, out_k1 = timed(lambda: spmm_csr_cuda(rowptr, col, val, xb), 1)
-        k1_err = float((out_k1 - out).abs().max())
-        del out_k1
-        csr = torch.sparse_csr_tensor(rowptr, col, val, (M, M))
-        lib_ms, lib_err = library_timed(
-            "torch.sparse.mm on the zipf CSR (f32 x)",
-            lambda: torch.sparse.mm(csr, x), 3, out)
-    del csr, out
-    moved = nbytes(s.rp_f, s.col_f, packed, s.sbase_f, xb) + M * K * 4
-    bound, by = bound_ms(moved, 2 * row.numel() * K)
-    print(f"phase 7c zipf 1/8 kernels alone (bf16 x, K={K}, hub row of "
-          f"{int((rowptr[1:] - rowptr[:-1]).max())} edges): spmm_spans "
-          f"{sp_ms:.3f} ms, sddmm_spans {sd_ms:.3f} ms, K1 on the CSR "
-          f"{k1_ms:.3f} ms (vs spans max_abs_err {k1_err:.3e}), bound "
-          f"{bound:.3f} ms ({by}); torch.sparse.mm (f32 x) {lib_ms} ms "
-          f"(max_abs_err {lib_err}) {card}", flush=True)
-    return {"spmm_spans_ms": sp_ms, "sddmm_spans_ms": sd_ms, "k1_ms": k1_ms,
-            "bound_ms": bound, "library_ms": lib_ms}
+    t_csr = split_rows(rowptr[None, :-1], rowptr[None, 1:])
+    res = {"hub_edges": int(torch.diff(rowptr).max()),
+           "split_rows": int(s.split_f.fold_row.numel()),
+           "pieces": int(s.split_f.row.numel())}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        xd, gd, vd, pd = x.to(dt), gw.to(dt), val.to(dt), packed.to(dt)
+        csr = torch.sparse_csr_tensor(rowptr, col, vd, (M, M))
+        x_t = xd.t().contiguous()
+        with torch.inference_mode():
+            def spans():
+                return spmm_spans_cuda(st, en, s.col_f, pd, s.sbase_f, xd,
+                                       out_dtype=dt, split=s.split_f)
 
+            def k1():
+                return spmm_csr_cuda(rowptr, col, vd, xd, split=t_csr)
+
+            def span_sddmm():
+                return sddmm_spans_cuda(st, en, s.col_f, s.sbase_f, gd, xd,
+                                        split=s.split_f)
+
+            def k2():
+                return sddmm_csr_cuda(rowptr, col, gd, xd, split=t_csr)
+            out, out_k1 = spans(), k1()
+            dv, dv_k2 = span_sddmm(), k2()
+            check(all(torch.equal(a, b) for a, b in (
+                (out, spans()), (out_k1, k1()), (dv, span_sddmm()),
+                (dv_k2, k2()))), f"zipf {name}: two launches differ")
+            dv_coo = unpack_values(s, dv)
+            # the hub row's 10M terms summed in two orders (packed and
+            # CSR): each within GRAD_REL of the row's sum of |terms|, and a
+            # bf16 output rounded once on each side (up to 2**-8 of it each)
+            scale = spmm_spans_cuda(st, en, s.col_f, pd.abs(), s.sbase_f,
+                                    xd.abs(), out_dtype=torch.float32,
+                                    split=s.split_f).double()
+            err, ok = _grad_close(out_k1, out, 2 * scale,
+                                  0.0 if dt == torch.float32 else 2 ** -7)
+            check(ok and torch.allclose(dv_coo, dv_k2, **F32_TOL),
+                  f"zipf {name}: the spans and K1 ({err:.3e}) or the span "
+                  f"SDDMM and K2 disagree")
+            del scale
+            lib = f"torch.sparse.mm ({name})"
+            mm_ms, sp_ms, mm_err = library_in_turns(
+                lib, lambda: torch.sparse.mm(csr, xd), spans, 3, out)
+            _, k1_ms, _ = library_in_turns(
+                lib, lambda: torch.sparse.mm(csr, xd), k1, 3)
+        # sampled_addmm takes seconds on this graph: one call before and
+        # one after the two kernels' turns, no warm-up
+        lib2 = f"torch.sparse.sampled_addmm ({name})"
+
+        def sampled():
+            return torch.sparse.sampled_addmm(csr, gd, x_t, beta=0.0)
+        sa1, sa_err = library_timed(lib2, sampled, 1, dv_coo, warm=False)
+        sd1, _ = timed(span_sddmm, 3)
+        k21, _ = timed(k2, 3)
+        k22, _ = timed(k2, 3)
+        sd2, _ = timed(span_sddmm, 3)
+        sa2 = (None if sa1 is None
+               else library_timed(lib2, sampled, 1, warm=False)[0])
+        sa_ms = None if sa2 is None else (sa1 + sa2) / 2
+        sd_ms, k2_ms = (sd1 + sd2) / 2, (k21 + k22) / 2
+        gather = nnz * K * xd.element_size() / HBM_BYTES_PER_S * 1e3
+        sp_b = bound_ms(nbytes(s.rp_f, s.col_f, pd, s.sbase_f, xd)
+                        + M * K * xd.element_size(), 2 * nnz * K)
+        k1_b = bound_ms(nbytes(rowptr, col, vd, xd)
+                        + M * K * xd.element_size(), 2 * nnz * K)
+        sd_b = bound_ms(nbytes(s.rp_f, s.col_f, s.sbase_f, gd, xd)
+                        + 4 * nnz, 2 * nnz * K)
+        k2_b = bound_ms(nbytes(rowptr, col, gd, xd) + 4 * nnz, 2 * nnz * K)
+        del csr, x_t, out, out_k1, dv, dv_k2, dv_coo, pd
+        torch.cuda.empty_cache()
+        res[name] = {
+            "spmm_spans": {"ms": sp_ms, "library_ms": mm_ms,
+                           "library_max_abs_err": mm_err,
+                           "bound_ms": sp_b[0], "bound_by": sp_b[1]},
+            "spmm_csr": {"ms": k1_ms, "library_ms": mm_ms,
+                         "bound_ms": k1_b[0], "bound_by": k1_b[1]},
+            "sddmm_spans": {"ms": sd_ms, "library_ms": sa_ms,
+                            "library_max_abs_err": sa_err,
+                            "bound_ms": sd_b[0], "bound_by": sd_b[1]},
+            "sddmm_csr": {"ms": k2_ms, "library_ms": sa_ms,
+                          "bound_ms": k2_b[0], "bound_by": k2_b[1]},
+            "gather_bound_ms": gather}
+        print(f"phase 7c zipf 1/8 kernels alone ({name}, K={K}, {nnz} nnz, "
+              f"hub row of {res['hub_edges']} edges, {res['split_rows']} "
+              f"rows split into {s.split_f.num_slots} pieces), each in "
+              f"turns with its library "
+              f"call in {name}: spmm_spans {sp_ms:.3f} ms, K1 {k1_ms:.3f} ms "
+              f"vs torch.sparse.mm {mm_ms} ms (max_abs_err {mm_err}); "
+              f"sddmm_spans {sd_ms:.3f} ms, K2 {k2_ms:.3f} ms vs "
+              f"sampled_addmm {sa_ms} ms (max_abs_err {sa_err}); gathered "
+              f"rows bound {gather:.3f} ms; two launches of each bit for "
+              f"bit equal {card}", flush=True)
+
+    # the fold alone on the forward's split rows, K=256 f32 partials
+    t = s.split_f
+    ws = torch.randn(t.num_slots, K, generator=torch.Generator(
+        device=dev).manual_seed(13), device=dev)
+    out_p = torch.zeros(M, K, device=dev)
+    out_k = torch.zeros(M, K, device=dev)
+    slot_rows = torch.repeat_interleave(t.fold_row.long(),
+                                        torch.diff(t.fold_ptr.long()))
+    folds = fold_pieces_cuda.launches
+    p1, k1_, k2_, p2, _, _ = in_turns(
+        lambda: fold_pieces_reference(t, ws, out_p),
+        lambda: fold_pieces_cuda(t, ws, out_k), 1, 20)
+    check(fold_pieces_cuda.launches == folds + 42, "fold launches")
+    # thousands of partials summed in two orders: within GRAD_REL of the
+    # sum of their |values|
+    scale = torch.zeros(M, K, device=dev)
+    fold_pieces_reference(t, ws.abs(), scale)
+    err, ok = _grad_close(out_k, out_p, scale.double())
+    check(ok, f"fold disagrees with plain ({err:.3e})")
+    out_l = torch.zeros(M, K, device=dev)
+    lib_ms, _ = library_timed("index_add_ (the fold's sum)",
+                              lambda: out_l.index_add_(0, slot_rows, ws), 20)
+    fb, fby = bound_ms(nbytes(ws, t.fold_row, t.fold_ptr)
+                       + t.fold_row.numel() * K * 4, t.num_slots * K)
+    res["fold_pieces"] = {"ms": (k1_ + k2_) / 2, "plain_ms": (p1 + p2) / 2,
+                          "max_abs_err": err, "bound_ms": fb,
+                          "bound_by": fby, "library_ms": lib_ms,
+                          "slots": t.num_slots, "rows": t.fold_row.numel()}
+    print(f"phase 7c zipf 1/8 fold alone ({t.num_slots} partials of "
+          f"{t.fold_row.numel()} split rows, K={K} f32): kernel {k1_:.3f} / "
+          f"{k2_:.3f} ms, plain {p1:.3f} / {p2:.3f} ms, index_add_ {lib_ms} "
+          f"ms, bound {fb:.4f} ms ({fby}); max_abs_err {err:.3e} ok {card}",
+          flush=True)
+    return res
 
 
 def main() -> int:
@@ -1754,6 +2080,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
+
+    def stamp(done):
+        print(f"elapsed {time.perf_counter() - t_start:.1f} s after {done}",
+              flush=True)
 
     # ---- phase 1: device and build ---------------------------------------
     smi = subprocess.run(
@@ -1778,6 +2109,8 @@ def main() -> int:
     phase3_toy(dev)
     phase3b_toy_train(dev)
 
+    stamp("phases 1-3b")
+
     # ---- phases 4-5: GCN inference and train step at scale ---------------
     adj, x, model, fwd = phase4_forward(dev, card)
     torch.cuda.empty_cache()
@@ -1785,16 +2118,28 @@ def main() -> int:
     del adj, x, model
     torch.cuda.empty_cache()
 
+    stamp("phases 4-5")
+
     # ---- phase 6: run compaction (K5) and SpGEMM --------------------------
     phase6a_segcompact(gen, dev)
     phase6b_toy_spgemm(dev)
     spgemm = phase6c_spgemm(dev, card)
     k5 = spgemm["spgemm_10M_rowsorted"]["k5"]
 
+    stamp("phase 6")
+
     # ---- phase 7: packed-layout SpMMs (seg2, seg3, split) -----------------
     spans = phase7a_spans(gen, dev, card)
+    stamp("phase 7a without the split")
+    spans["split_max_abs_err"] = phase7a_long_rows(gen, dev, card)
+    stamp("phase 7a's split")
     phase7b_toy(dev)
     packed_paths, span_k = phase7c_scale(dev, card)
+    stamp("phase 7c")
+    full = packed_paths["seg2_zipf_full_bf16"]["launches"]
+    check(full["fold_pieces"] > 0 and full["spmm_spans"] > 0
+          and full["sddmm_spans"] > 0,
+          f"full-scale zipf did not run the split kernels: {full}")
     print("phase 7c summary " + json.dumps(
         {p: {k: v for k, v in st.items() if k != "launches"}
          for p, st in packed_paths.items()}), flush=True)
@@ -1809,6 +2154,16 @@ def main() -> int:
 
     k256 = train["sddmm"][256]
     sp, sd = span_k["spmm_spans"], span_k["sddmm_spans"]
+    zipf = span_k["zipf"]
+    fold = zipf["fold_pieces"]
+
+    def zipf_1_8(kernel):
+        """The kernel alone on zipf 1/8 in f32 and bf16, beside its
+        library call in the same dtype."""
+        return {"hub_edges": zipf["hub_edges"], "K": 256,
+                **{dt: {**zipf[dt][kernel],
+                        "gather_bound_ms": zipf[dt]["gather_bound_ms"]}
+                   for dt in ("float32", "bfloat16")}}
     print(json.dumps({"kernels": [
         {"name": "spmm_csr", "route": "cuda",
          "source": "paddle_sparse_tpu_torch/csrc/spmm_spans.cu",
@@ -1822,7 +2177,8 @@ def main() -> int:
          "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
          "library": "torch.sparse.mm on the CSR",
          "gather_bound_ms": fwd["gather_bound_ms"], "K": 256,
-         "ms_on_seg2_graph": sp["k1_same_graph_ms"]},
+         "ms_on_seg2_graph": sp["k1_same_graph_ms"],
+         "zipf_1_8": zipf_1_8("spmm_csr")},
         {"name": "sddmm_csr", "route": "cuda",
          "source": "paddle_sparse_tpu_torch/csrc/sddmm_spans.cu",
          "source_note": "the span SDDMM at S = 1 over the CSR pointer, "
@@ -1840,7 +2196,8 @@ def main() -> int:
          "library": "torch.sparse.sampled_addmm on the CSR",
          "gather_bound_ms": k256["gather_bound_ms"], "K": 256,
          "ms_K100": train["sddmm"][100]["ms"],
-         "plain_ms_K100": train["sddmm"][100]["plain_ms"]},
+         "plain_ms_K100": train["sddmm"][100]["plain_ms"],
+         "zipf_1_8": zipf_1_8("sddmm_csr")},
         {"name": "segcompact", "route": "cuda",
          "source": "paddle_sparse_tpu_torch/csrc/segcompact.cu",
          "replaces": "paddle_sparse_tpu/ops/kernels/segcompact.py:42",
@@ -1855,8 +2212,9 @@ def main() -> int:
          "launches_by_path": by_path("segcompact"),
          "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
          "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
-         "bound_by": k5["bound_by"], "library_ms": None,
-         "library": "none: no single PyTorch call compacts runs",
+         "bound_by": k5["bound_by"], "library_ms": k5["library_ms"],
+         "library": "torch.sparse_coo_tensor(...).coalesce() on K5's input "
+                    "stream",
          "at": "10M-nnz A @ A rowsorted grid",
          "by_path": {p: v["k5"] for p, v in spgemm.items()}},
         {"name": "spmm_spans", "route": "cuda",
@@ -1875,7 +2233,7 @@ def main() -> int:
          "library": "torch.sparse.mm on the CSR of the same matrix",
          "gather_bound_ms": sp["gather_bound_ms"], "K": 256,
          "at": "seg2 forward, uniform 2,449,029 nodes, f32",
-         "ms_bf16_x": sp["ms_bf16"], "zipf_1_8": span_k["zipf"],
+         "ms_bf16_x": sp["ms_bf16"], "zipf_1_8": zipf_1_8("spmm_spans"),
          "k1_same_graph_ms": sp["k1_same_graph_ms"],
          "band_reduce_r4_sizes": spans["band_reduce"],
          "max_abs_err_vs_f64_sweep": spans["max_abs_err"]},
@@ -1892,7 +2250,27 @@ def main() -> int:
          "bound_by": sd["bound_by"], "library_ms": sd["library_ms"],
          "library": "torch.sparse.sampled_addmm on the CSR",
          "gather_bound_ms": sd["gather_bound_ms"], "K": 256,
-         "at": "seg2 backward, uniform 2,449,029 nodes, f32"}]}))
+         "at": "seg2 backward, uniform 2,449,029 nodes, f32",
+         "zipf_1_8": zipf_1_8("sddmm_spans"),
+         "split_max_abs_err_vs_f64": spans["split_max_abs_err"]},
+        {"name": "fold_pieces", "route": "cuda",
+         "source": "paddle_sparse_tpu_torch/csrc/spmm_spans.cu",
+         "source_note": "fold_pieces_kernel, the second pass of a split "
+                        "spans launch (K1, K3, K4) over split rows' "
+                        "partials, through row_split.fold_pieces_cuda",
+         "replaces": "paddle_sparse_tpu/ops/spmm.py:293",
+         "replaces_note": "_fold_rows, an XLA segment_sum over the pseudo-"
+                          "rows of _split_long_rows; no pallas_call of its "
+                          "own",
+         "launches": packed_paths["seg2_zipf_full_bf16"]["launches"][
+             "fold_pieces"],
+         "launches_by_path": by_path("fold_pieces"),
+         "max_abs_err": fold["max_abs_err"], "ms": fold["ms"],
+         "plain_ms": fold["plain_ms"], "bound_ms": fold["bound_ms"],
+         "bound_by": fold["bound_by"], "library_ms": fold["library_ms"],
+         "library": "index_add_ of the partials into their rows",
+         "at": f"zipf 1/8 forward's {fold['rows']} split rows, "
+               f"{fold['slots']} partials, K=256 f32"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,11 @@ padding into a dead output row M and slices it off; here :meth:`rowptr` covers
 only the M real rows (``rowptr[M] == nnz``), so the SpMM kernel never reads a
 padding entry, whose ``col == N`` would lie outside ``x``.
 
-A ``PaddedCOO`` builds its row pointer and its CSC view
-(:class:`~..ops.spmm.SpmmStructure`) once, at first use, and keeps them, as the
-reference's plan cache keeps them per structure. ``with_value`` keeps them
+A ``PaddedCOO`` builds its row pointer, its CSC view
+(:class:`~..ops.spmm.SpmmStructure`) and the piece tables of both pointers
+(long rows and columns cut for the kernels, ``ops/kernels/row_split.py``)
+once, at first use, and keeps them, as the reference's plan cache keeps them
+per structure. ``with_value`` keeps them
 (same structure); ``to`` and ``dataclasses.replace`` drop them, so a copy with
 other indices or on another device builds its own.
 """
@@ -21,7 +23,9 @@ import torch
 
 from ..ops.convert import ind2ptr, ptr2ind_capped
 from ..ops.kernels.segcompact_cuda import compact_runs
-from ..ops.spmm import SpmmStructure, spmm_structure, spmm_with_structure
+from ..ops.kernels.row_split import RowSplit
+from ..ops.spmm import (SpmmStructure, ptr_split, spmm_structure,
+                        spmm_with_structure)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,8 +35,8 @@ class PaddedCOO:
     value: Optional[torch.Tensor]   # (capacity,) or None; padding = 0
     nnz: int                        # number of real entries
     shape: Tuple[int, int]          # (M, N)
-    # "rowptr" and "structure", built at first use; not an init field, so
-    # dataclasses.replace starts a copy with an empty cache
+    # "rowptr", "row_split" and "structure", built at first use; not an
+    # init field, so dataclasses.replace starts a copy with an empty cache
     _cache: Dict[str, object] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
 
@@ -58,12 +62,20 @@ class PaddedCOO:
             self._cache["rowptr"] = ind2ptr(self.row, self.M)
         return self._cache["rowptr"]
 
+    def row_split(self) -> Optional[RowSplit]:
+        """The piece table of :meth:`rowptr`: ``None`` when no row is
+        longer than ``row_split.CAP``. Cached."""
+        if "row_split" not in self._cache:
+            self._cache["row_split"] = ptr_split(self.rowptr())
+        return self._cache["row_split"]
+
     def structure(self) -> SpmmStructure:
-        """Row pointer and CSC view (``perm``, ``col_t``, ``colptr``), built
-        once and cached. Cached: do not write to it."""
+        """Row pointer, CSC view (``perm``, ``col_t``, ``colptr``) and the
+        piece tables of both pointers, built once and cached. Cached: do not
+        write to it."""
         if "structure" not in self._cache:
             self._cache["structure"] = spmm_structure(
-                self.rowptr(), self.row, self.col, self.N)
+                self.rowptr(), self.row, self.col, self.N, self.row_split())
         return self._cache["structure"]
 
     @classmethod
@@ -109,12 +121,13 @@ class PaddedCOO:
         ``value`` and ``x``; the backward's ``d x`` runs over the cached CSC
         view."""
         return spmm_with_structure(self.rowptr(), self.col, self.value, x,
-                                   self.structure, reduce)
+                                   self.structure, reduce, self.row_split())
 
     def transpose(self) -> "PaddedCOO":
         """Swap axes, re-sorted canonically: a stable sort by ``(col, row)``
         (the cached ``perm``). Padding ``(M, N)`` becomes ``(N, M)`` and still
-        sorts last. The result starts its cache with ``rowptr = colptr``."""
+        sorts last. The result starts its cache with ``rowptr = colptr``
+        and that pointer's piece table."""
         s = self.structure()
         value = None if self.value is None else self.value.index_select(
             0, s.perm)
@@ -122,6 +135,7 @@ class PaddedCOO:
                       col=s.col_t, value=value, nnz=self.nnz,
                       shape=(self.N, self.M))
         t._cache["rowptr"] = s.colptr
+        t._cache["row_split"] = s.col_split
         return t
 
     def sort(self) -> "PaddedCOO":

@@ -99,11 +99,16 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library(sources(), BUILD_DIR)))
             p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+            # ..., piece table: row, piece, P, cap (row NULL: none), ...
             lib.psp_spmm_spans.argtypes = [p, p, i64, p, p, p, p, p, i64,
-                                           i64, i64, i32, i32, p]
+                                           i64, i64, i32, i32, p, p, i64, i64,
+                                           p, p, p]
             lib.psp_spmm_spans.restype = ctypes.c_int
+            lib.psp_fold_pieces.argtypes = [p, p, p, p, i64, i64, i32, p]
+            lib.psp_fold_pieces.restype = ctypes.c_int
             lib.psp_sddmm_spans.argtypes = [p, p, i64, p, p, p, p, p, i64,
-                                            i64, i64, i32, i32, p]
+                                            i64, i64, i32, i32, p, p, i64,
+                                            i64, p]
             lib.psp_sddmm_spans.restype = ctypes.c_int
             lib.psp_segcompact_tile.argtypes = []
             lib.psp_segcompact_tile.restype = i64

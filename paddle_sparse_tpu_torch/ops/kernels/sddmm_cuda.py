@@ -20,12 +20,17 @@ as the padding of a ``PaddedCOO``, are 0.
 packed-layout SpMMs written in the packed order: it
 replaces ``mul_rowsum_call`` at its one call site in the JAX package,
 ``ops/spmm_seg2.py::_sddmm_pass``.
+
+Both take an optional piece table (``ops/kernels/row_split.py``): a row of
+more than ``row_split.CAP`` edges is cut into pieces, one warp each; pieces
+own disjoint edges, so there is no second pass.
 """
 from typing import Optional
 
 import torch
 
-from . import _build, spmm_cuda
+from . import spmm_cuda
+from .row_split import AUTO, launch_sddmm_spans, resolve_split
 from .spmm_spans_cuda import check_span_args, span_windows
 
 
@@ -84,17 +89,19 @@ def _check_cuda_args(rowptr, col, g, x, out_dtype):
 
 
 def sddmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor, g: torch.Tensor,
-                   x: torch.Tensor,
-                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                   x: torch.Tensor, out_dtype: torch.dtype = torch.float32,
+                   split=AUTO) -> torch.Tensor:
     """CSR SDDMM through the CUDA kernel ``csrc/sddmm_spans.cu`` at S = 1.
 
     ``rowptr`` (M+1,) is a CSR pointer into ``col``; ``g`` is a contiguous
     (M, K) and ``x`` a contiguous (N, K) tensor, each f32 or bf16, and every
-    ``col[e]`` with ``rowptr[0] <= e < rowptr[M]`` lies in ``[0, N)``. Returns
-    ``(col.numel(),)`` in ``out_dtype``, 0 outside the pointer's range. On a
-    CPU tensor this runs :func:`sddmm_csr_reference`; on a CUDA tensor it
-    launches the kernel or raises. ``sddmm_csr_cuda.launches`` counts kernel
-    launches."""
+    ``col[e]`` with ``rowptr[0] <= e < rowptr[M]`` lies in ``[0, N)``.
+    ``split`` is the pointer's :class:`~.row_split.RowSplit`, ``None`` when
+    no row is longer than its cap, or ``"auto"`` to build it here (one host
+    read of the longest row). Returns ``(col.numel(),)`` in ``out_dtype``, 0
+    outside the pointer's range. On a CPU tensor this runs
+    :func:`sddmm_csr_reference`; on a CUDA tensor it launches the kernel or
+    raises. ``sddmm_csr_cuda.launches`` counts kernel launches."""
     if x.device.type == "cpu":
         return sddmm_csr_reference(rowptr, col, g, x, out_dtype)
     if x.device.type != "cuda":
@@ -103,21 +110,14 @@ def sddmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor, g: torch.Tensor,
     if g.dtype != x.dtype:                # a mixed pair is summed in f32
         g, x = g.float(), x.float()
     out = torch.zeros(col.numel(), dtype=out_dtype, device=x.device)
-    M, K = rowptr.numel() - 1, x.shape[1]
+    M = rowptr.numel() - 1
     if M == 0 or col.numel() == 0:
         return out
     rowptr = rowptr.to(torch.int32).contiguous()
     col = col.to(torch.int32).contiguous()
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.psp_sddmm_spans(
-            rowptr.data_ptr(), rowptr[1:].data_ptr(), M + 1, col.data_ptr(),
-            None, g.data_ptr(), x.data_ptr(), out.data_ptr(), 1, M, K,
-            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"sddmm_csr kernel launch failed: CUDA error {err}")
+    start, end = rowptr[None, :-1], rowptr[None, 1:]
+    launch_sddmm_spans("sddmm_csr", start, end, col, None, g, x, out,
+                       resolve_split(split, start, end))
     sddmm_csr_cuda.launches += 1
     return out
 
@@ -148,7 +148,8 @@ def sddmm_spans_reference(start: torch.Tensor, end: torch.Tensor,
 def sddmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
                      col: torch.Tensor, base: Optional[torch.Tensor],
                      g: torch.Tensor, x: torch.Tensor,
-                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     out_dtype: torch.dtype = torch.float32,
+                     split=AUTO) -> torch.Tensor:
     """The span form of :func:`sddmm_csr_cuda`, through the same CUDA kernel
     ``csrc/sddmm_spans.cu``: ``dv[e] = g[m] . x[base[s] + col[e]]`` for
     every position ``e`` with ``start[s, m] <= e < end[s, m]``.
@@ -157,7 +158,10 @@ def sddmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
     (S, M+1) row pointers ``rp`` of a packed layout pass as ``rp[:, :-1]``,
     ``rp[:, 1:]``); ``base`` (S,) or ``None`` for 0; ``g`` a contiguous
     (M, K) and ``x`` a contiguous (N, K) tensor, each f32 or bf16 (a mixed
-    pair is computed in f32). Returns ``(col.numel(),)`` in ``out_dtype``, 0
+    pair is computed in f32). ``split`` is the bounds'
+    :class:`~.row_split.RowSplit` (a plan keeps it), ``None`` when no row
+    is longer than its cap, or ``"auto"`` to build it here (one host read
+    of the longest row). Returns ``(col.numel(),)`` in ``out_dtype``, 0
     at positions outside every span. On a CPU tensor this runs
     :func:`sddmm_spans_reference`; on a CUDA tensor it launches the kernel
     or raises. ``sddmm_spans_cuda.launches`` counts kernel launches."""
@@ -195,18 +199,8 @@ def sddmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
     if S == 0 or M == 0 or col.numel() == 0:
         return out
     col = col.to(torch.int32).contiguous()
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.psp_sddmm_spans(
-            start.data_ptr(), end.data_ptr(), start.stride(0),
-            col.data_ptr(), None if base is None else base.data_ptr(),
-            g.data_ptr(), x.data_ptr(), out.data_ptr(), S, M, K,
-            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"sddmm_spans kernel launch failed: CUDA error "
-                           f"{err}")
+    launch_sddmm_spans("sddmm_spans", start, end, col, base, g, x, out,
+                       resolve_split(split, start, end))
     sddmm_spans_cuda.launches += 1
     return out
 

@@ -10,13 +10,15 @@ gather, the scale and the row-sum: the multi-span kernel of
 
 Dtype contract, as in ``spmm_pallas``: the output has the promoted dtype of
 ``value`` and ``x``; sums are taken in f32 (f64 in the plain version when the
-inputs are f64); ``value=None`` means implicit ones; any K works.
+inputs are f64); ``value=None`` means implicit ones; any K works. A row of
+more than ``row_split.CAP`` edges is cut into pieces, one warp each, whose
+partials a second pass sums (``ops/kernels/row_split.py``).
 """
 from typing import Optional
 
 import torch
 
-from . import _build
+from .row_split import AUTO, launch_spmm_spans, resolve_split
 
 # edges per window of the plain version: bounds its (window, K) product
 # stream to about 1 GiB, so it never builds the whole (nnz, K) stream
@@ -81,13 +83,16 @@ def _check_cuda_args(rowptr, col, value, x):
 
 
 def spmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor,
-                  value: Optional[torch.Tensor],
-                  x: torch.Tensor) -> torch.Tensor:
+                  value: Optional[torch.Tensor], x: torch.Tensor,
+                  split=AUTO) -> torch.Tensor:
     """CSR SpMM through the CUDA kernel ``csrc/spmm_spans.cu`` at S = 1.
 
     ``rowptr`` (M+1,) is a canonical CSR pointer into ``col``/``value``;
     ``x`` is a contiguous (N, K) f32 or bf16 tensor and every ``col[e]`` with
-    ``e < rowptr[M]`` lies in ``[0, N)``. On a CPU tensor this runs
+    ``e < rowptr[M]`` lies in ``[0, N)``. ``split`` is the pointer's
+    :class:`~.row_split.RowSplit` (``PaddedCOO`` caches it), ``None`` when
+    no row is longer than its cap, or ``"auto"`` to build it here (one host
+    read of the longest row). On a CPU tensor this runs
     :func:`spmm_csr_reference`; on a CUDA tensor it launches the kernel or
     raises. ``spmm_csr_cuda.launches`` counts kernel launches."""
     if x.device.type == "cpu":
@@ -104,16 +109,9 @@ def spmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor,
     col = col.to(torch.int32).contiguous()
     if value is not None:
         value = value.to(torch.float32).contiguous()
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.psp_spmm_spans(
-            rowptr.data_ptr(), rowptr[1:].data_ptr(), M + 1, col.data_ptr(),
-            None if value is None else value.data_ptr(), None, x.data_ptr(),
-            out.data_ptr(), 1, M, K, int(x.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"spmm_csr kernel launch failed: CUDA error {err}")
+    start, end = rowptr[None, :-1], rowptr[None, 1:]
+    launch_spmm_spans("spmm_csr", start, end, col, value, None, x, out,
+                      resolve_split(split, start, end))
     spmm_csr_cuda.launches += 1
     return out
 

@@ -14,13 +14,15 @@ over all spans, and writes each output row once.
 (S, M+1) row pointers ``rp`` of a packed layout pass as ``rp[:, :-1]`` and
 ``rp[:, 1:]`` without a copy. ``idx=None`` is the stream form (``src[base[s]
 + e]``), ``value=None`` means ones and ``base=None`` means 0. Sums are taken
-in f32 (f64 in the plain version when an input is f64).
+in f32 (f64 in the plain version when an input is f64). A row of more than
+``row_split.CAP`` edges is cut into pieces, one warp each, whose partials a
+second pass sums (``ops/kernels/row_split.py``).
 """
 from typing import Optional
 
 import torch
 
-from . import _build
+from .row_split import AUTO, launch_spmm_spans, resolve_split
 from .spmm_cuda import _WINDOW_BYTES, _out_dtype
 
 
@@ -170,7 +172,8 @@ def spmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
                     idx: Optional[torch.Tensor],
                     value: Optional[torch.Tensor],
                     base: Optional[torch.Tensor], src: torch.Tensor,
-                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                    out_dtype: Optional[torch.dtype] = None,
+                    split=AUTO) -> torch.Tensor:
     """Multi-span SpMM through the CUDA kernel ``csrc/spmm_spans.cu``.
 
     ``start``/``end`` (S, M) int32 (int64 is copied), ``idx``/``value``
@@ -178,10 +181,14 @@ def spmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
     or bf16 tensor; every position in a span must index ``idx`` and
     ``value`` (or ``src`` in the stream form) and every source row must lie
     in ``[0, N)``. ``out_dtype`` defaults to the promoted dtype of ``value``
-    and ``src``; an f32 ``src`` writes f32 only. Returns (M, K). On a CPU
-    tensor this runs :func:`spmm_spans_reference`; on a CUDA tensor it
-    launches the kernel or raises. ``spmm_spans_cuda.launches`` counts kernel
-    launches."""
+    and ``src``; an f32 ``src`` writes f32 only. ``split`` is the bounds'
+    :class:`~.row_split.RowSplit` (a plan keeps it), ``None`` when no row
+    is longer than its cap, or ``"auto"`` to build it here (one host read
+    of the longest row). Returns (M, K). On a CPU tensor this runs
+    :func:`spmm_spans_reference`; on a CUDA tensor it launches the kernel
+    or raises. ``spmm_spans_cuda.launches`` counts kernel launches; the
+    second pass of a split launch counts on
+    ``row_split.fold_pieces_cuda.launches``."""
     out_dtype = out_dtype or _out_dtype(value, src)
     if src.device.type == "cpu":
         return spmm_spans_reference(start, end, idx, value, base, src,
@@ -197,19 +204,8 @@ def spmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
         return out
     if S == 0:
         return out.zero_()
-    lib = _build.load_library()
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.psp_spmm_spans(
-            start.data_ptr(), end.data_ptr(), start.stride(0),
-            None if idx is None else idx.data_ptr(),
-            None if value is None else value.data_ptr(),
-            None if base is None else base.data_ptr(), src.data_ptr(),
-            out.data_ptr(), S, M, K, int(src.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"spmm_spans kernel launch failed: CUDA error "
-                           f"{err}")
+    launch_spmm_spans("spmm_spans", start, end, idx, value, base, src, out,
+                      resolve_split(split, start, end))
     spmm_spans_cuda.launches += 1
     return out
 

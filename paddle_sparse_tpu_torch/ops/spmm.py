@@ -15,6 +15,11 @@ PyTorch versions.
 * ``d value[e] = g[row[e]] . x[col[e]]``: the SDDMM kernel
   (:func:`~.kernels.sddmm_cuda.sddmm_csr_cuda`) over the CSR, 0 at padding.
 
+Each launch takes the piece table of its pointer
+(:class:`~.kernels.row_split.RowSplit`, ``None`` when no row or column is
+longer than ``row_split.CAP``), so a hub row or column is walked by many
+warps.
+
 Not yet ported (ROADMAP queue 1, item 3): the mean/min/max reductions, which
 raise ``NotImplementedError``.
 """
@@ -24,13 +29,15 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .convert import ind2ptr, ptr2ind_capped
+from .kernels.row_split import AUTO, RowSplit, resolve_split
 from .kernels.sddmm_cuda import sddmm_csr_cuda
 from .kernels.spmm_cuda import spmm_csr_cuda
 
 
 class SpmmStructure(NamedTuple):
     """CSR pointer and CSC view of one sparse structure, as the reference's
-    ``_spmm_structure`` builds it: the CSC view is the CSR of ``A^T``.
+    ``_spmm_structure`` builds it: the CSC view is the CSR of ``A^T``; and
+    the piece tables of both pointers.
 
     Entries with ``row >= num_rows`` are padding: they lie past
     ``rowptr[num_rows]``, sort last in the CSC view and lie past
@@ -39,29 +46,43 @@ class SpmmStructure(NamedTuple):
     perm: torch.Tensor     # (capacity,) int32, stable argsort of col
     col_t: torch.Tensor    # row[perm]
     colptr: torch.Tensor   # (N+1,) over the real columns
+    row_split: Optional[RowSplit]   # rowptr's long rows, None if none
+    col_split: Optional[RowSplit]   # colptr's long columns, None if none
+
+
+def ptr_split(ptr: torch.Tensor, split=AUTO) -> Optional[RowSplit]:
+    """The piece table of a CSR pointer, ``None`` when no row is longer
+    than ``row_split.CAP``; a given ``split`` is checked and kept."""
+    return resolve_split(split, ptr[None, :-1], ptr[None, 1:])
 
 
 def spmm_structure(rowptr: torch.Tensor, row: torch.Tensor,
-                   col: torch.Tensor, num_cols: int) -> SpmmStructure:
+                   col: torch.Tensor, num_cols: int,
+                   row_split=AUTO) -> SpmmStructure:
     """The :class:`SpmmStructure` of row-sorted COO indices ``row``/``col``
-    whose CSR pointer over the real rows is ``rowptr``."""
+    whose CSR pointer over the real rows is ``rowptr`` (and, when given,
+    ``row_split`` its piece table)."""
     # padding sorts last whatever its col holds
     key = torch.where(row < rowptr.numel() - 1, col, num_cols)
     perm = torch.argsort(key, stable=True).to(torch.int32)
-    return SpmmStructure(rowptr=rowptr, perm=perm, col_t=row[perm],
-                         colptr=ind2ptr(key[perm], num_cols))
+    colptr = ind2ptr(key[perm], num_cols)
+    return SpmmStructure(
+        rowptr=rowptr, perm=perm, col_t=row[perm], colptr=colptr,
+        row_split=ptr_split(rowptr, row_split), col_split=ptr_split(colptr))
 
 
 class _SpmmSum(torch.autograd.Function):
     """``A @ x`` over ``(value, x)``; the index structure is closed over.
     ``structure_fn`` gives the :class:`SpmmStructure` and is called only
-    when the backward needs ``d x``."""
+    when the backward needs ``d x``; ``row_split`` is ``rowptr``'s piece
+    table (or ``"auto"``: built by each launch)."""
 
     @staticmethod
-    def forward(ctx, value, x, rowptr, col, structure_fn):
+    def forward(ctx, value, x, rowptr, col, structure_fn, row_split):
         ctx.save_for_backward(value, x)
         ctx.rowptr, ctx.col, ctx.structure_fn = rowptr, col, structure_fn
-        return spmm_csr_cuda(rowptr, col, value, x)
+        ctx.row_split = row_split
+        return spmm_csr_cuda(rowptr, col, value, x, split=row_split)
 
     @staticmethod
     @once_differentiable
@@ -71,13 +92,15 @@ class _SpmmSum(torch.autograd.Function):
         d_value = d_x = None
         if ctx.needs_input_grad[0]:
             d_value = sddmm_csr_cuda(ctx.rowptr, ctx.col, g, x,
-                                     out_dtype=value.dtype)
+                                     out_dtype=value.dtype,
+                                     split=ctx.row_split)
         if ctx.needs_input_grad[1]:
             s = ctx.structure_fn()
             value_t = (None if value is None
                        else value.index_select(0, s.perm))
-            d_x = spmm_csr_cuda(s.colptr, s.col_t, value_t, g).to(x.dtype)
-        return d_value, d_x, None, None, None
+            d_x = spmm_csr_cuda(s.colptr, s.col_t, value_t, g,
+                                split=s.col_split).to(x.dtype)
+        return d_value, d_x, None, None, None, None
 
 
 def _check_reduce(reduce: str) -> None:
@@ -92,15 +115,16 @@ def _check_reduce(reduce: str) -> None:
 def spmm_with_structure(rowptr: torch.Tensor, col: torch.Tensor,
                         value: Optional[torch.Tensor], x: torch.Tensor,
                         structure_fn: Callable[[], SpmmStructure],
-                        reduce: str = "sum") -> torch.Tensor:
+                        reduce: str = "sum", row_split=AUTO) -> torch.Tensor:
     """:func:`spmm_csr`, taking the CSC view from ``structure_fn`` when the
-    backward needs it (a ``PaddedCOO`` passes its cached one)."""
+    backward needs it and ``rowptr``'s piece table from ``row_split`` (a
+    ``PaddedCOO`` passes its cached ones)."""
     _check_reduce(reduce)
     if value is not None and value.dim() != 1:
         raise ValueError("spmm expects scalar edge values (1-D)")
     M = rowptr.numel() - 1
     x2 = x.reshape(x.shape[0], -1).contiguous()
-    out = _SpmmSum.apply(value, x2, rowptr, col, structure_fn)
+    out = _SpmmSum.apply(value, x2, rowptr, col, structure_fn, row_split)
     return out.reshape((M,) + tuple(x.shape[1:]))
 
 
@@ -112,7 +136,8 @@ def spmm_csr(rowptr: torch.Tensor, col: torch.Tensor,
     ``value`` may be ``None`` (implicit ones); ``x`` is (N, ...) and the
     output (M, ...) with ``M = len(rowptr) - 1``, in the promoted dtype of
     ``value`` and ``x``. Differentiable in ``value`` and ``x``; the backward
-    builds the CSC view of ``(rowptr, col)`` on each call."""
+    builds the CSC view of ``(rowptr, col)`` on each call, and each launch
+    the piece table of its pointer."""
     def structure_fn():
         return spmm_structure(rowptr, ptr2ind_capped(rowptr, col.numel()),
                               col, x.shape[0])

@@ -26,6 +26,12 @@ What runs on the card:
   (:func:`~.kernels.sddmm_cuda.sddmm_spans_cuda`) over the forward layout,
   written in the packed order.
 
+The planner also builds the piece tables of both layouts
+(:class:`~.kernels.row_split.RowSplit`: a row, or an ``x`` row of the
+transpose, of more than ``row_split.CAP`` edges is cut across warps), so a
+power-law graph's hub rows do not each hold up a whole launch; ``None``
+when nothing is that long.
+
 Not ported, because it is TPU scheduling for the windowed Pallas pass: the
 sub-window machinery (``W``, ``ECW``, ``CRW``, ``chunk``, the ``*_s`` SDDMM
 windows, ``rlo_*``, ``seg_of_*``, ``wptr_*``, ``_window_counts``,
@@ -39,6 +45,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch.autograd.function import once_differentiable
 
+from .kernels.row_split import RowSplit, split_lengths
 from .kernels.sddmm_cuda import sddmm_spans_cuda
 from .kernels.spmm_spans_cuda import product_dtype, spmm_spans_cuda
 
@@ -68,6 +75,8 @@ class Seg2Structure(NamedTuple):
     rp_t: torch.Tensor      # (S_t, N+1) absolute out-row pointers
     sbase_t: torch.Tensor   # (S_t,)
     relay_ft: torch.Tensor  # (nnz,) t position -> fwd position (values)
+    split_f: Optional[RowSplit]  # pieces of the fwd layout's M rows
+    split_t: Optional[RowSplit]  # pieces of the transpose's N rows
 
 
 def _lg2(v: int) -> int:
@@ -151,10 +160,12 @@ def _segment_size(sr: Optional[int], num_src_rows: int, feat_dim: int,
 def build_layouts(row: torch.Tensor, col: torch.Tensor, M: int, N: int, *,
                   SR: int, SR_t: int):
     """The forward and transpose layouts of row-sorted int32 ``row``/``col``
-    (the JAX package's ``_build_fwd``, ``_build_t`` and ``_relays``):
-    ``(S, S_t, col_f, rp_f, perm_f, sbase_f, col_t, rp_t, sbase_t,
-    relay_ft)``. The JAX structure's ``row_f`` is ``row[perm_f]``: no
-    kernel reads it (they read ``rp_f``), so it is not kept."""
+    (the JAX package's ``_build_fwd``, ``_build_t`` and ``_relays``) and
+    their piece tables: ``(S, S_t, col_f, rp_f, perm_f, sbase_f, col_t,
+    rp_t, sbase_t, relay_ft, split_f, split_t)``. The JAX structure's
+    ``row_f`` is ``row[perm_f]``: no kernel reads it (they read ``rp_f``),
+    so it is not kept. A row's edges over all segments are its degree, so
+    the tables come from two bincounts."""
     dev = row.device
     S = max(1, -(-N // SR))
     S_t = max(1, -(-M // SR_t))
@@ -172,8 +183,10 @@ def build_layouts(row: torch.Tensor, col: torch.Tensor, M: int, N: int, *,
     # the value relay, t position -> fwd position
     inv_f = torch.empty(nnz, dtype=torch.int32, device=dev)
     inv_f[perm_f] = torch.arange(nnz, dtype=torch.int32, device=dev)
+    split_f = split_lengths(torch.bincount(row, minlength=M))
+    split_t = split_lengths(torch.bincount(col, minlength=N))
     return (S, S_t, col_f, rp_f, perm_f.to(torch.int32), sbase_f, col_t,
-            rp_t, sbase_t, inv_f[perm_t])
+            rp_t, sbase_t, inv_f[perm_t], split_f, split_t)
 
 
 def make_seg2_plan(row, col, num_rows: int, num_cols: int, *,
@@ -187,12 +200,9 @@ def make_seg2_plan(row, col, num_rows: int, num_cols: int, *,
     row, col = _check_indices(row, col, M, N, "make_seg2_plan")
     SR = _segment_size(sr, N, feat_dim, stream)
     SR_t = _segment_size(sr, M, feat_dim, stream)
-    (S, S_t, col_f, rp_f, perm_f, sbase_f, col_t, rp_t, sbase_t,
-     relay_ft) = build_layouts(row, col, M, N, SR=SR, SR_t=SR_t)
+    (S, S_t, *arrays) = build_layouts(row, col, M, N, SR=SR, SR_t=SR_t)
     plan = Seg2Plan(M, N, S, SR, S_t, SR_t, stream=stream)
-    structure = Seg2Structure(col_f=col_f, rp_f=rp_f, perm_f=perm_f,
-                              sbase_f=sbase_f, col_t=col_t, rp_t=rp_t,
-                              sbase_t=sbase_t, relay_ft=relay_ft)
+    structure = Seg2Structure(*arrays)
     return plan, structure
 
 
@@ -210,15 +220,17 @@ def unpack_values(s, packed: torch.Tensor) -> torch.Tensor:
 
 def _spans(rp: torch.Tensor, rows: int, col: torch.Tensor,
            base: torch.Tensor, value: Optional[torch.Tensor],
-           x: torch.Tensor, pdt: torch.dtype) -> torch.Tensor:
-    """One multi-span SpMM over a packed layout: ``x`` gathered in ``pdt``
-    (a bf16 ``x`` is read as it is: widening is exact), output in ``x``'s
-    dtype."""
+           x: torch.Tensor, pdt: torch.dtype,
+           split: Optional[RowSplit]) -> torch.Tensor:
+    """One multi-span SpMM over a packed layout and its piece table: ``x``
+    gathered in ``pdt`` (a bf16 ``x`` is read as it is: widening is exact),
+    output in ``x``'s dtype."""
     src = x if x.dtype in (pdt, torch.bfloat16) else x.to(pdt)
     out_dtype = (x.dtype if x.dtype in (torch.float32, torch.bfloat16)
                  else torch.float32)
     return spmm_spans_cuda(rp[:, :rows], rp[:, 1:rows + 1], col, value, base,
-                           src, out_dtype=out_dtype).to(x.dtype)
+                           src, out_dtype=out_dtype,
+                           split=split).to(x.dtype)
 
 
 class _PackedSpmm(torch.autograd.Function):
@@ -231,7 +243,7 @@ class _PackedSpmm(torch.autograd.Function):
         ctx.plan, ctx.s = plan, s
         pdt = product_dtype(packed_value, x, plan.stream)
         return _spans(s.rp_f, plan.num_rows, s.col_f, s.sbase_f,
-                      packed_value, x, pdt)
+                      packed_value, x, pdt, s.split_f)
 
     @staticmethod
     @once_differentiable
@@ -245,12 +257,12 @@ class _PackedSpmm(torch.autograd.Function):
             value_t = (None if packed_value is None
                        else packed_value.index_select(0, s.relay_ft))
             d_x = _spans(s.rp_t, plan.num_cols, s.col_t, s.sbase_t, value_t,
-                         g, pdt).to(x.dtype)
+                         g, pdt, s.split_t).to(x.dtype)
         if ctx.needs_input_grad[0]:
             M = plan.num_rows
             d_value = sddmm_spans_cuda(
                 s.rp_f[:, :M], s.rp_f[:, 1:M + 1], s.col_f, s.sbase_f,
-                g.to(pdt), x.to(pdt)).to(packed_value.dtype)
+                g.to(pdt), x.to(pdt), split=s.split_f).to(packed_value.dtype)
         return d_value, d_x, None, None
 
 

@@ -19,10 +19,11 @@ are padded to whole bands, as there. The TPU's staging tables (``_tables``,
 path: :func:`tilespan_tables` builds the tables only for the K3 entry point
 (:func:`~.kernels.spmm_spans_cuda.tilespan_call`).
 """
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from .kernels.row_split import RowSplit
 from .spmm_seg2 import (_check_indices, _segment_size, build_layouts,
                         pack_values, packed_spmm, unpack_values)
 
@@ -56,6 +57,8 @@ class Seg3Structure(NamedTuple):
     rp_t: torch.Tensor      # (S_t, bands_t * BAND + 1)
     sbase_t: torch.Tensor
     relay_ft: torch.Tensor
+    split_f: Optional[RowSplit]   # pieces of the M rows (seg2's tables)
+    split_t: Optional[RowSplit]
 
 
 class Seg3Infeasible(ValueError):
@@ -125,8 +128,8 @@ def make_seg3_plan(row, col, num_rows: int, num_cols: int, *,
     BAND = max(128, (band_rows // 128) * 128)
     bands = max(1, -(-M // BAND))
     bands_t = max(1, -(-N // BAND))
-    (S, S_t, col_f, rp_f, perm_f, sbase_f, col_t, rp_t, sbase_t,
-     relay_ft) = build_layouts(row, col, M, N, SR=SR, SR_t=SR_t)
+    (S, S_t, col_f, rp_f, perm_f, sbase_f, col_t, rp_t, sbase_t, relay_ft,
+     split_f, split_t) = build_layouts(row, col, M, N, SR=SR, SR_t=SR_t)
     rp_f = _pad_rp(rp_f, bands * BAND)
     rp_t = _pad_rp(rp_t, bands_t * BAND)
 
@@ -147,7 +150,8 @@ def make_seg3_plan(row, col, num_rows: int, num_cols: int, *,
                     CAP_TS_t, stream=stream)
     structure = Seg3Structure(col_f=col_f, rp_f=rp_f, perm_f=perm_f,
                               sbase_f=sbase_f, col_t=col_t, rp_t=rp_t,
-                              sbase_t=sbase_t, relay_ft=relay_ft)
+                              sbase_t=sbase_t, relay_ft=relay_ft,
+                              split_f=split_f, split_t=split_t)
     return plan, structure
 
 

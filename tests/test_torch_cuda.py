@@ -1,6 +1,8 @@
 """The CUDA kernels of paddle_sparse_tpu_torch against their plain versions,
 and the SpMM autograd, the toy train step, SpGEMM and the packed-layout SpMMs
-(seg2, seg3, split) on the card against the CPU.
+(seg2, seg3, split) on the card against the CPU; the span kernels' long-row
+split (pieces of a ``RowSplit`` table and the fold pass) against the plain
+versions, bit for bit from launch to launch.
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False. This file imports no JAX, so on a
 machine with a card and no JAX it runs alone:
@@ -17,9 +19,11 @@ import dataclasses
 import pytest
 import torch
 
-from paddle_sparse_tpu_torch import (SPMM_BACKENDS, PaddedCOO,
+from paddle_sparse_tpu_torch import (CAP, SPMM_BACKENDS, PaddedCOO,
                                      band_reduce_call, compact_runs_cuda,
-                                     compact_runs_reference, entry, gcn_loss,
+                                     compact_runs_reference, entry,
+                                     fold_pieces_cuda, gcn_loss,
+                                     make_seg2_plan, pack_values,
                                      plan_spgemm, plan_spgemm_blocked,
                                      plan_spgemm_rows, sddmm_csr_cuda,
                                      sddmm_csr_reference, sddmm_spans_cuda,
@@ -28,7 +32,8 @@ from paddle_sparse_tpu_torch import (SPMM_BACKENDS, PaddedCOO,
                                      spmm_csr_reference, spmm_entry,
                                      spmm_seg2, spmm_seg3, spmm_spans_cuda,
                                      spmm_spans_reference, spmm_split,
-                                     spspmm_padded, spspmm_rowblocked,
+                                     split_rows, spspmm_padded,
+                                     spspmm_rowblocked,
                                      spspmm_rowsorted, tilespan_call,
                                      train_entry, train_step)
 
@@ -36,6 +41,19 @@ pytestmark = pytest.mark.cuda
 
 F32 = dict(rtol=1e-5, atol=1e-4)
 BF16 = dict(rtol=2e-2, atol=2e-2)
+# a sum of thousands of f32 terms (a long row or column), against f64 or a
+# sum in another order: within this share of the sum of |terms| of its entry
+SUM_REL = 1e-5
+
+
+def _close_to_sum(got, ref, scale, out_rel=0.0):
+    """``|got - ref| <= SUM_REL * scale + out_rel * |ref|`` elementwise
+    (``scale``: the sum of |terms| of each entry, from the same function on
+    |inputs|; ``out_rel``: the rounding of a narrower output)."""
+    ref = ref.double()
+    bound = SUM_REL * scale.double() + out_rel * ref.abs() + 1e-30
+    err = (got.double() - ref).abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
 
 
 @pytest.fixture
@@ -744,3 +762,184 @@ def test_packed_spmm_card_vs_cpu(dev, backend, stream):
     assert runs["cpu"][1] == (0, 0)
     for c, h in zip(runs["cuda"][0], runs["cpu"][0]):
         torch.testing.assert_close(c, h, **F32)
+
+
+# ---- long rows: pieces of a RowSplit table, one warp each, and the fold ---
+
+def _long_row_bounds(dev, S, cap, seed=0):
+    """(S, M) span bounds whose rows hold cap-1, cap, cap+1 and 2*cap+3
+    flat edges among short and empty rows, each row's edges spread over
+    the S spans with empty spans among them."""
+    g = torch.Generator().manual_seed(seed)
+    totals = [0, cap - 1, 3, cap, 0, cap + 1, 7, 2 * cap + 3, 0, 1]
+    lens = torch.zeros(S, len(totals), dtype=torch.int64)
+    for m, n in enumerate(totals):
+        if n:
+            cut = torch.sort(torch.randint(0, n + 1, (S - 1,),
+                                           generator=g)).values
+            lens[:, m] = torch.diff(torch.cat([torch.tensor([0]), cut,
+                                               torch.tensor([n])]))
+    ptr = torch.zeros(lens.numel() + 1, dtype=torch.int64)
+    ptr[1:] = lens.reshape(-1).cumsum(0)
+    M = len(totals)
+    rp = ptr.as_strided((S, M + 1), (M, 1)).to(torch.int32).to(dev)
+    return rp[:, :-1], rp[:, 1:], int(ptr[-1])
+
+
+@pytest.mark.parametrize("S", [1, 38])
+@pytest.mark.parametrize("cap", [32, CAP])
+@pytest.mark.parametrize("K", [1, 47, 256, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_kernels_vs_plain(dev, S, cap, K, dtype):
+    """Both span kernels over a split table (rows of cap-1 to 2*cap+3
+    edges) against their plain versions in f64; the SpMM's fold runs once
+    per launch."""
+    start, end, nnz = _long_row_bounds(dev, S, cap, seed=S + K)
+    t = split_rows(start, end, cap)
+    assert t is not None and t.fold_row.tolist() == [5, 7]
+    g = torch.Generator(device=dev).manual_seed(K)
+    N = 500
+    base = torch.randint(0, 50, (S,), generator=g, device=dev,
+                         dtype=torch.int32)
+    idx = torch.randint(0, N - 50, (nnz,), generator=g, device=dev,
+                        dtype=torch.int32)
+    val = torch.rand(nnz, generator=g, device=dev) * 2 - 1
+    x = torch.randn(N, K, generator=g, device=dev).to(dtype)
+    folds = fold_pieces_cuda.launches
+    out = spmm_spans_cuda(start, end, idx, val.to(dtype), base, x, split=t)
+    assert fold_pieces_cuda.launches == folds + 1
+    ref = spmm_spans_reference(start, end, idx, val.to(dtype).double(), base,
+                               x.double())
+    scale = spmm_spans_reference(start, end, idx,
+                                 val.to(dtype).double().abs(), base,
+                                 x.double().abs())
+    torch.cuda.synchronize()
+    # a bf16 output rounds each entry once, by at most 2**-9 of it
+    _close_to_sum(out, ref, scale, 0.0 if dtype == torch.float32 else 2 ** -8)
+    gm = torch.randn(start.shape[1], K, generator=g, device=dev).to(dtype)
+    dv = sddmm_spans_cuda(start, end, idx, base, gm, x, split=t)
+    dref = sddmm_spans_reference(start, end, idx, base, gm.double(),
+                                 x.double(), torch.float64)
+    torch.testing.assert_close(dv.double(), dref, **F32)
+
+
+def test_split_launches_bitwise_equal(dev):
+    """Two split launches give the same bits (no atomics; a fixed fold);
+    ``split=None`` and an unsplit graph launch no fold."""
+    start, end, nnz = _long_row_bounds(dev, 38, 64)
+    t = split_rows(start, end, 64)
+    g = torch.Generator(device=dev).manual_seed(3)
+    idx = torch.randint(0, 400, (nnz,), generator=g, device=dev)
+    x = torch.randn(400, 256, generator=g, device=dev)
+    gm = torch.randn(start.shape[1], 256, generator=g, device=dev)
+    a = spmm_spans_cuda(start, end, idx, None, None, x, split=t)
+    b = spmm_spans_cuda(start, end, idx, None, None, x, split=t)
+    assert torch.equal(a, b)
+    da = sddmm_spans_cuda(start, end, idx, None, gm, x, split=t)
+    db = sddmm_spans_cuda(start, end, idx, None, gm, x, split=t)
+    assert torch.equal(da, db)
+    folds = fold_pieces_cuda.launches
+    whole = spmm_spans_cuda(start, end, idx, None, None, x, split=None)
+    rp, _ = _span_ptrs(dev, 3, 100, 3)
+    spmm_spans_cuda(rp[:, :-1], rp[:, 1:], idx[:int(rp[-1, -1])], None,
+                    None, x)                     # "auto": nothing splits
+    assert fold_pieces_cuda.launches == folds
+    torch.testing.assert_close(whole, a, **F32)
+
+
+def test_split_csr_long_row_exact(dev):
+    """K1 and K2 through the table built per call ("auto"), on a row of
+    1.1M edges among short and empty ones; small-integer inputs keep every
+    f32 sum exact whatever the order."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    deg = torch.tensor([3, 0, 1_100_000, 5, CAP + 1, 0], device=dev)
+    rowptr = torch.zeros(7, dtype=torch.int32, device=dev)
+    rowptr[1:] = deg.cumsum(0)
+    nnz = int(rowptr[-1])
+    col = torch.randint(0, 2000, (nnz,), generator=g, device=dev,
+                        dtype=torch.int32)
+    val = torch.randint(-2, 3, (nnz,), generator=g, device=dev).float()
+    for K in (8, 256):
+        x = torch.randint(-4, 5, (2000, K), generator=g, device=dev).float()
+        gm = torch.randint(-4, 5, (6, K), generator=g, device=dev).float()
+        folds = fold_pieces_cuda.launches
+        out = spmm_csr_cuda(rowptr, col, val, x)
+        assert fold_pieces_cuda.launches == folds + 1
+        assert torch.equal(out.double(), spmm_csr_reference(
+            rowptr, col, val.double(), x.double()))
+        assert torch.equal(sddmm_csr_cuda(rowptr, col, gm, x).double(),
+                           sddmm_csr_reference(rowptr, col, gm.double(),
+                                               x.double(), torch.float64))
+
+
+def _zipf_rows(n, nnz, seed=0):
+    import numpy as np
+    w = np.random.default_rng(seed).zipf(1.5, n).astype(np.float64)
+    deg = np.maximum(1, np.floor(w * (nnz / w.sum()))).astype(np.int64)
+    return torch.arange(n, dtype=torch.int32).repeat_interleave(
+        torch.as_tensor(deg))
+
+
+def test_seg2_zipf_card_vs_cpu(dev):
+    """seg2 on a small zipf graph whose hub rows split: forward, d packed
+    and d x on the card against the CPU, each entry within SUM_REL of its
+    sum of |terms| (the CPU's run on |inputs|); the forward's fold runs."""
+    n = 20_000
+    row = _zipf_rows(n, 200_000)
+    g = torch.Generator().manual_seed(5)
+    col = torch.randint(0, n, (row.numel(),), generator=g, dtype=torch.int32)
+    val = torch.rand(row.numel(), generator=g)
+    x = torch.randn(n, 64, generator=g)
+    w = torch.randn(n, 64, generator=g)
+    runs = {}
+    for where, sign in (("cuda", 1), ("cpu", 1), ("cpu", 0)):
+        f = (lambda t: t) if sign else torch.abs        # 0: |inputs|
+        plan, s = make_seg2_plan(row.to(where), col.to(where), n, n,
+                                 feat_dim=64, sr=4096)
+        assert s.split_f is not None and s.split_t is None
+        pv = pack_values(s, f(val).to(where)).requires_grad_()
+        xx = f(x).to(where, copy=True).requires_grad_()
+        folds = fold_pieces_cuda.launches
+        out = spmm_seg2(plan, s, pv, xx)
+        (out * f(w).to(where)).sum().backward()
+        runs[where, sign] = ([out.detach().cpu(), pv.grad.cpu(),
+                              xx.grad.cpu()],
+                             fold_pieces_cuda.launches - folds)
+    assert runs["cuda", 1][1] == 1 and runs["cpu", 1][1] == 0
+    for c, h, a in zip(*(runs[k][0] for k in (("cuda", 1), ("cpu", 1),
+                                               ("cpu", 0)))):
+        _close_to_sum(c, h, a)
+
+
+def test_spmm_autograd_hub_row_and_column(dev):
+    """``PaddedCOO.spmm`` forward, d value and d x with a hub row and a hub
+    column past ``CAP``: the cached tables on the card against the CPU,
+    each entry within SUM_REL of its sum of |terms|."""
+    g = torch.Generator().manual_seed(6)
+    M = N = 3000
+    hub = CAP * 2 + 5
+    row = torch.cat([torch.full((hub,), 7), torch.randint(0, M, (20_000,),
+                                                          generator=g),
+                     torch.arange(hub) % M])
+    col = torch.cat([torch.randint(0, N, (hub,), generator=g),
+                     torch.randint(0, N, (20_000,), generator=g),
+                     torch.full((hub,), 11)])
+    order = torch.argsort(row, stable=True)
+    row, col = row[order], col[order]
+    val = torch.rand(row.numel(), generator=g)
+    x = torch.randn(N, 48, generator=g)
+    w = torch.randn(M, 48, generator=g)
+    runs = {}
+    for where, sign in (("cuda", 1), ("cpu", 1), ("cpu", 0)):
+        f = (lambda t: t) if sign else torch.abs        # 0: |inputs|
+        adj = PaddedCOO.from_arrays(row, col, f(val), (M, N), device=where)
+        s = adj.structure()
+        assert s.row_split is not None and s.col_split is not None
+        v = adj.value.clone().requires_grad_()
+        xx = f(x).to(where, copy=True).requires_grad_()
+        out = adj.with_value(v).spmm(xx)
+        (out * f(w).to(where)).sum().backward()
+        runs[where, sign] = [out.detach().cpu(), v.grad.cpu(),
+                             xx.grad.cpu()]
+    for c, h, a in zip(runs["cuda", 1], runs["cpu", 1], runs["cpu", 0]):
+        _close_to_sum(c, h, a)
