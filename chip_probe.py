@@ -11,11 +11,14 @@ in 512 ... 16384, each timed with CUDA events after a warm-up, in f32 and
 bf16, and on the uniform graph, which no cap in that range splits. One JSON
 line per cap.
 
-``ab PARENT``: the uniform GCN forward (phase 4), train step (phase 5) and
-seg2 f32 forward and forward+backward (phase 7c) of ``chip_smoke.py``, run
-from ``PARENT`` (another checkout, e.g. ``git archive`` of the parent
-commit) and from this tree in turns: parent, this, this, parent, each in a
-process of its own. One JSON line per run, then their summary.
+``ab PARENT``: the uniform GCN forward (phase 4), train step (phase 5),
+seg2 f32 forward and forward+backward (phase 7c) and the four A @ A paths
+of phase 6c (800k rowsorted, 10M rowsorted and rowblocked, zipf padded:
+ms per call, and K5 alone on the call's compress input) of
+``chip_smoke.py``, run from ``PARENT`` (another checkout, e.g. ``git
+archive`` of the parent commit) and from this tree in turns: parent, this,
+this, parent, each in a process of its own. One JSON line per run, then
+their summary.
 
 Both print the card's ``nvidia-smi`` name and power limit and exit non-zero
 without a card.
@@ -46,6 +49,11 @@ graph = c.bench_graph(dev, "uniform", 1.0, 256)
 st = c.phase7c_path(dev, "", "seg2 uniform f32", "seg2", graph, "f32")
 print("AB_SEG2 " + json.dumps({k: st["stats"][k]
                                for k in ("fwd_ms", "fwd_bwd_ms")}))
+del graph, st
+torch.cuda.empty_cache()
+sp = c.phase6c_spgemm(dev, "")
+print("AB_SPGEMM " + json.dumps({p: {"ms": v["ms"], "k5_ms": v["k5"]["ms"]}
+                                 for p, v in sp.items()}))
 """
 
 
@@ -122,10 +130,13 @@ def _ab_run(where: Path) -> dict:
                                out.stdout).group(1))
     seg2 = json.loads(re.search(r"^AB_SEG2 (.*)$", out.stdout,
                                 re.M).group(1))
+    spgemm = json.loads(re.search(r"^AB_SPGEMM (.*)$", out.stdout,
+                                  re.M).group(1))
     return {"tree": str(where), "gcn_forward_ms": mean(r"phase 4 forward ms"),
             "gcn_train_step_ms": mean(r"phase 5 train step ms"),
             "seg2_f32_fwd_ms": seg2["fwd_ms"],
-            "seg2_f32_fwd_bwd_ms": seg2["fwd_bwd_ms"]}
+            "seg2_f32_fwd_bwd_ms": seg2["fwd_bwd_ms"],
+            **{f"{p}_{k}": v[k] for p, v in spgemm.items() for k in v}}
 
 
 def ab(parent: Path) -> None:
@@ -138,8 +149,7 @@ def ab(parent: Path) -> None:
         runs.append(r)
         print("AB " + json.dumps(r) + f" [{card}]", flush=True)
     summary = {}
-    for k in ("gcn_forward_ms", "gcn_train_step_ms", "seg2_f32_fwd_ms",
-              "seg2_f32_fwd_bwd_ms"):
+    for k in [k for k in runs[0] if k.endswith("ms")]:
         p = [r[k] for r in runs if r["side"] == "parent"]
         c = [r[k] for r in runs if r["side"] == "change"]
         summary[k] = {"parent": p, "change": c,

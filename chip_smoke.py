@@ -36,7 +36,10 @@ Phases, one or more printed lines each:
    ``compact_runs_reference`` in f64 on the card, over per-row-sorted grids,
    a row block's grid, a flat (row, col)-sorted stream, runs across many
    tiles and one of over 1M elements, ``out_capacity`` truncation and
-   structure only.
+   structure only; grids whose rows K5 sorts itself (``rows_sorted=False``,
+   ties of equal cols, F up to ``F_MAX``, the 64-bit key), each also bit for
+   bit against ``torch.sort`` + the presorted mode; flat runs of 100k, 1.1M
+   and 10M normal f32 values against f64, two launches bit for bit.
 6b. Toy SpGEMM: ``spgemm_entry("cuda")``'s A @ A through the three variants
    against the CPU: structure, values and value grads.
 6c. SpGEMM at the JAX package's probe sizes (``bench.py::spgemm_probe``):
@@ -45,10 +48,14 @@ Phases, one or more printed lines each:
    ``spspmm_rowsorted`` and ``plan_spgemm_blocked`` + ``spspmm_rowblocked``;
    a zipf (alpha 1.5) A of 100,000 nodes through the path the planners
    choose. For each A @ A: plan seconds, 1 warm-up and 3 timed calls, C's
-   nnz, output Mnnz/s, peak memory, K5 launches, no overflow, sampled rows
-   of C against scipy in f64, and K5 timed alone on the call's own compress
-   input against the plain version and against its library call,
-   ``torch.sparse_coo_tensor(...).coalesce()`` on the same stream, in turns.
+   nnz, output Mnnz/s, peak memory, K5 launches (on the grid paths every
+   launch sorts its rows: the second counter), no overflow, sampled rows of
+   C against scipy in f64, one call's stages by CUDA events (expansion, K5,
+   the rest), and K5 timed alone on the call's own compress input against
+   the plain version, against what its row sort replaces (``torch.sort`` +
+   gather + the presorted mode, whose C must be equal bit for bit) and
+   against its library call, ``torch.sparse_coo_tensor(...).coalesce()`` on
+   the same elements, in turns.
    At 800k also the value grads of ``sum(G * C)`` on sampled entries against
    f64.
 7a. Multi-span SpMM (``spmm_spans_cuda``, the counterpart of K3/K4) and
@@ -758,6 +765,7 @@ def _launch_counts():
     return {"spmm_csr": spmm_csr_cuda.launches,
             "sddmm_csr": sddmm_csr_cuda.launches,
             "segcompact": compact_runs_cuda.launches,
+            "segcompact_row_sorted": compact_runs_cuda.launches_row_sorted,
             "spmm_spans": spmm_spans_cuda.launches,
             "sddmm_spans": sddmm_spans_cuda.launches,
             "fold_pieces": fold_pieces_cuda.launches}
@@ -769,6 +777,7 @@ def _zero_launch_counts():
                                          spmm_csr_cuda, spmm_spans_cuda)
     spmm_csr_cuda.launches = sddmm_csr_cuda.launches = 0
     compact_runs_cuda.launches = fold_pieces_cuda.launches = 0
+    compact_runs_cuda.launches_row_sorted = 0
     spmm_spans_cuda.launches = sddmm_spans_cuda.launches = 0
 
 
@@ -791,11 +800,11 @@ def phase6a_segcompact(gen, dev):
                                          compact_runs_reference)
     f64_sums = dict(rtol=1e-12, atol=1e-12)   # f64 sums in another order
 
-    def compare(name, col, rows, value, shape, cap, tol=f64_sums):
-        got = compact_runs_cuda(col, rows, value, shape, cap, seg=True)
+    def compare(name, col, rows, value, shape, cap, tol=f64_sums, **kw):
+        got = compact_runs_cuda(col, rows, value, shape, cap, seg=True, **kw)
         ref = compact_runs_reference(
             col, rows, None if value is None else value.double(), shape, cap,
-            seg=True)
+            seg=True, **kw)
         torch.cuda.synchronize()
         err, ok = _same_compacted(got, ref, tol)
         print(f"phase 6a {name}: {col.numel()} elements, {int(ref.count)} "
@@ -850,6 +859,79 @@ def phase6a_segcompact(gen, dev):
                           device=dev).float()
         compare(f"one run of {run} elements f32", col, torch.zeros_like(col),
                 v, (1, 6), 8, dict(rtol=0, atol=0))
+
+    # grid rows in the expansion's order: the kernel sorts them itself; ties
+    # of equal cols down to N = 2; the 64-bit key at N = 2**30
+    for R, F, N in ((3000, 64, 500), (20_000, 256, 100_000), (500, 24, 3),
+                    (97, 1000, 40), (41, 1024, 2), (50, 300, 1 << 30)):
+        key, val = grid(R, F, N, torch.float32)
+        perm = torch.rand(R, F, generator=gen, device=dev).argsort(1)
+        key = key.gather(1, perm).contiguous()
+        val = val.gather(1, perm).contiguous()
+        rows = torch.arange(R, dtype=torch.int32, device=dev)
+        args = (key, rows, val, (R, N), int((key < N).sum()) + 5)
+        compare(f"unsorted grid ({R}, {F}) N={N} f32", *args,
+                dict(rtol=1e-5, atol=1e-5), rows_sorted=False)
+        same = _same_bits(compact_runs_cuda(*args, seg=True,
+                                            rows_sorted=False),
+                          _k5_presorted_twin(args, {"seg": True}))
+        print(f"phase 6a unsorted grid ({R}, {F}) N={N}: equal to "
+              f"torch.sort + the presorted mode bit for bit: {same}",
+              flush=True)
+        check(same, f"K5's row sort differs from torch.sort at ({R}, {F})")
+
+    # long runs in flat mode, normal f32 values, summed across lanes, warps
+    # and tiles: within 1e-6 of each run's sum of |terms|; two launches equal
+    for run in (100_000, 1_100_000, 10_000_000):
+        lens = torch.tensor([3, run, 1, 5000, 2, run // 3, 7], device=dev)
+        col = torch.repeat_interleave(torch.arange(7, device=dev), lens).int()
+        row = torch.zeros_like(col)
+        v = torch.randn(col.numel(), generator=gen, device=dev)
+        a = compact_runs_cuda(col, row, v, (1, 7), 9, seg=True)
+        b = compact_runs_cuda(col, row, v, (1, 7), 9, seg=True)
+        ref = compact_runs_reference(col, row, v.double(), (1, 7), 9,
+                                     seg=True)
+        scale = compact_runs_reference(col, row, v.double().abs(), (1, 7),
+                                       9).value
+        err = float((a.value.double() - ref.value).abs().max())
+        ok = (int(a.count) == 7 and torch.equal(a.row, ref.row)
+              and torch.equal(a.col, ref.col) and torch.equal(a.seg, ref.seg)
+              and bool(((a.value.double() - ref.value).abs()
+                        <= 1e-6 * scale).all()) and _same_bits(a, b))
+        print(f"phase 6a flat runs of {run} and {run // 3} elements, normal "
+              f"f32: max_abs_err {err:.3e} vs f64 (within 1e-6 of the sum "
+              f"of |terms|), two launches equal {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"K5's flat mode disagrees on runs of {run}")
+
+
+def _same_bits(a, b):
+    """Two compactions equal bit for bit: count, coordinates, values, seg."""
+    same = (int(a.count) == int(b.count) and torch.equal(a.row, b.row)
+            and torch.equal(a.col, b.col))
+    if a.value is not None:
+        same = same and torch.equal(a.value.view(torch.int8),
+                                    b.value.view(torch.int8))
+    if a.seg is not None and b.seg is not None:
+        same = same and torch.equal(a.seg, b.seg)
+    return same
+
+
+def _k5_presorted_twin(args, kw):
+    """What the grid paths did before K5 sorted rows itself: ``torch.sort``
+    (stable) of each grid row, the values gathered along, then K5's
+    presorted mode; ``seg`` mapped back to the input's order."""
+    from paddle_sparse_tpu_torch import compact_runs_cuda
+    key, rows, val = args[:3]
+    sk, perm = torch.sort(key, dim=1, stable=True)
+    sv = None if val is None else val.gather(1, perm)
+    out = compact_runs_cuda(sk, rows, sv, *args[3:],
+                            **{**kw, "rows_sorted": True})
+    if out.seg is None:
+        return out
+    seg = torch.empty_like(out.seg).view(key.shape).scatter_(
+        1, perm, out.seg.view(key.shape))
+    return out._replace(seg=seg.reshape(-1))
 
 
 def phase6b_toy_spgemm(dev):
@@ -936,7 +1018,7 @@ class _RecordCompress:
             self.calls.append((args, kw))
             return self.orig(*args, **kw)
 
-        record.launches = 0
+        record.launches = record.launches_row_sorted = 0
         segcompact_cuda.compact_runs_cuda = record
         return self.calls
 
@@ -1039,12 +1121,19 @@ def phase6c_spgemm_path(dev, card, name, A, kind):
           f"GB (A and the plan {base_gb:.2f} GB); overflowed "
           f"{res.overflowed} {card}", flush=True)
     print(f"phase 6c {name} launches in 4 calls: segcompact "
-          f"{launches['segcompact']}, spmm_csr {launches['spmm_csr']}, "
-          f"sddmm_csr {launches['sddmm_csr']}", flush=True)
+          f"{launches['segcompact']} (rows sorted by K5 "
+          f"{launches['segcompact_row_sorted']}), spmm_csr "
+          f"{launches['spmm_csr']}, sddmm_csr {launches['sddmm_csr']}",
+          flush=True)
     per_call = -(-A.shape[0] // plan["MB"]) if "MB" in plan else 1
     check(launches["segcompact"] == 4 * per_call,
           f"{name}: expected {4 * per_call} K5 launches (one per call and "
           f"row block), counted {launches['segcompact']}")
+    grid_path = kind != "padded"
+    check(launches["segcompact_row_sorted"] == (4 * per_call if grid_path
+                                                else 0),
+          f"{name}: K5's row sort ran {launches['segcompact_row_sorted']} "
+          f"times in 4 calls")
     check(not res.overflowed, f"{name}: overflowed")
     check(bool(torch.isfinite(C.value[:C.nnz]).all()), f"{name}: not finite")
 
@@ -1055,6 +1144,8 @@ def phase6c_spgemm_path(dev, card, name, A, kind):
           f"scipy f64 A[rows] @ A: max_abs_err {err:.3e} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     check(ok, f"{name}: sampled rows of C disagree with f64")
+
+    stages = spgemm_stages(call, name, card)
 
     # K5 alone on this path's own (largest) compress input, in turns
     c_nnz = C.nnz
@@ -1069,28 +1160,100 @@ def phase6c_spgemm_path(dev, card, name, A, kind):
             lambda: compact_runs_cuda(*args, **kw), 3, 10)
     err, ok = _same_compacted(out_k, out_p, F32_TOL)
     print(f"phase 6c {name} compress (K5) on the call's "
-          f"{tuple(args[0].shape)} input, {int(out_p.count)} runs: kernel "
-          f"{k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms; kernel vs "
-          f"plain max_abs_err {err:.3e} {'ok' if ok else 'FAIL'} {card}",
-          flush=True)
+          f"{tuple(args[0].shape)} input (rows sorted by K5: "
+          f"{kw.get('rows_sorted') is False}), {int(out_p.count)} runs: "
+          f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms; "
+          f"kernel vs plain max_abs_err {err:.3e} {'ok' if ok else 'FAIL'} "
+          f"{card}", flush=True)
     check(ok, f"{name}: K5 and its plain version disagree at scale")
+    del out_p
+    old_ms = pre_ms = None
+    if kw.get("rows_sorted") is False:
+        # what K5's row sort replaces: torch.sort + gather + presorted K5
+        with torch.inference_mode():
+            o1, n1, n2, o2, out_old, _ = in_turns(
+                lambda: _k5_presorted_twin(args, kw),
+                lambda: compact_runs_cuda(*args, **kw), 10, 10)
+        same = _same_bits(out_k, out_old)
+        old_ms = (o1 + o2) / 2
+        del out_old
+        # the presorted mode alone on the sorted grid: the row sort's share
+        sk, perm = torch.sort(args[0], dim=1, stable=True)
+        sv = None if args[2] is None else args[2].gather(1, perm)
+        with torch.inference_mode():
+            pre_ms, _ = timed(lambda: compact_runs_cuda(
+                sk, args[1], sv, *args[3:], **{**kw, "rows_sorted": True}),
+                10)
+        del sk, perm, sv
+        print(f"phase 6c {name} K5 with its row sort {n1:.3f} / {n2:.3f} ms "
+              f"vs torch.sort + gather + presorted K5 {o1:.3f} / {o2:.3f} "
+              f"ms in turns (presorted K5 alone {pre_ms:.3f} ms); C bit for "
+              f"bit equal: {same} {card}", flush=True)
+        check(same, f"{name}: K5's row sort and torch.sort + presorted K5 "
+                    f"give different bits")
     ins = [a for a in (*args, *kw.values()) if isinstance(a, torch.Tensor)]
     moved = nbytes(*ins, out_k.row, out_k.col, out_k.value, out_k.seg)
     bound, by = bound_ms(moved, args[0].numel())     # one add per element
     lib_ms, lib_k_ms, lib_err = k5_library(name, card, args, kw, out_k)
     return {"launches": launches, "ms": ms, "c_nnz": c_nnz,
+            "stages_ms": stages,
             "k5": {"max_abs_err": err, "ms": (k1 + k2) / 2,
                    "plain_ms": (p1 + p2) / 2, "bound_ms": bound,
                    "bound_by": by, "library_ms": lib_ms,
                    "ms_beside_library": lib_k_ms,
-                   "library_max_abs_err": lib_err}}
+                   "library_max_abs_err": lib_err,
+                   "old_sort_gather_k5_ms": old_ms,
+                   "presorted_ms": pre_ms,
+                   "mode": ("grid, rows sorted by K5"
+                            if kw.get("rows_sorted") is False else
+                            "flat stream")}}
+
+
+def spgemm_stages(call, name, card):
+    """CUDA events around the stages of one A @ A call: the expansion
+    (``_sorted_row_grid``: the grid, and its torch.sort where F > F_MAX) and
+    the compress (``compact_runs``, K5), then the rest (fan-out, host read,
+    stitching); ms of each, summed over row blocks."""
+    from paddle_sparse_tpu_torch.core import spgemm
+    marks = {"expansion": [], "compress (K5)": []}
+    orig = spgemm._sorted_row_grid, spgemm.compact_runs
+
+    def timed_stage(stage, fn):
+        def run(*a, **k):
+            ev = _event(), _event()
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            marks[stage].append(ev)
+            return out
+        return run
+
+    spgemm._sorted_row_grid = timed_stage("expansion", orig[0])
+    spgemm.compact_runs = timed_stage("compress (K5)", orig[1])
+    try:
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            whole = _event(), _event()
+            whole[0].record()
+            call()
+            whole[1].record()
+            torch.cuda.synchronize()
+    finally:
+        spgemm._sorted_row_grid, spgemm.compact_runs = orig
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in marks.items()}
+    ms["call"] = whole[0].elapsed_time(whole[1])
+    ms["rest"] = ms["call"] - ms["expansion"] - ms["compress (K5)"]
+    print(f"phase 6c {name} stages of one call (CUDA events): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f" {card}", flush=True)
+    return ms
 
 
 def k5_library(name, card, args, kw, out_k):
-    """K5's library call on K5's own input stream: ``torch.sparse_coo_tensor
-    (...).coalesce()`` sums the runs of equal coordinates (and sorts, which
-    the stream already is), in turns with K5. The COO indices of the
-    stream's real elements are made outside the timing."""
+    """K5's library call on K5's own input: ``torch.sparse_coo_tensor
+    (...).coalesce()`` sorts the elements by (row, col) and sums the runs of
+    equal coordinates, in turns with K5. The COO indices of the input's real
+    elements are made outside the timing."""
     from paddle_sparse_tpu_torch import compact_runs_cuda
     col, rows, value, shape = args[:4]
     r = rows[:, None].expand_as(col) if col.dim() == 2 else rows
@@ -2210,13 +2373,16 @@ def main() -> int:
          "launches": sum(v["launches"]["segcompact"]
                          for v in spgemm.values()),
          "launches_by_path": by_path("segcompact"),
+         "launches_row_sorted_by_path": by_path("segcompact_row_sorted"),
          "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
          "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
          "bound_by": k5["bound_by"], "library_ms": k5["library_ms"],
          "library": "torch.sparse_coo_tensor(...).coalesce() on K5's input "
                     "stream",
-         "at": "10M-nnz A @ A rowsorted grid",
-         "by_path": {p: v["k5"] for p, v in spgemm.items()}},
+         "at": "10M-nnz A @ A rowsorted grid, rows sorted by K5",
+         "old_sort_gather_k5_ms": k5["old_sort_gather_k5_ms"],
+         "by_path": {p: v["k5"] for p, v in spgemm.items()},
+         "a_at_a_stages_ms": {p: v["stages_ms"] for p, v in spgemm.items()}},
         {"name": "spmm_spans", "route": "cuda",
          "source": "paddle_sparse_tpu_torch/csrc/spmm_spans.cu",
          "replaces": "paddle_sparse_tpu/ops/kernels/spmm_pallas.py:708",

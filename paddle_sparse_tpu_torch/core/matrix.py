@@ -24,8 +24,8 @@ import torch
 from ..ops.convert import ind2ptr, ptr2ind_capped
 from ..ops.kernels.segcompact_cuda import compact_runs
 from ..ops.kernels.row_split import RowSplit
-from ..ops.spmm import (SpmmStructure, ptr_split, spmm_structure,
-                        spmm_with_structure)
+from ..ops.spmm import (SpmmStructure, check_backend, ptr_split,
+                        spmm_structure, spmm_with_structure)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,10 +116,14 @@ class PaddedCOO:
             self, row=self.row.to(device), col=self.col.to(device),
             value=None if self.value is None else self.value.to(device))
 
-    def spmm(self, x: torch.Tensor, reduce: str = "sum") -> torch.Tensor:
+    def spmm(self, x: torch.Tensor, reduce: str = "sum",
+             backend: str = "auto") -> torch.Tensor:
         """``self @ x`` for dense ``x`` of shape (N, ...), differentiable in
         ``value`` and ``x``; the backward's ``d x`` runs over the cached CSC
-        view."""
+        view. ``backend``: ``"auto"``, ``"pallas"`` and ``"xla"`` all run
+        the port's one path; ``"sell"`` raises ``NotImplementedError``
+        (:func:`~..ops.spmm.spmm_csr`)."""
+        check_backend(backend)
         return spmm_with_structure(self.rowptr(), self.col, self.value, x,
                                    self.structure, reduce, self.row_split())
 

@@ -10,9 +10,11 @@ static capacities (``ops/spspmm.py`` plans them on the host).
   ``b_pos = rowptrB[colA[a_id]] + t - ptrE[a_id]``. Its product is
   ``valA[a_id] * valB[b_pos]``, which autograd differentiates (the JAX
   package's custom VJPs return the same).
-* Sort: ``torch.sort``, stable: one int64 key ``row * (N + 1) + col`` over
-  the flat stream (:func:`spspmm_padded`), or the columns within each row of
-  an (M, F) grid (:func:`spspmm_rowsorted`, :func:`spspmm_rowblocked`).
+* Sort: ``torch.sort``, stable, of one int64 key ``row * (N + 1) + col``
+  over the flat stream (:func:`spspmm_padded`). The columns within each row
+  of an (M, F) grid (:func:`spspmm_rowsorted`, :func:`spspmm_rowblocked`)
+  are sorted by the compress itself when ``F <= F_MAX``, and by a per-row
+  ``torch.sort`` above that.
 * Compress: the run-compaction kernel (``ops/kernels/segcompact_cuda.py``),
   the port's one compress.
 
@@ -33,6 +35,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
+from ..ops.kernels import segcompact_cuda
 from ..ops.kernels.segcompact_cuda import Compacted, compact_runs
 from .matrix import PaddedCOO
 
@@ -108,9 +111,14 @@ def _expand(A: PaddedCOO, B: PaddedCOO, fan: Fanout, flop: torch.Tensor,
 def _sorted_row_grid(A, B, fan, rowE_b, rf_b, F, valA, valB,
                      edge_limit=None):
     """The expansion of rows with flop offsets ``rowE_b`` and counts
-    ``rf_b`` laid on an (R, F) grid, the first ``F`` flops of each row, each
-    grid row sorted by column (pads N last). Flops of A-entries at or past
-    ``edge_limit`` are dropped."""
+    ``rf_b`` laid on an (R, F) grid, the first ``F`` flops of each row, pads
+    N; flops of A-entries at or past ``edge_limit`` are dropped. Returns
+    ``(key, prod, rows_sorted)`` for :func:`compact_runs`.
+
+    A dispatch by shape: for ``F <= segcompact_cuda.F_MAX`` the grid goes
+    out as it is expanded and the compress sorts each row itself
+    (``rows_sorted=False``); above it, each grid row is sorted here by a
+    stable ``torch.sort`` (pads last) and its products gathered along."""
     f = torch.arange(F, device=rowE_b.device)
     valid = f < rf_b[:, None]
     key, prod, a_id = _expand(A, B, fan, rowE_b[:, None] + f, valid, valA,
@@ -120,8 +128,10 @@ def _sorted_row_grid(A, B, fan, rowE_b, rf_b, F, valA, valB,
         key = torch.where(keep, key, B.shape[1])
         if prod is not None:
             prod = torch.where(keep, prod, prod.new_zeros(()))
+    if F <= segcompact_cuda.F_MAX:
+        return key, prod, False
     key, perm = torch.sort(key, dim=1, stable=True)
-    return key, None if prod is None else prod.gather(1, perm)
+    return key, None if prod is None else prod.gather(1, perm), True
 
 
 def _padded_result(out: Compacted, flags: torch.Tensor, out_capacity: int,
@@ -171,10 +181,11 @@ def spspmm_rowsorted(A: PaddedCOO, B: PaddedCOO, row_flop_capacity: int,
     fan = fanout(A, B)
     valA, valB = _operand_values(A, B)
     rf = fan.row_flops()
-    key, prod = _sorted_row_grid(A, B, fan, fan.rowE[:-1], rf,
-                                 int(row_flop_capacity), valA, valB)
+    key, prod, rows_sorted = _sorted_row_grid(A, B, fan, fan.rowE[:-1], rf,
+                                              int(row_flop_capacity), valA,
+                                              valB)
     rows = torch.arange(M, dtype=torch.int32, device=A.row.device)
-    out = compact_runs(key, rows, prod, (M, N), out_capacity)
+    out = compact_runs(key, rows, prod, (M, N), out_capacity, rows_sorted)
     return _padded_result(out, (rf > row_flop_capacity).any(), out_capacity,
                           (M, N), A.row.dtype)
 
@@ -205,10 +216,12 @@ def spspmm_rowblocked(A: PaddedCOO, B: PaddedCOO, row_flop_capacity: int,
     for r0 in range(0, M, max(MB, 1)):
         r1 = min(r0 + MB, M)
         flags.append(eptrA[r1] - eptrA[r0] > EB)
-        key, prod = _sorted_row_grid(A, B, fan, fan.rowE[r0:r1], rf[r0:r1],
-                                     F, valA, valB, eptrA[r0] + EB)
+        key, prod, rows_sorted = _sorted_row_grid(
+            A, B, fan, fan.rowE[r0:r1], rf[r0:r1], F, valA, valB,
+            eptrA[r0] + EB)
         rows = torch.arange(r0, r1, dtype=torch.int32, device=dev)
-        blocks.append(compact_runs(key, rows, prod, (M, N), BOC))
+        blocks.append(compact_runs(key, rows, prod, (M, N), BOC,
+                                   rows_sorted))
     counts = torch.stack([b.count for b in blocks] + [
         torch.stack(flags).any().long()]).tolist()
     over = bool(counts.pop())

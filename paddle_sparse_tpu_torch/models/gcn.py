@@ -18,12 +18,14 @@ from torch import nn
 from ..core.matrix import PaddedCOO
 
 
-def gcn_normalize(adj: PaddedCOO) -> PaddedCOO:
+def gcn_normalize(adj: PaddedCOO, add_self_loops: bool = False) -> PaddedCOO:
     """GCN normalization ``D^-1/2 A D^-1/2`` on the padded core.
 
     As in the JAX version, ``D`` is the row entry count (:meth:`degree`),
     used for both the row and the column scale, with the index clipped to
-    ``M - 1``. Self-loops are the caller's to add before padding."""
+    ``M - 1``. Self-loops are the caller's to add before padding;
+    ``add_self_loops`` only flags that the caller did, as in JAX, and
+    changes nothing."""
     deg = adj.degree().to(torch.float32)
     inv_sqrt = torch.where(deg > 0, torch.rsqrt(deg.clamp(min=1.0)),
                            torch.zeros((), device=deg.device))

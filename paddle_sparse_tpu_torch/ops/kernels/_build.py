@@ -110,13 +110,21 @@ def load_library() -> ctypes.CDLL:
                                             i64, i64, i32, i32, p, p, i64,
                                             i64, p]
             lib.psp_sddmm_spans.restype = ctypes.c_int
-            lib.psp_segcompact_tile.argtypes = []
-            lib.psp_segcompact_tile.restype = i64
-            lib.psp_segcompact_count.argtypes = [p, p, i64, i64, i64, i64, p,
-                                                 p]
-            lib.psp_segcompact_count.restype = ctypes.c_int
-            lib.psp_segcompact_write.argtypes = [p, p, i64, i64, i64, i64, p,
-                                                 i32, p, i64, p, p, p, p, p]
-            lib.psp_segcompact_write.restype = ctypes.c_int
+            lib.psp_segcompact_f_max.argtypes = []
+            lib.psp_segcompact_f_max.restype = i64
+            lib.psp_segcompact_tiles.argtypes = [i64, i64, i64, i32]
+            lib.psp_segcompact_tiles.restype = i64
+            # col, rows, R, F, M, N, value, f64, sort, cap, outs, seg, count,
+            # ws, stream
+            lib.psp_segcompact_rows.argtypes = [p, p, i64, i64, i64, i64, p,
+                                                i32, i32, i64, p, p, p, p, p,
+                                                p, p]
+            lib.psp_segcompact_rows.restype = ctypes.c_int
+            # col, rows, row_div, L, M, N, value, f64, cap, outs, seg, count,
+            # ws, meta, part, stream
+            lib.psp_segcompact_stream.argtypes = [p, p, i64, i64, i64, i64, p,
+                                                  i32, i64, p, p, p, p, p, p,
+                                                  p, p, p]
+            lib.psp_segcompact_stream.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -6,23 +6,29 @@ Port of ``paddle_sparse_tpu/ops/kernels/segcompact.py`` (``compact_runs`` ->
 ``_segcompact_kernel``), and the one compress of the port: it also stands for
 the XLA segment-op compresses of the JAX ``spspmm_padded``,
 ``spspmm_rowsorted``, ``spspmm_rowblocked`` and ``PaddedCOO.coalesce``, which
-compute the same function.
+compute the same function, and for the per-row sort before the grid ones.
 
-The stream is a sequence of ``(row, col, value)`` sorted so that equal
-coordinates are adjacent; an element is valid when ``0 <= row < M`` and
-``0 <= col < N``. Each run of equal valid coordinates becomes one output
-entry at slot s, the run's index among all runs: ``(row, col, sum of its
-values)``, written for ``s < out_capacity``. The stream comes in one of two
-layouts:
+The input is a sequence of ``(row, col, value)``; an element is valid when
+``0 <= row < M`` and ``0 <= col < N``. Each run of equal valid coordinates
+becomes one output entry at slot s, the run's index among all runs in
+``(row, col)`` order: ``(row, col, sum of its values)``, written for
+``s < out_capacity``. The input comes in one of two layouts:
 
-* flat: ``col`` and ``rows`` are (L,), the row of each element;
-* grid: ``col`` is (R, F), each grid row sorted with pads (``col == N``) at
-  its end, and ``rows`` is (R,), the output row of each grid row.
+* flat: ``col`` and ``rows`` are (L,), the row of each element, sorted by
+  ``(row, col)`` so that equal coordinates are adjacent;
+* grid: ``col`` is (R, F) and ``rows`` is (R,), the output row of each grid
+  row, distinct from its neighbours' (runs never cross grid rows). With
+  ``rows_sorted=True`` each grid row is sorted by col, pads (``col == N``)
+  last; with ``rows_sorted=False`` the grid rows come in any order and the
+  compaction orders each one itself, stably, as ``torch.sort(stable=True)``
+  would.
 
 Dtype contract: ``col`` and ``rows`` int32; values f32 or f64 on the card
-(any float in the plain version), summed in their own type, in stream order.
-Slots past the unique count hold the pad ``(M, N, 0)``. ``count`` is the
-unique count, which may exceed ``out_capacity``; it stays on the device.
+(any float in the plain version), summed in their own type, each run in
+position order (stream order, or a grid row's stable sorted order). Slots
+past the unique count hold the pad ``(M, N, 0)``. ``count`` is the unique
+count, which may exceed ``out_capacity``; it stays on the device. ``seg``
+gives each element's slot in the input's own order.
 """
 from typing import NamedTuple, Optional, Tuple
 
@@ -32,6 +38,9 @@ from torch.autograd.function import once_differentiable
 from . import _build
 
 _INT32_LIMIT = 2 ** 31 - 1
+# the longest grid row the kernel sorts itself (kFMax in csrc/segcompact.cu):
+# 32 keys a lane of one warp, in registers
+F_MAX = 1024
 
 
 class Compacted(NamedTuple):
@@ -42,23 +51,45 @@ class Compacted(NamedTuple):
     seg: Optional[torch.Tensor]     # (L,) int32 slot of each element, or -1
 
 
+def _check_mode(col: torch.Tensor, rows_sorted: bool) -> None:
+    if not rows_sorted and col.dim() != 2:
+        raise ValueError("rows_sorted=False orders the rows of an (R, F) "
+                         f"grid; a flat stream ({tuple(col.shape)}) must come "
+                         f"sorted")
+
+
 def compact_runs_reference(col: torch.Tensor, rows: torch.Tensor,
                            value: Optional[torch.Tensor],
                            shape: Tuple[int, int], out_capacity: int,
-                           seg: bool = False) -> Compacted:
+                           seg: bool = False,
+                           rows_sorted: bool = True) -> Compacted:
     """Plain PyTorch version of :func:`compact_runs_cuda`, on any device.
 
-    The run-head mask, ``seg = cumsum(first) - 1``, then ``index_add`` of the
-    values into their slots. ``value`` may have trailing dims here (the
-    kernel takes one value per element)."""
+    With ``rows_sorted=False``, a stable sort of each grid row by col (pads
+    last) first. Then the run-head mask, ``seg = cumsum(first) - 1``, and
+    ``index_add`` of the values into their slots; ``seg`` is mapped back to
+    the input's order. ``value`` may have trailing dims here (the kernel
+    takes one value per element)."""
+    _check_mode(col, rows_sorted)
     M, N = int(shape[0]), int(shape[1])
     cap = int(out_capacity)
-    c, r = col.reshape(-1).long(), rows.long()
-    if col.dim() == 2:                              # grid: a row per grid row
-        r = r.repeat_interleave(col.shape[1])
+    grid = col.dim() == 2
+    c, r = col.long(), rows.long()
+    if grid:                                        # a row per grid row
+        r = r[:, None].expand(col.shape)
     valid = (c >= 0) & (c < N) & (r >= 0) & (r < M)
+    perm = None
+    if not rows_sorted:
+        c, perm = torch.sort(torch.where(valid, c, N), dim=1, stable=True)
+        valid = valid.gather(1, perm)
+        if value is not None:
+            idx = perm.reshape(perm.shape + (1,) * (value.dim() - 2))
+            value = value.gather(1, idx.expand(value.shape))
+    c, r, valid = c.reshape(-1), r.reshape(-1), valid.reshape(-1)
     first = valid.clone()
     first[1:] &= (c[1:] != c[:-1]) | (r[1:] != r[:-1])
+    if grid and col.shape[1]:                       # runs end with the row
+        first.view(col.shape)[:, 0] = valid.view(col.shape)[:, 0]
     s = first.cumsum(0) - 1
     keep = valid & (s < cap)
     heads = first & keep
@@ -75,11 +106,16 @@ def compact_runs_reference(col: torch.Tensor, rows: torch.Tensor,
                               device=v.device).index_add_(
             0, slot, torch.where(mask, v, v.new_zeros(())))
         out_val = out_val[:cap]
-    return Compacted(out_row, out_col, out_val, first.sum(),
-                     torch.where(keep, s, -1).int() if seg else None)
+    seg_t = None
+    if seg:
+        seg_t = torch.where(keep, s, -1).int()
+        if perm is not None:                        # back to input order
+            seg_t = torch.empty_like(seg_t).view(col.shape).scatter_(
+                1, perm, seg_t.view(col.shape)).reshape(-1)
+    return Compacted(out_row, out_col, out_val, first.sum(), seg_t)
 
 
-def _check_cuda_args(col, rows, value, M, N, out_capacity):
+def _check_cuda_args(col, rows, value, M, N, out_capacity, rows_sorted):
     dev = col.device
     for name, t in (("col", col), ("rows", rows)):
         if t.dtype != torch.int32:
@@ -95,6 +131,10 @@ def _check_cuda_args(col, rows, value, M, N, out_capacity):
     if rows.shape[0] != want:
         raise ValueError(f"rows has {rows.shape[0]} entries, col's layout "
                          f"{tuple(col.shape)} needs {want}")
+    if not rows_sorted and col.shape[1] > F_MAX:
+        raise ValueError(f"the kernel sorts grid rows of at most F_MAX = "
+                         f"{F_MAX} slots, not {col.shape[1]}: sort them first "
+                         f"and pass rows_sorted=True")
     if value is not None:
         if value.dtype not in (torch.float32, torch.float64):
             raise TypeError(f"compact_runs_cuda sums f32 or f64 values, not "
@@ -112,65 +152,89 @@ def _check_cuda_args(col, rows, value, M, N, out_capacity):
                          f"[0, 2**31): slots are int32")
 
 
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def compact_runs_cuda(col: torch.Tensor, rows: torch.Tensor,
                       value: Optional[torch.Tensor], shape: Tuple[int, int],
-                      out_capacity: int, seg: bool = False) -> Compacted:
-    """Run compaction through the CUDA kernel ``csrc/segcompact.cu``.
+                      out_capacity: int, seg: bool = False,
+                      rows_sorted: bool = True) -> Compacted:
+    """Run compaction through the CUDA kernels of ``csrc/segcompact.cu``.
 
     ``col`` is (L,) with ``rows`` (L,) (flat) or (R, F) with ``rows`` (R,)
     (grid), both contiguous int32; ``value`` is None or contiguous f32/f64 of
-    ``col``'s shape. With ``seg`` the kernel also writes each element's slot
-    (-1 for pads and for slots past ``out_capacity``), which the value
-    gradient gathers through. On a CPU tensor this runs
-    :func:`compact_runs_reference`; on a CUDA tensor it launches the kernel
-    or raises. ``compact_runs_cuda.launches`` counts calls that launched the
-    kernel (its two passes are one launch here)."""
+    ``col``'s shape. ``rows_sorted=False`` (grids of ``F <= F_MAX`` only)
+    lets the kernel sort each grid row. With ``seg`` the kernel also writes
+    each element's slot, in input order (-1 for pads and for slots past
+    ``out_capacity``), which the value gradient gathers through.
+
+    Which kernel runs is a matter of shape: a grid of ``F <= F_MAX``, sorted
+    or not, goes to the row kernel (a warp a grid row, sorted in
+    registers); a flat stream, or a sorted grid wider than ``F_MAX``, to the
+    stream kernel. A CPU tensor runs :func:`compact_runs_reference`; a CUDA
+    tensor launches a kernel or raises. ``compact_runs_cuda.launches``
+    counts calls that launched a kernel, ``launches_row_sorted`` those in
+    which the kernel sorted the grid rows itself."""
     if col.device.type == "cpu":
         return compact_runs_reference(col, rows, value, shape, out_capacity,
-                                      seg)
+                                      seg, rows_sorted)
     if col.device.type != "cuda":
         raise ValueError(f"compact_runs_cuda runs on cpu or cuda, not "
                          f"{col.device}")
+    _check_mode(col, rows_sorted)
     M, N, cap = int(shape[0]), int(shape[1]), int(out_capacity)
-    _check_cuda_args(col, rows, value, M, N, cap)
+    _check_cuda_args(col, rows, value, M, N, cap, rows_sorted)
     dev = col.device
     L = col.numel()
-    out_row = torch.full((cap,), M, dtype=torch.int32, device=dev)
-    out_col = torch.full((cap,), N, dtype=torch.int32, device=dev)
+    out_row = torch.empty(cap, dtype=torch.int32, device=dev)
+    out_col = torch.empty(cap, dtype=torch.int32, device=dev)
     out_val = (None if value is None
-               else torch.zeros(cap, dtype=value.dtype, device=dev))
+               else torch.empty(cap, dtype=value.dtype, device=dev))
     seg_t = torch.empty(L, dtype=torch.int32, device=dev) if seg else None
     if L == 0:
+        out_row.fill_(M)
+        out_col.fill_(N)
+        if out_val is not None:
+            out_val.zero_()
         return Compacted(out_row, out_col, out_val,
                          torch.zeros((), dtype=torch.int64, device=dev), seg_t)
-    row_div = col.shape[1] if col.dim() == 2 else 1
     lib = _build.load_library()
-    tiles = -(-L // lib.psp_segcompact_tile())
-    counts = torch.empty(tiles, dtype=torch.int64, device=dev)
+    rows_kernel = col.dim() == 2 and col.shape[1] <= F_MAX
+    R, F = (col.shape[0], col.shape[1]) if col.dim() == 2 else (L, 1)
+    tiles = lib.psp_segcompact_tiles(R, F, L, int(rows_kernel))
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    f64 = int(value is not None and value.dtype == torch.float64)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.psp_segcompact_count(col.data_ptr(), rows.data_ptr(),
-                                       row_div, L, M, N, counts.data_ptr(),
-                                       stream)
-        if err != 0:
-            raise RuntimeError(f"segcompact count kernel launch failed: CUDA "
-                               f"error {err}")
-        ends = counts.cumsum(0)
-        err = lib.psp_segcompact_write(
-            col.data_ptr(), rows.data_ptr(), row_div, L, M, N,
-            0 if value is None else value.data_ptr(),
-            int(value is not None and value.dtype == torch.float64),
-            ends.data_ptr(), cap, out_row.data_ptr(), out_col.data_ptr(),
-            0 if out_val is None else out_val.data_ptr(),
-            0 if seg_t is None else seg_t.data_ptr(), stream)
+        ws = torch.zeros(tiles + 1, dtype=torch.int64, device=dev)
+        if rows_kernel:
+            err = lib.psp_segcompact_rows(
+                col.data_ptr(), rows.data_ptr(), R, F, M, N, _ptr(value), f64,
+                int(not rows_sorted), cap, out_row.data_ptr(),
+                out_col.data_ptr(), _ptr(out_val), _ptr(seg_t),
+                count.data_ptr(), ws.data_ptr(), stream)
+        else:
+            meta = part = None
+            if value is not None:
+                meta = torch.empty(tiles, dtype=torch.int64, device=dev)
+                part = torch.empty(tiles, dtype=value.dtype, device=dev)
+            err = lib.psp_segcompact_stream(
+                col.data_ptr(), rows.data_ptr(), F, L, M, N, _ptr(value), f64,
+                cap, out_row.data_ptr(), out_col.data_ptr(), _ptr(out_val),
+                _ptr(seg_t), count.data_ptr(), ws.data_ptr(), _ptr(meta),
+                _ptr(part), stream)
     if err != 0:
-        raise RuntimeError(f"segcompact write kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"segcompact kernel launch failed: CUDA error "
+                           f"{err}")
     compact_runs_cuda.launches += 1
-    return Compacted(out_row, out_col, out_val, ends[-1], seg_t)
+    if not rows_sorted:
+        compact_runs_cuda.launches_row_sorted += 1
+    return Compacted(out_row, out_col, out_val, count, seg_t)
 
 
 compact_runs_cuda.launches = 0
+compact_runs_cuda.launches_row_sorted = 0
 
 
 class _CompactRuns(torch.autograd.Function):
@@ -183,9 +247,9 @@ class _CompactRuns(torch.autograd.Function):
     stream, several times those bytes)."""
 
     @staticmethod
-    def forward(ctx, value, col, rows, shape, out_capacity):
+    def forward(ctx, value, col, rows, shape, out_capacity, rows_sorted):
         out = compact_runs_cuda(col, rows, value, shape, out_capacity,
-                                seg=True)
+                                seg=True, rows_sorted=rows_sorted)
         ctx.save_for_backward(out.seg)
         ctx.value_shape = value.shape
         ctx.mark_non_differentiable(out.row, out.col, out.count)
@@ -203,16 +267,17 @@ class _CompactRuns(torch.autograd.Function):
             d = g.index_select(0, seg.clamp(min=0).long())
             d = torch.where(hit.reshape((-1,) + (1,) * (d.dim() - 1)), d,
                             torch.zeros((), dtype=d.dtype, device=d.device))
-        return d.reshape(ctx.value_shape), None, None, None, None
+        return d.reshape(ctx.value_shape), None, None, None, None, None
 
 
 def compact_runs(col: torch.Tensor, rows: torch.Tensor,
                  value: Optional[torch.Tensor], shape: Tuple[int, int],
-                 out_capacity: int) -> Compacted:
+                 out_capacity: int, rows_sorted: bool = True) -> Compacted:
     """:func:`compact_runs_cuda`, differentiable in ``value`` (double
     backward raises); ``seg`` of the result is None."""
     if value is None or not (torch.is_grad_enabled() and value.requires_grad):
-        return compact_runs_cuda(col, rows, value, shape, out_capacity)
+        return compact_runs_cuda(col, rows, value, shape, out_capacity,
+                                 rows_sorted=rows_sorted)
     row, col_out, val, count = _CompactRuns.apply(value, col, rows, shape,
-                                                  out_capacity)
+                                                  out_capacity, rows_sorted)
     return Compacted(row, col_out, val, count, None)

@@ -20,7 +20,12 @@ Each launch takes the piece table of its pointer
 longer than ``row_split.CAP``), so a hub row or column is walked by many
 warps.
 
-Not yet ported (ROADMAP queue 1, item 3): the mean/min/max reductions, which
+``backend`` takes the JAX package's values: ``"auto"``, ``"pallas"`` and
+``"xla"`` all run the port's one path (the kernels on a CUDA tensor, their
+plain versions on a CPU tensor); ``"sell"`` raises ``NotImplementedError``
+until ``ops/spmm_sell.py`` is ported (ROADMAP queue 1, item 6).
+
+Not yet ported (ROADMAP queue 1, item 1): the mean/min/max reductions, which
 raise ``NotImplementedError``.
 """
 from typing import Callable, NamedTuple, Optional
@@ -103,11 +108,23 @@ class _SpmmSum(torch.autograd.Function):
         return d_value, d_x, None, None, None, None
 
 
+def check_backend(backend: str) -> None:
+    """Accept the JAX package's ``backend`` values: every one but
+    ``"sell"`` names the port's one path."""
+    if backend == "sell":
+        raise NotImplementedError(
+            "spmm backend='sell' is not ported yet (ROADMAP queue 1, item 6: "
+            "ops/spmm_sell.py)")
+    if backend not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown spmm backend {backend!r}: 'auto', "
+                         f"'pallas', 'xla' or 'sell'")
+
+
 def _check_reduce(reduce: str) -> None:
     if reduce in ("mean", "min", "max"):
         raise NotImplementedError(
             f"spmm reduce={reduce!r} is not ported yet (ROADMAP queue 1, "
-            f"item 3: mean/min/max come with GraphSAGE)")
+            f"item 1: mean/min/max come with GraphSAGE)")
     if reduce not in ("sum", "add"):
         raise ValueError(f"unknown reduction {reduce!r}")
 
@@ -130,14 +147,19 @@ def spmm_with_structure(rowptr: torch.Tensor, col: torch.Tensor,
 
 def spmm_csr(rowptr: torch.Tensor, col: torch.Tensor,
              value: Optional[torch.Tensor], x: torch.Tensor,
-             reduce: str = "sum") -> torch.Tensor:
+             reduce: str = "sum", backend: str = "auto") -> torch.Tensor:
     """``out[m] = sum_{rowptr[m] <= e < rowptr[m+1]} value[e] * x[col[e]]``.
 
     ``value`` may be ``None`` (implicit ones); ``x`` is (N, ...) and the
     output (M, ...) with ``M = len(rowptr) - 1``, in the promoted dtype of
     ``value`` and ``x``. Differentiable in ``value`` and ``x``; the backward
     builds the CSC view of ``(rowptr, col)`` on each call, and each launch
-    the piece table of its pointer."""
+    the piece table of its pointer. ``backend``: ``"auto"``, ``"pallas"``
+    and ``"xla"`` all run this one path (the kernels on a CUDA tensor, the
+    plain versions on a CPU tensor); ``"sell"`` raises
+    ``NotImplementedError`` (ROADMAP queue 1, item 6)."""
+    check_backend(backend)
+
     def structure_fn():
         return spmm_structure(rowptr, ptr2ind_capped(rowptr, col.numel()),
                               col, x.shape[0])
@@ -147,9 +169,9 @@ def spmm_csr(rowptr: torch.Tensor, col: torch.Tensor,
 
 def spmm_coo(row: torch.Tensor, col: torch.Tensor,
              value: Optional[torch.Tensor], x: torch.Tensor, num_rows: int,
-             reduce: str = "sum") -> torch.Tensor:
+             reduce: str = "sum", backend: str = "auto") -> torch.Tensor:
     """``out[m] = sum_{e: row[e]=m} value[e] * x[col[e]]`` for ``m <
     num_rows``; ``row`` sorted ascending. Entries with ``row >= num_rows``
     (padding) are left out, as the JAX segment-sum drops them, and their
-    ``d value`` is 0."""
-    return spmm_csr(ind2ptr(row, num_rows), col, value, x, reduce)
+    ``d value`` is 0. ``backend`` as in :func:`spmm_csr`."""
+    return spmm_csr(ind2ptr(row, num_rows), col, value, x, reduce, backend)

@@ -12,7 +12,10 @@ machine with a card and no JAX it runs alone:
 Tolerances: f32 ``rtol=1e-5, atol=1e-4`` (sums in another order); bf16
 output ``rtol=atol=2e-2`` (output rounded to bf16); run compaction with
 f64 values against the plain version in f64 ``rtol=atol=1e-12`` (the plain
-version's ``index_add`` sums in another order). TF32 stays off, so the
+version's ``index_add`` sums in another order), its own row sort against
+``torch.sort`` + its presorted mode bit for bit, and flat runs of up to 10M
+f32 values (summed across lanes, warps and tiles) within 1e-6 of each
+run's sum of |terms| of f64. TF32 stays off, so the
 GCN's ``h @ w`` and its backward GEMMs are full f32 on the card."""
 import dataclasses
 
@@ -36,6 +39,8 @@ from paddle_sparse_tpu_torch import (CAP, SPMM_BACKENDS, PaddedCOO,
                                      spspmm_rowblocked,
                                      spspmm_rowsorted, tilespan_call,
                                      train_entry, train_step)
+
+from paddle_sparse_tpu_torch.ops.kernels.segcompact_cuda import F_MAX
 
 pytestmark = pytest.mark.cuda
 
@@ -458,12 +463,21 @@ def test_segcompact_launch_counter(dev):
 
 
 @pytest.mark.parametrize("bad", ["int64", "bf16", "noncontig", "device",
-                                 "shape", "rows", "3d", "capacity"])
+                                 "shape", "rows", "3d", "capacity",
+                                 "unsorted_flat", "unsorted_wide"])
 def test_segcompact_rejects(dev, bad):
     key, val = _sorted_grid(dev, 50, 16, 20, dtype=torch.float32)
     rows = torch.arange(50, dtype=torch.int32, device=dev)
     cap = 900
-    if bad == "int64":
+    kw = {}
+    if bad == "unsorted_flat":
+        key, val, rows = key.reshape(-1), val.reshape(-1), rows.repeat(16)
+        kw = dict(rows_sorted=False)
+    elif bad == "unsorted_wide":
+        key = torch.zeros(2, F_MAX + 8, dtype=torch.int32, device=dev)
+        val, rows = key.float(), rows[:2]
+        kw = dict(rows_sorted=False)
+    elif bad == "int64":
         key = key.long()
     elif bad == "bf16":
         val = val.bfloat16()
@@ -480,7 +494,159 @@ def test_segcompact_rejects(dev, bad):
     else:
         cap = 2 ** 31
     with pytest.raises((TypeError, ValueError)):
-        compact_runs_cuda(key, rows, val, (50, 20), cap)
+        compact_runs_cuda(key, rows, val, (50, 20), cap, **kw)
+
+
+def _shuffled(key, val, seed):
+    """The grid's rows each in a random order (as the SpGEMM expansion
+    leaves them)."""
+    g = torch.Generator(device=key.device).manual_seed(seed)
+    perm = torch.rand(key.shape, generator=g, device=key.device).argsort(1)
+    return (key.gather(1, perm).contiguous(),
+            None if val is None else val.gather(1, perm).contiguous())
+
+
+def _unsorted_vs_presorted(key, rows, val, shape, cap):
+    """The kernel's own row sort against ``torch.sort(stable=True)`` + the
+    presorted mode on the same grid: coordinates, count, values and seg
+    (mapped back through the sort) bit for bit."""
+    got = compact_runs_cuda(key, rows, val, shape, cap, seg=True,
+                            rows_sorted=False)
+    sk, perm = torch.sort(key, dim=1, stable=True)
+    sv = None if val is None else val.gather(1, perm).contiguous()
+    ref = compact_runs_cuda(sk.contiguous(), rows, sv, shape, cap, seg=True)
+    torch.cuda.synchronize()
+    assert int(got.count) == int(ref.count)
+    assert torch.equal(got.row, ref.row) and torch.equal(got.col, ref.col)
+    if val is not None:
+        assert torch.equal(got.value.view(torch.int8),
+                           ref.value.view(torch.int8))
+    assert torch.equal(got.seg.view(key.shape).gather(1, perm),
+                       ref.seg.view(key.shape))
+    return got
+
+
+@pytest.mark.parametrize("R,F,N", [(7, 16, 12), (5, 32, 6), (1, 8, 4),
+                                   (3000, 64, 500), (20000, 256, 100000),
+                                   (64, 1, 3), (333, 5, 4), (900, 24, 30),
+                                   (600, 100, 40), (97, 264, 50),
+                                   (41, 1000, 300), (17, 1024, 2),
+                                   (50, 300, 1 << 30)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_segcompact_unsorted_rows(dev, R, F, N, dtype):
+    """Grid rows in random order (ties of equal cols among them, down to N
+    = 2): the kernel's row sort equals torch.sort + the presorted mode bit
+    for bit, and the plain version (rows_sorted=False) in f64."""
+    key, val = _shuffled(*_sorted_grid(dev, R, F, N, seed=R + F,
+                                       dtype=dtype), seed=F)
+    rows = torch.arange(R, dtype=torch.int32, device=dev)
+    cap = int((key < N).sum()) + 5
+    got = _unsorted_vs_presorted(key, rows, val, (R, N), cap)
+    ref = compact_runs_reference(key, rows, val.double(), (R, N), cap,
+                                 seg=True, rows_sorted=False)
+    tol = F64_SUMS if dtype == torch.float64 else dict(rtol=1e-5, atol=1e-5)
+    _same_compact(got, ref, tol)
+    _unsorted_vs_presorted(key, rows, None, (R, N), cap)
+
+
+@pytest.mark.parametrize("cut", [1, 5000])
+def test_segcompact_unsorted_truncation_and_row_block(dev, cut):
+    key, val = _shuffled(*_sorted_grid(dev, 3000, 64, 500, seed=5), seed=6)
+    rows = torch.arange(7000, 10000, dtype=torch.int32, device=dev)
+    count = int(compact_runs_reference(key, rows, None, (10000, 500), 0,
+                                       rows_sorted=False).count)
+    got = _unsorted_vs_presorted(key, rows, val, (10000, 500), count - cut)
+    ref = compact_runs_reference(key, rows, val, (10000, 500), count - cut,
+                                 seg=True, rows_sorted=False)
+    _same_compact(got, ref, F64_SUMS)
+
+
+@pytest.mark.parametrize("run", [100_000, 1_100_000, 10_000_000])
+def test_segcompact_flat_long_runs_vs_f64(dev, run):
+    """Flat mode: runs of 100k, 1.1M and 10M elements amid short ones, f32
+    normal values, summed across lanes, warps and tiles: within 1e-6 of
+    each run's sum of |terms| of f64; two launches bit for bit equal."""
+    g = torch.Generator(device=dev).manual_seed(run % 97)
+    lens = torch.tensor([3, run, 1, 5000, 2, run // 3, 7], device=dev)
+    col = torch.repeat_interleave(torch.arange(lens.numel(), device=dev),
+                                  lens).int()
+    row = torch.zeros_like(col)
+    val = torch.randn(col.numel(), generator=g, device=dev)
+    a = compact_runs_cuda(col, row, val, (1, 7), 9, seg=True)
+    b = compact_runs_cuda(col, row, val, (1, 7), 9, seg=True)
+    ref = compact_runs_reference(col, row, val.double(), (1, 7), 9, seg=True)
+    scale = compact_runs_reference(col, row, val.double().abs(), (1, 7),
+                                   9).value
+    torch.cuda.synchronize()
+    assert int(a.count) == 7
+    assert torch.equal(a.row, ref.row) and torch.equal(a.col, ref.col)
+    assert torch.equal(a.seg, ref.seg)
+    assert bool(((a.value.double() - ref.value).abs()
+                 <= 1e-6 * scale + 1e-30).all())
+    assert torch.equal(a.value.view(torch.int32), b.value.view(torch.int32))
+
+
+def test_segcompact_two_launches_equal(dev):
+    """Every mode, twice: equal bits (no atomics on values)."""
+    key, val = _shuffled(*_sorted_grid(dev, 20000, 256, 300, seed=9,
+                                       dtype=torch.float32), seed=10)
+    rows = torch.arange(20000, dtype=torch.int32, device=dev)
+    col, row, fval = _flat_sorted(dev, 300, 40, 3_000_000, 77, seed=11)
+    for args, kw in (((key, rows, val, (20000, 300), 6_000_000),
+                      dict(rows_sorted=False)),
+                     ((col, row, fval.float(), (300, 40), 20_000), {})):
+        a = compact_runs_cuda(*args, seg=True, **kw)
+        b = compact_runs_cuda(*args, seg=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(a.value.view(torch.int32),
+                           b.value.view(torch.int32))
+        assert torch.equal(a.seg, b.seg) and torch.equal(a.row, b.row)
+
+
+def test_segcompact_launch_counters_and_f_max(dev):
+    """``launches`` counts every launch, ``launches_row_sorted`` those that
+    sorted the rows; the plain version counts none; the library's row limit
+    is the wrapper's F_MAX."""
+    from paddle_sparse_tpu_torch.ops.kernels import _build
+    assert _build.load_library().psp_segcompact_f_max() == F_MAX
+    key, val = _sorted_grid(dev, 50, 16, 20)
+    rows = torch.arange(50, dtype=torch.int32, device=dev)
+    n, u = compact_runs_cuda.launches, compact_runs_cuda.launches_row_sorted
+    compact_runs_cuda(key, rows, val, (50, 20), 900)
+    compact_runs_cuda(key, rows, val, (50, 20), 900, rows_sorted=False)
+    compact_runs_reference(key, rows, val, (50, 20), 900, rows_sorted=False)
+    assert compact_runs_cuda.launches == n + 2
+    assert compact_runs_cuda.launches_row_sorted == u + 1
+
+
+def test_segcompact_wide_presorted_grid_takes_the_stream_kernel(dev):
+    """A sorted grid wider than F_MAX runs as a stream (rows[e / F]); runs
+    still end with their grid row."""
+    key, val = _sorted_grid(dev, 300, F_MAX + 40, 9, seed=12)
+    rows = torch.arange(300, dtype=torch.int32, device=dev)
+    rows[1::2] = rows[0::2]                 # neighbours share a row
+    cap = int((key < 9).sum())
+    got = compact_runs_cuda(key, rows, val, (300, 9), cap, seg=True)
+    ref = compact_runs_reference(key, rows, val, (300, 9), cap, seg=True)
+    torch.cuda.synchronize()
+    _same_compact(got, ref, dict(rtol=1e-11, atol=1e-11))
+
+
+def test_spgemm_row_sort_dispatch(dev, monkeypatch):
+    """``_sorted_row_grid``: F <= F_MAX hands the compress unsorted rows
+    (counted), above it torch.sort + the presorted mode; same C."""
+    from paddle_sparse_tpu_torch.ops.kernels import segcompact_cuda
+    A, B = _spgemm_pair("cuda")
+    F, oc = plan_spgemm_rows(A, B)
+    u = compact_runs_cuda.launches_row_sorted
+    c1 = spspmm_rowsorted(A, B, F, oc).matrix
+    assert compact_runs_cuda.launches_row_sorted == u + 1
+    monkeypatch.setattr(segcompact_cuda, "F_MAX", F - 1)
+    c2 = spspmm_rowsorted(A, B, F, oc).matrix
+    assert compact_runs_cuda.launches_row_sorted == u + 1
+    assert c1.nnz == c2.nnz and torch.equal(c1.row, c2.row)
+    assert torch.equal(c1.col, c2.col)
+    torch.testing.assert_close(c1.value, c2.value, **F32)
 
 
 def _spgemm_pair(where):

@@ -56,6 +56,17 @@ def test_gcn_normalize(with_value):
     assert not tn.value[t.nnz:].any()
 
 
+@pytest.mark.parametrize("add_self_loops", [True, False])
+def test_gcn_normalize_add_self_loops_flag(add_self_loops):
+    """The flag only says the caller added the loops: both packages give
+    what they give without it."""
+    t, j, _ = _graph()
+    tn = gcn_normalize(t, add_self_loops=add_self_loops)
+    jn = j_normalize(j, add_self_loops=add_self_loops)
+    np.testing.assert_allclose(tn.value.numpy(), np.asarray(jn.value), **TOL)
+    assert torch.equal(tn.value, gcn_normalize(t).value)
+
+
 def _load_jax_params(params, num_layers):
     in_dim, hidden = params["layers"][0]["w"].shape
     out_dim = params["layers"][-1]["w"].shape[1]

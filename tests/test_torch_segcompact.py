@@ -274,3 +274,170 @@ def test_cpu_takes_the_plain_version():
     assert compact_runs_cuda.launches == before
     for x, y, z in zip(a[:4], b[:4], c[:4]):
         assert torch.equal(x, y) and torch.equal(x, z.detach())
+
+
+# ---- grid rows in any order (rows_sorted=False): the compaction sorts -----
+
+def _unsorted(rng, key, prod):
+    """Each grid row in a random order, as the SpGEMM expansion leaves it."""
+    perm = np.argsort(rng.random(key.shape), axis=1)
+    return (np.take_along_axis(key, perm, 1),
+            np.take_along_axis(prod, perm, 1))
+
+
+def _tied_grid(rng, M, F, N):
+    """Rows full of repeated cols (ties), pads scattered among them."""
+    key = rng.integers(0, N, (M, F)).astype(np.int32)
+    key[rng.random((M, F)) < 0.3] = N
+    prod = np.where(key < N, rng.standard_normal((M, F)), 0).astype(
+        np.float32)
+    return key, prod
+
+
+def _jax_sorted(key, prod):
+    """JAX's own row sort (unstable among ties) of the grid."""
+    k, p = jax.lax.sort((jnp.asarray(key), jnp.asarray(prod)), dimension=1,
+                        num_keys=1)
+    return k, p
+
+
+@pytest.mark.parametrize("M,F,N,E", GRID_CASES + [(40, 24, 3, 16),
+                                                  (9, 64, 2, 64)])
+def test_unsorted_rows_match_jax_sort_and_kernel(M, F, N, E):
+    """``rows_sorted=False`` against ``jax.lax.sort`` of each row then
+    ``compact_sorted_stream`` in interpret mode: coordinates and count
+    exact, values within ``5e-5 * scale`` of it and ``1e-6 * scale`` of the
+    f64 oracle; ties of equal cols in the last two shapes."""
+    rng = np.random.default_rng(M * 7 + F)
+    make = _tied_grid if N <= 3 else _random_grid
+    key, prod = _unsorted(rng, *make(rng, M, F, N))
+    rows = np.arange(M, dtype=np.int32)
+    cap = int((key < N).sum()) + 3
+    out = compact_runs_cuda(torch.from_numpy(key), torch.from_numpy(rows),
+                            torch.from_numpy(prod), (M, N), cap,
+                            rows_sorted=False)
+    items = _oracle(rows, key, prod, N)
+    n = len(items)
+    _check_oracle(out, items, n)
+    _check_pads(out, n, M, N)
+    jk, jp = _jax_sorted(key, prod)
+    jr, jc, jv, juc = compact_sorted_stream(jk, jp, jnp.asarray(rows), N,
+                                            cap, E=E, interpret=True)
+    assert int(juc) == int(out.count) == n
+    np.testing.assert_array_equal(out.row[:n].numpy(), np.asarray(jr)[:n])
+    np.testing.assert_array_equal(out.col[:n].numpy(), np.asarray(jc)[:n])
+    scale = max(1.0, float(np.abs(np.asarray(jv)[:n]).max())) if n else 1.0
+    np.testing.assert_allclose(out.value[:n].numpy(), np.asarray(jv)[:n],
+                               rtol=0, atol=5e-5 * scale)
+
+
+@pytest.mark.parametrize("cap_extra", [4, -6])
+def test_unsorted_rows_seg_in_input_order(cap_extra):
+    """``seg[e]`` names element e's run in the input's own order: the slot
+    holds e's (row, col), or -1 for pads and runs past ``out_capacity``;
+    it equals the sorted grid's seg carried back through the sort."""
+    rng = np.random.default_rng(21)
+    M, F, N = 12, 16, 5
+    key, prod = _unsorted(rng, *_tied_grid(rng, M, F, N))
+    rows = np.arange(M, dtype=np.int32)
+    cap = len(_oracle(rows, key, prod, N)) + cap_extra
+    kt = torch.from_numpy(key)
+    out = compact_runs_cuda(kt, torch.from_numpy(rows),
+                            torch.from_numpy(prod), (M, N), cap, seg=True,
+                            rows_sorted=False)
+    seg = out.seg.view(M, F)
+    kept = seg >= 0
+    assert not kept[kt == N].any()
+    r = torch.arange(M, dtype=torch.int32)[:, None].expand(M, F)
+    assert torch.equal(out.col[seg[kept].long()], kt[kept])
+    assert torch.equal(out.row[seg[kept].long()], r[kept])
+    sk, perm = torch.sort(kt, dim=1, stable=True)
+    ref = compact_runs_cuda(sk.contiguous(), torch.from_numpy(rows),
+                            torch.from_numpy(prod).gather(1, perm), (M, N),
+                            cap, seg=True)
+    assert torch.equal(seg.gather(1, perm), ref.seg.view(M, F))
+    assert torch.equal(out.value, ref.value)
+
+
+@pytest.mark.parametrize("cap_extra", [2, -5])
+def test_unsorted_rows_value_grad_matches_jax(cap_extra):
+    """The value grad with the rows sorted inside: ``jax.grad`` of the JAX
+    ``compact_runs`` on the stably sorted grid, carried back to the input
+    order."""
+    rng = np.random.default_rng(13)
+    M, F, N, E = 9, 16, 6, 16
+    key, prod = _unsorted(rng, *_tied_grid(rng, M, F, N))
+    rows = np.arange(M, dtype=np.int32)
+    cap = len(_oracle(rows, key, prod, N)) + cap_extra
+    weight = rng.standard_normal(cap).astype(np.float32)
+    perm = np.argsort(key, axis=1, kind="stable")
+    sk = np.take_along_axis(key, perm, 1)
+    sp = np.take_along_axis(prod, perm, 1)
+
+    def j_loss(p):
+        _, _, valC, _ = j_compact_runs(N, cap, E, True, jnp.asarray(sk), p,
+                                       jnp.asarray(rows))
+        return (valC * jnp.asarray(weight)).sum()
+
+    g_sorted = np.asarray(jax.grad(j_loss)(jnp.asarray(sp)))
+    g_ref = np.zeros_like(prod)
+    np.put_along_axis(g_ref, perm, g_sorted, 1)
+    p = torch.from_numpy(prod).requires_grad_()
+    out = compact_runs(torch.from_numpy(key), torch.from_numpy(rows), p,
+                       (M, N), cap, rows_sorted=False)
+    (out.value * torch.from_numpy(weight)).sum().backward()
+    np.testing.assert_allclose(p.grad.numpy(), g_ref, rtol=1e-6, atol=1e-6)
+
+
+def test_rows_sorted_false_needs_a_grid():
+    with pytest.raises(ValueError, match="grid"):
+        compact_runs_reference(torch.zeros(5, dtype=torch.int32),
+                               torch.zeros(5, dtype=torch.int32), None, (1, 2),
+                               5, rows_sorted=False)
+
+
+@pytest.mark.parametrize("variant", ["rowsorted", "rowblocked"])
+def test_sorted_row_grid_f_max_dispatch(monkeypatch, variant):
+    """``_sorted_row_grid`` hands grids of ``F <= F_MAX`` to the compress
+    unsorted and sorts wider ones itself: both branches give the same C,
+    values and grads."""
+    from paddle_sparse_tpu_torch import (PaddedCOO, plan_spgemm_blocked,
+                                         plan_spgemm_rows, spspmm_rowblocked,
+                                         spspmm_rowsorted)
+    from paddle_sparse_tpu_torch.core import spgemm
+    from paddle_sparse_tpu_torch.ops.kernels import segcompact_cuda
+    rng = np.random.default_rng(17)
+    M, nnz = 60, 500
+    row = np.sort(rng.integers(0, M, nnz))
+    col = rng.integers(0, M, nnz)
+    order = np.lexsort((col, row))
+    A = PaddedCOO.from_arrays(row[order], col[order],
+                              rng.standard_normal(nnz).astype(np.float32),
+                              (M, M), capacity=nnz + 7).coalesce()
+    calls = []
+    real = spgemm._sorted_row_grid
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        calls.append(out[2])
+        return out
+
+    monkeypatch.setattr(spgemm, "_sorted_row_grid", spy)
+    runs = []
+    for f_max in (segcompact_cuda.F_MAX, 1):
+        monkeypatch.setattr(segcompact_cuda, "F_MAX", f_max)
+        v = A.value.clone().requires_grad_()
+        Ai = A.with_value(v)
+        if variant == "rowsorted":
+            F, oc = plan_spgemm_rows(Ai, Ai)
+            res = spspmm_rowsorted(Ai, Ai, F, oc)
+        else:
+            F, oc, _, EB, BOC = plan_spgemm_blocked(Ai, Ai)
+            res = spspmm_rowblocked(Ai, Ai, F, oc, 16, EB, BOC)
+        res.matrix.value.sum().backward()
+        runs.append((res.matrix, v.grad))
+    assert calls and not calls[0] and all(calls[-1:])
+    (c1, g1), (c2, g2) = runs
+    assert c1.nnz == c2.nnz > 0
+    assert torch.equal(c1.row, c2.row) and torch.equal(c1.col, c2.col)
+    assert torch.equal(c1.value, c2.value) and torch.equal(g1, g2)

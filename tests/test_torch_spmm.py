@@ -174,3 +174,42 @@ def test_wrapper_rejects_other_devices():
     col = torch.zeros(0, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         spmm_csr_cuda(rowptr, col, None, x)
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas", "xla"])
+def test_backend_keyword_runs_the_one_path(backend):
+    """``spmm_csr``, ``spmm_coo`` and ``PaddedCOO.spmm`` take the JAX
+    package's ``backend`` values; each gives the JAX ``backend="xla"``
+    result (its ``"pallas"`` is the TPU's kernel)."""
+    from paddle_sparse_tpu_torch import PaddedCOO
+    row, col, rowptr, val, rng = _graph(nnz=1500)
+    x = rng.standard_normal((200, 16)).astype(np.float32)
+    ref = np.asarray(jspmm_coo(jnp.asarray(row), jnp.asarray(col),
+                               jnp.asarray(val), jnp.asarray(x), 300,
+                               backend="xla"))
+    adj = PaddedCOO.from_arrays(row, col, val, (300, 200), capacity=1600)
+    with torch.no_grad():
+        outs = (spmm_csr(_t(rowptr), _t(col), _t(val), _t(x),
+                         backend=backend),
+                spmm_coo(_t(row), _t(col), _t(val), _t(x), 300,
+                         backend=backend),
+                adj.spmm(_t(x), backend=backend))
+    for out in outs:
+        np.testing.assert_allclose(out.numpy(), ref, **F32)
+
+
+@pytest.mark.parametrize("backend,error", [("sell", NotImplementedError),
+                                           ("cusparse", ValueError)])
+def test_backend_sell_and_unknown_raise(backend, error):
+    from paddle_sparse_tpu_torch import PaddedCOO
+    row, col, rowptr, val, _ = _graph(nnz=100)
+    adj = PaddedCOO.from_arrays(row, col, val, (300, 200))
+    x = torch.ones(200, 4)
+    for call in (lambda: spmm_csr(_t(rowptr), _t(col), _t(val), x,
+                                  backend=backend),
+                 lambda: spmm_coo(_t(row), _t(col), _t(val), x, 300,
+                                  backend=backend),
+                 lambda: adj.spmm(x, backend=backend)):
+        with pytest.raises(error, match="ROADMAP" if backend == "sell"
+                           else "backend"):
+            call()
