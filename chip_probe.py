@@ -4,6 +4,8 @@ repository root:
 
     python3 chip_probe.py sweep        # the long-row cap sweep
     python3 chip_probe.py ab PARENT    # this tree against another, in turns
+    python3 chip_probe.py gat          # where a GAT step's device time goes
+    python3 chip_probe.py sage         # and a GraphSAGE step's
 
 ``sweep``: the span kernels, K1 and K2 alone at K=256 on the bench's zipf
 graph at 1/8 scale (``chip_smoke.bench_graph``) for each piece size ``cap``
@@ -20,8 +22,21 @@ archive`` of the parent commit) and from this tree in turns: parent, this,
 this, parent, each in a process of its own. One JSON line per run, then
 their summary.
 
-Both print the card's ``nvidia-smi`` name and power limit and exit non-zero
-without a card.
+``gat``: ``chip_smoke.py`` phase 8d's GAT (3 layers, 4 heads of 64,
+output 47) on the zipf graph at 1/8 scale: first its gather of 15.76M
+rows of 4 floats by the row groups' entry index, ``index_select`` against
+``take_rows``, each timed alone with CUDA events; then, after a warm-up, one
+forward
+and one train step, each timed on the host clock around a synchronize and
+then run once more under ``torch.profiler``; one JSON line each with the
+device time, the kernels that took the most of it and the aten ops that
+launched the most (their device time, children included).
+
+``sage``: the same profile of ``chip_smoke.py`` phase 8c's GraphSAGE
+(100 -> 256 -> 256 -> 47, mean) at ogbn-products scale.
+
+Each prints the card's ``nvidia-smi`` name and power limit and exits
+non-zero without a card.
 """
 import json
 import os
@@ -158,6 +173,99 @@ def ab(parent: Path) -> None:
     print("AB_SUMMARY " + json.dumps(summary) + f" [{card}]", flush=True)
 
 
+def gat(dev: torch.device) -> None:
+    import chip_smoke as c
+
+    from paddle_sparse_tpu_torch import PaddedCOO, init_gat
+    card = card_line()
+    row, col, val, x = c.bench_graph(dev, "zipf", 0.125, c.GCN_DIMS[0])
+    n = x.shape[0]
+    adj = PaddedCOO.from_arrays(row, col, val, (n, n))
+    del row, col, val
+    adj.structure()
+    model = init_gat(torch.Generator().manual_seed(0), c.GCN_DIMS[0],
+                     c.GAT_HIDDEN, c.GCN_DIMS[2], heads=c.GAT_HEADS,
+                     num_layers=3, device=dev)
+    y = torch.randint(0, c.GCN_DIMS[2], (n,), generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+
+    # the gather edge_softmax uses against index_select, on its own indices
+    from paddle_sparse_tpu_torch.ops.segment import take_rows
+    groups = adj.row_groups()
+    table = torch.randn(groups.group_row.numel(), c.GAT_HEADS, device=dev)
+    idx = groups.entry_group
+    res = {"index_select": c.timed(lambda: table.index_select(0, idx), 5)[0],
+           "take_rows": c.timed(lambda: take_rows(table, idx), 5)[0]}
+    print("GAT_GATHERS " + json.dumps({"rows": idx.numel(),
+                                       "width": c.GAT_HEADS, "ms": res})
+          + f" [{card}]", flush=True)
+    del table
+
+    profile_model("GAT", card, model, adj, x, y)
+
+
+def profile_model(name, card, model, adj, x, y) -> None:
+    """After a warm-up, one forward (inference mode) and one train step,
+    each timed on the host clock around a synchronize and then run once
+    more under ``torch.profiler``: one JSON line each with the device time,
+    the kernels that took the most of it and the aten ops that launched the
+    most (their device time, children included)."""
+    import time
+
+    import chip_smoke as c
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_sparse_tpu_torch import train_step
+
+    def forward():
+        with torch.inference_mode():
+            return model(adj, x)
+
+    for part, run in (("forward", forward),
+                      ("train_step",
+                       lambda: train_step(model, adj, x, y, c.LR))):
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        kernels = sorted((e for e in ev if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.self_device_time_total,
+                         reverse=True)
+        ops = sorted((e for e in ev if e.device_type == DeviceType.CPU
+                      and e.key.startswith("aten::")),
+                     key=lambda e: e.device_time_total, reverse=True)
+        print(f"{name}_PROFILE " + json.dumps({
+            "part": part, "host_ms": host_ms,
+            "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "kernels": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
+                        for e in kernels[:15]],
+            "aten_ops": [[e.key, e.device_time_total / 1e3, e.count]
+                         for e in ops[:15]]}) + f" [{card}]", flush=True)
+
+
+def sage(dev: torch.device) -> None:
+    import chip_smoke as c
+
+    from paddle_sparse_tpu_torch import init_sage
+    adj, x = c.products_graph(dev)
+    adj.structure()
+    model = init_sage(torch.Generator().manual_seed(0), *c.GCN_DIMS,
+                      num_layers=3, device=dev)
+    y = torch.randint(0, c.GCN_DIMS[2], (x.shape[0],),
+                      generator=torch.Generator(device=dev).manual_seed(5),
+                      device=dev)
+    adj.value.requires_grad_()
+    profile_model("SAGE", card_line(), model, adj, x, y)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_probe: no CUDA device visible", file=sys.stderr)
@@ -166,6 +274,10 @@ def main() -> int:
         sweep()
     elif len(sys.argv) == 3 and sys.argv[1] == "ab":
         ab(Path(sys.argv[2]))
+    elif len(sys.argv) == 2 and sys.argv[1] == "gat":
+        gat(torch.device("cuda", 0))
+    elif len(sys.argv) == 2 and sys.argv[1] == "sage":
+        sage(torch.device("cuda", 0))
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -93,6 +93,31 @@ Phases, one or more printed lines each:
    never calls. On zipf 1/8 the span kernels, K1 and K2 alone in f32 and
    bf16, each in turns with its library call in the same dtype, two launches
    of each bit for bit equal, and the fold alone on the hub's partials.
+8a. SpMM ``reduce`` mean, min and max on a padded ``PaddedCOO`` (poisoned
+   padding cols, empty rows, a row of negative products, duplicate entries,
+   a hub row and a hub column past ``CAP``), in f32 and in small integers
+   (ties), forward, d value and d x against the plain path in f64; mean's
+   launches (K1 forward and for d x, K2 for d value, the fold after each
+   split K1), none for min and max. Then min and max at 1/8 of
+   ogbn-products scale, where their (nnz, K) products fit the card:
+   forwards at K=256 and forward+backwards at K=64, times, peak memory,
+   sampled rows against f64.
+8b. Toy GraphSAGE, GIN, APPNP and GAT (``model_entry``): forward, loss,
+   every parameter's grad and d value, card vs CPU.
+8c. GraphSAGE (mean aggregator) 100 -> 256 -> 256 -> 47 on phase 4's graph
+   with ``adj.value.requires_grad_()``: 1 warm-up and 3 timed forwards and
+   train steps, peak memory, the launch counts (K1 3 per forward, 5 per
+   step; K2 3 per step; no fold), the times beside phase 4's and 5's GCN,
+   and every SpMM's sampled rows and d value on sampled edges against f64
+   (the calls recorded during one more step).
+8d. On ``bench_graph``'s zipf graph at 1/8 scale with 100 features (hub row
+   of 10M edges, split): GIN 100 -> 256 -> 256 -> 47 and APPNP 100 -> 256
+   -> 47 (k = 10, alpha = 0.1) on the ``gcn_normalize``-d adjacency with
+   its values requiring grad, and GAT (3 layers, 4 heads of 64, output 47)
+   on the raw one: times, peak memory, launch counts (GAT: K1 2 sum(H) and
+   K2 sum(H) per step; the fold after every K1 over the split rows),
+   sampled rows of every SpMM, GIN's and APPNP's d value and GAT's d att
+   of every head and layer against f64.
 
 Every kernel in the JSON line carries its time, launches, plain time,
 bound (the larger of the bytes each input and output moves once over
@@ -417,13 +442,12 @@ def phase3b_toy_train(dev):
     check(sc[-1] < sc[0], "toy SGD did not decrease the loss")
 
 
-def phase4_forward(dev, card):
-    from paddle_sparse_tpu_torch import (CAP, PaddedCOO, gcn_normalize,
-                                         init_gcn, spmm_csr_cuda,
-                                         spmm_csr_reference)
+def products_graph(dev):
+    """``bench.py:112-145::synthetic_graph`` at its default size: 2,449,029
+    nodes of degree 50, uniform cols, U(0,1) values (raw, not normalized)
+    and N(0,1) features of width ``GCN_DIMS[0]``, from seed 0."""
+    from paddle_sparse_tpu_torch import PaddedCOO
     n, deg_ = PRODUCTS_NODES, PRODUCTS_DEG
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(0)
     row = torch.arange(n, device=dev, dtype=torch.int32).repeat_interleave(
         deg_)
@@ -431,8 +455,18 @@ def phase4_forward(dev, card):
                         dtype=torch.int32)
     val = torch.rand(n * deg_, generator=g, device=dev)
     x = torch.randn(n, GCN_DIMS[0], generator=g, device=dev)
-    adj = gcn_normalize(PaddedCOO.from_arrays(row, col, val, (n, n)))
-    del row, col, val
+    return PaddedCOO.from_arrays(row, col, val, (n, n)), x
+
+
+def phase4_forward(dev, card):
+    from paddle_sparse_tpu_torch import (CAP, gcn_normalize, init_gcn,
+                                         spmm_csr_cuda, spmm_csr_reference)
+    n = PRODUCTS_NODES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw, x = products_graph(dev)
+    adj = gcn_normalize(raw)
+    del raw
     model = init_gcn(torch.Generator().manual_seed(0), *GCN_DIMS,
                      num_layers=3, device=dev)
     torch.cuda.synchronize()
@@ -543,6 +577,7 @@ def phase4_forward(dev, card):
     del csr
     stats = {"launches": launches, "sddmm_launches": sddmm_launches,
              "counts": counts, "max_abs_err": max_err,
+             "fwd_ms": sum(times) / len(times),
              "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
              "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
              "gather_bound_ms": nnz * h2.shape[1] * h2.element_size()
@@ -755,7 +790,7 @@ def phase5_train(dev, card, adj, x, model):
                             gather_bound_ms=nnz * hi.shape[1] * 4
                             / HBM_BYTES_PER_S * 1e3)
     return {"spmm_launches": k1_launches, "sddmm_launches": k2_launches,
-            "counts": counts, "sddmm": sddmm_stats}
+            "counts": counts, "sddmm": sddmm_stats, "step_ms": step_ms}
 
 
 def _launch_counts():
@@ -2230,6 +2265,499 @@ def phase7c_zipf_kernels(dev, card, run, graph):
     return res
 
 
+# ---- phase 8: SpMM mean/min/max and the other model families --------------
+
+GAT_HEADS, GAT_HIDDEN = 4, 64           # 3 layers: 4 x 64, 4 x 64, 1 x 47
+APPNP_K, APPNP_ALPHA = 10, 0.1
+REDUCE_NODES = 4000
+
+
+class SpmmCalls:
+    """Records every ``PaddedCOO.spmm`` call made inside the ``with``
+    block: ``(adj, x, reduce, out)``, the grads of the output and of a
+    non-leaf ``adj.value`` (GAT's per-head attention column) retained, so
+    that sampled rows and ``d value`` can be checked against f64
+    afterwards."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from paddle_sparse_tpu_torch import PaddedCOO
+        self._orig = orig = PaddedCOO.spmm
+        calls = self.calls
+
+        def spmm(adj, x, reduce="sum", backend="auto"):
+            out = orig(adj, x, reduce, backend)
+            if out.requires_grad:
+                out.retain_grad()
+            v = adj.value
+            if v is not None and v.requires_grad and not v.is_leaf:
+                v.retain_grad()
+            calls.append((adj, x, reduce, out))
+            return out
+        PaddedCOO.spmm = spmm
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_sparse_tpu_torch import PaddedCOO
+        PaddedCOO.spmm = self._orig
+        return False
+
+
+def sampled_rows(rowptr, n_rows=SAMPLED_ROWS, seed=2):
+    """``n_rows`` random rows and the longest one."""
+    deg = rowptr[1:] - rowptr[:-1]
+    rows = torch.randperm(rowptr.numel() - 1, generator=torch.Generator(
+        ).manual_seed(seed))[:n_rows - 1]
+    return torch.cat([deg.argmax().view(1).cpu(), rows]).unique().to(
+        rowptr.device)
+
+
+def check_spmm_calls(name, calls, rows):
+    """Sampled rows of every recorded SpMM (sum or mean) against f64, each
+    within GRAD_REL of its sum of |terms|; the gathered x rows are widened
+    only where the sampled edges read them."""
+    from paddle_sparse_tpu_torch import spmm_csr_reference
+    worst, ok_all, n_edges = 0.0, True, 0
+    for adj, xin, reduce, out in calls:
+        rowptr = adj.rowptr()
+        edge, sub_ptr = _sub_csr(rowptr, rows)
+        n_edges = max(n_edges, edge.numel())
+        uc, sub_col = torch.unique(adj.col[edge], return_inverse=True)
+        xd = xin.detach().reshape(xin.shape[0], -1)[uc.long()].double()
+        val = adj.value[edge].detach().double()
+        ref = spmm_csr_reference(sub_ptr, sub_col, val, xd)
+        scale = spmm_csr_reference(sub_ptr, sub_col, val.abs(), xd.abs())
+        if reduce == "mean":
+            deg = (sub_ptr[1:] - sub_ptr[:-1]).clamp(min=1)[:, None]
+            ref, scale = ref / deg, scale / deg
+        got = out.detach().reshape(out.shape[0], -1)[rows]
+        err, ok = _grad_close(got, ref, scale)
+        worst, ok_all = max(worst, err), ok_all and ok
+    print(f"phase 8 {name}: {len(calls)} SpMMs of the forward, "
+          f"{rows.numel()} sampled rows each (the longest among them; up to "
+          f"{n_edges} edges) vs f64 within {GRAD_REL} of the sum of |terms|: "
+          f"max_abs_err {worst:.3e} {'ok' if ok_all else 'FAIL'}",
+          flush=True)
+    check(ok_all, f"{name}: an SpMM disagrees with f64 on sampled rows")
+    return worst
+
+
+def _d_value_err(adj, calls, d_value):
+    """Max abs error, pass flag and max |reference| of ``d value`` on
+    ``SAMPLED_EDGES`` sampled edges against the f64 sum over ``calls`` of
+    ``g[row] . x[col]`` (over the row's degree for a mean), within
+    GRAD_REL of the sum of |terms|."""
+    rowptr, col = adj.rowptr(), adj.col
+    gen = torch.Generator().manual_seed(6)
+    e = torch.randint(0, adj.nnz, (SAMPLED_EDGES,), generator=gen).to(
+        adj.row.device)
+    er = adj.row[e].long()
+    ec = col[e].long()
+    deg = (rowptr[1:] - rowptr[:-1]).clamp(min=1)[er].double()
+    ref = torch.zeros(SAMPLED_EDGES, dtype=torch.float64, device=e.device)
+    scale = torch.zeros_like(ref)
+    for _, xin, reduce, out in calls:
+        if out.grad is None:
+            continue
+        terms = (out.grad.reshape(out.shape[0], -1)[er].double()
+                 * xin.detach().reshape(xin.shape[0], -1)[ec].double())
+        if reduce == "mean":
+            terms = terms / deg[:, None]
+        ref += terms.sum(1)
+        scale += terms.abs().sum(1)
+    err, ok = _grad_close(d_value[e], ref, scale)
+    return err, ok, float(ref.abs().max())
+
+
+def check_d_value(name, adj, calls, d_value):
+    """``d value`` of the one value tensor that all ``calls`` share on
+    sampled edges against f64 (:func:`_d_value_err`)."""
+    err, ok, ref_max = _d_value_err(adj, calls, d_value)
+    print(f"phase 8 {name}: d value on {SAMPLED_EDGES} sampled edges vs f64: "
+          f"max_abs_err {err:.3e} (max |dv| {ref_max:.3e}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"{name}: d value disagrees with f64 on sampled edges")
+    return err
+
+
+def check_call_d_values(name, calls):
+    """``d value`` of each call's own value tensor (GAT's ``d att``, one
+    K2 launch per head and layer) on sampled edges against that call's f64
+    ``g[row] . x[col]`` (:func:`_d_value_err`)."""
+    check(len(calls) > 0 and all(c[0].value.grad is not None
+                                 for c in calls),
+          f"{name}: a recorded SpMM has no value grad")
+    res = [_d_value_err(c[0], [c], c[0].value.grad) for c in calls]
+    err = max(r[0] for r in res)
+    ok = all(r[1] for r in res)
+    print(f"phase 8 {name}: d value of each of {len(res)} SpMMs on "
+          f"{SAMPLED_EDGES} sampled edges vs f64: max_abs_err {err:.3e} "
+          f"(max |dv| {max(r[2] for r in res):.3e}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"{name}: d value disagrees with f64 on sampled edges")
+    return err
+
+
+def reduce_graph(gen, dev, ints):
+    """A padded ``PaddedCOO`` of ``REDUCE_NODES`` nodes: a hub row (7) and a
+    hub column (11) of ``2 * CAP + 5`` edges each, empty rows (0, 500,
+    last), row 3's products all negative, duplicate entries; with ``ints``
+    small-integer values and x (ties everywhere). Padding cols poisoned
+    with 2**30: a gather of one faults. Returns it and x (K=48)."""
+    from paddle_sparse_tpu_torch import CAP, PaddedCOO
+    M = REDUCE_NODES
+    hub = 2 * CAP + 5
+    row = torch.cat([torch.full((hub,), 7, device=dev),
+                     torch.randint(0, M, (40_000,), generator=gen,
+                                   device=dev),
+                     torch.arange(hub, device=dev) % M])
+    col = torch.cat([torch.randint(0, M, (hub,), generator=gen, device=dev),
+                     torch.randint(0, M, (40_000,), generator=gen,
+                                   device=dev),
+                     torch.full((hub,), 11, device=dev)])
+    keep = (row != 0) & (row != 500) & (row != M - 1)
+    row, col = row[keep], col[keep]
+    row, col = torch.cat([row, row[:300]]), torch.cat([col, col[:300]])
+    order = torch.argsort(row, stable=True)
+    row, col = row[order], col[order]
+    if ints:
+        val = torch.randint(-2, 3, (row.numel(),), generator=gen,
+                            device=dev).float()
+        x = torch.randint(-2, 3, (M, 48), generator=gen, device=dev).float()
+    else:
+        val = torch.rand(row.numel(), generator=gen, device=dev) * 2 - 1
+        x = torch.randn(M, 48, generator=gen, device=dev)
+    val[row == 3] = -val[row == 3].abs() - 0.5
+    pos = torch.zeros(M, dtype=torch.bool, device=dev)
+    pos[col[row == 3]] = True
+    x = torch.where(pos[:, None], x.abs() + 1, x)
+    adj = PaddedCOO.from_arrays(row, col, val, (M, M),
+                                capacity=row.numel() + 1000)
+    adj = dataclasses.replace(adj, col=torch.where(
+        adj.valid_mask(), adj.col, torch.full_like(adj.col, 1 << 30)))
+    return adj, x
+
+
+def phase8a_reductions(gen, dev):
+    """SpMM mean, min and max on the card against the plain path in f64
+    (the port on the CPU, f64 inputs): forward, d value and d x; mean
+    within GRAD_REL of the sum of |terms|, min and max within F32_TOL; the
+    launches (mean: K1 forward and for d x, K2 for d value, the fold after
+    each split K1; min and max: none). The CPU runs keep the poisoned
+    padding cols too."""
+    stats = {}
+    for ints in (False, True):
+        adj, x = reduce_graph(gen, dev, ints)
+        w = torch.randn(x.shape, generator=gen, device=dev)
+        for reduce in ("mean", "min", "max"):
+            runs = {}
+            for where in ("card", "f64", "abs"):
+                a = adj if where == "card" else adj.to("cpu")
+                f = ((lambda t: t) if where == "card" else
+                     (lambda t: t.double().cpu()) if where == "f64" else
+                     (lambda t: t.double().abs().cpu()))
+                v = f(a.value).clone().requires_grad_()
+                xx = f(x).clone().requires_grad_()
+                _zero_launch_counts()
+                out = a.with_value(v).spmm(xx, reduce)
+                (out * f(w)).sum().backward()
+                if where == "card":
+                    torch.cuda.synchronize()
+                    counts = _launch_counts()
+                runs[where] = (out.detach(), v.grad, xx.grad)
+            want = ({"spmm_csr": 2, "sddmm_csr": 1, "fold_pieces": 2}
+                    if reduce == "mean" else {})
+            check(all(counts[k] == want.get(k, 0) for k in counts),
+                  f"{reduce}: expected launches {want}, counted {counts}")
+            errs, ok = [], True
+            for name, c, h, a in zip(("out", "d value", "d x"), runs["card"],
+                                     runs["f64"], runs["abs"]):
+                c, h, a = c.cpu(), h.cpu(), a.cpu()
+                if name == "d value":
+                    check(not c[adj.nnz:].any(), "padding got a d value")
+                    c, h, a = c[:adj.nnz], h[:adj.nnz], a[:adj.nnz]
+                if reduce == "mean":
+                    err, good = _grad_close(c, h, a)
+                else:
+                    err = float((c.double() - h).abs().max())
+                    good = bool(torch.allclose(c.double(), h, **F32_TOL))
+                errs.append(err)
+                ok = ok and good
+            out = runs["card"][0].cpu()
+            check(not out[[0, 500, REDUCE_NODES - 1]].any(),
+                  f"{reduce}: empty rows not 0")
+            if reduce == "max":
+                check(bool((out[3] < 0).all()),
+                      "max: a row of negative products read a padding 0")
+            label = f"{reduce}_{'ints' if ints else 'f32'}"
+            print(f"phase 8a spmm {reduce} "
+                  f"{'small ints (ties)' if ints else 'f32'}, {adj.nnz} nnz + "
+                  f"{adj.capacity - adj.nnz} poisoned pads, K=48, a hub row "
+                  f"and column past CAP: out / d value / d x vs "
+                  f"plain f64 max_abs_err "
+                  f"{' / '.join(f'{e:.3e}' for e in errs)}; launches "
+                  f"{counts} {'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"spmm {label} disagrees with plain f64")
+            stats[label] = {"max_abs_err": max(errs), "launches": counts}
+    return stats
+
+
+def phase8a_scale(dev, card):
+    """Min and max at 1/8 of ogbn-products scale (``bench_graph``'s uniform
+    graph: 306,128 nodes, 15.3M nnz), where the (nnz, K) product tensor that
+    they materialize fits the card (at full scale, K=256 f32, it would take
+    125 GB): forwards at K=256 in inference mode and forward+backwards at
+    K=64, 1 warm-up + 2 timed each, peak memory, and the forward's sampled
+    rows (the longest among them) against f64."""
+    from paddle_sparse_tpu_torch import PaddedCOO
+    row, col, val, x = bench_graph(dev, "uniform", 0.125, 256)
+    n = x.shape[0]
+    adj = PaddedCOO.from_arrays(row, col, val, (n, n))
+    del row, col, val
+    rows = sampled_rows(adj.rowptr())
+    edge, sub_ptr = _sub_csr(adj.rowptr(), rows)
+    sub_row = torch.repeat_interleave(torch.arange(rows.numel(),
+                                                   device=dev),
+                                      sub_ptr[1:] - sub_ptr[:-1])
+    res = {}
+    for reduce in ("min", "max"):
+        for K, grad in ((256, False), (64, True)):
+            xk = x[:, :K].contiguous().requires_grad_(grad)
+            v = adj.value.detach().requires_grad_(grad)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if grad:
+                    out = adj.with_value(v).spmm(xk, reduce)
+                    out.sum().backward()
+                else:
+                    with torch.inference_mode():
+                        out = adj.with_value(v).spmm(xk, reduce)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            prod = (adj.value[edge].detach().double()[:, None]
+                    * xk.detach()[adj.col[edge].long()].double())
+            ref = torch.full((rows.numel(), K), float("nan"),
+                             dtype=torch.float64, device=dev)
+            ref = ref.scatter_reduce(0, sub_row[:, None].expand_as(prod),
+                                     prod, "amax" if reduce == "max"
+                                     else "amin", include_self=False)
+            got = out.detach()[rows].double()
+            err = float((got - ref).abs().max())
+            ok = bool(torch.allclose(got, ref, **F32_TOL))
+            what = "forward+backward" if grad else "forward"
+            res[f"{reduce}_{what}_K{K}"] = {
+                "ms": sum(times[1:]) / 2, "peak_gb": peak,
+                "max_abs_err": err}
+            print(f"phase 8a {reduce} at 1/8 scale ({n} nodes, {adj.nnz} "
+                  f"nnz), K={K} {what} ms: warm-up {times[0]:.3f}, timed "
+                  f"{times[1]:.3f} {times[2]:.3f}; peak mem {peak:.2f} GB; "
+                  f"{rows.numel()} sampled rows vs f64 max_abs_err "
+                  f"{err:.3e} {'ok' if ok else 'FAIL'} {card}", flush=True)
+            check(ok, f"{reduce} at 1/8 scale disagrees with f64")
+            del out, prod, ref, xk, v
+    del adj, x
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase8b_toy_models(dev):
+    """Each of the four families on its toy set-up (``model_entry``):
+    forward, loss, every parameter's grad and d value, card against CPU."""
+    from paddle_sparse_tpu_torch import gcn_loss, model_entry
+    for kind in ("sage", "gin", "appnp", "gat"):
+        runs = {}
+        for where in (dev, "cpu"):
+            model, adj, x, y = model_entry(kind, where)
+            adj.value.requires_grad_()
+            with torch.inference_mode():
+                out = model(adj, x).cpu()
+            loss = gcn_loss(model, adj, x, y)
+            loss.backward()
+            grads = [p.grad.cpu() for p in model.parameters()]
+            if adj.value.grad is not None:
+                grads.append(adj.value.grad.cpu())
+            runs[str(where)] = (out, float(loss.detach()), grads)
+        (oc, lc, gc), (oh, lh, gh) = runs[str(dev)], runs["cpu"]
+        err = max(float((a - b).abs().max()) for a, b in zip([oc] + gc,
+                                                             [oh] + gh))
+        ok = (abs(lc - lh) <= 1e-5 and len(gc) == len(gh)
+              and all(torch.allclose(a, b, **F32_TOL)
+                      for a, b in zip([oc] + gc, [oh] + gh)))
+        what = ("params; GAT reads no values" if kind == "gat"
+                else "params + d value")
+        print(f"phase 8b toy {kind}: forward, loss ({lc:.6f} vs {lh:.6f}) "
+              f"and {len(gc)} grads ({what}) cuda vs cpu max_abs_err "
+              f"{err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"toy {kind} on the card disagrees with the CPU")
+
+
+def time_model(name, card, model, adj, x, y, reps=3):
+    """1 warm-up + ``reps`` forwards (inference mode) and train steps, each
+    timed on the host clock around work that ends in a synchronize; the
+    launch counts and peak memory of each, counts zeroed just before and
+    read just after."""
+    from paddle_sparse_tpu_torch import train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = {}
+    for part in ("forward", "train_step"):
+        _zero_launch_counts()
+        times = []
+        for _ in range(reps + 1):
+            adj.value.grad = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if part == "forward":
+                with torch.inference_mode():
+                    out = model(adj, x)
+            else:
+                out = train_step(model, adj, x, y, LR)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = _launch_counts()
+        check(bool(torch.isfinite(out).all()),
+              f"{name} {part}: output or loss not finite")
+        res[part] = {"ms": sum(times[1:]) / reps, "times_ms": times,
+                     "launches": counts, "runs": reps + 1,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"phase 8 {name} {part} ms: warm-up {times[0]:.3f}, timed "
+              f"{' '.join(f'{t:.3f}' for t in times[1:])} (mean "
+              f"{res[part]['ms']:.3f}); launches in {reps + 1}: "
+              + ", ".join(f"{k} {v}" for k, v in counts.items())
+              + f"; peak mem {res[part]['peak_gb']:.2f} GB {card}",
+              flush=True)
+    return res
+
+
+def check_launches(name, res, fwd_spmm, dx_spmm, dv, folds_fwd,
+                   folds_step):
+    """The forward runs ``fwd_spmm`` K1; a step adds ``dx_spmm`` K1 for
+    d x and ``dv`` K2 for d value; the fold as given; nothing else."""
+    for part, want in (
+            ("forward", {"spmm_csr": fwd_spmm, "fold_pieces": folds_fwd}),
+            ("train_step", {"spmm_csr": fwd_spmm + dx_spmm,
+                            "sddmm_csr": dv, "fold_pieces": folds_step})):
+        runs, got = res[part]["runs"], res[part]["launches"]
+        want = {k: v * runs for k, v in want.items()}
+        check(all(got[k] == want.get(k, 0) for k in got),
+              f"{name} {part}: expected launches {want} in {runs} runs, "
+              f"counted {got}")
+
+
+def phase8c_sage(dev, card, gcn_fwd_ms, gcn_step_ms):
+    """GraphSAGE 100 -> 256 -> 256 -> 47 (mean aggregator) on phase 4's
+    graph at ogbn-products scale, ``adj.value`` requiring grad: times,
+    peak memory, exact launches (K1 3 per forward, 5 per step; K2 3 per
+    step; no fold), sampled rows of each layer's mean and d value against
+    f64."""
+    from paddle_sparse_tpu_torch import gcn_loss, init_sage
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adj, x = products_graph(dev)
+    model = init_sage(torch.Generator().manual_seed(0), *GCN_DIMS,
+                      num_layers=3, device=dev)
+    y = torch.randint(0, GCN_DIMS[2], (PRODUCTS_NODES,),
+                      generator=torch.Generator(device=dev).manual_seed(5),
+                      device=dev)
+    adj.value.requires_grad_()
+    adj.structure()
+    torch.cuda.synchronize()
+    print(f"phase 8c graph: {PRODUCTS_NODES} nodes, {adj.nnz} nnz, "
+          f"GraphSAGE (mean) {GCN_DIMS[0]}->{GCN_DIMS[1]}->{GCN_DIMS[1]}->"
+          f"{GCN_DIMS[2]}; set-up with the CSC view "
+          f"{time.perf_counter() - t0:.2f} s {card}", flush=True)
+    res = time_model("8c GraphSAGE", card, model, adj, x, y)
+    check_launches("GraphSAGE", res, 3, 2, 3, 0, 0)
+    print(f"phase 8c GraphSAGE vs GCN in this run: forward "
+          f"{res['forward']['ms']:.3f} vs {gcn_fwd_ms:.3f} ms "
+          f"({res['forward']['ms'] / gcn_fwd_ms:.3f}x), train step "
+          f"{res['train_step']['ms']:.3f} vs {gcn_step_ms:.3f} ms "
+          f"({res['train_step']['ms'] / gcn_step_ms:.3f}x) {card}",
+          flush=True)
+    model.zero_grad(set_to_none=True)
+    adj.value.grad = None
+    with SpmmCalls() as rec:
+        gcn_loss(model, adj, x, y).backward()
+    rows = sampled_rows(adj.rowptr())
+    res["rows_max_abs_err"] = check_spmm_calls("8c GraphSAGE", rec.calls,
+                                               rows)
+    res["d_value_max_abs_err"] = check_d_value("8c GraphSAGE", adj,
+                                               rec.calls, adj.value.grad)
+    del rec, adj, x, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase8d_models(dev, card):
+    """GIN (100 -> 256 -> 256 -> 47), APPNP (100 -> 256 -> 47, k = 10,
+    alpha = 0.1), both on the ``gcn_normalize``-d adjacency with its values
+    requiring grad, and GAT (3 layers, 4 heads x 64, output 47) on the raw
+    one, on the zipf graph at 1/8 scale (hub row of 10M edges: split rows
+    under attention values): times, launches (the fold above 0), sampled
+    rows against f64, GIN's and APPNP's d value, and GAT's d att of every
+    head and layer."""
+    from paddle_sparse_tpu_torch import (PaddedCOO, gcn_loss, gcn_normalize,
+                                         init_appnp, init_gat, init_gin)
+    row, col, val, x = bench_graph(dev, "zipf", 0.125, GCN_DIMS[0])
+    n = x.shape[0]
+    raw = PaddedCOO.from_arrays(row, col, val, (n, n))
+    del row, col, val
+    s = raw.structure()
+    norm = gcn_normalize(raw)
+    norm.value.requires_grad_()
+    y = torch.randint(0, GCN_DIMS[2], (n,), generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    deg = torch.diff(raw.rowptr())
+    print(f"phase 8d zipf 1/8: {n} nodes, {raw.nnz} nnz, hub row of "
+          f"{int(deg.max())} edges, {s.row_split.fold_row.numel()} rows "
+          f"split into {s.row_split.num_slots} pieces; columns "
+          f"{'unsplit' if s.col_split is None else 'split'} {card}",
+          flush=True)
+    col_fold = int(s.col_split is not None)
+    gen = torch.Generator().manual_seed(0)
+    specs = {
+        "gin": (init_gin(gen, *GCN_DIMS, num_layers=3, device=dev), norm,
+                (3, 2, 3)),
+        "appnp": (init_appnp(gen, GCN_DIMS[0], GCN_DIMS[1], GCN_DIMS[2],
+                             k=APPNP_K, alpha=APPNP_ALPHA, device=dev),
+                  norm, (APPNP_K, APPNP_K, APPNP_K)),
+        "gat": (init_gat(gen, GCN_DIMS[0], GAT_HIDDEN, GCN_DIMS[2],
+                         heads=GAT_HEADS, num_layers=3, device=dev), raw,
+                (2 * GAT_HEADS + 1, 2 * GAT_HEADS + 1, 2 * GAT_HEADS + 1)),
+    }
+    out = {}
+    for kind, (model, adj, (fwd, dx, dv)) in specs.items():
+        res = time_model(f"8d {kind}", card, model, adj, x, y)
+        check_launches(kind, res, fwd, dx, dv, fwd, fwd + col_fold * dx)
+        check(res["train_step"]["launches"]["fold_pieces"] > 0,
+              f"{kind}: the hub row did not run the split pieces")
+        model.zero_grad(set_to_none=True)
+        adj.value.grad = None
+        with SpmmCalls() as rec:
+            gcn_loss(model, adj, x, y).backward()
+        rows = sampled_rows(adj.rowptr())
+        res["rows_max_abs_err"] = check_spmm_calls(f"8d {kind}", rec.calls,
+                                                   rows)
+        if kind == "gat":
+            res["d_value_max_abs_err"] = check_call_d_values(
+                f"8d {kind}", rec.calls)
+        else:
+            res["d_value_max_abs_err"] = check_d_value(
+                f"8d {kind}", adj, rec.calls, adj.value.grad)
+        del rec
+        out[kind] = res
+    del raw, norm, x, specs
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible "
@@ -2307,10 +2835,32 @@ def main() -> int:
         {p: {k: v for k, v in st.items() if k != "launches"}
          for p, st in packed_paths.items()}), flush=True)
 
+    # ---- phase 8: SpMM mean/min/max and the other model families ---------
+    reductions = phase8a_reductions(gen, dev)
+    minmax_scale = phase8a_scale(dev, card)
+    phase8b_toy_models(dev)
+    stamp("phases 8a-8b")
+    models = {"sage": phase8c_sage(dev, card, fwd["fwd_ms"],
+                                   train["step_ms"])}
+    stamp("phase 8c")
+    models.update(phase8d_models(dev, card))
+    stamp("phase 8d")
+    print("phase 8 summary " + json.dumps(
+        {"minmax_1_8": minmax_scale, **{k: {"forward_ms": v["forward"]["ms"],
+             "train_step_ms": v["train_step"]["ms"],
+             "peak_gb": v["train_step"]["peak_gb"],
+             **{e: v[e] for e in ("rows_max_abs_err", "d_value_max_abs_err")
+                if e in v}}
+         for k, v in models.items()}}), flush=True)
+
     launches = {"gcn_forward": fwd["counts"],
                 "gcn_train_step": train["counts"],
                 **{p: v["launches"] for p, v in spgemm.items()},
-                **{p: v["launches"] for p, v in packed_paths.items()}}
+                **{p: v["launches"] for p, v in packed_paths.items()},
+                **{f"spmm_{r}": v["launches"] for r, v in reductions.items()},
+                **{f"{k}_{part}": v[part]["launches"]
+                   for k, v in models.items()
+                   for part in ("forward", "train_step")}}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in launches.items()}

@@ -1,13 +1,15 @@
 """paddle_sparse_tpu_torch: the PyTorch/CUDA port of paddle_sparse_tpu.
 
-The port holds the GCN train step, SpGEMM and the packed-layout SpMMs: index
-conversions, the padded COO core with its cached CSC view, ``sort`` and
-``coalesce``; SpMM (sum) differentiable in ``value`` and ``x`` through two
-hand-written CUDA kernels for Hopper (the CSR SpMM for the forward and
-``d x``, the CSR SDDMM for ``d value``); the GCN model, its loss and an SGD
-step; sparse @ sparse products on ``PaddedCOO`` (three padded variants, their
-capacity planners and an exact eager one), differentiable in the values,
-whose compress runs through a third hand-written kernel (run compaction); and
+The port holds the five GNN families' train steps, SpGEMM and the
+packed-layout SpMMs: index conversions and segment reductions, the padded COO
+core with its cached CSC view, ``sort`` and ``coalesce``; SpMM (sum and mean
+differentiable in ``value`` and ``x`` through two hand-written CUDA kernels
+for Hopper, the CSR SpMM for the forward and ``d x`` and the CSR SDDMM for
+``d value``; min and max in plain torch); the GCN, GraphSAGE, GIN, GAT (with
+``edge_softmax``) and APPNP models, a loss and an SGD step; sparse @ sparse
+products on ``PaddedCOO`` (three padded variants, their capacity planners and
+an exact eager one), differentiable in the values, whose compress runs
+through a third hand-written kernel (run compaction); and
 the packed (segment, row)-sorted SpMMs ``spmm_seg2``, ``spmm_seg3`` and
 ``spmm_split``, planned once per graph, whose forward and ``d x`` run a
 multi-span SpMM kernel and whose ``d value`` runs its span-SDDMM kernel.
@@ -18,9 +20,14 @@ torch and never jax.
 from .core.matrix import PaddedCOO, padded_coo_from_jax
 from .core.spgemm import (SpGEMMResult, matmul_padded, spspmm_padded,
                           spspmm_rowblocked, spspmm_rowsorted)
-from .entry import (SPMM_BACKENDS, entry, gcn_loss, spgemm_entry, spmm_entry,
-                    train_entry, train_step)
-from .models.gcn import GCN, gcn_normalize, gcn_params_from_jax, init_gcn
+from .entry import (MODELS, SPMM_BACKENDS, entry, gcn_loss, model_entry,
+                    spgemm_entry, spmm_entry, train_entry, train_step)
+from .models.gcn import (APPNP, GAT, GCN, GIN, GraphSAGE,
+                         appnp_params_from_jax, edge_softmax,
+                         gat_params_from_jax, gcn_normalize,
+                         gcn_params_from_jax, gin_params_from_jax, init_appnp,
+                         init_gat, init_gcn, init_gin, init_sage,
+                         sage_params_from_jax)
 from .ops.convert import ind2ptr, ptr2ind, ptr2ind_capped
 from .ops.kernels.row_split import (CAP, RowSplit, fold_pieces_cuda,
                                     split_long_rows, split_rows)
@@ -32,6 +39,8 @@ from .ops.kernels.spmm_cuda import spmm_csr_cuda, spmm_csr_reference
 from .ops.kernels.spmm_spans_cuda import (band_reduce_call, product_dtype,
                                           spmm_spans_cuda,
                                           spmm_spans_reference, tilespan_call)
+from .ops.segment import (REDUCTIONS, bincount, gather_csr, gather_segments,
+                          scatter_reduce, segment_csr)
 from .ops.spmm import spmm_coo, spmm_csr
 from .ops.spmm_seg2 import (Seg2Plan, Seg2Structure, make_seg2_plan,
                             pack_values, spmm_seg2, unpack_values)
@@ -44,17 +53,23 @@ from .ops.spspmm import (plan_spgemm, plan_spgemm_blocked, plan_spgemm_rows,
                          spgemm_flops, spspmm_eager)
 
 __all__ = [
-    "CAP", "GCN", "PaddedCOO", "RowSplit", "SPMM_BACKENDS", "Seg2Plan",
+    "APPNP", "CAP", "GAT", "GCN", "GIN", "GraphSAGE", "MODELS", "PaddedCOO",
+    "REDUCTIONS", "RowSplit", "SPMM_BACKENDS", "Seg2Plan",
     "Seg2Structure", "Seg3Infeasible", "Seg3Plan", "Seg3Structure",
     "SpGEMMResult", "SplitPlan", "SplitStructure", "band_reduce_call",
-    "compact_runs", "compact_runs_cuda", "compact_runs_reference", "entry",
-    "fold_pieces_cuda", "gcn_loss",
-    "gcn_normalize", "gcn_params_from_jax", "ind2ptr", "init_gcn",
+    "appnp_params_from_jax", "bincount", "compact_runs", "compact_runs_cuda",
+    "compact_runs_reference", "edge_softmax", "entry", "fold_pieces_cuda",
+    "gat_params_from_jax", "gather_csr", "gather_segments", "gcn_loss",
+    "gcn_normalize", "gcn_params_from_jax", "gin_params_from_jax", "ind2ptr",
+    "init_appnp", "init_gat", "init_gcn", "init_gin", "init_sage",
     "make_seg2_plan", "make_seg3_plan", "make_split_plan", "matmul_padded",
-    "pack_values", "pack_values_split", "padded_coo_from_jax", "plan_spgemm",
+    "model_entry", "pack_values", "pack_values_split", "padded_coo_from_jax",
+    "plan_spgemm",
     "plan_spgemm_blocked", "plan_spgemm_rows", "product_dtype", "ptr2ind",
-    "ptr2ind_capped", "sddmm_csr_cuda", "sddmm_csr_reference",
-    "sddmm_spans_cuda", "sddmm_spans_reference", "spgemm_entry",
+    "ptr2ind_capped", "sage_params_from_jax", "scatter_reduce",
+    "sddmm_csr_cuda", "sddmm_csr_reference",
+    "sddmm_spans_cuda", "sddmm_spans_reference", "segment_csr",
+    "spgemm_entry",
     "spgemm_flops", "spmm_coo", "spmm_csr", "spmm_csr_cuda",
     "spmm_csr_reference", "spmm_entry", "spmm_seg2", "spmm_seg3",
     "spmm_spans_cuda", "spmm_spans_reference", "spmm_split",

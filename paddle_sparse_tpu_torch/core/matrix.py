@@ -11,7 +11,7 @@ A ``PaddedCOO`` builds its row pointer, its CSC view
 (:class:`~..ops.spmm.SpmmStructure`) and the piece tables of both pointers
 (long rows and columns cut for the kernels, ``ops/kernels/row_split.py``)
 once, at first use, and keeps them, as the reference's plan cache keeps them
-per structure. ``with_value`` keeps them
+per structure. ``with_value`` shares them
 (same structure); ``to`` and ``dataclasses.replace`` drop them, so a copy with
 other indices or on another device builds its own.
 """
@@ -24,6 +24,7 @@ import torch
 from ..ops.convert import ind2ptr, ptr2ind_capped
 from ..ops.kernels.segcompact_cuda import compact_runs
 from ..ops.kernels.row_split import RowSplit
+from ..ops.segment import RowGroups, row_groups
 from ..ops.spmm import (SpmmStructure, check_backend, ptr_split,
                         spmm_structure, spmm_with_structure)
 
@@ -35,8 +36,9 @@ class PaddedCOO:
     value: Optional[torch.Tensor]   # (capacity,) or None; padding = 0
     nnz: int                        # number of real entries
     shape: Tuple[int, int]          # (M, N)
-    # "rowptr", "row_split" and "structure", built at first use; not an
-    # init field, so dataclasses.replace starts a copy with an empty cache
+    # "rowptr", "row_split", "structure" and "row_groups", built at first
+    # use; not an init field, so dataclasses.replace starts a copy with an
+    # empty cache
     _cache: Dict[str, object] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
 
@@ -68,6 +70,20 @@ class PaddedCOO:
         if "row_split" not in self._cache:
             self._cache["row_split"] = ptr_split(self.rowptr())
         return self._cache["row_split"]
+
+    def row_groups(self) -> RowGroups:
+        """The entries, padding clipped to row ``M - 1``, in groups of at
+        most ``GROUP`` consecutive entries of one row
+        (:func:`~..ops.segment.row_groups`), for per-row reductions and
+        gathers with no hot spot on a long row. Cached, and built outside
+        inference mode: autograd saves these indices, which it refuses to do
+        with inference tensors (a forward under ``torch.inference_mode()``
+        may build them before a train step uses them)."""
+        if "row_groups" not in self._cache:
+            with torch.inference_mode(False):
+                self._cache["row_groups"] = row_groups(
+                    self.row.long().clamp(0, self.M - 1), self.M)
+        return self._cache["row_groups"]
 
     def structure(self) -> SpmmStructure:
         """Row pointer, CSC view (``perm``, ``col_t``, ``colptr``) and the
@@ -120,9 +136,10 @@ class PaddedCOO:
              backend: str = "auto") -> torch.Tensor:
         """``self @ x`` for dense ``x`` of shape (N, ...), differentiable in
         ``value`` and ``x``; the backward's ``d x`` runs over the cached CSC
-        view. ``backend``: ``"auto"``, ``"pallas"`` and ``"xla"`` all run
-        the port's one path; ``"sell"`` raises ``NotImplementedError``
-        (:func:`~..ops.spmm.spmm_csr`)."""
+        view. ``reduce``: ``"sum"``/``"add"``, ``"mean"``, ``"min"`` or
+        ``"max"``, over the real entries only. ``backend``: ``"auto"``,
+        ``"pallas"`` and ``"xla"`` all run the port's one path; ``"sell"``
+        raises ``NotImplementedError`` (:func:`~..ops.spmm.spmm_csr`)."""
         check_backend(backend)
         return spmm_with_structure(self.rowptr(), self.col, self.value, x,
                                    self.structure, reduce, self.row_split())
@@ -175,13 +192,15 @@ class PaddedCOO:
 
     def with_value(self, value: Optional[torch.Tensor]) -> "PaddedCOO":
         """Replace the values, zeroing them at padding entries. The structure
-        is unchanged, so the copy shares the cache."""
+        is unchanged, so the copy shares the cache dict itself: what either
+        builds later (the CSC view, say) serves both, as GAT's per-head
+        copies need."""
         if value is not None:
             mask = self.valid_mask().reshape((-1,) + (1,) * (value.dim() - 1))
             value = torch.where(mask, value, torch.zeros((), dtype=value.dtype,
                                                          device=value.device))
         out = dataclasses.replace(self, value=value)
-        out._cache.update(self._cache)
+        object.__setattr__(out, "_cache", self._cache)
         return out
 
     def degree(self) -> torch.Tensor:

@@ -1,10 +1,14 @@
-"""Toy GCN of the port: the counterpart of ``__graft_entry__.entry`` and of
-the JAX GCN train step (``tests/test_models.py``, ``__graft_entry__.py``).
+"""Toy models of the port: the counterpart of ``__graft_entry__.entry`` and of
+the JAX models' train steps (``tests/test_models.py``, ``__graft_entry__.py``).
 
 ``entry(device)`` returns ``(model, adj, x)`` for a 2-layer GCN (32 -> 64 -> 8)
 on a 256-node synthetic graph; ``model(adj, x)`` under
 ``torch.inference_mode()`` runs the forward. ``train_entry(device)`` adds the
 labels ``y``, and ``train_step(model, adj, x, y, lr)`` takes one SGD step.
+``model_entry(kind, device)`` gives ``(model, adj, x, y)`` for any of
+``MODELS`` (GCN, GraphSAGE, GIN, APPNP, GAT) on the same graph, set up as
+``tests/test_models.py`` sets each up; ``gcn_loss`` and ``train_step`` take
+any of them.
 ``spgemm_entry(device)`` returns the toy adjacency for ``A @ A`` (the
 SpGEMM cross-check of ``__graft_entry__.dryrun_multichip``).
 ``spmm_entry(backend, device)`` plans the toy graph for a packed-layout SpMM
@@ -18,12 +22,16 @@ import numpy as np
 import torch
 
 from .core.matrix import PaddedCOO
-from .models.gcn import GCN, gcn_normalize, init_gcn
+from torch import nn
+
+from .models.gcn import (gcn_normalize, init_appnp, init_gat, init_gcn,
+                         init_gin, init_sage)
 from .ops.spmm_seg2 import make_seg2_plan, pack_values
 from .ops.spmm_seg3 import make_seg3_plan
 from .ops.spmm_split import make_split_plan, pack_values_split
 
 SPMM_BACKENDS = ("seg2", "seg3", "seg2split")
+MODELS = ("gcn", "sage", "gin", "appnp", "gat")
 
 
 def _toy_graph(num_nodes=256, avg_deg=8, feat=32, classes=8, seed=0):
@@ -53,19 +61,40 @@ def _device(device) -> torch.device:
     return dev
 
 
-def train_entry(device="cuda"):
-    """``(model, adj, x, y)`` for the toy GCN on ``device``, ``y`` the int64
-    class labels of ``_toy_graph``. The weights come from a CPU
-    ``torch.Generator`` seeded with 0, so every device gets the same model."""
+def model_entry(kind: str, device="cuda"):
+    """``(model, adj, x, y)`` for the toy ``kind`` model (one of ``MODELS``)
+    on ``device``: ``_toy_graph``'s adjacency (256 nodes, 2048 entries,
+    values in [0, 1), capacity 2304), features (256, 32) and int64 labels
+    of 8 classes, and a 2-layer model 32 -> 64 -> 8 as
+    ``tests/test_models.py`` sets each family up: GCN and APPNP (``k=5``,
+    ``alpha=0.1``) on the ``gcn_normalize``-d adjacency, GraphSAGE, GIN and
+    GAT (2 heads of 16) on the raw one. The weights come from a CPU
+    ``torch.Generator`` seeded with 0, so every device gets the same
+    model."""
+    if kind not in MODELS:
+        raise ValueError(f"unknown model {kind!r}; one of {MODELS}")
     device = _device(device)
     row, col, val, x, y = _toy_graph()
     adj = PaddedCOO.from_arrays(row, col, val, (256, 256), capacity=2304,
                                 device=device)
-    adj = gcn_normalize(adj)
-    model = init_gcn(torch.Generator().manual_seed(0), 32, 64, 8,
-                     device=device)
+    if kind in ("gcn", "appnp"):
+        adj = gcn_normalize(adj)
+    gen = torch.Generator().manual_seed(0)
+    if kind == "gat":
+        model = init_gat(gen, 32, 16, 8, heads=2, device=device)
+    elif kind == "appnp":
+        model = init_appnp(gen, 32, 64, 8, k=5, device=device)
+    else:
+        init = {"gcn": init_gcn, "sage": init_sage, "gin": init_gin}[kind]
+        model = init(gen, 32, 64, 8, device=device)
     return (model, adj, torch.as_tensor(x, device=device),
             torch.as_tensor(y, device=device))
+
+
+def train_entry(device="cuda"):
+    """``(model, adj, x, y)`` for the toy GCN on ``device``, ``y`` the int64
+    class labels of ``_toy_graph``: ``model_entry("gcn", device)``."""
+    return model_entry("gcn", device)
 
 
 def entry(device="cuda"):
@@ -116,19 +145,20 @@ def spmm_entry(backend: str, device="cuda"):
                      f"{SPMM_BACKENDS}")
 
 
-def gcn_loss(model: GCN, adj: PaddedCOO, x: torch.Tensor,
+def gcn_loss(model: nn.Module, adj: PaddedCOO, x: torch.Tensor,
              y: torch.Tensor) -> torch.Tensor:
     """Mean negative log-likelihood of ``log_softmax(model(adj, x))`` at the
-    labels ``y``, over all nodes."""
+    labels ``y``, over all nodes, for any model of ``MODELS``."""
     logp = torch.log_softmax(model(adj, x), dim=-1)
     return -logp.gather(1, y[:, None]).mean()
 
 
-def train_step(model: GCN, adj: PaddedCOO, x: torch.Tensor, y: torch.Tensor,
-               lr: float) -> torch.Tensor:
-    """One SGD step in place, ``p -= lr * grad`` for every parameter of
-    ``model``; returns the loss before the step (detached). Gradients of
-    ``adj.value``, if it requires them, accumulate in ``adj.value.grad``."""
+def train_step(model: nn.Module, adj: PaddedCOO, x: torch.Tensor,
+               y: torch.Tensor, lr: float) -> torch.Tensor:
+    """One SGD step of :func:`gcn_loss` in place, ``p -= lr * grad`` for
+    every parameter of ``model`` (any of ``MODELS``); returns the loss
+    before the step (detached). Gradients of ``adj.value``, if it requires
+    them, accumulate in ``adj.value.grad``."""
     model.zero_grad(set_to_none=True)
     loss = gcn_loss(model, adj, x, y)
     loss.backward()

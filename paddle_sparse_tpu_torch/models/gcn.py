@@ -1,21 +1,36 @@
-"""GCN on the PaddedCOO core, differentiable end to end.
+"""Graph neural network families on the PaddedCOO core, differentiable end
+to end.
 
-Port of ``paddle_sparse_tpu/models/gcn.py``: ``gcn_normalize``, ``GCN`` (an
-``nn.Module`` here) and ``init_gcn``. A layer's weight keeps the JAX layout,
-``(d_in, d_out)``, as a plain ``Parameter`` (not ``nn.Linear``), so a layer is
-``h @ w + b`` in both packages and JAX params load without a transpose.
+Port of ``paddle_sparse_tpu/models/gcn.py``: ``gcn_normalize``, ``GCN``,
+``GraphSAGE`` (mean aggregator), ``GIN``, ``edge_softmax``, ``GAT`` and
+``APPNP`` (each model an ``nn.Module`` here), their ``init_*`` (drawing from
+an explicit ``torch.Generator``) and one ``*_params_from_jax`` each, which
+turns the JAX params pytree into the module's state dict. A layer's weight
+keeps the JAX layout, ``(d_in, d_out)``, as a plain ``Parameter`` (not
+``nn.Linear``), so a layer is ``h @ w + b`` in both packages and JAX params
+load without a transpose.
 
-Under autograd, every weight and bias gets its gradient, and so does
-``adj.value`` when the caller sets ``requires_grad`` on it (before or after
-``gcn_normalize``), as ``jax.grad`` reaches the values of the JAX pytree.
+Every aggregation is ``PaddedCOO.spmm``: the sum (GCN, GIN, APPNP) and the
+mean (GraphSAGE) run the SpMM kernel forward and for ``d x`` and the SDDMM
+kernel for ``d value`` on a CUDA tensor; GAT aggregates each head as an SpMM
+whose values are that head's attention weights, so the same kernels carry
+it. Edge softmax is plain torch, as the reference leaves it to XLA.
+
+Under autograd, every parameter gets its gradient (GIN's ``eps`` too), and
+so does ``adj.value`` when the caller sets ``requires_grad`` on it (before or
+after ``gcn_normalize``), as ``jax.grad`` reaches the values of the JAX
+pytree.
 """
-from typing import Any, Dict
+from typing import Any, Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..core.matrix import PaddedCOO
+from ..ops.segment import (grouped_gather, grouped_max, grouped_sum,
+                           take_rows)
 
 
 def gcn_normalize(adj: PaddedCOO, add_self_loops: bool = False) -> PaddedCOO:
@@ -37,6 +52,43 @@ def gcn_normalize(adj: PaddedCOO, add_self_loops: bool = False) -> PaddedCOO:
     return adj.with_value(value * row_scale * col_scale)
 
 
+def _dims(in_dim: int, hidden: int, out_dim: int, num_layers: int
+          ) -> List[int]:
+    return [in_dim] + [hidden] * (num_layers - 1) + [out_dim]
+
+
+def _zeros(shapes: Iterable[Tuple[int, ...]], device) -> nn.ParameterList:
+    return nn.ParameterList(nn.Parameter(torch.zeros(*s, device=device))
+                            for s in shapes)
+
+
+def _he_normal_(generator: torch.Generator, params: Iterable[nn.Parameter],
+                fan_in=None) -> None:
+    """Fill each of ``params`` with N(0, 2 / d_in) draws from ``generator``
+    on its own device: ``d_in`` is ``fan_in`` or the weight's first dim (the
+    JAX ``_dense`` scale)."""
+    with torch.no_grad():
+        for p in params:
+            d_in = fan_in or p.shape[0]
+            p.copy_(torch.randn(tuple(p.shape), generator=generator,
+                                device=generator.device) * (2.0 / d_in) ** 0.5)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _dense_state(state: Dict[str, torch.Tensor], weight: str, bias: str,
+                 layers) -> None:
+    """Write a JAX list of ``{"w", "b"}`` layers into ``state`` as
+    ``weight.i`` / ``bias.i``."""
+    for i, layer in enumerate(layers):
+        state[f"{weight}.{i}"] = _t(layer["w"])
+        state[f"{bias}.{i}"] = _t(layer["b"])
+
+
+# ---- GCN -------------------------------------------------------------------
+
 class GCN(nn.Module):
     """Kipf-Welling GCN: ``H' = relu(A_norm @ H @ W + b)`` stacked, no relu
     after the last layer. ``weight[i]`` is ``(d_in, d_out)``."""
@@ -44,13 +96,9 @@ class GCN(nn.Module):
     def __init__(self, in_dim: int, hidden: int, out_dim: int,
                  num_layers: int = 2, device=None):
         super().__init__()
-        dims = [in_dim] + [hidden] * (num_layers - 1) + [out_dim]
-        self.weight = nn.ParameterList(
-            nn.Parameter(torch.zeros(dims[i], dims[i + 1], device=device))
-            for i in range(num_layers))
-        self.bias = nn.ParameterList(
-            nn.Parameter(torch.zeros(dims[i + 1], device=device))
-            for i in range(num_layers))
+        dims = _dims(in_dim, hidden, out_dim, num_layers)
+        self.weight = _zeros(zip(dims[:-1], dims[1:]), device)
+        self.bias = _zeros(((d,) for d in dims[1:]), device)
 
     def forward(self, adj: PaddedCOO, x: torch.Tensor) -> torch.Tensor:
         h = x
@@ -69,12 +117,7 @@ def init_gcn(generator: torch.Generator, in_dim: int, hidden: int,
     ``_dense``) drawn from ``generator`` on its own device, and zero biases.
     The numbers differ from JAX's for the same seed."""
     model = GCN(in_dim, hidden, out_dim, num_layers, device=device)
-    with torch.no_grad():
-        for w in model.weight:
-            d_in, d_out = w.shape
-            w.copy_(torch.randn(d_in, d_out, generator=generator,
-                                device=generator.device)
-                    * (2.0 / d_in) ** 0.5)
+    _he_normal_(generator, model.weight)
     return model
 
 
@@ -83,9 +126,244 @@ def gcn_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     convertible with ``np.asarray``) -> a ``GCN`` state dict, for
     ``model.load_state_dict``."""
     state: Dict[str, torch.Tensor] = {}
+    _dense_state(state, "weight", "bias", params["layers"])
+    return state
+
+
+# ---- GraphSAGE (mean aggregator) -------------------------------------------
+
+class GraphSAGE(nn.Module):
+    """GraphSAGE with the mean aggregator: ``H' = relu(H @ W_self + b_self +
+    mean_neighbours(H) @ W_neigh + b_neigh)`` stacked, no relu after the
+    last layer; the mean is ``adj.spmm(h, reduce="mean")`` (the row sum over
+    the row's entry count)."""
+
+    def __init__(self, in_dim: int, hidden: int, out_dim: int,
+                 num_layers: int = 2, device=None):
+        super().__init__()
+        dims = _dims(in_dim, hidden, out_dim, num_layers)
+        self.self_weight = _zeros(zip(dims[:-1], dims[1:]), device)
+        self.self_bias = _zeros(((d,) for d in dims[1:]), device)
+        self.neigh_weight = _zeros(zip(dims[:-1], dims[1:]), device)
+        self.neigh_bias = _zeros(((d,) for d in dims[1:]), device)
+
+    def forward(self, adj: PaddedCOO, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        n = len(self.self_weight)
+        for i in range(n):
+            agg = adj.spmm(h, reduce="mean")
+            h = (h @ self.self_weight[i] + self.self_bias[i]
+                 + agg @ self.neigh_weight[i] + self.neigh_bias[i])
+            if i < n - 1:
+                h = torch.relu(h)
+        return h
+
+
+def init_sage(generator: torch.Generator, in_dim: int, hidden: int,
+              out_dim: int, num_layers: int = 2, device=None) -> GraphSAGE:
+    """A GraphSAGE with He-normal weights from ``generator`` and zero biases
+    (as :func:`init_gcn`)."""
+    model = GraphSAGE(in_dim, hidden, out_dim, num_layers, device=device)
+    _he_normal_(generator, [*model.self_weight, *model.neigh_weight])
+    return model
+
+
+def sage_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``init_sage`` params (``{"self": [...], "neigh": [...]}``) -> a
+    ``GraphSAGE`` state dict."""
+    state: Dict[str, torch.Tensor] = {}
+    _dense_state(state, "self_weight", "self_bias", params["self"])
+    _dense_state(state, "neigh_weight", "neigh_bias", params["neigh"])
+    return state
+
+
+# ---- GIN -------------------------------------------------------------------
+
+class GIN(nn.Module):
+    """Graph isomorphism network: ``H' = MLP((1 + eps) * H + A @ H)``, the
+    MLP ``relu(. @ W1 + b1) @ W2 + b2``, stacked with a relu between layers;
+    ``eps`` (one per layer) is trained."""
+
+    def __init__(self, in_dim: int, hidden: int, out_dim: int,
+                 num_layers: int = 2, device=None):
+        super().__init__()
+        dims = _dims(in_dim, hidden, out_dim, num_layers)
+        self.mlp1_weight = _zeros(zip(dims[:-1], dims[1:]), device)
+        self.mlp1_bias = _zeros(((d,) for d in dims[1:]), device)
+        self.mlp2_weight = _zeros(((d, d) for d in dims[1:]), device)
+        self.mlp2_bias = _zeros(((d,) for d in dims[1:]), device)
+        self.eps = nn.Parameter(torch.zeros(num_layers, device=device))
+
+    def forward(self, adj: PaddedCOO, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        n = len(self.mlp1_weight)
+        for i in range(n):
+            agg = adj.spmm(h)
+            h = (1.0 + self.eps[i]) * h + agg
+            h = torch.relu(h @ self.mlp1_weight[i] + self.mlp1_bias[i])
+            h = h @ self.mlp2_weight[i] + self.mlp2_bias[i]
+            if i < n - 1:
+                h = torch.relu(h)
+        return h
+
+
+def init_gin(generator: torch.Generator, in_dim: int, hidden: int,
+             out_dim: int, num_layers: int = 2, device=None) -> GIN:
+    """A GIN with He-normal MLP weights from ``generator``, zero biases and
+    ``eps = 0``, as the JAX ``init_gin``."""
+    model = GIN(in_dim, hidden, out_dim, num_layers, device=device)
+    _he_normal_(generator, [*model.mlp1_weight, *model.mlp2_weight])
+    return model
+
+
+def gin_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``init_gin`` params (``{"mlp1", "mlp2", "eps"}``) -> a ``GIN``
+    state dict."""
+    state: Dict[str, torch.Tensor] = {"eps": _t(params["eps"])}
+    _dense_state(state, "mlp1_weight", "mlp1_bias", params["mlp1"])
+    _dense_state(state, "mlp2_weight", "mlp2_bias", params["mlp2"])
+    return state
+
+
+# ---- GAT (graph attention) -------------------------------------------------
+
+def edge_softmax(adj: PaddedCOO, logits: torch.Tensor) -> torch.Tensor:
+    """Per-destination-row softmax over edge ``logits`` of shape
+    ``(capacity,)`` or ``(capacity, H)``, as the JAX ``edge_softmax``:
+    padding rows clipped to ``M - 1`` and their logits masked to ``-1e30``
+    (weight 0), the row max subtracted (a non-finite max, an empty row's,
+    taken as 0), and the denominator floored at ``1e-16``. Plain torch: the
+    row max, the row sum and the per-edge gathers of both go through
+    ``adj.row_groups()`` (``ops/segment.py``), so that a hub row's edges
+    never pile on one address: straight ``scatter_reduce``, ``index_add``
+    and ``t[row]`` serialized a row of 10M edges on the card, and the
+    backward of ``t[row]`` alone took seconds per GAT step."""
+    groups = adj.row_groups()
+    vmask = adj.valid_mask().reshape((-1,) + (1,) * (logits.dim() - 1))
+    masked = torch.where(vmask, logits, torch.full(
+        (), -1e30, dtype=logits.dtype, device=logits.device))
+    # the max only shifts each row's logits, which the softmax does not
+    # see: its gradient is 0 in exact arithmetic (PyG's softmax detaches it
+    # too), and skipping it skips two E-sized gathers per call
+    row_max = grouped_max(masked.detach(), groups)
+    row_max = torch.where(torch.isfinite(row_max), row_max,
+                          torch.zeros((), dtype=row_max.dtype,
+                                      device=row_max.device))
+    e = torch.where(vmask, torch.exp(masked - grouped_gather(row_max, groups)),
+                    torch.zeros((), dtype=masked.dtype, device=masked.device))
+    denom = grouped_sum(e, groups)
+    return e / grouped_gather(denom, groups).clamp(min=1e-16)
+
+
+class GAT(nn.Module):
+    """Velickovic-style graph attention network.
+
+    Per layer and head: ``hw = h @ W`` split into heads, edge logits
+    ``leaky_relu(a_dst . hw[row] + a_src . hw[col])``, attention weights from
+    :func:`edge_softmax`, and each head aggregated as
+    ``adj.with_value(att[:, k]).spmm(hw[:, k])``: the same function as the
+    JAX per-head ``segment_sum`` of ``(E, H, D)`` messages, without the
+    messages (``with_value`` shares the cached CSC view, built once per
+    graph). Heads are concatenated with ``elu`` on hidden layers and
+    averaged on the output layer. The adjacency must be square."""
+
+    def __init__(self, in_dim: int, hidden: int, out_dim: int,
+                 heads: int = 4, num_layers: int = 2,
+                 negative_slope: float = 0.2, device=None):
+        super().__init__()
+        self.negative_slope = negative_slope
+        dims = [in_dim] + [hidden * heads] * (num_layers - 1) + [out_dim]
+        hd = [(heads, hidden)] * (num_layers - 1) + [(1, out_dim)]
+        self.weight = _zeros(((d, h * o) for d, (h, o) in zip(dims, hd)),
+                             device)
+        self.a_src = _zeros(hd, device)
+        self.a_dst = _zeros(hd, device)
+
+    def forward(self, adj: PaddedCOO, x: torch.Tensor) -> torch.Tensor:
+        # after the first layer hw has adj.M rows but is gathered by col
+        # (range adj.N): a rectangular adjacency would read wrong rows
+        if adj.M != adj.N:
+            raise ValueError(f"GAT requires a square adjacency, got "
+                             f"{tuple(adj.shape)}")
+        groups = adj.row_groups()
+        col = adj.col.long().clamp(0, adj.N - 1)
+        h = x
+        n = len(self.weight)
+        for i, (w, a_src, a_dst) in enumerate(zip(self.weight, self.a_src,
+                                                  self.a_dst)):
+            H, D = a_src.shape
+            hw = (h @ w).reshape(-1, H, D)                  # (N, H, D)
+            alpha_dst = (hw * a_dst).sum(-1)                # (N, H)
+            alpha_src = (hw * a_src).sum(-1)
+            logits = F.leaky_relu(grouped_gather(alpha_dst, groups)
+                                  + take_rows(alpha_src, col),
+                                  self.negative_slope)      # (E, H)
+            att = edge_softmax(adj, logits)
+            out = torch.stack([adj.with_value(att[:, k]).spmm(hw[:, k])
+                               for k in range(H)], dim=1)   # (M, H, D)
+            h = F.elu(out.reshape(-1, H * D)) if i < n - 1 else out.mean(1)
+        return h
+
+
+def init_gat(generator: torch.Generator, in_dim: int, hidden: int,
+             out_dim: int, heads: int = 4, num_layers: int = 2,
+             device=None) -> GAT:
+    """A GAT whose weights and attention vectors are N(0, 2 / d_in) draws
+    from ``generator``, ``d_in`` the layer's input width, as the JAX
+    ``init_gat``."""
+    model = GAT(in_dim, hidden, out_dim, heads, num_layers, device=device)
+    for w, a_src, a_dst in zip(model.weight, model.a_src, model.a_dst):
+        _he_normal_(generator, (w, a_src, a_dst), fan_in=w.shape[0])
+    return model
+
+
+def gat_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``init_gat`` params (``{"layers": [{"w", "a_src", "a_dst"}]}``)
+    -> a ``GAT`` state dict."""
+    state: Dict[str, torch.Tensor] = {}
     for i, layer in enumerate(params["layers"]):
-        state[f"weight.{i}"] = torch.from_numpy(
-            np.array(layer["w"], dtype=np.float32))
-        state[f"bias.{i}"] = torch.from_numpy(
-            np.array(layer["b"], dtype=np.float32))
+        for name, key in (("weight", "w"), ("a_src", "a_src"),
+                          ("a_dst", "a_dst")):
+            state[f"{name}.{i}"] = _t(layer[key])
+    return state
+
+
+# ---- APPNP (predict, then propagate) ---------------------------------------
+
+class APPNP(nn.Module):
+    """APPNP: ``h = relu(x @ W1 + b1) @ W2 + b2``, then ``k`` steps of
+    personalized-PageRank propagation ``z = (1 - alpha) * A @ z + alpha *
+    h`` from ``z = h`` (the JAX ``lax.scan``, here a loop of ``k`` SpMMs)."""
+
+    def __init__(self, in_dim: int, hidden: int, out_dim: int, k: int = 10,
+                 alpha: float = 0.1, device=None):
+        super().__init__()
+        self.k, self.alpha = k, alpha
+        self.weight = _zeros([(in_dim, hidden), (hidden, out_dim)], device)
+        self.bias = _zeros([(hidden,), (out_dim,)], device)
+
+    def forward(self, adj: PaddedCOO, x: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(x @ self.weight[0] + self.bias[0])
+        h = h @ self.weight[1] + self.bias[1]
+        z = h
+        for _ in range(self.k):
+            z = (1 - self.alpha) * adj.spmm(z) + self.alpha * h
+        return z
+
+
+def init_appnp(generator: torch.Generator, in_dim: int, hidden: int,
+               out_dim: int, k: int = 10, alpha: float = 0.1,
+               device=None) -> APPNP:
+    """An APPNP with He-normal weights from ``generator`` and zero biases."""
+    model = APPNP(in_dim, hidden, out_dim, k, alpha, device=device)
+    _he_normal_(generator, model.weight)
+    return model
+
+
+def appnp_params_from_jax(params: Dict[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """JAX ``init_appnp`` params (``{"lin1", "lin2"}``) -> an ``APPNP``
+    state dict."""
+    state: Dict[str, torch.Tensor] = {}
+    _dense_state(state, "weight", "bias", [params["lin1"], params["lin2"]])
     return state

@@ -1,1 +1,1 @@
-"""Sparse operators: index conversions and SpMM."""
+"""Sparse operators: index conversions, SpMM and segment reductions."""

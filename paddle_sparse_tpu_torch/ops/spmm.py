@@ -1,5 +1,5 @@
-"""Sparse @ dense matrix product (SpMM), ``reduce="sum"``, differentiable in
-``value`` and ``x``.
+"""Sparse @ dense matrix product (SpMM), ``reduce`` in ``"sum"``/``"add"``,
+``"mean"``, ``"min"`` and ``"max"``, differentiable in ``value`` and ``x``.
 
 Port of ``paddle_sparse_tpu/ops/spmm.py::spmm_coo`` / ``spmm_csr`` and of its
 gradients (``_spmm_sum_pallas_vjp``, ``spmm_chunked`` with
@@ -23,10 +23,19 @@ warps.
 ``backend`` takes the JAX package's values: ``"auto"``, ``"pallas"`` and
 ``"xla"`` all run the port's one path (the kernels on a CUDA tensor, their
 plain versions on a CPU tensor); ``"sell"`` raises ``NotImplementedError``
-until ``ops/spmm_sell.py`` is ported (ROADMAP queue 1, item 6).
+until ``ops/spmm_sell.py`` is ported (ROADMAP queue 1, item 5).
 
-Not yet ported (ROADMAP queue 1, item 1): the mean/min/max reductions, which
-raise ``NotImplementedError``.
+The other reductions, as the reference's XLA path computes them
+(``ops/spmm.py:498-514``):
+
+* ``"mean"``: the sum path above (so the same kernels), divided by
+  ``max(deg, 1)`` with ``deg`` the row's entry count; autograd carries the
+  ``1/deg`` into ``d value`` and ``d x``;
+* ``"min"``/``"max"``: plain torch on every device,
+  :func:`~.segment.segment_csr` over the products ``value[e] * x[col[e]]``
+  of the real entries (the first ``rowptr[M]``), 0 for an empty row; the
+  gradient is split evenly among tied entries, as JAX's ``segment_max``
+  splits it. The products are an (nnz, K) tensor.
 """
 from typing import Callable, NamedTuple, Optional
 
@@ -37,6 +46,7 @@ from .convert import ind2ptr, ptr2ind_capped
 from .kernels.row_split import AUTO, RowSplit, resolve_split
 from .kernels.sddmm_cuda import sddmm_csr_cuda
 from .kernels.spmm_cuda import spmm_csr_cuda
+from .segment import segment_csr
 
 
 class SpmmStructure(NamedTuple):
@@ -113,20 +123,11 @@ def check_backend(backend: str) -> None:
     ``"sell"`` names the port's one path."""
     if backend == "sell":
         raise NotImplementedError(
-            "spmm backend='sell' is not ported yet (ROADMAP queue 1, item 6: "
+            "spmm backend='sell' is not ported yet (ROADMAP queue 1, item 5: "
             "ops/spmm_sell.py)")
     if backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown spmm backend {backend!r}: 'auto', "
                          f"'pallas', 'xla' or 'sell'")
-
-
-def _check_reduce(reduce: str) -> None:
-    if reduce in ("mean", "min", "max"):
-        raise NotImplementedError(
-            f"spmm reduce={reduce!r} is not ported yet (ROADMAP queue 1, "
-            f"item 1: mean/min/max come with GraphSAGE)")
-    if reduce not in ("sum", "add"):
-        raise ValueError(f"unknown reduction {reduce!r}")
 
 
 def spmm_with_structure(rowptr: torch.Tensor, col: torch.Tensor,
@@ -136,19 +137,35 @@ def spmm_with_structure(rowptr: torch.Tensor, col: torch.Tensor,
     """:func:`spmm_csr`, taking the CSC view from ``structure_fn`` when the
     backward needs it and ``rowptr``'s piece table from ``row_split`` (a
     ``PaddedCOO`` passes its cached ones)."""
-    _check_reduce(reduce)
+    if reduce not in ("sum", "add", "mean", "min", "max"):
+        raise ValueError(f"unknown reduction {reduce!r}")
     if value is not None and value.dim() != 1:
         raise ValueError("spmm expects scalar edge values (1-D)")
     M = rowptr.numel() - 1
     x2 = x.reshape(x.shape[0], -1).contiguous()
-    out = _SpmmSum.apply(value, x2, rowptr, col, structure_fn, row_split)
+    if reduce in ("min", "max"):
+        # the products of the real entries only (one host read of
+        # rowptr[M]): a padding product of 0 must not win a row's max
+        nnz = int(rowptr[-1])
+        prod = x2.index_select(0, col[:nnz].long())
+        if value is not None:
+            prod = prod * value[:nnz, None]
+        out = segment_csr(prod, rowptr, reduce)
+    else:
+        out = _SpmmSum.apply(value, x2, rowptr, col, structure_fn, row_split)
+        if reduce == "mean":
+            deg = (rowptr[1:] - rowptr[:-1]).clamp(min=1)
+            out = out / deg[:, None].to(out.dtype)
     return out.reshape((M,) + tuple(x.shape[1:]))
 
 
 def spmm_csr(rowptr: torch.Tensor, col: torch.Tensor,
              value: Optional[torch.Tensor], x: torch.Tensor,
              reduce: str = "sum", backend: str = "auto") -> torch.Tensor:
-    """``out[m] = sum_{rowptr[m] <= e < rowptr[m+1]} value[e] * x[col[e]]``.
+    """``out[m] = sum_{rowptr[m] <= e < rowptr[m+1]} value[e] * x[col[e]]``,
+    or with ``reduce="mean"`` that sum over ``max(1, rowptr[m+1] -
+    rowptr[m])``, or with ``"min"``/``"max"`` the row's least/greatest
+    product (0 for an empty row).
 
     ``value`` may be ``None`` (implicit ones); ``x`` is (N, ...) and the
     output (M, ...) with ``M = len(rowptr) - 1``, in the promoted dtype of
@@ -157,7 +174,7 @@ def spmm_csr(rowptr: torch.Tensor, col: torch.Tensor,
     the piece table of its pointer. ``backend``: ``"auto"``, ``"pallas"``
     and ``"xla"`` all run this one path (the kernels on a CUDA tensor, the
     plain versions on a CPU tensor); ``"sell"`` raises
-    ``NotImplementedError`` (ROADMAP queue 1, item 6)."""
+    ``NotImplementedError`` (ROADMAP queue 1, item 5)."""
     check_backend(backend)
 
     def structure_fn():
@@ -171,7 +188,8 @@ def spmm_coo(row: torch.Tensor, col: torch.Tensor,
              value: Optional[torch.Tensor], x: torch.Tensor, num_rows: int,
              reduce: str = "sum", backend: str = "auto") -> torch.Tensor:
     """``out[m] = sum_{e: row[e]=m} value[e] * x[col[e]]`` for ``m <
-    num_rows``; ``row`` sorted ascending. Entries with ``row >= num_rows``
+    num_rows`` (or the ``reduce`` of :func:`spmm_csr`); ``row`` sorted
+    ascending. Entries with ``row >= num_rows``
     (padding) are left out, as the JAX segment-sum drops them, and their
     ``d value`` is 0. ``backend`` as in :func:`spmm_csr`."""
     return spmm_csr(ind2ptr(row, num_rows), col, value, x, reduce, backend)

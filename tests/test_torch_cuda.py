@@ -2,7 +2,10 @@
 and the SpMM autograd, the toy train step, SpGEMM and the packed-layout SpMMs
 (seg2, seg3, split) on the card against the CPU; the span kernels' long-row
 split (pieces of a ``RowSplit`` table and the fold pass) against the plain
-versions, bit for bit from launch to launch.
+versions, bit for bit from launch to launch; SpMM mean (through the same
+kernels, split rows too) against plain f64, min and max on the card against
+the CPU, and each model family's toy forward and grads, card against CPU,
+with GAT's per-head launches.
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False. This file imports no JAX, so on a
 machine with a card and no JAX it runs alone:
@@ -22,11 +25,12 @@ import dataclasses
 import pytest
 import torch
 
-from paddle_sparse_tpu_torch import (CAP, SPMM_BACKENDS, PaddedCOO,
+from paddle_sparse_tpu_torch import (CAP, MODELS, SPMM_BACKENDS, PaddedCOO,
                                      band_reduce_call, compact_runs_cuda,
                                      compact_runs_reference, entry,
                                      fold_pieces_cuda, gcn_loss,
-                                     make_seg2_plan, pack_values,
+                                     make_seg2_plan, model_entry,
+                                     pack_values,
                                      plan_spgemm, plan_spgemm_blocked,
                                      plan_spgemm_rows, sddmm_csr_cuda,
                                      sddmm_csr_reference, sddmm_spans_cuda,
@@ -1109,3 +1113,135 @@ def test_spmm_autograd_hub_row_and_column(dev):
                              xx.grad.cpu()]
     for c, h, a in zip(runs["cuda", 1], runs["cpu", 1], runs["cpu", 0]):
         _close_to_sum(c, h, a)
+
+
+# ---- SpMM mean/min/max and the other model families ------------------------
+
+def _hub_graph(M=3000, N=3000, hub=CAP * 2 + 5, seed=6, ints=False):
+    """COO with a hub row (7) and a hub column (11) past ``CAP``, empty
+    rows, and (with ``ints``) small-integer values and x: tied products."""
+    g = torch.Generator().manual_seed(seed)
+    row = torch.cat([torch.full((hub,), 7), torch.randint(0, M, (20_000,),
+                                                          generator=g),
+                     torch.arange(hub) % M])
+    col = torch.cat([torch.randint(0, N, (hub,), generator=g),
+                     torch.randint(0, N, (20_000,), generator=g),
+                     torch.full((hub,), 11)])
+    keep = (row != 0) & (row != M - 1) & (row != 500)      # empty rows
+    row, col = row[keep], col[keep]
+    order = torch.argsort(row, stable=True)
+    row, col = row[order], col[order]
+    if ints:
+        val = torch.randint(-2, 3, (row.numel(),), generator=g).float()
+        x = torch.randint(-2, 3, (N, 24), generator=g).float()
+    else:
+        val = torch.rand(row.numel(), generator=g) * 2 - 1
+        x = torch.randn(N, 48, generator=g)
+    val[row == 3] = -val[row == 3].abs() - 0.5      # a row all negative ...
+    x = torch.where(torch.isin(torch.arange(N), col[row == 3])[:, None],
+                    x.abs() + 1, x)                 # ... over positive x
+    return row, col, val, x, M, N
+
+
+def test_spmm_mean_kernels_vs_plain_f64(dev):
+    """Mean forward, d value and d x through K1 and K2 (split rows and
+    columns: pieces and the fold) against the plain path in f64 on the
+    CPU, each entry within SUM_REL of its sum of |terms|; padding gets no
+    grad; one K1 forward, one K1 for d x, one K2 for d value."""
+    row, col, val, x, M, N = _hub_graph()
+    w = torch.randn(M, x.shape[1], generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for where, f in (("cuda", lambda t: t), ("f64", torch.Tensor.double),
+                     ("abs", lambda t: t.double().abs())):
+        dev_ = "cuda" if where == "cuda" else "cpu"
+        adj = PaddedCOO.from_arrays(row, col, f(val), (M, N),
+                                    capacity=row.numel() + 100, device=dev_)
+        assert adj.row_split() is not None
+        v = adj.value.clone().requires_grad_()
+        xx = f(x).to(dev_, copy=True).requires_grad_()
+        k1, k2 = spmm_csr_cuda.launches, sddmm_csr_cuda.launches
+        folds = fold_pieces_cuda.launches
+        out = adj.with_value(v).spmm(xx, "mean")
+        (out * f(w).to(dev_)).sum().backward()
+        if where == "cuda":
+            assert spmm_csr_cuda.launches - k1 == 2
+            assert sddmm_csr_cuda.launches - k2 == 1
+            assert fold_pieces_cuda.launches - folds == 2   # both split
+            assert not v.grad[adj.nnz:].any()
+        runs[where] = [out.detach().cpu(), v.grad.cpu(), xx.grad.cpu()]
+    for c, h, a in zip(runs["cuda"], runs["f64"], runs["abs"]):
+        _close_to_sum(c, h, a)
+
+
+@pytest.mark.parametrize("reduce", ["min", "max"])
+@pytest.mark.parametrize("ints", [False, True])
+def test_spmm_min_max_card_vs_cpu(dev, reduce, ints):
+    """Min and max on the card (plain torch, no kernel) against the CPU:
+    padding, empty rows, a row of negative products, a hub row, and with
+    small integers many ties, whose gradient is split evenly."""
+    row, col, val, x, M, N = _hub_graph(ints=ints)
+    w = torch.randn(M, x.shape[1], generator=torch.Generator().manual_seed(2))
+    runs = {}
+    for where in ("cuda", "cpu"):
+        adj = PaddedCOO.from_arrays(row, col, val, (M, N),
+                                    capacity=row.numel() + 100, device=where)
+        v = adj.value.clone().requires_grad_()
+        xx = x.to(where, copy=True).requires_grad_()
+        out = adj.with_value(v).spmm(xx, reduce)
+        (out * w.to(where)).sum().backward()
+        runs[where] = [out.detach().cpu(), v.grad.cpu(), xx.grad.cpu()]
+    out = runs["cpu"][0]
+    assert not out[[0, 500, M - 1]].any()
+    if reduce == "max":
+        assert (out[3] < 0).all()
+    for c, h in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(c, h, **F32)
+
+
+@pytest.mark.parametrize("kind", MODELS)
+def test_model_toy_card_vs_cpu(dev, kind):
+    """Each family's toy set-up: forward, loss, every parameter's grad and
+    d value (GAT reads no adjacency values) on the card against the CPU,
+    then 5 SGD steps."""
+    runs = {}
+    for where in ("cuda", "cpu"):
+        model, adj, x, y = model_entry(kind, where)
+        adj.value.requires_grad_()
+        with torch.inference_mode():
+            out = model(adj, x).cpu()
+        loss = gcn_loss(model, adj, x, y)
+        loss.backward()
+        grads = {n: p.grad.cpu().clone() for n, p in model.named_parameters()}
+        dv = None if adj.value.grad is None else adj.value.grad.cpu().clone()
+        losses = [float(train_step(model, adj, x, y, 0.05)) for _ in range(5)]
+        runs[where] = (out, float(loss.detach()), grads, dv, losses)
+    (oc, lc, gc, dc, sc), (oh, lh, gh, dh, sh) = runs["cuda"], runs["cpu"]
+    torch.testing.assert_close(oc, oh, **F32)
+    assert abs(lc - lh) < 1e-5
+    assert gc.keys() == gh.keys()
+    for name in gc:
+        torch.testing.assert_close(gc[name], gh[name], **F32, msg=name)
+    assert (dc is None) == (dh is None) == (kind == "gat")
+    if dc is not None:
+        torch.testing.assert_close(dc, dh, **F32)
+    torch.testing.assert_close(torch.tensor(sc), torch.tensor(sh), **F32)
+    assert sc[-1] < sc[0]
+
+
+def test_model_launches_per_step(dev):
+    """One train step each: GAT runs K1 twice and K2 once per head and
+    layer (forward; d hw; d att), GraphSAGE and GIN K1 for each layer's
+    forward and all but the first layer's d x and K2 for each layer's d
+    value, APPNP the same per propagation step."""
+    heads = {"gat": 2 + 1}                  # 2 heads, then 1 on the output
+    want = {"sage": (2 + 1, 2), "gin": (2 + 1, 2), "appnp": (5 + 5, 5),
+            "gat": (2 * heads["gat"], heads["gat"])}
+    for kind, (k1, k2) in want.items():
+        model, adj, x, y = model_entry(kind, "cuda")
+        if kind != "gat":
+            adj.value.requires_grad_()
+        b1, b2 = spmm_csr_cuda.launches, sddmm_csr_cuda.launches
+        train_step(model, adj, x, y, 0.1)
+        torch.cuda.synchronize()
+        assert (spmm_csr_cuda.launches - b1,
+                sddmm_csr_cuda.launches - b2) == (k1, k2), kind

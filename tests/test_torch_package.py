@@ -23,8 +23,9 @@ def _run(code_or_args, cwd=REPO, env=None, timeout=120):
 
 def test_port_never_imports_jax():
     """With ``jax`` blocked, the package imports and the toy forward, one
-    toy train step, the toy A @ A and a toy ``spmm_seg2`` forward and
-    backward run; neither jax nor the JAX package is loaded."""
+    toy train step, the toy A @ A, a toy ``spmm_seg2`` forward and
+    backward, a train step of each other model family and a segment
+    reduction run; neither jax nor the JAX package is loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -46,6 +47,12 @@ def test_port_never_imports_jax():
         "out.sum().backward()\n"
         "assert out.shape == (256, 32) and x.grad.shape == (256, 32)\n"
         "assert bool(torch.isfinite(packed.grad).all())\n"
+        "for kind in ('sage', 'gin', 'appnp', 'gat'):\n"
+        "    model, adj, x, y = p.model_entry(kind, 'cpu')\n"
+        "    loss = p.train_step(model, adj, x, y, 0.1)\n"
+        "    assert bool(torch.isfinite(loss))\n"
+        "assert p.segment_csr(torch.ones(3), torch.tensor([0, 3]), 'max')"
+        ".tolist() == [1.0]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_sparse_tpu') and sys.modules[m]]\n"
         "assert not bad, bad\n"
@@ -65,7 +72,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     import paddle_sparse_tpu_torch as p
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for fn, args in ((p.entry, ()), (p.train_entry, ()),
-                     (p.spgemm_entry, ()), (p.spmm_entry, ("seg2",))):
+                     (p.spgemm_entry, ()), (p.spmm_entry, ("seg2",)),
+                     (p.model_entry, ("gat",))):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(*args)

@@ -154,13 +154,6 @@ def test_empty_matrix():
     assert out.shape == (4, 4) and not out.any()
 
 
-@pytest.mark.parametrize("reduce", ["mean", "min", "max"])
-def test_other_reductions_not_ported(reduce):
-    _, col, rowptr, val, _ = _graph(nnz=100)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spmm_csr(_t(rowptr), _t(col), _t(val), torch.ones(200, 4), reduce)
-
-
 def test_unknown_reduction():
     _, col, rowptr, val, _ = _graph(nnz=100)
     with pytest.raises(ValueError, match="unknown reduction"):
