@@ -118,6 +118,25 @@ Phases, one or more printed lines each:
    K2 sum(H) per step; the fold after every K1 over the split rows),
    sampled rows of every SpMM, GIN's and APPNP's d value and GAT's d att
    of every head and layer against f64.
+9a. The eager ``SparseTensor`` facade on ``facade_entry``'s toy graph
+   (int64 indices, no value): ``gcn_norm``, ``A @ x`` with d value and d x,
+   ``adj_t[idx]``, ``narrow``, ``t()``, ``masked_select`` and ``A @ A``,
+   card vs CPU.
+9b. PyG's ``gcn_norm`` on a ``SparseTensor`` built from phase 4's graph as
+   int64 ``row``/``col`` with no value (``fill_diag``, ``sum(dim=1)``,
+   ``pow(-0.5)``, two ``mul``), then ``adj_t @ x`` at K=100, forward and
+   forward+backward: each step's ms (1 warm-up + 3), peak memory, 1,024
+   sampled rows of the values (degree and columns exact) and of ``out``
+   against f64 on the host, d value and d x on sampled entries against f64,
+   ``out`` bit for bit against ``PaddedCOO.spmm`` on the same entries (both
+   timed), launches exact (K1 1 per forward, K1 + K2 1 each per backward, no
+   fold) and no CSC view built after the first backward.
+9c. ``adj_t[idx]`` (1/8 of the rows), ``narrow``, ``t()`` and
+   ``masked_select`` on the normalized ``adj_t``: ms each, sampled rows
+   equal to scipy's same op.
+9d. ``A @ A`` through the facade on phase 6c's 10M-nnz operand: ms per call,
+   K5 once per call, C bit for bit against ``spspmm_eager`` on the same
+   arrays, sampled rows against scipy in f64.
 
 Every kernel in the JSON line carries its time, launches, plain time,
 bound (the larger of the bytes each input and output moves once over
@@ -595,6 +614,26 @@ def _grad_close(got, ref, scale, out_rel=0.0):
     return float(err.max()), bool((err <= bound).all())
 
 
+def _d_x_err(rowptr, col, value, g, d_x, cols):
+    """Max abs error, pass flag, max |reference| and edge count of ``d x``
+    on the columns ``cols`` against the f64 sum over each column's edges of
+    ``value[e] * g[row[e]]``, within GRAD_REL of the sum of |terms|."""
+    dev = col.device
+    nnz = int(rowptr[-1])
+    slot = torch.full((int(d_x.shape[0]),), -1, dtype=torch.long,
+                      device=dev)
+    slot[cols] = torch.arange(cols.numel(), device=dev)
+    edges = torch.nonzero(slot[col[:nnz].long()] >= 0).squeeze(1)
+    erow = torch.searchsorted(rowptr.long(), edges, right=True) - 1
+    eslot = slot[col[edges].long()]
+    terms = value[edges].double()[:, None] * g[erow].double()
+    ref = torch.zeros(cols.numel(), terms.shape[1], dtype=torch.float64,
+                      device=dev).index_add_(0, eslot, terms)
+    scale = torch.zeros_like(ref).index_add_(0, eslot, terms.abs())
+    err, ok = _grad_close(d_x[cols], ref, scale)
+    return err, ok, float(ref.abs().max()), edges.numel()
+
+
 def phase5_train(dev, card, adj, x, model):
     from paddle_sparse_tpu_torch import (gcn_loss, sddmm_csr_cuda,
                                          sddmm_csr_reference, spmm_csr_cuda,
@@ -731,23 +770,15 @@ def phase5_train(dev, card, adj, x, model):
 
     # d x on sampled columns: sum over the column's edges of value * g[row]
     cols = torch.randperm(n, generator=gen_h)[:SAMPLED_COLS].to(dev)
-    slot = torch.full((n,), -1, dtype=torch.long, device=dev)
-    slot[cols] = torch.arange(SAMPLED_COLS, device=dev)
-    edges = torch.nonzero(slot[col[:nnz].long()] >= 0).squeeze(1)
-    erow = torch.searchsorted(rowptr.long(), edges, right=True) - 1
-    eslot = slot[col[edges].long()]
     for i in range(L):
         if not hs[i].requires_grad:
             continue
-        terms = value[edges].double()[:, None] * gs[i][erow].double()
-        ref = torch.zeros(SAMPLED_COLS, terms.shape[1], dtype=torch.float64,
-                          device=dev).index_add_(0, eslot, terms)
-        scale = torch.zeros_like(ref).index_add_(0, eslot, terms.abs())
-        err_dx, ok = _grad_close(hs[i].grad[cols], ref, scale)
+        err_dx, ok, ref_max, n_edges = _d_x_err(rowptr, col, value, gs[i],
+                                                hs[i].grad, cols)
         print(f"phase 5 layer {i} d x on {SAMPLED_COLS} sampled columns "
-              f"({edges.numel()} edges) vs f64: max_abs_err {err_dx:.3e} "
-              f"(max |dx| {float(ref.abs().max()):.3e}) "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"({n_edges} edges) vs f64: max_abs_err {err_dx:.3e} "
+              f"(max |dx| {ref_max:.3e}) {'ok' if ok else 'FAIL'}",
+              flush=True)
         check(ok, f"layer {i} d x disagrees with f64 on sampled columns")
 
     # the SDDMM at K=256 (layer 1) and K=100 (layer 0), kernel vs plain,
@@ -2758,6 +2789,400 @@ def phase8d_models(dev, card):
     return out
 
 
+# ---- phase 9: the eager SparseTensor facade ---------------------------------
+
+FACADE_ROWS = 1024                      # sampled rows of each facade check
+
+
+def _host_ms(fn):
+    """``fn()`` on the host clock around work that ends in
+    ``torch.cuda.synchronize()``: ``(ms, result)``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, res
+
+
+def _host_runs(fn, reps=3):
+    """1 warm-up and ``reps`` calls of ``fn`` (:func:`_host_ms`): the mean
+    ms of the timed calls, every call's ms, and the last result."""
+    times = []
+    for _ in range(reps + 1):
+        ms, res = _host_ms(fn)
+        times.append(ms)
+    return sum(times[1:]) / reps, times, res
+
+
+def facade_gcn_norm(row, col, n):
+    """PyG's ``gcn_norm`` of ``adj_t`` on the facade, step by step, each on
+    the host clock: ``SparseTensor(row, col)`` with no value, ``fill_diag``
+    1, ``deg = sum(dim=1)``, ``deg ** -0.5`` with inf set to 0, ``mul`` by
+    it row-wise, then column-wise. ``(adj_t, deg, normalized, {step: ms})``.
+    """
+    from paddle_sparse_tpu_torch import SparseTensor, fill_diag, mul
+    from paddle_sparse_tpu_torch import sum as sparsesum
+
+    def inv_sqrt(deg):
+        dis = deg.pow(-0.5)
+        return dis.masked_fill(torch.isinf(dis), 0.0)
+
+    ms = {}
+    ms["SparseTensor(row, col)"], adj = _host_ms(
+        lambda: SparseTensor(row=row, col=col, sparse_sizes=(n, n)))
+    ms["fill_diag"], loop = _host_ms(lambda: fill_diag(adj, 1.0))
+    ms["sum(dim=1)"], deg = _host_ms(lambda: sparsesum(loop, dim=1))
+    ms["pow(-0.5), inf to 0"], dis = _host_ms(lambda: inv_sqrt(deg))
+    ms["mul rows"], half = _host_ms(lambda: mul(loop, dis.view(-1, 1)))
+    ms["mul cols"], norm = _host_ms(lambda: mul(half, dis.view(1, -1)))
+    return adj, deg, norm, ms
+
+
+def _facade_fields(A):
+    """The COO fields of a facade tensor (indices, then value if any)."""
+    return [t for t in A.coo() if t is not None]
+
+
+def phase9a_toy_facade(dev):
+    """``facade_entry``'s toy graph (int64 indices, no value) through the
+    calls of 9b-9d on the card and on the CPU: ``gcn_norm``, ``A @ x`` and
+    its d value and d x, ``adj_t[idx]``, ``narrow``, ``t()``,
+    ``masked_select`` and ``A @ A``. Indices equal, values within F32_TOL."""
+    from paddle_sparse_tpu_torch import facade_entry, gcn_norm
+    runs = {}
+    for where in (dev, "cpu"):
+        adj, x = facade_entry(where)
+        norm = gcn_norm(adj)
+        n = norm.size(0)
+        w = torch.randn(x.shape, generator=torch.Generator().manual_seed(3)
+                        ).to(x.device)
+        with torch.inference_mode():
+            out = norm @ x
+        plain = norm.detach()
+        norm.requires_grad_()
+        xg = x.clone().requires_grad_()
+        (norm @ xg).backward(w)
+        res = {"gcn_norm": _facade_fields(plain), "out": [out],
+               "grads": [norm.storage.value().grad, xg.grad]}
+        idx = torch.arange(0, n, 8, device=x.device).flip(0)
+        mask = torch.arange(n, device=x.device) % 2 == 0
+        for name, B in (("adj_t[idx]", plain[idx]),
+                        ("narrow", plain.narrow(1, n // 4, n // 2)),
+                        ("t", plain.t()),
+                        ("masked_select", plain.masked_select(0, mask)),
+                        ("A @ A", plain @ plain)):
+            res[name] = _facade_fields(B)
+        runs[str(where)] = {k: [t.detach().cpu() for t in v]
+                            for k, v in res.items()}
+    card, host = runs[str(dev)], runs["cpu"]
+    err = 0.0
+    for name in card:
+        for a, b in zip(card[name], host[name]):
+            if a.is_floating_point():
+                err = max(err, float((a - b).abs().max()))
+                ok = torch.allclose(a, b, **F32_TOL)
+            else:
+                ok = torch.equal(a, b)
+            check(ok and len(card[name]) == len(host[name]),
+                  f"toy facade {name}: the card disagrees with the CPU")
+    print(f"phase 9a toy facade (256 nodes, int64 indices): gcn_norm, A @ x "
+          f"and its d value and d x, adj_t[idx], narrow, t, masked_select, "
+          f"A @ A: cuda vs cpu indices equal, values max_abs_err {err:.3e} "
+          f"ok", flush=True)
+
+
+def facade_graph(dev):
+    """Phase 4's graph (:func:`products_graph`, the same seed) as PyG
+    hands it to a ``SparseTensor``: int64 ``row`` and ``col``, no value;
+    and its features at K=100. Row ``r`` holds entries ``r * deg ...
+    (r + 1) * deg - 1`` of the generator's arrays."""
+    P, x = products_graph(dev)
+    row, col = P.row.long(), P.col.long()
+    del P
+    return row, col, x
+
+
+def check_gcn_norm(row, col, deg, norm, rows):
+    """The normalized ``adj_t`` on ``rows`` against f64 on the host: the
+    degree exact (each row's entries off the diagonal, plus the self loop),
+    each sampled row's columns those of the raw row without its diagonal
+    entries plus the diagonal, in order, and each value ``deg[r] ** -0.5 *
+    deg[c] ** -0.5`` within rtol 1e-6. Returns the max relative error and
+    the f64 entries of the sampled rows, ``(ptr, col, value)``."""
+    import numpy as np
+    n = deg.numel()
+    self_loops = torch.bincount(row[row == col], minlength=n)
+    deg_ref = (PRODUCTS_DEG + 1 - self_loops).cpu().numpy()
+    check(np.array_equal(deg.cpu().numpy(), deg_ref.astype(np.float32)),
+          "gcn_norm: sum(dim=1) of fill_diag(adj_t) is not the degree")
+    dis = deg_ref.astype(np.float64) ** -0.5
+    r_np = rows.cpu().numpy()
+    raw = col.view(n, PRODUCTS_DEG)[rows].cpu().numpy()
+    want_ptr, want_col = [0], []
+    for r, cs in zip(r_np, raw):
+        c = np.sort(np.append(cs[cs != r], r), kind="stable")
+        want_col.append(c)
+        want_ptr.append(want_ptr[-1] + c.size)
+    want_col = np.concatenate(want_col)
+    want_row = np.repeat(r_np, np.diff(want_ptr))
+    want_val = dis[want_row] * dis[want_col]
+    rowptr, ncol, nval = norm.csr()
+    edge, sub_ptr = _sub_csr(rowptr, rows)
+    got_val = nval[edge].detach().double().cpu().numpy()
+    ok = (np.array_equal(sub_ptr.cpu().numpy(), want_ptr)
+          and np.array_equal(ncol[edge].cpu().numpy(), want_col))
+    rel = (float(np.abs(got_val / want_val - 1).max()) if ok
+           else float("inf"))
+    check(ok and rel <= 1e-6,
+          f"gcn_norm: sampled rows disagree with f64 (rel err {rel:.3e})")
+    return rel, (np.asarray(want_ptr), want_col, want_val)
+
+
+def phase9b_gcn_norm(dev, card, row, col, x):
+    """PyG's ``gcn_norm`` on a ``SparseTensor`` at ogbn-products scale, then
+    ``adj_t @ x`` at K=100: each step's ms (1 warm-up + 3), peak memory, the
+    values and ``out`` on sampled rows against f64, ``d value`` and ``d x``
+    on sampled entries against f64, ``out`` against ``PaddedCOO.spmm`` on
+    the same entries bit for bit (both timed, so the facade's overhead
+    shows), exact launches (K1 1 per forward, K1 + K2 1 each per backward,
+    no fold) and no CSC view built after the first backward."""
+    import numpy as np
+
+    from paddle_sparse_tpu_torch import SparseStorage, gcn_norm
+    n, K = PRODUCTS_NODES, x.shape[1]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(4):                                  # 1 warm-up + 3
+        adj, deg, norm, ms = facade_gcn_norm(row, col, n)
+        steps.append(ms)
+    norm_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = {k: sum(s[k] for s in steps[1:]) / 3 for k in steps[0]}
+    total = sum(v for k, v in step_ms.items() if k != "SparseTensor(row, col)")
+    print(f"phase 9b graph: {n} nodes, {adj.nnz()} nnz (int64 indices, no "
+          f"value), {norm.nnz()} after fill_diag; gcn_norm steps ms (warm-up,"
+          f" 3 timed, mean of the 3): "
+          + "; ".join(f"{k} " + " ".join(f"{s[k]:.3f}" for s in steps)
+                      + f" ({v:.3f})" for k, v in step_ms.items())
+          + f"; gcn_norm after the constructor {total:.3f} ms; peak mem "
+          f"{norm_gb:.2f} GB {card}", flush=True)
+    entry_norm = gcn_norm(adj)
+    check(all(torch.equal(a, b) for a, b in zip(_facade_fields(entry_norm),
+                                                _facade_fields(norm))),
+          "entry.gcn_norm differs from the steps it is made of")
+    del adj, entry_norm
+
+    rows = sampled_rows(norm.storage.rowptr(), FACADE_ROWS)
+    rel, (w_ptr, w_col, w_val) = check_gcn_norm(row, col, deg, norm, rows)
+    print(f"phase 9b gcn_norm on {rows.numel()} sampled rows vs f64 on the "
+          f"host: degree exact, columns exact, values max rel err {rel:.3e} "
+          f"(tol 1e-6) ok", flush=True)
+
+    # the forward, in inference mode; then forward + backward
+    P = norm.detach().to_padded()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    with torch.inference_mode():
+        fwd_ms, fwd_times, out = _host_runs(lambda: norm @ x)
+    fwd_counts = _launch_counts()
+    with torch.inference_mode():
+        out_p = P.spmm(x)
+    check(torch.equal(out, out_p), "facade A @ x differs from PaddedCOO.spmm "
+                                   "on the same entries")
+    xs = x[torch.as_tensor(w_col, device=x.device)].double().cpu().numpy()
+    terms = w_val[:, None] * xs
+    ref = np.add.reduceat(terms, w_ptr[:-1], axis=0)
+    scale = np.add.reduceat(np.abs(terms), w_ptr[:-1], axis=0)
+    err_out, ok = _grad_close(out[rows].cpu(), torch.from_numpy(ref),
+                              torch.from_numpy(scale))
+    check(ok, "facade A @ x disagrees with f64 on sampled rows")
+
+    norm.requires_grad_()
+    value = norm.storage.value()
+    xg = x.clone().requires_grad_()
+    g = torch.randn(x.shape, generator=torch.Generator(device=dev
+                                                       ).manual_seed(9),
+                    device=dev)
+    csc_builds = []
+
+    def fwd_bwd():
+        value.grad = xg.grad = None
+        SparseStorage.csc_builds = 0
+        res = norm @ xg
+        res.retain_grad()
+        res.backward(g)
+        csc_builds.append(SparseStorage.csc_builds)
+        return res
+    _zero_launch_counts()
+    step_ms_fb, fb_times, out_g = _host_runs(fwd_bwd)
+    fb_counts = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"phase 9b adj_t @ x (K={K}) forward ms: "
+          f"{' '.join(f'{t:.3f}' for t in fwd_times)} (mean {fwd_ms:.3f}); "
+          f"forward+backward ms: {' '.join(f'{t:.3f}' for t in fb_times)} "
+          f"(mean {step_ms_fb:.3f}); peak mem {peak_gb:.2f} GB; launches in 4 "
+          f"forwards {fwd_counts}, in 4 forward+backwards {fb_counts}; CSC "
+          f"views built per forward+backward {csc_builds} {card}",
+          flush=True)
+    check(fwd_counts["spmm_csr"] == 4 and fwd_counts["sddmm_csr"] == 0
+          and fwd_counts["fold_pieces"] == 0,
+          f"facade forward: expected K1 1 per forward and nothing else, "
+          f"counted {fwd_counts} in 4")
+    check(fb_counts["spmm_csr"] == 8 and fb_counts["sddmm_csr"] == 4
+          and fb_counts["fold_pieces"] == 0 and fb_counts["segcompact"] == 0,
+          f"facade forward+backward: expected K1 2 and K2 1 each, counted "
+          f"{fb_counts} in 4")
+    check(csc_builds == [1, 0, 0, 0],
+          f"the CSC view was built again after the first backward: "
+          f"{csc_builds}")
+
+    # d value on sampled edges and d x on sampled columns against f64
+    err_dv, ok_dv, dv_max = _d_value_err(P, [(P, xg, "sum", out_g)],
+                                         value.grad)
+    cols = torch.randperm(n, generator=torch.Generator().manual_seed(7)
+                          )[:SAMPLED_COLS].to(dev)
+    err_dx, ok_dx, dx_max, n_edges = _d_x_err(P.rowptr(), P.col,
+                                              value.detach(), g, xg.grad,
+                                              cols)
+    print(f"phase 9b vs f64: out on {rows.numel()} sampled rows max_abs_err "
+          f"{err_out:.3e}; d value on {SAMPLED_EDGES} sampled edges "
+          f"{err_dv:.3e} (max |dv| {dv_max:.3e}); d x on {SAMPLED_COLS} "
+          f"sampled columns ({n_edges} edges) {err_dx:.3e} (max |dx| "
+          f"{dx_max:.3e}); within {GRAD_REL} of each sum of |terms| "
+          f"{'ok' if ok_dv and ok_dx else 'FAIL'}", flush=True)
+    check(ok_dv, "facade d value disagrees with f64 on sampled edges")
+    check(ok_dx, "facade d x disagrees with f64 on sampled columns")
+
+    # the same products through PaddedCOO.spmm on the same entries
+    P.value.requires_grad_()
+    with torch.inference_mode():
+        pad_fwd_ms, _, _ = _host_runs(lambda: P.spmm(x))
+
+    def pad_fwd_bwd():
+        P.value.grad = xg.grad = None
+        P.spmm(xg).backward(g)
+    pad_fb_ms, _, _ = _host_runs(pad_fwd_bwd)
+    print(f"phase 9b the same entries through PaddedCOO.spmm: forward "
+          f"{pad_fwd_ms:.3f} ms, forward+backward {pad_fb_ms:.3f} ms; the "
+          f"facade {fwd_ms:.3f} / {step_ms_fb:.3f} ms ({fwd_ms / pad_fwd_ms:.3f}x"
+          f" / {step_ms_fb / pad_fb_ms:.3f}x) {card}", flush=True)
+    del P, out, out_p, out_g, xg, g
+    torch.cuda.empty_cache()
+    return norm.detach(), {
+        "gcn_norm_steps_ms": step_ms, "gcn_norm_ms": total,
+        "gcn_norm_peak_gb": norm_gb, "forward_ms": fwd_ms,
+        "fwd_bwd_ms": step_ms_fb, "padded_forward_ms": pad_fwd_ms,
+        "padded_fwd_bwd_ms": pad_fb_ms, "peak_gb": peak_gb,
+        "values_max_rel_err": rel, "out_max_abs_err": err_out,
+        "d_value_max_abs_err": err_dv, "d_x_max_abs_err": err_dx,
+        "launches": {"facade_forward": fwd_counts,
+                     "facade_fwd_bwd": fb_counts}}
+
+
+def _same_rows(B, rows, want):
+    """Rows ``rows`` of the facade's ``B`` equal ``want`` (scipy CSR of
+    those rows, in order), entry for entry: lengths, columns and values,
+    duplicates and their order included. Returns the entry count."""
+    import numpy as np
+    rowptr, col, value = B.csr()
+    edge, sub_ptr = _sub_csr(rowptr, rows)
+    ok = (np.array_equal(sub_ptr.cpu().numpy(), want.indptr)
+          and np.array_equal(col[edge].cpu().numpy(), want.indices)
+          and np.array_equal(value[edge].cpu().numpy(), want.data))
+    return ok, edge.numel()
+
+
+def phase9c_structural(dev, card, adj):
+    """``adj_t[idx]`` with 1/8 of the rows in random order, ``narrow`` of
+    the middle half of the columns, ``t()`` and ``masked_select`` of a
+    random half of the rows on the normalized ``adj_t``: each timed (1
+    warm-up + 3), sampled rows of each result equal to scipy's same op on
+    a host copy."""
+    import numpy as np
+    import scipy.sparse as sp
+    n = adj.size(0)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    idx = torch.randperm(n, generator=gen, device=dev)[:n // 8]
+    mask = torch.rand(n, generator=gen, device=dev) < 0.5
+    lo, length = n // 4, n // 2
+    ops = {"adj_t[idx] (1/8 of the rows)": lambda: adj[idx],
+           "narrow(1, N/4, N/2)": lambda: adj.narrow(1, lo, length),
+           "t()": lambda: adj.t(),
+           "masked_select(0, half the rows)":
+               lambda: adj.masked_select(0, mask)}
+    rowptr, col, value = adj.csr()
+    a = sp.csr_matrix((value.cpu().numpy(), col.cpu().numpy(),
+                       rowptr.cpu().numpy()), shape=(n, n))
+    idx_np, kept = idx.cpu().numpy(), np.flatnonzero(mask.cpu().numpy())
+    res = {}
+    for name, fn in ops.items():
+        ms, _, B = _host_runs(fn)
+        rows = sampled_rows(B.storage.rowptr(), FACADE_ROWS)
+        r = rows.cpu().numpy()
+        if name.startswith("adj_t[idx]"):
+            want = a[idx_np[r]]
+        elif name.startswith("narrow"):
+            want = a[r][:, lo:lo + length]
+        elif name == "t()":
+            want = a.T.tocsr()[r]
+        else:
+            want = a[kept[r]]
+        ok, n_cmp = _same_rows(B, rows, want)
+        print(f"phase 9c {name}: {ms:.3f} ms (mean of 3 after a warm-up), "
+              f"{B.nnz()} nnz {B.sparse_sizes()}; {rows.numel()} sampled rows "
+              f"({n_cmp} entries) equal to scipy's "
+              f"{'ok' if ok else 'FAIL'} {card}", flush=True)
+        check(ok, f"facade {name} disagrees with scipy on sampled rows")
+        res[name] = ms
+        del B
+    del a
+    return res
+
+
+def phase9d_a_at_a(dev, card):
+    """``A @ A`` through the facade on phase 6c's 10M-nnz operand
+    (``spgemm_operand``), handed over as int64 COO: 1 warm-up + 3 calls,
+    K5 once per call and nothing else, C equal to ``spspmm_eager`` on the
+    same arrays bit for bit, sampled rows against scipy in f64."""
+    from paddle_sparse_tpu_torch import SparseTensor, spspmm_eager
+    P = spgemm_operand(dev, 625_000, 16)
+    k = P.nnz
+    A = SparseTensor(row=P.row[:k].long(), col=P.col[:k].long(),
+                     value=P.value[:k], sparse_sizes=P.shape)
+    del P
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    ms, times, C = _host_runs(lambda: A @ A)
+    counts = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    row, col, value = A.coo()
+    rowptr = A.storage.rowptr()
+    eager_ms, _, ref = _host_runs(lambda: spspmm_eager(
+        row, col, value, rowptr, col, value, *A.sparse_sizes()))
+    same = all(torch.equal(a, b) for a, b in zip(C.coo(), ref))
+    Ap, Cp = A.to_padded(), C.to_padded()
+    rows = _sampled_rows(Ap)
+    err, ok, n_cmp = _check_sampled_rows(Ap, Cp, rows)
+    print(f"phase 9d A @ A through the facade: A {A.nnz()} nnz "
+          f"{A.sparse_sizes()} (int64), C {C.nnz()} nnz; ms per call "
+          f"{' '.join(f'{t:.3f}' for t in times)} (mean {ms:.3f}; "
+          f"spspmm_eager on the same arrays {eager_ms:.3f}); peak mem "
+          f"{peak_gb:.2f} GB; launches in 4 calls {counts}; C equal to "
+          f"spspmm_eager bit for bit {same}; {rows.numel()} sampled rows "
+          f"({n_cmp} entries) vs scipy f64 max_abs_err {err:.3e} "
+          f"{'ok' if ok else 'FAIL'} {card}", flush=True)
+    check(counts["segcompact"] == 4 and counts["spmm_csr"] == 0
+          and counts["sddmm_csr"] == 0,
+          f"facade A @ A: expected K5 once per call, counted {counts}")
+    check(same, "facade A @ A differs from spspmm_eager on the same arrays")
+    check(ok, "facade A @ A disagrees with scipy on sampled rows")
+    del A, C, Ap, Cp, ref
+    torch.cuda.empty_cache()
+    return {"ms": ms, "spspmm_eager_ms": eager_ms, "peak_gb": peak_gb,
+            "rows_max_abs_err": err, "launches": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible "
@@ -2853,6 +3278,23 @@ def main() -> int:
                 if e in v}}
          for k, v in models.items()}}), flush=True)
 
+    # ---- phase 9: the eager SparseTensor facade ---------------------------
+    phase9a_toy_facade(dev)
+    row, col, x = facade_graph(dev)
+    adj_t, facade = phase9b_gcn_norm(dev, card, row, col, x)
+    del row, col, x
+    facade["structural_ms"] = phase9c_structural(dev, card, adj_t)
+    del adj_t
+    torch.cuda.empty_cache()
+    facade["a_at_a_10M"] = phase9d_a_at_a(dev, card)
+    stamp("phase 9")
+    print("phase 9 summary " + json.dumps(
+        {**{k: v for k, v in facade.items() if k != "launches"},
+         "a_at_a_10M": {k: v for k, v in facade["a_at_a_10M"].items()
+                        if k != "launches"},
+         "gcn_forward_ms_phase4": fwd["fwd_ms"],
+         "gcn_train_step_ms_phase5": train["step_ms"]}), flush=True)
+
     launches = {"gcn_forward": fwd["counts"],
                 "gcn_train_step": train["counts"],
                 **{p: v["launches"] for p, v in spgemm.items()},
@@ -2860,7 +3302,9 @@ def main() -> int:
                 **{f"spmm_{r}": v["launches"] for r, v in reductions.items()},
                 **{f"{k}_{part}": v[part]["launches"]
                    for k, v in models.items()
-                   for part in ("forward", "train_step")}}
+                   for part in ("forward", "train_step")},
+                **facade["launches"],
+                "facade_a_at_a": facade["a_at_a_10M"]["launches"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in launches.items()}

@@ -14,14 +14,49 @@ the packed (segment, row)-sorted SpMMs ``spmm_seg2``, ``spmm_seg3`` and
 ``spmm_split``, planned once per graph, whose forward and ``d x`` run a
 multi-span SpMM kernel and whose ``d value`` runs its span-SDDMM kernel.
 Both span kernels cut rows of more than ``CAP`` edges across warps, from a
-piece table (``RowSplit``) that structures and plans build once. It imports
-torch and never jax.
+piece table (``RowSplit``) that structures and plans build once.
+
+The eager facade, ``SparseTensor`` over ``SparseStorage`` (canonical
+(row, col)-sorted COO with lazily cached CSR/CSC views), holds the
+reference's op suite; each op module binds its methods onto ``SparseTensor``
+when this package imports it, as in the JAX package. ``A @ x`` runs the
+SpMM kernels on the storage's cached int32 CSR and CSC view, ``A @ B`` the
+SpGEMM path. ``sum``, ``mean``, ``min`` and ``max`` are exported as in the
+JAX package and shadow the builtins here, so nothing inside the package
+imports ``*`` from it. It imports torch and never jax.
 """
-from .core.matrix import PaddedCOO, padded_coo_from_jax
+from .storage import SparseStorage
+from .tensor import SparseTensor
+
+# Import op modules for their side effect of binding SparseTensor methods.
+from .narrow import narrow, __narrow_diag__
+from .select import select
+from .index_select import index_select, index_select_nnz
+from .masked_select import masked_select, masked_select_nnz
+from .permute import permute
+from .add import add, add_, add_nnz, add_nnz_
+from .mul import mul, mul_, mul_nnz, mul_nnz_
+from .reduce import max, mean, min, reduction, sum  # noqa: A004
+from .cat import cat
+from .transpose import t, transpose
+from .coalesce import coalesce
+from .eye import eye
+from .convert import (from_paddle_sparse, from_scipy,
+                      from_torch_sparse, to_paddle_sparse, to_scipy,
+                      to_torch_sparse)
+from .diag import fill_diag, get_diag, remove_diag, set_diag
+from .matmul import matmul, spmm, spspmm
+from .spadd import spadd
+from .io import from_state_dict, load_npz, save_npz, to_state_dict
+from .random import seed
+
+from .core.matrix import (PaddedCOO, padded_coo_from_jax,
+                          sparse_tensor_from_jax)
 from .core.spgemm import (SpGEMMResult, matmul_padded, spspmm_padded,
                           spspmm_rowblocked, spspmm_rowsorted)
-from .entry import (MODELS, SPMM_BACKENDS, entry, gcn_loss, model_entry,
-                    spgemm_entry, spmm_entry, train_entry, train_step)
+from .entry import (MODELS, SPMM_BACKENDS, entry, facade_entry,
+                    gcn_loss, gcn_norm, model_entry, spgemm_entry, spmm_entry,
+                    train_entry, train_step)
 from .models.gcn import (APPNP, GAT, GCN, GIN, GraphSAGE,
                          appnp_params_from_jax, edge_softmax,
                          gat_params_from_jax, gcn_normalize,
@@ -52,7 +87,21 @@ from .ops.spmm_split import (SplitPlan, SplitStructure, make_split_plan,
 from .ops.spspmm import (plan_spgemm, plan_spgemm_blocked, plan_spgemm_rows,
                          spgemm_flops, spspmm_eager)
 
+__version__ = "0.1.0"
+
 __all__ = [
+    # the eager facade and its op suite
+    "SparseStorage", "SparseTensor", "narrow", "__narrow_diag__", "select",
+    "index_select", "index_select_nnz", "masked_select", "masked_select_nnz",
+    "permute", "add", "add_", "add_nnz", "add_nnz_", "mul", "mul_",
+    "mul_nnz", "mul_nnz_", "reduction", "sum", "mean", "min", "max", "cat",
+    "t", "transpose", "coalesce", "eye", "from_scipy", "to_scipy",
+    "from_torch_sparse", "to_torch_sparse", "from_paddle_sparse",
+    "to_paddle_sparse", "remove_diag", "set_diag", "fill_diag", "get_diag",
+    "matmul", "spmm", "spspmm", "spadd", "load_npz", "save_npz",
+    "to_state_dict", "from_state_dict", "seed", "sparse_tensor_from_jax",
+    "facade_entry", "gcn_norm", "__version__",
+    # the padded core, kernels, models and entry points
     "APPNP", "CAP", "GAT", "GCN", "GIN", "GraphSAGE", "MODELS", "PaddedCOO",
     "REDUCTIONS", "RowSplit", "SPMM_BACKENDS", "Seg2Plan",
     "Seg2Structure", "Seg3Infeasible", "Seg3Plan", "Seg3Structure",

@@ -127,6 +127,25 @@ class PaddedCOO:
                     (pad,) + tuple(value.shape[1:]))])
         return cls(row=row, col=col, value=value, nnz=n, shape=(M, N))
 
+    @classmethod
+    def from_eager(cls, tensor, capacity: Optional[int] = None,
+                   index_dtype: torch.dtype = torch.int32) -> "PaddedCOO":
+        """From a facade ``SparseTensor`` (row-sorted by construction), on
+        its device."""
+        r, c, v = tensor.coo()
+        return cls.from_arrays(r, c, v, tensor.sparse_sizes(),
+                               capacity=capacity, index_dtype=index_dtype)
+
+    def to_eager(self):
+        """Back to the eager facade, padding dropped (``nnz`` is a Python
+        int, so no host read)."""
+        from ..tensor import SparseTensor
+        n = self.nnz
+        value = None if self.value is None else self.value[:n]
+        return SparseTensor(row=self.row[:n], col=self.col[:n], value=value,
+                            sparse_sizes=self.shape, is_sorted=True,
+                            trust_data=True)
+
     def to(self, device) -> "PaddedCOO":
         return dataclasses.replace(
             self, row=self.row.to(device), col=self.col.to(device),
@@ -219,3 +238,27 @@ def padded_coo_from_jax(mat, device=None) -> PaddedCOO:
                      col=torch.from_numpy(np.array(mat.col)).to(device),
                      value=value, nnz=int(mat.nnz),
                      shape=(int(mat.shape[0]), int(mat.shape[1])))
+
+
+_STORAGE_FIELDS = ("row", "rowptr", "col", "value", "rowcount", "colptr",
+                   "colcount", "csr2csc", "csc2csr")
+
+
+def sparse_tensor_from_jax(t, device=None):
+    """A JAX ``paddle_sparse_tpu.SparseTensor`` (or any object whose
+    ``storage`` has its ``_row``, ``_rowptr``, ... fields, arrays
+    convertible with ``np.asarray``) -> the port's ``SparseTensor``, array
+    for array: the sizes, the cached fields and which of them are present
+    kept, nothing validated or re-sorted."""
+    from ..storage import SparseStorage
+    from ..tensor import SparseTensor
+    s = t.storage
+    fields = {}
+    for name in _STORAGE_FIELDS:
+        a = getattr(s, f"_{name}")
+        fields[name] = (None if a is None
+                        else torch.from_numpy(np.array(a)).to(device))
+    M, N = s._sparse_sizes
+    storage = SparseStorage(sparse_sizes=(int(M), int(N)), is_sorted=True,
+                            trust_data=True, **fields)
+    return SparseTensor.from_storage(storage)

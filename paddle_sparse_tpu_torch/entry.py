@@ -13,6 +13,9 @@ any of them.
 SpGEMM cross-check of ``__graft_entry__.dryrun_multichip``).
 ``spmm_entry(backend, device)`` plans the toy graph for a packed-layout SpMM
 backend (``seg2``, ``seg3``, ``seg2split``), as ``bench.py`` plans its graphs.
+``facade_entry(device)`` gives the toy graph as a value-less ``SparseTensor``
+with int64 indices, as PyG hands ``adj_t`` over, and its features;
+``gcn_norm`` is PyG's normalization of such a tensor on the facade.
 
 Every entry point runs on the card unless the caller asks for the CPU
 (``device="cpu"``); without a card it raises instead of carrying on on the
@@ -29,6 +32,11 @@ from .models.gcn import (gcn_normalize, init_appnp, init_gat, init_gcn,
 from .ops.spmm_seg2 import make_seg2_plan, pack_values
 from .ops.spmm_seg3 import make_seg3_plan
 from .ops.spmm_split import make_split_plan, pack_values_split
+from .diag import fill_diag
+from .mul import mul
+from .reduce import sum as sparsesum
+from .tensor import SparseTensor
+from .utils import as_device
 
 SPMM_BACKENDS = ("seg2", "seg3", "seg2split")
 MODELS = ("gcn", "sage", "gin", "appnp", "gat")
@@ -49,18 +57,6 @@ def _toy_graph(num_nodes=256, avg_deg=8, feat=32, classes=8, seed=0):
     return row, col, val, x, y
 
 
-def _device(device) -> torch.device:
-    """``device`` as a ``torch.device``; raises if it names CUDA and there
-    is no card."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(dev)!r} requested but no CUDA device is available "
-            f"(torch.cuda.is_available() is False); pass device='cpu' to run "
-            f"the plain path on the CPU")
-    return dev
-
-
 def model_entry(kind: str, device="cuda"):
     """``(model, adj, x, y)`` for the toy ``kind`` model (one of ``MODELS``)
     on ``device``: ``_toy_graph``'s adjacency (256 nodes, 2048 entries,
@@ -73,7 +69,7 @@ def model_entry(kind: str, device="cuda"):
     model."""
     if kind not in MODELS:
         raise ValueError(f"unknown model {kind!r}; one of {MODELS}")
-    device = _device(device)
+    device = as_device(device)
     row, col, val, x, y = _toy_graph()
     adj = PaddedCOO.from_arrays(row, col, val, (256, 256), capacity=2304,
                                 device=device)
@@ -113,7 +109,7 @@ def spgemm_entry(device="cuda") -> PaddedCOO:
     """
     row, col, val, _, _ = _toy_graph()
     return PaddedCOO.from_arrays(row, col, val, (256, 256), capacity=2304,
-                                 device=_device(device)).coalesce()
+                                 device=as_device(device)).coalesce()
 
 
 def spmm_entry(backend: str, device="cuda"):
@@ -126,7 +122,7 @@ def spmm_entry(backend: str, device="cuda"):
 
         out = spmm_seg2(plan, structure, packed, x)    # or seg3 / split
     """
-    dev = _device(device)
+    dev = as_device(device)
     row, col, val, x, _ = _toy_graph()
     row, col = torch.as_tensor(row, device=dev), torch.as_tensor(col,
                                                                  device=dev)
@@ -143,6 +139,34 @@ def spmm_entry(backend: str, device="cuda"):
         return plan, s, pack_values_split(s, val), x
     raise ValueError(f"unknown SpMM backend {backend!r}; one of "
                      f"{SPMM_BACKENDS}")
+
+
+def facade_entry(device="cuda"):
+    """``(adj_t, x)`` on ``device``: ``_toy_graph``'s structure (256 nodes,
+    2048 entries, duplicates and self loops included) as a
+    ``SparseTensor(row=..., col=..., sparse_sizes=(256, 256))`` with int64
+    indices and no value, and its features (256, 32) f32. Then::
+
+        out = gcn_norm(adj_t) @ x
+    """
+    dev = as_device(device)
+    row, col, _, x, _ = _toy_graph()
+    adj_t = SparseTensor(row=torch.as_tensor(row, device=dev),
+                         col=torch.as_tensor(col, device=dev),
+                         sparse_sizes=(256, 256))
+    return adj_t, torch.as_tensor(x, device=dev)
+
+
+def gcn_norm(adj_t: SparseTensor) -> SparseTensor:
+    """PyG's ``gcn_norm`` of a ``SparseTensor`` with self loops of weight 1:
+    ``D^-1/2 (A + I) D^-1/2`` with ``D`` the row sums of ``A + I`` (existing
+    diagonal entries replaced), 0 where a degree is 0."""
+    adj_t = fill_diag(adj_t, 1.0)
+    deg = sparsesum(adj_t, dim=1)
+    dis = deg.pow(-0.5)
+    dis = dis.masked_fill(torch.isinf(dis), 0.0)
+    adj_t = mul(adj_t, dis.view(-1, 1))
+    return mul(adj_t, dis.view(1, -1))
 
 
 def gcn_loss(model: nn.Module, adj: PaddedCOO, x: torch.Tensor,

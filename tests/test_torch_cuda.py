@@ -1245,3 +1245,167 @@ def test_model_launches_per_step(dev):
         torch.cuda.synchronize()
         assert (spmm_csr_cuda.launches - b1,
                 sddmm_csr_cuda.launches - b2) == (k1, k2), kind
+
+
+# ---- the eager facade on the card ------------------------------------------
+
+def _facade_pipeline(where):
+    """``facade_entry``'s graph through ``gcn_norm`` and ``A @ (A @ x)``
+    with ``value`` and ``x`` requiring grad: the normalized values, the
+    output, d value and d x, on the CPU; and the launches of the card's
+    kernels (CSC views built) between the forward and the end of the
+    second backward."""
+    from paddle_sparse_tpu_torch import SparseStorage, facade_entry, gcn_norm
+    adj, x = facade_entry(where)
+    norm = gcn_norm(adj).requires_grad_()
+    x = x.clone().requires_grad_()
+    w = torch.randn(x.shape, generator=torch.Generator().manual_seed(3)).to(
+        x.device)
+    counts = []
+    for _ in range(2):
+        norm.storage.value().grad = x.grad = None
+        SparseStorage.csc_builds = 0
+        b = (spmm_csr_cuda.launches, sddmm_csr_cuda.launches,
+             fold_pieces_cuda.launches)
+        out = norm @ x
+        (out * w).sum().backward()
+        if where == "cuda":
+            torch.cuda.synchronize()
+        counts.append((spmm_csr_cuda.launches - b[0],
+                       sddmm_csr_cuda.launches - b[1],
+                       fold_pieces_cuda.launches - b[2],
+                       SparseStorage.csc_builds))
+    res = [norm.storage.value().detach(), out.detach(),
+           norm.storage.value().grad, x.grad]
+    return [t.cpu() for t in res], counts
+
+
+def test_facade_gcn_norm_card_vs_cpu(dev):
+    """PyG's gcn_norm on the facade and ``A @ x`` with its grads: the card
+    against the CPU; each forward+backward launches K1 twice (forward, d x)
+    and K2 once, no fold; the CSC view is built by the first backward only,
+    and the CPU launches no kernel."""
+    card, card_counts = _facade_pipeline("cuda")
+    cpu, cpu_counts = _facade_pipeline("cpu")
+    for c, h in zip(card, cpu):
+        torch.testing.assert_close(c, h, **F32)
+    assert card_counts == [(2, 1, 0, 1), (2, 1, 0, 0)]
+    assert cpu_counts == [(0, 0, 0, 1), (0, 0, 0, 0)]
+
+
+def test_facade_cached_structure_on_the_card(dev):
+    """The storage's kernel caches live on the card in int32, with the piece
+    table of a row past ``CAP``; ``A @ x`` equals ``PaddedCOO.spmm`` over
+    the same entries bit for bit, and the plain version in f64 within
+    ``SUM_REL`` of each entry's sum of |terms| (the split row sums 3,072
+    terms)."""
+    from paddle_sparse_tpu_torch import SparseTensor
+    g = torch.Generator(device=dev).manual_seed(4)
+    row = torch.cat([torch.full((3 * CAP,), 5, device=dev),
+                     torch.randint(0, 300, (5000,), generator=g, device=dev)])
+    col = torch.randint(0, 200, (row.numel(),), generator=g, device=dev)
+    A = SparseTensor(row=row, col=col,
+                     value=torch.rand(row.numel(), generator=g, device=dev),
+                     sparse_sizes=(300, 200))
+    x = torch.randn(200, 64, generator=g, device=dev)
+    rowptr, col32, split = A.storage.kernel_csr()
+    assert rowptr.is_cuda and rowptr.dtype == col32.dtype == torch.int32
+    assert split is not None
+    b = fold_pieces_cuda.launches
+    out = A @ x
+    torch.cuda.synchronize()
+    assert fold_pieces_cuda.launches == b + 1
+    assert torch.equal(out, A.to_padded().spmm(x))
+    value = A.storage.value()
+    _close_to_sum(out, _ref(rowptr, col32, value, x),
+                  _ref(rowptr, col32, value.abs(), x.abs()))
+
+
+@pytest.mark.parametrize("reduce", ["mean", "min", "max"])
+def test_facade_matmul_reduce_card_vs_cpu(dev, reduce):
+    from paddle_sparse_tpu_torch import facade_entry, gcn_norm
+    runs = {}
+    for where in ("cuda", "cpu"):
+        adj, x = facade_entry(where)
+        runs[where] = gcn_norm(adj).matmul(x, reduce).cpu()
+    torch.testing.assert_close(runs["cuda"], runs["cpu"], **F32)
+
+
+def test_facade_structural_ops_card_vs_cpu(dev):
+    """index_select, narrow, t, masked_select, the diag family, cat,
+    coalesce and to_symmetric on the card equal the CPU's field for field."""
+    from paddle_sparse_tpu_torch import cat, facade_entry, gcn_norm
+    idx = torch.tensor([5, 3, 3, 200, 0])
+    ops = {
+        "index_select0": lambda A: A[idx.to(A.device())],
+        "index_select1": lambda A: A.index_select(1, idx.to(A.device())),
+        "narrow": lambda A: A.narrow(1, 10, 100),
+        "t": lambda A: A.t(),
+        "masked_select": lambda A: A.masked_select(
+            0, (torch.arange(256) % 3 == 0).to(A.device())),
+        "remove_diag": lambda A: A.remove_diag(1),
+        "get_diag": lambda A: A.get_diag(),
+        "cat": lambda A: cat([A, A.t()], dim=(0, 1)),
+        "coalesce": lambda A: A.coalesce(),
+        "to_symmetric": lambda A: A.to_symmetric(),
+        "sum0": lambda A: A.sum(dim=0),
+    }
+    norm = {w: gcn_norm(facade_entry(w)[0]) for w in ("cuda", "cpu")}
+    for name, op in ops.items():
+        c, h = op(norm["cuda"]), op(norm["cpu"])
+        if isinstance(c, torch.Tensor):
+            torch.testing.assert_close(c.cpu(), h, **F32, msg=name)
+            continue
+        assert c.is_cuda() and c.sparse_sizes() == h.sparse_sizes(), name
+        for a, b in zip(c.coo(), h.coo()):
+            torch.testing.assert_close(a.cpu(), b, **F32, msg=name)
+
+
+def test_facade_a_at_a_card_vs_cpu(dev):
+    """``A @ A`` through the facade runs K5 once on the card and equals the
+    CPU's (structure exact, values within f32), and ``spspmm_eager`` on the
+    same arrays bit for bit."""
+    from paddle_sparse_tpu_torch import facade_entry, gcn_norm, spspmm_eager
+    runs = {}
+    for where in ("cuda", "cpu"):
+        A = gcn_norm(facade_entry(where)[0])
+        b = compact_runs_cuda.launches
+        C = A @ A
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert compact_runs_cuda.launches == b + 1
+            row, col, val = A.coo()
+            rowptr, _, _ = A.csr()
+            ref = spspmm_eager(row, col, val, rowptr, col, val, 256, 256)
+            for a, r in zip(C.coo(), ref):
+                assert torch.equal(a, r)
+        runs[where] = [t.cpu() for t in C.coo()]
+    for i, (c, h) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        if i < 2:
+            assert torch.equal(c, h)
+        else:
+            torch.testing.assert_close(c, h, **F32)
+
+
+def test_facade_device_moves(dev):
+    """``cuda()``, ``to``, ``is_cuda``, ``pin_memory`` and factories with
+    ``device=``: tensors keep their device, moves go where asked."""
+    from paddle_sparse_tpu_torch import SparseTensor, load_npz, save_npz
+    A = SparseTensor.eye(4, fill_cache=True)
+    C = A.cuda()
+    assert C.is_cuda() and not A.is_cuda()
+    assert all(getattr(C.storage, f"_{k}").is_cuda
+               for k in C.storage.cached_keys())
+    assert C.to("cpu") == A and C.cpu().device() == torch.device("cpu")
+    assert A.pin_memory().is_pinned() and not A.is_pinned()
+    assert SparseTensor.eye(3, device="cuda").is_cuda()
+    assert SparseTensor.from_dense(torch.eye(3).numpy(), device="cuda"
+                                   ).is_cuda()
+    assert SparseTensor.from_scipy(A.to_scipy(layout="csr"),
+                                   device="cuda").is_cuda()
+    x = torch.ones(4, 2, device=dev)
+    assert (C @ x).is_cuda
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        save_npz(f"{d}/a.npz", C)
+        assert load_npz(f"{d}/a.npz", device="cuda") == C

@@ -24,8 +24,11 @@ def _run(code_or_args, cwd=REPO, env=None, timeout=120):
 def test_port_never_imports_jax():
     """With ``jax`` blocked, the package imports and the toy forward, one
     toy train step, the toy A @ A, a toy ``spmm_seg2`` forward and
-    backward, a train step of each other model family and a segment
-    reduction run; neither jax nor the JAX package is loaded."""
+    backward, a train step of each other model family, a segment
+    reduction and the facade path (a ``SparseTensor``, ``fill_diag``,
+    ``sum``, ``mul``, ``@`` and its backward, ``A @ A``) run; every name of
+    ``__all__`` exists, the facade's among them; neither jax nor the JAX
+    package is loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -53,6 +56,25 @@ def test_port_never_imports_jax():
         "    assert bool(torch.isfinite(loss))\n"
         "assert p.segment_csr(torch.ones(3), torch.tensor([0, 3]), 'max')"
         ".tolist() == [1.0]\n"
+        "adj = p.SparseTensor(row=torch.tensor([2, 0, 1, 1]),\n"
+        "                     col=torch.tensor([0, 1, 2, 1]),\n"
+        "                     sparse_sizes=(3, 3))\n"
+        "adj = p.fill_diag(adj, 1.0)\n"
+        "deg = p.sum(adj, dim=1)\n"
+        "adj = p.mul(adj, deg.pow(-0.5).view(-1, 1))\n"
+        "adj.requires_grad_()\n"
+        "x = torch.ones(3, 2, requires_grad=True)\n"
+        "(adj @ x).sum().backward()\n"
+        "assert deg.tolist() == [2.0, 2.0, 2.0], deg\n"
+        "assert adj.storage.value().grad.shape == (6,)\n"
+        "assert x.grad.shape == (3, 2) and (adj @ adj).nnz() > 0\n"
+        "missing = [n for n in p.__all__ if not hasattr(p, n)]\n"
+        "assert not missing, missing\n"
+        "facade = {'SparseTensor', 'SparseStorage', 'matmul', 'spspmm', "
+        "'fill_diag', 'sum', 'cat', 'to_torch_sparse', 'load_npz', "
+        "'sparse_tensor_from_jax', 'facade_entry', 'gcn_norm', "
+        "'__narrow_diag__', 'spadd', 'seed'}\n"
+        "assert facade <= set(p.__all__), facade - set(p.__all__)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_sparse_tpu') and sys.modules[m]]\n"
         "assert not bad, bad\n"
@@ -73,7 +95,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for fn, args in ((p.entry, ()), (p.train_entry, ()),
                      (p.spgemm_entry, ()), (p.spmm_entry, ("seg2",)),
-                     (p.model_entry, ("gat",))):
+                     (p.model_entry, ("gat",)), (p.facade_entry, ())):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(*args)
