@@ -138,6 +138,40 @@ Phases, one or more printed lines each:
    K5 once per call, C bit for bit against ``spspmm_eager`` on the same
    arrays, sampled rows against scipy in f64.
 
+10a. Toy sampling on ``sample_entry``'s graph, card vs CPU: the host
+   sampler with one seed, ``saint_subgraph``, ``partition`` and RCM equal,
+   ``sample_adj_padded``, ``random_walk`` and ``sample_neighbors`` equal when
+   fed the same uniforms, ``sample`` and ``random_walk`` on the card's own
+   generator structurally right; then ``spmm_seg``, ``spmm_sell`` and
+   ``spmm_chunked`` toys (forward and grads) and ``backend="sell"``.
+10b. Minibatch sampling at ogbn-products scale (phase 4's graph as PyG's
+   ``NeighborSampler`` holds it, edge ids as values): 1,024 random seeds,
+   fanouts 15, 10, 5 hop by hop through ``sample_adj`` (the host runtime):
+   per hop the first and 3 warm calls' ms, node and edge counts, structural
+   checks (``min(deg, F)`` distinct edges of each seed, ``n_id`` seeds first
+   and unique, each column the local id of its edge's column), and
+   ``adj_h @ x[n_id_h]`` at K=100 on K1 (one launch, sampled rows vs f64);
+   then ``ops.sample.sample_adj_padded`` (F = 15, without and with
+   replacement) and ``sample_neighbors`` for the same seeds, ms and checks.
+10c. ``random_walk`` from every node (length 20): ms, walks/s, every step an
+   edge; OGB's products GraphSAINT random-walk sampler (20,000 roots, length
+   3, ``saint_subgraph`` of their nodes): ms, sampled rows vs scipy;
+   ``reverse_cuthill_mckee``: seconds, a valid permutation, bandwidth before
+   and after; ``partition`` with 15,000 parts (OGB's products
+   ClusterGCN), started after those timings in a thread beside 10d (the
+   host runtime lets go of the interpreter lock; it must return after
+   10d's last timed call): seconds, ``partptr`` and ``perm`` on the card,
+   ``partptr`` sums to N, ``out`` equals ``permute(perm)``, edge cut of
+   the returned parts beside a random partition's.
+10d. The three plan-holding SpMM entry points on phase 4's graph at K=256,
+   f32: ``spmm_chunked``, ``spmm_seg``, ``backend="sell"`` (COO values)
+   and ``spmm_sell`` with its ``(32, ng)`` value grid as the leaf, each in
+   turns with ``spmm_csr`` (csr, path, path, csr): plan seconds, forward and
+   forward+backward ms, peak memory, exact launches (K1 1 per forward, K1 2
+   and K2 1 per forward+backward; seg: spans 1 / 2 and span SDDMM 1), and
+   sampled rows, ``d value`` and ``d x`` against f64; the grid's ``d
+   value`` 0 at every pad slot.
+
 Every kernel in the JSON line carries its time, launches, plain time,
 bound (the larger of the bytes each input and output moves once over
 3.35 TB/s and its f32 operations over 67 TFLOP/s; ``gather_bound_ms`` is
@@ -1743,11 +1777,11 @@ def _grads(leaves):
             else leaves.grad)
 
 
-def phase7b_toy(dev):
-    """``spmm_entry`` for each backend: forward and grads, card vs CPU."""
-    from paddle_sparse_tpu_torch import SPMM_BACKENDS, spmm_entry
-    for backend in SPMM_BACKENDS:
-        fn = _packed_fns(backend)[2]
+def toy_spmm(dev, phase, fns):
+    """``spmm_entry`` for each backend of ``fns`` (backend -> SpMM entry
+    point): forward and grads, card vs CPU."""
+    from paddle_sparse_tpu_torch import spmm_entry
+    for backend, fn in fns.items():
         runs = {}
         for where in (dev, "cpu"):
             plan, s, packed, x = spmm_entry(backend, where)
@@ -1764,10 +1798,16 @@ def phase7b_toy(dev):
                   for a, b in zip(runs[str(dev)], runs["cpu"]))
         ok = all(torch.allclose(a, b, **F32_TOL)
                  for a, b in zip(runs[str(dev)], runs["cpu"]))
-        print(f"phase 7b toy {backend}, 256 nodes, K=32: forward, d packed "
-              f"and d x cuda vs cpu max_abs_err {err:.3e} "
+        print(f"phase {phase} toy {backend}, 256 nodes, K=32: forward, d "
+              f"packed and d x cuda vs cpu max_abs_err {err:.3e} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"toy {backend} on the card disagrees with the CPU")
+
+
+def phase7b_toy(dev):
+    """The packed SpMMs' toys (seg2, seg3, split): card vs CPU."""
+    toy_spmm(dev, "7b", {b: _packed_fns(b)[2]
+                         for b in ("seg2", "seg3", "seg2split")})
 
 
 def bench_graph(dev, kind, scale, dim):
@@ -1817,7 +1857,7 @@ def _sub_csr(rowptr, rows):
 
 
 def check_packed_grads(name, row, col, val, x, gw, out, d_val, d_x, pdt,
-                       rowptr):
+                       rowptr, phase="7c"):
     """Sampled rows of ``out``, edges of ``d value`` (COO order) and
     columns of ``d x`` against f64, each within GRAD_REL of the sum of
     |terms| of its entry; sources rounded to ``pdt`` as the port gathers
@@ -1850,7 +1890,7 @@ def check_packed_grads(name, row, col, val, x, gw, out, d_val, d_x, pdt,
     sc_x = torch.zeros_like(ref_x).index_add_(0, eslot, t.abs())
     err_x, ok_x = _grad_close(d_x[cols], ref_x, sc_x)
     ok = ok_o and ok_v and ok_x
-    print(f"phase 7c {name}: {rows.numel()} sampled rows ({edge.numel()} "
+    print(f"phase {phase} {name}: {rows.numel()} sampled rows ({edge.numel()} "
           f"edges, the longest row among them) max_abs_err {err_o:.3e}; "
           f"d value on {SAMPLED_EDGES} edges {err_v:.3e}; d x on "
           f"{SAMPLED_COLS} columns ({edges.numel()} edges) {err_x:.3e}; vs "
@@ -3183,6 +3223,578 @@ def phase9d_a_at_a(dev, card):
             "rows_max_abs_err": err, "launches": counts}
 
 
+# ---- phase 10: sampling, walks, partitioning, the plan-holding SpMMs ------
+
+SAMPLE_SEEDS = 1024                     # PyG ogbn_products_sage.py's batch
+SAMPLE_SIZES = (15, 10, 5)              # its NeighborSampler fanouts
+PADDED_FANOUT = 15
+WALK_LENGTH = 20
+SAINT_ROOTS, SAINT_WALK = 20_000, 3     # OGB products graph_saint.py
+CLUSTER_PARTS = 15_000                  # OGB products cluster_gcn.py
+SELL_GRID_G = 32                        # 10d grid block: 14 pads per row
+ENTRY_K = 256
+
+
+def _steps_are_edges(rowptr, col, walks):
+    """Every step ``(u, v)`` of ``walks`` is an entry of the (host) CSR, or
+    a repeat of a node of degree 0."""
+    import numpy as np
+    for w in walks:
+        for u, v in zip(w[:-1], w[1:]):
+            nbrs = col[rowptr[u]:rowptr[u + 1]]
+            if not (np.isin(v, nbrs) or (nbrs.size == 0 and v == u)):
+                return False
+    return True
+
+
+def phase10a_toy(dev):
+    """``sample_entry`` on the card against the CPU: the host sampler with
+    one seed, ``saint_subgraph``, ``partition`` and RCM equal; the device
+    samplers and walks equal when fed the same uniforms; the public
+    ``sample`` and ``random_walk`` (each device's own generator) pass the
+    structural checks. Then ``spmm_seg``, ``spmm_sell`` and ``spmm_chunked``
+    forward and grads card vs CPU, and ``backend="sell"`` of
+    ``PaddedCOO.spmm`` equal to ``"auto"`` bit for bit on the card."""
+    import numpy as np
+    import paddle_sparse_tpu_torch as p
+    from paddle_sparse_tpu_torch.ops import sample as ops_sample
+    runs = {}
+    for where in (dev, "cpu"):
+        adj, seeds = p.sample_entry(where)
+        p.seed(3)
+        sub, n_id = p.sample_adj(adj, seeds, 5)
+        sg, e_id = p.saint_subgraph(adj, seeds)
+        out, partptr, perm = p.partition(adj, 8)
+        rcm = p.reverse_cuthill_mckee(adj)
+        rowptr, col, _ = adj.csr()
+        g = torch.Generator().manual_seed(5)
+        u_rep = torch.rand(16, 4, generator=g).to(where)
+        prio = torch.rand(int((rowptr[seeds + 1] - rowptr[seeds]).sum()),
+                          generator=g).to(where)
+        u_walk = torch.rand(6, 16, generator=g).to(where)
+        u_nb = torch.rand(16, 4, generator=g).to(where)
+        padded = [ops_sample._sample_adj_padded(rowptr, col, seeds, 4, r, u)
+                  for r, u in ((True, u_rep), (False, prio))]
+        exact = [*sub.coo(), n_id, *sg.coo(), e_id, *out.coo(), partptr,
+                 perm, rcm, ops_sample._random_walk(rowptr, col, seeds,
+                                                    u_walk),
+                 ops_sample._sample_neighbors(rowptr, col, u_nb, seeds),
+                 *[f for pa in padded for f in pa]]
+        walks = p.random_walk(adj, seeds, 4)
+        drawn = p.sample(adj, 3, seeds)
+        check(walks.device == out.device() == drawn.device,
+              "toy sampling: a result left the tensor's device")
+        runs[str(where)] = ([t.cpu() for t in exact], walks.cpu().numpy(),
+                            drawn.cpu().numpy(), seeds.cpu().numpy(),
+                            rowptr.cpu().numpy(), col.cpu().numpy())
+    card, host = runs[str(dev)], runs["cpu"]
+    same = all(torch.equal(a, b) for a, b in zip(card[0], host[0]))
+    _, walks, drawn, seeds, rowptr, col = card
+    ok_walk = _steps_are_edges(rowptr, col, walks)
+    ok_draw = all(np.isin(d, col[rowptr[s]:rowptr[s + 1]]).all()
+                  for s, d in zip(seeds, drawn))
+    print(f"phase 10a toy sampling (256 nodes, 16 seeds): sample_adj (host "
+          f"runtime, one seed), saint_subgraph, partition, RCM, and "
+          f"sample_adj_padded / random_walk / sample_neighbors fed the same "
+          f"uniforms: {len(card[0])} arrays cuda vs cpu equal {same}; "
+          f"random_walk and sample on the card's generator: every step an "
+          f"edge {ok_walk}, every draw a neighbour {ok_draw}", flush=True)
+    check(same, "toy sampling: the card disagrees with the CPU")
+    check(ok_walk and ok_draw, "toy sampling: a walk step or draw on the "
+                               "card is not an edge")
+    toy_spmm(dev, "10a", {"seg": p.spmm_seg, "sell": p.spmm_sell,
+                          "chunked": p.spmm_chunked})
+    adj = p.entry(dev)[1]
+    x = torch.randn(256, 32, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    same = torch.equal(adj.spmm(x, backend="sell"), adj.spmm(x))
+    print(f"phase 10a toy PaddedCOO.spmm(backend='sell') equal to 'auto' bit "
+          f"for bit {same}", flush=True)
+    check(same, "backend='sell' differs from 'auto' on the card")
+
+
+def sampling_graph(dev):
+    """Phase 4's graph (:func:`products_graph`, the same seed) as PyG's
+    ``NeighborSampler`` holds it: ``SparseTensor(row, col, value=arange(E))``
+    with int64 indices, so sampled values are edge ids; and the generator's
+    row, col (int64), U(0,1) values and features (K=100), in its order."""
+    from paddle_sparse_tpu_torch import SparseTensor
+    P, x = products_graph(dev)
+    n, nnz = P.shape[0], P.nnz
+    row, col, val = P.row.long(), P.col.long(), P.value
+    del P
+    adj = SparseTensor(row=row, col=col,
+                       value=torch.arange(nnz, device=dev),
+                       sparse_sizes=(n, n))
+    return adj, row, col, val, x
+
+
+def _check_hop(sub, n_id, subset, F, row, col, deg, nnz):
+    """A hop of ``sample_adj`` on the edge-id tracker: each seed row holds
+    ``min(deg, F)`` distinct edges of its seed (``row[e]``), each column is
+    the local id of ``col[e]``, and ``n_id`` starts with the seeds and is
+    unique."""
+    S = subset.numel()
+    ptr = sub.storage.rowptr()
+    cnt = ptr[1:] - ptr[:-1]
+    e = sub.storage.value()
+    seed_of = torch.repeat_interleave(torch.arange(S, device=e.device), cnt)
+    key = seed_of * nnz + e
+    return {"counts": torch.equal(cnt, deg[subset].clamp(max=F)),
+            "rows": torch.equal(row[e], subset[seed_of]),
+            "cols": torch.equal(col[e], n_id[sub.storage.col()]),
+            "distinct": key.unique().numel() == key.numel(),
+            "n_id": (torch.equal(n_id[:S], subset)
+                     and n_id.unique().numel() == n_id.numel())}
+
+
+def phase10b_minibatch(dev, card, adj, row, col, val, x):
+    """PyG's ogbn-products GraphSAGE NeighborSampler: 1,024 random seeds,
+    fanouts 15, 10, 5 hop by hop through ``sample_adj`` (the host runtime;
+    each hop's subset is the previous hop's ``n_id``): per hop the first
+    call (hop 1's builds the host CSR) and 3 warm calls, node and edge
+    counts, the structural checks, and ``adj_h @ x[n_id_h]`` at K=100 on K1
+    (exact launches, sampled rows against f64). Then
+    ``ops.sample.sample_adj_padded`` (F = 15, without and with replacement)
+    and ``sample_neighbors`` for the same seeds on the card."""
+    import numpy as np
+    from paddle_sparse_tpu_torch import (runtime, sample_adj,
+                                         spmm_csr_reference)
+    from paddle_sparse_tpu_torch.ops.sample import (SENTINEL,
+                                                    sample_adj_padded,
+                                                    sample_neighbors)
+    n, nnz = adj.size(0), adj.nnz()
+    rowptr = adj.storage.rowptr()
+    deg = rowptr[1:] - rowptr[:-1]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    seeds = torch.randperm(n, generator=gen, device=dev)[:SAMPLE_SEEDS]
+    subset, res = seeds, {"hops": []}
+    for hop, F in enumerate(SAMPLE_SIZES, 1):
+        times = []
+        for _ in range(4):
+            ms, (sub, n_id) = _host_ms(lambda: sample_adj(adj, subset, F))
+            times.append(ms)
+        ok = _check_hop(sub, n_id, subset, F, row, col, deg, nnz)
+        # the host runtime's call alone, on the cached host CSR
+        rp_h, col_h = adj.storage.host_csr()
+        sub_h = subset.cpu().numpy()
+        native = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            runtime.sample_adj(rp_h, col_h, sub_h, F, False, 7)
+            native.append((time.perf_counter() - t0) * 1e3)
+        # the hop's propagation as SAGEConv runs it, on K1
+        sub_v = sub.set_value(val[sub.storage.value()], layout="coo")
+        xs = x[n_id]
+        _zero_launch_counts()
+        with torch.inference_mode():
+            out = sub_v @ xs
+        counts = _launch_counts()
+        torch.cuda.synchronize()
+        srp, scol, sval = sub_v.csr()
+        rows = sampled_rows(srp, FACADE_ROWS)
+        edge, sub_ptr = _sub_csr(srp, rows)
+        terms_v = sval[edge].double()
+        ref = spmm_csr_reference(sub_ptr, scol[edge], terms_v,
+                                 xs.double())
+        scale = spmm_csr_reference(sub_ptr, scol[edge], terms_v.abs(),
+                                   xs.double().abs())
+        err, ok_out = _grad_close(out[rows], ref, scale)
+        print(f"phase 10b hop {hop} (fanout {F}): {subset.numel()} seeds -> "
+              f"{sub.nnz()} edges, {n_id.numel()} nodes; sample_adj ms first "
+              f"{times[0]:.3f}, warm {' '.join(f'{t:.3f}' for t in times[1:])}"
+              f" (the host runtime's call alone "
+              f"{' '.join(f'{t:.3f}' for t in native)}); checks {ok}; "
+              f"adj_h @ x[n_id_h] (K={x.shape[1]}) launches "
+              f"{counts}, {rows.numel()} sampled rows vs f64 max_abs_err "
+              f"{err:.3e} {'ok' if ok_out else 'FAIL'} {card}", flush=True)
+        check(all(ok.values()), f"hop {hop}: sampled subgraph fails {ok}")
+        check(ok_out, f"hop {hop}: adj_h @ x disagrees with f64")
+        check(counts["spmm_csr"] == 1 and sum(counts.values()) == 1,
+              f"hop {hop}: expected one K1 launch, counted {counts}")
+        res["hops"].append({"fanout": F, "seeds": subset.numel(),
+                            "edges": sub.nnz(), "nodes": n_id.numel(),
+                            "first_ms": times[0],
+                            "warm_ms": sum(times[1:]) / 3,
+                            "native_ms": sum(native) / 3,
+                            "rows_max_abs_err": err, "launches": counts})
+        subset = n_id
+        del sub, sub_v, xs, out
+
+    rowptr_c, col_c, _ = adj.csr()
+    S = seeds.numel()
+    for replace in (False, True):
+        g = torch.Generator(device=dev).manual_seed(11)
+        ms, times, out = _host_runs(lambda: sample_adj_padded(
+            rowptr_c, col_c, seeds, PADDED_FANOUT, replace, g))
+        cnt = out.rowptr[1:] - out.rowptr[:-1]
+        valid = out.edge_mask
+        e, loc = out.e_id[valid], out.col[valid]
+        seed_of = torch.repeat_interleave(torch.arange(S, device=dev), cnt)
+        s_rows = seeds[seed_of]
+        key = seed_of * nnz + e
+        k = int(out.num_nodes)
+        want = (torch.where(deg[seeds] > 0, PADDED_FANOUT, 0) if replace
+                else deg[seeds].clamp(max=PADDED_FANOUT))
+        ok = {"counts": torch.equal(cnt, want),
+              "rows": bool(((e >= rowptr_c[s_rows])
+                            & (e < rowptr_c[s_rows + 1])).all()),
+              "cols": torch.equal(col_c[e], out.n_id[loc]),
+              "distinct": replace or key.unique().numel() == key.numel(),
+              "n_id": (torch.equal(out.n_id[:S], seeds)
+                       and out.n_id[:k].unique().numel() == k
+                       and bool((out.n_id[k:] == SENTINEL).all()))}
+        mode = "replace" if replace else "distinct"
+        print(f"phase 10b sample_adj_padded (F={PADDED_FANOUT}, {mode}): "
+              f"{int(out.num_edges)} edges, {k} nodes; ms "
+              f"{' '.join(f'{t:.3f}' for t in times)} (mean {ms:.3f}); "
+              f"checks {ok} {card}", flush=True)
+        check(all(ok.values()), f"sample_adj_padded {mode} fails {ok}")
+        res[f"padded_{mode}_ms"] = ms
+    g = torch.Generator(device=dev).manual_seed(12)
+    ms, times, drawn = _host_runs(lambda: sample_neighbors(
+        rowptr_c, col_c, g, PADDED_FANOUT, seeds))
+    rp_h, col_h = adj.storage.host_csr()
+    ok = all(np.isin(d, col_h[rp_h[s]:rp_h[s + 1]]).all()
+             for s, d in zip(seeds.cpu().numpy(), drawn.cpu().numpy()))
+    print(f"phase 10b sample_neighbors (F={PADDED_FANOUT}): ms "
+          f"{' '.join(f'{t:.3f}' for t in times)} (mean {ms:.3f}); every "
+          f"draw a neighbour of its seed {ok} {card}", flush=True)
+    check(ok, "sample_neighbors drew a non-neighbour")
+    res["neighbors_ms"] = ms
+    return res
+
+
+def phase10c_walks(dev, card, adj_f):
+    """``random_walk`` from every node (length 20): ms, walks per second,
+    every step an edge (a sorted (row, col) key searched on the card). Then
+    OGB's products GraphSAINT random-walk sampler: 20,000 roots, walks of
+    length 3, their unique nodes into ``saint_subgraph``: ms, and sampled
+    rows against scipy."""
+    import numpy as np
+    import scipy.sparse as sp
+    from paddle_sparse_tpu_torch import random_walk, saint_subgraph
+    n = adj_f.size(0)
+    starts = torch.arange(n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    ms, times, walks = _host_runs(
+        lambda: random_walk(adj_f, starts, WALK_LENGTH, gen))
+    rowptr = adj_f.storage.rowptr()
+    deg = rowptr[1:] - rowptr[:-1]
+    key = adj_f.storage.row() * n + adj_f.storage.col()
+    bad = 0
+    for t in range(WALK_LENGTH):
+        u, v = walks[:, t], walks[:, t + 1]
+        q = u * n + v
+        pos = torch.searchsorted(key, q).clamp(max=key.numel() - 1)
+        bad += int((~((key[pos] == q) | ((deg[u] == 0) & (v == u)))).sum())
+    del key
+    ok = bad == 0 and torch.equal(walks[:, 0], starts)
+    print(f"phase 10c random_walk from all {n} nodes, length {WALK_LENGTH}: "
+          f"ms {' '.join(f'{t:.3f}' for t in times)} (mean {ms:.3f}, "
+          f"{n / ms * 1e3:.4g} walks/s, {n * WALK_LENGTH / ms * 1e3:.4g} "
+          f"steps/s); steps not an edge: {bad} {card}", flush=True)
+    check(ok, f"random_walk: {bad} steps are not edges")
+    res = {"walk_ms": ms, "walks_per_s": n / ms * 1e3}
+
+    def saint_step():
+        roots = torch.randint(0, n, (SAINT_ROOTS,), generator=gen,
+                              device=dev)
+        node_idx = random_walk(adj_f, roots, SAINT_WALK, gen).flatten() \
+            .unique()
+        return (node_idx, *saint_subgraph(adj_f, node_idx))
+    ms, times, (node_idx, sub, e_id) = _host_runs(saint_step)
+    rp, col, val = adj_f.csr()
+    a = sp.csr_matrix((val.cpu().numpy(), col.cpu().numpy(),
+                       rp.cpu().numpy()), shape=(n, n))
+    nid = node_idx.cpu().numpy()
+    srp, scol, sval = sub.csr()
+    rows = sampled_rows(srp, FACADE_ROWS)
+    r = rows.cpu().numpy()
+    want = a[nid[r]]
+    wr = np.repeat(np.arange(r.size), np.diff(want.indptr))
+    keep = np.isin(want.indices, nid)
+    w_ptr = np.concatenate([[0], np.cumsum(np.bincount(wr[keep],
+                                                       minlength=r.size))])
+    edge, sub_ptr = _sub_csr(srp, rows)
+    ok = (np.array_equal(sub_ptr.cpu().numpy(), w_ptr)
+          and np.array_equal(scol[edge].cpu().numpy(),
+                             np.searchsorted(nid, want.indices[keep]))
+          and np.array_equal(sval[edge].cpu().numpy(), want.data[keep])
+          and torch.equal(sval, val[e_id.long()]))
+    print(f"phase 10c GraphSAINT random-walk sampler ({SAINT_ROOTS} roots, "
+          f"walk length {SAINT_WALK}): {nid.size} nodes, {sub.nnz()} edges; "
+          f"ms (walks + unique + saint_subgraph) "
+          f"{' '.join(f'{t:.3f}' for t in times)} (mean {ms:.3f}); "
+          f"{r.size} sampled rows ({edge.numel()} entries) equal to scipy's "
+          f"{ok} {card}", flush=True)
+    check(ok, "saint_subgraph disagrees with scipy on sampled rows")
+    res["saint_ms"] = ms
+    del a, sub, walks
+    return res
+
+
+def phase10c_rcm(dev, card, adj_f):
+    """``reverse_cuthill_mckee`` (``to_symmetric`` on the card, the host
+    runtime's RCM): seconds, a valid permutation, bandwidth before and
+    after."""
+    from paddle_sparse_tpu_torch import reverse_cuthill_mckee
+    n = adj_f.size(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    perm = reverse_cuthill_mckee(adj_f)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    valid = torch.equal(perm.sort().values, torch.arange(n, device=dev))
+    before, after = adj_f.bandwidth(), adj_f.permute(perm).bandwidth()
+    print(f"phase 10c reverse_cuthill_mckee: {secs:.3f} s (symmetrize on the "
+          f"card, host copy, host runtime); valid permutation {valid}; "
+          f"bandwidth {before} -> {after} {card}", flush=True)
+    check(valid, "RCM did not return a permutation")
+    torch.cuda.empty_cache()
+    return {"rcm_s": secs, "bandwidth": [before, after]}
+
+
+def partition_in_thread(adj_f):
+    """``partition(adj_f, 15000)``, the entry point, in a thread, so that its
+    host clustering (the C++ runtime, from the cached host CSR) runs beside
+    phase 10d's card work: ctypes lets go of the interpreter lock during
+    the call. Started after every timed host section of phase 10. Returns
+    the thread and the dict it fills with ``partition``'s return, its
+    seconds and the clock when it returned, or the exception."""
+    import importlib
+    import threading
+    part_mod = importlib.import_module("paddle_sparse_tpu_torch.partition")
+    adj_f.storage.host_csr()            # the one device read, here
+    box = {}
+
+    def run():
+        try:
+            t0 = time.perf_counter()
+            box["result"] = part_mod.partition(adj_f, CLUSTER_PARTS)
+            torch.cuda.synchronize()
+            box["done"] = time.perf_counter()
+            box["s"] = box["done"] - t0
+        except BaseException as e:      # re-raised by the main thread
+            box["error"] = e
+    th = threading.Thread(target=run, name="partition")
+    th.start()
+    return th, box
+
+
+def phase10c_partition(dev, card, adj_f, th, box, after_s):
+    """OGB's products ClusterGCN setting, 15,000 parts, from the thread's
+    ``partition`` call: ``partptr`` on the card, non-decreasing and summing
+    to N; ``perm`` a permutation on the card; ``out`` equal to
+    ``adj_f.permute(perm)``; the edge cut of the parts (cluster ids read
+    from ``partptr``/``perm``) beside a random partition's. ``after_s`` is
+    the clock when phase 10d's last timed call ended: ``partition`` must
+    return after it, so that its card work overlapped no timing."""
+    import importlib
+    part_mod = importlib.import_module("paddle_sparse_tpu_torch.partition")
+    th.join()
+    if "error" in box:
+        raise box["error"]
+    out, partptr, perm = box["result"]
+    n = adj_f.size(0)
+    idx = adj_f.storage.col()
+    sizes = partptr[1:] - partptr[:-1]
+    cluster = torch.empty(n, dtype=torch.long, device=dev)
+    cluster[perm.long()] = torch.repeat_interleave(
+        torch.arange(CLUSTER_PARTS, device=dev), sizes.long())
+    want = adj_f.permute(perm)
+    ok = {"on_card": all(a.device == idx.device and a.dtype == idx.dtype
+                         for a in (partptr, perm)),
+          "partptr": (partptr.numel() == CLUSTER_PARTS + 1
+                      and int(partptr[0]) == 0 and int(partptr[-1]) == n
+                      and bool((sizes >= 0).all())),
+          "perm": torch.equal(perm.sort().values,
+                              torch.arange(n, device=dev, dtype=perm.dtype)),
+          "out": (out.sparse_sizes() == adj_f.sparse_sizes()
+                  and all(torch.equal(a, b) for a, b in zip(
+                      (out.storage.row(), out.storage.col(),
+                       out.storage.value()),
+                      (want.storage.row(), want.storage.col(),
+                       want.storage.value())))),
+          "after_10d": box["done"] > after_s}
+    del want
+    cut = part_mod.edge_cut_fraction(adj_f, cluster)
+    rnd = part_mod.random_cut_fraction(cluster)
+    print(f"phase 10c partition ({CLUSTER_PARTS} parts): partition() "
+          f"{box['s']:.3f} s (host clustering + argsort + permute on the "
+          f"card, in a thread beside phase 10d, returned "
+          f"{box['done'] - after_s:.3f} s after 10d's last timed call); part "
+          f"sizes {int(sizes.min())}..{int(sizes.max())}; checks {ok}; edge "
+          f"cut {cut:.4f} vs random {rnd:.4f} {card}", flush=True)
+    check(all(ok.values()), f"partition: checks {ok}")
+    return {"partition_s": box["s"], "edge_cut": cut, "random_cut": rnd}
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _entry_block(fn, leaf, x, gw, reps=3):
+    """1 warm-up + ``reps`` forwards (inference mode) and forward+backwards
+    of ``fn(leaf, x)``: every ms, the launches of the forwards and of the
+    forward+backwards (each zeroed just before), peak memory, the last
+    output and the grads of the leaf and ``x``."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    fwd, fb = [], []
+    with torch.inference_mode():
+        for _ in range(reps + 1):
+            fwd.append(_host_ms(lambda: fn(leaf, x))[0])
+    counts_fwd = _launch_counts()
+    _zero_launch_counts()
+    v, xx = leaf.detach().requires_grad_(), x.detach().requires_grad_()
+
+    def step():
+        v.grad = xx.grad = None
+        o = fn(v, xx)
+        o.backward(gw)
+        return o
+    for _ in range(reps + 1):
+        ms, out = _host_ms(step)
+        fb.append(ms)
+    return {"fwd": fwd, "fwd_bwd": fb, "counts_fwd": counts_fwd,
+            "counts": _launch_counts(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "out": out.detach(), "d_leaf": v.grad, "d_x": xx.grad}
+
+
+def phase10d_entry_points(dev, card):
+    """Phase 4's graph at K=256, f32: ``spmm_chunked`` (its plan),
+    ``spmm_seg``, ``backend="sell"`` (``spmm_coo``, its plan cached on the
+    first call, COO values) and ``spmm_sell`` with the ``(G, ng)`` value
+    grid as the leaf (``d value`` back in the grid, 0 at every pad slot),
+    each in turns with ``spmm_csr`` on the same graph (csr, path, path,
+    csr): plan seconds, forward and forward+backward ms, peak memory, exact
+    launches, sampled rows, ``d value`` and ``d x`` against f64 (as phase
+    7c checks them). Returns the stats and the clock after the last timed
+    call."""
+    import paddle_sparse_tpu_torch as p
+    from paddle_sparse_tpu_torch.ops import spmm as spmm_mod
+    from paddle_sparse_tpu_torch.ops import spmm_seg as seg_mod
+    from paddle_sparse_tpu_torch.ops import spmm_sell as sell_mod
+    P, _ = products_graph(dev)
+    n = P.shape[0]
+    row, col, val = P.row, P.col, P.value
+    rowptr = P.rowptr()
+    del P
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn(n, ENTRY_K, generator=g, device=dev)
+    gw = torch.randn(n, ENTRY_K, generator=g, device=dev)
+
+    def csr_fn(v, xx):
+        return p.spmm_csr(rowptr, col, v, xx)
+
+    def plan_chunked():
+        plan, s = p.make_spmm_plan(row, col, n, n, ENTRY_K)
+        return (lambda v, xx: p.spmm_chunked(plan, s, v, xx)), val, None
+
+    def plan_seg():
+        plan, s = seg_mod.make_seg_plan(row, col, n, n, feat_dim=ENTRY_K)
+        desc = (f"CR={plan.rows_per_block} S={plan.num_segments} "
+                f"S_t={plan.num_segments_t}")
+        return ((lambda v, xx: seg_mod.spmm_seg(plan, s, v, xx)),
+                seg_mod.pack_values(s, val),
+                (lambda d: seg_mod.unpack_values(s, d), desc, None))
+
+    def grid_desc(plan, s):
+        pads = (s.eid < 0).reshape(-1, plan.group).T    # the grid's layout
+        return pads, (f"G={plan.group}, grid {tuple(pads.shape)}, "
+                      f"{int(pads.sum())} pad slots")
+
+    def plan_sell():
+        plan, s = spmm_mod._cached_sell_plan(row, col, n, n, ENTRY_K)
+        return ((lambda v, xx: p.spmm_coo(row, col, v, xx, n,
+                                          backend="sell")), val,
+                (None, grid_desc(plan, s)[1], None))
+
+    def plan_sell_grid():
+        # G=32, the smallest group JAX's pick weighs: "auto" picks G=50 on
+        # this degree-50 graph and leaves no pad slot to check
+        plan, s = sell_mod.make_sell_plan(row, col, n, n, group=SELL_GRID_G)
+        grid = sell_mod.pad_values(s, val, group=plan.group)
+        pads, desc = grid_desc(plan, s)
+        return ((lambda v, xx: sell_mod.spmm_sell(plan, s, v, xx)), grid,
+                (lambda d: sell_mod.unpad_values(s, d, group=plan.group),
+                 desc + " (plan + pad_values)", pads))
+
+    # per block: 4 forwards, then 4 forward+backwards
+    k1 = ({"spmm_csr": 4}, {"spmm_csr": 8, "sddmm_csr": 4})
+    want_path = {"chunked": k1, "sell": k1, "sell_grid": k1,
+                 "seg": ({"spmm_spans": 4},
+                         {"spmm_spans": 8, "sddmm_spans": 4})}
+    res = {}
+    for name, make in (("chunked", plan_chunked), ("seg", plan_seg),
+                       ("sell", plan_sell), ("sell_grid", plan_sell_grid)):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn, leaf, extra = make()
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        unpack, desc, pads = extra or (None, "", None)
+        blocks = [_entry_block(f, lf, x, gw) for f, lf in (
+            (csr_fn, val), (fn, leaf), (fn, leaf), (csr_fn, val))]
+        timed_until = time.perf_counter()
+        csr_b, path_b = (blocks[0], blocks[3]), (blocks[1], blocks[2])
+
+        def mean(bs, part):
+            return sum(sum(b[part][1:]) / 3 for b in bs) / len(bs)
+        stats = {"plan_s": plan_s, "fwd_ms": mean(path_b, "fwd"),
+                 "fwd_bwd_ms": mean(path_b, "fwd_bwd"),
+                 "csr_fwd_ms": mean(csr_b, "fwd"),
+                 "csr_fwd_bwd_ms": mean(csr_b, "fwd_bwd"),
+                 "peak_gb": max(b["peak_gb"] for b in path_b),
+                 "csr_peak_gb": max(b["peak_gb"] for b in csr_b),
+                 "launches_fwd": path_b[0]["counts_fwd"],
+                 "launches": path_b[0]["counts"]}
+        print(f"phase 10d {name} (K={ENTRY_K}, f32, {row.numel()} nnz): plan "
+              f"{plan_s:.3f} s {desc}; in turns csr, {name}, {name}, csr: "
+              + "; ".join(
+                  f"{lbl} forward ms {' '.join(f'{t:.3f}' for t in b['fwd'])}"
+                  f", forward+backward ms "
+                  f"{' '.join(f'{t:.3f}' for t in b['fwd_bwd'])}, peak "
+                  f"{b['peak_gb']:.2f} GB"
+                  for lbl, b in zip(("csr", name, name, "csr"), blocks))
+              + f"; means (after each warm-up) {name} {stats['fwd_ms']:.3f} / "
+              f"{stats['fwd_bwd_ms']:.3f} ms vs spmm_csr "
+              f"{stats['csr_fwd_ms']:.3f} / {stats['csr_fwd_bwd_ms']:.3f} ms; "
+              f"launches in 4 forwards / 4 forward+backwards: " + "; ".join(
+                  f"{lbl} {_nonzero(b['counts_fwd'])} / "
+                  f"{_nonzero(b['counts'])}"
+                  for lbl, b in zip(("csr", name, name, "csr"), blocks))
+              + f" {card}", flush=True)
+        for lbl, want, bs in ((name, want_path[name], path_b),
+                              ("spmm_csr", k1, csr_b)):
+            for b in bs:
+                got = (b["counts_fwd"], b["counts"])
+                check(all(g[k] == w.get(k, 0) for g, w in zip(got, want)
+                          for k in g),
+                      f"{lbl}: expected launches {want} in 4 forwards / 4 "
+                      f"forward+backwards, counted {got}")
+        last = path_b[1]
+        d_val = unpack(last["d_leaf"]) if unpack else last["d_leaf"]
+        check_packed_grads(name, row, col, val, x, gw, last["out"], d_val,
+                           last["d_x"], torch.float32, rowptr, phase="10d")
+        if pads is not None:
+            pad_grad = float(last["d_leaf"][pads].abs().max()) \
+                if bool(pads.any()) else 0.0
+            print(f"phase 10d {name}: d value in the grid "
+                  f"{tuple(last['d_leaf'].shape)}, max |grad| over "
+                  f"{int(pads.sum())} pad slots {pad_grad} {card}",
+                  flush=True)
+            check(pad_grad == 0.0, f"{name}: pad slots got a gradient")
+        res[name] = stats
+        del fn, leaf, extra, blocks, csr_b, path_b, last, d_val, pads
+        spmm_mod._SELL_CACHE.clear()
+    return res, timed_until
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible "
@@ -3295,6 +3907,37 @@ def main() -> int:
          "gcn_forward_ms_phase4": fwd["fwd_ms"],
          "gcn_train_step_ms_phase5": train["step_ms"]}), flush=True)
 
+    # ---- phase 10: sampling, walks, partitioning, plan-holding SpMMs -----
+    phase10a_toy(dev)
+    stamp("phase 10a")
+    adj, row, col, val, x = sampling_graph(dev)
+    minibatch = phase10b_minibatch(dev, card, adj, row, col, val, x)
+    adj_f = adj.set_value(val[adj.storage.value()], layout="coo")
+    del adj, row, col, val, x
+    torch.cuda.empty_cache()
+    stamp("phase 10b")
+    sampling = {"minibatch": minibatch, **phase10c_walks(dev, card, adj_f),
+                **phase10c_rcm(dev, card, adj_f)}
+    stamp("phase 10c's walks, GraphSAINT and RCM")
+    th, box = partition_in_thread(adj_f)
+    entry_points, timed_until = phase10d_entry_points(dev, card)
+    stamp("phase 10d")
+    sampling.update(phase10c_partition(dev, card, adj_f, th, box,
+                                       timed_until))
+    del adj_f
+    torch.cuda.empty_cache()
+    stamp("phase 10")
+    print("phase 10 summary " + json.dumps(
+        {"sampling": {k: v for k, v in sampling.items()
+                      if k != "minibatch"},
+         "minibatch_hops": [{k: v for k, v in h.items() if k != "launches"}
+                            for h in minibatch["hops"]],
+         "minibatch_padded_ms": {k: v for k, v in minibatch.items()
+                                 if k != "hops"},
+         "entry_points": {k: {m: v for m, v in st.items()
+                              if not m.startswith("launches")}
+                          for k, st in entry_points.items()}}), flush=True)
+
     launches = {"gcn_forward": fwd["counts"],
                 "gcn_train_step": train["counts"],
                 **{p: v["launches"] for p, v in spgemm.items()},
@@ -3304,7 +3947,13 @@ def main() -> int:
                    for k, v in models.items()
                    for part in ("forward", "train_step")},
                 **facade["launches"],
-                "facade_a_at_a": facade["a_at_a_10M"]["launches"]}
+                "facade_a_at_a": facade["a_at_a_10M"]["launches"],
+                **{f"sample_hop{i}_k1": h["launches"]
+                   for i, h in enumerate(minibatch["hops"], 1)},
+                **{f"{k}_4_fwd": v["launches_fwd"]
+                   for k, v in entry_points.items()},
+                **{f"{k}_4_fwd_bwd": v["launches"]
+                   for k, v in entry_points.items()}}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in launches.items()}

@@ -14,7 +14,15 @@ the packed (segment, row)-sorted SpMMs ``spmm_seg2``, ``spmm_seg3`` and
 ``spmm_split``, planned once per graph, whose forward and ``d x`` run a
 multi-span SpMM kernel and whose ``d value`` runs its span-SDDMM kernel.
 Both span kernels cut rows of more than ``CAP`` edges across warps, from a
-piece table (``RowSplit``) that structures and plans build once.
+piece table (``RowSplit``) that structures and plans build once. The other
+SpMM entry points of the JAX package (``spmm_chunked``, ``spmm_seg``,
+``spmm_sell`` and ``backend="sell"``) run on the same kernels.
+
+Neighbour sampling (``sample``, ``sample_adj``, ``saint_subgraph``,
+``ops.sample``), random walks and partitioning (``partition``,
+``reverse_cuthill_mckee``) run in plain torch on the tensor's device, or on
+the host through the C++ host runtime (``runtime``, built with g++ at first
+use from the package's own copy of the JAX package's source).
 
 The eager facade, ``SparseTensor`` over ``SparseStorage`` (canonical
 (row, col)-sorted COO with lazily cached CSR/CSC views), holds the
@@ -47,6 +55,9 @@ from .convert import (from_paddle_sparse, from_scipy,
 from .diag import fill_diag, get_diag, remove_diag, set_diag
 from .matmul import matmul, spmm, spspmm
 from .spadd import spadd
+from .sample import sample, sample_adj, saint_subgraph
+from .rw import random_walk
+from .partition import partition, reverse_cuthill_mckee
 from .io import from_state_dict, load_npz, save_npz, to_state_dict
 from .random import seed
 
@@ -55,8 +66,8 @@ from .core.matrix import (PaddedCOO, padded_coo_from_jax,
 from .core.spgemm import (SpGEMMResult, matmul_padded, spspmm_padded,
                           spspmm_rowblocked, spspmm_rowsorted)
 from .entry import (MODELS, SPMM_BACKENDS, entry, facade_entry,
-                    gcn_loss, gcn_norm, model_entry, spgemm_entry, spmm_entry,
-                    train_entry, train_step)
+                    gcn_loss, gcn_norm, model_entry, sample_entry,
+                    spgemm_entry, spmm_entry, train_entry, train_step)
 from .models.gcn import (APPNP, GAT, GCN, GIN, GraphSAGE,
                          appnp_params_from_jax, edge_softmax,
                          gat_params_from_jax, gcn_normalize,
@@ -76,7 +87,12 @@ from .ops.kernels.spmm_spans_cuda import (band_reduce_call, product_dtype,
                                           spmm_spans_reference, tilespan_call)
 from .ops.segment import (REDUCTIONS, bincount, gather_csr, gather_segments,
                           scatter_reduce, segment_csr)
-from .ops.spmm import spmm_coo, spmm_csr
+from .ops.sample import (PaddedAdj, sample_adj_padded, sample_neighbors)
+from .ops.spmm import (ChunkedStructure, SpmmPlan, make_spmm_plan,
+                       spmm_chunked, spmm_coo, spmm_csr)
+from .ops.spmm_seg import SegPlan, SegStructure, make_seg_plan, spmm_seg
+from .ops.spmm_sell import (SellPlan, SellStructure, make_sell_plan,
+                            pad_values, spmm_sell, unpad_values)
 from .ops.spmm_seg2 import (Seg2Plan, Seg2Structure, make_seg2_plan,
                             pack_values, spmm_seg2, unpack_values)
 from .ops.spmm_seg3 import (Seg3Infeasible, Seg3Plan, Seg3Structure,
@@ -86,6 +102,7 @@ from .ops.spmm_split import (SplitPlan, SplitStructure, make_split_plan,
                              unpack_values_split)
 from .ops.spspmm import (plan_spgemm, plan_spgemm_blocked, plan_spgemm_rows,
                          spgemm_flops, spspmm_eager)
+from . import core, ops, profiling, runtime
 
 __version__ = "0.1.0"
 
@@ -98,12 +115,16 @@ __all__ = [
     "t", "transpose", "coalesce", "eye", "from_scipy", "to_scipy",
     "from_torch_sparse", "to_torch_sparse", "from_paddle_sparse",
     "to_paddle_sparse", "remove_diag", "set_diag", "fill_diag", "get_diag",
-    "matmul", "spmm", "spspmm", "spadd", "load_npz", "save_npz",
+    "matmul", "spmm", "spspmm", "spadd", "sample", "sample_adj",
+    "saint_subgraph", "random_walk", "partition", "reverse_cuthill_mckee",
+    "load_npz", "save_npz",
     "to_state_dict", "from_state_dict", "seed", "sparse_tensor_from_jax",
-    "facade_entry", "gcn_norm", "__version__",
+    "facade_entry", "gcn_norm", "sample_entry", "__version__",
     # the padded core, kernels, models and entry points
     "APPNP", "CAP", "GAT", "GCN", "GIN", "GraphSAGE", "MODELS", "PaddedCOO",
-    "REDUCTIONS", "RowSplit", "SPMM_BACKENDS", "Seg2Plan",
+    "REDUCTIONS", "RowSplit", "SPMM_BACKENDS", "ChunkedStructure",
+    "PaddedAdj", "SegPlan", "SegStructure", "SellPlan", "SellStructure",
+    "SpmmPlan", "Seg2Plan",
     "Seg2Structure", "Seg3Infeasible", "Seg3Plan", "Seg3Structure",
     "SpGEMMResult", "SplitPlan", "SplitStructure", "band_reduce_call",
     "appnp_params_from_jax", "bincount", "compact_runs", "compact_runs_cuda",
@@ -111,7 +132,10 @@ __all__ = [
     "gat_params_from_jax", "gather_csr", "gather_segments", "gcn_loss",
     "gcn_normalize", "gcn_params_from_jax", "gin_params_from_jax", "ind2ptr",
     "init_appnp", "init_gat", "init_gcn", "init_gin", "init_sage",
-    "make_seg2_plan", "make_seg3_plan", "make_split_plan", "matmul_padded",
+    "make_seg_plan", "make_sell_plan", "make_spmm_plan", "pad_values",
+    "sample_adj_padded", "sample_neighbors", "spmm_chunked", "spmm_seg",
+    "spmm_sell", "unpad_values", "make_seg2_plan", "make_seg3_plan",
+    "make_split_plan", "matmul_padded",
     "model_entry", "pack_values", "pack_values_split", "padded_coo_from_jax",
     "plan_spgemm",
     "plan_spgemm_blocked", "plan_spgemm_rows", "product_dtype", "ptr2ind",

@@ -25,7 +25,7 @@ from ..ops.convert import ind2ptr, ptr2ind_capped
 from ..ops.kernels.segcompact_cuda import compact_runs
 from ..ops.kernels.row_split import RowSplit
 from ..ops.segment import RowGroups, row_groups
-from ..ops.spmm import (SpmmStructure, check_backend, ptr_split,
+from ..ops.spmm import (SpmmStructure, _sell, check_backend, ptr_split,
                         spmm_structure, spmm_with_structure)
 
 
@@ -158,8 +158,11 @@ class PaddedCOO:
         view. ``reduce``: ``"sum"``/``"add"``, ``"mean"``, ``"min"`` or
         ``"max"``, over the real entries only. ``backend``: ``"auto"``,
         ``"pallas"`` and ``"xla"`` all run the port's one path; ``"sell"``
-        raises ``NotImplementedError`` (:func:`~..ops.spmm.spmm_csr`)."""
+        runs :func:`~..ops.spmm_sell.spmm_sell` on a plan cached per index
+        structure (``reduce="sum"`` only; :func:`~..ops.spmm.spmm_csr`)."""
         check_backend(backend)
+        if backend == "sell":
+            return _sell(self.row, self.col, self.value, x, self.M, reduce)
         return spmm_with_structure(self.rowptr(), self.col, self.value, x,
                                    self.structure, reduce, self.row_split())
 

@@ -11,11 +11,14 @@ labels ``y``, and ``train_step(model, adj, x, y, lr)`` takes one SGD step.
 any of them.
 ``spgemm_entry(device)`` returns the toy adjacency for ``A @ A`` (the
 SpGEMM cross-check of ``__graft_entry__.dryrun_multichip``).
-``spmm_entry(backend, device)`` plans the toy graph for a packed-layout SpMM
-backend (``seg2``, ``seg3``, ``seg2split``), as ``bench.py`` plans its graphs.
+``spmm_entry(backend, device)`` plans the toy graph for an SpMM entry point
+that holds a plan (``seg2``, ``seg3``, ``seg2split``, ``seg``, ``sell``,
+``chunked``), as ``bench.py`` plans its graphs.
 ``facade_entry(device)`` gives the toy graph as a value-less ``SparseTensor``
 with int64 indices, as PyG hands ``adj_t`` over, and its features;
 ``gcn_norm`` is PyG's normalization of such a tensor on the facade.
+``sample_entry(device)`` gives the same graph with its values, and seed
+nodes, for neighbour sampling, walks and partitioning.
 
 Every entry point runs on the card unless the caller asks for the CPU
 (``device="cpu"``); without a card it raises instead of carrying on on the
@@ -29,8 +32,11 @@ from torch import nn
 
 from .models.gcn import (gcn_normalize, init_appnp, init_gat, init_gcn,
                          init_gin, init_sage)
+from .ops import spmm_seg
+from .ops.spmm import make_spmm_plan
 from .ops.spmm_seg2 import make_seg2_plan, pack_values
 from .ops.spmm_seg3 import make_seg3_plan
+from .ops.spmm_sell import make_sell_plan, pad_values
 from .ops.spmm_split import make_split_plan, pack_values_split
 from .diag import fill_diag
 from .mul import mul
@@ -38,7 +44,7 @@ from .reduce import sum as sparsesum
 from .tensor import SparseTensor
 from .utils import as_device
 
-SPMM_BACKENDS = ("seg2", "seg3", "seg2split")
+SPMM_BACKENDS = ("seg2", "seg3", "seg2split", "seg", "sell", "chunked")
 MODELS = ("gcn", "sage", "gin", "appnp", "gat")
 
 
@@ -116,11 +122,13 @@ def spmm_entry(backend: str, device="cuda"):
     """``(plan, structure, packed, x)`` of the toy graph (256 nodes, 2048
     edges, values in [0, 1), x (256, 32) f32) for ``backend`` in
     ``SPMM_BACKENDS``, on ``device``, as ``bench.py`` builds its operands:
-    plan, then pack the values once. Segments of 64 rows give each row 4
-    spans (the default size would give the toy one); the split uses blocks
-    of 64 so that both sides hold edges. Then::
+    plan, then lay the values out once (``packed``: the packed vector of
+    seg2/seg3/split/seg, the (G, ng) grid of sell, the COO values of
+    chunked). Segments of 64 rows give each row 4 spans (the default size
+    would give the toy one); the split uses blocks of 64 so that both sides
+    hold edges; sell groups 8 slots. Then::
 
-        out = spmm_seg2(plan, structure, packed, x)    # or seg3 / split
+        out = spmm_seg2(plan, structure, packed, x)    # or the backend's
     """
     dev = as_device(device)
     row, col, val, x, _ = _toy_graph()
@@ -137,6 +145,17 @@ def spmm_entry(backend: str, device="cuda"):
     if backend == "seg2split":
         plan, s = make_split_plan(row, col, 256, 256, block=64, **kw)
         return plan, s, pack_values_split(s, val), x
+    if backend == "seg":
+        plan, s = spmm_seg.make_seg_plan(row, col, 256, 256,
+                                         feat_dim=x.shape[1], seg_rows=64)
+        return plan, s, spmm_seg.pack_values(s, val), x
+    if backend == "sell":
+        plan, s = make_sell_plan(row, col, 256, 256, group=8,
+                                 feat_dim=x.shape[1])
+        return plan, s, pad_values(s, val, group=8), x
+    if backend == "chunked":
+        plan, s = make_spmm_plan(row, col, 256, 256, x.shape[1])
+        return plan, s, val, x
     raise ValueError(f"unknown SpMM backend {backend!r}; one of "
                      f"{SPMM_BACKENDS}")
 
@@ -155,6 +174,25 @@ def facade_entry(device="cuda"):
                          col=torch.as_tensor(col, device=dev),
                          sparse_sizes=(256, 256))
     return adj_t, torch.as_tensor(x, device=dev)
+
+
+def sample_entry(device="cuda"):
+    """``(adj, seeds)`` on ``device``: ``_toy_graph``'s structure (256
+    nodes, 2048 entries, duplicates and self loops included) as a
+    ``SparseTensor`` with int64 indices and its values in [0, 1), and 16
+    seed nodes (int64, every 16th node). Then, as PyG's samplers use it::
+
+        sub, n_id = sample_adj(adj, seeds, 5)        # one hop, fanout 5
+        walks = random_walk(adj, seeds, 4)
+        out, partptr, perm = partition(adj, 4)
+    """
+    dev = as_device(device)
+    row, col, val, _, _ = _toy_graph()
+    adj = SparseTensor(row=torch.as_tensor(row, device=dev),
+                       col=torch.as_tensor(col, device=dev),
+                       value=torch.as_tensor(val, device=dev),
+                       sparse_sizes=(256, 256))
+    return adj, torch.arange(0, 256, 16, device=dev)
 
 
 def gcn_norm(adj_t: SparseTensor) -> SparseTensor:

@@ -1,1 +1,2 @@
-"""Sparse operators: index conversions, SpMM and segment reductions."""
+"""Sparse operators: index conversions, SpMM entry points, segment
+reductions, SpGEMM planning and neighbour sampling."""

@@ -22,8 +22,18 @@ warps.
 
 ``backend`` takes the JAX package's values: ``"auto"``, ``"pallas"`` and
 ``"xla"`` all run the port's one path (the kernels on a CUDA tensor, their
-plain versions on a CPU tensor); ``"sell"`` raises ``NotImplementedError``
-until ``ops/spmm_sell.py`` is ported (ROADMAP queue 1, item 5).
+plain versions on a CPU tensor). ``"sell"`` plans the padded-group layout
+once per structure (:func:`_cached_sell_plan`) and runs
+:func:`~.spmm_sell.spmm_sell` on the same kernels.
+
+:func:`make_spmm_plan` and :func:`spmm_chunked` are the JAX package's
+memory-bounded chunked SpMM. Its chunk geometry (edge blocks, windows, the
+``dv_map`` of the backward's windows) is TPU layout and is not ported:
+values stay in COO order, and the plan's structure,
+:class:`ChunkedStructure`, holds the int32 COO indices and an
+:class:`SpmmStructure` (the CSR pointer, the CSC view and the piece tables of
+both pointers: JAX's ``_split_long_rows`` pseudo-rows and ``_fold_rows`` are
+the piece tables and the fold pass of ``kernels/row_split.py``).
 
 The other reductions, as the reference's XLA path computes them
 (``ops/spmm.py:498-514``):
@@ -37,6 +47,7 @@ The other reductions, as the reference's XLA path computes them
   gradient is split evenly among tied entries, as JAX's ``segment_max``
   splits it. The products are an (nnz, K) tensor.
 """
+import weakref
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -119,13 +130,8 @@ class _SpmmSum(torch.autograd.Function):
 
 
 def check_backend(backend: str) -> None:
-    """Accept the JAX package's ``backend`` values: every one but
-    ``"sell"`` names the port's one path."""
-    if backend == "sell":
-        raise NotImplementedError(
-            "spmm backend='sell' is not ported yet (ROADMAP queue 1, item 5: "
-            "ops/spmm_sell.py)")
-    if backend not in ("auto", "pallas", "xla"):
+    """Accept the JAX package's ``backend`` values."""
+    if backend not in ("auto", "pallas", "xla", "sell"):
         raise ValueError(f"unknown spmm backend {backend!r}: 'auto', "
                          f"'pallas', 'xla' or 'sell'")
 
@@ -173,9 +179,14 @@ def spmm_csr(rowptr: torch.Tensor, col: torch.Tensor,
     builds the CSC view of ``(rowptr, col)`` on each call, and each launch
     the piece table of its pointer. ``backend``: ``"auto"``, ``"pallas"``
     and ``"xla"`` all run this one path (the kernels on a CUDA tensor, the
-    plain versions on a CPU tensor); ``"sell"`` raises
-    ``NotImplementedError`` (ROADMAP queue 1, item 5)."""
+    plain versions on a CPU tensor); ``"sell"`` runs
+    :func:`~.spmm_sell.spmm_sell` on a plan cached per ``(rowptr, col)``,
+    which takes the pointer as starting at 0, as the JAX package does."""
     check_backend(backend)
+    if backend == "sell":
+        row = ptr2ind_capped(rowptr, col.numel())
+        return _sell(row, col, value, x, rowptr.numel() - 1, reduce,
+                     key_row=rowptr, key_col=col)
 
     def structure_fn():
         return spmm_structure(rowptr, ptr2ind_capped(rowptr, col.numel()),
@@ -191,5 +202,114 @@ def spmm_coo(row: torch.Tensor, col: torch.Tensor,
     num_rows`` (or the ``reduce`` of :func:`spmm_csr`); ``row`` sorted
     ascending. Entries with ``row >= num_rows``
     (padding) are left out, as the JAX segment-sum drops them, and their
-    ``d value`` is 0. ``backend`` as in :func:`spmm_csr`."""
+    ``d value`` is 0. ``backend`` as in :func:`spmm_csr`, the sell plan
+    cached per ``(row, col)``."""
+    check_backend(backend)
+    if backend == "sell":
+        return _sell(row, col, value, x, num_rows, reduce)
     return spmm_csr(ind2ptr(row, num_rows), col, value, x, reduce, backend)
+
+
+def _sell(row, col, value, x, num_rows, reduce, key_row=None,
+          key_col=None):
+    """``backend="sell"``: the cached sell plan of ``(row, col)`` (keyed on
+    ``key_row``/``key_col``, default ``row``/``col``) and its SpMM. It
+    takes ``reduce="sum"`` and a 2-D float ``x``, as the JAX package's
+    does."""
+    from .spmm_sell import spmm_sell
+    if reduce not in ("sum", "add") or x.dim() != 2 \
+            or not x.is_floating_point():
+        raise ValueError("backend='sell' needs a 2-D float dense operand "
+                         "and reduce='sum'")
+    plan, s = _cached_sell_plan(row, col, num_rows, x.shape[0], x.shape[-1],
+                                key_row, key_col)
+    return spmm_sell(plan, s, value, x)
+
+
+class SpmmPlan(NamedTuple):
+    """The static part of a :func:`spmm_chunked` plan. The JAX plan's chunk
+    geometry (rows per chunk, edge capacities, block counts, ``interpret``)
+    is TPU layout and has no counterpart here."""
+    num_rows: int
+    num_cols: int
+
+
+class ChunkedStructure(NamedTuple):
+    """The index structure of a :func:`spmm_chunked` plan: row-sorted int32
+    COO indices and their :class:`SpmmStructure` (named apart from it: it
+    adds the forward's ``col``)."""
+    row: torch.Tensor      # (nnz,) int32, sorted
+    col: torch.Tensor      # (nnz,) int32
+    csr: SpmmStructure     # CSR pointer, CSC view, piece tables
+
+
+def make_spmm_plan(row, col, num_rows: int, num_cols: int, feat_dim: int,
+                   target_bytes: int = 512 * 1024 * 1024):
+    """Set-up for repeated SpMMs on one structure: ``(plan, structure)``
+    for :func:`spmm_chunked`, built once on ``row``'s device: the CSR
+    pointer over the real rows (entries with ``row >= num_rows`` are
+    padding), the CSC view and both pointers' piece tables. ``row`` must be
+    sorted ascending. ``feat_dim`` and ``target_bytes`` sized the JAX
+    package's chunks and are accepted for its signature."""
+    del feat_dim, target_bytes          # TPU chunk sizing
+    row = torch.as_tensor(row)
+    col = torch.as_tensor(col, device=row.device)
+    if max(num_rows + 1, num_cols, row.numel()) >= 2 ** 31:
+        raise ValueError("the SpMM kernels index with int32: M + 1, N and "
+                         "nnz must be below 2**31")
+    if row.numel() > 1 and bool((row[1:] < row[:-1]).any()):
+        raise ValueError("make_spmm_plan requires row indices sorted "
+                         "ascending (canonical COO order)")
+    # copies, so that a write into the caller's indices leaves the plan as
+    # it was built
+    row = row.to(torch.int32, copy=True)
+    col = col.to(torch.int32, copy=True)
+    rowptr = ind2ptr(row, num_rows)
+    structure = ChunkedStructure(row, col, spmm_structure(rowptr, row, col,
+                                                          num_cols))
+    return SpmmPlan(num_rows, num_cols), structure
+
+
+def spmm_chunked(plan: SpmmPlan, s: ChunkedStructure,
+                 value: Optional[torch.Tensor],
+                 x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` (sum) over a :func:`make_spmm_plan` plan, differentiable in
+    ``(value, x)``: K1 over the CSR forward, K1 over the cached CSC view for
+    ``d x``, K2 for ``d value`` (0 at padding). ``value`` in COO order or
+    None; the output has ``x``'s dtype."""
+    if x.shape[0] != plan.num_cols:
+        raise ValueError(f"x must have {plan.num_cols} rows, got "
+                         f"{tuple(x.shape)}")
+    return spmm_with_structure(s.csr.rowptr, s.col, value, x,
+                               lambda: s.csr, "sum",
+                               s.csr.row_split).to(x.dtype)
+
+
+# the sell plans, keyed on the caller's index tensors (id + weakref
+# liveness, as the JAX package keys them, and each tensor's version
+# counter: torch tensors, unlike JAX arrays, can be written in place), so
+# repeated calls on one structure plan once
+_SELL_CACHE = {}
+
+
+def _cached_sell_plan(row, col, num_rows: int, num_cols: int,
+                      feat_dim: int, key_row=None, key_col=None):
+    """``spmm_sell.make_sell_plan`` of ``(row, col)``, cached per
+    ``(key_row, key_col)`` (default the indices themselves) and shape, and
+    planned again after an in-place write to either key; the plan does not
+    depend on ``feat_dim``."""
+    from .spmm_sell import make_sell_plan
+    key_row = row if key_row is None else key_row
+    key_col = col if key_col is None else key_col
+    key = id(key_col)
+    stamp = (num_rows, num_cols, key_row._version, key_col._version)
+    ent = _SELL_CACHE.get(key)
+    if (ent is not None and ent[0]() is key_col and ent[1]() is key_row
+            and ent[2] == stamp):
+        return ent[3], ent[4]
+    plan, structure = make_sell_plan(row, col, num_rows, num_cols,
+                                     feat_dim=feat_dim)
+    _SELL_CACHE[key] = (
+        weakref.ref(key_col, lambda _: _SELL_CACHE.pop(key, None)),
+        weakref.ref(key_row), stamp, plan, structure)
+    return plan, structure

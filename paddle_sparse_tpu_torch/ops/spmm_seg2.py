@@ -218,65 +218,83 @@ def unpack_values(s, packed: torch.Tensor) -> torch.Tensor:
                                                      packed)
 
 
-def _spans(rp: torch.Tensor, rows: int, col: torch.Tensor,
-           base: torch.Tensor, value: Optional[torch.Tensor],
-           x: torch.Tensor, pdt: torch.dtype,
-           split: Optional[RowSplit]) -> torch.Tensor:
-    """One multi-span SpMM over a packed layout and its piece table: ``x``
-    gathered in ``pdt`` (a bf16 ``x`` is read as it is: widening is exact),
-    output in ``x``'s dtype."""
+class SpanLayout(NamedTuple):
+    """One orientation of a packed layout as the span kernels read it: the
+    (S, rows) span bounds, the slice-local source indices, the slice bases
+    and the piece table."""
+    start: torch.Tensor
+    end: torch.Tensor
+    col: torch.Tensor
+    base: torch.Tensor
+    split: Optional[RowSplit]
+
+
+def _spans(lay: SpanLayout, value: Optional[torch.Tensor], x: torch.Tensor,
+           pdt: torch.dtype) -> torch.Tensor:
+    """One multi-span SpMM over a packed layout: ``x`` gathered in ``pdt``
+    (a bf16 ``x`` is read as it is: widening is exact), output in ``x``'s
+    dtype."""
     src = x if x.dtype in (pdt, torch.bfloat16) else x.to(pdt)
     out_dtype = (x.dtype if x.dtype in (torch.float32, torch.bfloat16)
                  else torch.float32)
-    return spmm_spans_cuda(rp[:, :rows], rp[:, 1:rows + 1], col, value, base,
-                           src, out_dtype=out_dtype,
-                           split=split).to(x.dtype)
+    return spmm_spans_cuda(lay.start, lay.end, lay.col, value, lay.base, src,
+                           out_dtype=out_dtype, split=lay.split).to(x.dtype)
 
 
 class _PackedSpmm(torch.autograd.Function):
-    """``A @ x`` over ``(packed_value, x)`` for a seg2 or seg3 plan and
-    structure (the same fields), which are closed over."""
+    """``A @ x`` over ``(packed_value, x)`` for a packed layout: ``fwd`` and
+    ``t`` (:class:`SpanLayout`) its two orientations, ``relay`` the
+    transpose position -> packed position map of the values; all closed
+    over."""
 
     @staticmethod
-    def forward(ctx, packed_value, x, plan, s):
+    def forward(ctx, packed_value, x, fwd, t, relay, stream):
         ctx.save_for_backward(packed_value, x)
-        ctx.plan, ctx.s = plan, s
-        pdt = product_dtype(packed_value, x, plan.stream)
-        return _spans(s.rp_f, plan.num_rows, s.col_f, s.sbase_f,
-                      packed_value, x, pdt, s.split_f)
+        ctx.fwd, ctx.t, ctx.relay, ctx.stream = fwd, t, relay, stream
+        return _spans(fwd, packed_value, x,
+                      product_dtype(packed_value, x, stream))
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         packed_value, x = ctx.saved_tensors
-        plan, s = ctx.plan, ctx.s
+        fwd = ctx.fwd
         g = g.contiguous()       # the grad of a sum is stride-0
-        pdt = product_dtype(packed_value, g, plan.stream)
+        pdt = product_dtype(packed_value, g, ctx.stream)
         d_value = d_x = None
         if ctx.needs_input_grad[1]:
             value_t = (None if packed_value is None
-                       else packed_value.index_select(0, s.relay_ft))
-            d_x = _spans(s.rp_t, plan.num_cols, s.col_t, s.sbase_t, value_t,
-                         g, pdt, s.split_t).to(x.dtype)
+                       else packed_value.index_select(0, ctx.relay))
+            d_x = _spans(ctx.t, value_t, g, pdt).to(x.dtype)
         if ctx.needs_input_grad[0]:
-            M = plan.num_rows
             d_value = sddmm_spans_cuda(
-                s.rp_f[:, :M], s.rp_f[:, 1:M + 1], s.col_f, s.sbase_f,
-                g.to(pdt), x.to(pdt), split=s.split_f).to(packed_value.dtype)
-        return d_value, d_x, None, None
+                fwd.start, fwd.end, fwd.col, fwd.base, g.to(pdt), x.to(pdt),
+                split=fwd.split).to(packed_value.dtype)
+        return d_value, d_x, None, None, None, None
+
+
+def check_operands(num_cols: int, nnz: int, packed_value, x) -> None:
+    """``x`` is (N, K) and the packed values, if any, (nnz,)."""
+    if x.dim() != 2 or x.shape[0] != num_cols:
+        raise ValueError(f"x must be (N={num_cols}, K), got "
+                         f"{tuple(x.shape)}")
+    if packed_value is not None and packed_value.shape != (nnz,):
+        raise ValueError(f"packed values {tuple(packed_value.shape)} do not "
+                         f"match the structure's nnz {nnz}")
 
 
 def packed_spmm(plan, s, packed_value: Optional[torch.Tensor],
                 x: torch.Tensor) -> torch.Tensor:
     """:func:`spmm_seg2` for any plan and structure with the seg2 fields
     (``ops/spmm_seg3.py`` shares it)."""
-    if x.dim() != 2 or x.shape[0] != plan.num_cols:
-        raise ValueError(f"x must be (N={plan.num_cols}, K), got "
-                         f"{tuple(x.shape)}")
-    if packed_value is not None and packed_value.shape != s.col_f.shape:
-        raise ValueError(f"packed values {tuple(packed_value.shape)} do not "
-                         f"match the structure's nnz {s.col_f.numel()}")
-    return _PackedSpmm.apply(packed_value, x.contiguous(), plan, s)
+    M, N = plan.num_rows, plan.num_cols
+    check_operands(N, s.col_f.numel(), packed_value, x)
+    fwd = SpanLayout(s.rp_f[:, :M], s.rp_f[:, 1:M + 1], s.col_f, s.sbase_f,
+                     s.split_f)
+    t = SpanLayout(s.rp_t[:, :N], s.rp_t[:, 1:N + 1], s.col_t, s.sbase_t,
+                   s.split_t)
+    return _PackedSpmm.apply(packed_value, x.contiguous(), fwd, t,
+                             s.relay_ft, plan.stream)
 
 
 def spmm_seg2(plan: Seg2Plan, s: Seg2Structure,

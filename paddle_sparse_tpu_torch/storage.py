@@ -19,7 +19,9 @@ Besides the reference's caches, a storage keeps what the SpMM kernels take
 ``rowptr`` and ``col`` cast to int32 once, the CSC view built from the cached
 ``csr2csc`` and ``colptr``, and the piece tables of both pointers. Copies
 that keep the indices (``copy``, ``set_value``) share them, so a second
-``A @ x`` on the same structure builds nothing. They are not among
+``A @ x`` on the same structure builds nothing. The host runtime's int64
+``rowptr``/``col`` (:meth:`SparseStorage.host_csr`, for sampling,
+partitioning and RCM) is cached the same way. They are not among
 :meth:`SparseStorage.cached_keys`.
 """
 import warnings
@@ -369,6 +371,17 @@ class SparseStorage:
                     col_t=self.row()[perm].to(torch.int32), colptr=colptr,
                     row_split=row_split, col_split=ptr_split(colptr))
         return self._kernel["structure"]
+
+    def host_csr(self):
+        """``(rowptr, col)`` as int64 numpy arrays on the host, for the C++
+        host runtime (sampling, partitioning, RCM). Copied from the device
+        once per structure and cached like :meth:`kernel_csr`: at
+        ogbn-products scale a copy per minibatch would move ~1 GB of
+        ``col``."""
+        if "host" not in self._kernel:
+            self._kernel["host"] = (self.rowptr().cpu().long().numpy(),
+                                    self._col.cpu().long().numpy())
+        return self._kernel["host"]
 
     # ------------------------------------------------------------------
     # coalescing

@@ -5,7 +5,10 @@ split (pieces of a ``RowSplit`` table and the fold pass) against the plain
 versions, bit for bit from launch to launch; SpMM mean (through the same
 kernels, split rows too) against plain f64, min and max on the card against
 the CPU, and each model family's toy forward and grads, card against CPU,
-with GAT's per-head launches.
+with GAT's per-head launches; ``spmm_seg``, ``spmm_sell`` and
+``spmm_chunked`` (launches exact) and ``backend="sell"``; sampling, walks,
+``saint_subgraph``, ``partition`` and RCM on the card against the CPU
+(exact where the draws are the same).
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False. This file imports no JAX, so on a
 machine with a card and no JAX it runs alone:
@@ -25,7 +28,7 @@ import dataclasses
 import pytest
 import torch
 
-from paddle_sparse_tpu_torch import (CAP, MODELS, SPMM_BACKENDS, PaddedCOO,
+from paddle_sparse_tpu_torch import (CAP, MODELS, PaddedCOO,
                                      band_reduce_call, compact_runs_cuda,
                                      compact_runs_reference, entry,
                                      fold_pieces_cuda, gcn_loss,
@@ -901,7 +904,7 @@ def test_sddmm_spans_rejects(dev, bad):
 _PACKED_FNS = {"seg2": spmm_seg2, "seg3": spmm_seg3, "seg2split": spmm_split}
 
 
-@pytest.mark.parametrize("backend", SPMM_BACKENDS)
+@pytest.mark.parametrize("backend", list(_PACKED_FNS))
 @pytest.mark.parametrize("stream", ["f32", "bf16"])
 def test_packed_spmm_card_vs_cpu(dev, backend, stream):
     """``spmm_entry``'s toy for each backend: forward, d packed and d x on
@@ -1409,3 +1412,92 @@ def test_facade_device_moves(dev):
     with tempfile.TemporaryDirectory() as d:
         save_npz(f"{d}/a.npz", C)
         assert load_npz(f"{d}/a.npz", device="cuda") == C
+
+
+# ---- the plan-holding SpMM entry points and sampling ----------------------
+
+_ENTRY_FNS = {"seg": "spmm_seg", "sell": "spmm_sell",
+              "chunked": "spmm_chunked"}
+
+
+@pytest.mark.parametrize("backend", list(_ENTRY_FNS))
+def test_entry_spmm_card_vs_cpu(dev, backend):
+    """``spmm_entry``'s toy for seg, sell and chunked: forward, d packed
+    and d x on the card against the CPU; launches per forward+backward:
+    seg spans 2 and span SDDMM 1, sell and chunked K1 2 and K2 1."""
+    import paddle_sparse_tpu_torch as p
+    fn = getattr(p, _ENTRY_FNS[backend])
+    runs = {}
+    for where in ("cuda", "cpu"):
+        plan, s, packed, x = spmm_entry(backend, where)
+        pv, xx = packed.clone().requires_grad_(), x.clone().requires_grad_()
+        w = torch.linspace(-1, 1, 256 * 32, device=where).view(256, 32)
+        k = (spmm_spans_cuda.launches, sddmm_spans_cuda.launches,
+             spmm_csr_cuda.launches, sddmm_csr_cuda.launches)
+        out = fn(plan, s, pv, xx)
+        (out * w).sum().backward()
+        launches = (spmm_spans_cuda.launches - k[0],
+                    sddmm_spans_cuda.launches - k[1],
+                    spmm_csr_cuda.launches - k[2],
+                    sddmm_csr_cuda.launches - k[3])
+        runs[where] = ([out.detach().cpu(), xx.grad.cpu(), pv.grad.cpu()],
+                       launches)
+    want = (2, 1, 0, 0) if backend == "seg" else (0, 0, 2, 1)
+    assert runs["cuda"][1] == want and runs["cpu"][1] == (0, 0, 0, 0)
+    for c, h in zip(runs["cuda"][0], runs["cpu"][0]):
+        torch.testing.assert_close(c, h, **F32)
+
+
+def test_backend_sell_on_the_card(dev):
+    """``backend="sell"`` through ``spmm_coo`` and ``PaddedCOO.spmm`` on the
+    card equals ``"auto"`` bit for bit; ``group="auto"`` on a CUDA tensor
+    is ``_pick_group``'s."""
+    from paddle_sparse_tpu_torch.ops.spmm_sell import (_pick_group,
+                                                       make_sell_plan)
+    adj = entry("cuda")[1]
+    x = torch.randn(256, 32, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    for b in ("sell", "auto"):
+        assert torch.equal(adj.spmm(x, backend=b), adj.spmm(x))
+        assert torch.equal(spmm_coo(adj.row, adj.col, adj.value, x, 256,
+                                    backend=b), adj.spmm(x))
+    plan, _ = make_sell_plan(adj.row, adj.col, 256, 256)
+    assert plan.group == _pick_group(adj.row, 256, adj.row.numel())
+
+
+def test_sampling_card_vs_cpu(dev):
+    """``sample_entry``: the host sampler with one seed, ``saint_subgraph``,
+    ``partition`` and RCM equal card and CPU; the device samplers and walks
+    equal when fed the same uniforms."""
+    import paddle_sparse_tpu_torch as p
+    from paddle_sparse_tpu_torch.ops import sample as ops_sample
+    res = {}
+    for where in ("cuda", "cpu"):
+        adj, seeds = p.sample_entry(where)
+        p.seed(3)
+        sub, n_id = p.sample_adj(adj, seeds, 5)
+        sg, e_id = p.saint_subgraph(adj, seeds)
+        out, partptr, perm = p.partition(adj, 8)
+        rcm = p.reverse_cuthill_mckee(adj)
+        rowptr, col, _ = adj.csr()
+        g = torch.Generator().manual_seed(5)
+        u_rep = torch.rand(16, 4, generator=g).to(where)
+        prio = torch.rand(int((rowptr[seeds + 1] - rowptr[seeds]).sum()),
+                          generator=g).to(where)
+        u_walk = torch.rand(6, 16, generator=g).to(where)
+        padded = [ops_sample._sample_adj_padded(rowptr, col, seeds, 4, r, u)
+                  for r, u in ((True, u_rep), (False, prio))]
+        walk = ops_sample._random_walk(rowptr, col, seeds, u_walk)
+        res[where] = [t.cpu() for t in (
+            *sub.coo()[:2], sub.storage.value(), n_id, *sg.coo(), e_id,
+            *out.coo(), partptr, perm, rcm, walk,
+            *[f for pa in padded for f in pa])]
+    for c, h in zip(res["cuda"], res["cpu"]):
+        assert torch.equal(c, h)
+    adj, seeds = p.sample_entry("cuda")
+    gen = p.random.generator("cuda")
+    assert gen.device.type == "cuda"
+    walks = p.random_walk(adj, seeds, 4)
+    assert walks.is_cuda and walks.shape == (16, 5)
+    drawn = p.sample(adj, 3, seeds)
+    assert drawn.is_cuda and drawn.shape == (16, 3)

@@ -26,9 +26,10 @@ def test_port_never_imports_jax():
     toy train step, the toy A @ A, a toy ``spmm_seg2`` forward and
     backward, a train step of each other model family, a segment
     reduction and the facade path (a ``SparseTensor``, ``fill_diag``,
-    ``sum``, ``mul``, ``@`` and its backward, ``A @ A``) run; every name of
-    ``__all__`` exists, the facade's among them; neither jax nor the JAX
-    package is loaded."""
+    ``sum``, ``mul``, ``@`` and its backward, ``A @ A``), sampling, a walk,
+    a partition, RCM, the host runtime and ``spmm_seg``, ``spmm_sell`` and
+    ``spmm_chunked`` run; every name of ``__all__`` exists, the facade's
+    among them; neither jax nor the JAX package is loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -68,12 +69,32 @@ def test_port_never_imports_jax():
         "assert deg.tolist() == [2.0, 2.0, 2.0], deg\n"
         "assert adj.storage.value().grad.shape == (6,)\n"
         "assert x.grad.shape == (3, 2) and (adj @ adj).nnz() > 0\n"
+        "adj, seeds = p.sample_entry('cpu')\n"
+        "sub, n_id = p.sample_adj(adj, seeds, 3)\n"
+        "assert sub.sparse_size(0) == 16 and n_id[:16].tolist() == "
+        "seeds.tolist()\n"
+        "assert p.sample(adj, 2, seeds).shape == (16, 2)\n"
+        "assert p.saint_subgraph(adj, seeds)[0].sparse_size(0) == 16\n"
+        "assert p.random_walk(adj, seeds, 4).shape == (16, 5)\n"
+        "out, partptr, perm = p.partition(adj, 4)\n"
+        "assert int(partptr[-1]) == 256 and out.nnz() == adj.nnz()\n"
+        "assert sorted(p.reverse_cuthill_mckee(adj).tolist()) == "
+        "list(range(256))\n"
+        "assert p.runtime.compat_check()['native_runtime']\n"
+        "for b, fn in (('seg', p.spmm_seg), ('sell', p.spmm_sell), "
+        "('chunked', p.spmm_chunked)):\n"
+        "    plan, s, packed, x = p.spmm_entry(b, 'cpu')\n"
+        "    x.requires_grad_()\n"
+        "    fn(plan, s, packed.requires_grad_(), x).sum().backward()\n"
+        "    assert bool(torch.isfinite(packed.grad).all())\n"
         "missing = [n for n in p.__all__ if not hasattr(p, n)]\n"
         "assert not missing, missing\n"
         "facade = {'SparseTensor', 'SparseStorage', 'matmul', 'spspmm', "
         "'fill_diag', 'sum', 'cat', 'to_torch_sparse', 'load_npz', "
         "'sparse_tensor_from_jax', 'facade_entry', 'gcn_norm', "
-        "'__narrow_diag__', 'spadd', 'seed'}\n"
+        "'__narrow_diag__', 'spadd', 'seed', 'sample', 'sample_adj', "
+        "'saint_subgraph', 'random_walk', 'partition', "
+        "'reverse_cuthill_mckee'}\n"
         "assert facade <= set(p.__all__), facade - set(p.__all__)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_sparse_tpu') and sys.modules[m]]\n"
@@ -95,12 +116,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for fn, args in ((p.entry, ()), (p.train_entry, ()),
                      (p.spgemm_entry, ()), (p.spmm_entry, ("seg2",)),
-                     (p.model_entry, ("gat",)), (p.facade_entry, ())):
+                     (p.model_entry, ("gat",)), (p.facade_entry, ()),
+                     (p.sample_entry, ())):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(*args)
     with pytest.raises(ValueError, match="unknown SpMM backend"):
-        p.spmm_entry("sell", "cpu")
+        p.spmm_entry("cusparse", "cpu")
 
 
 def test_kernel_module_imports_without_nvcc(tmp_path):

@@ -191,18 +191,24 @@ def test_backend_keyword_runs_the_one_path(backend):
         np.testing.assert_allclose(out.numpy(), ref, **F32)
 
 
-@pytest.mark.parametrize("backend,error", [("sell", NotImplementedError),
+@pytest.mark.parametrize("backend,error", [("sell", None),
                                            ("cusparse", ValueError)])
 def test_backend_sell_and_unknown_raise(backend, error):
+    """``backend="sell"`` computes what ``"auto"`` does, bit for bit,
+    through all three calls; an unknown backend raises."""
     from paddle_sparse_tpu_torch import PaddedCOO
     row, col, rowptr, val, _ = _graph(nnz=100)
     adj = PaddedCOO.from_arrays(row, col, val, (300, 200))
     x = torch.ones(200, 4)
-    for call in (lambda: spmm_csr(_t(rowptr), _t(col), _t(val), x,
-                                  backend=backend),
-                 lambda: spmm_coo(_t(row), _t(col), _t(val), x, 300,
-                                  backend=backend),
-                 lambda: adj.spmm(x, backend=backend)):
-        with pytest.raises(error, match="ROADMAP" if backend == "sell"
-                           else "backend"):
-            call()
+
+    def calls(b):
+        return (lambda: spmm_csr(_t(rowptr), _t(col), _t(val), x, backend=b),
+                lambda: spmm_coo(_t(row), _t(col), _t(val), x, 300,
+                                 backend=b),
+                lambda: adj.spmm(x, backend=b))
+    for call, auto in zip(calls(backend), calls("auto")):
+        if error is None:
+            assert torch.equal(call(), auto())
+        else:
+            with pytest.raises(error, match="backend"):
+                call()
