@@ -171,6 +171,25 @@ Phases, one or more printed lines each:
    and K2 1 per forward+backward; seg: spans 1 / 2 and span SDDMM 1), and
    sampled rows, ``d value`` and ``d x`` against f64; the grid's ``d
    value`` 0 at every pad slot.
+11. The TPU probes of ``experiments/`` through the port's entry points
+   (``paddle_sparse_tpu_torch/experiments/``) at the probes' defaults:
+   11a every launch count set to 0, then ``bisect_pallas`` (all stages),
+   ``r4_dma_issue.run`` at NS=19, CAP=384, 2,048 steps, the five
+   ``r4_band_cost`` variants and both ``r5_vmem_expand`` variants at 10,000
+   chunks, with exact launches (scale2 1, chunk_sum 2, span_colsum 2,
+   band_ablate 3, slice_gather 2, K1/K4's spans kernel 3). Then each
+   output against its plain version in f64 (bit for bit where the sum
+   order matches) and edge cases: scale2 at odd sizes and offsets,
+   chunk_sum on uneven tiles at both ring depths, ``segment_rows_matmul``
+   with ``acc``, bf16 and a row of 4,000 edges (11b); 13 steps (not a
+   multiple of 8), K 128 and 8, a span ending at the stream's end, 7 steps
+   refused (11c); a small band whose tiles several chunks visit, a schedule
+   that misses edges refused (11d); repeated and all-equal ``fs``, K 200
+   and 8, R 400 and 16 (11e). Each kernel's time beside its plain version
+   (in turns), bound and library call (``torch.mul``, ``view().sum(1)``,
+   ``embedding_bag``, ``index_select``); per-step and per-copy times of
+   the span copies, ns per edge of the slice gather beside random rows of
+   a 64 MB source.
 
 Every kernel in the JSON line carries its time, launches, plain time,
 bound (the larger of the bytes each input and output moves once over
@@ -3795,6 +3814,514 @@ def phase10d_entry_points(dev, card):
     return res, timed_until
 
 
+# ---- phase 11: the experiments/ probes (P1-P5) ----------------------------
+
+PROBE_SLICE_CHUNKS = 10_000             # r5_vmem_expand.py's default NCH
+# a sum rounded to bf16 once lies within half a bf16 ulp of the exact sum,
+# which is at most 2**-8 of its magnitude
+BF16_HALF_ULP = 2.0 ** -8
+
+
+def _probe_launches():
+    from paddle_sparse_tpu_torch.ops.kernels import probes_cuda as pc
+    return {"scale2": pc.scale2_cuda.launches,
+            "chunk_sum": pc.chunk_sum_cuda.launches,
+            "span_colsum": pc.span_colsum_cuda.launches,
+            "band_ablate": pc.band_ablate_cuda.launches,
+            "slice_gather": pc.slice_gather_cuda.launches}
+
+
+def _zero_probe_launches():
+    from paddle_sparse_tpu_torch.ops.kernels import probes_cuda as pc
+    for fn in (pc.scale2_cuda, pc.chunk_sum_cuda, pc.span_colsum_cuda,
+               pc.band_ablate_cuda, pc.slice_gather_cuda):
+        fn.launches = 0
+
+
+def phase11a_probe_path(dev):
+    """Each probe's entry points once, at its defaults, with every launch
+    count set to 0 just before and read just after."""
+    from paddle_sparse_tpu_torch.experiments import (bisect_pallas,
+                                                     r4_band_cost,
+                                                     r4_dma_issue,
+                                                     r5_vmem_expand)
+    from paddle_sparse_tpu_torch.ops.kernels.probes_cuda import SLICE_VARIANTS
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    _zero_probe_launches()
+    bisect = bisect_pallas.main(["all"], device=dev)
+    stream, e0, seed = r4_dma_issue.make_inputs(19, 384, device=dev)
+    dma = r4_dma_issue.run(stream, e0, seed, NS=19, CAP=384,
+                           steps=r4_dma_issue.STEPS)
+    tb = r4_band_cost.tables(device=dev)
+    r4_band_cost.check_schedule(tb)
+    band = {kind: r4_band_cost.variant_call(kind, tb)
+            for _, kind in r4_band_cost.VARIANTS}
+    fs, cols, x = r5_vmem_expand.make_inputs(PROBE_SLICE_CHUNKS, dev)
+    sl = {v: r5_vmem_expand.make_call(v)(fs, cols, x)
+          for v in SLICE_VARIANTS}
+    torch.cuda.synchronize()
+    counts = {**_launch_counts(), **_probe_launches()}
+    # bisect: scale2 1, chunk_sum 2 (one per depth), K1 1 (spmm stage);
+    # r4_dma_issue: span_colsum 1; r4_band_cost: K4 2 (full, untrans),
+    # band_ablate 3, span_colsum 1 (nosel's chunk sums); r5: slice_gather 2
+    want = {k: 0 for k in counts}
+    want.update(scale2=1, chunk_sum=2, spmm_spans=3, span_colsum=2,
+                band_ablate=3, slice_gather=2)
+    check(counts == want, f"probe path launches {counts}, want {want}")
+    print(f"phase 11a probe entry points (bisect_pallas all, r4_dma_issue "
+          f"19 384, r4_band_cost's five variants, r5_vmem_expand "
+          f"{PROBE_SLICE_CHUNKS} chunks): launches exact "
+          f"{ {k: v for k, v in counts.items() if v} } ok", flush=True)
+    return {"bisect": bisect, "dma": (stream, e0, seed, dma),
+            "band": (tb, band), "slice": (fs, cols, x, sl)}, counts
+
+
+def _probe_entry(ms, plain_ms, lib_ms, lib, moved, flops, err, **extra):
+    bound, by = bound_ms(moved, flops)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms, "library": lib,
+            "max_abs_err": err, **extra}
+
+
+def phase11_bisect(gen, dev, card, outs):
+    """P1 and P2 against their plain versions, bit for bit, over odd sizes
+    and both ring depths; the spmm stage (segment_rows_matmul, K1) against
+    f64; their times."""
+    from paddle_sparse_tpu_torch import segment_rows_matmul, spmm_spans_reference
+    from paddle_sparse_tpu_torch.experiments import bisect_pallas as bp
+    from paddle_sparse_tpu_torch.ops.kernels.probes_cuda import (
+        chunk_sum_cuda, chunk_sum_reference, scale2_cuda, scale2_reference)
+    x = torch.ones((256, 128), device=dev)
+    check(torch.equal(outs["trivial"], x * 2), "trivial stage is not 2 * x")
+    for n in (1, 3, 4099, 1 << 20):
+        y = torch.randn(n + 1, generator=gen, device=dev)
+        for v in (y[:n], y[1:]):          # aligned and 4-byte offset
+            check(torch.equal(scale2_cuda(v), scale2_reference(v)),
+                  f"scale2 differs at n={n}")
+    ptr, src = bp.dma_inputs(dev)
+    ref = chunk_sum_reference(ptr, src.double(), bp.E)
+    for name in ("dma1", "dma2"):
+        check(torch.equal(outs[name].double(), ref),
+              f"{name} stage differs from the f64 chunk sums")
+    # uneven tiles (an empty one, one of six chunks), odd K, both depths
+    ptr2 = torch.tensor([0, 3, 3, 9, 10], device=dev, dtype=torch.int32)
+    src2 = torch.randn(1000, 36, generator=gen, device=dev)
+    for db in (False, True):
+        check(torch.equal(chunk_sum_cuda(ptr2, src2, 100, db),
+                          chunk_sum_reference(ptr2, src2, 100)),
+              f"chunk_sum (double_buffer={db}) differs from the plain f32 "
+              f"sum on uneven tiles")
+    val, row, rowptr = bp.spmm_inputs(dev)
+    rp = rowptr.long()
+    ref = spmm_spans_reference(rp[None, :-1], rp[None, 1:], None, None,
+                               None, val.double())
+    err = float((outs["spmm"].double() - ref).abs().max())
+    check(torch.allclose(outs["spmm"].double(), ref, **F32_TOL),
+          f"spmm stage vs f64 ({err:.3e})")
+    # segment_rows_matmul with acc, bf16, rowptr past nnz, a row > CAP
+    M, nnz, K = 300, 9000, 40
+    row = torch.sort(torch.randint(0, M, (nnz,), generator=gen,
+                                   device=dev)).values
+    row[2000:6000] = row[2000]                    # a long row: pieces
+    row = torch.sort(row).values
+    rp = torch.searchsorted(row, torch.arange(M + 1, device=dev))
+    rp[-1] += 50                                  # clipped to nnz
+    acc = torch.randn(M, K, generator=gen, device=dev)
+    srm_err = err
+    for dt in (torch.float32, torch.bfloat16):
+        p = torch.randn(nnz, K, generator=gen, device=dev).to(dt)
+        got = segment_rows_matmul(p, row, rp, M, acc=acc)
+        c = rp.clamp(max=nnz)
+        want = spmm_spans_reference(c[None, :-1], c[None, 1:], None, None,
+                                    None, p.double()) + acc.double()
+        e = float((got.double() - want).abs().max())
+        srm_err = max(srm_err, e)
+        check(got.dtype == torch.float32
+              and torch.allclose(got.double(), want, **F32_TOL),
+              f"segment_rows_matmul {dt} with acc vs f64 ({e:.3e})")
+    print(f"phase 11b bisect_pallas: trivial = 2 x, dma1/dma2 equal to the "
+          f"f64 chunk sums, scale2 bit for bit at odd sizes and offsets, "
+          f"chunk_sum bit for bit on uneven tiles at both depths; spmm stage "
+          f"and segment_rows_matmul (acc, bf16, rowptr past nnz, a row of "
+          f"4,000 edges) vs f64 max_abs_err {srm_err:.3e} ok", flush=True)
+
+    p1, k1, k2, p2, _, _ = in_turns(lambda: scale2_reference(x),
+                                    lambda: scale2_cuda(x), 500, 500)
+    lib_ms, _ = library_timed("torch.mul", lambda: torch.mul(x, 2.0), 500)
+    scale2 = _probe_entry((k1 + k2) / 2, (p1 + p2) / 2, lib_ms,
+                          "torch.mul(x, 2.0)", 2 * nbytes(x), x.numel(), 0.0,
+                          at="(256, 128) f32, bisect_pallas.trivial")
+    T, cpt, E = bp.T, bp.CHUNKS_PER_TILE, bp.E
+    depth = {}
+    for db in (False, True):
+        p1, k1, k2, p2, out_p, out_k = in_turns(
+            lambda: chunk_sum_reference(ptr, src, E),
+            lambda db=db: chunk_sum_cuda(ptr, src, E, db), 50, 500)
+        check(torch.equal(out_k, out_p), "chunk_sum timed run differs")
+        depth[db] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    lib_ms, lib_err = library_timed(
+        "view(...).sum(1)", lambda: src.view(T, cpt, E, -1).sum(1), 500,
+        out_k.view(T, E, -1))
+    chunk = _probe_entry(depth[True][0], depth[True][1], lib_ms,
+                         "src.view(T, 4, E, K).sum(1)",
+                         nbytes(src, ptr, out_k), src.numel(), 0.0,
+                         at="T=8 tiles of 4 chunks of (256, 128) f32, two "
+                            "slots (dma2)",
+                         ms_one_slot=depth[False][0],
+                         plain_ms_one_slot=depth[False][1],
+                         library_max_abs_err=lib_err)
+    print(f"phase 11b scale2 (256, 128): kernel {scale2['ms']:.4f} ms, "
+          f"plain {scale2['plain_ms']:.4f}, torch.mul {scale2['library_ms']}"
+          f", bound {scale2['bound_ms']:.5f}; chunk_sum one slot "
+          f"{depth[False][0]:.4f} ms, two slots {depth[True][0]:.4f} ms, "
+          f"plain {depth[True][1]:.4f}, view().sum(1) {lib_ms}, bound "
+          f"{chunk['bound_ms']:.5f} {card}", flush=True)
+    return scale2, chunk, srm_err
+
+
+def phase11_dma_issue(gen, dev, card, run):
+    """P3 at the probe's defaults against f64 (within 1e-5 of each entry's
+    sum of |terms|), STEPS not a multiple of 8, other K, a span ending at
+    the stream's end; per-step time beside the bounds."""
+    from paddle_sparse_tpu_torch.experiments import r4_dma_issue as rd
+    from paddle_sparse_tpu_torch.ops.kernels.probes_cuda import (
+        dma_issue_output, span_colsum_cuda, span_colsum_reference)
+    stream, e0, seed, out = run
+    NS, CAP, steps = 19, 384, rd.STEPS
+
+    def f64(st, sd, ns, cap, n, e):
+        return dma_issue_output(span_colsum_reference(
+            st, e, ns, cap, n, acc=torch.float64), sd)
+    ref = f64(stream, seed, NS, CAP, steps, e0)
+    scale = f64(stream.abs(), seed.abs(), NS, CAP, steps, e0)
+    err = float((out.double() - ref).abs().max())
+    check(bool(((out.double() - ref).abs() <= GRAD_REL * scale).all()),
+          f"r4_dma_issue output vs f64 ({err:.3e})")
+    # 13 steps (blocks from steps 8..12 and 5..7), random seeds, K 8 / 128
+    for K, ns, cap in ((256, 3, 40), (128, 5, 33), (8, 2, 300)):
+        L = 6000
+        st = torch.randn(L, K, generator=gen, device=dev).bfloat16()
+        e = torch.randint(0, L - cap, (13 * ns,), generator=gen,
+                          device=dev).int()
+        e[-1] = L - cap                          # a span ending at row L
+        sd = torch.randn(1, 128, generator=gen, device=dev)
+        got = rd.run(st, e, sd, NS=ns, CAP=cap, steps=13)
+        want, sc = f64(st, sd, ns, cap, 13, e), f64(st.abs(), sd.abs(), ns,
+                                                   cap, 13, e)
+        check(bool(((got.double() - want).abs() <= GRAD_REL * sc
+                    + 1e-30).all()),
+              f"r4_dma_issue at 13 steps, K={K}")
+    try:
+        rd.run(stream, e0, seed, NS=NS, CAP=CAP, steps=7)
+        check(False, "r4_dma_issue ran at 7 steps")
+    except ValueError:
+        pass
+    print(f"phase 11c r4_dma_issue NS={NS} CAP={CAP} STEPS={steps}: "
+          f"output vs f64 max_abs_err {err:.3e} (within {GRAD_REL} of each "
+          f"entry's sum of |terms|); 13 steps at K 256/128/8 with random "
+          f"seeds and a span ending at the stream's end ok; 7 steps "
+          f"refused ok", flush=True)
+
+    p1, k1, k2, p2, _, _ = in_turns(
+        lambda: span_colsum_reference(stream, e0, NS, CAP, steps),
+        lambda: span_colsum_cuda(stream, e0, NS, CAP, steps), 1, 10)
+    K = stream.shape[1]
+    rows = (e0.long().view(steps, NS, 1)
+            + torch.arange(CAP, device=dev)).view(steps, -1)
+    lib_ms, lib_err = library_timed(
+        "embedding_bag sum", lambda: torch.nn.functional.embedding_bag(
+            rows, stream, mode="sum"), 5,
+        span_colsum_reference(stream, e0, NS, CAP, steps))
+    seen = torch.zeros(stream.shape[0], dtype=torch.bool, device=dev)
+    seen[rows.reshape(-1)] = True
+    distinct = int(seen.sum())
+    del rows, seen
+    ms = (k1 + k2) / 2
+    staged = steps * NS * CAP * K * 2
+    entry = _probe_entry(
+        ms, (p1 + p2) / 2, lib_ms, "torch.nn.functional.embedding_bag("
+        "mode='sum') over each step's span rows",
+        distinct * K * 2 + nbytes(e0) + steps * K * 4,
+        steps * NS * CAP * K, err, library_max_abs_err=lib_err,
+        at=f"NS={NS} CAP={CAP} STEPS={steps}, bf16 stream "
+           f"{tuple(stream.shape)}",
+        distinct_rows=distinct, staged_bytes=staged,
+        staged_bound_ms=staged / HBM_BYTES_PER_S * 1e3,
+        us_per_step=ms / steps * 1e3, us_per_dma=ms / steps / NS * 1e3,
+        staged_bound_us_per_step=staged / steps / HBM_BYTES_PER_S * 1e6)
+    print(f"phase 11c span_colsum: kernel {k1:.4f} / {k2:.4f} ms "
+          f"({entry['us_per_step']:.4f} us per step, "
+          f"{entry['us_per_dma']:.5f} per span copy), plain {p1:.3f} / "
+          f"{p2:.3f}, embedding_bag {lib_ms} (max_abs_err {lib_err}); "
+          f"bound {entry['bound_ms']:.4f} ms ({distinct} distinct rows), "
+          f"staged bound {entry['staged_bound_ms']:.4f} ms "
+          f"({entry['staged_bound_us_per_step']:.4f} us per step) {card}",
+          flush=True)
+    return entry
+
+
+def phase11_band(gen, dev, card, run):
+    """P4's five variants at the probe's sizes against f64 (full/untrans on
+    K4) and the plain versions (nodot and empty bit for bit), a small band
+    visited by several chunks per tile, a schedule that misses an edge; the
+    variants' times."""
+    from paddle_sparse_tpu_torch import spmm_spans_reference
+    from paddle_sparse_tpu_torch.experiments import r4_band_cost as rb
+    from paddle_sparse_tpu_torch.ops.kernels.probes_cuda import (
+        band_ablate_reference)
+    tb, outs = run
+
+    def refs(t, stream):
+        kw = dict(S=t.S, BR_pad=t.BR_pad, E=t.E, K=t.K, R=t.R, TMAX=t.TMAX,
+                  visits=t.visits)
+        st, en = t.bst.reshape(t.S, -1), t.ben.reshape(t.S, -1)
+        full = spmm_spans_reference(st, en, None, None, None, stream)
+        return {"full": full, "untrans": full, **{m: band_ablate_reference(
+            m, t.cs, t.cr, t.cn, t.bst, t.ben, stream, **kw)
+            for m in ("nodot", "nosel", "empty")}}
+
+    errs = {}
+    small = rb.tables(S=2, BAND=384, E=128, K=128, CAP=512, device=dev)
+    rb.check_schedule(small)
+    for name, t, got in (("probe", tb, outs), ("small", small, {
+            k: rb.variant_call(k, small) for _, k in rb.VARIANTS})):
+        want = refs(t, t.stream.double())
+        plain32 = refs(t, t.stream)
+        for kind, g in got.items():
+            e = float((g.double() - want[kind]).abs().max())
+            errs[(name, kind)] = e
+            check(torch.allclose(g.double(), want[kind], **F32_TOL),
+                  f"r4_band_cost {kind} ({name}) vs f64 ({e:.3e})")
+            if kind in ("nodot", "empty"):
+                check(torch.equal(g, plain32[kind]),
+                      f"band_ablate {kind} ({name}) differs from the plain "
+                      f"f32 sum in chunk order")
+        visits = small.visits[0].diff()
+        check(int(visits.max()) > 1, "small band: no tile has two visits")
+    bad = rb.tables(S=2, BAND=384, E=128, K=128, CAP=512, device=dev)
+    bad.cn[1] = 0
+    try:
+        rb.check_schedule(bad)
+        check(False, "a schedule that misses edges passed the check")
+    except ValueError:
+        pass
+    print(f"phase 11d r4_band_cost at S={tb.S} BAND={tb.BAND} E={tb.E} "
+          f"K={tb.K} CAP={tb.CAP} ({tb.nchunks} chunks, up to "
+          f"{int(tb.visits[0].diff().max())} visits a tile) and at S=2 "
+          f"BAND=384: every variant vs f64 max_abs_err "
+          f"{max(errs.values()):.3e}, nodot and empty bit for bit with the "
+          f"plain sums; a schedule missing a chunk's tiles refused ok",
+          flush=True)
+
+    S, BR_pad, E, K = tb.S, tb.BR_pad, tb.E, tb.K
+    R, n = tb.R, tb.nchunks
+    sched = nbytes(tb.cs, tb.cr, tb.cn)
+    out_b = BR_pad * K * 4
+    tiles = int((tb.visits[0].diff() > 0).sum())
+    heads = int((tb.cn > 0).sum())
+    moved = {"nodot": out_b + sched + 8 * S * tiles,
+             "nosel": out_b + sched + nbytes(tb.stream),
+             "empty": out_b + sched + heads * R * K * 2}
+    flops = {"nodot": BR_pad * K, "nosel": nbytes(tb.stream) // 2,
+             "empty": int(tb.visits[1].numel()) * R * K}
+    kw = dict(S=S, BR_pad=BR_pad, E=E, K=K, R=R, TMAX=tb.TMAX,
+              visits=tb.visits)
+    entry = {}
+    for mode in ("nodot", "nosel", "empty"):
+        p1, k1, k2, p2, _, _ = in_turns(
+            lambda mode=mode: band_ablate_reference(
+                mode, tb.cs, tb.cr, tb.cn, tb.bst, tb.ben, tb.stream, **kw),
+            lambda mode=mode: rb.variant_call(mode, tb), 1, 20)
+        lib_ms, lib = None, None
+        if mode == "nosel":   # the chunks' column sums, nosel's first pass
+            lib = "stream.view(nchunks, E, K).sum(1, dtype=float32)"
+            lib_ms, _ = library_timed(lib, lambda: tb.stream.view(
+                n, E, K).sum(1, dtype=torch.float32), 20)
+        entry[mode] = _probe_entry((k1 + k2) / 2, (p1 + p2) / 2, lib_ms, lib,
+                                   moved[mode], flops[mode],
+                                   errs[("probe", mode)])
+    k4 = {}
+    for kind in ("full", "untrans"):
+        k4[kind], _ = timed(lambda kind=kind: rb.variant_call(kind, tb), 20)
+    for kind, e in entry.items():
+        print(f"phase 11d band_ablate {kind}: kernel {e['ms']:.4f} ms, plain "
+              f"{e['plain_ms']:.3f}, library {e['library_ms']}, bound "
+              f"{e['bound_ms']:.4f} ({e['bound_by']}) {card}", flush=True)
+    print(f"phase 11d K4 (band_reduce_call) full {k4['full']:.4f} ms, "
+          f"untrans {k4['untrans']:.4f} ms {card}", flush=True)
+    return entry, k4
+
+
+def phase11_slice(gen, dev, card, run):
+    """P5 at the probe's defaults: onehot_write equal to the plain gather,
+    onehot_reduce within half a bf16 ulp (+ 1e-5 of the sum of |terms|) of
+    f64; repeated and equal fs, a narrow last column part, small R; ns per
+    edge beside index_select and embedding_bag."""
+    from paddle_sparse_tpu_torch.experiments import r5_vmem_expand as rv
+    from paddle_sparse_tpu_torch.ops.kernels.probes_cuda import (
+        slice_gather_cuda, slice_gather_reference)
+    fs, cols, x, outs = run
+    R, E, K = rv.R, rv.E, rv.K
+    nch = fs.numel()
+
+    def check_reduce(got, f, c, xx, r, tag):
+        want = slice_gather_reference(f, c, xx, r, "onehot_reduce",
+                                      acc=torch.float64)
+        sc = slice_gather_reference(f, c, xx.abs(), r, "onehot_reduce",
+                                    acc=torch.float64)
+        d = (got.double() - want).abs()
+        check(bool((d <= BF16_HALF_ULP * want.abs() + GRAD_REL * sc
+                    + 1e-30).all()),
+              f"slice_gather reduce ({tag}) vs f64 ({float(d.max()):.3e})")
+        return float(d.max())
+
+    check(torch.equal(outs["onehot_write"],
+                      slice_gather_reference(fs, cols, x, R,
+                                             "onehot_write")),
+          "onehot_write differs from the plain gather")
+    errs = {"onehot_write": 0.0,
+            "onehot_reduce": check_reduce(outs["onehot_reduce"], fs, cols, x,
+                                          R, "probe")}
+    for f_, K2, R2, E2 in (([3, 3, 3, 3, 3], 256, 512, 2048),
+                           ([0, 4, 4, 1, 0, 4], 200, 400, 50),
+                           ([2, 1], 8, 16, 7)):
+        f = torch.tensor(f_, device=dev, dtype=torch.int32)
+        c = torch.randint(0, R2, (len(f_) * E2,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        xx = torch.randn(5 * R2, K2, generator=gen, device=dev).bfloat16()
+        check(torch.equal(slice_gather_cuda(f, c, xx, R2, "onehot_write"),
+                          slice_gather_reference(f, c, xx, R2,
+                                                 "onehot_write")),
+              f"onehot_write at K={K2} R={R2}")
+        errs["onehot_reduce"] = max(errs["onehot_reduce"], check_reduce(
+            slice_gather_cuda(f, c, xx, R2, "onehot_reduce"), f, c, xx, R2,
+            f"K={K2} R={R2}"))
+    print(f"phase 11e r5_vmem_expand NCH={nch}: onehot_write equal to the "
+          f"plain gather, onehot_reduce vs f64 max_abs_err "
+          f"{errs['onehot_reduce']:.3e} (within "
+          f"half a bf16 ulp); fs all equal, repeated fs, K 200 and 8, R 400 "
+          f"and 16 ok", flush=True)
+    del outs
+    torch.cuda.empty_cache()
+
+    rows = fs.long().repeat_interleave(E) * R + cols.long()
+    seen = torch.zeros(x.shape[0], dtype=torch.bool, device=dev)
+    seen[rows] = True
+    distinct = int(seen.sum())
+    del seen
+    entry = {}
+    for variant, lib, run_lib in (
+            ("onehot_write", "torch.index_select(x, 0, rows)",
+             lambda: torch.index_select(x, 0, rows)),
+            ("onehot_reduce", "torch.nn.functional.embedding_bag(rows, x, "
+             "mode='sum') (sums per chunk, not rounded, not repeated)",
+             lambda: torch.nn.functional.embedding_bag(rows.view(nch, E), x,
+                                                       mode="sum"))):
+        p1, k1, k2, p2, _, _ = in_turns(
+            lambda v=variant: slice_gather_reference(fs, cols, x, R, v),
+            lambda v=variant: slice_gather_cuda(fs, cols, x, R, v), 1, 5)
+        lib_ms, _ = library_timed(lib, run_lib, 5)
+        out_b = nch * (E if variant == "onehot_write" else 8) * K * 2
+        ms = (k1 + k2) / 2
+        per_chunk = nbytes(fs, cols) + nch * R * K * 2 + out_b
+        entry[variant] = _probe_entry(
+            ms, (p1 + p2) / 2, lib_ms, lib,
+            nbytes(fs, cols) + distinct * K * 2 + out_b,
+            0 if variant == "onehot_write" else nch * E * K, errs[variant],
+            ns_per_edge=ms * 1e6 / (nch * E),
+            library_ns_per_edge=(None if lib_ms is None
+                                 else lib_ms * 1e6 / (nch * E)),
+            distinct_rows=distinct,
+            per_chunk_slice_bound_ms=per_chunk / HBM_BYTES_PER_S * 1e3)
+        torch.cuda.empty_cache()
+    # the probe's own yardstick: random rows of a 64 MB source (over L2)
+    src = x[: (64 << 20) // (K * 2)]
+    g = torch.Generator(device=dev).manual_seed(9)
+    gcols = torch.randint(0, src.shape[0], (nch * E,), generator=g,
+                          device=dev)
+    ms64, _ = library_timed("index_select 64 MB",
+                            lambda: torch.index_select(src, 0, gcols), 5)
+    bag64, _ = library_timed(
+        "embedding_bag 64 MB", lambda: torch.nn.functional.embedding_bag(
+            gcols.view(nch, E), src, mode="sum"), 5)
+    for v, val in (("index_select_64MB", ms64), ("embedding_bag_64MB",
+                                                   bag64)):
+        entry["onehot_write"][f"{v}_ns_per_edge"] = (
+            None if val is None else val * 1e6 / (nch * E))
+    for v, e in entry.items():
+        print(f"phase 11e slice_gather {v}: kernel {e['ms']:.3f} ms "
+              f"({e['ns_per_edge']:.4f} ns/edge), plain {e['plain_ms']:.3f}, "
+              f"library {e['library_ms']} ({e['library_ns_per_edge']} "
+              f"ns/edge), bound {e['bound_ms']:.4f} ({distinct} distinct x "
+              f"rows), per-chunk-slice bound "
+              f"{e['per_chunk_slice_bound_ms']:.4f} {card}", flush=True)
+    w = entry["onehot_write"]
+    print(f"phase 11e from a 64 MB source: index_select "
+          f"{w['index_select_64MB_ns_per_edge']} ns/edge, embedding_bag "
+          f"{w['embedding_bag_64MB_ns_per_edge']} ns/edge {card}",
+          flush=True)
+    return entry
+
+
+def phase11_probes(gen, dev, card):
+    run, counts = phase11a_probe_path(dev)
+    scale2, chunk, srm_err = phase11_bisect(gen, dev, card, run["bisect"])
+    colsum = phase11_dma_issue(gen, dev, card, run["dma"])
+    del run["dma"]
+    band, k4 = phase11_band(gen, dev, card, run["band"])
+    del run["band"]
+    torch.cuda.empty_cache()
+    sl = phase11_slice(gen, dev, card, run.pop("slice"))
+    torch.cuda.empty_cache()
+    return {"counts": counts, "scale2": scale2, "chunk_sum": chunk,
+            "span_colsum": colsum, "band_ablate": band, "k4": k4,
+            "slice_gather": sl, "segment_rows_matmul_max_abs_err": srm_err}
+
+
+def probe_kernels(probes):
+    """The kernels line's entries of the five probe kernels (phase 11)."""
+    src = "paddle_sparse_tpu_torch/csrc/probes.cu"
+    n = probes["counts"]
+    band = probes["band_ablate"]
+    sl = probes["slice_gather"]
+    return [
+        {"name": "scale2", "route": "cuda", "source": src,
+         "replaces": "experiments/bisect_pallas.py:26",
+         "launches": n["scale2"], "launches_by_path": {"probes": n["scale2"]},
+         **probes["scale2"]},
+        {"name": "chunk_sum", "route": "cuda", "source": src,
+         "replaces": "experiments/bisect_pallas.py:86",
+         "launches": n["chunk_sum"],
+         "launches_by_path": {"probes": n["chunk_sum"]},
+         **probes["chunk_sum"]},
+        {"name": "span_colsum", "route": "cuda", "source": src,
+         "replaces": "experiments/r4_dma_issue.py:77",
+         "source_note": "also band_ablate nosel's chunk column sums",
+         "launches": n["span_colsum"],
+         "launches_by_path": {"probes": n["span_colsum"]},
+         **probes["span_colsum"]},
+        {"name": "band_ablate", "route": "cuda", "source": src,
+         "replaces": "experiments/r4_band_cost.py:131",
+         "replaces_note": "k_nodot, k_nosel, k_empty; k_full and k_untrans "
+                          "are K4's function, on band_reduce_call "
+                          "(spmm_spans)",
+         "launches": n["band_ablate"],
+         "launches_by_path": {"probes": n["band_ablate"]},
+         "at": "nosel at r4_band_cost.py's sizes (S=19, BAND=28,672, E=512, "
+               "K=256 bf16); the other modes below",
+         **band["nosel"], "modes": band,
+         "k4_full_ms": probes["k4"]["full"],
+         "k4_untrans_ms": probes["k4"]["untrans"]},
+        {"name": "slice_gather", "route": "cuda", "source": src,
+         "replaces": "experiments/r5_vmem_expand.py:85",
+         "launches": n["slice_gather"],
+         "launches_by_path": {"probes": n["slice_gather"]},
+         "at": f"onehot_write, NCH={PROBE_SLICE_CHUNKS} chunks of 2,048 "
+               f"edges, R=512, K=256 bf16; onehot_reduce below",
+         **sl["onehot_write"], "onehot_reduce": sl["onehot_reduce"]}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible "
@@ -3938,6 +4465,10 @@ def main() -> int:
                               if not m.startswith("launches")}
                           for k, st in entry_points.items()}}), flush=True)
 
+    # ---- phase 11: the experiments/ probes ----------------------------------
+    probes = phase11_probes(gen, dev, card)
+    stamp("phase 11")
+
     launches = {"gcn_forward": fwd["counts"],
                 "gcn_train_step": train["counts"],
                 **{p: v["launches"] for p, v in spgemm.items()},
@@ -3953,7 +4484,9 @@ def main() -> int:
                 **{f"{k}_4_fwd": v["launches_fwd"]
                    for k, v in entry_points.items()},
                 **{f"{k}_4_fwd_bwd": v["launches"]
-                   for k, v in entry_points.items()}}
+                   for k, v in entry_points.items()},
+                "probes": {k: probes["counts"][k]
+                           for k in _launch_counts()}}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in launches.items()}
@@ -4079,7 +4612,8 @@ def main() -> int:
          "bound_by": fold["bound_by"], "library_ms": fold["library_ms"],
          "library": "index_add_ of the partials into their rows",
          "at": f"zipf 1/8 forward's {fold['rows']} split rows, "
-               f"{fold['slots']} partials, K=256 f32"}]}))
+               f"{fold['slots']} partials, K=256 f32"},
+        *probe_kernels(probes)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

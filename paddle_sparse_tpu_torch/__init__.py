@@ -83,6 +83,7 @@ from .ops.kernels.segcompact_cuda import (compact_runs, compact_runs_cuda,
                                           compact_runs_reference)
 from .ops.kernels.spmm_cuda import spmm_csr_cuda, spmm_csr_reference
 from .ops.kernels.spmm_spans_cuda import (band_reduce_call, product_dtype,
+                                          segment_rows_matmul,
                                           spmm_spans_cuda,
                                           spmm_spans_reference, tilespan_call)
 from .ops.segment import (REDUCTIONS, bincount, gather_csr, gather_segments,
@@ -142,6 +143,7 @@ __all__ = [
     "ptr2ind_capped", "sage_params_from_jax", "scatter_reduce",
     "sddmm_csr_cuda", "sddmm_csr_reference",
     "sddmm_spans_cuda", "sddmm_spans_reference", "segment_csr",
+    "segment_rows_matmul",
     "spgemm_entry",
     "spgemm_flops", "spmm_coo", "spmm_csr", "spmm_csr_cuda",
     "spmm_csr_reference", "spmm_entry", "spmm_seg2", "spmm_seg3",

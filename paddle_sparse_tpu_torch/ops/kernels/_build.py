@@ -126,5 +126,20 @@ def load_library() -> ctypes.CDLL:
                                                   i32, i64, p, p, p, p, p, p,
                                                   p, p, p]
             lib.psp_segcompact_stream.restype = ctypes.c_int
+            # the probes of experiments/ (csrc/probes.cu), stream last
+            lib.psp_scale2.argtypes = [p, p, i64, p]
+            lib.psp_chunk_sum.argtypes = [p, p, p, i64, i64, i32, p]
+            lib.psp_span_colsum.argtypes = [p, p, p, i64, i64, i64, i64, p]
+            # mode, tile_ptr, visit_chunk, chunk_span, bst, ben, BR_pad,
+            # stream, colsum, out, ntiles, K, E
+            lib.psp_band_ablate.argtypes = [i32, p, p, p, p, p, i64, p, p, p,
+                                            i64, i64, i64, p]
+            # reduce, fs, cols, x, out, nch, R, E, K
+            lib.psp_slice_gather.argtypes = [i32, p, p, p, p, i64, i64, i64,
+                                             i64, p]
+            for fn in (lib.psp_scale2, lib.psp_chunk_sum,
+                       lib.psp_span_colsum, lib.psp_band_ablate,
+                       lib.psp_slice_gather):
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib

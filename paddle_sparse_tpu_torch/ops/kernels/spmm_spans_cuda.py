@@ -267,3 +267,31 @@ def band_reduce_call(chunk_span: torch.Tensor, chunk_row0: torch.Tensor,
                   for b in (bounds_start, bounds_end))
     return spmm_spans_cuda(start, end, None, None, None, stream2d,
                            out_dtype=torch.float32)
+
+
+def segment_rows_matmul(products: torch.Tensor,
+                        row: Optional[torch.Tensor], rowptr: torch.Tensor,
+                        num_rows: int, tile_rows: int = 128,
+                        chunk_edges: int = 2048, split: bool = True,
+                        acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``spmm_pallas.py::segment_rows_matmul`` (K1) with its signature:
+    ``out[m] = acc[m] + sum_{rowptr[m] <= e < rowptr[m+1]} products[e]`` over
+    a row-sorted (nnz, K) stream, (num_rows, K) f32. A bf16 stream is summed
+    as bf16, any other as f32, in f32; ``rowptr`` (num_rows + 1,) is clipped
+    to ``[0, nnz]``. One :func:`spmm_spans_cuda` launch at S = 1 in the
+    stream form, then ``acc`` added. ``row`` is ignored, as in JAX, and the
+    TPU's tiling (``tile_rows``, ``chunk_edges``) and its hi/lo ``split``
+    are taken and not read."""
+    del row, tile_rows, chunk_edges, split   # the TPU's tiling
+    if products.dtype != torch.bfloat16:
+        products = products.float()
+    nnz = products.shape[0]
+    rp = rowptr.to(products.device, torch.int64)[:num_rows + 1].clamp(0, nnz)
+    if rp.numel() != num_rows + 1:
+        raise ValueError(f"rowptr needs num_rows + 1 = {num_rows + 1} "
+                         f"entries, got {rowptr.numel()}")
+    out = spmm_spans_cuda(rp[None, :-1], rp[None, 1:], None, None, None,
+                          products.contiguous(), out_dtype=torch.float32)
+    if acc is not None:
+        out += acc.to(out.device, torch.float32)
+    return out

@@ -47,6 +47,10 @@ from paddle_sparse_tpu_torch import (CAP, MODELS, PaddedCOO,
                                      spspmm_rowsorted, tilespan_call,
                                      train_entry, train_step)
 
+from paddle_sparse_tpu_torch.experiments import (bisect_pallas as bp,
+                                                 r4_band_cost as rb,
+                                                 r4_dma_issue as rd)
+from paddle_sparse_tpu_torch.ops.kernels import probes_cuda as pc
 from paddle_sparse_tpu_torch.ops.kernels.segcompact_cuda import F_MAX
 
 pytestmark = pytest.mark.cuda
@@ -1501,3 +1505,121 @@ def test_sampling_card_vs_cpu(dev):
     assert walks.is_cuda and walks.shape == (16, 5)
     drawn = p.sample(adj, 3, seeds)
     assert drawn.is_cuda and drawn.shape == (16, 3)
+
+
+# ---- the experiments/ probes (csrc/probes.cu) -------------------------------
+# scale2, chunk_sum, band_ablate nodot/empty and slice_gather onehot_write
+# repeat their plain versions' operations in the same order: bit for bit.
+# span_colsum and nosel sum thousands of bf16 terms in f32 in another order:
+# within SUM_REL of each entry's sum of |terms| against f64. onehot_reduce
+# rounds that sum to bf16 once: within half a bf16 ulp (2**-8 of the value)
+# on top.
+
+@pytest.mark.parametrize("double_buffer", [False, True])
+def test_probe_scale2_and_chunk_sum_vs_plain(dev, double_buffer):
+    g = torch.Generator(device=dev).manual_seed(0)
+    for n in (1, 5, 4096, 100_003):
+        x = torch.randn(n + 1, generator=g, device=dev)
+        for v in (x[:n], x[1:]):
+            assert torch.equal(pc.scale2_cuda(v), v * 2)
+    ptr = torch.tensor([0, 3, 3, 9, 10], device=dev, dtype=torch.int32)
+    src = torch.randn(1000, 36, generator=g, device=dev)
+    before = pc.chunk_sum_cuda.launches
+    got = pc.chunk_sum_cuda(ptr, src, 100, double_buffer)
+    assert pc.chunk_sum_cuda.launches == before + 1
+    assert torch.equal(got, pc.chunk_sum_reference(ptr, src, 100))
+    assert not got[100:200].any()                      # the empty tile
+    assert torch.equal(bp.dma_copy(double_buffer, dev).cpu(),
+                       bp.dma_copy(double_buffer, "cpu"))
+
+
+@pytest.mark.parametrize("K", [8, 128, 256])
+def test_probe_span_colsum_vs_plain(dev, K):
+    g = torch.Generator(device=dev).manual_seed(K)
+    stream = torch.randn(6000, K, generator=g, device=dev).bfloat16()
+    NS, CAP, steps = 5, 77, 13
+    e0 = torch.randint(0, 6000 - CAP, (steps * NS,), generator=g,
+                       device=dev).int()
+    e0[0] = 6000 - CAP
+    got = pc.span_colsum_cuda(stream, e0, NS, CAP, steps)
+    ref = pc.span_colsum_reference(stream, e0, NS, CAP, steps, torch.float64)
+    scale = pc.span_colsum_reference(stream.abs(), e0, NS, CAP, steps,
+                                     torch.float64)
+    _close_to_sum(got, ref, scale)
+    seed = torch.randn(1, 128, generator=g, device=dev)
+    out = rd.run(stream, e0, seed, NS=NS, CAP=CAP, steps=steps)
+    _close_to_sum(out, pc.dma_issue_output(ref, seed),
+                  pc.dma_issue_output(scale, seed.abs()))
+    with pytest.raises(ValueError, match="at least 8 steps"):
+        rd.run(stream, e0, seed, NS=NS, CAP=CAP, steps=7)
+
+
+@pytest.mark.parametrize("kind", ["full", "nodot", "nosel", "empty",
+                                  "untrans"])
+def test_probe_band_variants_vs_plain(dev, kind):
+    tb = rb.tables(S=3, BAND=640, E=128, K=128, CAP=1024, device=dev)
+    rb.check_schedule(tb)
+    assert int(tb.visits[0].diff().max()) > 1
+    counts = (pc.band_ablate_cuda.launches, pc.span_colsum_cuda.launches,
+              spmm_spans_cuda.launches)
+    got = rb.variant_call(kind, tb)
+    delta = tuple(b - a for a, b in zip(counts, (
+        pc.band_ablate_cuda.launches, pc.span_colsum_cuda.launches,
+        spmm_spans_cuda.launches)))
+    kw = dict(S=tb.S, BR_pad=tb.BR_pad, E=tb.E, K=tb.K, TMAX=tb.TMAX,
+              visits=tb.visits)
+    if kind in ("full", "untrans"):
+        assert delta == (0, 0, 1)
+        st, en = tb.bst.reshape(tb.S, -1), tb.ben.reshape(tb.S, -1)
+        ref = spmm_spans_reference(st, en, None, None, None,
+                                   tb.stream.double())
+        torch.testing.assert_close(got.double(), ref, **F32)
+        return
+    assert delta == (1, int(kind == "nosel"), 0)
+    args = (tb.cs, tb.cr, tb.cn, tb.bst, tb.ben)
+    if kind == "nosel":
+        torch.testing.assert_close(got.double(), pc.band_ablate_reference(
+            kind, *args, tb.stream.double(), **kw), **F32)
+    else:
+        assert torch.equal(got, pc.band_ablate_reference(kind, *args,
+                                                         tb.stream, **kw))
+
+
+@pytest.mark.parametrize("variant", ["onehot_write", "onehot_reduce"])
+@pytest.mark.parametrize("shape", [(256, 512, 2048), (200, 400, 50),
+                                   (8, 16, 7)])
+def test_probe_slice_gather_vs_plain(dev, variant, shape):
+    K, R, E = shape
+    g = torch.Generator(device=dev).manual_seed(K)
+    fs = torch.tensor([0, 4, 4, 1, 0, 4, 4], device=dev, dtype=torch.int32)
+    cols = torch.randint(0, R, (fs.numel() * E,), generator=g, device=dev,
+                         dtype=torch.int32)
+    x = torch.randn(5 * R, K, generator=g, device=dev).bfloat16()
+    before = pc.slice_gather_cuda.launches
+    got = pc.slice_gather_cuda(fs, cols, x, R, variant)
+    assert pc.slice_gather_cuda.launches == before + 1
+    if variant == "onehot_write":
+        assert torch.equal(got, pc.slice_gather_reference(fs, cols, x, R,
+                                                          variant))
+        return
+    ref = pc.slice_gather_reference(fs, cols, x, R, variant, torch.float64)
+    scale = pc.slice_gather_reference(fs, cols, x.abs(), R, variant,
+                                      torch.float64)
+    _close_to_sum(got, ref, scale, out_rel=2.0 ** -8)
+
+
+def test_probe_entry_points_card_vs_cpu(dev):
+    """The probes' entry points on the card against the same on the CPU:
+    ``bisect_pallas``'s stages, ``segment_rows_matmul`` with ``acc``."""
+    from paddle_sparse_tpu_torch import segment_rows_matmul
+    card, host = bp.main(["all"], device=dev), bp.main(["all"], device="cpu")
+    for name in ("trivial", "dma1", "dma2"):
+        assert torch.equal(card[name].cpu(), host[name])
+    torch.testing.assert_close(card["spmm"].cpu(), host["spmm"], **F32)
+    val, row, rowptr = bp.spmm_inputs(dev)
+    acc = torch.randn(bp.SPMM_M, bp.SPMM_K, device=dev)
+    for p in (val, val.bfloat16()):
+        got = segment_rows_matmul(p, row, rowptr, bp.SPMM_M, acc=acc)
+        want = segment_rows_matmul(p.cpu(), row.cpu(), rowptr.cpu(),
+                                   bp.SPMM_M, acc=acc.cpu())
+        torch.testing.assert_close(got.cpu(), want, **F32)

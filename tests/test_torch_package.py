@@ -28,8 +28,11 @@ def test_port_never_imports_jax():
     reduction and the facade path (a ``SparseTensor``, ``fill_diag``,
     ``sum``, ``mul``, ``@`` and its backward, ``A @ A``), sampling, a walk,
     a partition, RCM, the host runtime and ``spmm_seg``, ``spmm_sell`` and
-    ``spmm_chunked`` run; every name of ``__all__`` exists, the facade's
-    among them; neither jax nor the JAX package is loaded."""
+    ``spmm_chunked`` run, and so do the probes of ``experiments/``
+    (``paddle_sparse_tpu_torch.experiments``: the bisect's stages, a span
+    column sum, a band variant, a slice gather); every name of ``__all__``
+    exists, the facade's among them; neither jax nor the JAX package nor
+    ``experiments/`` is loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -87,6 +90,24 @@ def test_port_never_imports_jax():
         "    x.requires_grad_()\n"
         "    fn(plan, s, packed.requires_grad_(), x).sum().backward()\n"
         "    assert bool(torch.isfinite(packed.grad).all())\n"
+        "from paddle_sparse_tpu_torch.experiments import (bisect_pallas, "
+        "r4_band_cost, r4_dma_issue, r5_vmem_expand)\n"
+        "import contextlib, io\n"
+        "with contextlib.redirect_stdout(io.StringIO()) as printed:\n"
+        "    stages = bisect_pallas.main([], device='cpu')\n"
+        "assert set(stages) == {'trivial', 'dma1', 'dma2', 'spmm'}\n"
+        "assert printed.getvalue().count(': ok in ') == 4\n"
+        "st, e0, sd = r4_dma_issue.make_inputs(2, 32, steps=9, nstream=512, "
+        "device='cpu')\n"
+        "assert r4_dma_issue.run(st, e0, sd, NS=2, CAP=32, steps=9).shape "
+        "== (1024, 256)\n"
+        "tb = r4_band_cost.tables(S=2, BAND=384, E=128, K=128, CAP=512, "
+        "device='cpu')\n"
+        "r4_band_cost.check_schedule(tb)\n"
+        "assert r4_band_cost.variant_call('nosel', tb).shape == (512, 128)\n"
+        "fs, cols, x = r5_vmem_expand.make_inputs(2, 'cpu')\n"
+        "assert r5_vmem_expand.make_call('onehot_reduce')(fs, cols, x)"
+        ".shape == (16, 256)\n"
         "missing = [n for n in p.__all__ if not hasattr(p, n)]\n"
         "assert not missing, missing\n"
         "facade = {'SparseTensor', 'SparseStorage', 'matmul', 'spspmm', "
@@ -97,7 +118,8 @@ def test_port_never_imports_jax():
         "'reverse_cuthill_mckee'}\n"
         "assert facade <= set(p.__all__), facade - set(p.__all__)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'paddle_sparse_tpu') and sys.modules[m]]\n"
+        "('jax', 'jaxlib', 'paddle_sparse_tpu', 'experiments') "
+        "and sys.modules[m]]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     proc = _run(code)
@@ -106,23 +128,53 @@ def test_port_never_imports_jax():
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """Every entry point defaults to ``device="cuda"`` and, without a card,
-    raises naming the missing device instead of running on the CPU."""
+    """Every entry point, the probes' of ``experiments/`` among them,
+    defaults to ``device="cuda"`` and, without a card, raises naming the
+    missing device instead of running on the CPU."""
     import inspect
 
     import torch
 
     import paddle_sparse_tpu_torch as p
+    from paddle_sparse_tpu_torch.experiments import (bisect_pallas as bp,
+                                                     r4_band_cost as rb,
+                                                     r4_dma_issue as rd,
+                                                     r5_vmem_expand as rv)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for fn, args in ((p.entry, ()), (p.train_entry, ()),
                      (p.spgemm_entry, ()), (p.spmm_entry, ("seg2",)),
                      (p.model_entry, ("gat",)), (p.facade_entry, ()),
-                     (p.sample_entry, ())):
+                     (p.sample_entry, ()), (bp.main, ([],)),
+                     (bp.trivial, ()), (bp.dma_copy, (True,)),
+                     (bp.spmm, ()), (rd.main, ([],)),
+                     (rd.make_inputs, (19, 384)), (rb.main, ()),
+                     (rb.variants, ()), (rb.tables, ()), (rv.main, ([],)),
+                     (rv.make_inputs, (3,))):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(*args)
     with pytest.raises(ValueError, match="unknown SpMM backend"):
         p.spmm_entry("cusparse", "cpu")
+
+
+def test_probe_modules_read_no_argv_at_import():
+    """Importing the probes of ``paddle_sparse_tpu_torch.experiments`` reads
+    no ``sys.argv`` (only their ``main`` does): every read of it raises."""
+    code = (
+        "import sys\n"
+        "class NoArgv(list):\n"
+        "    def _no(self, *a, **k):\n"
+        "        raise AssertionError('sys.argv read at import')\n"
+        "    __getitem__ = __len__ = __iter__ = __bool__ = _no\n"
+        "sys.argv = NoArgv()\n"
+        "import paddle_sparse_tpu_torch.experiments.timing\n"
+        "from paddle_sparse_tpu_torch.experiments import (bisect_pallas, "
+        "r4_band_cost, r4_dma_issue, r5_vmem_expand)\n"
+        "assert r4_dma_issue.STEPS == 2048 and r5_vmem_expand.R == 512\n"
+        "print('ok')\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 def test_kernel_module_imports_without_nvcc(tmp_path):
