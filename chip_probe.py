@@ -13,7 +13,8 @@ in 512 ... 16384, each timed with CUDA events after a warm-up, in f32 and
 bf16, and on the uniform graph, which no cap in that range splits. One JSON
 line per cap.
 
-``ab PARENT``: the uniform GCN forward (phase 4), train step (phase 5),
+``ab PARENT``: the uniform GCN forward (phase 4), train step (phase 5)
+and its peak memory,
 seg2 f32 forward and forward+backward (phase 7c) and the four A @ A paths
 of phase 6c (800k rowsorted, 10M rowsorted and rowblocked, zipf padded:
 ms per call, and K5 alone on the call's compress input) of
@@ -147,8 +148,11 @@ def _ab_run(where: Path) -> dict:
                                 re.M).group(1))
     spgemm = json.loads(re.search(r"^AB_SPGEMM (.*)$", out.stdout,
                                   re.M).group(1))
+    peak = re.search(r"phase 5 train step ms.*?peak mem ([0-9.]+) GB",
+                     out.stdout)
     return {"tree": str(where), "gcn_forward_ms": mean(r"phase 4 forward ms"),
             "gcn_train_step_ms": mean(r"phase 5 train step ms"),
+            "gcn_train_peak_gb": float(peak.group(1)),
             "seg2_f32_fwd_ms": seg2["fwd_ms"],
             "seg2_f32_fwd_bwd_ms": seg2["fwd_bwd_ms"],
             **{f"{p}_{k}": v[k] for p, v in spgemm.items() for k in v}}

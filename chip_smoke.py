@@ -16,6 +16,13 @@ Phases, one or more printed lines each:
    inputs, empty rows, a padded ``PaddedCOO`` with poisoned padding cols
    (padding reads back 0), a row of over 1M edges, and the identity
    structure (where the kernel is ``mul_rowsum``).
+2c. The fused CSC backward (``spmm_sddmm_csc_cuda``) against the pair it
+   replaces (K2 over the CSR, ``value[perm]`` and K1 over the CSC view) bit
+   for bit, and against its plain version in f64, over K 1 3 47 64 100 256
+   300 520, f32, bf16, bf16 x with f32 value, bf16 g and value with f32 x,
+   ``value=None``, empty
+   columns, poisoned padding and a hub column split into pieces; two
+   launches bit for bit.
 3. Toy slice: ``entry("cuda")``'s GCN forward against the same model run on
    the CPU through the plain path.
 3b. Toy train step: ``train_entry("cuda")`` against ``train_entry("cpu")``:
@@ -28,10 +35,15 @@ Phases, one or more printed lines each:
 5. GCN train step at the same scale, on phase 4's graph, features and model,
    with labels and ``adj.value.requires_grad_()``: the CSC view's build time,
    1 warm-up and 3 timed steps (forward + backward + SGD), peak memory, the
-   launch counts (SpMM 3 forward + 2 backward, SDDMM 3 per step), per-part
-   times, d value on sampled edges and d x on sampled columns against f64,
-   and the K=256 and K=100 SDDMM timed through the kernel and the plain
-   version.
+   launch counts (per step K1 3 forward, K2 1 for layer 0's d value, the
+   fused CSC backward 2 for layers 1 and 2), per-part times, d value on
+   sampled edges and d x on sampled columns against f64, the K=256 and
+   K=100 SDDMM timed through the kernel and the plain version, and the
+   fused CSC backward at K=256 (layer 1's g and input) in turns with the
+   pair it replaces (K2, ``value[perm]``, K1 over the CSC view), d x and d
+   value equal to the pair's bit for bit, against its plain version, its
+   bounds and its library calls (``torch.sparse.mm`` of the transpose,
+   ``sampled_addmm``).
 6a. Run compaction (K5) vs plain: ``compact_runs_cuda`` against
    ``compact_runs_reference`` in f64 on the card, over per-row-sorted grids,
    a row block's grid, a flat (row, col)-sorted stream, runs across many
@@ -97,8 +109,8 @@ Phases, one or more printed lines each:
    padding cols, empty rows, a row of negative products, duplicate entries,
    a hub row and a hub column past ``CAP``), in f32 and in small integers
    (ties), forward, d value and d x against the plain path in f64; mean's
-   launches (K1 forward and for d x, K2 for d value, the fold after each
-   split K1), none for min and max. Then min and max at 1/8 of
+   launches (K1 forward, the fused CSC backward for d x and d value, the
+   fold after each), none for min and max. Then min and max at 1/8 of
    ogbn-products scale, where their (nnz, K) products fit the card:
    forwards at K=256 and forward+backwards at K=64, times, peak memory,
    sampled rows against f64.
@@ -106,16 +118,18 @@ Phases, one or more printed lines each:
    every parameter's grad and d value, card vs CPU.
 8c. GraphSAGE (mean aggregator) 100 -> 256 -> 256 -> 47 on phase 4's graph
    with ``adj.value.requires_grad_()``: 1 warm-up and 3 timed forwards and
-   train steps, peak memory, the launch counts (K1 3 per forward, 5 per
-   step; K2 3 per step; no fold), the times beside phase 4's and 5's GCN,
+   train steps, peak memory, the launch counts (K1 3 per forward and per
+   step; K2 1 and the fused CSC backward 2 per step; no fold), the times
+   beside phase 4's and 5's GCN,
    and every SpMM's sampled rows and d value on sampled edges against f64
    (the calls recorded during one more step).
 8d. On ``bench_graph``'s zipf graph at 1/8 scale with 100 features (hub row
    of 10M edges, split): GIN 100 -> 256 -> 256 -> 47 and APPNP 100 -> 256
    -> 47 (k = 10, alpha = 0.1) on the ``gcn_normalize``-d adjacency with
    its values requiring grad, and GAT (3 layers, 4 heads of 64, output 47)
-   on the raw one: times, peak memory, launch counts (GAT: K1 2 sum(H) and
-   K2 sum(H) per step; the fold after every K1 over the split rows),
+   on the raw one: times, peak memory, launch counts (GAT: K1 sum(H) and
+   the fused CSC backward sum(H) per step; the fold after every K1 over the
+   split rows and every fused pass over split columns),
    sampled rows of every SpMM, GIN's and APPNP's d value and GAT's d att
    of every head and layer against f64.
 9a. The eager ``SparseTensor`` facade on ``facade_entry``'s toy graph
@@ -129,8 +143,8 @@ Phases, one or more printed lines each:
    sampled rows of the values (degree and columns exact) and of ``out``
    against f64 on the host, d value and d x on sampled entries against f64,
    ``out`` bit for bit against ``PaddedCOO.spmm`` on the same entries (both
-   timed), launches exact (K1 1 per forward, K1 + K2 1 each per backward, no
-   fold) and no CSC view built after the first backward.
+   timed), launches exact (K1 1 per forward, the fused CSC backward 1 per
+   backward, no fold) and no CSC view built after the first backward.
 9c. ``adj_t[idx]`` (1/8 of the rows), ``narrow``, ``t()`` and
    ``masked_select`` on the normalized ``adj_t``: ms each, sampled rows
    equal to scipy's same op.
@@ -167,8 +181,9 @@ Phases, one or more printed lines each:
    f32: ``spmm_chunked``, ``spmm_seg``, ``backend="sell"`` (COO values)
    and ``spmm_sell`` with its ``(32, ng)`` value grid as the leaf, each in
    turns with ``spmm_csr`` (csr, path, path, csr): plan seconds, forward and
-   forward+backward ms, peak memory, exact launches (K1 1 per forward, K1 2
-   and K2 1 per forward+backward; seg: spans 1 / 2 and span SDDMM 1), and
+   forward+backward ms, peak memory, exact launches (K1 1 per forward, K1 1
+   and the fused CSC backward 1 per forward+backward; seg: spans 1 / 2 and
+   span SDDMM 1), and
    sampled rows, ``d value`` and ``d x`` against f64; the grid's ``d
    value`` 0 at every pad slot.
 11. The TPU probes of ``experiments/`` through the port's entry points
@@ -472,6 +487,103 @@ def phase2b_sddmm(gen, dev):
                 ident_col, a, b, F32_TOL)
 
 
+def fused_pair(adj, value, g, x, out_dtype):
+    """The two passes that ``spmm_sddmm_csc_cuda`` replaces, as the SpMM
+    backward ran them: K2 over the CSR for d value, then ``value[perm]``
+    and K1 over the CSC view for d x: ``(d x, d value)``."""
+    from paddle_sparse_tpu_torch import sddmm_csr_cuda, spmm_csr_cuda
+    s = adj.structure()
+    dv = sddmm_csr_cuda(adj.rowptr(), adj.col, g, x, out_dtype=out_dtype,
+                        split=s.row_split)
+    vt = None if value is None else value.index_select(0, s.perm)
+    return spmm_csr_cuda(s.colptr, s.col_t, vt, g, split=s.col_split), dv
+
+
+def fused_kernel(adj, value, g, x, out_dtype):
+    """``spmm_sddmm_csc_cuda`` over ``adj``'s CSC view: ``(d x, d
+    value)``."""
+    from paddle_sparse_tpu_torch import spmm_sddmm_csc_cuda
+    s = adj.structure()
+    return spmm_sddmm_csc_cuda(s.colptr, s.col_t, s.perm, value, g, x,
+                               out_dtype=out_dtype, split=s.col_split)
+
+
+def phase2c_fused(gen, dev):
+    """The fused CSC backward against the pair it replaces, bit for bit,
+    and against the plain version in f64 (within GRAD_REL of each entry's
+    sum of |terms|), over K, dtypes, value None, empty columns, poisoned
+    padding and a column split into pieces; two launches bit for bit."""
+    from paddle_sparse_tpu_torch import (CAP, PaddedCOO,
+                                         spmm_sddmm_csc_reference)
+    M, N = 3000, 2000
+    rowptr, col, value = random_csr(gen, dev, M, N, 40)
+    row = torch.repeat_interleave(torch.arange(M, device=dev),
+                                  (rowptr[1:] - rowptr[:-1]).long())
+    col = torch.where(col % 97 == 3, 5, col)          # empty columns
+    hub = torch.randint(0, M, (2 * CAP + 5,), generator=gen, device=dev)
+    graphs = {}
+    for name, (r, c, v) in {
+            "unsplit": (row, col, value),
+            "hub column split": (torch.cat([row, hub]),
+                                 torch.cat([col, torch.full_like(hub, 7)]),
+                                 torch.cat([value, torch.rand(
+                                     hub.numel(), generator=gen,
+                                     device=dev)]))}.items():
+        order = torch.argsort(r, stable=True)
+        adj = PaddedCOO.from_arrays(r[order], c[order], v[order], (M, N),
+                                    capacity=r.numel() + 1000, device=dev)
+        graphs[name] = dataclasses.replace(adj, col=torch.where(
+            adj.valid_mask(), adj.col, torch.full_like(adj.col, 1 << 30)))
+    for name, adj in graphs.items():
+        s = adj.structure()
+        check((s.col_split is None) == (name == "unsplit"),
+              f"{name}: column split table {s.col_split}")
+        nnz = adj.nnz
+        for tag, vdt, xdt, gdt in (
+                ("f32", torch.float32, torch.float32, torch.float32),
+                ("bf16", torch.bfloat16, torch.bfloat16, torch.bfloat16),
+                ("bf16 x, f32 value", torch.float32, torch.bfloat16,
+                 torch.float32),
+                ("bf16 g and value, f32 x", torch.bfloat16, torch.float32,
+                 torch.bfloat16),
+                ("f32 value None", None, torch.float32, torch.float32)):
+            errs = []
+            for K in (1, 3, 47, 64, 100, 256, 300, 520):
+                x = torch.randn(N, K, generator=gen, device=dev).to(xdt)
+                v = None if vdt is None else adj.value.to(vdt)
+                g = torch.randn(M, K, generator=gen, device=dev).to(gdt)
+                odt = torch.float32 if v is None else v.dtype
+                got = fused_kernel(adj, v, g, x, odt)
+                want = fused_pair(adj, v, g, x, odt)
+                again = fused_kernel(adj, v, g, x, odt)
+                torch.cuda.synchronize()
+                for what, a, b, c in zip(("d x", "d value"), got, want,
+                                         again):
+                    check(a.dtype == b.dtype and torch.equal(a, b),
+                          f"{name} {tag} K={K}: fused {what} differs from "
+                          f"the pair's")
+                    check(torch.equal(a, c), f"{name} {tag} K={K}: two "
+                          f"launches' {what} differ")
+                check(not got[1][nnz:].any(), "fused d value at padding")
+                f64 = [spmm_sddmm_csc_reference(
+                    s.colptr, s.col_t, s.perm, None if v is None else f(v),
+                    f(g), f(x), torch.float64)
+                    for f in (torch.Tensor.double,
+                              lambda t: t.double().abs())]
+                for i, out in enumerate(got):
+                    out_rel = BF16_HALF_ULP if out.dtype == torch.bfloat16 \
+                        else 0.0
+                    err, ok = _grad_close(out, f64[0][i], f64[1][i], out_rel)
+                    check(ok, f"{name} {tag} K={K}: fused "
+                              f"{('d x', 'd value')[i]} vs plain f64 "
+                              f"({err:.3e})")
+                    errs.append(err)
+            print(f"phase 2c fused CSC backward, {name}, {tag}, K 1 3 47 64 "
+                  f"100 256 300 520: d x and d value equal to K2 + K1 over "
+                  f"the CSC view bit for bit, two launches equal, vs plain "
+                  f"f64 max_abs_err {max(errs):.3e} ok", flush=True)
+
+
 def phase3_toy(dev):
     from paddle_sparse_tpu_torch import entry
     model_c, adj_c, x_c = entry(dev)
@@ -689,8 +801,7 @@ def _d_x_err(rowptr, col, value, g, d_x, cols):
 
 def phase5_train(dev, card, adj, x, model):
     from paddle_sparse_tpu_torch import (gcn_loss, sddmm_csr_cuda,
-                                         sddmm_csr_reference, spmm_csr_cuda,
-                                         train_step)
+                                         sddmm_csr_reference, train_step)
     n, nnz, L = PRODUCTS_NODES, adj.nnz, len(model.weight)
     gen = torch.Generator(device=dev).manual_seed(5)
     y = torch.randint(0, GCN_DIMS[2], (n,), generator=gen, device=dev)
@@ -719,6 +830,7 @@ def phase5_train(dev, card, adj, x, model):
         losses.append(float(loss))
     counts = _launch_counts()
     k1_launches, k2_launches = counts["spmm_csr"], counts["sddmm_csr"]
+    fused_launches = counts["spmm_sddmm_csc"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = sum(times[1:]) / 3
     print(f"phase 5 train step ms (forward + backward + SGD): warm-up "
@@ -728,11 +840,16 @@ def phase5_train(dev, card, adj, x, model):
           f"{peak_gb:.2f} GB {card}", flush=True)
     print(f"phase 5 launches in 4 steps: spmm_csr {k1_launches} "
           f"({k1_launches / 4:g} per step), sddmm_csr {k2_launches} "
-          f"({k2_launches / 4:g} per step)", flush=True)
-    check(k1_launches == 5 * 4, f"expected 5 spmm_csr launches per step (3 "
-                                f"forward, 2 backward), counted {k1_launches}")
-    check(k2_launches == 3 * 4, f"expected 3 sddmm_csr launches per step, "
+          f"({k2_launches / 4:g} per step), spmm_sddmm_csc "
+          f"{fused_launches} ({fused_launches / 4:g} per step)", flush=True)
+    # layer 0's SpMM reads the features (no d x): K2 alone; layers 1 and 2
+    # need both grads: the fused CSC backward
+    check(k1_launches == 3 * 4, f"expected 3 spmm_csr launches per step (the "
+                                f"forward), counted {k1_launches}")
+    check(k2_launches == 1 * 4, f"expected 1 sddmm_csr launch per step, "
                                 f"counted {k2_launches}")
+    check(fused_launches == 2 * 4, f"expected 2 spmm_sddmm_csc launches per "
+                                   f"step, counted {fused_launches}")
     check(counts["fold_pieces"] == 0 and s.row_split is None
           and s.col_split is None,
           f"the uniform graph's rows or columns split (fold_pieces "
@@ -787,16 +904,16 @@ def phase5_train(dev, card, adj, x, model):
     gs = [sp.grad for sp in ss]
     bwd_parts = []
     for i in range(L):
-        ms, _ = timed(lambda: sddmm_csr_cuda(rowptr, col, gs[i], hs[i],
-                                             split=s.row_split), 1)
-        bwd_parts.append((f"bwd layer {i} sddmm K={hs[i].shape[1]}", ms))
+        K = hs[i].shape[1]
         if hs[i].requires_grad:
-            ms, value_t = timed(lambda: value.index_select(0, s.perm), 1)
-            bwd_parts.append((f"bwd layer {i} value[perm]", ms))
-            ms, _ = timed(lambda: spmm_csr_cuda(s.colptr, s.col_t, value_t,
-                                                gs[i], split=s.col_split), 1)
-            bwd_parts.append((f"bwd layer {i} spmm (CSC) K="
-                              f"{hs[i].shape[1]}", ms))
+            ms, _ = timed(lambda: fused_kernel(adj, value, gs[i],
+                                               hs[i].detach(), value.dtype),
+                          1)
+            bwd_parts.append((f"bwd layer {i} spmm_sddmm_csc K={K}", ms))
+        else:
+            ms, _ = timed(lambda: sddmm_csr_cuda(rowptr, col, gs[i], hs[i],
+                                                 split=s.row_split), 1)
+            bwd_parts.append((f"bwd layer {i} sddmm K={K}", ms))
     rest = bwd_ms - sum(ms for _, ms in bwd_parts)
     bwd_parts.append(("bwd dense/autograd rest", rest))
     total = sum(ms for _, ms in fwd_parts) + bwd_ms
@@ -873,16 +990,107 @@ def phase5_train(dev, card, adj, x, model):
     sddmm_stats[256].update(bound_ms=bound, bound_by=by, library_ms=lib_ms,
                             gather_bound_ms=nnz * hi.shape[1] * 4
                             / HBM_BYTES_PER_S * 1e3)
+    fused = phase5_fused(card, adj, value, gs[1], hs[1].detach())
     return {"spmm_launches": k1_launches, "sddmm_launches": k2_launches,
-            "counts": counts, "sddmm": sddmm_stats, "step_ms": step_ms}
+            "fused_launches": fused_launches, "counts": counts,
+            "sddmm": sddmm_stats, "fused": fused, "step_ms": step_ms,
+            "peak_gb": peak_gb}
+
+
+def phase5_fused(card, adj, value, g, h):
+    """The fused CSC backward at K=256 f32 on the full graph, on layer 1's
+    g and input: in turns with the pair it replaces (K2, ``value[perm]``,
+    K1 over the CSC view), both outputs equal bit for bit; against its
+    plain version in turns; its two bounds; and the two library calls that
+    compute its outputs, ``torch.sparse.mm`` of the transpose for d x and
+    ``sampled_addmm`` for d value, each in turns with it."""
+    from paddle_sparse_tpu_torch import spmm_sddmm_csc_reference
+    s, n, nnz, K = adj.structure(), adj.shape[0], adj.nnz, h.shape[1]
+    with torch.no_grad():
+        q1, f1, f2, q2, out_q, out_f = in_turns(
+            lambda: fused_pair(adj, value, g, h, value.dtype),
+            lambda: fused_kernel(adj, value, g, h, value.dtype), 3, 3)
+        same = all(torch.equal(a, b) for a, b in zip(out_f, out_q))
+        print(f"phase 5 spmm_sddmm_csc K={K} f32 at {nnz} nnz, in turns "
+              f"with the pair it replaces (K2 + value[perm] + K1 over the "
+              f"CSC view): pair {q1:.3f} / {q2:.3f} ms, fused {f1:.3f} / "
+              f"{f2:.3f} ms; d x and d value bit for bit "
+              f"{'equal' if same else 'DIFFERENT'} {card}", flush=True)
+        check(same, "the fused kernel's d x or d value differs from the "
+                    "pair's on the full graph")
+        del out_q
+        p1, k1, k2, p2, out_p, _ = in_turns(
+            lambda: spmm_sddmm_csc_reference(s.colptr, s.col_t, s.perm,
+                                             value, g, h),
+            lambda: fused_kernel(adj, value, g, h, value.dtype), 1, 3)
+        errs = [float((a - b).abs().max()) for a, b in zip(out_f, out_p)]
+        scale = float(out_p[1].abs().max())
+        ok = (bool(torch.allclose(out_f[0], out_p[0], **F32_TOL))
+              and bool(torch.allclose(out_f[1], out_p[1], rtol=1e-4,
+                                      atol=GRAD_REL * scale)))
+        print(f"phase 5 spmm_sddmm_csc K={K}: kernel {k1:.3f} / {k2:.3f} "
+              f"ms, plain {p1:.3f} / {p2:.3f} ms; kernel vs plain max_abs_err "
+              f"d x {errs[0]:.3e}, d value {errs[1]:.3e} (max |dv| "
+              f"{scale:.3e}) {'ok' if ok else 'FAIL'} {card}", flush=True)
+        check(ok, "fused kernel and its plain version disagree at scale")
+        del out_p
+        torch.cuda.empty_cache()
+        value_t = value.index_select(0, s.perm)[:nnz]
+        at = torch.sparse_csr_tensor(s.colptr, s.col_t[:nnz], value_t,
+                                     (n, n))
+        lib_dx, ms_a, err_dx = library_in_turns(
+            "torch.sparse.mm (A^T @ g, the fused kernel's d x)",
+            lambda: torch.sparse.mm(at, g), lambda: fused_kernel(
+                adj, value, g, h, value.dtype), 2, out_f[0])
+        del at, value_t
+        csr = torch.sparse_csr_tensor(adj.rowptr(), adj.col[:nnz],
+                                      value[:nnz], (n, n))
+        h_t = h.t().contiguous()
+        lib_dv, ms_b, err_dv = library_in_turns(
+            "torch.sparse.sampled_addmm (the fused kernel's d value)",
+            lambda: torch.sparse.sampled_addmm(csr, g, h_t, beta=0.0),
+            lambda: fused_kernel(adj, value, g, h, value.dtype), 2,
+            out_f[1][:nnz])
+        del csr, h_t
+        torch.cuda.empty_cache()
+        # the fused walk's scattered accesses alone: value read and d value
+        # written at perm, one 4-byte element per edge
+        perm_l = s.perm[:nnz].long()
+        dv = out_f[1][:nnz]
+        gather_ms, _ = timed(lambda: value.index_select(0, perm_l), 3)
+        scatter_ms, _ = timed(lambda: torch.empty_like(dv).index_copy_(
+            0, perm_l, dv), 3)
+        del perm_l, dv
+    print(f"phase 5 spmm_sddmm_csc K={K}: its scattered accesses alone, "
+          f"value[perm] {gather_ms:.3f} ms, d value[perm] = ... "
+          f"{scatter_ms:.3f} ms {card}", flush=True)
+    moved = nbytes(g, h, out_f[0], s.colptr, s.col_t[:nnz], s.perm[:nnz],
+                   value[:nnz], out_f[1][:nnz])
+    bound, by = bound_ms(moved, 4 * nnz * K)
+    gather = nnz * K * g.element_size() / HBM_BYTES_PER_S * 1e3
+    ms = (f1 + f2 + k1 + k2 + ms_a + ms_b) / 6
+    print(f"phase 5 spmm_sddmm_csc K={K}: mean {ms:.3f} ms over its six "
+          f"turns; bound {bound:.3f} ms ({by}, {moved / 1e9:.2f} GB each "
+          f"once), gathered rows {gather:.3f} ms; library torch.sparse.mm "
+          f"of the transpose {lib_dx} ms (vs d x max_abs_err {err_dx}), "
+          f"sampled_addmm {lib_dv} ms (vs d value max_abs_err {err_dv}) "
+          f"{card}", flush=True)
+    return {"ms": ms, "pair_ms": (q1 + q2) / 2, "plain_ms": (p1 + p2) / 2,
+            "max_abs_err": max(errs), "bound_ms": bound, "bound_by": by,
+            "gather_bound_ms": gather, "library_ms": lib_dx,
+            "library_d_value_ms": lib_dv, "bit_equal_to_pair": same,
+            "value_perm_gather_ms": gather_ms,
+            "d_value_perm_scatter_ms": scatter_ms}
 
 
 def _launch_counts():
     from paddle_sparse_tpu_torch import (compact_runs_cuda, fold_pieces_cuda,
                                          sddmm_csr_cuda, sddmm_spans_cuda,
-                                         spmm_csr_cuda, spmm_spans_cuda)
+                                         spmm_csr_cuda, spmm_sddmm_csc_cuda,
+                                         spmm_spans_cuda)
     return {"spmm_csr": spmm_csr_cuda.launches,
             "sddmm_csr": sddmm_csr_cuda.launches,
+            "spmm_sddmm_csc": spmm_sddmm_csc_cuda.launches,
             "segcompact": compact_runs_cuda.launches,
             "segcompact_row_sorted": compact_runs_cuda.launches_row_sorted,
             "spmm_spans": spmm_spans_cuda.launches,
@@ -893,8 +1101,10 @@ def _launch_counts():
 def _zero_launch_counts():
     from paddle_sparse_tpu_torch import (compact_runs_cuda, fold_pieces_cuda,
                                          sddmm_csr_cuda, sddmm_spans_cuda,
-                                         spmm_csr_cuda, spmm_spans_cuda)
+                                         spmm_csr_cuda, spmm_sddmm_csc_cuda,
+                                         spmm_spans_cuda)
     spmm_csr_cuda.launches = sddmm_csr_cuda.launches = 0
+    spmm_sddmm_csc_cuda.launches = 0
     compact_runs_cuda.launches = fold_pieces_cuda.launches = 0
     compact_runs_cuda.launches_row_sorted = 0
     spmm_spans_cuda.launches = sddmm_spans_cuda.launches = 0
@@ -2212,8 +2422,9 @@ def phase7c_zipf_kernels(dev, card, run, graph):
     alone on the path's own inputs, K1 and K2 on the same graph's CSR, each
     in f32 and bf16 in turns with its library call in the same dtype
     (``torch.sparse.mm``, ``torch.sparse.sampled_addmm``); two launches of
-    each bit for bit equal; and the fold alone on the hub's partials
-    against its plain version and ``index_add_``."""
+    each bit for bit equal; the fused CSC backward at K=256 and 47 in f32
+    in turns with the pair it replaces, bit for bit; and the fold alone on
+    the hub's partials against its plain version and ``index_add_``."""
     from paddle_sparse_tpu_torch import (fold_pieces_cuda, ind2ptr,
                                          sddmm_csr_cuda, sddmm_spans_cuda,
                                          spmm_csr_cuda, spmm_spans_cuda,
@@ -2318,6 +2529,31 @@ def phase7c_zipf_kernels(dev, card, run, graph):
               f"sampled_addmm {sa_ms} ms (max_abs_err {sa_err}); gathered "
               f"rows bound {gather:.3f} ms; two launches of each bit for "
               f"bit equal {card}", flush=True)
+
+    # the fused CSC backward on this graph (64% of its edges read the hub's
+    # row of g) at K=256 and at APPNP's K=47, f32, in turns with the pair
+    # it replaces, bit for bit
+    from paddle_sparse_tpu_torch import PaddedCOO
+    adj = PaddedCOO.from_arrays(row, col, val, (M, M))
+    res["spmm_sddmm_csc"] = {}
+    with torch.no_grad():
+        for k in (K, 47):
+            xk, gk = x[:, :k].contiguous(), gw[:, :k].contiguous()
+            q1, f1, f2, q2, out_q, out_f = in_turns(
+                lambda: fused_pair(adj, val, gk, xk, val.dtype),
+                lambda: fused_kernel(adj, val, gk, xk, val.dtype), 5, 5)
+            check(all(torch.equal(a, b) for a, b in zip(out_f, out_q)),
+                  f"zipf K={k}: the fused kernel differs from the pair")
+            res["spmm_sddmm_csc"][f"K{k}"] = {"ms": (f1 + f2) / 2,
+                                              "pair_ms": (q1 + q2) / 2}
+            print(f"phase 7c zipf 1/8 spmm_sddmm_csc alone (K={k}, f32, "
+                  f"columns {'split' if adj.structure().col_split else 'unsplit'}"
+                  f"), in turns with K2 + value[perm] + K1 over the CSC "
+                  f"view: pair {q1:.3f} / {q2:.3f} ms, fused {f1:.3f} / "
+                  f"{f2:.3f} ms; d x and d value bit for bit equal {card}",
+                  flush=True)
+            del xk, gk, out_q, out_f
+    del adj
 
     # the fold alone on the forward's split rows, K=256 f32 partials
     t = s.split_f
@@ -2534,9 +2770,10 @@ def phase8a_reductions(gen, dev):
     """SpMM mean, min and max on the card against the plain path in f64
     (the port on the CPU, f64 inputs): forward, d value and d x; mean
     within GRAD_REL of the sum of |terms|, min and max within F32_TOL; the
-    launches (mean: K1 forward and for d x, K2 for d value, the fold after
-    each split K1; min and max: none). The CPU runs keep the poisoned
-    padding cols too."""
+    launches (mean: K1 forward, the fused CSC backward for d x and d value,
+    the fold after the split K1 and after the fused pass over split
+    columns; min and max: none). The CPU runs keep the poisoned padding
+    cols too."""
     stats = {}
     for ints in (False, True):
         adj, x = reduce_graph(gen, dev, ints)
@@ -2557,7 +2794,7 @@ def phase8a_reductions(gen, dev):
                     torch.cuda.synchronize()
                     counts = _launch_counts()
                 runs[where] = (out.detach(), v.grad, xx.grad)
-            want = ({"spmm_csr": 2, "sddmm_csr": 1, "fold_pieces": 2}
+            want = ({"spmm_csr": 1, "spmm_sddmm_csc": 1, "fold_pieces": 2}
                     if reduce == "mean" else {})
             check(all(counts[k] == want.get(k, 0) for k in counts),
                   f"{reduce}: expected launches {want}, counted {counts}")
@@ -2726,14 +2963,16 @@ def time_model(name, card, model, adj, x, y, reps=3):
     return res
 
 
-def check_launches(name, res, fwd_spmm, dx_spmm, dv, folds_fwd,
+def check_launches(name, res, fwd_spmm, dx_spmm, dv, fused, folds_fwd,
                    folds_step):
     """The forward runs ``fwd_spmm`` K1; a step adds ``dx_spmm`` K1 for
-    d x and ``dv`` K2 for d value; the fold as given; nothing else."""
+    d x alone, ``dv`` K2 for d value alone and ``fused`` fused CSC
+    backwards for both; the fold as given; nothing else."""
     for part, want in (
             ("forward", {"spmm_csr": fwd_spmm, "fold_pieces": folds_fwd}),
             ("train_step", {"spmm_csr": fwd_spmm + dx_spmm,
-                            "sddmm_csr": dv, "fold_pieces": folds_step})):
+                            "sddmm_csr": dv, "spmm_sddmm_csc": fused,
+                            "fold_pieces": folds_step})):
         runs, got = res[part]["runs"], res[part]["launches"]
         want = {k: v * runs for k, v in want.items()}
         check(all(got[k] == want.get(k, 0) for k in got),
@@ -2744,9 +2983,9 @@ def check_launches(name, res, fwd_spmm, dx_spmm, dv, folds_fwd,
 def phase8c_sage(dev, card, gcn_fwd_ms, gcn_step_ms):
     """GraphSAGE 100 -> 256 -> 256 -> 47 (mean aggregator) on phase 4's
     graph at ogbn-products scale, ``adj.value`` requiring grad: times,
-    peak memory, exact launches (K1 3 per forward, 5 per step; K2 3 per
-    step; no fold), sampled rows of each layer's mean and d value against
-    f64."""
+    peak memory, exact launches (K1 3 per forward and per step; K2 1 and
+    the fused CSC backward 2 per step; no fold), sampled rows of each
+    layer's mean and d value against f64."""
     from paddle_sparse_tpu_torch import gcn_loss, init_sage
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2764,7 +3003,7 @@ def phase8c_sage(dev, card, gcn_fwd_ms, gcn_step_ms):
           f"{GCN_DIMS[2]}; set-up with the CSC view "
           f"{time.perf_counter() - t0:.2f} s {card}", flush=True)
     res = time_model("8c GraphSAGE", card, model, adj, x, y)
-    check_launches("GraphSAGE", res, 3, 2, 3, 0, 0)
+    check_launches("GraphSAGE", res, 3, 0, 1, 2, 0, 0)
     print(f"phase 8c GraphSAGE vs GCN in this run: forward "
           f"{res['forward']['ms']:.3f} vs {gcn_fwd_ms:.3f} ms "
           f"({res['forward']['ms'] / gcn_fwd_ms:.3f}x), train step "
@@ -2812,20 +3051,24 @@ def phase8d_models(dev, card):
           flush=True)
     col_fold = int(s.col_split is not None)
     gen = torch.Generator().manual_seed(0)
+    # (forward K1, then per step: K1 for d x alone, K2 for d value alone,
+    # the fused CSC backward for both); GIN's first layer reads the
+    # features (no d x)
     specs = {
         "gin": (init_gin(gen, *GCN_DIMS, num_layers=3, device=dev), norm,
-                (3, 2, 3)),
+                (3, 0, 1, 2)),
         "appnp": (init_appnp(gen, GCN_DIMS[0], GCN_DIMS[1], GCN_DIMS[2],
                              k=APPNP_K, alpha=APPNP_ALPHA, device=dev),
-                  norm, (APPNP_K, APPNP_K, APPNP_K)),
+                  norm, (APPNP_K, 0, 0, APPNP_K)),
         "gat": (init_gat(gen, GCN_DIMS[0], GAT_HIDDEN, GCN_DIMS[2],
                          heads=GAT_HEADS, num_layers=3, device=dev), raw,
-                (2 * GAT_HEADS + 1, 2 * GAT_HEADS + 1, 2 * GAT_HEADS + 1)),
+                (2 * GAT_HEADS + 1, 0, 0, 2 * GAT_HEADS + 1)),
     }
     out = {}
-    for kind, (model, adj, (fwd, dx, dv)) in specs.items():
+    for kind, (model, adj, (fwd, dx, dv, fused)) in specs.items():
         res = time_model(f"8d {kind}", card, model, adj, x, y)
-        check_launches(kind, res, fwd, dx, dv, fwd, fwd + col_fold * dx)
+        check_launches(kind, res, fwd, dx, dv, fused, fwd,
+                       fwd + col_fold * (dx + fused))
         check(res["train_step"]["launches"]["fold_pieces"] > 0,
               f"{kind}: the hub row did not run the split pieces")
         model.zero_grad(set_to_none=True)
@@ -3003,8 +3246,8 @@ def phase9b_gcn_norm(dev, card, row, col, x):
     values and ``out`` on sampled rows against f64, ``d value`` and ``d x``
     on sampled entries against f64, ``out`` against ``PaddedCOO.spmm`` on
     the same entries bit for bit (both timed, so the facade's overhead
-    shows), exact launches (K1 1 per forward, K1 + K2 1 each per backward,
-    no fold) and no CSC view built after the first backward."""
+    shows), exact launches (K1 1 per forward, the fused CSC backward 1 per
+    backward, no fold) and no CSC view built after the first backward."""
     import numpy as np
 
     from paddle_sparse_tpu_torch import SparseStorage, gcn_norm
@@ -3087,10 +3330,11 @@ def phase9b_gcn_norm(dev, card, row, col, x):
           and fwd_counts["fold_pieces"] == 0,
           f"facade forward: expected K1 1 per forward and nothing else, "
           f"counted {fwd_counts} in 4")
-    check(fb_counts["spmm_csr"] == 8 and fb_counts["sddmm_csr"] == 4
+    check(fb_counts["spmm_csr"] == 4 and fb_counts["sddmm_csr"] == 0
+          and fb_counts["spmm_sddmm_csc"] == 4
           and fb_counts["fold_pieces"] == 0 and fb_counts["segcompact"] == 0,
-          f"facade forward+backward: expected K1 2 and K2 1 each, counted "
-          f"{fb_counts} in 4")
+          f"facade forward+backward: expected K1 1 and the fused CSC "
+          f"backward 1 each, counted {fb_counts} in 4")
     check(csc_builds == [1, 0, 0, 0],
           f"the CSC view was built again after the first backward: "
           f"{csc_builds}")
@@ -3743,7 +3987,7 @@ def phase10d_entry_points(dev, card):
                  desc + " (plan + pad_values)", pads))
 
     # per block: 4 forwards, then 4 forward+backwards
-    k1 = ({"spmm_csr": 4}, {"spmm_csr": 8, "sddmm_csr": 4})
+    k1 = ({"spmm_csr": 4}, {"spmm_csr": 4, "spmm_sddmm_csc": 4})
     want_path = {"chunked": k1, "sell": k1, "sell_grid": k1,
                  "seg": ({"spmm_spans": 4},
                          {"spmm_spans": 8, "sddmm_spans": 4})}
@@ -3877,6 +4121,29 @@ def phase11a_probe_path(dev):
             "band": (tb, band), "slice": (fs, cols, x, sl)}, counts
 
 
+def device_ms(fn, reps):
+    """``fn``'s device time per call from ``torch.profiler``: the self
+    device time of every kernel, copy and memset that ``reps`` calls ran
+    (after one warm-up call), over ``reps``, without the host's cost of
+    launching them; and the names of those device activities. ``(None,
+    [])`` if the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+          and getattr(e, "self_device_time_total", 0) > 0]
+    if not ev:
+        return None, []
+    total = sum(e.self_device_time_total for e in ev) / 1e3 / reps
+    return total, sorted(f"{e.key[:48]} x{e.count}" for e in ev)
+
+
 def _probe_entry(ms, plain_ms, lib_ms, lib, moved, flops, err, **extra):
     bound, by = bound_ms(moved, flops)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -3977,6 +4244,30 @@ def phase11_bisect(gen, dev, card, outs):
           f"{depth[False][0]:.4f} ms, two slots {depth[True][0]:.4f} ms, "
           f"plain {depth[True][1]:.4f}, view().sum(1) {lib_ms}, bound "
           f"{chunk['bound_ms']:.5f} {card}", flush=True)
+    # the device's own time, apart from each call's host cost (the CUDA
+    # events above time back-to-back calls, so they see the host's launch
+    # cost when it exceeds the kernel's)
+    dev_t = {}
+    for name, fn in (
+            ("scale2", lambda: scale2_cuda(x)),
+            ("torch.mul", lambda: torch.mul(x, 2.0)),
+            ("chunk_sum one slot", lambda: chunk_sum_cuda(ptr, src, E, False)),
+            ("chunk_sum two slots", lambda: chunk_sum_cuda(ptr, src, E, True)),
+            ("view().sum(1)", lambda: src.view(T, cpt, E, -1).sum(1))):
+        dev_t[name] = device_ms(fn, 200)
+    print("phase 11b device time per call from torch.profiler (CUDA events "
+          "per call in brackets): " + "; ".join(
+              f"{name} {'not measured' if t is None else f'{t:.5f} ms'} "
+              f"[{ev}] ({names})" for (name, (t, names)), ev in zip(
+                  dev_t.items(), (
+                      f"{scale2['ms']:.4f}", f"{scale2['library_ms']}",
+                      f"{depth[False][0]:.4f}", f"{depth[True][0]:.4f}",
+                      f"{lib_ms}"))) + f" {card}", flush=True)
+    scale2.update(device_ms=dev_t["scale2"][0],
+                  library_device_ms=dev_t["torch.mul"][0])
+    chunk.update(device_ms=dev_t["chunk_sum two slots"][0],
+                 device_ms_one_slot=dev_t["chunk_sum one slot"][0],
+                 library_device_ms=dev_t["view().sum(1)"][0])
     return scale2, chunk, srm_err
 
 
@@ -4361,6 +4652,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1)
     phase2_spmm(gen, dev)
     phase2b_sddmm(gen, dev)
+    phase2c_fused(gen, dev)
     phase3_toy(dev)
     phase3b_toy_train(dev)
 
@@ -4492,6 +4784,7 @@ def main() -> int:
         return {p: c[kernel] for p, c in launches.items()}
 
     k256 = train["sddmm"][256]
+    fused = train["fused"]
     sp, sd = span_k["spmm_spans"], span_k["sddmm_spans"]
     zipf = span_k["zipf"]
     fold = zipf["fold_pieces"]
@@ -4537,6 +4830,32 @@ def main() -> int:
          "ms_K100": train["sddmm"][100]["ms"],
          "plain_ms_K100": train["sddmm"][100]["plain_ms"],
          "zipf_1_8": zipf_1_8("sddmm_csr")},
+        {"name": "spmm_sddmm_csc", "route": "cuda",
+         "source": "paddle_sparse_tpu_torch/csrc/spmm_sddmm_csc.cu",
+         "source_note": "the fused CSC backward, through "
+                        "spmm_sddmm_csc_cuda: d x and d value from one "
+                        "gather of g, where the backward ran K2, "
+                        "value[perm] and K1 over the CSC view",
+         "replaces": "paddle_sparse_tpu/ops/kernels/spmm_pallas.py:877",
+         "replaces_also": ["paddle_sparse_tpu/ops/kernels/spmm_pallas.py:45"],
+         "replaces_note": "K2 redesigned as the counterpart of "
+                          "spmm_sddmm_chunked (spmm_pallas.py:481), the JAX "
+                          "package's fused chunked backward, whose "
+                          "pallas_call is K1's _reduce_kernel",
+         "launches": train["fused_launches"],
+         "launches_by_path": by_path("spmm_sddmm_csc"),
+         "max_abs_err": fused["max_abs_err"], "ms": fused["ms"],
+         "plain_ms": fused["plain_ms"], "bound_ms": fused["bound_ms"],
+         "bound_by": fused["bound_by"], "library_ms": fused["library_ms"],
+         "library": "torch.sparse.mm of the transpose's CSR for d x; "
+                    "sampled_addmm for d value in library_d_value_ms",
+         "library_d_value_ms": fused["library_d_value_ms"],
+         "pair_ms": fused["pair_ms"],
+         "gather_bound_ms": fused["gather_bound_ms"], "K": 256,
+         "at": "GCN layer 1's backward (K=256 f32, 2,449,029 nodes), "
+               "uniform graph",
+         "zipf_1_8": {"hub_edges": zipf["hub_edges"],
+                      **zipf["spmm_sddmm_csc"]}},
         {"name": "segcompact", "route": "cuda",
          "source": "paddle_sparse_tpu_torch/csrc/segcompact.cu",
          "replaces": "paddle_sparse_tpu/ops/kernels/segcompact.py:42",

@@ -82,6 +82,8 @@ from .ops.kernels.sddmm_cuda import (sddmm_csr_cuda, sddmm_csr_reference,
 from .ops.kernels.segcompact_cuda import (compact_runs, compact_runs_cuda,
                                           compact_runs_reference)
 from .ops.kernels.spmm_cuda import spmm_csr_cuda, spmm_csr_reference
+from .ops.kernels.spmm_sddmm_cuda import (spmm_sddmm_csc_cuda,
+                                          spmm_sddmm_csc_reference)
 from .ops.kernels.spmm_spans_cuda import (band_reduce_call, product_dtype,
                                           segment_rows_matmul,
                                           spmm_spans_cuda,
@@ -146,7 +148,8 @@ __all__ = [
     "segment_rows_matmul",
     "spgemm_entry",
     "spgemm_flops", "spmm_coo", "spmm_csr", "spmm_csr_cuda",
-    "spmm_csr_reference", "spmm_entry", "spmm_seg2", "spmm_seg3",
+    "spmm_csr_reference", "spmm_entry", "spmm_sddmm_csc_cuda",
+    "spmm_sddmm_csc_reference", "spmm_seg2", "spmm_seg3",
     "spmm_spans_cuda", "spmm_spans_reference", "spmm_split",
     "split_long_rows", "split_rows", "spspmm_eager",
     "spspmm_padded", "spspmm_rowblocked", "spspmm_rowsorted",

@@ -110,6 +110,13 @@ def load_library() -> ctypes.CDLL:
                                             i64, i64, i32, i32, p, p, i64,
                                             i64, p]
             lib.psp_sddmm_spans.restype = ctypes.c_int
+            # colptr, col_t, perm, value, g, x, dx, dv, N, K, in_bf16,
+            # dx_bf16, dv_bf16, piece table: col, piece, P, cap, slot; ws,
+            # stream
+            lib.psp_spmm_sddmm_csc.argtypes = [p, p, p, p, p, p, p, p, i64,
+                                               i64, i32, i32, i32, p, p, i64,
+                                               i64, p, p, p]
+            lib.psp_spmm_sddmm_csc.restype = ctypes.c_int
             lib.psp_segcompact_f_max.argtypes = []
             lib.psp_segcompact_f_max.restype = i64
             lib.psp_segcompact_tiles.argtypes = [i64, i64, i64, i32]

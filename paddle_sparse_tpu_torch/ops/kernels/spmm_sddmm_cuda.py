@@ -1,0 +1,184 @@
+"""The SpMM backward's two products in one pass on the card, over the CSC view:
+``d x = A^T @ g`` and ``d value[e] = g[row[e]] . x[col[e]]``.
+
+Port of ``paddle_sparse_tpu/ops/kernels/spmm_pallas.py::spmm_sddmm_chunked``,
+the JAX package's fused backward of ``spmm_chunked``, which shares the
+``g[col_t]`` gather between the transpose SpMM (its ``pallas_call`` is K1's
+``_reduce_kernel``) and the SDDMM. Here one hand-written CUDA kernel,
+``csrc/spmm_sddmm_csc.cu``, gives a warp to each column ``c`` of ``A``: it
+holds ``x[c]`` in registers and gathers each row ``g[col_t[e]]`` once for
+both outputs, where the pair it replaces gathered twice (K2 over the CSR for
+``d value``, then K1 over the CSC view, after materialising
+``value[perm]``, for ``d x``).
+
+Arithmetic: ``d x`` in K1's order (f32 ``fmaf`` in edge order, a long column's
+piece partials folded by ``row_split.fold_pieces_cuda``), ``d value`` in
+K2's (each lane's share of the dot, then a butterfly), so both equal the
+pair's outputs bit for bit. Dtype contract, as the pair's: ``g`` and ``x``
+are f32 or bf16 (a mixed pair is computed in f32), ``d x`` comes back in the
+promoted dtype of ``value`` and ``g`` (``g``'s when ``value`` is None) and
+``d value`` in ``out_dtype``, one slot per entry of ``perm``, 0 at the
+entries past ``colptr[N]`` (the padding of a ``PaddedCOO``).
+"""
+from typing import Optional
+
+import torch
+
+from . import _build
+from .row_split import AUTO, RowSplit, fold_pieces_cuda, resolve_split
+from .spmm_cuda import _WINDOW_BYTES, _out_dtype
+
+
+def spmm_sddmm_csc_reference(colptr: torch.Tensor, col_t: torch.Tensor,
+                             perm: torch.Tensor,
+                             value: Optional[torch.Tensor], g: torch.Tensor,
+                             x: torch.Tensor,
+                             out_dtype: torch.dtype = torch.float32):
+    """Plain PyTorch version of :func:`spmm_sddmm_csc_cuda`, on any device:
+    ``(d x, d value)``.
+
+    Walks the CSC edges in bounded windows: one gather of ``g[col_t]`` per
+    window, scaled by ``value[perm]`` and added into ``d x``
+    (``index_add_``, as ``spmm_csr_reference`` sums), and its row-wise dot
+    with ``x[c]``, written at ``perm``. Sums in f32, or in f64 when the
+    output's inputs are f64 (``d x``: ``value`` or ``g``; ``d value``: ``g``
+    or ``x``)."""
+    N, K = colptr.numel() - 1, x.shape[1]
+    dx_dtype = _out_dtype(value, g)
+    dx_acc = torch.float64 if dx_dtype == torch.float64 else torch.float32
+    dv_acc = (torch.float64 if torch.float64 in (g.dtype, x.dtype)
+              else torch.float32)
+    d_x = torch.zeros((N, K), dtype=dx_acc, device=x.device)
+    d_value = torch.zeros(perm.numel(), dtype=dv_acc, device=x.device)
+    colptr = colptr.long()
+    e_begin, e_end = int(colptr[0]), int(colptr[-1])
+    step = max(1, _WINDOW_BYTES // max(1, K * d_x.element_size()))
+    for s in range(e_begin, e_end, step):
+        t = min(s + step, e_end)
+        edges = torch.arange(s, t, device=x.device)
+        cols = torch.searchsorted(colptr, edges, right=True) - 1
+        dst = perm[s:t].long()
+        g_rows = g[col_t[s:t].long()]
+        d_value[dst] = (g_rows.to(dv_acc) * x[cols].to(dv_acc)).sum(1)
+        prod = g_rows.to(dx_acc)          # may be g_rows itself
+        if value is not None:
+            prod *= value[dst, None].to(dx_acc)
+        d_x.index_add_(0, cols, prod)
+    return d_x.to(dx_dtype), d_value.to(out_dtype)
+
+
+def _check_cuda_args(colptr, col_t, perm, value, g, x, out_dtype):
+    dev = x.device
+    for name, t in (("colptr", colptr), ("col_t", col_t), ("perm", perm),
+                    ("value", value), ("g", g)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    for name, t in (("g", g), ("x", x)):
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 2-D tensor, got "
+                             f"shape {tuple(t.shape)} "
+                             f"(contiguous={t.is_contiguous()})")
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"spmm_sddmm_csc_cuda takes f32 or bf16 {name}, "
+                            f"got {t.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"spmm_sddmm_csc_cuda writes f32 or bf16 d value, "
+                        f"not {out_dtype}")
+    if colptr.dim() != 1 or colptr.numel() < 1:
+        raise ValueError("colptr must be 1-D and non-empty")
+    if col_t.dim() != 1 or perm.shape != col_t.shape:
+        raise ValueError(f"col_t {tuple(col_t.shape)} and perm "
+                         f"{tuple(perm.shape)} must be 1-D of one shape")
+    for name, t in (("colptr", colptr), ("col_t", col_t), ("perm", perm)):
+        if t.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{name} must be int32 or int64, got {t.dtype}")
+    if x.shape[0] != colptr.numel() - 1 or g.shape[1] != x.shape[1]:
+        raise ValueError(f"x {tuple(x.shape)} must be (N, K) with N = "
+                         f"{colptr.numel() - 1} columns and g's K = "
+                         f"{g.shape[1]}")
+    if max(perm.numel(), g.shape[0], x.shape[0], x.shape[1],
+           colptr.numel()) >= 2 ** 31:
+        raise ValueError("spmm_sddmm_csc_cuda indexes with int32: nnz, M, "
+                         "N, K and N + 1 must each be below 2**31")
+    if value is not None:
+        if value.shape != perm.shape:
+            raise ValueError(f"value shape {tuple(value.shape)} != perm "
+                             f"shape {tuple(perm.shape)}")
+        if value.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"spmm_sddmm_csc_cuda takes f32 or bf16 value, "
+                            f"got {value.dtype}")
+
+
+def spmm_sddmm_csc_cuda(colptr: torch.Tensor, col_t: torch.Tensor,
+                        perm: torch.Tensor, value: Optional[torch.Tensor],
+                        g: torch.Tensor, x: torch.Tensor,
+                        out_dtype: torch.dtype = torch.float32,
+                        split=AUTO):
+    """``(d x, d value)`` of ``out = A @ x`` given ``g = d out``, through the
+    CUDA kernel ``csrc/spmm_sddmm_csc.cu``:
+
+    * ``d x[c] = sum_{colptr[c] <= e < colptr[c+1]} value[perm[e]] *
+      g[col_t[e]]``, (N, K) in the promoted dtype of ``value`` and ``g``;
+    * ``d value[perm[e]] = g[col_t[e]] . x[c]`` for the same ``e``,
+      ``(perm.numel(),)`` in ``out_dtype``, 0 at entries no column reaches.
+
+    ``colptr``/``col_t``/``perm`` are the CSC view of
+    ``ops/spmm.py::SpmmStructure``; ``value`` is in COO order (or None for
+    ones); ``g`` is a contiguous (M, K) and ``x`` a contiguous (N, K) tensor,
+    each f32 or bf16. ``split`` is ``colptr``'s
+    :class:`~.row_split.RowSplit` (``SpmmStructure.col_split``), ``None``
+    when no column is longer than its cap, or ``"auto"`` to build it here.
+    On a CPU tensor this runs :func:`spmm_sddmm_csc_reference`; on a CUDA
+    tensor it launches the kernel (and, over split columns, the fold pass)
+    or raises. ``spmm_sddmm_csc_cuda.launches`` counts kernel launches."""
+    if x.device.type == "cpu":
+        return spmm_sddmm_csc_reference(colptr, col_t, perm, value, g, x,
+                                        out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"spmm_sddmm_csc_cuda runs on cpu or cuda, not "
+                         f"{x.device}")
+    _check_cuda_args(colptr, col_t, perm, value, g, x, out_dtype)
+    dx_dtype = _out_dtype(value, g)
+    if g.dtype != x.dtype:                # a mixed pair is summed in f32
+        g, x = g.float(), x.float()
+    # from f32 g, an f32 d x, rounded after (one rounding, as K1's store)
+    kernel_dx_dtype = torch.float32 if g.dtype == torch.float32 else dx_dtype
+    N, K = x.shape
+    d_x = torch.empty((N, K), dtype=kernel_dx_dtype, device=x.device)
+    d_value = torch.zeros(perm.numel(), dtype=out_dtype, device=x.device)
+    if N == 0 or K == 0:
+        return d_x.to(dx_dtype), d_value
+    colptr = colptr.to(torch.int32).contiguous()
+    col_t = col_t.to(torch.int32).contiguous()
+    perm = perm.to(torch.int32).contiguous()
+    if value is not None:
+        value = value.to(torch.float32).contiguous()
+    split: Optional[RowSplit] = resolve_split(split, colptr[None, :-1],
+                                              colptr[None, 1:])
+    ws = (None if split is None else torch.empty(
+        (split.num_slots, K), dtype=torch.float32, device=x.device))
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.psp_spmm_sddmm_csc(
+            colptr.data_ptr(), col_t.data_ptr(), perm.data_ptr(),
+            None if value is None else value.data_ptr(), g.data_ptr(),
+            x.data_ptr(), d_x.data_ptr(), d_value.data_ptr(), N, K,
+            int(x.dtype == torch.bfloat16),
+            int(kernel_dx_dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16),
+            *((None, None, 0, 0, None) if split is None else
+              (split.row.data_ptr(), split.piece.data_ptr(),
+               split.row.numel(), split.cap, split.slot.data_ptr())),
+            None if ws is None else ws.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"spmm_sddmm_csc kernel launch failed: CUDA error "
+                           f"{err}")
+    if split is not None:
+        fold_pieces_cuda(split, ws, d_x)
+    spmm_sddmm_csc_cuda.launches += 1
+    return d_x.to(dx_dtype), d_value
+
+
+spmm_sddmm_csc_cuda.launches = 0
+

@@ -10,10 +10,15 @@ PyTorch versions.
 
 * forward: ``out = A @ x``, K1 (:func:`~.kernels.spmm_cuda.spmm_csr_cuda`)
   over the CSR;
-* ``d x = A^T @ g``: K1 again, over the CSC view of :class:`SpmmStructure`
-  (``colptr``, ``col_t``, ``value[perm]``);
-* ``d value[e] = g[row[e]] . x[col[e]]``: the SDDMM kernel
-  (:func:`~.kernels.sddmm_cuda.sddmm_csr_cuda`) over the CSR, 0 at padding.
+* backward with both grads: ``d x = A^T @ g`` and ``d value[e] = g[row[e]]
+  . x[col[e]]`` (0 at padding) in one pass over the CSC view of
+  :class:`SpmmStructure`, which gathers each row of ``g`` once for both
+  (:func:`~.kernels.spmm_sddmm_cuda.spmm_sddmm_csc_cuda`, as the JAX
+  package's ``_spmm_chunked_bwd`` fuses them);
+* ``d value`` alone: the SDDMM kernel
+  (:func:`~.kernels.sddmm_cuda.sddmm_csr_cuda`) over the CSR;
+* ``d x`` alone, or with ``value`` None: K1 again, over the CSC view
+  (``colptr``, ``col_t``, ``value[perm]``).
 
 Each launch takes the piece table of its pointer
 (:class:`~.kernels.row_split.RowSplit`, ``None`` when no row or column is
@@ -57,6 +62,7 @@ from .convert import ind2ptr, ptr2ind_capped
 from .kernels.row_split import AUTO, RowSplit, resolve_split
 from .kernels.sddmm_cuda import sddmm_csr_cuda
 from .kernels.spmm_cuda import spmm_csr_cuda
+from .kernels.spmm_sddmm_cuda import spmm_sddmm_csc_cuda
 from .segment import segment_csr
 
 
@@ -116,6 +122,13 @@ class _SpmmSum(torch.autograd.Function):
         value, x = ctx.saved_tensors
         g = g.contiguous()       # the grad of a sum is stride-0
         d_value = d_x = None
+        if ctx.needs_input_grad[0] and ctx.needs_input_grad[1]:
+            # both: one pass over the CSC view gathers g once for the two
+            s = ctx.structure_fn()
+            d_x, d_value = spmm_sddmm_csc_cuda(
+                s.colptr, s.col_t, s.perm, value, g, x,
+                out_dtype=value.dtype, split=s.col_split)
+            return d_value, d_x.to(x.dtype), None, None, None, None
         if ctx.needs_input_grad[0]:
             d_value = sddmm_csr_cuda(ctx.rowptr, ctx.col, g, x,
                                      out_dtype=value.dtype,
@@ -274,9 +287,11 @@ def spmm_chunked(plan: SpmmPlan, s: ChunkedStructure,
                  value: Optional[torch.Tensor],
                  x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` (sum) over a :func:`make_spmm_plan` plan, differentiable in
-    ``(value, x)``: K1 over the CSR forward, K1 over the cached CSC view for
-    ``d x``, K2 for ``d value`` (0 at padding). ``value`` in COO order or
-    None; the output has ``x``'s dtype."""
+    ``(value, x)``: K1 over the CSR forward; the backward as
+    :class:`_SpmmSum`'s, over the plan's cached CSC view (both grads in one
+    fused pass, as the JAX package's ``_spmm_chunked_bwd``; ``d value`` 0 at
+    padding). ``value`` in COO order or None; the output has ``x``'s
+    dtype."""
     if x.shape[0] != plan.num_cols:
         raise ValueError(f"x must have {plan.num_cols} rows, got "
                          f"{tuple(x.shape)}")

@@ -3,7 +3,9 @@
 The dtype grid of the reference's tests: float16/32/64, bfloat16 and
 int32/64 (all available in torch, so none is skipped), and its devices, the
 CPU and the card; :func:`maybe_skip_testing` skips a case on ``"cuda"``
-where there is no card, when the test runs, not when it is collected.
+where there is no card, when the test runs, not when it is collected;
+:func:`set_testing_device` makes a device the default for new tensors, as
+the reference's makes one JAX's default device.
 """
 from typing import List
 
@@ -23,3 +25,10 @@ def tensor(data, dtype, device: str = "cpu") -> torch.Tensor:
 def maybe_skip_testing(dtype, device: str) -> None:
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+
+
+def set_testing_device(device) -> None:
+    """New tensors land on ``device`` (``torch.set_default_device``); the
+    reference sets ``jax_default_device``. ``None`` restores the CPU
+    default."""
+    torch.set_default_device(device)

@@ -5,8 +5,11 @@ split (pieces of a ``RowSplit`` table and the fold pass) against the plain
 versions, bit for bit from launch to launch; SpMM mean (through the same
 kernels, split rows too) against plain f64, min and max on the card against
 the CPU, and each model family's toy forward and grads, card against CPU,
-with GAT's per-head launches; ``spmm_seg``, ``spmm_sell`` and
-``spmm_chunked`` (launches exact) and ``backend="sell"``; sampling, walks,
+with GAT's per-head launches; the fused CSC backward
+(``spmm_sddmm_csc_cuda``) equal to the pair it replaces (K2 and K1 over
+the CSC view) bit for bit, within SUM_REL of f64, two launches equal;
+``spmm_seg``, ``spmm_sell`` and ``spmm_chunked`` (launches exact) and
+``backend="sell"``; sampling, walks,
 ``saint_subgraph``, ``partition`` and RCM on the card against the CPU
 (exact where the draws are the same).
 Every test here is marked ``cuda`` and skips where
@@ -40,6 +43,8 @@ from paddle_sparse_tpu_torch import (CAP, MODELS, PaddedCOO,
                                      sddmm_spans_reference, spgemm_entry,
                                      spmm_coo, spmm_csr_cuda,
                                      spmm_csr_reference, spmm_entry,
+                                     spmm_sddmm_csc_cuda,
+                                     spmm_sddmm_csc_reference,
                                      spmm_seg2, spmm_seg3, spmm_spans_cuda,
                                      spmm_spans_reference, spmm_split,
                                      split_rows, spspmm_padded,
@@ -315,17 +320,20 @@ def test_spmm_autograd_card_vs_cpu(dev, with_value):
 
 
 def test_spmm_autograd_launches(dev):
-    """One forward + backward with both grads: K1 twice (forward, d x over
-    the CSC view), the SDDMM once; d x alone skips the SDDMM."""
+    """One forward + backward with both grads: K1 once (forward) and the
+    fused CSC backward once; d x alone: K1 twice (forward, d x over the CSC
+    view), no SDDMM."""
     rowptr, col, value, g = _csr(dev)
     row = torch.repeat_interleave(torch.arange(500, device=dev),
                                   (rowptr[1:] - rowptr[:-1]).long())
     x = torch.randn(300, 16, generator=g, device=dev, requires_grad=True)
-    for v, want_sddmm in ((value.clone().requires_grad_(), 1), (value, 0)):
-        k1, k2 = spmm_csr_cuda.launches, sddmm_csr_cuda.launches
+    for v, want in ((value.clone().requires_grad_(), (1, 0, 1)),
+                    (value, (2, 0, 0))):
+        k = (spmm_csr_cuda.launches, sddmm_csr_cuda.launches,
+             spmm_sddmm_csc_cuda.launches)
         spmm_coo(row, col, v, x, 500).sum().backward()
-        assert spmm_csr_cuda.launches - k1 == 2
-        assert sddmm_csr_cuda.launches - k2 == want_sddmm
+        assert (spmm_csr_cuda.launches - k[0], sddmm_csr_cuda.launches - k[1],
+                spmm_sddmm_csc_cuda.launches - k[2]) == want
 
 
 def test_toy_train_step_card_vs_cpu(dev):
@@ -1122,6 +1130,122 @@ def test_spmm_autograd_hub_row_and_column(dev):
         _close_to_sum(c, h, a)
 
 
+# ---- the fused CSC backward -------------------------------------------------
+
+FUSED_K = [1, 3, 47, 64, 100, 256, 300, 520]
+# (value, x, g, d value): f32; bf16 throughout; bf16 in, f32 out; a mixed
+# g and x (summed in f32) with a bf16 d x
+FUSED_DTYPES = {"f32": (torch.float32,) * 4,
+                "bf16": (torch.bfloat16,) * 4,
+                "bf16_in_f32_out": (torch.float32, torch.bfloat16,
+                                    torch.bfloat16, torch.float32),
+                "mixed_g_x": (torch.bfloat16, torch.float32, torch.bfloat16,
+                              torch.bfloat16)}
+
+
+def _fused_graph(dev, split, M=3000, N=2000):
+    """A ``PaddedCOO`` on the card with empty columns, 100 padding entries
+    whose cols are poisoned (a read would fault) and, with ``split``, a hub
+    column of ``2 * CAP + 5`` edges (pieces and the fold)."""
+    g = torch.Generator().manual_seed(11)
+    row = torch.randint(0, M, (30_000,), generator=g)
+    col = torch.randint(0, N, (30_000,), generator=g)
+    col = torch.where(col % 97 == 3, 5, col)            # empty columns
+    if split:
+        row = torch.cat([row, torch.randint(0, M, (CAP * 2 + 5,),
+                                            generator=g)])
+        col = torch.cat([col, torch.full((CAP * 2 + 5,), 7)])
+    order = torch.argsort(row, stable=True)
+    val = torch.rand(row.numel(), generator=g) * 2 - 1
+    adj = PaddedCOO.from_arrays(row[order], col[order], val, (M, N),
+                                capacity=row.numel() + 100, device=dev)
+    adj = dataclasses.replace(adj, col=torch.where(
+        adj.valid_mask(), adj.col, torch.full_like(adj.col, 1 << 30)))
+    assert (adj.structure().col_split is not None) == split
+    return adj
+
+
+def _fused(adj, v, g, x, out_dtype):
+    s = adj.structure()
+    return spmm_sddmm_csc_cuda(s.colptr, s.col_t, s.perm, v, g, x,
+                               out_dtype=out_dtype, split=s.col_split)
+
+
+def _pair(adj, v, g, x, out_dtype):
+    """What the fused kernel replaces: K2 over the CSR for d value, then
+    ``value[perm]`` and K1 over the CSC view for d x."""
+    s = adj.structure()
+    dv = sddmm_csr_cuda(adj.rowptr(), adj.col, g, x, out_dtype=out_dtype,
+                        split=s.row_split)
+    vt = None if v is None else v.index_select(0, s.perm)
+    return spmm_csr_cuda(s.colptr, s.col_t, vt, g, split=s.col_split), dv
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("dtypes", list(FUSED_DTYPES))
+@pytest.mark.parametrize("K", FUSED_K)
+def test_fused_equals_pair_bitwise(dev, K, dtypes, split):
+    """The fused CSC backward's d x and d value equal the K2 + K1-over-CSC
+    pair's bit for bit (K1's and K2's arithmetic orders), dtypes included;
+    one launch counted; d value 0 at padding."""
+    adj = _fused_graph(dev, split)
+    vdt, xdt, gdt, odt = FUSED_DTYPES[dtypes]
+    gen = torch.Generator(device=dev).manual_seed(K)
+    x = torch.randn(adj.N, K, generator=gen, device=dev).to(xdt)
+    g = torch.randn(adj.M, K, generator=gen, device=dev).to(gdt)
+    v = adj.value.to(vdt)
+    n = spmm_sddmm_csc_cuda.launches
+    got = _fused(adj, v, g, x, odt)
+    assert spmm_sddmm_csc_cuda.launches == n + 1
+    want = _pair(adj, v, g, x, odt)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert not got[1][adj.nnz:].any()
+
+
+@pytest.mark.parametrize("K", [3, 64, 256, 520])
+@pytest.mark.parametrize("with_value", [True, False])
+def test_fused_vs_plain_f64(dev, K, with_value):
+    """f32 (and ``value`` None) against the plain version in f64: each
+    entry within SUM_REL of its sum of |terms|; equal to the pair bit for
+    bit with ``value`` None too."""
+    adj = _fused_graph(dev, True)
+    s = adj.structure()
+    gen = torch.Generator(device=dev).manual_seed(K + 1)
+    x = torch.randn(adj.N, K, generator=gen, device=dev)
+    g = torch.randn(adj.M, K, generator=gen, device=dev)
+    v = adj.value if with_value else None
+    got = _fused(adj, v, g, x, torch.float32)
+    for a, b in zip(got, _pair(adj, v, g, x, torch.float32)):
+        assert torch.equal(a, b)
+    ref, scale = (spmm_sddmm_csc_reference(
+        s.colptr, s.col_t, s.perm, None if v is None else f(v), f(g), f(x),
+        torch.float64) for f in (torch.Tensor.double,
+                                 lambda t: t.double().abs()))
+    for a, r, sc in zip(got, ref, scale):
+        _close_to_sum(a, r, sc)
+
+
+def test_fused_two_launches_equal(dev):
+    """Two launches give the same bits (no atomics; a fixed fold), split
+    columns and bf16 included; a g off 16-byte alignment takes the scalar
+    loads, as K2 then does, and still equals the pair."""
+    adj = _fused_graph(dev, True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for dt, K in ((torch.float32, 256), (torch.bfloat16, 64)):
+        x = torch.randn(adj.N, K, generator=gen, device=dev).to(dt)
+        v = adj.value.to(dt)
+        for g in (torch.randn(adj.M, K, generator=gen, device=dev).to(dt),
+                  torch.randn(adj.M * K + 1, generator=gen, device=dev)
+                  .to(dt)[1:].view(adj.M, K)):     # off 16-byte alignment
+            a, b = _fused(adj, v, g, x, dt), _fused(adj, v, g, x, dt)
+            want = _pair(adj, v, g, x, dt)
+            torch.cuda.synchronize()
+            assert all(torch.equal(p, q) for p, q in zip(a, b))
+            assert all(torch.equal(p, q) for p, q in zip(a, want))
+
+
 # ---- SpMM mean/min/max and the other model families ------------------------
 
 def _hub_graph(M=3000, N=3000, hub=CAP * 2 + 5, seed=6, ints=False):
@@ -1154,7 +1278,8 @@ def test_spmm_mean_kernels_vs_plain_f64(dev):
     """Mean forward, d value and d x through K1 and K2 (split rows and
     columns: pieces and the fold) against the plain path in f64 on the
     CPU, each entry within SUM_REL of its sum of |terms|; padding gets no
-    grad; one K1 forward, one K1 for d x, one K2 for d value."""
+    grad; one K1 forward and one fused CSC backward for d x and d value,
+    the fold after each (split rows, split columns)."""
     row, col, val, x, M, N = _hub_graph()
     w = torch.randn(M, x.shape[1], generator=torch.Generator().manual_seed(1))
     runs = {}
@@ -1167,12 +1292,14 @@ def test_spmm_mean_kernels_vs_plain_f64(dev):
         v = adj.value.clone().requires_grad_()
         xx = f(x).to(dev_, copy=True).requires_grad_()
         k1, k2 = spmm_csr_cuda.launches, sddmm_csr_cuda.launches
+        fused = spmm_sddmm_csc_cuda.launches
         folds = fold_pieces_cuda.launches
         out = adj.with_value(v).spmm(xx, "mean")
         (out * f(w).to(dev_)).sum().backward()
         if where == "cuda":
-            assert spmm_csr_cuda.launches - k1 == 2
-            assert sddmm_csr_cuda.launches - k2 == 1
+            assert spmm_csr_cuda.launches - k1 == 1
+            assert sddmm_csr_cuda.launches - k2 == 0
+            assert spmm_sddmm_csc_cuda.launches - fused == 1
             assert fold_pieces_cuda.launches - folds == 2   # both split
             assert not v.grad[adj.nnz:].any()
         runs[where] = [out.detach().cpu(), v.grad.cpu(), xx.grad.cpu()]
@@ -1236,22 +1363,24 @@ def test_model_toy_card_vs_cpu(dev, kind):
 
 
 def test_model_launches_per_step(dev):
-    """One train step each: GAT runs K1 twice and K2 once per head and
-    layer (forward; d hw; d att), GraphSAGE and GIN K1 for each layer's
-    forward and all but the first layer's d x and K2 for each layer's d
-    value, APPNP the same per propagation step."""
-    heads = {"gat": 2 + 1}                  # 2 heads, then 1 on the output
-    want = {"sage": (2 + 1, 2), "gin": (2 + 1, 2), "appnp": (5 + 5, 5),
-            "gat": (2 * heads["gat"], heads["gat"])}
-    for kind, (k1, k2) in want.items():
+    """One train step each: GAT runs K1 and the fused CSC backward (d hw and
+    d att) once per head and layer; GraphSAGE and GIN K1 for each layer's
+    forward, K2 for the first layer's d value (its input needs no grad) and
+    the fused CSC backward for each later layer's d x and d value; APPNP
+    K1 and the fused CSC backward per propagation step."""
+    heads = 2 + 1                           # GAT: 2 heads, then 1 output
+    want = {"sage": (2, 1, 1), "gin": (2, 1, 1), "appnp": (5, 0, 5),
+            "gat": (heads, 0, heads)}           # toys of 2 layers, k = 5
+    for kind, counts in want.items():
         model, adj, x, y = model_entry(kind, "cuda")
         if kind != "gat":
             adj.value.requires_grad_()
-        b1, b2 = spmm_csr_cuda.launches, sddmm_csr_cuda.launches
+        b = (spmm_csr_cuda.launches, sddmm_csr_cuda.launches,
+             spmm_sddmm_csc_cuda.launches)
         train_step(model, adj, x, y, 0.1)
         torch.cuda.synchronize()
-        assert (spmm_csr_cuda.launches - b1,
-                sddmm_csr_cuda.launches - b2) == (k1, k2), kind
+        assert (spmm_csr_cuda.launches - b[0], sddmm_csr_cuda.launches - b[1],
+                spmm_sddmm_csc_cuda.launches - b[2]) == counts, kind
 
 
 # ---- the eager facade on the card ------------------------------------------
@@ -1273,14 +1402,15 @@ def _facade_pipeline(where):
         norm.storage.value().grad = x.grad = None
         SparseStorage.csc_builds = 0
         b = (spmm_csr_cuda.launches, sddmm_csr_cuda.launches,
-             fold_pieces_cuda.launches)
+             spmm_sddmm_csc_cuda.launches, fold_pieces_cuda.launches)
         out = norm @ x
         (out * w).sum().backward()
         if where == "cuda":
             torch.cuda.synchronize()
         counts.append((spmm_csr_cuda.launches - b[0],
                        sddmm_csr_cuda.launches - b[1],
-                       fold_pieces_cuda.launches - b[2],
+                       spmm_sddmm_csc_cuda.launches - b[2],
+                       fold_pieces_cuda.launches - b[3],
                        SparseStorage.csc_builds))
     res = [norm.storage.value().detach(), out.detach(),
            norm.storage.value().grad, x.grad]
@@ -1289,15 +1419,15 @@ def _facade_pipeline(where):
 
 def test_facade_gcn_norm_card_vs_cpu(dev):
     """PyG's gcn_norm on the facade and ``A @ x`` with its grads: the card
-    against the CPU; each forward+backward launches K1 twice (forward, d x)
-    and K2 once, no fold; the CSC view is built by the first backward only,
-    and the CPU launches no kernel."""
+    against the CPU; each forward+backward launches K1 once (forward) and
+    the fused CSC backward once (d x and d value), no fold; the CSC view is
+    built by the first backward only, and the CPU launches no kernel."""
     card, card_counts = _facade_pipeline("cuda")
     cpu, cpu_counts = _facade_pipeline("cpu")
     for c, h in zip(card, cpu):
         torch.testing.assert_close(c, h, **F32)
-    assert card_counts == [(2, 1, 0, 1), (2, 1, 0, 0)]
-    assert cpu_counts == [(0, 0, 0, 1), (0, 0, 0, 0)]
+    assert card_counts == [(1, 0, 1, 0, 1), (1, 0, 1, 0, 0)]
+    assert cpu_counts == [(0, 0, 0, 0, 1), (0, 0, 0, 0, 0)]
 
 
 def test_facade_cached_structure_on_the_card(dev):
@@ -1428,7 +1558,8 @@ _ENTRY_FNS = {"seg": "spmm_seg", "sell": "spmm_sell",
 def test_entry_spmm_card_vs_cpu(dev, backend):
     """``spmm_entry``'s toy for seg, sell and chunked: forward, d packed
     and d x on the card against the CPU; launches per forward+backward:
-    seg spans 2 and span SDDMM 1, sell and chunked K1 2 and K2 1."""
+    seg spans 2 and span SDDMM 1, sell and chunked K1 1 and the fused CSC
+    backward 1."""
     import paddle_sparse_tpu_torch as p
     fn = getattr(p, _ENTRY_FNS[backend])
     runs = {}
@@ -1437,17 +1568,19 @@ def test_entry_spmm_card_vs_cpu(dev, backend):
         pv, xx = packed.clone().requires_grad_(), x.clone().requires_grad_()
         w = torch.linspace(-1, 1, 256 * 32, device=where).view(256, 32)
         k = (spmm_spans_cuda.launches, sddmm_spans_cuda.launches,
-             spmm_csr_cuda.launches, sddmm_csr_cuda.launches)
+             spmm_csr_cuda.launches, sddmm_csr_cuda.launches,
+             spmm_sddmm_csc_cuda.launches)
         out = fn(plan, s, pv, xx)
         (out * w).sum().backward()
         launches = (spmm_spans_cuda.launches - k[0],
                     sddmm_spans_cuda.launches - k[1],
                     spmm_csr_cuda.launches - k[2],
-                    sddmm_csr_cuda.launches - k[3])
+                    sddmm_csr_cuda.launches - k[3],
+                    spmm_sddmm_csc_cuda.launches - k[4])
         runs[where] = ([out.detach().cpu(), xx.grad.cpu(), pv.grad.cpu()],
                        launches)
-    want = (2, 1, 0, 0) if backend == "seg" else (0, 0, 2, 1)
-    assert runs["cuda"][1] == want and runs["cpu"][1] == (0, 0, 0, 0)
+    want = (2, 1, 0, 0, 0) if backend == "seg" else (0, 0, 1, 0, 1)
+    assert runs["cuda"][1] == want and runs["cpu"][1] == (0, 0, 0, 0, 0)
     for c, h in zip(runs["cuda"][0], runs["cpu"][0]):
         torch.testing.assert_close(c, h, **F32)
 

@@ -160,8 +160,10 @@ def test_trailing_dims(reduce):
 
 
 def _piecewise_kernels(monkeypatch, seen):
-    """Replace the two kernel wrappers that ``ops/spmm.py`` calls by the
-    plain versions that follow the piece table, as the kernels do."""
+    """Replace the kernel wrappers that ``ops/spmm.py`` calls by the plain
+    versions that follow the piece table, as the kernels do (the fused
+    backward: its d x as K1's pieces over the CSC view, its d value as the
+    SDDMM's over the same pieces, written at ``perm``)."""
     def spmm(rowptr, col, value, x, split=AUTO):
         start, end = rowptr[None, :-1], rowptr[None, 1:]
         split = resolve_split(split, start, end)
@@ -174,15 +176,28 @@ def _piecewise_kernels(monkeypatch, seen):
         seen.append(split)
         return sddmm_spans_piecewise(start, end, col, None, g, x, split,
                                      out_dtype)
+    def fused(colptr, col_t, perm, value, g, x, out_dtype=torch.float32,
+              split=AUTO):
+        start, end = colptr[None, :-1], colptr[None, 1:]
+        split = resolve_split(split, start, end)
+        seen.append(split)
+        value_t = None if value is None else value.index_select(0, perm)
+        d_x = spmm_spans_piecewise(start, end, col_t, value_t, None, g,
+                                   split)
+        dv_t = sddmm_spans_piecewise(start, end, col_t, None, x, g, split,
+                                     out_dtype)
+        return d_x, torch.zeros_like(dv_t).index_copy_(0, perm.long(), dv_t)
     monkeypatch.setattr(tspmm, "spmm_csr_cuda", spmm)
     monkeypatch.setattr(tspmm, "sddmm_csr_cuda", sddmm)
+    monkeypatch.setattr(tspmm, "spmm_sddmm_csc_cuda", fused)
 
 
 @pytest.mark.parametrize("reduce", REDUCES)
 def test_long_row_through_the_pieces(monkeypatch, reduce):
-    """A row of ``2 * CAP + 300`` edges: sum and mean run the forward and
-    ``d value`` over its pieces and the fold (the CSC view's columns stay
-    short), and every reduction gives JAX's output and grads."""
+    """A row of ``2 * CAP + 300`` edges: sum and mean run the forward over
+    its pieces and the fold, and the fused backward over the CSC view
+    (whose columns stay short); every reduction gives JAX's output and
+    grads."""
     seen = []
     _piecewise_kernels(monkeypatch, seen)
     row, col, val, x, cap = _graph(5, long_row=2 * CAP + 300)
@@ -191,8 +206,8 @@ def test_long_row_through_the_pieces(monkeypatch, reduce):
     assert t.row_split().fold_row.tolist() == [11]
     _check(t, j, x, reduce, TOL)
     if reduce in ("sum", "mean"):
-        assert len(seen) == 3 and seen[0] is t.row_split()
-        assert seen[1] is t.row_split() and seen[2] is None
+        assert len(seen) == 2 and seen[0] is t.row_split()
+        assert seen[1] is None
 
 
 @pytest.mark.parametrize("reduce", ["min", "max"])
