@@ -6,6 +6,7 @@ repository root:
     python3 chip_probe.py ab PARENT    # this tree against another, in turns
     python3 chip_probe.py gat          # where a GAT step's device time goes
     python3 chip_probe.py sage         # and a GraphSAGE step's
+    python3 chip_probe.py window       # the windowed K1 over its plan
 
 ``sweep``: the span kernels, K1 and K2 alone at K=256 on the bench's zipf
 graph at 1/8 scale (``chip_smoke.bench_graph``) for each piece size ``cap``
@@ -35,6 +36,14 @@ launched the most (their device time, children included).
 
 ``sage``: the same profile of ``chip_smoke.py`` phase 8c's GraphSAGE
 (100 -> 256 -> 256 -> 47, mean) at ogbn-products scale.
+
+``window``: ``chip_smoke.py`` phase 4c's windowed K1 (``spmm_window_cuda``)
+on the clustered graph at K=256 f32, for window plans of tile rows 512,
+1,024 and 2,048 and window rows 1,728 (the default), 1,216, 832 and 448,
+each plan's in-window share printed; then at the default plan on two
+copies of the graph, its residual edges moved into their communities, and
+every edge moved into its tile's window. Each in turns with the register
+walk (``spmm_csr_cuda`` without a plan), bit for bit; one JSON line each.
 
 Each prints the card's ``nvidia-smi`` name and power limit and exits
 non-zero without a card.
@@ -255,6 +264,56 @@ def profile_model(name, card, model, adj, x, y) -> None:
                          for e in ops[:15]]}) + f" [{card}]", flush=True)
 
 
+WINDOW_PLANS = ((512, 1728), (1024, 1728), (2048, 1728), (2048, 1216),
+                (2048, 832), (2048, 448))
+
+
+def window(dev: torch.device) -> None:
+    import chip_smoke as c
+    from paddle_sparse_tpu_torch import (spmm_csr_cuda, spmm_window_cuda,
+                                         window_plan)
+    card = card_line()
+    adj, x = c.clustered_graph(dev)
+    rowptr, n, nnz = adj.rowptr(), adj.M, adj.nnz
+    rows, value = adj.row[:nnz], adj.value
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def moved(span, width):
+        return torch.clamp(rows // span * span + torch.randint(
+            0, width, (nnz,), generator=g, device=dev, dtype=torch.int32),
+            max=n - 1)
+    graphs = [("clustered", adj.col, WINDOW_PLANS)]
+    home = moved(c.COMMUNITY, c.COMMUNITY)
+    graphs.append(("residual moved into communities",
+                   torch.where(rows // c.COMMUNITY
+                               != adj.col[:nnz] // c.COMMUNITY, home,
+                               adj.col[:nnz]), WINDOW_PLANS[2:3]))
+    del home
+    graphs.append(("every edge in its tile's window", moved(2048, 1728),
+                   WINDOW_PLANS[2:3]))
+    with torch.inference_mode():
+        for name, col, plans in graphs:
+            for T, W in plans:
+                plan = window_plan(rowptr, col, n, None, T, W)
+                share = float(plan.in_window[plan.flagged].sum()) / nnz
+                p1, k1, k2, p2, out_p, out_k = c.in_turns(
+                    lambda: spmm_csr_cuda(rowptr, col, value, x,
+                                          split=None),
+                    lambda: spmm_window_cuda(rowptr, col, value, x, plan),
+                    5, 5)
+                c.check(torch.equal(out_p, out_k),
+                        f"windowed K1 differs on {name}, T={T} W={W}")
+                print("WINDOW " + json.dumps(
+                    {"graph": name, "K": 256, "tile_rows": T,
+                     "window_rows": W, "tiles_flagged": plan.tiles.numel(),
+                     "tiles": plan.flagged.numel(),
+                     "in_window_share": share,
+                     "windowed_ms": [k1, k2], "register_walk_ms": [p1, p2],
+                     "bit_for_bit": True}) + f" [{card}]", flush=True)
+                del plan, out_p, out_k
+                torch.cuda.empty_cache()
+
+
 def sage(dev: torch.device) -> None:
     import chip_smoke as c
 
@@ -282,6 +341,8 @@ def main() -> int:
         gat(torch.device("cuda", 0))
     elif len(sys.argv) == 2 and sys.argv[1] == "sage":
         sage(torch.device("cuda", 0))
+    elif len(sys.argv) == 2 and sys.argv[1] == "window":
+        window(torch.device("cuda", 0))
     else:
         print(__doc__, file=sys.stderr)
         return 2
