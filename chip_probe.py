@@ -16,7 +16,11 @@ line per cap.
 
 ``ab PARENT``: the uniform GCN forward (phase 4), train step (phase 5)
 and its peak memory,
-seg2 f32 forward and forward+backward (phase 7c) and the four A @ A paths
+forward and forward+backward ms and peak memory of phase 7c's seg2 f32 and
+bf16 on the uniform graph, split on the clustered graph, seg2 on zipf at
+1/8 (bf16), and seg2 and split on zipf at 1/8 transposed (bf16: its hub
+rows become x rows, cut into pieces, as in a symmetric power-law graph),
+and the four A @ A paths
 of phase 6c (800k rowsorted, 10M rowsorted and rowblocked, zipf padded:
 ms per call, and K5 alone on the call's compress input) of
 ``chip_smoke.py``, run from ``PARENT`` (another checkout, e.g. ``git
@@ -70,12 +74,28 @@ torch.cuda.empty_cache()
 c.phase5_train(dev, "", adj, x, model)
 del adj, x, model
 torch.cuda.empty_cache()
-graph = c.bench_graph(dev, "uniform", 1.0, 256)
-st = c.phase7c_path(dev, "", "seg2 uniform f32", "seg2", graph, "f32")
-print("AB_SEG2 " + json.dumps({k: st["stats"][k]
-                               for k in ("fwd_ms", "fwd_bwd_ms")}))
-del graph, st
-torch.cuda.empty_cache()
+packed = {}
+for key, kind, scale, backend, stream, transpose, kw in (
+        ("seg2_f32", "uniform", 1.0, "seg2", "f32", False, {}),
+        ("seg2_bf16", "uniform", 1.0, "seg2", "bf16", False, {}),
+        ("split_bf16", "clustered", 1.0, "seg2split", "bf16", False,
+         {"block": 2048}),
+        ("seg2_zipf_bf16", "zipf", 0.125, "seg2", "bf16", False, {}),
+        ("seg2_zipf_t_bf16", "zipf", 0.125, "seg2", "bf16", True, {}),
+        ("split_zipf_t_bf16", "zipf", 0.125, "seg2split", "bf16", True,
+         {"block": 2048})):
+    graph = c.bench_graph(dev, kind, scale, 256)
+    if transpose:          # the hub rows become x rows
+        row, col, val, x = graph
+        order = torch.argsort(col, stable=True)
+        graph = (col[order], row[order], val[order], x)
+        del row, col, val, x, order
+    st = c.phase7c_path(dev, "", key, backend, graph, stream, **kw)
+    packed[key] = {k: st["stats"][k]
+                   for k in ("fwd_ms", "fwd_bwd_ms", "peak_gb")}
+    del graph, st
+    torch.cuda.empty_cache()
+print("AB_PACKED " + json.dumps(packed))
 sp = c.phase6c_spgemm(dev, "")
 print("AB_SPGEMM " + json.dumps({p: {"ms": v["ms"], "k5_ms": v["k5"]["ms"]}
                                  for p, v in sp.items()}))
@@ -153,8 +173,8 @@ def _ab_run(where: Path) -> dict:
     def mean(pattern):
         return float(re.search(pattern + r".*?\(mean ([0-9.]+)",
                                out.stdout).group(1))
-    seg2 = json.loads(re.search(r"^AB_SEG2 (.*)$", out.stdout,
-                                re.M).group(1))
+    packed = json.loads(re.search(r"^AB_PACKED (.*)$", out.stdout,
+                                  re.M).group(1))
     spgemm = json.loads(re.search(r"^AB_SPGEMM (.*)$", out.stdout,
                                   re.M).group(1))
     peak = re.search(r"phase 5 train step ms.*?peak mem ([0-9.]+) GB",
@@ -162,8 +182,7 @@ def _ab_run(where: Path) -> dict:
     return {"tree": str(where), "gcn_forward_ms": mean(r"phase 4 forward ms"),
             "gcn_train_step_ms": mean(r"phase 5 train step ms"),
             "gcn_train_peak_gb": float(peak.group(1)),
-            "seg2_f32_fwd_ms": seg2["fwd_ms"],
-            "seg2_f32_fwd_bwd_ms": seg2["fwd_bwd_ms"],
+            **{f"{p}_{k}": v[k] for p, v in packed.items() for k in v},
             **{f"{p}_{k}": v[k] for p, v in spgemm.items() for k in v}}
 
 
@@ -177,7 +196,7 @@ def ab(parent: Path) -> None:
         runs.append(r)
         print("AB " + json.dumps(r) + f" [{card}]", flush=True)
     summary = {}
-    for k in [k for k in runs[0] if k.endswith("ms")]:
+    for k in [k for k in runs[0] if k.endswith(("ms", "gb"))]:
         p = [r[k] for r in runs if r["side"] == "parent"]
         c = [r[k] for r in runs if r["side"] == "change"]
         summary[k] = {"parent": p, "change": c,

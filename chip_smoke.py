@@ -98,7 +98,12 @@ Phases, one or more printed lines each:
    rows of CAP-1, CAP, CAP+1 and 2*CAP+3 edges, K 1 47 256 300, f32 and
    bf16; a row of 10M edges over spans that cross 32-span chunks, with empty
    spans and rows around it, exact; and the fold alone against its plain
-   version.
+   version. Then the fused span backward (``spmm_sddmm_spans_cuda``) as
+   the packed backward runs it (values gathered through a random relay, d
+   value read back through its inverse) against its plain version in f64
+   and bit for bit against the pair of span kernels over the same bounds,
+   S in 1 3 19 40, K in 1 47 64 256 520, f32 and bf16, values or None; and
+   over rows around CAP cut into pieces at S = 1 and 38 (the fold after).
 7b. Toy packed SpMMs: ``spmm_entry`` for seg2, seg3 and split, forward and
    grads, card vs CPU.
 7c. The bench's packed-SpMM cells at full width, on torch rewrites of
@@ -109,16 +114,26 @@ Phases, one or more printed lines each:
    scale after seg3's refusal, and seg2 on zipf at full scale (bf16, hub
    rows of 18.6M and 17.7M edges). For each: plan seconds, 1 warm-up and 3
    timed forwards and forward+backwards, peak memory, the launches (counts
-   zeroed just before, read just after; the fold pass runs exactly where a
-   plan has split rows, so never on the uniform graphs), sampled rows
-   (the longest among them), ``d value`` and ``d x`` against f64; the first
-   path's first forward+backward runs under the profiler. On the f32 path
-   the two span kernels alone, kernel vs plain in turns, with their bounds,
-   K1 on the same graph and the library calls computing the same products
-   (``torch.sparse.mm``, ``torch.sparse.sampled_addmm``), which the port
-   never calls. On zipf 1/8 the span kernels, K1 and K2 alone in f32 and
-   bf16, each in turns with its library call in the same dtype, two launches
-   of each bit for bit equal, and the fold alone on the hub's partials.
+   zeroed just before, read just after: spans 1 per forward and the fused
+   span backward 1 per backward, per seg2 call; the fold pass runs exactly
+   where a plan has split rows, so never on the uniform graphs), sampled
+   rows (the longest among them), ``d value`` and ``d x`` against f64, and
+   each seg2 call's fused span backward bit for bit against the pair it
+   replaces (the spans SpMM over the transpose, the span SDDMM over the
+   forward layout); the first path's first forward+backward runs under
+   the profiler. On the f32 path the two span kernels alone, kernel vs
+   plain in turns, with their bounds, K1 on the same graph and the library
+   calls computing the same products (``torch.sparse.mm``,
+   ``torch.sparse.sampled_addmm``), which the port never calls; then the
+   fused span backward against its plain version, as the backward runs it
+   in turns with the pair (bit for bit), its bounds, and the library pair
+   (``torch.sparse.mm`` of the transpose + ``sampled_addmm``). On zipf 1/8
+   the span kernels, K1 and K2 alone in f32 and bf16, each in turns with
+   its library call in the same dtype, two launches of each bit for bit
+   equal, the fold alone on the hub's partials, and the fused span
+   backward in turns with the pair, bit for bit, on the path's inputs and
+   on the graph transposed (its hub rows become x rows cut into pieces;
+   there also against the plain version in f64).
 8a. SpMM ``reduce`` mean, min and max on a padded ``PaddedCOO`` (poisoned
    padding cols, empty rows, a row of negative products, duplicate entries,
    a hub row and a hub column past ``CAP``), in f32 and in small integers
@@ -196,8 +211,8 @@ Phases, one or more printed lines each:
    and ``spmm_sell`` with its ``(32, ng)`` value grid as the leaf, each in
    turns with ``spmm_csr`` (csr, path, path, csr): plan seconds, forward and
    forward+backward ms, peak memory, exact launches (K1 1 per forward, K1 1
-   and the fused CSC backward 1 per forward+backward; seg: spans 1 / 2 and
-   span SDDMM 1), and
+   and the fused CSC backward 1 per forward+backward; seg: spans 1 / 1 and
+   the fused span backward 1), and
    sampled rows, ``d value`` and ``d x`` against f64; the grid's ``d
    value`` 0 at every pad slot.
 11. The TPU probes of ``experiments/`` through the port's entry points
@@ -1331,6 +1346,7 @@ def _launch_counts():
     from paddle_sparse_tpu_torch import (compact_runs_cuda, fold_pieces_cuda,
                                          sddmm_csr_cuda, sddmm_spans_cuda,
                                          spmm_csr_cuda, spmm_sddmm_csc_cuda,
+                                         spmm_sddmm_spans_cuda,
                                          spmm_spans_cuda, spmm_window_cuda)
     return {"spmm_csr": spmm_csr_cuda.launches,
             "spmm_window": spmm_window_cuda.launches,
@@ -1340,6 +1356,7 @@ def _launch_counts():
             "segcompact_row_sorted": compact_runs_cuda.launches_row_sorted,
             "spmm_spans": spmm_spans_cuda.launches,
             "sddmm_spans": sddmm_spans_cuda.launches,
+            "spmm_sddmm_spans": spmm_sddmm_spans_cuda.launches,
             "fold_pieces": fold_pieces_cuda.launches}
 
 
@@ -1347,10 +1364,11 @@ def _zero_launch_counts():
     from paddle_sparse_tpu_torch import (compact_runs_cuda, fold_pieces_cuda,
                                          sddmm_csr_cuda, sddmm_spans_cuda,
                                          spmm_csr_cuda, spmm_sddmm_csc_cuda,
+                                         spmm_sddmm_spans_cuda,
                                          spmm_spans_cuda, spmm_window_cuda)
     spmm_csr_cuda.launches = sddmm_csr_cuda.launches = 0
     spmm_window_cuda.launches = 0
-    spmm_sddmm_csc_cuda.launches = 0
+    spmm_sddmm_csc_cuda.launches = spmm_sddmm_spans_cuda.launches = 0
     compact_runs_cuda.launches = fold_pieces_cuda.launches = 0
     compact_runs_cuda.launches_row_sorted = 0
     spmm_spans_cuda.launches = sddmm_spans_cuda.launches = 0
@@ -2231,6 +2249,113 @@ def phase7a_long_rows(gen, dev, card):
     return worst
 
 
+def phase7a_fused(gen, dev, card):
+    """The fused span backward as the packed backward runs it (values
+    gathered through a random relay, d value read back through its
+    inverse) against its plain version in f64 and, bit for bit, against
+    the pair of span kernels over the same bounds (the spans SpMM on
+    ``value[relay]`` for d x; the span SDDMM with x's row as the row
+    operand and g gathered, written through the relay, for d value): S in
+    1 3 19 40 and K in 1 47 64 256 520, f32 and bf16, slice bases, empty
+    rows and spans, values or None; then rows around CAP at S = 1 and 38
+    cut into pieces (the fold after)."""
+    from paddle_sparse_tpu_torch import (CAP, fold_pieces_cuda,
+                                         sddmm_spans_cuda, split_rows,
+                                         spmm_sddmm_spans_cuda,
+                                         spmm_sddmm_spans_reference,
+                                         spmm_spans_cuda)
+    M = 2000
+    worst = 0.0
+
+    def run(start, end, idx, relay, value, base, g, x, split):
+        """The kernel as the packed backward runs it (the values gathered
+        through ``relay`` before, d value read back through its inverse
+        after), the pair, and the plain version in f64 and on |inputs|."""
+        rl = relay.long()
+        inv = torch.empty_like(rl).index_copy_(
+            0, rl, torch.arange(rl.numel(), device=rl.device))
+        vt = None if value is None else value[rl]
+        d_x, dv = spmm_sddmm_spans_cuda(start, end, idx, vt, base, g, x,
+                                        dx_dtype=torch.float32, split=split)
+        got = (d_x, dv[inv])
+        dv_t = sddmm_spans_cuda(start, end, idx, base, x, g, split=split)
+        want = (spmm_spans_cuda(start, end, idx, vt, base, g,
+                                out_dtype=torch.float32, split=split),
+                torch.empty_like(dv_t).index_copy_(0, rl, dv_t))
+        ref, scale = (spmm_sddmm_spans_reference(
+            start, end, idx, None if vt is None else f(vt), base, f(g),
+            f(x), out_dtype=torch.float64)
+            for f in (torch.Tensor.double, lambda t: t.double().abs()))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        e_x, ok_x = _grad_close(d_x, ref[0], scale[0])
+        e_v = float((dv.double() - ref[1]).abs().max())
+        ok = same and ok_x and bool(torch.allclose(dv.double(), ref[1],
+                                                   **F32_TOL))
+        return ok, max(e_x, e_v)
+
+    for S in (1, 3, 19, 40):
+        N = 3000
+        rp = span_ptrs(gen, dev, S, N, 3, empty_rows=(0, N // 3, N - 1))
+        nnz = int(rp[-1, -1])
+        base = torch.randint(0, 100, (S,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        idx = torch.randint(0, M - 100, (nnz,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        relay = torch.randperm(nnz, generator=gen, device=dev).int()
+        val = torch.rand(nnz, generator=gen, device=dev) * 2 - 1
+        errs = []
+        for K in (1, 47, 64, 256, 520):
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn(N, K, generator=gen, device=dev).to(dt)
+                g = torch.randn(M, K, generator=gen, device=dev).to(dt)
+                v = None if K == 47 else val
+                ok, err = run(rp[:, :-1], rp[:, 1:], idx, relay, v, base, g,
+                              x, None)
+                errs.append(err)
+                check(ok, f"fused span kernel disagrees with the pair or "
+                          f"plain f64 at S={S} K={K} {dt} ({err:.3e})")
+        worst = max(worst, *errs)
+        print(f"phase 7a spmm_sddmm_spans S={S} ({nnz} edges, empty rows and "
+              f"spans, a random relay), K in 1 47 64 256 520, f32 and bf16: "
+              f"bit for bit the spans SpMM + span SDDMM pair, vs plain f64 "
+              f"max_abs_err {max(errs):.3e} ok", flush=True)
+
+    totals = [0, CAP - 1, 3, CAP, 0, CAP + 1, 7, 2 * CAP + 3, 0, 1]
+    for S in (1, 38):
+        start, end, nnz = long_row_bounds(gen, dev, S, totals, 0.2)
+        t = split_rows(start, end)
+        base = torch.randint(0, 100, (S,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        idx = torch.randint(0, M - 100, (nnz,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        relay = torch.randperm(nnz, generator=gen, device=dev).int()
+        val = torch.rand(nnz, generator=gen, device=dev) * 2 - 1
+        errs = []
+        for K in (1, 47, 256, 300):
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn(len(totals), K, generator=gen,
+                                device=dev).to(dt)
+                g = torch.randn(M, K, generator=gen, device=dev).to(dt)
+                folds = fold_pieces_cuda.launches
+                ok, err = run(start, end, idx, relay, val.to(dt), base, g, x,
+                              t)
+                check(fold_pieces_cuda.launches == folds + 2,
+                      "the fused span launch and the spans launch over "
+                      "split rows must each run the fold once")
+                errs.append(err)
+                check(ok, f"split fused span kernel disagrees at S={S} "
+                          f"K={K} {dt} ({err:.3e})")
+        worst = max(worst, *errs)
+        print(f"phase 7a split spmm_sddmm_spans S={S}: x rows of {CAP - 1}, "
+              f"{CAP}, {CAP + 1}, {2 * CAP + 3} edges among short and empty "
+              f"ones, K in 1 47 256 300, f32 and bf16: bit for bit the pair "
+              f"(+ fold), vs plain f64 max_abs_err {max(errs):.3e} (d x "
+              f"within {GRAD_REL} of its sums of |terms|) ok {card}",
+              flush=True)
+    return worst
+
+
 def _packed_fns(backend):
     import paddle_sparse_tpu_torch as p
     if backend == "seg2split":
@@ -2374,6 +2499,65 @@ def check_packed_grads(name, row, col, val, x, gw, out, d_val, d_x, pdt,
     check(ok, f"{name}: output or grads disagree with f64 on samples")
 
 
+def _transpose_layout(plan, s):
+    from paddle_sparse_tpu_torch.ops.spmm_seg2 import span_layouts
+    return span_layouts(plan, s)[1]
+
+
+def fused_span_pair(plan, s, packed, x, g):
+    """The two passes that the fused span backward replaces, as
+    ``_PackedSpmm.backward`` ran them for one seg2 call: ``packed[relay]``
+    and the spans SpMM over the transpose for d x (a bf16 g read as it
+    is), the span SDDMM over the forward layout for d value, in the
+    backward's dtypes: ``(d x, d value)``."""
+    from paddle_sparse_tpu_torch import (product_dtype, sddmm_spans_cuda,
+                                         spmm_spans_cuda)
+    from paddle_sparse_tpu_torch.ops.spmm_seg2 import span_layouts
+    fwd, t = span_layouts(plan, s)
+    pdt = product_dtype(packed, g, plan.stream)
+    src = g if g.dtype in (pdt, torch.bfloat16) else g.to(pdt)
+    d_x = spmm_spans_cuda(t.start, t.end, t.col,
+                          packed.index_select(0, s.relay_ft), t.base, src,
+                          out_dtype=g.dtype, split=t.split)
+    d_value = sddmm_spans_cuda(fwd.start, fwd.end, fwd.col, fwd.base,
+                               g.to(pdt), x.to(pdt), split=fwd.split)
+    return d_x.to(x.dtype), d_value.to(packed.dtype)
+
+
+def fused_span_kernel(plan, s, packed, x, g, relayed=None):
+    """The fused span backward of one seg2 call: the backward's own
+    ``spmm_seg2.fused_span_backward`` (the values put in the transpose's
+    order, one ``spmm_sddmm_spans_cuda`` launch, d value read back through
+    ``relay_tf``): ``(d x, d value)``. With ``relayed`` (the values
+    already in that order) the launch alone, d value in the transpose's
+    order."""
+    from paddle_sparse_tpu_torch import product_dtype, spmm_sddmm_spans_cuda
+    from paddle_sparse_tpu_torch.ops.spmm_seg2 import fused_span_backward
+    t = _transpose_layout(plan, s)
+    if relayed is None:
+        d_value, d_x = fused_span_backward(t, s.relay_ft, s.relay_tf, packed,
+                                           x, g, plan.stream)
+        return d_x, d_value
+    pdt = product_dtype(packed, g, plan.stream)
+    return spmm_sddmm_spans_cuda(t.start, t.end, t.col, relayed, t.base,
+                                 g.to(pdt), x.to(pdt), dx_dtype=g.dtype,
+                                 split=t.split)
+
+
+def check_fused_equals_pair(name, plan, s, packed, x, g):
+    """One seg2 call's fused span backward equal to the pair it replaces,
+    d x and d value bit for bit, on the path's own inputs."""
+    with torch.inference_mode():
+        got = fused_span_kernel(plan, s, packed, x, g)
+        want = fused_span_pair(plan, s, packed, x, g)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"phase 7c {name}: the fused span backward (S_t={plan.S_t}, x "
+          f"rows {'split' if s.split_t is not None else 'unsplit'}) vs the "
+          f"spans SpMM + span SDDMM pair: d x and d value bit for bit "
+          f"{'equal' if same else 'DIFFERENT'}", flush=True)
+    check(same, f"{name}: the fused span backward differs from the pair")
+
+
 def first_fwd_bwd(name, card, run_fwd, run_bwd):
     """A path's first forward+backward under ``torch.profiler``, launched
     as the timed calls launch it (no synchronize between forward and
@@ -2491,18 +2675,23 @@ def phase7c_path(dev, card, name, backend, graph, stream, reps=3,
     # in every run, the transpose's in the forward+backwards
     folds = sum(runs * (2 * (q.split_f is not None)
                         + (q.split_t is not None)) for q in structs)
-    want = {"spmm_spans": 3 * runs * calls, "sddmm_spans": runs * calls,
-            "fold_pieces": folds}
+    want = {"spmm_spans": 2 * runs * calls,
+            "spmm_sddmm_spans": runs * calls, "fold_pieces": folds}
     check(all(counts[k] == want.get(k, 0) for k in counts),
-          f"{name}: expected launches {want} (spans 1 per forward, 2 per "
-          f"forward+backward, span SDDMM 1, per seg2 call; the fold after "
-          f"each spans launch over a split layout), counted {counts}")
+          f"{name}: expected launches {want} (spans 1 per forward, the fused "
+          f"span backward 1 per backward, per seg2 call; the fold after "
+          f"each launch over a split layout), counted {counts}")
     check(bool(torch.isfinite(out).all()) and out.shape == (n, K),
           f"{name}: output not finite or of shape {tuple(out.shape)}")
     d_val = unpack_fn(s, _grads(pv))
     pdt = product_dtype(val, x, stream)
     check_packed_grads(name, row, col, val, x, gw, out.detach(), d_val,
                        xx.grad, pdt, ind2ptr(row, n))
+    del out, d_val, pv, xx
+    for q_plan, q, q_packed in (
+            zip((plan.local, plan.resid), structs, packed)
+            if backend == "seg2split" else ((plan, s, packed),)):
+        check_fused_equals_pair(name, q_plan, q, q_packed, x, gw)
     return {"plan": plan, "s": s, "packed": packed, "gw": gw,
             "stats": {"plan_s": plan_s, "fwd_ms": f_ms, "fwd_bwd_ms": fb_ms,
                       "peak_gb": peak_gb, "launches": counts}}
@@ -2590,6 +2779,7 @@ def phase7c_kernels(dev, card, run, graph):
     torch.cuda.empty_cache()
     res["spmm_spans"].update(library_ms=lib_mm, k1_same_graph_ms=k1_ms)
     res["sddmm_spans"]["library_ms"] = lib_sd
+    res["spmm_sddmm_spans"] = phase7c_fused(card, run, graph, lib_sd)
     print(f"phase 7c yardsticks on the same graph (CSR order, f32, K={K}): "
           f"K1 spmm_csr {k1_ms:.3f} ms (vs spans max_abs_err {k1_err:.3e}); "
           f"torch.sparse.mm {lib_mm} ms (max_abs_err {lib_mm_err}); "
@@ -2597,6 +2787,82 @@ def phase7c_kernels(dev, card, run, graph):
           f"{lib_sd_err}); spans with a bf16 x {ms_b:.3f} ms {card}",
           flush=True)
     return res
+
+
+def phase7c_fused(card, run, graph, lib_sd):
+    """The fused span backward (``spmm_sddmm_spans_cuda``) on the seg2 f32
+    path's own inputs (uniform graph, K=256): against its plain version;
+    as the backward runs it (the values relayed, the launch, d value read
+    back) in turns with the pair it replaces, d x and d value bit for bit;
+    the launch alone; its bounds; and the library pair, ``torch.sparse.mm``
+    of the transpose's CSR for d x in turns with it, plus ``sampled_addmm``
+    for d value (``lib_sd``, timed by the caller)."""
+    from paddle_sparse_tpu_torch import ind2ptr, spmm_sddmm_spans_reference
+    row, col, val, x = graph
+    plan, s, packed, gw = run["plan"], run["s"], run["packed"], run["gw"]
+    nnz, K, n = row.numel(), x.shape[1], plan.num_cols
+    st, en, col_t, base = _transpose_layout(plan, s)[:4]
+    with torch.inference_mode():
+        vt = packed.index_select(0, s.relay_ft)
+        p1, k1, k2, p2, out_p, out_k = in_turns(
+            lambda: spmm_sddmm_spans_reference(st, en, col_t, vt, base, gw,
+                                               x),
+            lambda: fused_span_kernel(plan, s, packed, x, gw, relayed=vt),
+            1, 5)
+        errs = [float((a - b).abs().max()) for a, b in zip(out_k, out_p)]
+        scale = float(out_p[1].abs().max())
+        ok = (bool(torch.allclose(out_k[0], out_p[0], **F32_TOL))
+              and bool(torch.allclose(out_k[1], out_p[1], rtol=1e-4,
+                                      atol=GRAD_REL * scale)))
+        print(f"phase 7c spmm_sddmm_spans on seg2's backward (S_t="
+              f"{plan.S_t}, K={K}, f32), the launch alone: kernel "
+              f"{k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms; "
+              f"kernel vs plain max_abs_err d x {errs[0]:.3e}, d value "
+              f"{errs[1]:.3e} (max |dv| {scale:.3e}) "
+              f"{'ok' if ok else 'FAIL'} {card}", flush=True)
+        check(ok, "the fused span kernel and its plain version disagree")
+        moved = nbytes(s.rp_t, col_t, vt, base, gw, x, *out_k)
+        del out_p, out_k
+        q1, f1, f2, q2, out_q, out_f = in_turns(
+            lambda: fused_span_pair(plan, s, packed, x, gw),
+            lambda: fused_span_kernel(plan, s, packed, x, gw), 5, 5)
+        same = all(torch.equal(a, b) for a, b in zip(out_f, out_q))
+        print(f"phase 7c spmm_sddmm_spans as the backward runs it (values "
+              f"relayed, the launch, d value read back) in turns with the "
+              f"pair it replaces (packed[relay], spans over the transpose, "
+              f"span SDDMM over the forward layout): pair {q1:.3f} / "
+              f"{q2:.3f} ms, fused {f1:.3f} / {f2:.3f} ms; d x and d value "
+              f"bit for bit {'equal' if same else 'DIFFERENT'} {card}",
+              flush=True)
+        check(same, "the fused span backward differs from the pair at scale")
+        del out_q
+        order = torch.argsort(col, stable=True)
+        at = torch.sparse_csr_tensor(ind2ptr(col[order], n).to(torch.int32),
+                                     row[order], val[order],
+                                     (n, plan.num_rows))
+        del order
+        lib_t, ms_a, err_t = library_in_turns(
+            "torch.sparse.mm (A^T @ g, the fused span kernel's d x)",
+            lambda: torch.sparse.mm(at, gw), lambda: fused_span_kernel(
+                plan, s, packed, x, gw, relayed=vt), 2, out_f[0])
+        del at, vt, out_f
+        torch.cuda.empty_cache()
+    bound, by = bound_ms(moved, 4 * nnz * K)
+    gather = nnz * K * gw.element_size() / HBM_BYTES_PER_S * 1e3
+    lib = None if lib_t is None or lib_sd is None else lib_t + lib_sd
+    print(f"phase 7c spmm_sddmm_spans K={K}: the launch {(k1 + k2) / 2:.3f} "
+          f"ms, as routed {(f1 + f2) / 2:.3f} ms, the pair "
+          f"{(q1 + q2) / 2:.3f} ms; bound {bound:.3f} ms ({by}, "
+          f"{moved / 1e9:.2f} GB each once), gathered rows {gather:.3f} ms; "
+          f"library torch.sparse.mm of the transpose {lib_t} ms (vs d x "
+          f"max_abs_err {err_t}) + sampled_addmm {lib_sd} ms = {lib} ms "
+          f"{card}", flush=True)
+    return {"ms": (k1 + k2 + ms_a) / 3, "routed_ms": (f1 + f2) / 2,
+            "pair_ms": (q1 + q2) / 2, "plain_ms": (p1 + p2) / 2,
+            "max_abs_err": max(errs), "bound_ms": bound, "bound_by": by,
+            "gather_bound_ms": gather, "library_ms": lib,
+            "library_d_x_ms": lib_t, "library_d_value_ms": lib_sd,
+            "bit_equal_to_pair": same}
 
 
 def phase7c_scale(dev, card):
@@ -2800,6 +3066,7 @@ def phase7c_zipf_kernels(dev, card, run, graph):
                   flush=True)
             del xk, gk, out_q, out_f
     del adj
+    res["spmm_sddmm_spans"] = phase7c_zipf_fused(card, run, graph)
 
     # the fold alone on the forward's split rows, K=256 f32 partials
     t = s.split_f
@@ -2834,6 +3101,77 @@ def phase7c_zipf_kernels(dev, card, run, graph):
           f"{k2_:.3f} ms, plain {p1:.3f} / {p2:.3f} ms, index_add_ {lib_ms} "
           f"ms, bound {fb:.4f} ms ({fby}); max_abs_err {err:.3e} ok {card}",
           flush=True)
+    return res
+
+
+def phase7c_zipf_fused(card, run, graph):
+    """The fused span backward on the zipf 1/8 path's own inputs (bf16
+    stream) and on the same graph transposed, where the hub rows become x
+    rows cut into pieces (the fold after): each as the backward runs it, in
+    turns with the pair it replaces, d x and d value bit for bit; on the
+    transposed graph also against its plain version in f64 (d x within
+    GRAD_REL of each entry's sum of |terms|: the hub's 10M terms)."""
+    from paddle_sparse_tpu_torch import (fold_pieces_cuda, make_seg2_plan,
+                                         pack_values,
+                                         spmm_sddmm_spans_reference)
+    row, col, val, x = graph
+    plan, s, packed, gw = run["plan"], run["s"], run["packed"], run["gw"]
+    n, K = x.shape
+    order = torch.argsort(col, stable=True)
+    plan_t, s_t = make_seg2_plan(col[order], row[order], n, n, feat_dim=K,
+                                 stream="bf16")
+    packed_t = pack_values(s_t, val[order])
+    del order
+    check(s.split_t is None and s_t.split_t is not None,
+          "zipf's x rows split, or its transpose's do not")
+    res = {"x_rows_split_transposed": int(s_t.split_t.fold_row.numel()),
+           "pieces_transposed": int(s_t.split_t.num_slots)}
+    with torch.inference_mode():
+        for tag, (q_plan, q, q_packed) in (
+                ("zipf", (plan, s, packed)),
+                ("transposed", (plan_t, s_t, packed_t))):
+            folds = fold_pieces_cuda.launches
+            q1, f1, f2, q2, out_q, out_f = in_turns(
+                lambda: fused_span_pair(q_plan, q, q_packed, x, gw),
+                lambda: fused_span_kernel(q_plan, q, q_packed, x, gw), 5, 5)
+            same = all(torch.equal(a, b) for a, b in zip(out_f, out_q))
+            check(same, f"zipf {tag}: the fused span backward differs from "
+                        f"the pair")
+            # 12 launches of each, the fold after every one over split rows
+            check(fold_pieces_cuda.launches - folds
+                  == (24 if q.split_t is not None else 0),
+                  f"zipf {tag}: fold launches")
+            res[tag] = {"ms": (f1 + f2) / 2, "pair_ms": (q1 + q2) / 2}
+            print(f"phase 7c zipf 1/8 {tag} spmm_sddmm_spans as the backward "
+                  f"runs it (bf16 stream, K={K}, S_t={q_plan.S_t}, x rows "
+                  f"{'split' if q.split_t is not None else 'unsplit'}), in "
+                  f"turns with the spans + span SDDMM pair: pair {q1:.3f} / "
+                  f"{q2:.3f} ms, fused {f1:.3f} / {f2:.3f} ms; d x and d "
+                  f"value bit for bit equal {card}", flush=True)
+            del out_q
+        st, en, col_t, base = _transpose_layout(plan_t, s_t)[:4]
+        gb, xb = gw.bfloat16(), x.bfloat16()
+        vt = packed_t.index_select(0, s_t.relay_ft)
+        ref, scale = (spmm_sddmm_spans_reference(
+            st, en, col_t, f(vt), base, f(gb), f(xb),
+            out_dtype=torch.float64)
+            for f in (torch.Tensor.double, lambda t: t.double().abs()))
+        err_x, ok_x = _grad_close(out_f[0], ref[0], scale[0])
+        ref_v = ref[1].index_select(0, s_t.relay_tf)   # the packed order
+        err_v = float((out_f[1].double() - ref_v).abs().max())
+        ok_v = bool(torch.allclose(out_f[1].double(), ref_v, **F32_TOL))
+        del ref, scale, ref_v, out_f, gb, xb, vt
+    print(f"phase 7c zipf 1/8 transposed spmm_sddmm_spans "
+          f"({res['x_rows_split_transposed']} x rows split into "
+          f"{res['pieces_transposed']} pieces) vs plain f64: d x "
+          f"{err_x:.3e} (within {GRAD_REL} of its sums of |terms|), d value "
+          f"{err_v:.3e} {'ok' if ok_x and ok_v else 'FAIL'} {card}",
+          flush=True)
+    check(ok_x and ok_v, "the fused span kernel over split x rows disagrees "
+                         "with its plain version")
+    res["transposed_max_abs_err"] = max(err_x, err_v)
+    del plan_t, s_t, packed_t
+    torch.cuda.empty_cache()
     return res
 
 
@@ -4236,7 +4574,7 @@ def phase10d_entry_points(dev, card):
     k1 = ({"spmm_csr": 4}, {"spmm_csr": 4, "spmm_sddmm_csc": 4})
     want_path = {"chunked": k1, "sell": k1, "sell_grid": k1,
                  "seg": ({"spmm_spans": 4},
-                         {"spmm_spans": 8, "sddmm_spans": 4})}
+                         {"spmm_spans": 4, "spmm_sddmm_spans": 4})}
     res = {}
     for name, make in (("chunked", plan_chunked), ("seg", plan_seg),
                        ("sell", plan_sell), ("sell_grid", plan_sell_grid)):
@@ -4941,12 +5279,14 @@ def main() -> int:
     stamp("phase 7a without the split")
     spans["split_max_abs_err"] = phase7a_long_rows(gen, dev, card)
     stamp("phase 7a's split")
+    spans["fused_max_abs_err"] = phase7a_fused(gen, dev, card)
+    stamp("phase 7a's fused span backward")
     phase7b_toy(dev)
     packed_paths, span_k = phase7c_scale(dev, card)
     stamp("phase 7c")
     full = packed_paths["seg2_zipf_full_bf16"]["launches"]
     check(full["fold_pieces"] > 0 and full["spmm_spans"] > 0
-          and full["sddmm_spans"] > 0,
+          and full["spmm_sddmm_spans"] > 0,
           f"full-scale zipf did not run the split kernels: {full}")
     print("phase 7c summary " + json.dumps(
         {p: {k: v for k, v in st.items() if k != "launches"}
@@ -5047,6 +5387,7 @@ def main() -> int:
     k256 = train["sddmm"][256]
     fused = train["fused"]
     sp, sd = span_k["spmm_spans"], span_k["sddmm_spans"]
+    fs = span_k["spmm_sddmm_spans"]
     zipf = span_k["zipf"]
     fold = zipf["fold_pieces"]
 
@@ -5207,6 +5548,39 @@ def main() -> int:
          "at": "seg2 backward, uniform 2,449,029 nodes, f32",
          "zipf_1_8": zipf_1_8("sddmm_spans"),
          "split_max_abs_err_vs_f64": spans["split_max_abs_err"]},
+        {"name": "spmm_sddmm_spans", "route": "cuda",
+         "source": "paddle_sparse_tpu_torch/csrc/spmm_sddmm_csc.cu",
+         "source_note": "the fused backward's span form, through "
+                        "spmm_sddmm_spans_cuda: d x and d value of every "
+                        "packed SpMM (seg2, seg3, split, spmm_seg) from one "
+                        "gather of g over the transpose layout, where the "
+                        "backward ran the spans SpMM over the transpose "
+                        "and the span SDDMM over the forward layout",
+         "replaces": "paddle_sparse_tpu/ops/kernels/spmm_pallas.py:192",
+         "replaces_also": ["paddle_sparse_tpu/ops/kernels/spmm_pallas.py:901"],
+         "replaces_note": "K1's pallas_call as ops/spmm_seg2.py::_seg_pass "
+                          "(:439) runs it over the transpose layout for d x "
+                          "in _spmm_seg2_bwd (:601); its d value is "
+                          "_sddmm_pass (:503, XLA; K2's mul_rowsum_call "
+                          "only under an opt-in switch)",
+         "launches": packed_paths["seg2_uniform_f32"]["launches"][
+             "spmm_sddmm_spans"],
+         "launches_by_path": by_path("spmm_sddmm_spans"),
+         "max_abs_err": fs["max_abs_err"], "ms": fs["ms"],
+         "ms_note": "the launch alone, on values already in the "
+                    "transpose's order; routed_ms adds the two gathers "
+                    "through relay_ft and relay_tf, as the backward runs it",
+         "routed_ms": fs["routed_ms"], "pair_ms": fs["pair_ms"],
+         "plain_ms": fs["plain_ms"], "bound_ms": fs["bound_ms"],
+         "bound_by": fs["bound_by"], "library_ms": fs["library_ms"],
+         "library": "torch.sparse.mm of the transpose's CSR for d x + "
+                    "sampled_addmm for d value",
+         "library_d_x_ms": fs["library_d_x_ms"],
+         "library_d_value_ms": fs["library_d_value_ms"],
+         "gather_bound_ms": fs["gather_bound_ms"], "K": 256,
+         "at": "seg2 backward, uniform 2,449,029 nodes, f32",
+         "zipf_1_8": zipf["spmm_sddmm_spans"],
+         "max_abs_err_vs_f64_sweep": spans["fused_max_abs_err"]},
         {"name": "fold_pieces", "route": "cuda",
          "source": "paddle_sparse_tpu_torch/csrc/spmm_spans.cu",
          "source_note": "fold_pieces_kernel, the second pass of a split "

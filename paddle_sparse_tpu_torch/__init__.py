@@ -88,7 +88,9 @@ from .ops.kernels.segcompact_cuda import (compact_runs, compact_runs_cuda,
                                           compact_runs_reference)
 from .ops.kernels.spmm_cuda import spmm_csr_cuda, spmm_csr_reference
 from .ops.kernels.spmm_sddmm_cuda import (spmm_sddmm_csc_cuda,
-                                          spmm_sddmm_csc_reference)
+                                          spmm_sddmm_csc_reference,
+                                          spmm_sddmm_spans_cuda,
+                                          spmm_sddmm_spans_reference)
 from .ops.kernels.spmm_window_cuda import (spmm_window_cuda,
                                            spmm_window_reference)
 from .ops.kernels.spmm_spans_cuda import (band_reduce_call, product_dtype,
@@ -157,7 +159,8 @@ __all__ = [
     "spgemm_entry",
     "spgemm_flops", "spmm_coo", "spmm_csr", "spmm_csr_cuda",
     "spmm_csr_reference", "spmm_entry", "spmm_sddmm_csc_cuda",
-    "spmm_sddmm_csc_reference", "spmm_seg2", "spmm_seg3",
+    "spmm_sddmm_csc_reference", "spmm_sddmm_spans_cuda",
+    "spmm_sddmm_spans_reference", "spmm_seg2", "spmm_seg3",
     "spmm_spans_cuda", "spmm_spans_reference", "spmm_split",
     "spmm_window_cuda", "spmm_window_reference", "split_long_rows",
     "split_rows", "spspmm_eager",

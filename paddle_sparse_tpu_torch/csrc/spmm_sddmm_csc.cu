@@ -1,50 +1,64 @@
-// Fused backward of the CSR SpMM out = A @ x for Hopper (sm_90a): d x and
-// d value from one gather of g = d out, over the CSC view of A.
+// Fused backward of an SpMM out = A @ x for Hopper (sm_90a): d x and d value
+// from one gather of g = d out, over the transpose of A's layout.
 //
-//   d_x[c, :]         = sum_{colptr[c] <= e < colptr[c+1]}
-//                           value[perm[e]] * g[col_t[e], :]
-//   d_value[perm[e]]  = g[col_t[e], :] . x[c, :]        for the same e
+//   d_x[c, :]         = sum_{s < S} sum_{start[s, c] <= e < end[s, c]}
+//                           value[p(e)] * g[base[s] + col_t[e], :]
+//   d_value[p(e)]     = g[base[s] + col_t[e], :] . x[c, :]   for the same e
 //
-// with value = NULL meaning ones. colptr (N+1) is the CSC pointer of A's
-// real entries, col_t = row[perm] their rows in column order and perm the
-// CSC -> COO position map, as ops/spmm.py::spmm_structure builds them.
+// with value = NULL meaning ones and base = NULL meaning 0. Two forms of the
+// same kernel:
+// - the CSC form (S = 1): colptr (N+1) is the CSC pointer of A's real
+//   entries, col_t = row[perm] their rows in column order and p(e) =
+//   perm[e] the CSC -> COO position map, as ops/spmm.py::spmm_structure
+//   builds them;
+// - the span form: the (S, N) span bounds of a packed layout's transpose
+//   (ops/spmm_seg2.py: rp_t's start and end views, read at s * stride + c),
+//   col_t the slice-local g rows, base = sbase_t, and p(e) = e: value and
+//   d value are in the transpose's order (the caller relays them).
 //
-// Replaces the pair that the SpMM backward ran when it needed both grads:
-// K2 over the CSR (sddmm_spans.cu at S = 1) for d value, then value[perm]
-// materialised and K1 over the CSC view (spmm_spans.cu at S = 1) for d x.
-// Each of those passes gathers one random row per edge (x[col] for d value,
-// g[col_t] for d x). Here one warp owns a column c: it holds x[c, :] in
-// registers and gathers g[col_t[e], :] once per edge for both outputs. It is
-// K2 redesigned for this card, and the counterpart of the JAX package's
-// fused chunked backward,
-// paddle_sparse_tpu/ops/kernels/spmm_pallas.py::spmm_sddmm_chunked (:481),
-// whose only pallas_call is K1's _reduce_kernel (:45, through _reduce_call
-// :137), there too sharing the g[col_t] gather between d x and d value.
+// Replaces the pair that an SpMM backward ran when it needed both grads:
+// K2 for d value (sddmm_spans.cu: over the CSR at S = 1, over the forward
+// layout in the span form), then the values relayed into transpose order
+// (value[perm] materialised) and the multi-span SpMM over the transpose
+// (spmm_spans.cu: K1 over the CSC view at S = 1, K3's counterpart in the
+// span form) for d x. Each of those passes gathers one random row per edge
+// (x for d value, g for d x). Here one warp owns an x row c: it holds x[c, :]
+// in registers and gathers g's row once per edge for both outputs. It is K2
+// redesigned for this card: the counterpart of the JAX package's fused
+// chunked backward, paddle_sparse_tpu/ops/kernels/spmm_pallas.py::
+// spmm_sddmm_chunked (:481), whose only pallas_call is K1's _reduce_kernel
+// (:45, through _reduce_call :137), there too sharing the g[col_t] gather
+// between d x and d value; and, in the span form, of seg2's backward
+// (paddle_sparse_tpu/ops/spmm_seg2.py::_spmm_seg2_bwd :601), whose d x is a
+// _seg_pass (:439) of K1's pallas_call over the transpose layout.
 //
 // What bounds it on the H100: the random row gather of g, nnz * K *
 // sizeof(g) bytes (at full ogbn-products scale, K = 256 f32: 125 GB, about
 // 37 ms at the published 3.35 TB/s), where the pair gathered that twice.
 // Each byte once is about 9.5 GB (g, x, d x, and the index, value and
-// d value arrays): 2.8 ms. Four flops per gathered element: memory-bound.
-// value[perm[e]] and d value[perm[e]] are scattered 4-byte accesses, one
-// 32-byte sector each.
+// d value arrays; the span form adds its (S, N) bounds): 2.8-2.9 ms. Four
+// flops per gathered element: memory-bound. In the CSC form value[perm[e]]
+// and d value[perm[e]] are scattered 4-byte accesses, one 32-byte sector
+// each.
 //
 // Design:
-// - One warp per column (or per piece of a long column). The warp loads
-//   x[c, :] into registers in K2's lane layout: lane l holds the V-vectors
+// - One warp per x row (or per piece of a long one). The warp loads x[c, :]
+//   into registers in K2's lane layout: lane l holds the V-vectors
 //   (t * 32 + l) * V for t < NV, so registers cover 32 * V * NV columns;
 //   past that the dots read x[c, :] again, where it stays in L1.
-// - The edges go 32 at a time. Lane j loads col_t[e], perm[e] and
-//   value[perm[e]] of edge j of the batch (value[perm] is never
-//   materialised). For each edge the lanes gather the row g[col_t[e], :]
-//   once, with 16-byte read-only loads where K and alignment allow, and
-//   take from it
+// - The edges go 32 at a time: a CSC column's contiguous range, or the span
+//   form's spans flattened 32 at a time (spans.cuh), as spmm_spans.cu walks
+//   them, so a row's edges come in span order and, within a span, in
+//   position order. Lane j loads the g row, p(e) and value[p(e)] of edge j
+//   of the batch (the CSC form never materialises value[perm]). For each edge
+//   the lanes gather the row of g once, with 16-byte read-only loads where
+//   K and alignment allow, and take from it
 //     acc  = fmaf(v, g_row, acc)     K1's order: d x in edge order;
 //     part = fmaf(x_c, g_row, part)  K2's order, then K2's __shfl_xor_sync
 //                                    butterfly: the edge's dot.
 //   fmaf is symmetric in its first two operands, so both outputs equal the
 //   pair's bit for bit. Lane j keeps edge j's dot, and the batch writes
-//   d value at perm[e] (write-through, no atomics) into a buffer the wrapper
+//   d value at p(e) (write-through, no atomics) into a buffer the wrapper
 //   zeroes, so padding entries read 0.
 // - The lanes' own loads, not a staging ring: a ring of bulk async copies
 //   per warp in shared memory (cp.async.bulk, one row per copy, completing
@@ -56,66 +70,129 @@
 // - Rows wider than the registers' 32 * V * NV columns: the first pass over
 //   the edges takes every column of the dots and the first block of d x;
 //   each further block of d x walks the edges again, as K1 does.
-// - Long columns (ops/kernels/row_split.py): given the piece table of
-//   colptr, one warp per piece of at most `cap` edges. A piece of a split
-//   column writes its f32 d x partial to workspace row `slot`, which
-//   fold_pieces_kernel (spmm_spans.cu) folds in a fixed order: the table and
-//   the fold of K1 over the CSC view, so the bits match there too. A piece
-//   owns its edges' d value, so that output needs no second pass.
+// - Long x rows (ops/kernels/row_split.py): given the piece table of the
+//   bounds, one warp per piece of at most `cap` edges of the row's flat
+//   order. A piece of a split row writes its f32 d x partial to workspace
+//   row `slot`, which fold_pieces_kernel (spmm_spans.cu) folds in a fixed
+//   order: the table and the fold of the SpMM over the transpose, so the
+//   bits match there too. A piece owns its edges' d value, so that output
+//   needs no second pass.
+// - The S = 1 CSC form is its own instantiation (kSpans false): no span
+//   bookkeeping, a column's edges read straight from colptr.
+// - The span form takes no relay: the packed SpMMs' backward puts the values
+//   into transpose order by one gather before and reads d value back into
+//   the packed order by one gather after. On the H100 that took 47.1 ms
+//   against 52.4 ms with the relay's scattered 4-byte reads and writes in
+//   here, at full ogbn-products scale, K = 256 f32 (PERF.md, section 6).
 //
 // Contract (the Python wrapper, ops/kernels/spmm_sddmm_cuda.py, checks
-// shapes, dtypes, devices and contiguity): colptr is non-decreasing, every
-// e < colptr[N] indexes col_t and perm, every col_t[e] lies in [0, M) of the
-// contiguous (M, K) g and every perm[e] in [0, P) of value and d value; x and
-// d x are contiguous (N, K). A piece table covers every column's edges once
+// shapes, dtypes, devices and contiguity): the bounds are non-decreasing
+// (CSC) or any int32 spans (span form); every edge position e indexes col_t
+// (and perm), every g row base[s] + col_t[e] lies in [0, M) of the
+// contiguous (M, K) g and every p(e) in [0, P) of value and d value; x and
+// d x are contiguous (N, K). A piece table covers every row's edges once
 // with slots in [0, W) of the contiguous (W, K) f32 workspace. Offsets into
 // g, x, d x and the workspace are 64-bit.
 
+#include "spans.cuh"
 #include "vec_load.cuh"
 
 namespace {
 
 using psp::aligned16;
+using psp::kFullMask;
+using psp::load_span_chunk;
 using psp::load_vec;
+using psp::span_edge;
+using psp::SpanChunk;
+using psp::SpanEdge;
 using psp::store_scalar;
 using psp::store_vec;
 
-constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kWarpsPerBlock = 4;  // one column (or piece) per warp
+constexpr int kWarpsPerBlock = 4;  // one x row (or piece) per warp
+
+// One batch of n <= 32 edges of the warp's x row: lane j < n holds edge j's
+// g row (my_src), its value and d value slot (my_dst) and its value
+// (my_val). Each g row is gathered once: into acc, columns c0 + (t * 32 +
+// lane) * V, and, when `dots`, into the edge's dot with x[c, :] (xr in
+// registers, the rest of the row from x_row), which lane j stores at
+// d value[my_dst].
+template <typename TX, typename TD, int V, int NV>
+__device__ __forceinline__ void take_batch(
+    int n, int my_src, int my_dst, float my_val, const TX* __restrict__ g,
+    const TX* __restrict__ x_row, const float (&xr)[NV][V],
+    float (&acc)[NV][V], bool dots, int c0, int K, int lane,
+    TD* __restrict__ dv) {
+  constexpr int kCols = 32 * V * NV;
+  float my_out = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < n; ++j) {
+    const int r = __shfl_sync(kFullMask, my_src, j);
+    const float v = __shfl_sync(kFullMask, my_val, j);
+    const TX* g_row = g + static_cast<int64_t>(r) * K;
+    float part = 0.f;
+#pragma unroll
+    for (int t = 0; t < NV; ++t) {
+      const int k = c0 + (t * 32 + lane) * V;
+      if (k < K) {
+        float gv[V];
+        load_vec<TX, V>(g_row + k, gv);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          acc[t][i] = fmaf(v, gv[i], acc[t][i]);
+          part = fmaf(xr[t][i], gv[i], part);
+        }
+      }
+    }
+    if (dots) {
+      for (int k = kCols + lane * V; k < K; k += 32 * V) {  // past regs
+        float xv[V], gv[V];
+        load_vec<TX, V>(x_row + k, xv);
+        load_vec<TX, V>(g_row + k, gv);
+#pragma unroll
+        for (int i = 0; i < V; ++i) part = fmaf(xv[i], gv[i], part);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        part += __shfl_xor_sync(kFullMask, part, off);
+      }
+      if (lane == j) my_out = part;
+    }
+  }
+  if (dots && lane < n) store_scalar<TD>(dv + my_dst, my_out);
+}
 
 // TX: element type of g and x; TO: of d x; TD: of d value; V: elements per
 // lane load; NV: vectors of x[c] each lane holds, so registers cover
-// 32 * V * NV columns. kPieces false: warp w walks column w (the table is
-// not read); true: warp w walks piece w of the table (p_col, p_piece,
-// p_slot, cap).
-template <typename TX, typename TO, typename TD, int V, int NV, bool kPieces>
+// 32 * V * NV columns. kPieces false: warp w walks x row w (the table is
+// not read); true: warp w walks piece w of the table (p_row, p_piece,
+// p_slot, cap). kSpans false: the CSC form, start = colptr (end, stride,
+// S and base unread); true: the span form (perm unread).
+template <typename TX, typename TO, typename TD, int V, int NV, bool kPieces,
+          bool kSpans>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-spmm_sddmm_csc_kernel(const int* __restrict__ colptr,
-                      const int* __restrict__ col_t,
-                      const int* __restrict__ perm,
-                      const float* __restrict__ value,
-                      const TX* __restrict__ g, const TX* __restrict__ x,
-                      TO* __restrict__ dx, TD* __restrict__ dv, int units,
-                      int K, const int* __restrict__ p_col,
-                      const int* __restrict__ p_piece,
-                      const int* __restrict__ p_slot, long long cap,
-                      float* __restrict__ ws) {
+spmm_sddmm_kernel(const int* __restrict__ start, const int* __restrict__ end,
+                  long long stride, int S, const int* __restrict__ col_t,
+                  const int* __restrict__ base, const int* __restrict__ perm,
+                  const float* __restrict__ value, const TX* __restrict__ g,
+                  const TX* __restrict__ x, TO* __restrict__ dx,
+                  TD* __restrict__ dv, int units, int K,
+                  const int* __restrict__ p_row,
+                  const int* __restrict__ p_piece,
+                  const int* __restrict__ p_slot, long long cap,
+                  float* __restrict__ ws) {
   const int lane = threadIdx.x & 31;
   const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (w >= units) return;  // whole warp leaves together
   int c = w;
-  float* part_row = nullptr;  // non-NULL: a piece of a split column
+  long long f0 = 0, f1 = 0;   // a piece's flat edges [f0, f1)
+  float* part_row = nullptr;  // non-NULL: a piece of a split row
   if constexpr (kPieces) {
-    c = __ldg(p_col + w);
+    c = __ldg(p_row + w);
+    f0 = static_cast<long long>(__ldg(p_piece + w)) * cap;
+    f1 = f0 + cap;
     const int slot = __ldg(p_slot + w);
     if (slot >= 0) part_row = ws + static_cast<int64_t>(slot) * K;
-  }
-  const long long e0 = __ldg(colptr + c);
-  const long long len = max(0LL, __ldg(colptr + c + 1) - e0);
-  long long lo = 0, hi = len;  // the warp's edges [e0 + lo, e0 + hi)
-  if constexpr (kPieces) {
-    lo = static_cast<long long>(__ldg(p_piece + w)) * cap;
-    hi = min(len, lo + cap);
   }
   constexpr int kCols = 32 * V * NV;
   const TX* x_row = x + static_cast<int64_t>(c) * K;
@@ -142,52 +219,54 @@ spmm_sddmm_csc_kernel(const int* __restrict__ colptr,
       for (int i = 0; i < V; ++i) acc[t][i] = 0.f;
     }
 
-    for (long long eb = lo; eb < hi; eb += 32) {
-      const int n = static_cast<int>(min(32LL, hi - eb));
-      int my_src = 0, my_dst = 0;
-      float my_val = 1.f;
-      if (lane < n) {
-        const long long e = e0 + eb + lane;
-        my_src = __ldg(col_t + e);
-        my_dst = __ldg(perm + e);
-        if (value != nullptr) my_val = __ldg(value + my_dst);
+    if constexpr (!kSpans) {
+      // a CSC column: its edges [e0 + lo, e0 + hi)
+      const long long e0 = __ldg(start + c);
+      const long long len = max(0LL, __ldg(start + c + 1) - e0);
+      long long lo = 0, hi = len;
+      if constexpr (kPieces) {
+        lo = f0;
+        hi = min(len, f1);
       }
-      float my_out = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < n; ++j) {
-        const int r = __shfl_sync(kFullMask, my_src, j);
-        const float v = __shfl_sync(kFullMask, my_val, j);
-        const TX* g_row = g + static_cast<int64_t>(r) * K;
-        float part = 0.f;
-#pragma unroll
-        for (int t = 0; t < NV; ++t) {
-          const int k = c0 + (t * 32 + lane) * V;
-          if (k < K) {
-            float gv[V];
-            load_vec<TX, V>(g_row + k, gv);
-#pragma unroll
-            for (int i = 0; i < V; ++i) {
-              acc[t][i] = fmaf(v, gv[i], acc[t][i]);
-              part = fmaf(xr[t][i], gv[i], part);
-            }
-          }
+      for (long long eb = lo; eb < hi; eb += 32) {
+        const int n = static_cast<int>(min(32LL, hi - eb));
+        int my_src = 0, my_dst = 0;
+        float my_val = 1.f;
+        if (lane < n) {
+          const long long e = e0 + eb + lane;
+          my_src = __ldg(col_t + e);
+          my_dst = __ldg(perm + e);
+          if (value != nullptr) my_val = __ldg(value + my_dst);
         }
-        if (dots) {
-          for (int k = kCols + lane * V; k < K; k += 32 * V) {  // past regs
-            float xv[V], gv[V];
-            load_vec<TX, V>(x_row + k, xv);
-            load_vec<TX, V>(g_row + k, gv);
-#pragma unroll
-            for (int i = 0; i < V; ++i) part = fmaf(xv[i], gv[i], part);
+        take_batch<TX, TD, V, NV>(n, my_src, my_dst, my_val, g, x_row, xr,
+                                  acc, dots, c0, K, lane, dv);
+      }
+    } else {
+      long long before = 0;  // a piece: flat edges in the chunks passed
+      for (int s0 = 0; s0 < S; s0 += 32) {
+        if (kPieces && before >= f1) break;
+        const SpanChunk chunk =
+            load_span_chunk(start, end, base, stride, s0, S, c, lane);
+        long long lo = 0, hi = chunk.total;
+        if constexpr (kPieces) {
+          lo = max(0LL, f0 - before);
+          hi = min(chunk.total, f1 - before);
+          before += chunk.total;
+        }
+        for (long long eb = lo; eb < hi; eb += 32) {
+          const int n = static_cast<int>(min(32LL, hi - eb));
+          const SpanEdge se = span_edge(chunk, eb + lane);
+          int my_src = 0, my_dst = 0;
+          float my_val = 1.f;
+          if (lane < n) {
+            my_src = se.base + __ldg(col_t + se.e);
+            my_dst = se.e;
+            if (value != nullptr) my_val = __ldg(value + my_dst);
           }
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            part += __shfl_xor_sync(kFullMask, part, off);
-          }
-          if (lane == j) my_out = part;
+          take_batch<TX, TD, V, NV>(n, my_src, my_dst, my_val, g, x_row, xr,
+                                    acc, dots, c0, K, lane, dv);
         }
       }
-      if (dots && lane < n) store_scalar<TD>(dv + my_dst, my_out);
     }
 
 #pragma unroll
@@ -206,54 +285,60 @@ spmm_sddmm_csc_kernel(const int* __restrict__ colptr,
 
 // The kernel's arguments past its template parameters, passed through.
 struct Args {
-  const int* colptr;
+  const int* start;
+  const int* end;
+  long long stride;
+  int S;
   const int* col_t;
+  const int* base;
   const int* perm;
   const float* value;
   int units, K;
-  const int* p_col;
+  const int* p_row;
   const int* p_piece;
   const int* p_slot;
   long long cap;
   float* ws;
 };
 
-template <typename TX, typename TO, typename TD, int V, int NV>
+template <typename TX, typename TO, typename TD, int V, int NV, bool kSpans>
 void launch_nv(const Args& a, const TX* g, const TX* x, TO* dx, TD* dv,
                cudaStream_t stream) {
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((a.units + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  if (a.p_col != nullptr) {
-    spmm_sddmm_csc_kernel<TX, TO, TD, V, NV, true>
-        <<<grid, block, 0, stream>>>(a.colptr, a.col_t, a.perm, a.value, g,
-                                     x, dx, dv, a.units, a.K, a.p_col,
-                                     a.p_piece, a.p_slot, a.cap, a.ws);
+  if (a.p_row != nullptr) {
+    spmm_sddmm_kernel<TX, TO, TD, V, NV, true, kSpans>
+        <<<grid, block, 0, stream>>>(a.start, a.end, a.stride, a.S, a.col_t,
+                                     a.base, a.perm, a.value, g, x, dx, dv,
+                                     a.units, a.K, a.p_row, a.p_piece,
+                                     a.p_slot, a.cap, a.ws);
   } else {
-    spmm_sddmm_csc_kernel<TX, TO, TD, V, NV, false>
-        <<<grid, block, 0, stream>>>(a.colptr, a.col_t, a.perm, a.value, g,
-                                     x, dx, dv, a.units, a.K, nullptr,
-                                     nullptr, nullptr, 0, nullptr);
+    spmm_sddmm_kernel<TX, TO, TD, V, NV, false, kSpans>
+        <<<grid, block, 0, stream>>>(a.start, a.end, a.stride, a.S, a.col_t,
+                                     a.base, a.perm, a.value, g, x, dx, dv,
+                                     a.units, a.K, nullptr, nullptr, nullptr,
+                                     0, nullptr);
   }
 }
 
 // NV from K as K1 and K2 choose it, so the dots' lane layout is K2's.
-template <typename TX, typename TO, typename TD, int V>
+template <typename TX, typename TO, typename TD, int V, bool kSpans>
 void launch(const Args& a, const TX* g, const TX* x, TO* dx, TD* dv,
             cudaStream_t stream) {
   const int lanes_needed = (a.K + V - 1) / V;  // vectors across one row
   if (lanes_needed <= 32) {
-    launch_nv<TX, TO, TD, V, 1>(a, g, x, dx, dv, stream);
+    launch_nv<TX, TO, TD, V, 1, kSpans>(a, g, x, dx, dv, stream);
   } else if (lanes_needed <= 64) {
-    launch_nv<TX, TO, TD, V, 2>(a, g, x, dx, dv, stream);
+    launch_nv<TX, TO, TD, V, 2, kSpans>(a, g, x, dx, dv, stream);
   } else {
-    launch_nv<TX, TO, TD, V, 4>(a, g, x, dx, dv, stream);
+    launch_nv<TX, TO, TD, V, 4, kSpans>(a, g, x, dx, dv, stream);
   }
 }
 
 // The vector width when K and the pointers allow 16-byte accesses, else 1:
 // K2's rule on g and x (d x and the workspace are the wrapper's fresh
 // allocations, always aligned).
-template <typename TX, typename TO, typename TD>
+template <typename TX, typename TO, typename TD, bool kSpans>
 void dispatch(const Args& a, const void* g, const void* x, void* dx,
               void* dv, cudaStream_t stream) {
   constexpr int kVec = sizeof(TX) == 4 ? 4 : 8;  // elements in 16 bytes
@@ -263,32 +348,50 @@ void dispatch(const Args& a, const void* g, const void* x, void* dx,
   TD* vp = static_cast<TD*>(dv);
   if (aligned16(g) && aligned16(x) && aligned16(dx) && aligned16(a.ws) &&
       a.K % kVec == 0) {
-    launch<TX, TO, TD, kVec>(a, gp, xp, op, vp, stream);
+    launch<TX, TO, TD, kVec, kSpans>(a, gp, xp, op, vp, stream);
   } else {
-    launch<TX, TO, TD, 1>(a, gp, xp, op, vp, stream);
+    launch<TX, TO, TD, 1, kSpans>(a, gp, xp, op, vp, stream);
   }
 }
 
-template <typename TX, typename TO>
+template <typename TX, typename TO, bool kSpans>
 void dispatch_dv(const Args& a, const void* g, const void* x, void* dx,
                  void* dv, int dv_bf16, cudaStream_t stream) {
   if (dv_bf16) {
-    dispatch<TX, TO, __nv_bfloat16>(a, g, x, dx, dv, stream);
+    dispatch<TX, TO, __nv_bfloat16, kSpans>(a, g, x, dx, dv, stream);
   } else {
-    dispatch<TX, TO, float>(a, g, x, dx, dv, stream);
+    dispatch<TX, TO, float, kSpans>(a, g, x, dx, dv, stream);
   }
+}
+
+// The dtype combinations both entry points take; returns
+// cudaGetLastError() after the launch.
+template <bool kSpans>
+int dispatch_types(const Args& a, const void* g, const void* x, void* dx,
+                   void* dv, int in_bf16, int dx_bf16, int dv_bf16,
+                   cudaStream_t cs) {
+  if (!in_bf16) {
+    if (dx_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    dispatch_dv<float, float, kSpans>(a, g, x, dx, dv, dv_bf16, cs);
+  } else if (dx_bf16) {
+    dispatch_dv<__nv_bfloat16, __nv_bfloat16, kSpans>(a, g, x, dx, dv,
+                                                      dv_bf16, cs);
+  } else {
+    dispatch_dv<__nv_bfloat16, float, kSpans>(a, g, x, dx, dv, dv_bf16, cs);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. value may be NULL (ones).
+// Plain C entry points, loaded with ctypes. value may be NULL (ones).
 // in_bf16 selects bf16 (1) or f32 (0) for g and x, dx_bf16 and dv_bf16 the
 // same for d x and d value; f32 g and x take an f32 d x only (the wrapper
-// rounds it after). p_col == NULL launches one warp per column;
-// else one per piece of the P-piece table (p_col, p_piece, cap, p_slot),
-// pieces of split columns writing to the (W, K) f32 workspace ws, which
-// psp_fold_pieces then folds into dx. Launches on `stream` and returns
-// cudaGetLastError(); 0 means the launch was accepted.
+// rounds it after). p_col == NULL launches one warp per x row; else one per
+// piece of the P-piece table (p_col, p_piece, cap, p_slot), pieces of split
+// rows writing to the (W, K) f32 workspace ws, which psp_fold_pieces then
+// folds into dx. Each launches on `stream` and returns cudaGetLastError();
+// 0 means the launch was accepted.
 extern "C" int psp_spmm_sddmm_csc(const void* colptr, const void* col_t,
                                   const void* perm, const void* value,
                                   const void* g, const void* x, void* dx,
@@ -299,25 +402,54 @@ extern "C" int psp_spmm_sddmm_csc(const void* colptr, const void* col_t,
                                   const void* p_slot, void* ws,
                                   void* stream) {
   Args a;
-  a.colptr = static_cast<const int*>(colptr);
+  a.start = static_cast<const int*>(colptr);
+  a.end = nullptr;
+  a.stride = 0;
+  a.S = 1;
   a.col_t = static_cast<const int*>(col_t);
+  a.base = nullptr;
   a.perm = static_cast<const int*>(perm);
   a.value = static_cast<const float*>(value);
   a.units = static_cast<int>(p_col != nullptr ? P : N);
   a.K = static_cast<int>(K);
-  a.p_col = static_cast<const int*>(p_col);
+  a.p_row = static_cast<const int*>(p_col);
   a.p_piece = static_cast<const int*>(p_piece);
   a.p_slot = static_cast<const int*>(p_slot);
   a.cap = cap;
   a.ws = static_cast<float*>(ws);
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (!in_bf16) {
-    if (dx_bf16) return static_cast<int>(cudaErrorInvalidValue);
-    dispatch_dv<float, float>(a, g, x, dx, dv, dv_bf16, cs);
-  } else if (dx_bf16) {
-    dispatch_dv<__nv_bfloat16, __nv_bfloat16>(a, g, x, dx, dv, dv_bf16, cs);
-  } else {
-    dispatch_dv<__nv_bfloat16, float>(a, g, x, dx, dv, dv_bf16, cs);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch_types<false>(a, g, x, dx, dv, in_bf16, dx_bf16, dv_bf16,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// The span form: start and end are the (S, N) bounds read at s * stride + c;
+// base (S,) may be NULL (0); value and d value in the bounds' edge order.
+extern "C" int psp_spmm_sddmm_spans(const void* start, const void* end,
+                                    long long stride, const void* col_t,
+                                    const void* base, const void* value,
+                                    const void* g, const void* x, void* dx,
+                                    void* dv,
+                                    long long S, long long N, long long K,
+                                    int in_bf16, int dx_bf16, int dv_bf16,
+                                    const void* p_col, const void* p_piece,
+                                    long long P, long long cap,
+                                    const void* p_slot, void* ws,
+                                    void* stream) {
+  Args a;
+  a.start = static_cast<const int*>(start);
+  a.end = static_cast<const int*>(end);
+  a.stride = stride;
+  a.S = static_cast<int>(S);
+  a.col_t = static_cast<const int*>(col_t);
+  a.base = static_cast<const int*>(base);
+  a.perm = nullptr;
+  a.value = static_cast<const float*>(value);
+  a.units = static_cast<int>(p_col != nullptr ? P : N);
+  a.K = static_cast<int>(K);
+  a.p_row = static_cast<const int*>(p_col);
+  a.p_piece = static_cast<const int*>(p_piece);
+  a.p_slot = static_cast<const int*>(p_slot);
+  a.cap = cap;
+  a.ws = static_cast<float*>(ws);
+  return dispatch_types<true>(a, g, x, dx, dv, in_bf16, dx_bf16, dv_bf16,
+                              static_cast<cudaStream_t>(stream));
 }

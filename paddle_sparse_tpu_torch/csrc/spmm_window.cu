@@ -43,8 +43,8 @@
 // moves 4 bytes a lane a load: ~2.9 ns of an SM an edge and chunk even when
 // every edge is in its window, where the register walk moves 16 bytes a
 // lane a load for all of a row's columns at once, ~16 ns of an SM an edge
-// at K = 256 f32 with L2 serving its rows. So the forward path routes no
-// tile here (row_window.ROUTED).
+// at K = 256 f32 with L2 serving its rows. So no path builds a window plan,
+// and nothing but its own checks and measurements launches this kernel.
 //
 // Contract (the Python wrapper, ops/kernels/spmm_window_cuda.py, checks it):
 // src is a contiguous (N, K) f32 or bf16 array, 16-byte aligned, with K *

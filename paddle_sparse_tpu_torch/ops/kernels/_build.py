@@ -122,6 +122,14 @@ def load_library() -> ctypes.CDLL:
                                                i64, i32, i32, i32, p, p, i64,
                                                i64, p, p, p]
             lib.psp_spmm_sddmm_csc.restype = ctypes.c_int
+            # start, end, stride, col_t, base, value, g, x, dx, dv, S, N, K,
+            # in_bf16, dx_bf16, dv_bf16, piece table: row, piece, P, cap,
+            # slot; ws, stream
+            lib.psp_spmm_sddmm_spans.argtypes = [p, p, i64, p, p, p, p, p, p,
+                                                 p, i64, i64, i64, i32, i32,
+                                                 i32, p, p, i64, i64, p, p,
+                                                 p]
+            lib.psp_spmm_sddmm_spans.restype = ctypes.c_int
             lib.psp_segcompact_f_max.argtypes = []
             lib.psp_segcompact_f_max.restype = i64
             lib.psp_segcompact_tiles.argtypes = [i64, i64, i64, i32]

@@ -1,24 +1,35 @@
-"""The SpMM backward's two products in one pass on the card, over the CSC view:
-``d x = A^T @ g`` and ``d value[e] = g[row[e]] . x[col[e]]``.
+"""The SpMM backward's two products in one pass on the card, over the
+transpose of ``A``'s layout: ``d x = A^T @ g`` and ``d value[e] =
+g[row[e]] . x[col[e]]``.
 
 Port of ``paddle_sparse_tpu/ops/kernels/spmm_pallas.py::spmm_sddmm_chunked``,
 the JAX package's fused backward of ``spmm_chunked``, which shares the
 ``g[col_t]`` gather between the transpose SpMM (its ``pallas_call`` is K1's
 ``_reduce_kernel``) and the SDDMM. Here one hand-written CUDA kernel,
-``csrc/spmm_sddmm_csc.cu``, gives a warp to each column ``c`` of ``A``: it
-holds ``x[c]`` in registers and gathers each row ``g[col_t[e]]`` once for
-both outputs, where the pair it replaces gathered twice (K2 over the CSR for
-``d value``, then K1 over the CSC view, after materialising
-``value[perm]``, for ``d x``).
+``csrc/spmm_sddmm_csc.cu``, gives a warp to each row ``c`` of ``x``: it
+holds ``x[c]`` in registers and gathers each row of ``g`` once for both
+outputs, where the pair it replaces gathered twice (K2 for ``d value``, then,
+after materialising the values in transpose order, the SpMM over the
+transpose for ``d x``). Two forms:
 
-Arithmetic: ``d x`` in K1's order (f32 ``fmaf`` in edge order, a long column's
-piece partials folded by ``row_split.fold_pieces_cuda``), ``d value`` in
-K2's (each lane's share of the dot, then a butterfly), so both equal the
+* :func:`spmm_sddmm_csc_cuda`, over the CSC view of a CSR SpMM: it replaces
+  K2 over the CSR plus K1 over the CSC view;
+* :func:`spmm_sddmm_spans_cuda`, over the transpose layout of a packed SpMM
+  (``ops/spmm_seg2.py``: ``rp_t``, ``col_t``, ``sbase_t``), on values in
+  the transpose's order, ``d value`` written there too: it replaces the
+  span SDDMM over the forward layout plus the multi-span SpMM over the
+  transpose, seg2's backward (``paddle_sparse_tpu/ops/
+  spmm_seg2.py::_spmm_seg2_bwd``, whose ``d x`` is a ``_seg_pass`` of K1's
+  ``pallas_call``).
+
+Arithmetic: ``d x`` in the SpMM's order (f32 ``fmaf`` in edge order, a long
+row's piece partials folded by ``row_split.fold_pieces_cuda``), ``d value``
+in K2's (each lane's share of the dot, then a butterfly), so both equal the
 pair's outputs bit for bit. Dtype contract, as the pair's: ``g`` and ``x``
 are f32 or bf16 (a mixed pair is computed in f32), ``d x`` comes back in the
-promoted dtype of ``value`` and ``g`` (``g``'s when ``value`` is None) and
-``d value`` in ``out_dtype``, one slot per entry of ``perm``, 0 at the
-entries past ``colptr[N]`` (the padding of a ``PaddedCOO``).
+promoted dtype of ``value`` and ``g`` (``g``'s when ``value`` is None)
+unless the caller names it, and ``d value`` in ``out_dtype``, 0 at the
+entries no edge reaches (the padding of a ``PaddedCOO``).
 """
 from typing import Optional
 
@@ -27,6 +38,7 @@ import torch
 from . import _build
 from .row_split import AUTO, RowSplit, fold_pieces_cuda, resolve_split
 from .spmm_cuda import _WINDOW_BYTES, _out_dtype
+from .spmm_spans_cuda import check_span_args, span_windows
 
 
 def spmm_sddmm_csc_reference(colptr: torch.Tensor, col_t: torch.Tensor,
@@ -182,3 +194,150 @@ def spmm_sddmm_csc_cuda(colptr: torch.Tensor, col_t: torch.Tensor,
 
 spmm_sddmm_csc_cuda.launches = 0
 
+
+def spmm_sddmm_spans_reference(start: torch.Tensor, end: torch.Tensor,
+                               col: torch.Tensor,
+                               value: Optional[torch.Tensor],
+                               base: Optional[torch.Tensor], g: torch.Tensor,
+                               x: torch.Tensor,
+                               dx_dtype: Optional[torch.dtype] = None,
+                               out_dtype: torch.dtype = torch.float32):
+    """Plain PyTorch version of :func:`spmm_sddmm_spans_cuda`, on any
+    device: ``(d x, d value)``.
+
+    Walks each span row in the bounded windows of
+    :func:`~.spmm_spans_cuda.spmm_spans_reference`: one gather of the rows
+    of ``g`` per window, scaled by the window's values and added into
+    ``d x`` (``index_add_``), and its row-wise dot with ``x[c]``, written
+    at the edges' positions. Sums in f32, or in f64 when the output's
+    inputs are f64 (``d x``: ``value`` or ``g``; ``d value``: ``g`` or
+    ``x``)."""
+    dx_dtype = dx_dtype or _out_dtype(value, g)
+    dx_acc = (torch.float64 if torch.float64 in (
+        g.dtype, None if value is None else value.dtype) else torch.float32)
+    dv_acc = (torch.float64 if torch.float64 in (g.dtype, x.dtype)
+              else torch.float32)
+    N, K = start.shape[1], x.shape[1]
+    d_x = torch.zeros((N, K), dtype=dx_acc, device=x.device)
+    d_value = torch.zeros(col.numel(), dtype=dv_acc, device=x.device)
+    for s, rows, e in span_windows(start, end, K * d_x.element_size()):
+        r = col[e].long()
+        if base is not None:
+            r = r + int(base[s])
+        g_rows = g[r]
+        d_value[e] = (g_rows.to(dv_acc) * x[rows].to(dv_acc)).sum(1)
+        prod = g_rows.to(dx_acc)          # may be g_rows itself
+        if value is not None:
+            prod *= value[e, None].to(dx_acc)
+        d_x.index_add_(0, rows, prod)
+    return d_x.to(dx_dtype), d_value.to(out_dtype)
+
+
+def spmm_sddmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
+                          col: torch.Tensor, value: Optional[torch.Tensor],
+                          base: Optional[torch.Tensor], g: torch.Tensor,
+                          x: torch.Tensor,
+                          dx_dtype: Optional[torch.dtype] = None,
+                          out_dtype: torch.dtype = torch.float32,
+                          split=AUTO):
+    """``(d x, d value)`` of a packed-layout SpMM ``out = A @ x`` given
+    ``g = d out``, over the transpose layout, through the span form of the
+    CUDA kernel ``csrc/spmm_sddmm_csc.cu``:
+
+    * ``d x[c] = sum_s sum_{start[s, c] <= e < end[s, c]} value[e] *
+      g[base[s] + col[e]]``, (N, K) in ``dx_dtype`` (default: the promoted
+      dtype of ``value`` and ``g``);
+    * ``d value[e] = g[base[s] + col[e]] . x[c]`` for the same ``e``,
+      ``(col.numel(),)`` in ``out_dtype``, 0 where no span reaches.
+
+    ``start``/``end`` are the transpose's (S, N) span bounds sharing one row
+    stride (``rp_t[:, :-1]``, ``rp_t[:, 1:]``); ``col`` the slice-local rows
+    of ``g``; ``base`` (S,) or ``None`` for 0; ``value``
+    ``(col.numel(),)`` in the transpose's order, or None for ones (the
+    packed backward, ``spmm_seg2.fused_span_backward``, relays the values
+    into that order before and reads ``d value`` back after);
+    ``g`` a contiguous (M, K) and ``x`` a contiguous (N, K) tensor, each
+    f32 or bf16; ``dx_dtype`` f32 or bf16 (from an f32 ``g``, d x is
+    summed in f32 and rounded once after). ``split`` is the bounds'
+    :class:`~.row_split.RowSplit` (a plan keeps it as ``split_t``), ``None``
+    when no row is longer than its cap, or ``"auto"`` to build it here. On a
+    CPU tensor this runs :func:`spmm_sddmm_spans_reference`; on a CUDA
+    tensor it launches the kernel (and, over split rows, the fold pass) or
+    raises. ``spmm_sddmm_spans_cuda.launches`` counts kernel launches."""
+    dx_dtype = dx_dtype or _out_dtype(value, g)
+    if x.device.type == "cpu":
+        return spmm_sddmm_spans_reference(start, end, col, value, base, g, x,
+                                          dx_dtype, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"spmm_sddmm_spans_cuda runs on cpu or cuda, not "
+                         f"{x.device}")
+    fn = "spmm_sddmm_spans_cuda"
+    start, end, base = check_span_args(fn, start, end, base, x.device,
+                                       ("col", col), ("value", value),
+                                       ("g", g))
+    for name, t in (("g", g), ("x", x)):
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous 2-D tensor, "
+                             f"got shape {tuple(t.shape)} "
+                             f"(contiguous={t.is_contiguous()})")
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{fn} takes f32 or bf16 {name}, got {t.dtype}")
+    for name, dt in (("d x", dx_dtype), ("d value", out_dtype)):
+        if dt not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{fn} writes f32 or bf16 {name}, not {dt}")
+    (S, N), K = start.shape, x.shape[1]
+    if x.shape[0] != N or g.shape[1] != K:
+        raise ValueError(f"{fn}: x {tuple(x.shape)} must be (N, K) with N = "
+                         f"{N} rows of the bounds and g's K = {g.shape[1]}")
+    if col.dim() != 1 or col.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{fn}: col must be 1-D int32 or int64, got "
+                        f"{col.dtype} {tuple(col.shape)}")
+    if value is not None:
+        if value.shape != col.shape:
+            raise ValueError(f"{fn}: value shape {tuple(value.shape)} != col "
+                             f"shape {tuple(col.shape)}")
+        if value.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{fn} takes f32 or bf16 value, got "
+                            f"{value.dtype}")
+    if max(K, g.shape[0]) >= 2 ** 31:
+        raise ValueError(f"{fn} indexes with int32: M and K must each be "
+                         f"below 2**31")
+    if g.dtype != x.dtype:                # a mixed pair is summed in f32
+        g, x = g.float(), x.float()
+    # from f32 g, an f32 d x, rounded after (one rounding, as K1's store)
+    kernel_dx_dtype = torch.float32 if g.dtype == torch.float32 else dx_dtype
+    d_x = torch.empty((N, K), dtype=kernel_dx_dtype, device=x.device)
+    d_value = torch.zeros(col.numel(), dtype=out_dtype, device=x.device)
+    if N == 0 or K == 0 or S == 0:
+        return d_x.zero_().to(dx_dtype), d_value
+    col = col.to(torch.int32).contiguous()
+    if value is not None:
+        value = value.to(torch.float32).contiguous()
+    split: Optional[RowSplit] = resolve_split(split, start, end)
+    ws = (None if split is None else torch.empty(
+        (split.num_slots, K), dtype=torch.float32, device=x.device))
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.psp_spmm_sddmm_spans(
+            start.data_ptr(), end.data_ptr(), start.stride(0),
+            col.data_ptr(), None if base is None else base.data_ptr(),
+            None if value is None else value.data_ptr(), g.data_ptr(),
+            x.data_ptr(), d_x.data_ptr(), d_value.data_ptr(), S, N, K,
+            int(x.dtype == torch.bfloat16),
+            int(kernel_dx_dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16),
+            *((None, None, 0, 0, None) if split is None else
+              (split.row.data_ptr(), split.piece.data_ptr(),
+               split.row.numel(), split.cap, split.slot.data_ptr())),
+            None if ws is None else ws.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"spmm_sddmm_spans kernel launch failed: CUDA "
+                           f"error {err}")
+    if split is not None:
+        fold_pieces_cuda(split, ws, d_x)
+    spmm_sddmm_spans_cuda.launches += 1
+    return d_x.to(dx_dtype), d_value
+
+
+spmm_sddmm_spans_cuda.launches = 0

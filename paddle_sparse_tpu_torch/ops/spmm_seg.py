@@ -16,14 +16,16 @@ over the (block, segment) windows, the same for the transpose
 (``rows_per_block``, ``window_cap``) comes from the JAX rule, because the
 block size fixes the packed order.
 
-What runs on the card: the forward and ``d x`` are one multi-span SpMM
-launch each (:func:`~.kernels.spmm_spans_cuda.spmm_spans_cuda`) over the
-(block, segment) windows: row ``m`` of block ``b`` sums, for each segment
-``s``, its run inside window ``(b, s)``, reading ``x[s * seg_rows +
-col[e]]``. ``d value`` is one span-SDDMM launch
-(:func:`~.kernels.sddmm_cuda.sddmm_spans_cuda`) over the same windows,
-written in the packed order. The autograd function is seg2's
-(``spmm_seg2._PackedSpmm``), given this layout's span bounds. The span
+What runs on the card: the forward is one multi-span SpMM launch
+(:func:`~.kernels.spmm_spans_cuda.spmm_spans_cuda`) over the (block,
+segment) windows: row ``m`` of block ``b`` sums, for each segment ``s``, its
+run inside window ``(b, s)``, reading ``x[s * seg_rows + col[e]]``. The
+backward is seg2's (``spmm_seg2._PackedSpmm``, given this layout's span
+bounds): ``d x`` and ``d value`` together in one launch of the fused span
+backward over the transpose's windows, on the values relayed through
+``perm_ft``, ``d value`` read back into the packed order through
+``perm_tf``; either alone through the spans launch over the transpose or
+the span SDDMM over the forward windows. The span
 bounds ``(start, end)`` of both orientations and their piece tables are
 built once by the planner and kept on the structure beside JAX's arrays.
 ``x`` is not padded to whole segments: every read is inside ``x``.
@@ -38,7 +40,7 @@ import torch
 
 from .kernels.row_split import RowSplit, split_lengths
 from .spmm_seg2 import (SpanLayout, _PackedSpmm, _check_indices,
-                        check_operands)
+                        check_operands, relays)
 
 SEG_ROWS = 1 << 17     # the JAX package's fast-gather source rows (TPU v5e)
 
@@ -46,7 +48,9 @@ SEG_ROWS = 1 << 17     # the JAX package's fast-gather source rows (TPU v5e)
 class SegStructure(NamedTuple):
     """The packed index structure (and its transpose), int32 tensors on the
     plan's device: the JAX package's nine arrays, then the span bounds
-    ``(2, S, rows)`` (start, end) and piece tables the kernels read."""
+    ``(2, S, rows)`` (start, end) and piece tables the kernels read, and
+    the inverse of ``perm_ft`` (the backward reads ``d value`` back through
+    it)."""
     col: torch.Tensor      # (nnz,) segment-local cols, packed order
     row: torch.Tensor      # (nnz,) block-local rows, packed order
     wptr: torch.Tensor     # (nblocks * S + 1,) window start per (block, seg)
@@ -60,6 +64,7 @@ class SegStructure(NamedTuple):
     bounds_t: torch.Tensor  # (2, S_t, N) span start/end, transpose
     split_f: Optional[RowSplit]
     split_t: Optional[RowSplit]
+    perm_tf: torch.Tensor  # forward packed position -> transpose position
 
 
 class SegPlan(NamedTuple):
@@ -119,13 +124,6 @@ def _span_bounds(seg_p, row_p, wptr, S: int, M: int, CR: int):
     return bounds
 
 
-def _invert(perm: torch.Tensor) -> torch.Tensor:
-    inv = torch.empty_like(perm)
-    inv[perm.long()] = torch.arange(perm.numel(), dtype=perm.dtype,
-                                    device=perm.device)
-    return inv
-
-
 def make_seg_plan(row, col, num_rows: int, num_cols: int, *,
                   feat_dim: int = 256,
                   target_bytes: int = 1024 * 1024 * 1024,
@@ -161,14 +159,15 @@ def make_seg_plan(row, col, num_rows: int, num_cols: int, *,
     bounds_t = _span_bounds(seg_t, row_t_s[perm_t2.long()], wptr_t, S_t, N,
                             CRT)
     perm_t = perm_c[perm_t2.long()].to(torch.int32)
-    perm_ft = _invert(perm)[perm_t.long()]
+    perm_ft, perm_tf = relays(perm, perm_t)
 
     plan = SegPlan(M, N, CR, EC, S, CRT, ECT, S_t, seg_rows=seg_rows)
     structure = SegStructure(
         lcol, lrow, wptr, perm, lcol_t, lrow_t, wptr_t, perm_t, perm_ft,
         bounds_f, bounds_t,
         split_f=split_lengths(torch.bincount(row, minlength=M)),
-        split_t=split_lengths(torch.bincount(col, minlength=N)))
+        split_t=split_lengths(torch.bincount(col, minlength=N)),
+        perm_tf=perm_tf)
     return plan, structure
 
 
@@ -203,4 +202,4 @@ def spmm_seg(plan: SegPlan, s: SegStructure,
     fwd = _layout(s.bounds_f, s.col, plan.seg_rows, s.split_f)
     t = _layout(s.bounds_t, s.col_t, plan.seg_rows, s.split_t)
     return _PackedSpmm.apply(packed_value, x.contiguous(), fwd, t, s.perm_ft,
-                             "f32")
+                             s.perm_tf, "f32")

@@ -20,9 +20,14 @@ What runs on the card:
 * forward: one multi-span SpMM launch
   (:func:`~.kernels.spmm_spans_cuda.spmm_spans_cuda`) over
   ``(rp_f, col_f, sbase_f)``;
-* ``d x``: one multi-span launch over ``(rp_t, col_t, sbase_t)`` with
-  ``packed[relay_ft]``;
-* ``d value``: one span-SDDMM launch
+* ``d x`` and ``d value`` together (:func:`fused_span_backward`): one
+  launch of the fused span backward
+  (:func:`~.kernels.spmm_sddmm_cuda.spmm_sddmm_spans_cuda`) over the
+  transpose layout ``(rp_t, col_t, sbase_t)`` on ``packed[relay_ft]``,
+  one gather of ``g`` for both, ``d value`` read back into the packed
+  order through ``relay_tf``;
+* ``d x`` alone: one multi-span launch over the transpose layout with
+  ``packed[relay_ft]``; ``d value`` alone: one span-SDDMM launch
   (:func:`~.kernels.sddmm_cuda.sddmm_spans_cuda`) over the forward layout,
   written in the packed order.
 
@@ -47,6 +52,7 @@ from torch.autograd.function import once_differentiable
 
 from .kernels.row_split import RowSplit, split_lengths
 from .kernels.sddmm_cuda import sddmm_spans_cuda
+from .kernels.spmm_sddmm_cuda import spmm_sddmm_spans_cuda
 from .kernels.spmm_spans_cuda import product_dtype, spmm_spans_cuda
 
 # the JAX package's fast-gather source ceiling (bytes, measured on a TPU
@@ -75,6 +81,7 @@ class Seg2Structure(NamedTuple):
     rp_t: torch.Tensor      # (S_t, N+1) absolute out-row pointers
     sbase_t: torch.Tensor   # (S_t,)
     relay_ft: torch.Tensor  # (nnz,) t position -> fwd position (values)
+    relay_tf: torch.Tensor  # (nnz,) its inverse: fwd position -> t position
     split_f: Optional[RowSplit]  # pieces of the fwd layout's M rows
     split_t: Optional[RowSplit]  # pieces of the transpose's N rows
 
@@ -157,12 +164,30 @@ def _segment_size(sr: Optional[int], num_src_rows: int, feat_dim: int,
     return SR
 
 
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    inv = torch.empty(perm.numel(), dtype=torch.int32, device=perm.device)
+    inv[perm.long()] = torch.arange(perm.numel(), dtype=torch.int32,
+                                    device=perm.device)
+    return inv
+
+
+def relays(perm_f: torch.Tensor, perm_t: torch.Tensor):
+    """``(relay_ft, relay_tf)`` of a forward and a transpose order of the
+    same COO entries (each packed position -> COO position):
+    ``relay_ft[e]`` is the forward position of transpose position ``e``,
+    ``relay_tf`` its inverse."""
+    relay_ft = _inverse(perm_f)[perm_t.long()]
+    return relay_ft, _inverse(relay_ft)
+
+
 def build_layouts(row: torch.Tensor, col: torch.Tensor, M: int, N: int, *,
                   SR: int, SR_t: int):
     """The forward and transpose layouts of row-sorted int32 ``row``/``col``
     (the JAX package's ``_build_fwd``, ``_build_t`` and ``_relays``) and
     their piece tables: ``(S, S_t, col_f, rp_f, perm_f, sbase_f, col_t,
-    rp_t, sbase_t, relay_ft, split_f, split_t)``. The JAX structure's
+    rp_t, sbase_t, relay_ft, relay_tf, split_f, split_t)``, ``relay_tf``
+    being the inverse of ``relay_ft`` (the backward reads ``d value`` back
+    through it), which the JAX package does not keep. The JAX structure's
     ``row_f`` is ``row[perm_f]``: no kernel reads it (they read ``rp_f``),
     so it is not kept. A row's edges over all segments are its degree, so
     the tables come from two bincounts."""
@@ -180,13 +205,12 @@ def build_layouts(row: torch.Tensor, col: torch.Tensor, M: int, N: int, *,
     perm_t = torch.argsort(seg_t.long() * N + col, stable=True)
     sbase_t = _slice_bases(S_t, SR_t, M, dev)
     col_t, rp_t = _layout(seg_t, perm_t, sbase_t, row, col, S_t, N)
-    # the value relay, t position -> fwd position
-    inv_f = torch.empty(nnz, dtype=torch.int32, device=dev)
-    inv_f[perm_f] = torch.arange(nnz, dtype=torch.int32, device=dev)
+    # the value relay, t position -> fwd position, and its inverse
+    relay_ft, relay_tf = relays(perm_f, perm_t)
     split_f = split_lengths(torch.bincount(row, minlength=M))
     split_t = split_lengths(torch.bincount(col, minlength=N))
     return (S, S_t, col_f, rp_f, perm_f.to(torch.int32), sbase_f, col_t,
-            rp_t, sbase_t, inv_f[perm_t], split_f, split_t)
+            rp_t, sbase_t, relay_ft, relay_tf, split_f, split_t)
 
 
 def make_seg2_plan(row, col, num_rows: int, num_cols: int, *,
@@ -229,28 +253,54 @@ class SpanLayout(NamedTuple):
     split: Optional[RowSplit]
 
 
+def _kernel_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a span kernel writes for an output of ``x``'s dtype."""
+    return (x.dtype if x.dtype in (torch.float32, torch.bfloat16)
+            else torch.float32)
+
+
 def _spans(lay: SpanLayout, value: Optional[torch.Tensor], x: torch.Tensor,
            pdt: torch.dtype) -> torch.Tensor:
     """One multi-span SpMM over a packed layout: ``x`` gathered in ``pdt``
     (a bf16 ``x`` is read as it is: widening is exact), output in ``x``'s
     dtype."""
     src = x if x.dtype in (pdt, torch.bfloat16) else x.to(pdt)
-    out_dtype = (x.dtype if x.dtype in (torch.float32, torch.bfloat16)
-                 else torch.float32)
     return spmm_spans_cuda(lay.start, lay.end, lay.col, value, lay.base, src,
-                           out_dtype=out_dtype, split=lay.split).to(x.dtype)
+                           out_dtype=_kernel_dtype(x),
+                           split=lay.split).to(x.dtype)
+
+
+def fused_span_backward(t: SpanLayout, relay: torch.Tensor,
+                        relay_inv: torch.Tensor, packed_value: torch.Tensor,
+                        x: torch.Tensor, g: torch.Tensor, stream: str):
+    """``(d value, d x)`` of ``A @ x`` over a packed layout given ``g = d
+    out``, in one pass over the transpose layout ``t`` that gathers ``g``
+    once for both: ``d x`` summed as the spans SpMM over ``t`` sums it,
+    ``d value`` as the span SDDMM over the forward layout does. The values
+    go into ``t``'s order through ``relay`` before and ``d value`` comes
+    back through ``relay_inv`` after, each in one gather: faster than
+    scattered reads and writes through the relay inside the kernel
+    (PERF.md). ``d value`` in ``packed_value``'s dtype, ``d x`` in
+    ``x``'s; ``g`` contiguous."""
+    pdt = product_dtype(packed_value, g, stream)
+    d_x, d_value_t = spmm_sddmm_spans_cuda(
+        t.start, t.end, t.col, packed_value.index_select(0, relay), t.base,
+        g.to(pdt), x.to(pdt), dx_dtype=_kernel_dtype(g), split=t.split)
+    return (d_value_t.index_select(0, relay_inv).to(packed_value.dtype),
+            d_x.to(x.dtype))
 
 
 class _PackedSpmm(torch.autograd.Function):
     """``A @ x`` over ``(packed_value, x)`` for a packed layout: ``fwd`` and
     ``t`` (:class:`SpanLayout`) its two orientations, ``relay`` the
-    transpose position -> packed position map of the values; all closed
-    over."""
+    transpose position -> packed position map of the values and
+    ``relay_inv`` its inverse; all closed over."""
 
     @staticmethod
-    def forward(ctx, packed_value, x, fwd, t, relay, stream):
+    def forward(ctx, packed_value, x, fwd, t, relay, relay_inv, stream):
         ctx.save_for_backward(packed_value, x)
-        ctx.fwd, ctx.t, ctx.relay, ctx.stream = fwd, t, relay, stream
+        ctx.fwd, ctx.t, ctx.stream = fwd, t, stream
+        ctx.relay, ctx.relay_inv = relay, relay_inv
         return _spans(fwd, packed_value, x,
                       product_dtype(packed_value, x, stream))
 
@@ -258,19 +308,23 @@ class _PackedSpmm(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         packed_value, x = ctx.saved_tensors
-        fwd = ctx.fwd
+        fwd, t = ctx.fwd, ctx.t
         g = g.contiguous()       # the grad of a sum is stride-0
+        if ctx.needs_input_grad[0] and ctx.needs_input_grad[1]:
+            return (*fused_span_backward(t, ctx.relay, ctx.relay_inv,
+                                         packed_value, x, g, ctx.stream),
+                    None, None, None, None, None)
         pdt = product_dtype(packed_value, g, ctx.stream)
         d_value = d_x = None
         if ctx.needs_input_grad[1]:
             value_t = (None if packed_value is None
                        else packed_value.index_select(0, ctx.relay))
-            d_x = _spans(ctx.t, value_t, g, pdt).to(x.dtype)
+            d_x = _spans(t, value_t, g, pdt).to(x.dtype)
         if ctx.needs_input_grad[0]:
             d_value = sddmm_spans_cuda(
                 fwd.start, fwd.end, fwd.col, fwd.base, g.to(pdt), x.to(pdt),
                 split=fwd.split).to(packed_value.dtype)
-        return d_value, d_x, None, None, None, None
+        return d_value, d_x, None, None, None, None, None
 
 
 def check_operands(num_cols: int, nnz: int, packed_value, x) -> None:
@@ -283,18 +337,24 @@ def check_operands(num_cols: int, nnz: int, packed_value, x) -> None:
                          f"match the structure's nnz {nnz}")
 
 
+def span_layouts(plan, s):
+    """The forward and transpose :class:`SpanLayout` of a seg2 (or seg3)
+    plan and structure."""
+    M, N = plan.num_rows, plan.num_cols
+    return (SpanLayout(s.rp_f[:, :M], s.rp_f[:, 1:M + 1], s.col_f,
+                       s.sbase_f, s.split_f),
+            SpanLayout(s.rp_t[:, :N], s.rp_t[:, 1:N + 1], s.col_t,
+                       s.sbase_t, s.split_t))
+
+
 def packed_spmm(plan, s, packed_value: Optional[torch.Tensor],
                 x: torch.Tensor) -> torch.Tensor:
     """:func:`spmm_seg2` for any plan and structure with the seg2 fields
     (``ops/spmm_seg3.py`` shares it)."""
-    M, N = plan.num_rows, plan.num_cols
-    check_operands(N, s.col_f.numel(), packed_value, x)
-    fwd = SpanLayout(s.rp_f[:, :M], s.rp_f[:, 1:M + 1], s.col_f, s.sbase_f,
-                     s.split_f)
-    t = SpanLayout(s.rp_t[:, :N], s.rp_t[:, 1:N + 1], s.col_t, s.sbase_t,
-                   s.split_t)
-    return _PackedSpmm.apply(packed_value, x.contiguous(), fwd, t,
-                             s.relay_ft, plan.stream)
+    check_operands(plan.num_cols, s.col_f.numel(), packed_value, x)
+    return _PackedSpmm.apply(packed_value, x.contiguous(),
+                             *span_layouts(plan, s), s.relay_ft, s.relay_tf,
+                             plan.stream)
 
 
 def spmm_seg2(plan: Seg2Plan, s: Seg2Structure,

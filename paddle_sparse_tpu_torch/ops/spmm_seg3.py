@@ -6,8 +6,8 @@ seg2 in its reduction only: per 128-row output tile, the tile's spans from
 all S segments are staged into VMEM and folded in one MXU product (K3,
 ``spmm_pallas.py::_tilespan_kernel``). On the card both run the same
 multi-span kernel, so :func:`spmm_seg3` is seg2's autograd function over
-seg3's structure: forward and ``d x`` are one multi-span SpMM launch each,
-``d value`` one span-SDDMM launch.
+seg3's structure: the forward is one multi-span SpMM launch, ``d x`` and
+``d value`` together one launch of the fused span backward.
 
 :func:`make_seg3_plan` keeps the JAX planner's refusal rule
 (:class:`Seg3Infeasible` when ``2 * max(S * CAP_TS, S_t * CAP_TS_t) * K *
@@ -57,6 +57,7 @@ class Seg3Structure(NamedTuple):
     rp_t: torch.Tensor      # (S_t, bands_t * BAND + 1)
     sbase_t: torch.Tensor
     relay_ft: torch.Tensor
+    relay_tf: torch.Tensor
     split_f: Optional[RowSplit]   # pieces of the M rows (seg2's tables)
     split_t: Optional[RowSplit]
 
@@ -129,7 +130,8 @@ def make_seg3_plan(row, col, num_rows: int, num_cols: int, *,
     bands = max(1, -(-M // BAND))
     bands_t = max(1, -(-N // BAND))
     (S, S_t, col_f, rp_f, perm_f, sbase_f, col_t, rp_t, sbase_t, relay_ft,
-     split_f, split_t) = build_layouts(row, col, M, N, SR=SR, SR_t=SR_t)
+     relay_tf, split_f, split_t) = build_layouts(row, col, M, N, SR=SR,
+                                                 SR_t=SR_t)
     rp_f = _pad_rp(rp_f, bands * BAND)
     rp_t = _pad_rp(rp_t, bands_t * BAND)
 
@@ -151,6 +153,7 @@ def make_seg3_plan(row, col, num_rows: int, num_cols: int, *,
     structure = Seg3Structure(col_f=col_f, rp_f=rp_f, perm_f=perm_f,
                               sbase_f=sbase_f, col_t=col_t, rp_t=rp_t,
                               sbase_t=sbase_t, relay_ft=relay_ft,
+                              relay_tf=relay_tf,
                               split_f=split_f, split_t=split_t)
     return plan, structure
 

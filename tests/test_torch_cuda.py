@@ -8,6 +8,11 @@ the CPU, and each model family's toy forward and grads, card against CPU,
 with GAT's per-head launches; the fused CSC backward
 (``spmm_sddmm_csc_cuda``) equal to the pair it replaces (K2 and K1 over
 the CSC view) bit for bit, within SUM_REL of f64, two launches equal;
+its span form (``spmm_sddmm_spans_cuda``) over seg2's transpose layout
+equal to the pair it replaces (the span SDDMM over the forward layout and
+the spans SpMM over the transpose) bit for bit through the backward's own
+fused pass (``spmm_seg2.fused_span_backward``), split x rows too, within
+SUM_REL of f64, two launches equal;
 ``spmm_seg``, ``spmm_sell`` and ``spmm_chunked`` (launches exact) and
 ``backend="sell"``; sampling, walks,
 ``saint_subgraph``, ``partition`` and RCM on the card against the CPU
@@ -36,16 +41,18 @@ from paddle_sparse_tpu_torch import (CAP, MODELS, PaddedCOO,
                                      compact_runs_reference, entry,
                                      fold_pieces_cuda, gcn_loss,
                                      make_seg2_plan, model_entry,
-                                     pack_values,
-                                     plan_spgemm, plan_spgemm_blocked,
-                                     plan_spgemm_rows, sddmm_csr_cuda,
+                                     pack_values, plan_spgemm,
+                                     plan_spgemm_blocked, plan_spgemm_rows,
+                                     product_dtype, sddmm_csr_cuda,
                                      sddmm_csr_reference, sddmm_spans_cuda,
                                      sddmm_spans_reference, spgemm_entry,
                                      spmm_coo, spmm_csr_cuda,
                                      spmm_csr_reference, spmm_entry,
                                      spmm_sddmm_csc_cuda,
                                      spmm_sddmm_csc_reference,
-                                     spmm_seg2, spmm_seg3, spmm_spans_cuda,
+                                     spmm_sddmm_spans_cuda,
+                                     spmm_sddmm_spans_reference, spmm_seg2,
+                                     spmm_seg3, spmm_spans_cuda,
                                      spmm_spans_reference, spmm_split,
                                      split_rows, spspmm_padded,
                                      spspmm_rowblocked,
@@ -57,6 +64,8 @@ from paddle_sparse_tpu_torch.experiments import (bisect_pallas as bp,
                                                  r4_dma_issue as rd)
 from paddle_sparse_tpu_torch.ops.kernels import probes_cuda as pc
 from paddle_sparse_tpu_torch.ops.kernels.segcompact_cuda import F_MAX
+from paddle_sparse_tpu_torch.ops.spmm_seg2 import (fused_span_backward,
+                                                   span_layouts)
 
 pytestmark = pytest.mark.cuda
 
@@ -920,8 +929,9 @@ _PACKED_FNS = {"seg2": spmm_seg2, "seg3": spmm_seg3, "seg2split": spmm_split}
 @pytest.mark.parametrize("stream", ["f32", "bf16"])
 def test_packed_spmm_card_vs_cpu(dev, backend, stream):
     """``spmm_entry``'s toy for each backend: forward, d packed and d x on
-    the card against the CPU; launches: spans 1 per forward and 1 for d x,
-    span SDDMM 1 for d value, per seg2 call (split: two calls)."""
+    the card against the CPU; launches: spans 1 per forward and the fused
+    span backward 1 for d x and d value together, no span SDDMM, per seg2
+    call (split: two calls)."""
     runs = {}
     for where in ("cuda", "cpu"):
         plan, s, packed, x = spmm_entry(backend, where)
@@ -934,17 +944,19 @@ def test_packed_spmm_card_vs_cpu(dev, backend, stream):
               if backend == "seg2split" else packed.clone().requires_grad_())
         xx = x.clone().requires_grad_()
         w = torch.linspace(-1, 1, 256 * 32, device=where).view(256, 32)
-        k = (spmm_spans_cuda.launches, sddmm_spans_cuda.launches)
+        k = (spmm_spans_cuda.launches, sddmm_spans_cuda.launches,
+             spmm_sddmm_spans_cuda.launches)
         out = _PACKED_FNS[backend](plan, s, pv, xx)
         (out * w).sum().backward()
         launches = (spmm_spans_cuda.launches - k[0],
-                    sddmm_spans_cuda.launches - k[1])
+                    sddmm_spans_cuda.launches - k[1],
+                    spmm_sddmm_spans_cuda.launches - k[2])
         grads = [t.grad for t in pv] if backend == "seg2split" else [pv.grad]
         runs[where] = ([out.detach().cpu(), xx.grad.cpu()]
                        + [t.cpu() for t in grads], launches)
     calls = 2 if backend == "seg2split" else 1
-    assert runs["cuda"][1] == (2 * calls, calls)
-    assert runs["cpu"][1] == (0, 0)
+    assert runs["cuda"][1] == (calls, 0, calls)
+    assert runs["cpu"][1] == (0, 0, 0)
     for c, h in zip(runs["cuda"][0], runs["cpu"][0]):
         torch.testing.assert_close(c, h, **F32)
 
@@ -1244,6 +1256,179 @@ def test_fused_two_launches_equal(dev):
             torch.cuda.synchronize()
             assert all(torch.equal(p, q) for p, q in zip(a, b))
             assert all(torch.equal(p, q) for p, q in zip(a, want))
+
+
+# ---- the fused span backward of the packed SpMMs ---------------------------
+
+SPANS_FUSED_K = [1, 3, 47, 64, 256, 300, 520]
+# (packed value, x, g, stream): f32; bf16 throughout; the bf16 stream (f32
+# operands gathered in bf16); bf16 x and g with f32 values (product f32, g
+# read as bf16 by the pair)
+SPANS_FUSED_DTYPES = {
+    "f32": (torch.float32, torch.float32, torch.float32, "f32"),
+    "bf16": (torch.bfloat16, torch.bfloat16, torch.bfloat16, "f32"),
+    "bf16_stream": (torch.float32, torch.float32, torch.float32, "bf16"),
+    "bf16_x_f32_value": (torch.float32, torch.bfloat16, torch.bfloat16,
+                         "f32")}
+
+
+def _spans_fused_graph(dev, split, M=3000, N=2000):
+    """A seg2 plan and structure on the card (S and S_t > 1) over a graph
+    with empty rows and columns and, with ``split``, an x row (column 7)
+    of ``2 * CAP + 5`` edges, so the transpose has pieces and a fold."""
+    g = torch.Generator().manual_seed(12)
+    row = torch.randint(0, M, (30_000,), generator=g)
+    col = torch.randint(0, N, (30_000,), generator=g)
+    col = torch.where(col % 97 == 3, 5, col)            # empty columns
+    row = torch.where(row % 89 == 4, 6, row)            # empty rows
+    if split:
+        row = torch.cat([row, torch.randint(0, M, (CAP * 2 + 5,),
+                                            generator=g)])
+        col = torch.cat([col, torch.full((CAP * 2 + 5,), 7)])
+    order = torch.argsort(row, stable=True)
+    row, col = row[order].to(dev), col[order].to(dev)
+    plan, s = make_seg2_plan(row, col, M, N, feat_dim=64, sr=256)
+    assert plan.S > 1 and plan.S_t > 1
+    assert (s.split_t is not None) == split
+    val = torch.rand(row.numel(), generator=torch.Generator(
+        device=dev).manual_seed(13), device=dev) * 2 - 1
+    return plan, s, pack_values(s, val)
+
+
+def _spans_fused(plan, s, v, g, x, stream):
+    """``(d value, d x)`` through the backward's own fused pass
+    (``spmm_seg2.fused_span_backward``: the values relayed into the
+    transpose's order, one launch, ``d value`` read back through
+    ``relay_tf``); with ``v`` None (ones) the same form around the
+    wrapper."""
+    t = span_layouts(plan, s)[1]
+    if v is not None:
+        return fused_span_backward(t, s.relay_ft, s.relay_tf, v, x, g,
+                                   stream)
+    pdt = product_dtype(None, g, stream)
+    d_x, dv_t = spmm_sddmm_spans_cuda(t.start, t.end, t.col, None, t.base,
+                                      g.to(pdt), x.to(pdt),
+                                      dx_dtype=g.dtype, split=t.split)
+    return dv_t.index_select(0, s.relay_tf), d_x.to(x.dtype)
+
+
+def _spans_pair(plan, s, v, g, x, stream):
+    """What the fused span pass replaces, as ``_PackedSpmm.backward`` ran
+    it: the span SDDMM over the forward layout for ``d value``, the spans
+    SpMM over the transpose on ``packed[relay]`` for ``d x`` (a bf16 g
+    read as it is): ``(d value, d x)``."""
+    fwd, t = span_layouts(plan, s)
+    pdt = product_dtype(v, g, stream)
+    vt = None if v is None else v.index_select(0, s.relay_ft)
+    src = g if g.dtype in (pdt, torch.bfloat16) else g.to(pdt)
+    d_x = spmm_spans_cuda(t.start, t.end, t.col, vt, t.base, src,
+                          out_dtype=g.dtype, split=t.split).to(x.dtype)
+    d_v = sddmm_spans_cuda(fwd.start, fwd.end, fwd.col, fwd.base, g.to(pdt),
+                           x.to(pdt), split=fwd.split)
+    return d_v if v is None else d_v.to(v.dtype), d_x
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("dtypes", list(SPANS_FUSED_DTYPES))
+@pytest.mark.parametrize("K", SPANS_FUSED_K)
+def test_spans_fused_equals_pair_bitwise(dev, K, dtypes, split):
+    """The backward's fused span pass gives the pair's d value and d x bit
+    for bit (the span SDDMM's and the spans SpMM's arithmetic orders),
+    dtypes included; one launch counted; the fold runs exactly over split
+    x rows."""
+    plan, s, packed = _spans_fused_graph(dev, split)
+    vdt, xdt, gdt, stream = SPANS_FUSED_DTYPES[dtypes]
+    gen = torch.Generator(device=dev).manual_seed(K)
+    x = torch.randn(plan.num_cols, K, generator=gen, device=dev).to(xdt)
+    g = torch.randn(plan.num_rows, K, generator=gen, device=dev).to(gdt)
+    v = packed.to(vdt)
+    n, folds = spmm_sddmm_spans_cuda.launches, fold_pieces_cuda.launches
+    got = _spans_fused(plan, s, v, g, x, stream)
+    assert spmm_sddmm_spans_cuda.launches == n + 1
+    assert fold_pieces_cuda.launches == folds + split
+    want = _spans_pair(plan, s, v, g, x, stream)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("K", [3, 64, 256, 520])
+@pytest.mark.parametrize("with_value", [True, False])
+def test_spans_fused_vs_plain_f64(dev, K, with_value):
+    """f32 (and ``value`` None) against the plain version in f64, split x
+    rows included: each entry within SUM_REL of its sum of |terms|; equal
+    to the pair bit for bit with ``value`` None too."""
+    plan, s, packed = _spans_fused_graph(dev, True)
+    gen = torch.Generator(device=dev).manual_seed(K + 1)
+    x = torch.randn(plan.num_cols, K, generator=gen, device=dev)
+    g = torch.randn(plan.num_rows, K, generator=gen, device=dev)
+    v = packed if with_value else None
+    got = _spans_fused(plan, s, v, g, x, "f32")
+    for a, b in zip(got, _spans_pair(plan, s, v, g, x, "f32")):
+        assert torch.equal(a, b)
+    t = span_layouts(plan, s)[1]
+    vt = None if v is None else v.index_select(0, s.relay_ft)
+    ref, scale = (spmm_sddmm_spans_reference(
+        t.start, t.end, t.col, None if vt is None else f(vt), t.base, f(g),
+        f(x), out_dtype=torch.float64)
+        for f in (torch.Tensor.double, lambda t: t.double().abs()))
+    for a, r, sc in zip(got, (ref[1].index_select(0, s.relay_tf), ref[0]),
+                        (scale[1].index_select(0, s.relay_tf), scale[0])):
+        _close_to_sum(a, r, sc)
+
+
+def test_spans_fused_two_launches_equal(dev):
+    """Two launches give the same bits (no atomics; a fixed fold), split
+    x rows and bf16 included; a g off 16-byte alignment takes the scalar
+    loads, as the span SDDMM then does, and still equals the pair."""
+    plan, s, packed = _spans_fused_graph(dev, True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    M, N = plan.num_rows, plan.num_cols
+    for dt, K in ((torch.float32, 256), (torch.bfloat16, 64)):
+        x = torch.randn(N, K, generator=gen, device=dev).to(dt)
+        v = packed.to(dt)
+        for g in (torch.randn(M, K, generator=gen, device=dev).to(dt),
+                  torch.randn(M * K + 1, generator=gen, device=dev)
+                  .to(dt)[1:].view(M, K)):         # off 16-byte alignment
+            a = _spans_fused(plan, s, v, g, x, "f32")
+            b = _spans_fused(plan, s, v, g, x, "f32")
+            want = _spans_pair(plan, s, v, g, x, "f32")
+            torch.cuda.synchronize()
+            assert all(torch.equal(p, q) for p, q in zip(a, b))
+            assert all(torch.equal(p, q) for p, q in zip(a, want))
+
+
+@pytest.mark.parametrize("bad", ["f64", "noncontig", "device", "x_rows",
+                                 "col_float", "value_shape", "dx_f16"])
+def test_spans_fused_rejects(dev, bad):
+    """The wrapper raises on what the kernel does not take, and launches
+    nothing then."""
+    plan, s, packed = _spans_fused_graph(dev, False)
+    t = span_layouts(plan, s)[1]
+    col = t.col
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(plan.num_cols, 16, generator=gen, device=dev)
+    g = torch.randn(plan.num_rows, 16, generator=gen, device=dev)
+    v, kw = packed.index_select(0, s.relay_ft), {}
+    if bad == "f64":
+        x = x.double()
+    elif bad == "noncontig":
+        g = torch.randn(16, plan.num_rows, device=dev).t()
+    elif bad == "device":
+        g = g.cpu()
+    elif bad == "x_rows":
+        x = x[:-1]
+    elif bad == "col_float":
+        col = col.float()
+    elif bad == "value_shape":
+        v = v[:-1]
+    else:
+        kw["dx_dtype"] = torch.float16
+    before = spmm_sddmm_spans_cuda.launches
+    with pytest.raises((TypeError, ValueError)):
+        spmm_sddmm_spans_cuda(t.start, t.end, col, v, t.base, g, x, **kw)
+    assert spmm_sddmm_spans_cuda.launches == before
 
 
 # ---- SpMM mean/min/max and the other model families ------------------------
@@ -1558,8 +1743,8 @@ _ENTRY_FNS = {"seg": "spmm_seg", "sell": "spmm_sell",
 def test_entry_spmm_card_vs_cpu(dev, backend):
     """``spmm_entry``'s toy for seg, sell and chunked: forward, d packed
     and d x on the card against the CPU; launches per forward+backward:
-    seg spans 2 and span SDDMM 1, sell and chunked K1 1 and the fused CSC
-    backward 1."""
+    seg spans 1 and the fused span backward 1, sell and chunked K1 1 and
+    the fused CSC backward 1."""
     import paddle_sparse_tpu_torch as p
     fn = getattr(p, _ENTRY_FNS[backend])
     runs = {}
@@ -1567,20 +1752,18 @@ def test_entry_spmm_card_vs_cpu(dev, backend):
         plan, s, packed, x = spmm_entry(backend, where)
         pv, xx = packed.clone().requires_grad_(), x.clone().requires_grad_()
         w = torch.linspace(-1, 1, 256 * 32, device=where).view(256, 32)
-        k = (spmm_spans_cuda.launches, sddmm_spans_cuda.launches,
-             spmm_csr_cuda.launches, sddmm_csr_cuda.launches,
-             spmm_sddmm_csc_cuda.launches)
+        counters = (spmm_spans_cuda, sddmm_spans_cuda, spmm_csr_cuda,
+                    sddmm_csr_cuda, spmm_sddmm_csc_cuda,
+                    spmm_sddmm_spans_cuda)
+        k = [c.launches for c in counters]
         out = fn(plan, s, pv, xx)
         (out * w).sum().backward()
-        launches = (spmm_spans_cuda.launches - k[0],
-                    sddmm_spans_cuda.launches - k[1],
-                    spmm_csr_cuda.launches - k[2],
-                    sddmm_csr_cuda.launches - k[3],
-                    spmm_sddmm_csc_cuda.launches - k[4])
+        launches = tuple(c.launches - k0 for c, k0 in zip(counters, k))
         runs[where] = ([out.detach().cpu(), xx.grad.cpu(), pv.grad.cpu()],
                        launches)
-    want = (2, 1, 0, 0, 0) if backend == "seg" else (0, 0, 1, 0, 1)
-    assert runs["cuda"][1] == want and runs["cpu"][1] == (0, 0, 0, 0, 0)
+    want = ((1, 0, 0, 0, 0, 1) if backend == "seg"
+            else (0, 0, 1, 0, 1, 0))
+    assert runs["cuda"][1] == want and runs["cpu"][1] == (0,) * 6
     for c, h in zip(runs["cuda"][0], runs["cpu"][0]):
         torch.testing.assert_close(c, h, **F32)
 
