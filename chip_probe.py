@@ -7,6 +7,7 @@ repository root:
     python3 chip_probe.py gat          # where a GAT step's device time goes
     python3 chip_probe.py sage         # and a GraphSAGE step's
     python3 chip_probe.py window       # the windowed K1 over its plan
+    python3 chip_probe.py launch       # a kernel launch's host path
 
 ``sweep``: the span kernels, K1 and K2 alone at K=256 on the bench's zipf
 graph at 1/8 scale (``chip_smoke.bench_graph``) for each piece size ``cap``
@@ -14,8 +15,10 @@ in 512 ... 16384, each timed with CUDA events after a warm-up, in f32 and
 bf16, and on the uniform graph, which no cap in that range splits. One JSON
 line per cap.
 
-``ab PARENT``: the uniform GCN forward (phase 4), train step (phase 5)
-and its peak memory,
+``ab PARENT``: the whole calls of ``launch`` (P1, P2 and K1 host ns and
+event ms per call beside their library calls, P1's and P2's output hashes,
+the toy GCN's forward and train step ms), the uniform GCN forward (phase
+4), train step (phase 5) and its peak memory,
 forward and forward+backward ms and peak memory of phase 7c's seg2 f32 and
 bf16 on the uniform graph, split on the clustered graph, seg2 on zipf at
 1/8 (bf16), and seg2 and split on zipf at 1/8 transposed (bf16: its hub
@@ -26,7 +29,7 @@ ms per call, and K5 alone on the call's compress input) of
 ``chip_smoke.py``, run from ``PARENT`` (another checkout, e.g. ``git
 archive`` of the parent commit) and from this tree in turns: parent, this,
 this, parent, each in a process of its own. One JSON line per run, then
-their summary.
+their summary (each output hash: equal in every run or not).
 
 ``gat``: ``chip_smoke.py`` phase 8d's GAT (3 layers, 4 heads of 64,
 output 47) on the zipf graph at 1/8 scale: first its gather of 15.76M
@@ -49,14 +52,25 @@ copies of the graph, its residual edges moved into their communities, and
 every edge moved into its tile's window. Each in turns with the register
 walk (``spmm_csr_cuda`` without a plan), bit for bit; one JSON line each.
 
+``launch``: the host path from a wrapper to ``cudaLaunchKernel``, stage by
+stage, for P1 (``scale2_cuda`` at (256, 128) f32) and P2 (``chunk_sum_cuda``
+at ``bisect_pallas.dma_inputs``, one and two slots): the checks, the output
+allocation, the library handle, the device guard or check, the stream, the
+ctypes call with and without the launch, each alone over 10,000 calls after
+a warm-up (host ns per call, one synchronize at the end), in the wrappers'
+former path and in this one (``_build.launch``); then the whole calls as
+``ab`` takes them.
+
 Each prints the card's ``nvidia-smi`` name and power limit and exits
 non-zero without a card.
 """
+import ctypes
 import json
 import os
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -66,9 +80,13 @@ REPS = 5
 
 # the phases one A/B run takes, from the checkout it runs in
 AB_RUN = r"""
-import json, torch, chip_smoke as c
+import importlib.util, json, sys, torch, chip_smoke as c
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda", 0)
+spec = importlib.util.spec_from_file_location("probe_here", sys.argv[1])
+probe = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(probe)
+print("AB_LAUNCH " + json.dumps(probe.whole_calls(dev)), flush=True)
 adj, x, model, _ = c.phase4_forward(dev, "")
 torch.cuda.empty_cache()
 c.phase5_train(dev, "", adj, x, model)
@@ -164,7 +182,8 @@ def sweep() -> None:
 
 def _ab_run(where: Path) -> dict:
     env = dict(os.environ, PYTHONPATH=str(where))
-    out = subprocess.run([sys.executable, "-c", AB_RUN], cwd=where, env=env,
+    out = subprocess.run([sys.executable, "-c", AB_RUN,
+                          str(Path(__file__).resolve())], cwd=where, env=env,
                          capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"A/B run in {where} failed:\n{out.stdout[-3000:]}"
@@ -173,6 +192,8 @@ def _ab_run(where: Path) -> dict:
     def mean(pattern):
         return float(re.search(pattern + r".*?\(mean ([0-9.]+)",
                                out.stdout).group(1))
+    launches = json.loads(re.search(r"^AB_LAUNCH (.*)$", out.stdout,
+                                    re.M).group(1))
     packed = json.loads(re.search(r"^AB_PACKED (.*)$", out.stdout,
                                   re.M).group(1))
     spgemm = json.loads(re.search(r"^AB_SPGEMM (.*)$", out.stdout,
@@ -182,6 +203,7 @@ def _ab_run(where: Path) -> dict:
     return {"tree": str(where), "gcn_forward_ms": mean(r"phase 4 forward ms"),
             "gcn_train_step_ms": mean(r"phase 5 train step ms"),
             "gcn_train_peak_gb": float(peak.group(1)),
+            **launches,
             **{f"{p}_{k}": v[k] for p, v in packed.items() for k in v},
             **{f"{p}_{k}": v[k] for p, v in spgemm.items() for k in v}}
 
@@ -195,8 +217,10 @@ def ab(parent: Path) -> None:
         r["side"] = "parent" if where == parent else "change"
         runs.append(r)
         print("AB " + json.dumps(r) + f" [{card}]", flush=True)
-    summary = {}
-    for k in [k for k in runs[0] if k.endswith(("ms", "gb"))]:
+    summary = {k: len({r[k] for r in runs}) == 1
+               for k in runs[0] if k.endswith("_sha")}   # bit for bit
+    for k in [k for k in runs[0] if k.endswith(("ms", "gb", "_ns", "_us"))
+              and all(r[k] is not None for r in runs)]:
         p = [r[k] for r in runs if r["side"] == "parent"]
         c = [r[k] for r in runs if r["side"] == "change"]
         summary[k] = {"parent": p, "change": c,
@@ -348,6 +372,277 @@ def sage(dev: torch.device) -> None:
     profile_model("SAGE", card_line(), model, adj, x, y)
 
 
+CALLS = 10_000          # calls per host-timed loop of ``launch``
+
+
+def per_call(fn, n=CALLS):
+    """``fn``'s host ns and CUDA-event ms per back-to-back call: ``n`` calls
+    after 100 of warm-up, the host clock read around the loop, events
+    recorded before and after it, one synchronize at the end."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter_ns()
+    b.record()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n, a.elapsed_time(b) / n
+
+
+def _former_stages(x, ptr, src, E):
+    """The statements of ``scale2_cuda`` and ``chunk_sum_cuda`` as they
+    launched before ``_build.launch`` (a device guard, a ``Stream`` object
+    for its handle, a locked library load, copies of contiguous inputs), one
+    stage each, copied here so that they time the same on any tree."""
+    import threading
+
+    from paddle_sparse_tpu_torch.ops.kernels import _build
+
+    def on_card(fn, t):
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(fn)
+        return t.device.type == "cuda"
+
+    def same_device(fn, dev, **tensors):
+        for name, t in tensors.items():
+            if t is not None and t.device != dev:
+                raise ValueError(f"{fn}: {name}")
+
+    def checks_scale2():
+        on_card("scale2_cuda", x)
+        if x.dtype != torch.float32:
+            raise TypeError
+        x.contiguous()
+        x.numel()
+
+    def checks_chunk_sum():
+        on_card("chunk_sum_cuda", src)
+        same_device("chunk_sum_cuda", src.device, ptr=ptr)
+        if src.dtype != torch.float32 or src.dim() != 2:
+            raise TypeError
+        s = src.contiguous()
+        T, K = ptr.numel() - 1, s.shape[1]
+        if (E * K) % 4 or s.data_ptr() % 16 != 0:
+            raise ValueError
+        if T > 65535:
+            raise ValueError
+
+    lock = threading.Lock()
+
+    def library():
+        with lock:
+            if _build._lib is None:
+                raise RuntimeError("library not loaded")
+            return _build._lib
+
+    def guard():
+        with torch.cuda.device(src.device):
+            pass
+
+    T, K = ptr.numel() - 1, src.shape[1]
+    return {
+        "scale2": {
+            "checks": checks_scale2,
+            "alloc": lambda: torch.empty_like(x),
+            "load_library": library, "device_guard": guard,
+            "stream": lambda: torch.cuda.current_stream().cuda_stream},
+        "chunk_sum": {
+            "checks": checks_chunk_sum,
+            "index32": lambda: ptr.reshape(-1).to(torch.int32).contiguous(),
+            "alloc": lambda: torch.empty((T * E, K), dtype=torch.float32,
+                                         device=src.device),
+            "load_library": library, "device_guard": guard,
+            "stream": lambda: torch.cuda.current_stream().cuda_stream}}
+
+
+def _sha(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.cpu().contiguous().view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def whole_calls(dev: torch.device) -> dict:
+    """Whole calls through the public wrappers, on any tree of the port: P1
+    and P2 (both depths) at the probe's shapes and their library calls (host
+    ns and CUDA-event ms per back-to-back call, ``torch.profiler`` device ms),
+    the hash of each probe's output on seeded random inputs of those shapes,
+    K1 (``spmm_csr_cuda``, M = N = 256, K = 64, 2,048 edges, ``split=None``)
+    beside ``torch.sparse.mm``, and the toy GCN of phases 3 and 3b (32 -> 64
+    -> 8, 256 nodes): forward and train step ms on the host clock over 200
+    calls ended by a synchronize, and the kernel launches of one call."""
+    import chip_smoke as c
+    from paddle_sparse_tpu_torch import (entry, spmm_csr_cuda, train_entry,
+                                         train_step)
+    from paddle_sparse_tpu_torch.experiments import bisect_pallas as bp
+    from paddle_sparse_tpu_torch.ops.kernels.probes_cuda import (
+        chunk_sum_cuda, scale2_cuda)
+    x = torch.ones((256, 128), device=dev)
+    ptr, src = bp.dma_inputs(dev)
+    T, E, K = bp.T, bp.E, src.shape[1]
+    res = {}
+    empty_ns, _ = per_call(lambda: None)
+    for key, fn in (
+            ("p1", lambda: scale2_cuda(x)),
+            ("torch_mul", lambda: torch.mul(x, 2.0)),
+            ("p2_one_slot", lambda: chunk_sum_cuda(ptr, src, E, False)),
+            ("p2_two_slots", lambda: chunk_sum_cuda(ptr, src, E, True)),
+            ("view_sum", lambda: src.view(T, bp.CHUNKS_PER_TILE, E, K)
+             .sum(1))):
+        host, ev = per_call(fn)
+        res[f"{key}_host_ns"] = host - empty_ns
+        res[f"{key}_events_ms"] = ev
+        res[f"{key}_device_ms"] = c.device_ms(fn, 200)[0]
+    g = torch.Generator(device=dev).manual_seed(1)
+    xr = torch.randn((256, 128), generator=g, device=dev)
+    sr = torch.randn(src.shape, generator=g, device=dev)
+    res["p1_sha"] = _sha(scale2_cuda(xr))
+    for db, key in ((False, "p2_one_slot"), (True, "p2_two_slots")):
+        res[f"{key}_sha"] = _sha(chunk_sum_cuda(ptr, sr, E, db))
+
+    M = N = 256
+    rowptr = torch.arange(0, M * 8 + 1, 8, dtype=torch.int32, device=dev)
+    col = torch.randint(0, N, (M * 8,), generator=g, device=dev,
+                        dtype=torch.int32)
+    val = torch.rand(M * 8, generator=g, device=dev)
+    xk = torch.randn(N, 64, generator=g, device=dev)
+    A = torch.sparse_csr_tensor(rowptr, col, val, (M, N))
+    for key, fn in (("k1", lambda: spmm_csr_cuda(rowptr, col, val, xk,
+                                                 split=None)),
+                    ("sparse_mm", lambda: torch.sparse.mm(A, xk))):
+        host, ev = per_call(fn)
+        res[f"{key}_host_us"] = (host - empty_ns) / 1e3
+        res[f"{key}_events_ms"] = ev
+
+    model, adj, xt = entry(dev)
+    tmodel, tadj, txt, ty = train_entry(dev)
+    tadj.value.requires_grad_()
+
+    def forward():
+        with torch.inference_mode():
+            return model(adj, xt)
+    for key, fn in (("toy_forward", forward),
+                    ("toy_train_step", lambda: train_step(
+                        tmodel, tadj, txt, ty, c.LR))):
+        fn()
+        torch.cuda.synchronize()
+        c._zero_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        res[f"{key}_launches"] = sum(
+            v for k, v in c._launch_counts().items()
+            if k != "segcompact_row_sorted")
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        res[f"{key}_ms"] = (time.perf_counter() - t0) * 1e3 / 200
+    return res
+
+
+def launch(dev: torch.device) -> None:
+    """The host path of a kernel launch, stage by stage, for P1
+    (``scale2_cuda``) and P2 (``chunk_sum_cuda``) at the probe's shapes:
+    each stage alone over ``CALLS`` calls (host ns per call, the empty
+    loop's cost taken off), in the wrappers' former path and in this one;
+    then :func:`whole_calls`."""
+    from paddle_sparse_tpu_torch.experiments import bisect_pallas as bp
+    from paddle_sparse_tpu_torch.ops.kernels import _build
+    from paddle_sparse_tpu_torch.ops.kernels import probes_cuda as pc
+    card = card_line()
+    lib = _build.load_library()
+    x = torch.ones((256, 128), device=dev)
+    ptr, src = bp.dma_inputs(dev)
+    T, E, K = bp.T, bp.E, src.shape[1]
+    out_x, out_c = torch.empty_like(x), torch.empty((T * E, K), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    idx = dev.index or 0
+    empty_ns, _ = per_call(lambda: None)
+    former = _former_stages(x, ptr, src, E)
+    # the same C function, called with the GIL held (no release/reacquire)
+    pylib = ctypes.PyDLL(lib._name, handle=lib._handle)
+    for fn in ("psp_scale2", "psp_chunk_sum"):
+        getattr(pylib, fn).argtypes = getattr(lib, fn).argtypes
+        getattr(pylib, fn).restype = ctypes.c_int
+    n, EK = x.numel(), E * K
+
+    def checks_scale2():          # scale2_cuda's, before its allocation
+        if not x.is_cuda:
+            raise ValueError
+        if x.dtype != torch.float32:
+            raise TypeError
+        x.is_contiguous()
+        x.numel()
+
+    def checks_chunk_sum():       # chunk_sum_cuda's, before _index32
+        if not src.is_cuda:
+            raise ValueError
+        if ptr.device != src.device:
+            raise ValueError
+        if src.dtype != torch.float32 or src.dim() != 2:
+            raise TypeError
+        src.is_contiguous()
+        T, K = ptr.numel() - 1, src.shape[1]
+        if (E * K) % 4 or src.data_ptr() % 16:
+            raise ValueError
+        if T > 65535:
+            raise ValueError
+
+    shared = {
+        "library": _build.load_library,
+        "device_check": lambda: torch._C._cuda_getDevice() != idx,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(idx)}
+    this = {
+        "scale2": {
+            "checks": checks_scale2,
+            "alloc": lambda: torch.empty_like(x), **shared,
+            "ctypes_launch": lambda: lib.psp_scale2(
+                x.data_ptr(), out_x.data_ptr(), n, stream),
+            "ctypes_launch_gil_held": lambda: pylib.psp_scale2(
+                x.data_ptr(), out_x.data_ptr(), n, stream),
+            "build_launch": lambda: _build.launch(
+                "scale2", lib.psp_scale2, dev, x.data_ptr(),
+                out_x.data_ptr(), n),
+            # a launch through PyTorch's own binding and runtime, for scale
+            "torch_cuda_sleep0": lambda: torch._C._cuda_sleep(0)},
+        "chunk_sum": {
+            "checks": checks_chunk_sum,
+            "index32": lambda: pc._index32("chunk_sum_cuda", "ptr", ptr),
+            "alloc": lambda: src.new_empty(T * E, K), **shared,
+            "data_ptrs": lambda: (ptr.data_ptr(), src.data_ptr(),
+                                  out_c.data_ptr()),
+            # depth 3 is refused before any CUDA call: ctypes alone
+            "ctypes_no_launch": lambda: lib.psp_chunk_sum(
+                ptr.data_ptr(), src.data_ptr(), out_c.data_ptr(), T, EK, 3,
+                stream),
+            "ctypes_launch_one_slot": lambda: lib.psp_chunk_sum(
+                ptr.data_ptr(), src.data_ptr(), out_c.data_ptr(), T, EK, 1,
+                stream),
+            "ctypes_launch_two_slots": lambda: lib.psp_chunk_sum(
+                ptr.data_ptr(), src.data_ptr(), out_c.data_ptr(), T, EK, 2,
+                stream),
+            "ctypes_launch_two_slots_gil_held": lambda: pylib.psp_chunk_sum(
+                ptr.data_ptr(), src.data_ptr(), out_c.data_ptr(), T, EK, 2,
+                stream),
+            "build_launch_two_slots": lambda: _build.launch(
+                "chunk_sum", lib.psp_chunk_sum, dev, ptr.data_ptr(),
+                src.data_ptr(), out_c.data_ptr(), T, EK, 2)}}
+    for name in ("scale2", "chunk_sum"):
+        res = {"wrapper": f"{name}_cuda", "calls_per_loop": CALLS,
+               "empty_loop_ns": empty_ns}
+        for part, stages in (("former_path_ns", former[name]),
+                             ("this_path_ns", this[name])):
+            res[part] = {st: per_call(fn)[0] - empty_ns
+                         for st, fn in stages.items()}
+        print("LAUNCH " + json.dumps(res) + f" [{card}]", flush=True)
+    print("LAUNCH_WHOLE " + json.dumps(whole_calls(dev)) + f" [{card}]",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_probe: no CUDA device visible", file=sys.stderr)
@@ -362,6 +657,8 @@ def main() -> int:
         sage(torch.device("cuda", 0))
     elif len(sys.argv) == 2 and sys.argv[1] == "window":
         window(torch.device("cuda", 0))
+    elif len(sys.argv) == 2 and sys.argv[1] == "launch":
+        launch(torch.device("cuda", 0))
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -639,9 +639,11 @@ def phase3b_toy_train(dev):
         # SGD steps below accumulate into adj.value.grad in place
         grads = [p.grad.cpu().clone() for p in model.parameters()]
         grads.append(adj.value.grad.cpu().clone())
+        t0 = time.perf_counter()
         losses = [float(train_step(model, adj, x, y, LR)) for _ in range(20)]
-        runs[str(where)] = (float(loss0.detach()), grads, losses)
-    (lc, gc, sc), (lh, gh, sh) = runs[str(dev)], runs["cpu"]
+        step_ms = (time.perf_counter() - t0) * 1e3 / 20
+        runs[str(where)] = (float(loss0.detach()), grads, losses, step_ms)
+    (lc, gc, sc, ms_c), (lh, gh, sh, ms_h) = runs[str(dev)], runs["cpu"]
     grad_err = max(float((a - b).abs().max()) for a, b in zip(gc, gh))
     step_err = max(abs(a - b) for a, b in zip(sc, sh))
     ok = (abs(lc - lh) <= 1e-5 and step_err <= 1e-4
@@ -649,8 +651,9 @@ def phase3b_toy_train(dev):
     print(f"phase 3b toy train step 32->64->8: loss cuda {lc:.6f} cpu "
           f"{lh:.6f}; {len(gc)} grads (params + d value) max_abs_err "
           f"{grad_err:.3e}; 20 SGD steps (lr {LR}) loss {sc[0]:.6f} -> "
-          f"{sc[-1]:.6f}, cuda vs cpu max diff {step_err:.3e} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"{sc[-1]:.6f}, cuda vs cpu max diff {step_err:.3e}; step "
+          f"{ms_c:.3f} ms on the card, {ms_h:.3f} ms on the cpu (host clock, "
+          f"each loss read back) {'ok' if ok else 'FAIL'}", flush=True)
     check(ok, "toy train step on the card disagrees with the CPU")
     check(sc[-1] < sc[0], "toy SGD did not decrease the loss")
 
@@ -4728,6 +4731,24 @@ def device_ms(fn, reps):
     return total, sorted(f"{e.key[:48]} x{e.count}" for e in ev)
 
 
+def host_per_call(fn, n=2000):
+    """``fn``'s host us and CUDA-event ms per back-to-back call, alone: ``n``
+    calls after 100 of warm-up, the host clock read around the loop and
+    events recorded before and after it, one synchronize at the end."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    a, b = _event(), _event()
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    b.record()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / n, a.elapsed_time(b) / n
+
+
 def _probe_entry(ms, plain_ms, lib_ms, lib, moved, flops, err, **extra):
     bound, by = bound_ms(moved, flops)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -4831,7 +4852,7 @@ def phase11_bisect(gen, dev, card, outs):
     # the device's own time, apart from each call's host cost (the CUDA
     # events above time back-to-back calls, so they see the host's launch
     # cost when it exceeds the kernel's)
-    dev_t = {}
+    dev_t, host = {}, {}
     for name, fn in (
             ("scale2", lambda: scale2_cuda(x)),
             ("torch.mul", lambda: torch.mul(x, 2.0)),
@@ -4839,6 +4860,7 @@ def phase11_bisect(gen, dev, card, outs):
             ("chunk_sum two slots", lambda: chunk_sum_cuda(ptr, src, E, True)),
             ("view().sum(1)", lambda: src.view(T, cpt, E, -1).sum(1))):
         dev_t[name] = device_ms(fn, 200)
+        host[name] = host_per_call(fn)
     print("phase 11b device time per call from torch.profiler (CUDA events "
           "per call in brackets): " + "; ".join(
               f"{name} {'not measured' if t is None else f'{t:.5f} ms'} "
@@ -4847,11 +4869,26 @@ def phase11_bisect(gen, dev, card, outs):
                       f"{scale2['ms']:.4f}", f"{scale2['library_ms']}",
                       f"{depth[False][0]:.4f}", f"{depth[True][0]:.4f}",
                       f"{lib_ms}"))) + f" {card}", flush=True)
+    print("phase 11b per back-to-back call, alone (host us, CUDA events ms, "
+          "device ms): " + "; ".join(
+              f"{name} {h:.2f} us, {ev:.4f} ms, "
+              f"{'not measured' if dev_t[name][0] is None else f'{dev_t[name][0]:.5f}'}"
+              f" ms" for name, (h, ev) in host.items()) + f" {card}",
+          flush=True)
     scale2.update(device_ms=dev_t["scale2"][0],
-                  library_device_ms=dev_t["torch.mul"][0])
+                  library_device_ms=dev_t["torch.mul"][0],
+                  host_us=host["scale2"][0], events_ms=host["scale2"][1],
+                  library_host_us=host["torch.mul"][0],
+                  library_events_ms=host["torch.mul"][1])
     chunk.update(device_ms=dev_t["chunk_sum two slots"][0],
                  device_ms_one_slot=dev_t["chunk_sum one slot"][0],
-                 library_device_ms=dev_t["view().sum(1)"][0])
+                 library_device_ms=dev_t["view().sum(1)"][0],
+                 host_us=host["chunk_sum two slots"][0],
+                 host_us_one_slot=host["chunk_sum one slot"][0],
+                 events_ms=host["chunk_sum two slots"][1],
+                 events_ms_one_slot=host["chunk_sum one slot"][1],
+                 library_host_us=host["view().sum(1)"][0],
+                 library_events_ms=host["view().sum(1)"][1])
     return scale2, chunk, srm_err
 
 

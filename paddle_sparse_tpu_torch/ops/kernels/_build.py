@@ -13,6 +13,10 @@ The library lands in the package's git-ignored ``build/`` directory and is
 rebuilt when a source, or a ``*.cuh`` header beside one, is newer than it.
 There is no fallback: a missing ``nvcc`` or a failed build raises with the
 compiler's message.
+
+Every kernel of the port launches through :func:`launch`, on PyTorch's
+current stream of the tensors' device: the one place that reads the stream,
+switches the device when it must, and raises on a refused launch.
 """
 import ctypes
 import os
@@ -22,6 +26,8 @@ import tempfile
 import threading
 from pathlib import Path
 from typing import Optional, Sequence
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -93,8 +99,12 @@ def build_library(srcs: Sequence[Path], build_dir: Path) -> Path:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load once, and declare the C entry points."""
+    """Build if needed, load once, and declare the C entry points. Once
+    loaded, the handle is returned without taking the lock."""
     global _lib
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library(sources(), BUILD_DIR)))
@@ -163,3 +173,30 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def launch(name: str, cfn, device: torch.device, *args) -> None:
+    """``cfn(*args, stream)``: a C launcher of the library called on
+    PyTorch's current stream of ``device`` (so ``torch.cuda.stream`` and
+    CUDA-graph capture hold), with ``device`` made the current device for
+    the call only when it is not already. No synchronize. Raises
+    ``RuntimeError`` naming the kernel when the launcher returns non-zero
+    (the launch was refused) or when this PyTorch has no CUDA stream API.
+
+    The stream is the raw ``cudaStream_t`` that
+    ``torch._C._cuda_getCurrentRawStream`` gives (as Triton's launcher reads
+    it), looked up here at each call: the CPU build lacks it."""
+    C = torch._C
+    try:
+        raw_stream, current = C._cuda_getCurrentRawStream, C._cuda_getDevice
+    except AttributeError:
+        raise RuntimeError(f"{name} kernel cannot launch: this PyTorch has "
+                           f"no CUDA stream API") from None
+    index, here = device.index, current()
+    if index is None or index == here:
+        err = cfn(*args, raw_stream(here))
+    else:
+        with torch.cuda.device(index):
+            err = cfn(*args, raw_stream(index))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

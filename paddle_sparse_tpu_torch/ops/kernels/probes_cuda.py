@@ -36,18 +36,13 @@ def _acc_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
-def _launch(name: str, fn, *args) -> None:
-    """Call a C launcher on the current stream; raise if it refused."""
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
 def _on_card(fn: str, t: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if t.device.type not in ("cpu", "cuda"):
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
         raise ValueError(f"{fn} runs on cpu or cuda, not {t.device}")
-    return t.device.type == "cuda"
+    return False
 
 
 def _check_same_device(fn: str, dev, **tensors) -> None:
@@ -61,7 +56,10 @@ def _aligned(*tensors) -> bool:
 
 
 def _index32(fn: str, name: str, t: torch.Tensor) -> torch.Tensor:
-    if t.dtype not in (torch.int32, torch.int64):
+    """``t`` as a contiguous 1-D int32 tensor: itself when it is one."""
+    if t.dtype == torch.int32 and t.dim() == 1 and t.is_contiguous():
+        return t
+    if t.dtype != torch.int64 and t.dtype != torch.int32:
         raise TypeError(f"{fn}: {name} must be int32 or int64, got {t.dtype}")
     return t.reshape(-1).to(torch.int32).contiguous()
 
@@ -79,13 +77,13 @@ def scale2_cuda(x: torch.Tensor) -> torch.Tensor:
         return scale2_reference(x)
     if x.dtype != torch.float32:
         raise TypeError(f"scale2_cuda takes f32, got {x.dtype}")
-    x = x.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
     out = torch.empty_like(x)
-    if x.numel():
-        lib = _build.load_library()
-        with torch.cuda.device(x.device):
-            _launch("scale2", lib.psp_scale2, x.data_ptr(), out.data_ptr(),
-                    x.numel())
+    n = x.numel()
+    if n:
+        _build.launch("scale2", _build.load_library().psp_scale2, x.device,
+                      x.data_ptr(), out.data_ptr(), n)
         scale2_cuda.launches += 1
     return out
 
@@ -121,26 +119,27 @@ def chunk_sum_cuda(ptr: torch.Tensor, src: torch.Tensor, E: int,
     non-decreasing. Returns (T * E, K) f32."""
     if not _on_card("chunk_sum_cuda", src):
         return chunk_sum_reference(ptr, src, E)
-    _check_same_device("chunk_sum_cuda", src.device, ptr=ptr)
+    dev = src.device
+    if ptr.device != dev:
+        raise ValueError(f"chunk_sum_cuda: ptr is on {ptr.device}, not {dev}")
     if src.dtype != torch.float32 or src.dim() != 2:
         raise TypeError(f"chunk_sum_cuda takes a 2-D f32 src, got "
                         f"{src.dtype} {tuple(src.shape)}")
-    src = src.contiguous()
+    if not src.is_contiguous():
+        src = src.contiguous()
     T, K = ptr.numel() - 1, src.shape[1]
-    if (E * K) % 4 or not _aligned(src):
+    if (E * K) % 4 or src.data_ptr() % 16:
         raise ValueError(f"chunk_sum_cuda stages 16-byte blocks: E * K "
                          f"({E} * {K}) must be a multiple of 4 and src "
                          f"16-byte aligned")
     if T > 65535:
         raise ValueError(f"chunk_sum_cuda takes at most 65535 tiles, got {T}")
     ptr = _index32("chunk_sum_cuda", "ptr", ptr)
-    out = torch.empty((T * E, K), dtype=torch.float32, device=src.device)
+    out = src.new_empty(T * E, K)
     if T > 0 and E * K > 0:
-        lib = _build.load_library()
-        with torch.cuda.device(src.device):
-            _launch("chunk_sum", lib.psp_chunk_sum, ptr.data_ptr(),
-                    src.data_ptr(), out.data_ptr(), T, E * K,
-                    2 if double_buffer else 1)
+        _build.launch("chunk_sum", _build.load_library().psp_chunk_sum, dev,
+                      ptr.data_ptr(), src.data_ptr(), out.data_ptr(), T,
+                      E * K, 2 if double_buffer else 1)
         chunk_sum_cuda.launches += 1
     return out
 
@@ -207,10 +206,9 @@ def span_colsum_cuda(stream: torch.Tensor, e0: torch.Tensor, NS: int,
     K = stream.shape[1]
     out = torch.empty((steps, K), dtype=torch.float32, device=stream.device)
     if steps > 0:
-        lib = _build.load_library()
-        with torch.cuda.device(stream.device):
-            _launch("span_colsum", lib.psp_span_colsum, stream.data_ptr(),
-                    e0.data_ptr(), out.data_ptr(), steps, NS, CAP, K)
+        _build.launch("span_colsum", _build.load_library().psp_span_colsum,
+                      stream.device, stream.data_ptr(), e0.data_ptr(),
+                      out.data_ptr(), steps, NS, CAP, K)
         span_colsum_cuda.launches += 1
     return out
 
@@ -405,14 +403,12 @@ def band_ablate_cuda(mode: str, chunk_span, chunk_row0, chunk_nj,
     span = _index32("band_ablate_cuda", "chunk_span", chunk_span)
     bst = _index32("band_ablate_cuda", "bounds_start", bounds_start)
     ben = _index32("band_ablate_cuda", "bounds_end", bounds_end)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        _launch("band_ablate", lib.psp_band_ablate,
-                ABLATE_MODES.index(mode), tile_ptr.data_ptr(),
-                visit.data_ptr(), span.data_ptr(), bst.data_ptr(),
-                ben.data_ptr(), BR_pad, stream.data_ptr(),
-                None if colsum is None else colsum.data_ptr(),
-                out.data_ptr(), ntiles, K, E)
+    _build.launch("band_ablate", _build.load_library().psp_band_ablate, dev,
+                  ABLATE_MODES.index(mode), tile_ptr.data_ptr(),
+                  visit.data_ptr(), span.data_ptr(), bst.data_ptr(),
+                  ben.data_ptr(), BR_pad, stream.data_ptr(),
+                  None if colsum is None else colsum.data_ptr(),
+                  out.data_ptr(), ntiles, K, E)
     band_ablate_cuda.launches += 1
     return out
 
@@ -491,11 +487,9 @@ def slice_gather_cuda(fs: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     out = torch.empty((nch * (8 if reduce else E), K), dtype=torch.bfloat16,
                       device=x.device)
     if K and E:
-        lib = _build.load_library()
-        with torch.cuda.device(x.device):
-            _launch("slice_gather", lib.psp_slice_gather, int(reduce),
-                    fs.data_ptr(), cols.data_ptr(), x.data_ptr(),
-                    out.data_ptr(), nch, R, E, K)
+        _build.launch("slice_gather", _build.load_library().psp_slice_gather,
+                      x.device, int(reduce), fs.data_ptr(), cols.data_ptr(),
+                      x.data_ptr(), out.data_ptr(), nch, R, E, K)
         slice_gather_cuda.launches += 1
     elif reduce:
         out.zero_()

@@ -162,18 +162,13 @@ def launch_spmm_spans(name: str, start, end, idx, value, base,
     (S, M), K = start.shape, src.shape[1]
     ws = (None if split is None else torch.empty(
         (split.num_slots, K), dtype=torch.float32, device=src.device))
-    lib = _build.load_library()
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.psp_spmm_spans(
-            start.data_ptr(), end.data_ptr(), start.stride(0), _ptr(idx),
-            _ptr(value), _ptr(base), src.data_ptr(), out.data_ptr(), S, M, K,
-            int(src.dtype == torch.bfloat16),
-            int(out.dtype == torch.bfloat16), *_table(split),
-            None if split is None else split.slot.data_ptr(), _ptr(ws),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _build.launch(
+        name, _build.load_library().psp_spmm_spans, src.device,
+        start.data_ptr(), end.data_ptr(), start.stride(0), _ptr(idx),
+        _ptr(value), _ptr(base), src.data_ptr(), out.data_ptr(), S, M, K,
+        int(src.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16),
+        *_table(split), None if split is None else split.slot.data_ptr(),
+        _ptr(ws))
     if split is not None:
         fold_pieces_cuda(split, ws, out)
 
@@ -184,16 +179,11 @@ def fold_pieces_cuda(split: RowSplit, ws: torch.Tensor,
     ``out[fold_row[r]]`` = the sum of the f32 workspace rows
     ``fold_ptr[r] .. fold_ptr[r+1]-1``, in a fixed order, written in
     ``out``'s dtype. ``fold_pieces_cuda.launches`` counts its launches."""
-    lib = _build.load_library()
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.psp_fold_pieces(
-            split.fold_row.data_ptr(), split.fold_ptr.data_ptr(),
-            ws.data_ptr(), out.data_ptr(), split.fold_row.numel(),
-            out.shape[1], int(out.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"fold_pieces kernel launch failed: CUDA error "
-                           f"{err}")
+    _build.launch("fold_pieces", _build.load_library().psp_fold_pieces,
+                  out.device, split.fold_row.data_ptr(),
+                  split.fold_ptr.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                  split.fold_row.numel(), out.shape[1],
+                  int(out.dtype == torch.bfloat16))
     fold_pieces_cuda.launches += 1
 
 
@@ -222,16 +212,11 @@ def launch_sddmm_spans(name: str, start, end, col, base, g: torch.Tensor,
     ``out``: one warp per row when ``split`` is None, else one per piece.
     Raises if the launch fails; the caller counts it."""
     (S, M), K = start.shape, x.shape[1]
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.psp_sddmm_spans(
-            start.data_ptr(), end.data_ptr(), start.stride(0),
-            col.data_ptr(), _ptr(base), g.data_ptr(), x.data_ptr(),
-            out.data_ptr(), S, M, K, int(x.dtype == torch.bfloat16),
-            int(out.dtype == torch.bfloat16), *_table(split), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _build.launch(name, _build.load_library().psp_sddmm_spans, x.device,
+                  start.data_ptr(), end.data_ptr(), start.stride(0),
+                  col.data_ptr(), _ptr(base), g.data_ptr(), x.data_ptr(),
+                  out.data_ptr(), S, M, K, int(x.dtype == torch.bfloat16),
+                  int(out.dtype == torch.bfloat16), *_table(split))
 
 
 # ---- plain versions that follow the table (tests only) -----------------

@@ -205,28 +205,24 @@ def compact_runs_cuda(col: torch.Tensor, rows: torch.Tensor,
     tiles = lib.psp_segcompact_tiles(R, F, L, int(rows_kernel))
     count = torch.empty((), dtype=torch.int64, device=dev)
     f64 = int(value is not None and value.dtype == torch.float64)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        ws = torch.zeros(tiles + 1, dtype=torch.int64, device=dev)
-        if rows_kernel:
-            err = lib.psp_segcompact_rows(
-                col.data_ptr(), rows.data_ptr(), R, F, M, N, _ptr(value), f64,
-                int(not rows_sorted), cap, out_row.data_ptr(),
-                out_col.data_ptr(), _ptr(out_val), _ptr(seg_t),
-                count.data_ptr(), ws.data_ptr(), stream)
-        else:
-            meta = part = None
-            if value is not None:
-                meta = torch.empty(tiles, dtype=torch.int64, device=dev)
-                part = torch.empty(tiles, dtype=value.dtype, device=dev)
-            err = lib.psp_segcompact_stream(
-                col.data_ptr(), rows.data_ptr(), F, L, M, N, _ptr(value), f64,
-                cap, out_row.data_ptr(), out_col.data_ptr(), _ptr(out_val),
-                _ptr(seg_t), count.data_ptr(), ws.data_ptr(), _ptr(meta),
-                _ptr(part), stream)
-    if err != 0:
-        raise RuntimeError(f"segcompact kernel launch failed: CUDA error "
-                           f"{err}")
+    ws = torch.zeros(tiles + 1, dtype=torch.int64, device=dev)
+    if rows_kernel:
+        _build.launch("segcompact", lib.psp_segcompact_rows, dev,
+                      col.data_ptr(), rows.data_ptr(), R, F, M, N,
+                      _ptr(value), f64, int(not rows_sorted), cap,
+                      out_row.data_ptr(), out_col.data_ptr(), _ptr(out_val),
+                      _ptr(seg_t), count.data_ptr(), ws.data_ptr())
+    else:
+        meta = part = None
+        if value is not None:
+            meta = torch.empty(tiles, dtype=torch.int64, device=dev)
+            part = torch.empty(tiles, dtype=value.dtype, device=dev)
+        _build.launch("segcompact", lib.psp_segcompact_stream, dev,
+                      col.data_ptr(), rows.data_ptr(), F, L, M, N,
+                      _ptr(value), f64, cap, out_row.data_ptr(),
+                      out_col.data_ptr(), _ptr(out_val), _ptr(seg_t),
+                      count.data_ptr(), ws.data_ptr(), _ptr(meta),
+                      _ptr(part))
     compact_runs_cuda.launches += 1
     if not rows_sorted:
         compact_runs_cuda.launches_row_sorted += 1

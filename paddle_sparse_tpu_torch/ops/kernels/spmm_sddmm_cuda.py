@@ -121,6 +121,14 @@ def _check_cuda_args(colptr, col_t, perm, value, g, x, out_dtype):
                             f"got {value.dtype}")
 
 
+def _slot_table(split: Optional[RowSplit]):
+    """The fused kernel's piece arguments: row, piece, P, cap, slot."""
+    if split is None:
+        return None, None, 0, 0, None
+    return (split.row.data_ptr(), split.piece.data_ptr(), split.row.numel(),
+            split.cap, split.slot.data_ptr())
+
+
 def spmm_sddmm_csc_cuda(colptr: torch.Tensor, col_t: torch.Tensor,
                         perm: torch.Tensor, value: Optional[torch.Tensor],
                         g: torch.Tensor, x: torch.Tensor,
@@ -169,23 +177,15 @@ def spmm_sddmm_csc_cuda(colptr: torch.Tensor, col_t: torch.Tensor,
                                               colptr[None, 1:])
     ws = (None if split is None else torch.empty(
         (split.num_slots, K), dtype=torch.float32, device=x.device))
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.psp_spmm_sddmm_csc(
-            colptr.data_ptr(), col_t.data_ptr(), perm.data_ptr(),
-            None if value is None else value.data_ptr(), g.data_ptr(),
-            x.data_ptr(), d_x.data_ptr(), d_value.data_ptr(), N, K,
-            int(x.dtype == torch.bfloat16),
-            int(kernel_dx_dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16),
-            *((None, None, 0, 0, None) if split is None else
-              (split.row.data_ptr(), split.piece.data_ptr(),
-               split.row.numel(), split.cap, split.slot.data_ptr())),
-            None if ws is None else ws.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"spmm_sddmm_csc kernel launch failed: CUDA error "
-                           f"{err}")
+    _build.launch(
+        "spmm_sddmm_csc", _build.load_library().psp_spmm_sddmm_csc, x.device,
+        colptr.data_ptr(), col_t.data_ptr(), perm.data_ptr(),
+        None if value is None else value.data_ptr(), g.data_ptr(),
+        x.data_ptr(), d_x.data_ptr(), d_value.data_ptr(), N, K,
+        int(x.dtype == torch.bfloat16),
+        int(kernel_dx_dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), *_slot_table(split),
+        None if ws is None else ws.data_ptr())
     if split is not None:
         fold_pieces_cuda(split, ws, d_x)
     spmm_sddmm_csc_cuda.launches += 1
@@ -316,24 +316,16 @@ def spmm_sddmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
     split: Optional[RowSplit] = resolve_split(split, start, end)
     ws = (None if split is None else torch.empty(
         (split.num_slots, K), dtype=torch.float32, device=x.device))
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.psp_spmm_sddmm_spans(
-            start.data_ptr(), end.data_ptr(), start.stride(0),
-            col.data_ptr(), None if base is None else base.data_ptr(),
-            None if value is None else value.data_ptr(), g.data_ptr(),
-            x.data_ptr(), d_x.data_ptr(), d_value.data_ptr(), S, N, K,
-            int(x.dtype == torch.bfloat16),
-            int(kernel_dx_dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16),
-            *((None, None, 0, 0, None) if split is None else
-              (split.row.data_ptr(), split.piece.data_ptr(),
-               split.row.numel(), split.cap, split.slot.data_ptr())),
-            None if ws is None else ws.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"spmm_sddmm_spans kernel launch failed: CUDA "
-                           f"error {err}")
+    _build.launch(
+        "spmm_sddmm_spans", _build.load_library().psp_spmm_sddmm_spans,
+        x.device, start.data_ptr(), end.data_ptr(), start.stride(0),
+        col.data_ptr(), None if base is None else base.data_ptr(),
+        None if value is None else value.data_ptr(), g.data_ptr(),
+        x.data_ptr(), d_x.data_ptr(), d_value.data_ptr(), S, N, K,
+        int(x.dtype == torch.bfloat16),
+        int(kernel_dx_dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), *_slot_table(split),
+        None if ws is None else ws.data_ptr())
     if split is not None:
         fold_pieces_cuda(split, ws, d_x)
     spmm_sddmm_spans_cuda.launches += 1

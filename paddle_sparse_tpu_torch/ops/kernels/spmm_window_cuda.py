@@ -83,18 +83,13 @@ def spmm_window_cuda(rowptr: torch.Tensor, col: torch.Tensor,
         t = getattr(plan, name)
         if t.device != x.device or t.dtype != torch.int32:
             raise ValueError(f"plan.{name} must be int32 on {x.device}")
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.psp_spmm_window(
-            rowptr.data_ptr(), col.data_ptr(),
-            None if value is None else value.data_ptr(), x.data_ptr(),
-            out.data_ptr(), plan.tiles.data_ptr(), plan.tile_w0.data_ptr(),
-            plan.tiles.numel(), M, N, K, plan.tile_rows, W,
-            int(x.dtype == torch.bfloat16),
-            int(out.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"spmm_window kernel launch failed: error {err}")
+    _build.launch("spmm_window", _build.load_library().psp_spmm_window,
+                  x.device, rowptr.data_ptr(), col.data_ptr(),
+                  None if value is None else value.data_ptr(), x.data_ptr(),
+                  out.data_ptr(), plan.tiles.data_ptr(),
+                  plan.tile_w0.data_ptr(), plan.tiles.numel(), M, N, K,
+                  plan.tile_rows, W, int(x.dtype == torch.bfloat16),
+                  int(out.dtype == torch.bfloat16))
     spmm_window_cuda.launches += 1
     return out
 

@@ -16,7 +16,9 @@ SUM_REL of f64, two launches equal;
 ``spmm_seg``, ``spmm_sell`` and ``spmm_chunked`` (launches exact) and
 ``backend="sell"``; sampling, walks,
 ``saint_subgraph``, ``partition`` and RCM on the card against the CPU
-(exact where the draws are the same).
+(exact where the draws are the same); every launch site of
+``ops/kernels/`` on a side stream (``torch.cuda.stream``) equal bit for bit
+to the default stream's result, and P1 and P2 replayed in a CUDA graph.
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False. This file imports no JAX, so on a
 machine with a card and no JAX it runs alone:
@@ -2108,3 +2110,173 @@ def test_padded_coo_forward_takes_no_window(dev):
             spmm_window_cuda.launches - before[1]) == (1, 0)
     torch.testing.assert_close(out.double(),
                                _ref(adj.rowptr(), adj.col, val, x), **F32)
+
+
+# ---- the launch path (ops/kernels/_build.launch) ---------------------------
+# Every kernel launches on PyTorch's current stream of its tensors' device.
+# Each launch site below runs once on the default stream and once on a side
+# stream under torch.cuda.stream, where its float inputs are written into
+# zeroed copies after a ~25 ms sleep of that stream: a kernel launched on any
+# other stream would read the zeros, so the two results are equal bit for
+# bit only if the launch kept the side stream's order.
+
+def _tensors(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return []
+
+
+def _site(dev, site):
+    """``(fn, data)``: one launch site's call over its float inputs."""
+    from paddle_sparse_tpu_torch import spmm_window_cuda
+    g = torch.Generator(device=dev).manual_seed(5)
+    if site == "scale2":
+        return pc.scale2_cuda, [torch.randn(256, 128, generator=g,
+                                            device=dev)]
+    if site == "chunk_sum":
+        ptr, src = bp.dma_inputs(dev)
+        return (lambda s: pc.chunk_sum_cuda(ptr, s, bp.E, True),
+                [torch.randn(src.shape, generator=g, device=dev)])
+    if site == "span_colsum":
+        e0 = torch.randint(0, 6000 - 77, (65,), generator=g, device=dev,
+                           dtype=torch.int32)
+        return (lambda s: pc.span_colsum_cuda(s, e0, 5, 77, 13),
+                [torch.randn(6000, 128, generator=g, device=dev).bfloat16()])
+    if site == "band_ablate":
+        tb = rb.tables(S=3, BAND=640, E=128, K=128, CAP=1024, device=dev)
+        return (lambda s: pc.band_ablate_cuda(
+            "empty", tb.cs, tb.cr, tb.cn, tb.bst, tb.ben, s, S=tb.S,
+            BR_pad=tb.BR_pad, E=tb.E, K=tb.K, TMAX=tb.TMAX,
+            visits=tb.visits), [tb.stream])
+    if site == "slice_gather":
+        fs = torch.tensor([0, 4, 4, 1], device=dev, dtype=torch.int32)
+        cols = torch.randint(0, 400, (4 * 50,), generator=g, device=dev,
+                             dtype=torch.int32)
+        return (lambda x: pc.slice_gather_cuda(fs, cols, x, 400,
+                                               "onehot_write"),
+                [torch.randn(2000, 200, generator=g, device=dev).bfloat16()])
+    if site == "spmm_sddmm_csc":
+        adj = _fused_graph(dev, split=True)
+        return (lambda v, gr, x: _fused(adj, v, gr, x, torch.float32),
+                [adj.value.clone(), torch.randn(3000, 64, generator=g,
+                                                device=dev),
+                 torch.randn(2000, 64, generator=g, device=dev)])
+    if site == "spmm_sddmm_spans":
+        plan, s, packed = _spans_fused_graph(dev, split=True)
+        return (lambda v, gr, x: _spans_fused(plan, s, v, gr, x, "f32"),
+                [packed.clone(), torch.randn(3000, 64, generator=g,
+                                             device=dev),
+                 torch.randn(2000, 64, generator=g, device=dev)])
+    if site in ("spmm_window", "fold_pieces"):
+        rowptr, col, value, _, split, plan = _window_plan(dev)
+        x = torch.randn(5000, 64, generator=g, device=dev)
+        if site == "spmm_window":
+            return (lambda v, xx: spmm_window_cuda(rowptr, col, v, xx, plan),
+                    [value, x])
+        assert split is not None
+        return (lambda v, xx: spmm_csr_cuda(rowptr, col, v, xx,
+                                            split=split), [value, x])
+    rowptr, col, value, _ = _csr(dev)
+    x = torch.randn(300, 64, generator=g, device=dev)
+    if site == "spmm_spans":
+        return (lambda v, xx: spmm_csr_cuda(rowptr, col, v, xx, split=None),
+                [value, x])
+    if site == "sddmm_spans":
+        return (lambda gr, xx: sddmm_csr_cuda(rowptr, col, gr, xx,
+                                              split=None),
+                [torch.randn(500, 64, generator=g, device=dev), x])
+    if site == "segcompact_rows":
+        key, val = _sorted_grid(dev, 3000, 64, 500, seed=3)
+        rows = torch.arange(3000, dtype=torch.int32, device=dev)
+        return (lambda v: compact_runs_cuda(key, rows, v, (3000, 500),
+                                            200_000, seg=True), [val])
+    assert site == "segcompact_stream"
+    col, row, val = _flat_sorted(dev, 3000, 400, 200_000, 3001, seed=2)
+    return (lambda v: compact_runs_cuda(col, row, v, (3000, 400), 200_100,
+                                        seg=True), [val])
+
+
+LAUNCH_SITES = ("scale2", "chunk_sum", "span_colsum", "band_ablate",
+                "slice_gather", "spmm_sddmm_csc", "spmm_sddmm_spans",
+                "spmm_window", "spmm_spans", "fold_pieces", "sddmm_spans",
+                "segcompact_rows", "segcompact_stream")
+
+
+@pytest.mark.parametrize("site", LAUNCH_SITES)
+def test_launch_site_keeps_the_side_streams_order(dev, site):
+    fn, data = _site(dev, site)
+    want = _tensors(fn(*data))
+    copies = [torch.zeros_like(d) for d in data]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        for c, d in zip(copies, data):
+            c.copy_(d)
+        got = _tensors(fn(*copies))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_probe_launches_replay_in_a_cuda_graph(dev):
+    """P1 and P2 captured in a CUDA graph (their launches go to the
+    capturing stream) and replayed on new inputs: bit for bit their plain
+    versions."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(256, 128, generator=g, device=dev)
+    ptr, src = bp.dma_inputs(dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # warm-up off the graph
+        pc.scale2_cuda(x)
+        pc.chunk_sum_cuda(ptr, src, bp.E, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o1 = pc.scale2_cuda(x)
+        o2 = pc.chunk_sum_cuda(ptr, src, bp.E, True)
+    x.copy_(torch.randn(x.shape, generator=g, device=dev))
+    src.copy_(torch.randn(src.shape, generator=g, device=dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(o1, pc.scale2_reference(x))
+    assert torch.equal(o2, pc.chunk_sum_reference(ptr, src, bp.E))
+
+
+@pytest.mark.parametrize("double_buffer", [False, True])
+def test_probe_p1_p2_shapes_and_offsets(dev, double_buffer):
+    """P1 and P2 at the probe's shapes and at odd sizes, 4-byte and
+    16-byte offsets, non-contiguous inputs and int64 or 2-D pointers: bit
+    for bit their plain versions, one launch a call."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(256, 128, generator=g, device=dev)
+    assert torch.equal(pc.scale2_cuda(x), pc.scale2_reference(x))
+    big = torch.randn(4099 * 3 + 3, generator=g, device=dev)
+    for v in (big[:4099], big[1:4100], big[2:4101], big[3:4102],
+              big[:4099 * 3].view(4099, 3).t(), big[:7]):
+        before = pc.scale2_cuda.launches
+        assert torch.equal(pc.scale2_cuda(v), pc.scale2_reference(v))
+        assert pc.scale2_cuda.launches == before + 1
+    ptr, src = bp.dma_inputs(dev)
+    src = torch.randn(src.shape, generator=g, device=dev)
+    want = pc.chunk_sum_reference(ptr, src, bp.E)
+    for p in (ptr, ptr.long(), ptr[:, None]):
+        before = pc.chunk_sum_cuda.launches
+        assert torch.equal(pc.chunk_sum_cuda(p, src, bp.E, double_buffer),
+                           want)
+        assert pc.chunk_sum_cuda.launches == before + 1
+    # odd E and K (E * K a multiple of 4), a 16-byte row offset, and a
+    # transposed (non-contiguous) src, which the wrapper copies
+    ptr2 = torch.tensor([0, 1, 1, 4, 5], device=dev, dtype=torch.int32)
+    rows = torch.randn(3 * 5 + 3, 12, generator=g, device=dev)
+    for s in (rows[:15], rows[3:18], rows[:15].t().contiguous().t()):
+        assert torch.equal(pc.chunk_sum_cuda(ptr2, s, 3, double_buffer),
+                           pc.chunk_sum_reference(ptr2, s, 3))
+    with pytest.raises(ValueError, match="16-byte"):      # 4-byte offset
+        pc.chunk_sum_cuda(ptr2, rows.view(-1)[1:181].view(15, 12), 3,
+                          double_buffer)
