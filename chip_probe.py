@@ -8,6 +8,8 @@ repository root:
     python3 chip_probe.py sage         # and a GraphSAGE step's
     python3 chip_probe.py window       # the windowed K1 over its plan
     python3 chip_probe.py launch       # a kernel launch's host path
+    python3 chip_probe.py slice        # P5's per-chunk kernel, part by part
+    python3 chip_probe.py probes       # P3's and P5's calls, kernel by kernel
 
 ``sweep``: the span kernels, K1 and K2 alone at K=256 on the bench's zipf
 graph at 1/8 scale (``chip_smoke.bench_graph``) for each piece size ``cap``
@@ -17,7 +19,9 @@ line per cap.
 
 ``ab PARENT``: the whole calls of ``launch`` (P1, P2 and K1 host ns and
 event ms per call beside their library calls, P1's and P2's output hashes,
-the toy GCN's forward and train step ms), the uniform GCN forward (phase
+the toy GCN's forward and train step ms; P3, P4's three modes and P5's two
+variants at their probes' defaults: CUDA-event ms per call and the hash of
+each output), the uniform GCN forward (phase
 4), train step (phase 5) and its peak memory,
 forward and forward+backward ms and peak memory of phase 7c's seg2 f32 and
 bf16 on the uniform graph, split on the clustered graph, seg2 on zipf at
@@ -29,7 +33,8 @@ ms per call, and K5 alone on the call's compress input) of
 ``chip_smoke.py``, run from ``PARENT`` (another checkout, e.g. ``git
 archive`` of the parent commit) and from this tree in turns: parent, this,
 this, parent, each in a process of its own. One JSON line per run, then
-their summary (each output hash: equal in every run or not).
+their summary (each output hash: equal in every run, and within each
+side's two runs, or not).
 
 ``gat``: ``chip_smoke.py`` phase 8d's GAT (3 layers, 4 heads of 64,
 output 47) on the zipf graph at 1/8 scale: first its gather of 15.76M
@@ -60,6 +65,28 @@ ctypes call with and without the launch, each alone over 10,000 calls after
 a warm-up (host ns per call, one synchronize at the end), in the wrappers'
 former path and in this one (``_build.launch``); then the whole calls as
 ``ab`` takes them.
+
+``slice``: P5's per-chunk kernel as it was before its reduce was
+redesigned (one CTA per (chunk, 128 columns), the slice part and the
+chunk's indices in shared memory; ``chip_probe_slice.cu``, built here into
+the package's ``build/chip_probe_slice/``, no part of the package) at
+``r5_vmem_expand``'s defaults, each variant whole, with the slice load
+alone and with the edge loop alone, in turns (whole, load, loop, loop,
+load, whole; CUDA events, 5 calls after a warm-up), with the microseconds
+of one wave of CTAs on the card. One JSON line.
+
+``probes``: P3 (``span_colsum_cuda`` and ``span_colsum_staged_cuda``) and
+P5's reduce (``slice_gather_cuda``, at ``r5_vmem_expand``'s defaults and
+at 2,049 edges a chunk, past the TF32 path) at their probes' defaults, and
+each plan alone on the card and
+in torch ops: each call's device time kernel by kernel under
+``torch.profiler`` (10 calls after a warm-up) and its host time per call
+(10 calls, no synchronize between them). One JSON line per call. First,
+before anything else fills the process's caching allocator, P5's reduce,
+its plan, its output's allocation alone and P3 on a cold pool
+(:func:`cold_pool`: each call alone after ``empty_cache()``, the
+segments it took from the driver) and on the warm one: a ``COLD`` line
+each.
 
 Each prints the card's ``nvidia-smi`` name and power limit and exits
 non-zero without a card.
@@ -217,7 +244,10 @@ def ab(parent: Path) -> None:
         r["side"] = "parent" if where == parent else "change"
         runs.append(r)
         print("AB " + json.dumps(r) + f" [{card}]", flush=True)
-    summary = {k: len({r[k] for r in runs}) == 1
+    summary = {k: {"every_run": len({r[k] for r in runs}) == 1,
+                   "within_each_side": all(
+                       len({r[k] for r in runs if r["side"] == side}) == 1
+                       for side in ("parent", "change"))}
                for k in runs[0] if k.endswith("_sha")}   # bit for bit
     for k in [k for k in runs[0] if k.endswith(("ms", "gb", "_ns", "_us"))
               and all(r[k] is not None for r in runs)]:
@@ -472,9 +502,10 @@ def whole_calls(dev: torch.device) -> dict:
     ns and CUDA-event ms per back-to-back call, ``torch.profiler`` device ms),
     the hash of each probe's output on seeded random inputs of those shapes,
     K1 (``spmm_csr_cuda``, M = N = 256, K = 64, 2,048 edges, ``split=None``)
-    beside ``torch.sparse.mm``, and the toy GCN of phases 3 and 3b (32 -> 64
-    -> 8, 256 nodes): forward and train step ms on the host clock over 200
-    calls ended by a synchronize, and the kernel launches of one call."""
+    beside ``torch.sparse.mm``, :func:`probe_calls` (P3-P5), and the toy
+    GCN of phases 3 and 3b (32 -> 64 -> 8, 256 nodes): forward and train
+    step ms on the host clock over 200 calls ended by a synchronize, and
+    the kernel launches of one call."""
     import chip_smoke as c
     from paddle_sparse_tpu_torch import (entry, spmm_csr_cuda, train_entry,
                                          train_step)
@@ -518,6 +549,8 @@ def whole_calls(dev: torch.device) -> dict:
         res[f"{key}_host_us"] = (host - empty_ns) / 1e3
         res[f"{key}_events_ms"] = ev
 
+    res.update(probe_calls(dev))
+
     model, adj, xt = entry(dev)
     tmodel, tadj, txt, ty = train_entry(dev)
     tadj.value.requires_grad_()
@@ -542,6 +575,219 @@ def whole_calls(dev: torch.device) -> dict:
         torch.cuda.synchronize()
         res[f"{key}_ms"] = (time.perf_counter() - t0) * 1e3 / 200
     return res
+
+
+def cold_pool(fn, reps=3):
+    """``fn`` on a cold caching allocator, ``torch.cuda.empty_cache()``
+    before each of ``reps`` calls, and then on the warm one (after a
+    warm-up call): each call alone between CUDA events, with the device
+    segments the allocator took from the driver during it
+    (``segment.all.allocated``) and the bytes it held before the call.
+    Means per call: ``{"ms", "segments", "warm_ms", "warm_segments",
+    "reserved_bytes"}``; what ``empty_cache()`` can give back depends on
+    which segments the caller's live tensors hold."""
+    def one(empty):
+        torch.cuda.synchronize()
+        if empty:
+            torch.cuda.empty_cache()
+        st = torch.cuda.memory_stats()
+        s0 = st.get("segment.all.allocated", 0)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        return (a.elapsed_time(b),
+                torch.cuda.memory_stats().get("segment.all.allocated", 0)
+                - s0, st.get("reserved_bytes.all.current", 0))
+    cold = [one(True) for _ in range(reps)]
+    fn()
+    warm = [one(False) for _ in range(reps)]
+    return {"ms": sum(c[0] for c in cold) / reps,
+            "segments": sum(c[1] for c in cold) / reps,
+            "warm_ms": sum(w[0] for w in warm) / reps,
+            "warm_segments": sum(w[1] for w in warm) / reps,
+            "reserved_bytes": cold[0][2]}
+
+
+def probe_calls(dev: torch.device) -> dict:
+    """P3 (``span_colsum_cuda``), P4's nodot, nosel and empty and P5's two
+    variants (``slice_gather_cuda``) through the public wrappers at their
+    probes' defaults, on any tree of the port: CUDA-event ms per call
+    (``chip_smoke.timed``) and the hash of each output on the probes' own
+    seeded inputs; P3's and P5's calls also alone on a cold caching
+    allocator (:func:`cold_pool`: ms and segments taken a call)."""
+    import chip_smoke as c
+    from paddle_sparse_tpu_torch.experiments import r4_band_cost as rb
+    from paddle_sparse_tpu_torch.experiments import r4_dma_issue as rd
+    from paddle_sparse_tpu_torch.experiments import r5_vmem_expand as rv
+    from paddle_sparse_tpu_torch.ops.kernels.probes_cuda import (
+        slice_gather_cuda, span_colsum_cuda)
+    res = {}
+    stream, e0, _ = rd.make_inputs(19, 384, device=dev)
+    ms, out = c.timed(lambda: span_colsum_cuda(stream, e0, 19, 384,
+                                               rd.STEPS), 10)
+    res["p3_ms"], res["p3_sha"] = ms, _sha(out)
+    del out
+    cold = cold_pool(lambda: span_colsum_cuda(stream, e0, 19, 384,
+                                              rd.STEPS))
+    res["p3_cold_pool_ms"] = cold["ms"]
+    res["p3_cold_pool_segments"] = cold["segments"]
+    del stream, e0
+    tb = rb.tables(device=dev)
+    for kind in ("nodot", "nosel", "empty"):
+        ms, out = c.timed(lambda kind=kind: rb.variant_call(kind, tb), 20)
+        res[f"p4_{kind}_ms"], res[f"p4_{kind}_sha"] = ms, _sha(out)
+    del tb, out
+    fs, cols, x = rv.make_inputs(10_000, dev)
+    for variant, key in (("onehot_write", "p5_write"),
+                         ("onehot_reduce", "p5_reduce")):
+        ms, out = c.timed(lambda v=variant: slice_gather_cuda(
+            fs, cols, x, rv.R, v), 5)
+        res[f"{key}_ms"], res[f"{key}_sha"] = ms, _sha(out)
+        del out
+        cold = cold_pool(lambda v=variant: slice_gather_cuda(
+            fs, cols, x, rv.R, v))
+        res[f"{key}_cold_pool_ms"] = cold["ms"]
+        res[f"{key}_cold_pool_segments"] = cold["segments"]
+    torch.cuda.empty_cache()
+    return res
+
+
+SLICE_STAGES = ("full", "load", "loop")   # psp_slice_stages' stage 0, 1, 2
+
+
+def slice_breakdown(dev: torch.device) -> None:
+    """P5's per-chunk kernel part by part (the module docstring's
+    ``slice``)."""
+    import chip_smoke as c
+    from paddle_sparse_tpu_torch.experiments import r5_vmem_expand as rv
+    from paddle_sparse_tpu_torch.ops.kernels import _build
+    from paddle_sparse_tpu_torch.ops.kernels.probes_cuda import (
+        SLICE_VARIANTS, slice_gather_cuda, slice_gather_reference)
+    card = card_line()
+    so = _build.build_library([Path(__file__).resolve().parent
+                               / "chip_probe_slice.cu"],
+                              _build.BUILD_DIR / "chip_probe_slice")
+    lib = ctypes.CDLL(str(so))
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn = lib.psp_slice_stages
+    fn.argtypes = [i32, i32, p, p, p, p, i64, i64, i64, i64, p]
+    fn.restype = ctypes.c_int
+    nch = 10_000
+    fs, cols, x = rv.make_inputs(nch, dev)
+    cols = cols.reshape(-1).int()
+    E, K = rv.E, rv.K
+
+    def call(variant, stage):
+        reduce = variant == "onehot_reduce"
+        out = torch.empty((nch * (8 if reduce else E), K),
+                          dtype=torch.bfloat16, device=dev)
+        _build.launch("slice_stages", fn, dev, int(reduce),
+                      SLICE_STAGES.index(stage), fs.data_ptr(),
+                      cols.data_ptr(), x.data_ptr(), out.data_ptr(), nch,
+                      rv.R, E, K)
+        return out
+
+    ctas = nch * -(-K // 128)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # 256 R + 4 E bytes of slice part and indices: one CTA an SM at R = 512
+    per_sm = max(1, (227 * 1024) // (rv.R * 256 + E * 4 + 8 * 1024 + 64))
+    waves = ctas / (sms * per_sm)
+    res = {"at": f"NCH={nch} chunks of {E} edges, R={rv.R}, K={K} bf16",
+           "ctas": ctas, "ctas_per_sm": per_sm, "waves": waves}
+    for variant in SLICE_VARIANTS:
+        ms = {st: [] for st in SLICE_STAGES}
+        for st in SLICE_STAGES + SLICE_STAGES[::-1]:
+            ms[st].append(c.timed(lambda st=st: call(variant, st), 5)[0])
+        res[variant] = {st: {"ms": v, "mean_ms": sum(v) / 2,
+                             "us_per_wave": sum(v) / 2 * 1e3 / waves}
+                        for st, v in ms.items()}
+    # the whole kernel: write equal to the package's, reduce beside the
+    # plain version (f32 sums, rounded to bf16 once)
+    res["write_equal_to_package"] = bool(torch.equal(
+        call("onehot_write", "full"),
+        slice_gather_cuda(fs, cols, x, rv.R, "onehot_write")))
+    want = slice_gather_reference(fs, cols, x, rv.R, "onehot_reduce")
+    res["reduce_max_abs_diff_vs_plain"] = float(
+        (call("onehot_reduce", "full").float() - want.float()).abs().max())
+    print("SLICE " + json.dumps(res) + f" [{card}]", flush=True)
+
+
+def _profile(fn, reps=10):
+    """``(host ms per call, device ms per call, [(ms, launches, kernel)])``
+    of ``fn`` after a warm-up: the host clock around ``reps`` calls with no
+    synchronize between them, then ``torch.profiler``'s device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+          and getattr(e, "self_device_time_total", 0) > 0]
+    rows = sorted(((e.self_device_time_total / 1e3 / reps, e.count / reps,
+                    e.key[:60]) for e in ev), reverse=True)
+    return host, sum(r[0] for r in rows), rows
+
+
+def probe_profiles(dev: torch.device) -> None:
+    """P3's and P5's calls kernel by kernel (the module docstring's
+    ``probes``)."""
+    from paddle_sparse_tpu_torch.experiments import r4_dma_issue as rd
+    from paddle_sparse_tpu_torch.experiments import r5_vmem_expand as rv
+    from paddle_sparse_tpu_torch.ops.kernels import probes_cuda as pc
+    card = card_line()
+    stream, e0, _ = rd.make_inputs(19, 384, device=dev)
+    n, L = 19 * rd.STEPS, stream.shape[0]
+    fs, cols, x = rv.make_inputs(10_000, dev)
+    cols2 = torch.randint(0, rv.R, (10_000 * 2049,), device=dev,
+                          dtype=torch.int32,
+                          generator=torch.Generator(device=dev).manual_seed(2))
+    nslices = x.shape[0] // rv.R
+    # each call on a fresh process's pool, before anything else has filled
+    # it (after one call for the library and the kernels' attributes): the
+    # inputs hold segments of their own, so empty_cache() gives back what
+    # a call took, and the next must take it from the driver again
+    for name, fn in (
+            ("slice_reduce", lambda: pc.slice_gather_cuda(
+                fs, cols, x, rv.R, "onehot_reduce")),
+            ("slice_plan", lambda: pc.slice_items(fs, nslices)),
+            ("slice_reduce_output", lambda: torch.empty(
+                (10_000 * 8, rv.K), dtype=torch.bfloat16, device=dev)),
+            ("span_colsum", lambda: pc.span_colsum_cuda(
+                stream, e0, 19, 384, rd.STEPS))):
+        fn()
+        print("COLD " + json.dumps({"call": name, **cold_pool(fn, 5)})
+              + f" [{card}]", flush=True)
+    for name, fn in (
+            ("span_colsum", lambda: pc.span_colsum_cuda(
+                stream, e0, 19, 384, rd.STEPS)),
+            ("span_colsum_staged", lambda: pc.span_colsum_staged_cuda(
+                stream, e0, 19, 384, rd.STEPS)),
+            ("span_plan", lambda: pc.span_pieces(e0[:n], 384, L)),
+            ("span_plan_torch", lambda: pc.span_pieces_reference(
+                e0[:n], 384, L)),
+            ("slice_reduce", lambda: pc.slice_gather_cuda(
+                fs, cols, x, rv.R, "onehot_reduce")),
+            ("slice_reduce_e2049", lambda: pc.slice_gather_cuda(
+                fs, cols2, x, rv.R, "onehot_reduce")),
+            ("slice_plan", lambda: pc.slice_items(fs, nslices)),
+            ("slice_plan_torch", lambda: pc.slice_items_reference(fs))):
+        host, device, rows = _profile(fn)
+        print("PROBES " + json.dumps({
+            "call": name, "host_ms_per_call": host,
+            "device_ms_per_call": device, "by_kernel": rows[:8]})
+              + f" [{card}]", flush=True)
 
 
 def launch(dev: torch.device) -> None:
@@ -659,6 +905,10 @@ def main() -> int:
         window(torch.device("cuda", 0))
     elif len(sys.argv) == 2 and sys.argv[1] == "launch":
         launch(torch.device("cuda", 0))
+    elif len(sys.argv) == 2 and sys.argv[1] == "slice":
+        slice_breakdown(torch.device("cuda", 0))
+    elif len(sys.argv) == 2 and sys.argv[1] == "probes":
+        probe_profiles(torch.device("cuda", 0))
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -220,20 +220,29 @@ Phases, one or more printed lines each:
    11a every launch count set to 0, then ``bisect_pallas`` (all stages),
    ``r4_dma_issue.run`` at NS=19, CAP=384, 2,048 steps, the five
    ``r4_band_cost`` variants and both ``r5_vmem_expand`` variants at 10,000
-   chunks, with exact launches (scale2 1, chunk_sum 2, span_colsum 2,
-   band_ablate 3, slice_gather 2, K1/K4's spans kernel 3). Then each
-   output against its plain version in f64 (bit for bit where the sum
+   chunks, with exact launches (scale2 1, chunk_sum 2, span_plan 1 and
+   span_colsum 1 (the piece path), span_colsum_staged 1 (nosel's chunk
+   sums), band_ablate 3, slice_plan 1, slice_gather 2 of which slice_reduce
+   1, K1/K4's spans kernel 3). The plans built on the card equal their
+   torch references (11c, 11e). Then
+   each output against its plain version in f64 (bit for bit where the sum
    order matches) and edge cases: scale2 at odd sizes and offsets,
    chunk_sum on uneven tiles at both ring depths, ``segment_rows_matmul``
-   with ``acc``, bf16 and a row of 4,000 edges (11b); 13 steps (not a
-   multiple of 8), K 128 and 8, a span ending at the stream's end, 7 steps
-   refused (11c); a small band whose tiles several chunks visit, a schedule
-   that misses edges refused (11d); repeated and all-equal ``fs``, K 200
-   and 8, R 400 and 16 (11e). Each kernel's time beside its plain version
-   (in turns), bound and library call (``torch.mul``, ``view().sum(1)``,
-   ``embedding_bag``, ``index_select``); per-step and per-copy times of
-   the span copies, ns per edge of the slice gather beside random rows of
-   a 64 MB source.
+   with ``acc``, bf16 and a row of 4,000 edges (11b); the piece path and
+   the staged kernel at 13 steps (not a multiple of 8), K 8 to 2,048, CAP
+   17 to 300 from unaligned starts, identical, overlapping and shared
+   spans, a span ending at the stream's end, 7 steps refused (11c); a small
+   band whose tiles several chunks visit, a schedule that misses edges
+   refused, nosel's first pass staged and through the pieces (11d);
+   repeated, unsorted and all-equal ``fs``, 10,000 chunks on one slice, K
+   200, 40 and 8, R 400, 300, 16 and 799, E 7, 50, 100 and 2,500, ``cols``
+   at a 4-byte offset (11e). Each kernel's time beside its plain
+   version (in turns), bound and library call (``torch.mul``,
+   ``view().sum(1)``, ``embedding_bag``, ``index_select``); per-step and
+   per-span times of P3 (the piece path in turns with the staged kernel,
+   its plan, its piece count and piece-sum memory), ns per edge of the
+   slice gather beside random rows of a 64 MB source, the reduce's plan
+   and the one-slice case, and the allocator's retries in the turns.
 
 Every kernel in the JSON line carries its time, launches, plain time,
 bound (the larger of the bytes each input and output moves once over
@@ -297,6 +306,14 @@ def timed(fn, reps, warm=True):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps, res
+
+
+def dropped(fn):
+    """``fn`` with its result dropped: timed calls then hold one output at
+    a time."""
+    def run():
+        fn()
+    return run
 
 
 def in_turns(run_p, run_k, reps_p, reps_k):
@@ -4657,16 +4674,22 @@ def _probe_launches():
     from paddle_sparse_tpu_torch.ops.kernels import probes_cuda as pc
     return {"scale2": pc.scale2_cuda.launches,
             "chunk_sum": pc.chunk_sum_cuda.launches,
+            "span_plan": pc.span_pieces.launches,
             "span_colsum": pc.span_colsum_cuda.launches,
+            "span_colsum_staged": pc.span_colsum_staged_cuda.launches,
             "band_ablate": pc.band_ablate_cuda.launches,
-            "slice_gather": pc.slice_gather_cuda.launches}
+            "slice_gather": pc.slice_gather_cuda.launches,
+            "slice_plan": pc.slice_items.launches,
+            "slice_reduce": pc.slice_gather_cuda.launches_reduce}
 
 
 def _zero_probe_launches():
     from paddle_sparse_tpu_torch.ops.kernels import probes_cuda as pc
-    for fn in (pc.scale2_cuda, pc.chunk_sum_cuda, pc.span_colsum_cuda,
-               pc.band_ablate_cuda, pc.slice_gather_cuda):
+    for fn in (pc.scale2_cuda, pc.chunk_sum_cuda, pc.span_pieces,
+               pc.span_colsum_cuda, pc.span_colsum_staged_cuda,
+               pc.band_ablate_cuda, pc.slice_items, pc.slice_gather_cuda):
         fn.launches = 0
+    pc.slice_gather_cuda.launches_reduce = 0
 
 
 def phase11a_probe_path(dev):
@@ -4694,11 +4717,14 @@ def phase11a_probe_path(dev):
     torch.cuda.synchronize()
     counts = {**_launch_counts(), **_probe_launches()}
     # bisect: scale2 1, chunk_sum 2 (one per depth), K1 1 (spmm stage);
-    # r4_dma_issue: span_colsum 1; r4_band_cost: K4 2 (full, untrans),
-    # band_ablate 3, span_colsum 1 (nosel's chunk sums); r5: slice_gather 2
+    # r4_dma_issue: span_plan 1, span_colsum 1; r4_band_cost: K4 2 (full,
+    # untrans), band_ablate 3, span_colsum_staged 1 (nosel's chunk sums);
+    # r5: slice_gather 2, of them slice_reduce 1 (onehot_reduce) after
+    # slice_plan 1
     want = {k: 0 for k in counts}
-    want.update(scale2=1, chunk_sum=2, spmm_spans=3, span_colsum=2,
-                band_ablate=3, slice_gather=2)
+    want.update(scale2=1, chunk_sum=2, spmm_spans=3, span_plan=1,
+                span_colsum=1, span_colsum_staged=1, band_ablate=3,
+                slice_plan=1, slice_gather=2, slice_reduce=1)
     check(counts == want, f"probe path launches {counts}, want {want}")
     print(f"phase 11a probe entry points (bisect_pallas all, r4_dma_issue "
           f"19 384, r4_band_cost's five variants, r5_vmem_expand "
@@ -4893,52 +4919,91 @@ def phase11_bisect(gen, dev, card, outs):
 
 
 def phase11_dma_issue(gen, dev, card, run):
-    """P3 at the probe's defaults against f64 (within 1e-5 of each entry's
-    sum of |terms|), STEPS not a multiple of 8, other K, a span ending at
-    the stream's end; per-step time beside the bounds."""
+    """P3 at the probe's defaults: the piece path (``span_colsum_cuda``, the
+    probe's ``run``) and the staged kernel against f64 (within 1e-5 of each
+    entry's sum of |terms|); 13 steps (not a multiple of 8), K 8 to 2,048,
+    CAP 17/33/40/50/300 from unaligned starts, identical and overlapping
+    spans within a step, two steps holding the same spans, a span ending at
+    the stream's end; each kernel's time in turns with the plain version
+    and with the other, beside the bytes-once and staged bounds."""
     from paddle_sparse_tpu_torch.experiments import r4_dma_issue as rd
     from paddle_sparse_tpu_torch.ops.kernels.probes_cuda import (
-        dma_issue_output, span_colsum_cuda, span_colsum_reference)
+        PIECE_ROWS, dma_issue_output, span_colsum_cuda,
+        span_colsum_reference, span_colsum_staged_cuda, span_pieces,
+        span_pieces_reference)
     stream, e0, seed, out = run
     NS, CAP, steps = 19, 384, rd.STEPS
 
     def f64(st, sd, ns, cap, n, e):
         return dma_issue_output(span_colsum_reference(
             st, e, ns, cap, n, acc=torch.float64), sd)
-    ref = f64(stream, seed, NS, CAP, steps, e0)
-    scale = f64(stream.abs(), seed.abs(), NS, CAP, steps, e0)
-    err = float((out.double() - ref).abs().max())
-    check(bool(((out.double() - ref).abs() <= GRAD_REL * scale).all()),
-          f"r4_dma_issue output vs f64 ({err:.3e})")
-    # 13 steps (blocks from steps 8..12 and 5..7), random seeds, K 8 / 128
-    for K, ns, cap in ((256, 3, 40), (128, 5, 33), (8, 2, 300)):
-        L = 6000
+
+    def held(got, st, sd, ns, cap, n, e, tag):
+        want, sc = f64(st, sd, ns, cap, n, e), f64(st.abs(), sd.abs(), ns,
+                                                   cap, n, e)
+        d = (got.double() - want).abs()
+        check(bool((d <= GRAD_REL * sc + 1e-30).all()),
+              f"r4_dma_issue {tag} vs f64 ({float(d.max()):.3e})")
+        return float(d.max())
+
+    err = held(out, stream, seed, NS, CAP, steps, e0, "pieces")
+    err_staged = held(dma_issue_output(span_colsum_staged_cuda(
+        stream, e0, NS, CAP, steps), seed), stream, seed, NS, CAP, steps,
+        e0, "staged")
+    # 13 steps (blocks from steps 8..12 and 5..7), random seeds, K 8-2048
+    for K, ns, cap, L in ((256, 3, 40, 6000), (128, 5, 33, 6000),
+                          (8, 2, 300, 6000), (2048, 4, 50, 3000),
+                          (16, 6, 17, 500)):
         st = torch.randn(L, K, generator=gen, device=dev).bfloat16()
         e = torch.randint(0, L - cap, (13 * ns,), generator=gen,
                           device=dev).int()
+        e[1] = e[0]                              # identical in one step
+        e[ns - 1] = min(int(e[0]) + cap // 2, L - cap)   # overlapping
+        e[ns:2 * ns] = e[:ns]                    # steps 0 and 1 share all
         e[-1] = L - cap                          # a span ending at row L
         sd = torch.randn(1, 128, generator=gen, device=dev)
-        got = rd.run(st, e, sd, NS=ns, CAP=cap, steps=13)
-        want, sc = f64(st, sd, ns, cap, 13, e), f64(st.abs(), sd.abs(), ns,
-                                                   cap, 13, e)
-        check(bool(((got.double() - want).abs() <= GRAD_REL * sc
-                    + 1e-30).all()),
-              f"r4_dma_issue at 13 steps, K={K}")
+        held(rd.run(st, e, sd, NS=ns, CAP=cap, steps=13), st, sd, ns, cap,
+             13, e, f"pieces at 13 steps, K={K}")
+        held(dma_issue_output(span_colsum_staged_cuda(st, e, ns, cap, 13),
+                              sd), st, sd, ns, cap, 13, e,
+             f"staged at 13 steps, K={K}")
     try:
         rd.run(stream, e0, seed, NS=NS, CAP=CAP, steps=7)
         check(False, "r4_dma_issue ran at 7 steps")
     except ValueError:
         pass
     print(f"phase 11c r4_dma_issue NS={NS} CAP={CAP} STEPS={steps}: "
-          f"output vs f64 max_abs_err {err:.3e} (within {GRAD_REL} of each "
-          f"entry's sum of |terms|); 13 steps at K 256/128/8 with random "
-          f"seeds and a span ending at the stream's end ok; 7 steps "
-          f"refused ok", flush=True)
+          f"output vs f64 max_abs_err {err:.3e} through the pieces, "
+          f"{err_staged:.3e} staged (within {GRAD_REL} of each entry's sum "
+          f"of |terms|); 13 steps at K 256/128/8/2048/16, CAP "
+          f"40/33/300/50/17, identical, overlapping and shared spans, a span "
+          f"ending at the stream's end ok; 7 steps refused ok", flush=True)
 
+    K = stream.shape[1]
+    e = e0[:steps * NS]
+    L = stream.shape[0]
+    r1, c1, c2, r2, ref_plan, plan = in_turns(
+        lambda: span_pieces_reference(e, CAP, L),
+        lambda: span_pieces(e, CAP, L), 5, 20)
+    pieces = int(plan.total[0])
+    check(pieces == int(ref_plan.total[0])
+          and all(torch.equal(a[:pieces], b[:pieces]) for a, b in (
+              (plan.row, ref_plan.row), (plan.length, ref_plan.length)))
+          and torch.equal(plan.first, ref_plan.first)
+          and torch.equal(plan.last, ref_plan.last),
+          "the card's span plan differs from its torch reference")
+    plan_ms = (c1 + c2) / 2
+    plan_entry = _probe_entry(
+        plan_ms, (r1 + r2) / 2, None, None,
+        nbytes(e) + pieces * 8 + nbytes(plan.first, plan.last) + 4, 0, 0.0,
+        at=f"{steps * NS} spans of {CAP} rows (NS={NS}, STEPS={steps})",
+        pieces=pieces, max_pieces=plan.max_pieces)
     p1, k1, k2, p2, _, _ = in_turns(
         lambda: span_colsum_reference(stream, e0, NS, CAP, steps),
         lambda: span_colsum_cuda(stream, e0, NS, CAP, steps), 1, 10)
-    K = stream.shape[1]
+    s1, n1, n2, s2, out_s, out_n = in_turns(
+        lambda: span_colsum_staged_cuda(stream, e0, NS, CAP, steps),
+        lambda: span_colsum_cuda(stream, e0, NS, CAP, steps), 10, 10)
     rows = (e0.long().view(steps, NS, 1)
             + torch.arange(CAP, device=dev)).view(steps, -1)
     lib_ms, lib_err = library_timed(
@@ -4951,26 +5016,43 @@ def phase11_dma_issue(gen, dev, card, run):
     del rows, seen
     ms = (k1 + k2) / 2
     staged = steps * NS * CAP * K * 2
+    moved = distinct * K * 2 + nbytes(e0) + steps * K * 4
+    lib = ("torch.nn.functional.embedding_bag(mode='sum') over each step's "
+           "span rows")
+    at = f"NS={NS} CAP={CAP} STEPS={steps}, bf16 stream {tuple(stream.shape)}"
     entry = _probe_entry(
-        ms, (p1 + p2) / 2, lib_ms, "torch.nn.functional.embedding_bag("
-        "mode='sum') over each step's span rows",
-        distinct * K * 2 + nbytes(e0) + steps * K * 4,
-        steps * NS * CAP * K, err, library_max_abs_err=lib_err,
-        at=f"NS={NS} CAP={CAP} STEPS={steps}, bf16 stream "
-           f"{tuple(stream.shape)}",
-        distinct_rows=distinct, staged_bytes=staged,
+        ms, (p1 + p2) / 2, lib_ms, lib, moved, steps * NS * CAP * K, err,
+        library_max_abs_err=lib_err, at=at, distinct_rows=distinct,
+        staged_bytes=staged, staged_bound_ms=staged / HBM_BYTES_PER_S * 1e3,
+        us_per_step=ms / steps * 1e3, us_per_span=ms / steps / NS * 1e3,
+        ms_in_turns_with_staged=(n1 + n2) / 2,
+        staged_ms_in_turns=(s1 + s2) / 2, plan_ms=plan_ms, pieces=pieces,
+        max_pieces=plan.max_pieces, piece_rows=PIECE_ROWS,
+        piece_sum_bytes=plan.max_pieces * K * 4,
+        piece_sum_bytes_at_k2048=plan.max_pieces * 2048 * 4)
+    staged_entry = _probe_entry(
+        (s1 + s2) / 2, (p1 + p2) / 2, lib_ms, lib, moved,
+        steps * NS * CAP * K, err_staged, library_max_abs_err=lib_err,
+        at=at, staged_bytes=staged,
         staged_bound_ms=staged / HBM_BYTES_PER_S * 1e3,
-        us_per_step=ms / steps * 1e3, us_per_dma=ms / steps / NS * 1e3,
-        staged_bound_us_per_step=staged / steps / HBM_BYTES_PER_S * 1e6)
-    print(f"phase 11c span_colsum: kernel {k1:.4f} / {k2:.4f} ms "
+        us_per_step=(s1 + s2) / 2 / steps * 1e3,
+        us_per_dma=(s1 + s2) / 2 / steps / NS * 1e3)
+    print(f"phase 11c span_colsum (pieces): kernel {k1:.4f} / {k2:.4f} ms "
           f"({entry['us_per_step']:.4f} us per step, "
-          f"{entry['us_per_dma']:.5f} per span copy), plain {p1:.3f} / "
+          f"{entry['us_per_span']:.5f} per span), plain {p1:.3f} / "
           f"{p2:.3f}, embedding_bag {lib_ms} (max_abs_err {lib_err}); "
           f"bound {entry['bound_ms']:.4f} ms ({distinct} distinct rows), "
-          f"staged bound {entry['staged_bound_ms']:.4f} ms "
-          f"({entry['staged_bound_us_per_step']:.4f} us per step) {card}",
+          f"staged bound {entry['staged_bound_ms']:.4f} ms; plan "
+          f"{c1:.4f} / {c2:.4f} ms (its torch reference {r1:.4f} / "
+          f"{r2:.4f}, equal), {pieces} pieces of at most {PIECE_ROWS} rows "
+          f"(room for {plan.max_pieces}: {plan.max_pieces * K * 4} bytes of "
+          f"piece sums, {plan.max_pieces * 2048 * 4} at K=2048) {card}",
           flush=True)
-    return entry
+    print(f"phase 11c span_colsum staged {s1:.4f} / {s2:.4f} ms in turns "
+          f"with the pieces {n1:.4f} / {n2:.4f} ms (staged "
+          f"{staged_entry['us_per_dma']:.5f} us per span copy) {card}",
+          flush=True)
+    return entry, staged_entry, plan_entry
 
 
 def phase11_band(gen, dev, card, run):
@@ -4981,7 +5063,7 @@ def phase11_band(gen, dev, card, run):
     from paddle_sparse_tpu_torch import spmm_spans_reference
     from paddle_sparse_tpu_torch.experiments import r4_band_cost as rb
     from paddle_sparse_tpu_torch.ops.kernels.probes_cuda import (
-        band_ablate_reference)
+        band_ablate_reference, span_colsum_cuda, span_colsum_staged_cuda)
     tb, outs = run
 
     def refs(t, stream):
@@ -5045,14 +5127,30 @@ def phase11_band(gen, dev, card, run):
             lambda mode=mode: band_ablate_reference(
                 mode, tb.cs, tb.cr, tb.cn, tb.bst, tb.ben, tb.stream, **kw),
             lambda mode=mode: rb.variant_call(mode, tb), 1, 20)
-        lib_ms, lib = None, None
-        if mode == "nosel":   # the chunks' column sums, nosel's first pass
-            lib = "stream.view(nchunks, E, K).sum(1, dtype=float32)"
-            lib_ms, _ = library_timed(lib, lambda: tb.stream.view(
-                n, E, K).sum(1, dtype=torch.float32), 20)
-        entry[mode] = _probe_entry((k1 + k2) / 2, (p1 + p2) / 2, lib_ms, lib,
+        entry[mode] = _probe_entry((k1 + k2) / 2, (p1 + p2) / 2, None, None,
                                    moved[mode], flops[mode],
                                    errs[("probe", mode)])
+    # no PyTorch call computes nosel; one computes its first pass, the
+    # chunks' column sums, which nosel takes from the staged span kernel
+    # (disjoint spans: each byte once, no plan) and the piece path could
+    first = "stream.view(nchunks, E, K).sum(1, dtype=float32)"
+    first_ms, _ = library_timed(first, lambda: tb.stream.view(
+        n, E, K).sum(1, dtype=torch.float32), 20)
+    starts = torch.arange(n, device=dev, dtype=torch.int32) * E
+    s1, c1, c2, s2, out_s, out_c = in_turns(
+        lambda: span_colsum_staged_cuda(tb.stream, starts, 1, E, n),
+        lambda: span_colsum_cuda(tb.stream, starts, 1, E, n), 20, 20)
+    check(torch.allclose(out_c, out_s, **F32_TOL),
+          "nosel's chunk sums differ between the staged and piece paths")
+    entry["nosel"].update(
+        first_pass_library=first + " (first pass only: the chunk column "
+                                   "sums; no PyTorch call computes nosel)",
+        first_pass_library_ms=first_ms,
+        first_pass_staged_ms=(s1 + s2) / 2,
+        first_pass_pieces_ms=(c1 + c2) / 2)
+    print(f"phase 11d nosel's first pass (chunk column sums): staged span "
+          f"kernel {s1:.4f} / {s2:.4f} ms, piece path {c1:.4f} / {c2:.4f} "
+          f"ms in turns; {first} {first_ms} ms {card}", flush=True)
     k4 = {}
     for kind in ("full", "untrans"):
         k4[kind], _ = timed(lambda kind=kind: rb.variant_call(kind, tb), 20)
@@ -5068,11 +5166,16 @@ def phase11_band(gen, dev, card, run):
 def phase11_slice(gen, dev, card, run):
     """P5 at the probe's defaults: onehot_write equal to the plain gather,
     onehot_reduce within half a bf16 ulp (+ 1e-5 of the sum of |terms|) of
-    f64; repeated and equal fs, a narrow last column part, small R; ns per
-    edge beside index_select and embedding_bag."""
+    f64; fs all equal, repeated and unsorted, 10,000 chunks on one slice, E
+    7, 50, 64, 100 and 2,500 (past the TF32 path), R 16, 100, 300, 400 and
+    799 (16-column parts), K 8, 40, 64 and 200 (a narrow last column part),
+    cols starting one entry past a 16-byte boundary at the probe's E; both
+    in turns with the plain version; ns per edge beside index_select and
+    embedding_bag."""
     from paddle_sparse_tpu_torch.experiments import r5_vmem_expand as rv
     from paddle_sparse_tpu_torch.ops.kernels.probes_cuda import (
-        slice_gather_cuda, slice_gather_reference)
+        ITEM_CHUNKS, slice_gather_cuda, slice_gather_reference, slice_items,
+        slice_items_reference)
     fs, cols, x, outs = run
     R, E, K = rv.R, rv.E, rv.K
     nch = fs.numel()
@@ -5095,9 +5198,20 @@ def phase11_slice(gen, dev, card, run):
     errs = {"onehot_write": 0.0,
             "onehot_reduce": check_reduce(outs["onehot_reduce"], fs, cols, x,
                                           R, "probe")}
+    # cols one int32 past a 16-byte boundary: the histogram's 16-byte
+    # loads do not apply
+    buf = torch.empty(cols.numel() + 1, dtype=cols.dtype, device=dev)
+    buf[1:] = cols
+    errs["onehot_reduce"] = max(errs["onehot_reduce"], check_reduce(
+        slice_gather_cuda(fs, buf[1:], x, R, "onehot_reduce"), fs, buf[1:],
+        x, R, "cols at a 4-byte offset"))
+    del buf
     for f_, K2, R2, E2 in (([3, 3, 3, 3, 3], 256, 512, 2048),
                            ([0, 4, 4, 1, 0, 4], 200, 400, 50),
-                           ([2, 1], 8, 16, 7)):
+                           ([2, 1], 8, 16, 7),
+                           ([1, 0, 1, 1], 40, 300, 100),
+                           ([1, 0, 1], 64, 100, 2500),
+                           ([4, 1, 4], 256, 799, 64)):
         f = torch.tensor(f_, device=dev, dtype=torch.int32)
         c = torch.randint(0, R2, (len(f_) * E2,), generator=gen, device=dev,
                           dtype=torch.int32)
@@ -5108,12 +5222,20 @@ def phase11_slice(gen, dev, card, run):
               f"onehot_write at K={K2} R={R2}")
         errs["onehot_reduce"] = max(errs["onehot_reduce"], check_reduce(
             slice_gather_cuda(f, c, xx, R2, "onehot_reduce"), f, c, xx, R2,
-            f"K={K2} R={R2}"))
+            f"K={K2} R={R2} E={E2}"))
+    # every chunk on one slice: 313 items of one slice spread over the SMs
+    one = torch.full_like(fs, 7)
+    one_out = slice_gather_cuda(one, cols, x, R, "onehot_reduce")
+    errs["onehot_reduce"] = max(errs["onehot_reduce"], check_reduce(
+        one_out, one, cols, x, R, f"{nch} chunks on one slice"))
+    del one_out
     print(f"phase 11e r5_vmem_expand NCH={nch}: onehot_write equal to the "
           f"plain gather, onehot_reduce vs f64 max_abs_err "
-          f"{errs['onehot_reduce']:.3e} (within "
-          f"half a bf16 ulp); fs all equal, repeated fs, K 200 and 8, R 400 "
-          f"and 16 ok", flush=True)
+          f"{errs['onehot_reduce']:.3e} (within half a bf16 ulp); fs all "
+          f"equal, repeated and unsorted fs, {nch} chunks on one slice, K "
+          f"200, 40, 8 and 64, R 400, 300, 16, 100 and 799, E 50, 100, 7, "
+          f"2500 (f32 FMAs past 2,048) and 64, cols at a 4-byte offset ok",
+          flush=True)
     del outs
     torch.cuda.empty_cache()
 
@@ -5122,6 +5244,22 @@ def phase11_slice(gen, dev, card, run):
     seen[rows] = True
     distinct = int(seen.sum())
     del seen
+    nslices = x.shape[0] // R
+    r1, c1, c2, r2, ref_items, items = in_turns(
+        lambda: slice_items_reference(fs), lambda: slice_items(fs, nslices),
+        5, 20)
+    n_items = int(items.n_items[0])
+    check(n_items == int(ref_items.n_items[0])
+          and torch.equal(items.order, ref_items.order)
+          and torch.equal(items.sf, ref_items.sf)
+          and torch.equal(items.istart[:n_items + 1],
+                          ref_items.istart[:n_items + 1]),
+          "the card's slice plan differs from its torch reference")
+    plan_ms = (c1 + c2) / 2
+    plan_entry = _probe_entry(
+        plan_ms, (r1 + r2) / 2, None, None,
+        nbytes(fs) + 2 * nbytes(fs) + (n_items + 2) * 4, 0, 0.0,
+        at=f"{nch} chunks on {nslices} slices", items=n_items)
     entry = {}
     for variant, lib, run_lib in (
             ("onehot_write", "torch.index_select(x, 0, rows)",
@@ -5130,9 +5268,18 @@ def phase11_slice(gen, dev, card, run):
              "mode='sum') (sums per chunk, not rounded, not repeated)",
              lambda: torch.nn.functional.embedding_bag(rows.view(nch, E), x,
                                                        mode="sum"))):
+        # each call's output dropped before the next (a write's is 10.5
+        # GB), so that the caching allocator can reuse one block; its
+        # retries (cached blocks freed for a new device allocation) counted
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
         p1, k1, k2, p2, _, _ = in_turns(
-            lambda v=variant: slice_gather_reference(fs, cols, x, R, v),
-            lambda v=variant: slice_gather_cuda(fs, cols, x, R, v), 1, 5)
+            dropped(lambda v=variant: slice_gather_reference(fs, cols, x, R,
+                                                             v)),
+            dropped(lambda v=variant: slice_gather_cuda(fs, cols, x, R, v)),
+            1, 5)
+        retries = (torch.cuda.memory_stats().get("num_alloc_retries", 0)
+                   - retries)
         lib_ms, _ = library_timed(lib, run_lib, 5)
         out_b = nch * (E if variant == "onehot_write" else 8) * K * 2
         ms = (k1 + k2) / 2
@@ -5145,8 +5292,15 @@ def phase11_slice(gen, dev, card, run):
             library_ns_per_edge=(None if lib_ms is None
                                  else lib_ms * 1e6 / (nch * E)),
             distinct_rows=distinct,
-            per_chunk_slice_bound_ms=per_chunk / HBM_BYTES_PER_S * 1e3)
+            per_chunk_slice_bound_ms=per_chunk / HBM_BYTES_PER_S * 1e3,
+            allocated_gb_before_turns=held, alloc_retries_in_turns=retries)
         torch.cuda.empty_cache()
+    # every chunk on one slice
+    one_ms, _ = timed(lambda: slice_gather_cuda(one, cols, x, R,
+                                                "onehot_reduce"), 5)
+    entry["onehot_reduce"].update(
+        plan_ms=plan_ms, items=n_items, item_chunks=ITEM_CHUNKS,
+        one_slice_ms=one_ms)
     # the probe's own yardstick: random rows of a 64 MB source (over L2)
     src = x[: (64 << 20) // (K * 2)]
     g = torch.Generator(device=dev).manual_seed(9)
@@ -5162,37 +5316,48 @@ def phase11_slice(gen, dev, card, run):
         entry["onehot_write"][f"{v}_ns_per_edge"] = (
             None if val is None else val * 1e6 / (nch * E))
     for v, e in entry.items():
-        print(f"phase 11e slice_gather {v}: kernel {e['ms']:.3f} ms "
+        print(f"phase 11e slice_gather {v}: kernel {e['ms']:.4f} ms "
               f"({e['ns_per_edge']:.4f} ns/edge), plain {e['plain_ms']:.3f}, "
               f"library {e['library_ms']} ({e['library_ns_per_edge']} "
               f"ns/edge), bound {e['bound_ms']:.4f} ({distinct} distinct x "
               f"rows), per-chunk-slice bound "
-              f"{e['per_chunk_slice_bound_ms']:.4f} {card}", flush=True)
+              f"{e['per_chunk_slice_bound_ms']:.4f}; "
+              f"{e['alloc_retries_in_turns']} allocator retries in the turns, "
+              f"{e['allocated_gb_before_turns']:.2f} GB held before {card}",
+              flush=True)
+    print(f"phase 11e slice_reduce plan {c1:.4f} / {c2:.4f} ms (its torch "
+          f"reference {r1:.4f} / {r2:.4f}, equal; {n_items} items of at most "
+          f"{ITEM_CHUNKS} chunks); all {nch} chunks on one slice "
+          f"{one_ms:.4f} ms {card}", flush=True)
     w = entry["onehot_write"]
     print(f"phase 11e from a 64 MB source: index_select "
           f"{w['index_select_64MB_ns_per_edge']} ns/edge, embedding_bag "
           f"{w['embedding_bag_64MB_ns_per_edge']} ns/edge {card}",
           flush=True)
-    return entry
+    return entry, plan_entry
 
 
 def phase11_probes(gen, dev, card):
     run, counts = phase11a_probe_path(dev)
     scale2, chunk, srm_err = phase11_bisect(gen, dev, card, run["bisect"])
-    colsum = phase11_dma_issue(gen, dev, card, run["dma"])
+    colsum, staged, span_plan = phase11_dma_issue(gen, dev, card,
+                                                  run["dma"])
     del run["dma"]
     band, k4 = phase11_band(gen, dev, card, run["band"])
     del run["band"]
     torch.cuda.empty_cache()
-    sl = phase11_slice(gen, dev, card, run.pop("slice"))
+    sl, slice_plan = phase11_slice(gen, dev, card, run.pop("slice"))
     torch.cuda.empty_cache()
     return {"counts": counts, "scale2": scale2, "chunk_sum": chunk,
-            "span_colsum": colsum, "band_ablate": band, "k4": k4,
+            "span_plan": span_plan, "span_colsum": colsum,
+            "span_colsum_staged": staged, "slice_plan": slice_plan,
+            "band_ablate": band, "k4": k4,
             "slice_gather": sl, "segment_rows_matmul_max_abs_err": srm_err}
 
 
 def probe_kernels(probes):
-    """The kernels line's entries of the five probe kernels (phase 11)."""
+    """The kernels line's entries of the probe kernels (phase 11): P1-P5,
+    P3 as the piece path and its staged form, P5 as write and reduce."""
     src = "paddle_sparse_tpu_torch/csrc/probes.cu"
     n = probes["counts"]
     band = probes["band_ablate"]
@@ -5207,12 +5372,28 @@ def probe_kernels(probes):
          "launches": n["chunk_sum"],
          "launches_by_path": {"probes": n["chunk_sum"]},
          **probes["chunk_sum"]},
+        {"name": "span_plan", "route": "cuda", "source": src,
+         "replaces": "experiments/r4_dma_issue.py:77",
+         "source_note": "span_colsum's piece plan: CUB radix sort and "
+                        "prefix sums, three small kernels; plain version "
+                        "span_pieces_reference (torch ops)",
+         "launches": n["span_plan"],
+         "launches_by_path": {"probes": n["span_plan"]},
+         **probes["span_plan"]},
         {"name": "span_colsum", "route": "cuda", "source": src,
          "replaces": "experiments/r4_dma_issue.py:77",
-         "source_note": "also band_ablate nosel's chunk column sums",
+         "source_note": "piece_colsum + step_colsum, one launch call: each "
+                        "covered row once (r4_dma_issue.run)",
          "launches": n["span_colsum"],
          "launches_by_path": {"probes": n["span_colsum"]},
          **probes["span_colsum"]},
+        {"name": "span_colsum_staged", "route": "cuda", "source": src,
+         "replaces": "experiments/r4_dma_issue.py:77",
+         "source_note": "the probe's own schedule, one CTA per step; "
+                        "band_ablate nosel's chunk column sums",
+         "launches": n["span_colsum_staged"],
+         "launches_by_path": {"probes": n["span_colsum_staged"]},
+         **probes["span_colsum_staged"]},
         {"name": "band_ablate", "route": "cuda", "source": src,
          "replaces": "experiments/r4_band_cost.py:131",
          "replaces_note": "k_nodot, k_nosel, k_empty; k_full and k_untrans "
@@ -5227,11 +5408,29 @@ def probe_kernels(probes):
          "k4_untrans_ms": probes["k4"]["untrans"]},
         {"name": "slice_gather", "route": "cuda", "source": src,
          "replaces": "experiments/r5_vmem_expand.py:85",
-         "launches": n["slice_gather"],
-         "launches_by_path": {"probes": n["slice_gather"]},
+         "launches": n["slice_gather"] - n["slice_reduce"],
+         "launches_by_path": {"probes": n["slice_gather"]
+                              - n["slice_reduce"]},
          "at": f"onehot_write, NCH={PROBE_SLICE_CHUNKS} chunks of 2,048 "
-               f"edges, R=512, K=256 bf16; onehot_reduce below",
-         **sl["onehot_write"], "onehot_reduce": sl["onehot_reduce"]}]
+               f"edges, R=512, K=256 bf16",
+         **sl["onehot_write"]},
+        {"name": "slice_plan", "route": "cuda", "source": src,
+         "replaces": "experiments/r5_vmem_expand.py:85",
+         "source_note": "slice_reduce's item plan: CUB radix sort and a "
+                        "prefix sum, two small kernels; plain version "
+                        "slice_items_reference (torch ops)",
+         "launches": n["slice_plan"],
+         "launches_by_path": {"probes": n["slice_plan"]},
+         **probes["slice_plan"]},
+        {"name": "slice_reduce", "route": "cuda", "source": src,
+         "replaces": "experiments/r5_vmem_expand.py:85",
+         "source_note": "onehot_reduce: each chunk's row counts times its "
+                        "slice, a slice loaded once per item",
+         "launches": n["slice_reduce"],
+         "launches_by_path": {"probes": n["slice_reduce"]},
+         "at": f"onehot_reduce, NCH={PROBE_SLICE_CHUNKS} chunks of 2,048 "
+               f"edges, R=512, K=256 bf16",
+         **sl["onehot_reduce"]}]
 
 
 def main() -> int:

@@ -60,7 +60,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
+
+using psp::encode_tiled;
+using psp::EncodeTiledFn;
+using psp::tma_load_box;
 
 constexpr int kThreads = 1024;     // 32 warps a block
 constexpr int kRowBytes = 128;     // one window row: 32 words
@@ -104,18 +110,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   }
-}
-
-// One box of the tensor map, at column c0 and row r0, into dst; the barrier
-// counts its bytes as they land (rows past the map's end land as zeros).
-__device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map,
-                                             int c0, int r0, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0),
-      "r"(smem_u32(bar))
-      : "memory");
 }
 
 // A lane's 32-bit word of a row: one f32, or two bf16 columns.
@@ -230,34 +224,6 @@ spmm_window_kernel(const __grid_constant__ CUtensorMap xmap,
     if (active) store_word<TO, VL>(out + static_cast<int64_t>(r) * K + lw * VL,
                                    acc);
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (the library
-// links no libcuda); NULL if it cannot be found.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-    }
-  }
-  return fn;
 }
 
 // The launch's arguments past the tensor map.

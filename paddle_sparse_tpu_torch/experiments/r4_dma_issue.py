@@ -1,9 +1,16 @@
 """``experiments/r4_dma_issue.py`` on the card: what one async copy costs to
 issue. Each of ``STEPS`` steps stages ``NS`` spans of ``CAP`` rows of a bf16
 (8,388,608, 256) stream, each starting at a random 16-aligned row, and sums
-them (``csrc/probes.cu::span_colsum``: one CTA per step, 16 KB bulk async
-copies through a 4-deep ring). This bounds the per-step cost of a span
-staging SpMM kernel (one step per 128-row tile, S spans staged per step).
+them. This bounds the per-step cost of a span staging SpMM kernel (one step
+per 128-row tile, S spans staged per step).
+
+``run`` sums the spans through ``span_colsum_cuda``: each row the spans
+cover is read once (``csrc/probes.cu::span_colsum``: pieces between span
+endpoints streamed once through a ring of 16 KB bulk async copies, then
+each step's pieces added), so ``us_per_dma`` is time per span, not per
+copy. The probe's own schedule, one CTA staging each step's spans, is
+``span_colsum_staged_cuda``: on an H100 at the defaults it ran at 96% of
+its staged bytes, so a copy's issue cost hides behind its bytes.
 
 Usage: python -m paddle_sparse_tpu_torch.experiments.r4_dma_issue [NS] [CAP]
 """

@@ -2,10 +2,11 @@
 from a slice held on chip beat one gather from device memory per edge?
 
 Edges are sorted by source slice (512 rows, 256 KB bf16 at K=256); each
-2048-edge chunk gathers from ONE slice, which ``csrc/probes.cu::
-slice_gather`` holds in shared memory (128 columns of it per CTA).
-``onehot_write`` writes every gathered row, ``onehot_reduce`` only each
-chunk's sum. The probe's cols are drawn in [0, 512) per chunk: the local
+2048-edge chunk gathers from ONE slice. ``onehot_write`` writes every
+gathered row, one CTA per chunk holding 128 columns of its slice in shared
+memory (``csrc/probes.cu::slice_gather``); ``onehot_reduce`` only each
+chunk's sum, which is the chunk's row counts times its slice: the chunks of
+one slice share one load of it (``slice_reduce``). The probe's cols are drawn in [0, 512) per chunk: the local
 (in-community) edges of a clustered graph after the sort. The references
 gather the same number of rows at random from a 64 MB source (over the
 card's 50 MB L2): ``embedding_bag`` sums them without writing them,

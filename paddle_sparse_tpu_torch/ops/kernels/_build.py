@@ -159,17 +159,36 @@ def load_library() -> ctypes.CDLL:
             # the probes of experiments/ (csrc/probes.cu), stream last
             lib.psp_scale2.argtypes = [p, p, i64, p]
             lib.psp_chunk_sum.argtypes = [p, p, p, i64, i64, i32, p]
-            lib.psp_span_colsum.argtypes = [p, p, p, i64, i64, i64, i64, p]
+            lib.psp_span_colsum_staged.argtypes = [p, p, p, i64, i64, i64,
+                                                   i64, p]
+            # stream, piece row, len, total, npieces_max, span first, last,
+            # piece sums, out, steps, NS, K
+            lib.psp_span_colsum.argtypes = [p, p, p, p, i64, p, p, p, p, i64,
+                                            i64, i64, p]
+            # e0, n, cap, end_bit, prow, plen, total, first, last, ws,
+            # ws_bytes
+            lib.psp_span_plan.argtypes = [p, i64, i64, i64, p, p, p, p, p, p,
+                                          i64, p]
+            # fs, n, end_bit, order, sf, istart, n_items, ws, ws_bytes
+            lib.psp_slice_plan.argtypes = [p, i64, i64, p, p, p, p, p, i64, p]
+            # span (1) or slice (0) plan, n, end_bit: the workspace's bytes
+            lib.psp_plan_ws_bytes.argtypes = [i32, i64, i64]
+            lib.psp_plan_ws_bytes.restype = i64
             # mode, tile_ptr, visit_chunk, chunk_span, bst, ben, BR_pad,
             # stream, colsum, out, ntiles, K, E
             lib.psp_band_ablate.argtypes = [i32, p, p, p, p, p, i64, p, p, p,
                                             i64, i64, i64, p]
-            # reduce, fs, cols, x, out, nch, R, E, K
-            lib.psp_slice_gather.argtypes = [i32, p, p, p, p, i64, i64, i64,
-                                             i64, p]
+            # fs, cols, x, out, nch, R, E, K
+            lib.psp_slice_gather.argtypes = [p, p, p, p, i64, i64, i64, i64,
+                                             p]
+            # order, sf, istart, n_items, cols, x, out, nch, N, R, E, K
+            lib.psp_slice_reduce.argtypes = [p, p, p, p, p, p, p, i64, i64,
+                                             i64, i64, i64, p]
             for fn in (lib.psp_scale2, lib.psp_chunk_sum,
-                       lib.psp_span_colsum, lib.psp_band_ablate,
-                       lib.psp_slice_gather):
+                       lib.psp_span_plan, lib.psp_slice_plan,
+                       lib.psp_span_colsum_staged, lib.psp_span_colsum,
+                       lib.psp_band_ablate, lib.psp_slice_gather,
+                       lib.psp_slice_reduce):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

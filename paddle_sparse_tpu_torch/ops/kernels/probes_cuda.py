@@ -10,16 +10,20 @@ references are plain torch on any device, for the tests and for
 =================  =====================================================
 ``scale2``         ``experiments/bisect_pallas.py:23`` (``trivial``)
 ``chunk_sum``      ``bisect_pallas.py:38`` (``dma_copy``)
-``span_colsum``    ``experiments/r4_dma_issue.py:44`` (``run``)
+``span_colsum``    ``experiments/r4_dma_issue.py:44`` (``run``): each
+                   covered row once, through a piece plan; its staged form
+                   (``span_colsum_staged_cuda``) one CTA per step
 ``band_ablate``    ``experiments/r4_band_cost.py:181/201/217`` (nodot,
                    nosel, empty; full and untrans are K4's function and run
                    on ``band_reduce_call``)
-``slice_gather``   ``experiments/r5_vmem_expand.py:56`` (``make_call``)
+``slice_gather``   ``experiments/r5_vmem_expand.py:56`` (``make_call``):
+                   write per chunk, reduce through each chunk's row counts
+                   over an item plan
 =================  =====================================================
 
 The probes' own entry points are ``paddle_sparse_tpu_torch/experiments/``.
 """
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,6 +34,10 @@ TILE_ROWS = 128                           # band_ablate's output tile (R)
 ABLATE_MODES = ("nodot", "nosel", "empty")
 SLICE_VARIANTS = ("onehot_write", "onehot_reduce")
 _SLICE_COLS = 128                         # slice_gather's columns per CTA
+PIECE_ROWS = 256          # span_colsum's rows of a piece at most (P)
+ITEM_CHUNKS = 32          # slice_gather reduce's chunks of a work item (G)
+_PART_COLS = 32           # slice_gather reduce's columns of a slice part
+_BLOCK_SMEM = 232448      # shared memory a block may have (227 KB)
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -184,36 +192,204 @@ def _check_colsum_stream(fn: str, stream: torch.Tensor) -> torch.Tensor:
     return stream
 
 
+class SpanPieces(NamedTuple):
+    """The piece plan of ``n`` spans: piece ``q < total[0]`` is the stream
+    rows ``[row[q], row[q] + length[q])``; span ``i`` is the run of pieces
+    ``[first[i], last[i])``. All int32 on the spans' device; ``row`` and
+    ``length`` hold ``max_pieces`` entries (those from ``total`` on are 0 in
+    the reference's, unwritten in the card's)."""
+    row: torch.Tensor
+    length: torch.Tensor
+    total: torch.Tensor
+    first: torch.Tensor
+    last: torch.Tensor
+    max_pieces: int
+
+
+def span_piece_bound(n: int, CAP: int, nstream: int) -> int:
+    """At most this many pieces cover ``n`` spans of ``CAP`` rows of an
+    ``nstream``-row stream: each of the ``2 n - 1`` segments between sorted
+    endpoints adds at most one piece to its rows / ``PIECE_ROWS``."""
+    return max(0, 2 * n - 1) + min(nstream, n * CAP) // PIECE_ROWS
+
+
+def _plan_ws(dev: torch.device, span: bool, n: int,
+             bits: int) -> torch.Tensor:
+    """The workspace of the span plan (``span``: ``2 n`` endpoints) or the
+    slice plan (``n`` chunks) over keys below ``2**bits``, as large as
+    ``psp_plan_ws_bytes`` says: the plan's int arrays and CUB's own size
+    query for its sort and prefix sums."""
+    size = _build.load_library().psp_plan_ws_bytes(int(span), n, bits)
+    return torch.empty(size, dtype=torch.uint8, device=dev)
+
+
+def span_pieces(e0: torch.Tensor, CAP: int, nstream: int) -> SpanPieces:
+    """:func:`span_pieces_reference`'s plan, built on the card by
+    ``psp_span_plan`` (a radix sort of the ``2 n`` endpoints, two prefix sums
+    and three small kernels, no host read; the tables from ``total`` on are
+    left unwritten) or, for a CPU ``e0``, by the reference."""
+    if not _on_card("span_pieces", e0):
+        return span_pieces_reference(e0, CAP, nstream)
+    a = _index32("span_pieces", "e0", e0)
+    n, dev = a.numel(), a.device
+    if n == 0:
+        return span_pieces_reference(a, CAP, nstream)
+    max_pieces = span_piece_bound(n, CAP, nstream)
+    buf = torch.empty(2 * max_pieces + 2 * n + 1, dtype=torch.int32,
+                      device=dev)
+    row, length, first, last, total = torch.split(
+        buf, [max_pieces, max_pieces, n, n, 1])
+    bits = max(1, nstream.bit_length())
+    ws = _plan_ws(dev, True, n, bits)
+    _build.launch("span_plan", _build.load_library().psp_span_plan, dev,
+                  a.data_ptr(), n, CAP, bits,
+                  row.data_ptr(), length.data_ptr(), total.data_ptr(),
+                  first.data_ptr(), last.data_ptr(), ws.data_ptr(),
+                  ws.numel())
+    span_pieces.launches += 1
+    return SpanPieces(row, length, total, first, last, max_pieces)
+
+
+span_pieces.launches = 0
+
+
+def span_pieces_reference(e0: torch.Tensor, CAP: int,
+                          nstream: int) -> SpanPieces:
+    """Cut the rows that the spans ``[e0[i], e0[i] + CAP)`` cover into
+    pieces: between consecutive span endpoints (all ``2 n`` of them, sorted,
+    repeats kept as empty segments), a segment that some span covers is cut
+    into pieces of at most :data:`PIECE_ROWS` rows; rows no span covers
+    belong to no piece. Every span is a run of whole pieces, in ascending
+    rows. Built on ``e0``'s device with no host read, so the tables hold
+    :func:`span_piece_bound` entries."""
+    dev = e0.device
+    a = e0.reshape(-1).to(torch.int32)
+    n = a.numel()
+    if n == 0:
+        z = torch.zeros(0, dtype=torch.int32, device=dev)
+        return SpanPieces(z, z, torch.zeros(1, dtype=torch.int32,
+                                            device=dev), z, z, 0)
+    P = PIECE_ROWS
+    max_pieces = span_piece_bound(n, CAP, nstream)
+    b = a + CAP
+    s, idx = torch.sort(torch.cat([a, b]))
+    cover = torch.cumsum(torch.where(idx < n, 1, -1), 0)[:-1]
+    seg_len = (s[1:] - s[:-1]).to(torch.int64)
+    count = torch.where(cover > 0, (seg_len + P - 1) // P, 0)
+    pe = torch.cat([count.new_zeros(1), torch.cumsum(count, 0)])
+    q = torch.arange(max_pieces, device=dev)
+    seg = torch.searchsorted(pe[1:], q, right=True).clamp_(max=2 * n - 2)
+    row = s[seg].to(torch.int64) + (q - pe[seg]) * P
+    length = torch.where(q < pe[-1], (s[seg + 1] - row).clamp_(max=P), 0)
+    first = pe[torch.searchsorted(s, a)]
+    last = pe[torch.searchsorted(s, b)]
+    i32 = torch.int32
+    return SpanPieces(row.to(i32), length.to(i32), pe[-1:].to(i32),
+                      first.to(i32), last.to(i32), max_pieces)
+
+
+def span_colsum_pieces_reference(stream: torch.Tensor, plan: SpanPieces,
+                                 NS: int, steps: int,
+                                 acc: Optional[torch.dtype] = None
+                                 ) -> torch.Tensor:
+    """:func:`span_colsum_reference` in the plan's form, plain torch: each
+    piece's column sum once, then each step's spans' pieces added (steps,
+    K) in ``acc`` (default f32, f64 for an f64 stream). One host read of
+    the piece count."""
+    dev, K = stream.device, stream.shape[1]
+    acc = acc or _acc_dtype(stream)
+    total = int(plan.total[0])
+    length = plan.length[:total].to(dev, torch.int64)
+    piece = torch.repeat_interleave(torch.arange(total, device=dev), length)
+    start = torch.cumsum(length, 0) - length
+    rows = plan.row.to(dev, torch.int64)[piece] + (
+        torch.arange(piece.numel(), device=dev) - start[piece])
+    psum = torch.zeros((total, K), dtype=acc, device=dev).index_add_(
+        0, piece, stream[rows].to(acc))
+    first = plan.first.to(dev, torch.int64)[:steps * NS]
+    count = plan.last.to(dev, torch.int64)[:steps * NS] - first
+    span = torch.repeat_interleave(torch.arange(first.numel(), device=dev),
+                                   count)
+    q = first[span] + torch.arange(span.numel(), device=dev) - (
+        torch.cumsum(count, 0) - count)[span]
+    return torch.zeros((steps, K), dtype=acc, device=dev).index_add_(
+        0, span // max(NS, 1), psum[q])
+
+
+def _span_checks(fn: str, stream, e0, NS: int, CAP: int, steps: int):
+    _check_same_device(fn, stream.device, e0=e0)
+    stream = _check_colsum_stream(fn, stream)
+    e0 = _index32(fn, "e0", e0)
+    if e0.numel() < steps * NS:
+        raise ValueError(f"{fn}: e0 holds {e0.numel()} starts, {steps} "
+                         f"steps of {NS} spans need {steps * NS}")
+    if max(steps, NS * CAP, stream.shape[0]) >= 2 ** 31:
+        raise ValueError(f"{fn}: steps, NS * CAP and the stream's rows must "
+                         f"each be below 2**31")
+    return stream, e0
+
+
 def span_colsum_cuda(stream: torch.Tensor, e0: torch.Tensor, NS: int,
                      CAP: int, steps: int) -> torch.Tensor:
-    """:func:`span_colsum_reference` through ``psp_span_colsum``: one CTA
-    per step streams its spans in 16 KB sub-chunks through a 4-deep ring of
-    bulk async copies and sums each column in f32. ``stream`` is a bf16
-    (L, K) tensor, K a power of two from 8 to 2048; ``e0`` holds ``steps *
-    NS`` row starts with every span inside the stream. Returns (steps, K)
-    f32."""
+    """:func:`span_colsum_reference` through ``psp_span_colsum``, reading
+    each covered row once: the spans' piece plan (:func:`span_pieces`,
+    built on the card), then one kernel streams every piece once through a
+    4-deep ring of 16 KB bulk async copies into its (K,) f32 column sum,
+    and a second adds each step's spans' piece sums, spans in order, pieces
+    in ascending rows. ``stream`` is a bf16 (L, K) tensor, K a power of two
+    from 8 to 2048; ``e0`` holds ``steps * NS`` row starts with every span
+    inside the stream; the spans hold fewer than 2**30 endpoints and the
+    plan fewer than 2**31 pieces. Takes ``max_pieces * K * 4`` bytes of
+    piece sums (at K = 2048, 8 KB a piece). Returns (steps, K) f32."""
     if not _on_card("span_colsum_cuda", stream):
         return span_colsum_reference(stream, e0, NS, CAP, steps)
-    _check_same_device("span_colsum_cuda", stream.device, e0=e0)
-    stream = _check_colsum_stream("span_colsum_cuda", stream)
-    e0 = _index32("span_colsum_cuda", "e0", e0)
-    if e0.numel() < steps * NS:
-        raise ValueError(f"span_colsum_cuda: e0 holds {e0.numel()} starts, "
-                         f"{steps} steps of {NS} spans need {steps * NS}")
-    if max(steps, NS * CAP, stream.shape[0]) >= 2 ** 31:
-        raise ValueError("span_colsum_cuda: steps, NS * CAP and the stream's "
-                         "rows must each be below 2**31")
-    K = stream.shape[1]
+    stream, e0 = _span_checks("span_colsum_cuda", stream, e0, NS, CAP, steps)
+    n, K = steps * NS, stream.shape[1]
+    if span_piece_bound(n, CAP, stream.shape[0]) >= 2 ** 31:
+        raise ValueError("span_colsum_cuda: the piece plan would hold 2**31 "
+                         "pieces or more")
     out = torch.empty((steps, K), dtype=torch.float32, device=stream.device)
     if steps > 0:
+        plan = span_pieces(e0[:n], CAP, stream.shape[0])
+        psum = torch.empty((plan.max_pieces, K), dtype=torch.float32,
+                           device=stream.device)
         _build.launch("span_colsum", _build.load_library().psp_span_colsum,
-                      stream.device, stream.data_ptr(), e0.data_ptr(),
-                      out.data_ptr(), steps, NS, CAP, K)
+                      stream.device, stream.data_ptr(), plan.row.data_ptr(),
+                      plan.length.data_ptr(), plan.total.data_ptr(),
+                      plan.max_pieces, plan.first.data_ptr(),
+                      plan.last.data_ptr(), psum.data_ptr(), out.data_ptr(),
+                      steps, NS, K)
         span_colsum_cuda.launches += 1
     return out
 
 
 span_colsum_cuda.launches = 0
+
+
+def span_colsum_staged_cuda(stream: torch.Tensor, e0: torch.Tensor, NS: int,
+                            CAP: int, steps: int) -> torch.Tensor:
+    """:func:`span_colsum_reference` through ``psp_span_colsum_staged``, the
+    probe's own schedule: one CTA per step streams its spans in 16 KB
+    sub-chunks through a 4-deep ring of bulk async copies and sums each
+    column in f32, so a row two spans share is read twice. Where the spans
+    are disjoint (``band_ablate``'s nosel: one span per chunk) it reads each
+    row once with no plan. Same arguments as :func:`span_colsum_cuda`."""
+    if not _on_card("span_colsum_staged_cuda", stream):
+        return span_colsum_reference(stream, e0, NS, CAP, steps)
+    stream, e0 = _span_checks("span_colsum_staged_cuda", stream, e0, NS, CAP,
+                              steps)
+    K = stream.shape[1]
+    out = torch.empty((steps, K), dtype=torch.float32, device=stream.device)
+    if steps > 0:
+        _build.launch("span_colsum_staged",
+                      _build.load_library().psp_span_colsum_staged,
+                      stream.device, stream.data_ptr(), e0.data_ptr(),
+                      out.data_ptr(), steps, NS, CAP, K)
+        span_colsum_staged_cuda.launches += 1
+    return out
+
+
+span_colsum_staged_cuda.launches = 0
 
 
 def dma_issue_output(colsum: torch.Tensor,
@@ -353,7 +529,8 @@ def band_ablate_cuda(mode: str, chunk_span, chunk_row0, chunk_nj,
     (128-row tile, 64 columns) walks the tile's visits (:func:`band_visits`,
     sorted on the device) in ascending chunk order, no atomics. ``nosel``
     first takes each chunk's column sum once through
-    :func:`span_colsum_cuda` (one span of ``E`` rows per chunk). ``stream``
+    :func:`span_colsum_staged_cuda` (one span of ``E`` rows per chunk,
+    disjoint: no plan needed). ``stream``
     is a bf16 (nchunks * E, K) tensor, K a multiple of 8 (a power of two
     for ``nosel``); the bounds are (S * BR_pad / R, R) int32 absolute
     positions, as the TPU lays them out. ``visits`` is the schedule's
@@ -397,7 +574,7 @@ def band_ablate_cuda(mode: str, chunk_span, chunk_row0, chunk_nj,
                          f"tile pointers on {dev}")
     colsum = None
     if mode == "nosel":
-        colsum = span_colsum_cuda(
+        colsum = span_colsum_staged_cuda(
             stream, torch.arange(nchunks, device=dev, dtype=torch.int32) * E,
             1, E, nchunks)
     span = _index32("band_ablate_cuda", "chunk_span", chunk_span)
@@ -447,53 +624,194 @@ def slice_gather_reference(fs: torch.Tensor, cols: torch.Tensor,
     return sums.to(out_dtype).repeat_interleave(8, 0)
 
 
+class SliceItems(NamedTuple):
+    """The work items of :func:`slice_gather_cuda`'s reduce: item ``i`` holds
+    the chunks ``order[istart[i]:istart[i + 1]]`` (ascending, at most
+    :data:`ITEM_CHUNKS`), all on slice ``sf[istart[i]]``; ``n_items`` is a
+    one-entry tensor. int32 on ``fs``'s device; ``istart`` holds the items'
+    starts and then ``nch`` (the reference's fills ``nch`` up to entry
+    ``nch``, and has one more entry, scratch)."""
+    order: torch.Tensor
+    sf: torch.Tensor
+    istart: torch.Tensor
+    n_items: torch.Tensor
+
+
+def slice_items(fs: torch.Tensor, nslices: Optional[int] = None
+                ) -> SliceItems:
+    """:func:`slice_items_reference`'s plan, built on the card by
+    ``psp_slice_plan`` (a stable radix sort of ``fs``, over the bits that
+    ``nslices``, the slice count, needs; a prefix sum and two small
+    kernels, no host read; ``istart`` holds ``nch + 1`` entries, those past
+    ``n_items`` unwritten) or, for a CPU ``fs``, by the reference."""
+    if not _on_card("slice_items", fs):
+        return slice_items_reference(fs)
+    f = _index32("slice_items", "fs", fs)
+    n, dev = f.numel(), f.device
+    if n == 0:
+        return slice_items_reference(f)
+    buf = torch.empty(3 * n + 2, dtype=torch.int32, device=dev)
+    order, sf, istart, n_items = torch.split(buf, [n, n, n + 1, 1])
+    bits = 32 if nslices is None else max(1, (nslices - 1).bit_length())
+    ws = _plan_ws(dev, False, n, bits)
+    _build.launch("slice_plan", _build.load_library().psp_slice_plan, dev,
+                  f.data_ptr(), n, bits, order.data_ptr(), sf.data_ptr(),
+                  istart.data_ptr(), n_items.data_ptr(), ws.data_ptr(),
+                  ws.numel())
+    slice_items.launches += 1
+    return SliceItems(order, sf, istart, n_items)
+
+
+slice_items.launches = 0
+
+
+def slice_items_reference(fs: torch.Tensor) -> SliceItems:
+    """Group the chunks by slice (a stable sort of ``fs``: ascending chunk
+    within a slice) and cut each group into items of at most
+    :data:`ITEM_CHUNKS` chunks, in torch ops on ``fs``'s device with no
+    host read."""
+    dev = fs.device
+    nch = fs.numel()
+    sf, order = torch.sort(fs.reshape(-1).to(torch.int32), stable=True)
+    pos = torch.arange(nch, device=dev)
+    head = (pos - torch.searchsorted(sf, sf)) % ITEM_CHUNKS == 0
+    item = torch.cumsum(head, 0) - 1
+    istart = torch.full((nch + 2,), nch, dtype=torch.int32, device=dev)
+    istart.scatter_(0, torch.where(head, item, nch + 1), pos.to(torch.int32))
+    return SliceItems(order.to(torch.int32), sf, istart,
+                      (item[-1:] + 1).to(torch.int32))
+
+
+def slice_reduce_plan_reference(fs: torch.Tensor, cols: torch.Tensor,
+                                x: torch.Tensor, R: int,
+                                items: Optional[SliceItems] = None,
+                                acc: Optional[torch.dtype] = None
+                                ) -> torch.Tensor:
+    """``onehot_reduce`` of :func:`slice_gather_reference` in the kernel's
+    form, plain torch: per item, each chunk's counts of its cols over the R
+    slice rows times the slice, ``counts (nc, R) @ slice (R, K)`` in ``acc``
+    (default f32, f64 for f64 ``x``), cast to ``x``'s dtype (or returned in
+    ``acc`` when given) as 8 equal rows per chunk. One host read a item."""
+    nch, K = fs.numel(), x.shape[1]
+    E = cols.numel() // max(1, nch)
+    out_dtype = acc or x.dtype
+    acc = acc or _acc_dtype(x)
+    items = items or slice_items(fs)
+    c = cols.to(x.device, torch.int64).reshape(nch, E)
+    counts = torch.zeros((nch, R), dtype=acc, device=x.device).scatter_add_(
+        1, c, torch.ones_like(c, dtype=acc))
+    sums = torch.empty((nch, K), dtype=acc, device=x.device)
+    order = items.order.to(x.device, torch.int64)
+    istart = items.istart.tolist()
+    for i in range(int(items.n_items[0])):
+        chunks = order[istart[i]:istart[i + 1]]
+        row0 = int(items.sf[istart[i]]) * R
+        sums[chunks] = counts[chunks] @ x[row0:row0 + R].to(acc)
+    return sums.to(out_dtype).repeat_interleave(8, 0)
+
+
+def _slice_reduce_smem(R: int, K: int) -> int:
+    """The reduce kernel's shared memory (``csrc/probes.cu::
+    slice_reduce_shape``): two buffers of a slice part (boxes of at most
+    256 rows, a multiple of 8) of the widest of 32, 16 and 8 columns (at
+    most K) that fits, 128 bytes of counts a row (R rounded up to 8), 33 KB
+    of the 8 warps' sums, 128 bytes to align them and 1 KB of barriers and
+    chunk ids."""
+    nbox = -(-R // 256)
+    box_rows = -(-(-(-R // nbox)) // 8) * 8
+    pw = min(K, _PART_COLS)
+    while True:
+        stage = -(-(nbox * box_rows * pw * 2) // 128) * 128
+        smem = (128 + 2 * stage + -(-R // 8) * 8 * ITEM_CHUNKS * 4
+                + 256 * 33 * 4 + 1024)
+        if pw == 8 or smem <= _BLOCK_SMEM:
+            return smem
+        pw = 16 if pw > 16 else 8
+
+
+def _slice_checks(fn: str, fs, cols, x, R: int):
+    """``(fs, cols, x, E)`` checked and made int32 / contiguous."""
+    _check_same_device(fn, x.device, fs=fs, cols=cols)
+    if x.dtype != torch.bfloat16 or x.dim() != 2:
+        raise TypeError(f"{fn} takes a 2-D bf16 x, got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    nch, K = fs.numel(), x.shape[1]
+    if nch == 0 or cols.numel() % nch:
+        raise ValueError(f"{fn}: cols ({cols.numel()}) must hold E edges for "
+                         f"each of {nch} chunks")
+    if K % 8 or R < 1:
+        raise ValueError(f"{fn} takes K a multiple of 8 and R >= 1, got "
+                         f"K={K}, R={R}")
+    x = x.contiguous()
+    if not _aligned(x):
+        raise ValueError(f"{fn}: x must be 16-byte aligned")
+    E = cols.numel() // nch
+    if max(nch, E, x.shape[0]) >= 2 ** 31:
+        raise ValueError(f"{fn}: chunks, E and N must each be below 2**31")
+    return _index32(fn, "fs", fs), _index32(fn, "cols", cols), x, E
+
+
 def slice_gather_cuda(fs: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
                       R: int, variant: str) -> torch.Tensor:
-    """:func:`slice_gather_reference` through ``psp_slice_gather``: one CTA
-    per (chunk, 128 columns) holds its part of the chunk's R-row slice and
-    the chunk's column indices in shared memory and serves every edge's row
-    from there. ``x`` is a bf16 (N, K) tensor, K a multiple of 8, with
-    ``256 R + 4 E`` at most 200 KB; every ``fs[c] * R + R <= N`` and every
+    """:func:`slice_gather_reference` on the card. ``x`` is a bf16 (N, K)
+    tensor, K a multiple of 8; every ``fs[c] * R + R <= N`` and every
     ``cols`` entry in ``[0, R)``; ``cols`` holds ``nch * E`` entries ((nch *
-    E,) or (nch * E, 1))."""
+    E,) or (nch * E, 1)).
+
+    ``onehot_write``: ``psp_slice_gather``, one CTA per (chunk, 128
+    columns) holding its part of the chunk's slice and the chunk's indices
+    in shared memory (``256 R + 4 E`` at most 200 KB) and serving every
+    edge's row from there.
+    ``onehot_reduce``: ``psp_slice_reduce`` over the item plan
+    (:func:`slice_items`, built on the card): one persistent CTA an SM
+    walks the items, histograms each chunk's cols over the R rows in shared
+    memory, loads each part of the item's slice (32 columns, or 16 or 8
+    past R = 768) once by TMA (two buffers) and sums ``counts . part`` in
+    f32, rounded to bf16 once. Its shared memory, two parts, ``128 R``
+    bytes of counts and 34 KB, must fit a block's 227 KB: R up to 1,232,
+    at any E. ``.launches`` counts both variants' launches,
+    ``.launches_reduce`` the reduce kernel's."""
     if variant not in SLICE_VARIANTS:
         raise ValueError(f"variant must be one of {SLICE_VARIANTS}, got "
                          f"{variant!r}")
     if not _on_card("slice_gather_cuda", x):
         return slice_gather_reference(fs, cols, x, R, variant)
-    _check_same_device("slice_gather_cuda", x.device, fs=fs, cols=cols)
-    if x.dtype != torch.bfloat16 or x.dim() != 2:
-        raise TypeError(f"slice_gather_cuda takes a 2-D bf16 x, got "
-                        f"{x.dtype} {tuple(x.shape)}")
+    fs, cols, x, E = _slice_checks("slice_gather_cuda", fs, cols, x, R)
     nch, K = fs.numel(), x.shape[1]
-    if nch == 0 or cols.numel() % nch:
-        raise ValueError(f"slice_gather_cuda: cols ({cols.numel()}) must "
-                         f"hold E edges for each of {nch} chunks")
-    E = cols.numel() // nch
-    if K % 8 or R * _SLICE_COLS * 2 + E * 4 > 200 * 1024 or R < 1:
-        raise ValueError(f"slice_gather_cuda takes K a multiple of 8 and a "
-                         f"128-column slice part and the chunk's indices "
-                         f"within 200 KB of shared memory (256 R + 4 E), got "
-                         f"K={K}, R={R}, E={E}")
-    x = x.contiguous()
-    if not _aligned(x):
-        raise ValueError("slice_gather_cuda: x must be 16-byte aligned")
-    if max(nch, E, x.shape[0]) >= 2 ** 31:
-        raise ValueError("slice_gather_cuda: chunks, E and N must each be "
-                         "below 2**31")
-    fs = _index32("slice_gather_cuda", "fs", fs)
-    cols = _index32("slice_gather_cuda", "cols", cols)
-    reduce = variant == "onehot_reduce"
-    out = torch.empty((nch * (8 if reduce else E), K), dtype=torch.bfloat16,
-                      device=x.device)
-    if K and E:
-        _build.launch("slice_gather", _build.load_library().psp_slice_gather,
-                      x.device, int(reduce), fs.data_ptr(), cols.data_ptr(),
-                      x.data_ptr(), out.data_ptr(), nch, R, E, K)
-        slice_gather_cuda.launches += 1
-    elif reduce:
-        out.zero_()
+    if variant == "onehot_write":
+        if R * _SLICE_COLS * 2 + E * 4 > 200 * 1024:
+            raise ValueError(f"slice_gather_cuda's onehot_write takes a "
+                             f"128-column slice part and the chunk's indices "
+                             f"within 200 KB of shared memory (256 R + 4 E), "
+                             f"got K={K}, R={R}, E={E}")
+        out = torch.empty((nch * E, K), dtype=torch.bfloat16,
+                          device=x.device)
+        if E:
+            _build.launch("slice_gather",
+                          _build.load_library().psp_slice_gather, x.device,
+                          fs.data_ptr(), cols.data_ptr(), x.data_ptr(),
+                          out.data_ptr(), nch, R, E, K)
+            slice_gather_cuda.launches += 1
+        return out
+    if _slice_reduce_smem(R, K) > _BLOCK_SMEM:
+        raise ValueError(f"slice_gather_cuda's reduce holds two 8-column "
+                         f"parts of the slice at least, 128 R bytes of "
+                         f"counts and 34 KB in a block's 227 KB of shared "
+                         f"memory: R={R} needs {_slice_reduce_smem(R, K)} "
+                         f"bytes")
+    out = torch.empty((nch * 8, K), dtype=torch.bfloat16, device=x.device)
+    if not E:
+        return out.zero_()
+    it = slice_items(fs, x.shape[0] // R)
+    _build.launch("slice_reduce", _build.load_library().psp_slice_reduce,
+                  x.device, it.order.data_ptr(), it.sf.data_ptr(),
+                  it.istart.data_ptr(), it.n_items.data_ptr(),
+                  cols.data_ptr(), x.data_ptr(), out.data_ptr(), nch,
+                  x.shape[0], R, E, K)
+    slice_gather_cuda.launches += 1
+    slice_gather_cuda.launches_reduce += 1
     return out
 
 
 slice_gather_cuda.launches = 0
+slice_gather_cuda.launches_reduce = 0

@@ -1828,10 +1828,10 @@ def test_sampling_card_vs_cpu(dev):
 # ---- the experiments/ probes (csrc/probes.cu) -------------------------------
 # scale2, chunk_sum, band_ablate nodot/empty and slice_gather onehot_write
 # repeat their plain versions' operations in the same order: bit for bit.
-# span_colsum and nosel sum thousands of bf16 terms in f32 in another order:
-# within SUM_REL of each entry's sum of |terms| against f64. onehot_reduce
-# rounds that sum to bf16 once: within half a bf16 ulp (2**-8 of the value)
-# on top.
+# span_colsum (pieces, then steps), its staged form and nosel sum thousands
+# of bf16 terms in f32 in another order: within SUM_REL of each entry's sum
+# of |terms| against f64. onehot_reduce (counts times the slice) rounds
+# that sum to bf16 once: within half a bf16 ulp (2**-8 of the value) on top.
 
 @pytest.mark.parametrize("double_buffer", [False, True])
 def test_probe_scale2_and_chunk_sum_vs_plain(dev, double_buffer):
@@ -1851,25 +1851,88 @@ def test_probe_scale2_and_chunk_sum_vs_plain(dev, double_buffer):
                        bp.dma_copy(double_buffer, "cpu"))
 
 
-@pytest.mark.parametrize("K", [8, 128, 256])
+@pytest.mark.parametrize("K", [8, 16, 128, 256, 2048])
 def test_probe_span_colsum_vs_plain(dev, K):
+    """The piece path (span_colsum_cuda) and the staged kernel, one launch
+    each a call, within SUM_REL of f64: 13 and 9 steps (not multiples of 8)
+    and 16, CAP 77/33/300/40 from unaligned starts, a span ending at the
+    stream's last row, identical and overlapping spans in one step, two
+    steps holding the same spans; r4_dma_issue.run's output from them at
+    every case."""
     g = torch.Generator(device=dev).manual_seed(K)
-    stream = torch.randn(6000, K, generator=g, device=dev).bfloat16()
-    NS, CAP, steps = 5, 77, 13
-    e0 = torch.randint(0, 6000 - CAP, (steps * NS,), generator=g,
-                       device=dev).int()
-    e0[0] = 6000 - CAP
-    got = pc.span_colsum_cuda(stream, e0, NS, CAP, steps)
-    ref = pc.span_colsum_reference(stream, e0, NS, CAP, steps, torch.float64)
-    scale = pc.span_colsum_reference(stream.abs(), e0, NS, CAP, steps,
-                                     torch.float64)
-    _close_to_sum(got, ref, scale)
-    seed = torch.randn(1, 128, generator=g, device=dev)
-    out = rd.run(stream, e0, seed, NS=NS, CAP=CAP, steps=steps)
-    _close_to_sum(out, pc.dma_issue_output(ref, seed),
-                  pc.dma_issue_output(scale, seed.abs()))
+    L = 6000 if K <= 256 else 2000
+    stream = torch.randn(L, K, generator=g, device=dev).bfloat16()
+    for NS, CAP, steps in ((5, 77, 13), (3, 33, 13), (2, 300, 9),
+                           (4, 40, 16)):
+        e0 = torch.randint(0, L - CAP, (steps * NS,), generator=g,
+                           device=dev).int()
+        e0[0] = L - CAP                     # ends at the last row
+        e0[1] = e0[0]                       # identical (NS > 2)
+        e0[NS - 1] = L - CAP - CAP // 2     # overlapping
+        e0[NS:2 * NS] = e0[:NS]             # steps 0 and 1 share all
+        ref = pc.span_colsum_reference(stream, e0, NS, CAP, steps,
+                                       torch.float64)
+        scale = pc.span_colsum_reference(stream.abs(), e0, NS, CAP, steps,
+                                         torch.float64)
+        for fn, want in ((pc.span_colsum_cuda, (1, 0)),
+                         (pc.span_colsum_staged_cuda, (0, 1))):
+            before = (pc.span_colsum_cuda.launches,
+                      pc.span_colsum_staged_cuda.launches)
+            got = fn(stream, e0, NS, CAP, steps)
+            assert (pc.span_colsum_cuda.launches - before[0],
+                    pc.span_colsum_staged_cuda.launches - before[1]) == want
+            _close_to_sum(got, ref, scale)
+        seed = torch.randn(1, 128, generator=g, device=dev)
+        out = rd.run(stream, e0, seed, NS=NS, CAP=CAP, steps=steps)
+        _close_to_sum(out, pc.dma_issue_output(ref, seed),
+                      pc.dma_issue_output(scale, seed.abs()))
     with pytest.raises(ValueError, match="at least 8 steps"):
         rd.run(stream, e0, seed, NS=NS, CAP=CAP, steps=7)
+
+
+def test_probe_plans_on_the_card(dev):
+    """The plans built on the card (``psp_span_plan``, ``psp_slice_plan``)
+    equal their torch references entry for entry (the piece tables up to
+    the piece count), one launch each; the piece sums through them equal
+    the plain version's; no steps or no spans launch nothing."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    e0 = torch.randint(0, 5000, (7 * 19,), generator=g, device=dev).int()
+    e0[1] = e0[0]
+    e0[-1] = 5000
+    for cap in (384, 1, 600):
+        before = pc.span_pieces.launches
+        card = pc.span_pieces(e0, cap, 5000 + cap)
+        assert pc.span_pieces.launches == before + 1
+        ref = pc.span_pieces_reference(e0, cap, 5000 + cap)
+        total = int(ref.total[0])
+        assert card.max_pieces == ref.max_pieces
+        assert int(card.total[0]) == total
+        for a, b in ((card.row, ref.row), (card.length, ref.length)):
+            assert torch.equal(a[:total], b[:total])
+        assert torch.equal(card.first, ref.first)
+        assert torch.equal(card.last, ref.last)
+    stream = torch.randn(5384, 64, generator=g, device=dev).bfloat16()
+    got = pc.span_colsum_cuda(stream, e0, 19, 384, 7)
+    want = pc.span_colsum_pieces_reference(
+        stream, pc.span_pieces_reference(e0, 384, 5384), 19, 7,
+        torch.float64)
+    torch.testing.assert_close(got.double(), want, **F32)
+    before = pc.span_colsum_cuda.launches
+    assert pc.span_colsum_cuda(stream, e0, 19, 384, 0).shape == (0, 64)
+    assert pc.span_colsum_cuda.launches == before
+    assert not pc.span_colsum_cuda(stream, e0, 0, 384, 3).any()
+    for fs in ([5, 1, 5, 5, 0] + [3] * 70, [2], [7] * 1000):
+        fs = torch.tensor(fs, device=dev, dtype=torch.int32)
+        for nslices in (None, 8):
+            before = pc.slice_items.launches
+            card = pc.slice_items(fs, nslices)
+            assert pc.slice_items.launches == before + 1
+            ref = pc.slice_items_reference(fs)
+            n = int(ref.n_items[0])
+            assert int(card.n_items[0]) == n
+            assert torch.equal(card.order, ref.order)
+            assert torch.equal(card.sf, ref.sf)
+            assert torch.equal(card.istart[:n + 1], ref.istart[:n + 1])
 
 
 @pytest.mark.parametrize("kind", ["full", "nodot", "nosel", "empty",
@@ -1878,11 +1941,11 @@ def test_probe_band_variants_vs_plain(dev, kind):
     tb = rb.tables(S=3, BAND=640, E=128, K=128, CAP=1024, device=dev)
     rb.check_schedule(tb)
     assert int(tb.visits[0].diff().max()) > 1
-    counts = (pc.band_ablate_cuda.launches, pc.span_colsum_cuda.launches,
-              spmm_spans_cuda.launches)
+    counts = (pc.band_ablate_cuda.launches,
+              pc.span_colsum_staged_cuda.launches, spmm_spans_cuda.launches)
     got = rb.variant_call(kind, tb)
     delta = tuple(b - a for a, b in zip(counts, (
-        pc.band_ablate_cuda.launches, pc.span_colsum_cuda.launches,
+        pc.band_ablate_cuda.launches, pc.span_colsum_staged_cuda.launches,
         spmm_spans_cuda.launches)))
     kw = dict(S=tb.S, BR_pad=tb.BR_pad, E=tb.E, K=tb.K, TMAX=tb.TMAX,
               visits=tb.visits)
@@ -1905,18 +1968,30 @@ def test_probe_band_variants_vs_plain(dev, kind):
 
 @pytest.mark.parametrize("variant", ["onehot_write", "onehot_reduce"])
 @pytest.mark.parametrize("shape", [(256, 512, 2048), (200, 400, 50),
-                                   (8, 16, 7)])
+                                   (8, 16, 7), (40, 300, 100),
+                                   (64, 100, 2500)])
 def test_probe_slice_gather_vs_plain(dev, variant, shape):
+    """Repeated, unsorted fs (one slice holding more than ITEM_CHUNKS
+    chunks), K 256/200/8/40/64 (a narrow last column part), R
+    512/400/16/300/100 (past one TMA box, not a multiple of it or of 8), E
+    2048/50/7/100 (the reduce's TF32 tensor-core sums) and 2500 (its f32
+    FMAs, counts past 2,048): write bit for bit the plain gather; reduce
+    within half a bf16 ulp (+ SUM_REL of the sum of |terms|) of f64; one
+    launch a call, the reduce counted apart."""
     K, R, E = shape
     g = torch.Generator(device=dev).manual_seed(K)
-    fs = torch.tensor([0, 4, 4, 1, 0, 4, 4], device=dev, dtype=torch.int32)
+    fs = torch.tensor([0, 4, 4, 1, 0, 4, 4] + [2] * 40, device=dev,
+                      dtype=torch.int32)
     cols = torch.randint(0, R, (fs.numel() * E,), generator=g, device=dev,
                          dtype=torch.int32)
     x = torch.randn(5 * R, K, generator=g, device=dev).bfloat16()
-    before = pc.slice_gather_cuda.launches
+    before = (pc.slice_gather_cuda.launches,
+              pc.slice_gather_cuda.launches_reduce)
     got = pc.slice_gather_cuda(fs, cols, x, R, variant)
-    assert pc.slice_gather_cuda.launches == before + 1
-    if variant == "onehot_write":
+    reduce = variant == "onehot_reduce"
+    assert (pc.slice_gather_cuda.launches - before[0],
+            pc.slice_gather_cuda.launches_reduce - before[1]) == (1, reduce)
+    if not reduce:
         assert torch.equal(got, pc.slice_gather_reference(fs, cols, x, R,
                                                           variant))
         return
@@ -1924,6 +1999,62 @@ def test_probe_slice_gather_vs_plain(dev, variant, shape):
     scale = pc.slice_gather_reference(fs, cols, x.abs(), R, variant,
                                       torch.float64)
     _close_to_sum(got, ref, scale, out_rel=2.0 ** -8)
+
+
+@pytest.mark.parametrize("case", [
+    (256, 512, 2048, 1), (256, 512, 2048, 3), (200, 400, 52, 2),
+    (256, 799, 64, 0), (40, 1232, 100, 1), (8, 1000, 7, 0)])
+def test_probe_slice_reduce_offset_cols_and_wide_slices(dev, case):
+    """cols as a view starting 1, 3 or 2 int32 entries past a 16-byte
+    boundary with E a multiple of 4 (the histogram's 16-byte loads then do
+    not apply), and R 799 (the per-chunk kernel's largest), 1,000 and 1,232
+    (parts of 16 or 8 columns): reduce within half a bf16 ulp (+ SUM_REL
+    of the sum of |terms|) of f64, and write (where it fits) bit for bit
+    the plain gather, from the same views."""
+    K, R, E, off = case
+    g = torch.Generator(device=dev).manual_seed(R + off)
+    fs = torch.tensor([1, 0, 1, 1, 2] + [0] * 40, device=dev,
+                      dtype=torch.int32)
+    buf = torch.randint(0, R, (off + fs.numel() * E,), generator=g,
+                        device=dev, dtype=torch.int32)
+    cols = buf[off:]
+    assert (cols.data_ptr() % 16 != 0) == (off != 0)
+    x = torch.randn(3 * R, K, generator=g, device=dev).bfloat16()
+    got = pc.slice_gather_cuda(fs, cols, x, R, "onehot_reduce")
+    ref = pc.slice_gather_reference(fs, cols, x, R, "onehot_reduce",
+                                    torch.float64)
+    scale = pc.slice_gather_reference(fs, cols, x.abs(), R, "onehot_reduce",
+                                      torch.float64)
+    _close_to_sum(got, ref, scale, out_rel=2.0 ** -8)
+    if R * 256 + E * 4 <= 200 * 1024:
+        assert torch.equal(
+            pc.slice_gather_cuda(fs, cols, x, R, "onehot_write"),
+            pc.slice_gather_reference(fs, cols, x, R, "onehot_write"))
+
+
+def test_probe_slice_reduce_one_slice_and_limits(dev):
+    """10,000 chunks on one slice (313 items on the SMs) and five, within
+    half a bf16 ulp of f64; an R whose shared memory exceeds 227 KB (1,233)
+    raises; E = 0 writes zeros."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    R, E, K = 512, 64, 256
+    x = torch.randn(8 * R, K, generator=g, device=dev).bfloat16()
+    for n in (10_000, 5):
+        fs = torch.full((n,), 3, device=dev, dtype=torch.int32)
+        cols = torch.randint(0, R, (n * E,), generator=g, device=dev,
+                             dtype=torch.int32)
+        got = pc.slice_gather_cuda(fs, cols, x, R, "onehot_reduce")
+        ref = pc.slice_gather_reference(fs, cols, x, R, "onehot_reduce",
+                                        torch.float64)
+        scale = pc.slice_gather_reference(fs, cols, x.abs(), R,
+                                          "onehot_reduce", torch.float64)
+        _close_to_sum(got, ref, scale, out_rel=2.0 ** -8)
+    big = torch.randn(2 * 1233, K, generator=g, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="227 KB"):
+        pc.slice_gather_cuda(fs[:2], cols[:2 * E], big, 1233,
+                             "onehot_reduce")
+    empty = torch.zeros(0, device=dev, dtype=torch.int32)
+    assert not pc.slice_gather_cuda(fs, empty, x, R, "onehot_reduce").any()
 
 
 def test_probe_entry_points_card_vs_cpu(dev):
@@ -2150,12 +2281,19 @@ def _site(dev, site):
             "empty", tb.cs, tb.cr, tb.cn, tb.bst, tb.ben, s, S=tb.S,
             BR_pad=tb.BR_pad, E=tb.E, K=tb.K, TMAX=tb.TMAX,
             visits=tb.visits), [tb.stream])
-    if site == "slice_gather":
-        fs = torch.tensor([0, 4, 4, 1], device=dev, dtype=torch.int32)
-        cols = torch.randint(0, 400, (4 * 50,), generator=g, device=dev,
+    if site == "span_colsum_staged":
+        e0 = torch.randint(0, 6000 - 77, (65,), generator=g, device=dev,
+                           dtype=torch.int32)
+        return (lambda s: pc.span_colsum_staged_cuda(s, e0, 5, 77, 13),
+                [torch.randn(6000, 128, generator=g, device=dev).bfloat16()])
+    if site in ("slice_gather", "slice_reduce"):
+        fs = torch.tensor([0, 4, 4, 1] + [2] * 40, device=dev,
+                          dtype=torch.int32)
+        cols = torch.randint(0, 400, (44 * 50,), generator=g, device=dev,
                              dtype=torch.int32)
-        return (lambda x: pc.slice_gather_cuda(fs, cols, x, 400,
-                                               "onehot_write"),
+        variant = ("onehot_write" if site == "slice_gather"
+                   else "onehot_reduce")
+        return (lambda x: pc.slice_gather_cuda(fs, cols, x, 400, variant),
                 [torch.randn(2000, 200, generator=g, device=dev).bfloat16()])
     if site == "spmm_sddmm_csc":
         adj = _fused_graph(dev, split=True)
@@ -2198,8 +2336,9 @@ def _site(dev, site):
                                         seg=True), [val])
 
 
-LAUNCH_SITES = ("scale2", "chunk_sum", "span_colsum", "band_ablate",
-                "slice_gather", "spmm_sddmm_csc", "spmm_sddmm_spans",
+LAUNCH_SITES = ("scale2", "chunk_sum", "span_colsum", "span_colsum_staged",
+                "band_ablate", "slice_gather", "slice_reduce",
+                "spmm_sddmm_csc", "spmm_sddmm_spans",
                 "spmm_window", "spmm_spans", "fold_pieces", "sddmm_spans",
                 "segcompact_rows", "segcompact_stream")
 

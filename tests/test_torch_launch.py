@@ -23,7 +23,8 @@ KERNELS_DIR = Path(_build.__file__).resolve().parent
 LAUNCH_MODULES = ("probes_cuda", "row_split", "segcompact_cuda",
                   "spmm_sddmm_cuda", "spmm_window_cuda")
 # C functions of the library that run on the host only and launch nothing
-HOST_ONLY = {"psp_segcompact_tiles", "psp_segcompact_f_max"}
+HOST_ONLY = {"psp_segcompact_tiles", "psp_segcompact_f_max",
+             "psp_plan_ws_bytes"}
 
 
 class FakeC:

@@ -604,3 +604,184 @@ def test_vmem_expand_main_reports_each_variant(monkeypatch):
     ns = r5_vmem_expand.main(["2"], device="cpu")
     assert set(ns) == {"onehot_write", "onehot_reduce", "gather_sum",
                        "index_select"}
+
+
+# ---- the plans of the redesigned P3 and P5 ------------------------------------
+# span_colsum reads each covered row once through a piece plan; slice_gather's
+# reduce sums each chunk's row counts times its slice over an item plan. The
+# plans run on the CPU as on the card; their plain sums are held to the JAX
+# probes in interpret mode and to f64.
+
+SLICE_FS = {"all_equal": [4] * 70, "repeated": [2, 0, 2, 2, 1, 0, 2],
+            "unsorted": [3, 1, 4, 1, 5, 0, 2, 6, 5, 3],
+            "one_chunk": [5], "many_on_one": [1] * 100 + [0] * 33}
+
+
+@pytest.mark.parametrize("case", sorted(SLICE_FS))
+def test_slice_items_cover_each_chunk_once(case):
+    """Every chunk in exactly one item; an item holds at most ITEM_CHUNKS
+    chunks of one slice, in ascending order; a slice's chunks fill its
+    items in order (only its last item may be short)."""
+    fs = torch.tensor(SLICE_FS[case], dtype=torch.int32)
+    it = pc.slice_items(fs)
+    n = int(it.n_items[0])
+    istart = it.istart.tolist()
+    order = it.order.tolist()
+    assert istart[0] == 0 and istart[n] == fs.numel()
+    assert all(v == fs.numel() for v in istart[n:fs.numel() + 1])
+    seen = []
+    for i in range(n):
+        chunks = order[istart[i]:istart[i + 1]]
+        assert 1 <= len(chunks) <= pc.ITEM_CHUNKS
+        assert chunks == sorted(chunks)
+        assert {SLICE_FS[case][c] for c in chunks} == {int(it.sf[istart[i]])}
+        if i + 1 < n and int(it.sf[istart[i + 1]]) == int(it.sf[istart[i]]):
+            assert len(chunks) == pc.ITEM_CHUNKS
+        seen += chunks
+    assert sorted(seen) == list(range(fs.numel()))
+    groups = {}
+    for f in SLICE_FS[case]:
+        groups[f] = groups.get(f, 0) + 1
+    assert n == sum(-(-g // pc.ITEM_CHUNKS) for g in groups.values())
+
+
+def _span_cases():
+    """(e0, CAP, nstream): overlapping, identical, touching spans, unaligned
+    starts, a span ending at the stream's last row, spans longer than a
+    piece, and 13 random steps."""
+    g = torch.Generator().manual_seed(3)
+    rnd = torch.randint(0, 2000 - 77, (13 * 5,), generator=g)
+    rnd[-1] = 2000 - 77
+    return {"overlapping": ([10, 40, 35, 600], 50, 700),
+            "identical": ([7, 7, 7, 300], 33, 400),
+            "touching": ([0, 40, 80, 120], 40, 160),
+            "at_the_end": ([3, 117, 59], 40, 157),
+            "longer_than_a_piece": ([5, 700, 300], 601, 1400),
+            "random_13_steps": (rnd.tolist(), 77, 2000)}
+
+
+@pytest.mark.parametrize("case", sorted(_span_cases()))
+def test_span_pieces_tile_each_span(case):
+    """Each span is exactly the concatenation of its pieces; the pieces are
+    disjoint, at most PIECE_ROWS rows, inside covered rows only, and no
+    more than span_piece_bound of them."""
+    starts, CAP, L = _span_cases()[case]
+    e0 = torch.tensor(starts, dtype=torch.int32)
+    plan = pc.span_pieces(e0, CAP, L)
+    total = int(plan.total[0])
+    assert plan.max_pieces == pc.span_piece_bound(len(starts), CAP, L)
+    assert 0 < total <= plan.max_pieces
+    row, length = plan.row.tolist(), plan.length.tolist()
+    assert all(v == 0 for v in length[total:])
+    covered = np.zeros(L, bool)
+    for a in starts:
+        covered[a:a + CAP] = True
+    hit = np.zeros(L, int)
+    for q in range(total):
+        assert 1 <= length[q] <= pc.PIECE_ROWS
+        hit[row[q]:row[q] + length[q]] += 1
+    assert np.array_equal(hit, covered.astype(int))   # disjoint, exact
+    for i, a in enumerate(starts):
+        q0, q1 = int(plan.first[i]), int(plan.last[i])
+        rows = [r for q in range(q0, q1)
+                for r in range(row[q], row[q] + length[q])]
+        assert rows == list(range(a, a + CAP))
+
+
+def test_span_pieces_of_no_spans():
+    plan = pc.span_pieces(torch.zeros(0, dtype=torch.int32), 16, 100)
+    assert plan.max_pieces == 0 and int(plan.total[0]) == 0
+    got = pc.span_colsum_pieces_reference(torch.randn(100, 8), plan, 0, 3)
+    assert got.shape == (3, 8) and not got.any()
+
+
+@pytest.mark.parametrize("NS,CAP,K", [(3, 32, 128), (2, 48, 256)])
+def test_span_pieces_sums_match_jax_at_8_steps(NS, CAP, K):
+    """Piece sums, then each step's spans' pieces, plain torch: the JAX
+    probe's output in interpret mode within 1e-5 of each entry's sum of
+    |terms|, and f64's within 1e-12."""
+    stream, e0, sd = _dma_inputs(NS, CAP, K, 8)
+    e0[1] = e0[0]                                     # identical spans
+    e0[NS] = e0[0] + 5                                # overlapping steps
+    with _interpret():
+        want = np.asarray(_dma_issue_run(
+            _jnp(stream), _jnp(e0), _jnp(sd), NS=NS, CAP=CAP, STEPS=8,
+            R=128, K=K)).astype(np.float64)
+    plan = pc.span_pieces(e0, CAP, stream.shape[0])
+    got = pc.dma_issue_output(pc.span_colsum_pieces_reference(
+        stream, plan, NS, 8), sd)
+    s = np.abs(_np(sd.bfloat16()).astype(np.float64))[0]
+    absx = pc.span_colsum_reference(stream.abs(), e0, NS, CAP, 8,
+                                    torch.float64).numpy()
+    scale = (s[None, :, None] * absx[:, None, :]).reshape(8 * 128, K)
+    assert np.all(np.abs(_np(got) - want) <= SUM_REL * scale + 1e-30)
+    f64 = pc.span_colsum_pieces_reference(stream, plan, NS, 8,
+                                          torch.float64)
+    np.testing.assert_allclose(
+        f64.numpy(), pc.span_colsum_reference(stream, e0, NS, CAP, 8,
+                                              torch.float64).numpy(),
+        rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("fs_", [[2, 0, 2], [1, 1, 1]])
+def test_slice_counts_sums_match_jax(jax_vmem, monkeypatch, fs_):
+    """counts . slice per item, plain torch: the JAX probe's onehot_reduce
+    in interpret mode within one bf16 ulp (both round an f32 sum once), and
+    the f64 gather-and-sum within 1e-12 in f64."""
+    monkeypatch.setattr(jax_vmem, "NCH", 3)
+    R, E, K = r5_vmem_expand.R, r5_vmem_expand.E, r5_vmem_expand.K
+    g = torch.Generator().manual_seed(6)
+    fs = torch.tensor(fs_, dtype=torch.int32)
+    cols = torch.randint(0, R, (3 * E,), generator=g, dtype=torch.int32)
+    x = torch.randn((3 * R, K), generator=g).bfloat16()
+    with _interpret():
+        want = np.asarray(jax_vmem.make_call("onehot_reduce")(
+            _jnp(fs), _jnp(cols.view(-1, 1)), _jnp(x))).astype(np.float32)
+    got = _np(pc.slice_reduce_plan_reference(fs, cols, x, R))
+    assert got.shape == want.shape
+    assert np.all(np.abs(got - want) <= BF16_ULP * np.abs(want))
+    np.testing.assert_allclose(
+        pc.slice_reduce_plan_reference(fs, cols, x, R,
+                                       acc=torch.float64).numpy(),
+        pc.slice_gather_reference(fs, cols, x, R, "onehot_reduce",
+                                  torch.float64).numpy(),
+        rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 7), (200, 400, 50),
+                                   (40, 300, 100)])
+def test_slice_counts_sums_vs_f64_at_odd_shapes(shape):
+    """K 8, 200 and 40, R 16, 400 and 300, E 7, 50 and 100 over repeated,
+    unsorted fs with more than ITEM_CHUNKS chunks on one slice: f32 counts
+    . slice within 1e-5 of each entry's sum of |terms| of f64, before the
+    bf16 rounding."""
+    K, R, E = shape
+    g = torch.Generator().manual_seed(K)
+    fs = torch.tensor([1, 0, 1, 2] + [0] * 40, dtype=torch.int32)
+    cols = torch.randint(0, R, (fs.numel() * E,), generator=g,
+                         dtype=torch.int32)
+    x = torch.randn((3 * R, K), generator=g).bfloat16()
+    got = pc.slice_reduce_plan_reference(fs, cols, x, R, acc=torch.float32)
+    want = pc.slice_gather_reference(fs, cols, x, R, "onehot_reduce",
+                                     torch.float64)
+    scale = pc.slice_gather_reference(fs, cols, x.abs(), R, "onehot_reduce",
+                                      torch.float64)
+    assert bool(((got.double() - want).abs()
+                 <= SUM_REL * scale + 1e-30).all())
+
+
+def test_reduce_shared_memory_and_piece_bounds():
+    """The reduce kernel's shared memory fits a block's 227 KB at the
+    probe's R = 512 and at every R up to 1,232 (the parts narrow past R =
+    768), which covers the per-chunk kernel's R <= 799, and not at R =
+    1,233; the piece bound counts every segment and a stream's worth of
+    cuts."""
+    assert pc._slice_reduce_smem(512, 256) <= pc._BLOCK_SMEM
+    assert pc._slice_reduce_smem(16, 8) <= pc._BLOCK_SMEM
+    for K in (8, 16, 200, 256):
+        assert all(pc._slice_reduce_smem(R, K) <= pc._BLOCK_SMEM
+                   for R in range(1, 1233))
+        assert pc._slice_reduce_smem(1233, K) > pc._BLOCK_SMEM
+    assert pc.span_piece_bound(19 * 2048, 384, 8 << 20) == \
+        2 * 19 * 2048 - 1 + (8 << 20) // pc.PIECE_ROWS
+    assert pc.span_piece_bound(0, 384, 100) == 0
