@@ -9,7 +9,8 @@ repository root:
     python3 chip_probe.py window       # the windowed K1 over its plan
     python3 chip_probe.py launch       # a kernel launch's host path
     python3 chip_probe.py slice        # P5's per-chunk kernel, part by part
-    python3 chip_probe.py probes       # P3's and P5's calls, kernel by kernel
+    python3 chip_probe.py band         # P4 nodot, part by part
+    python3 chip_probe.py probes       # P3's, P4's and P5's calls, by kernel
 
 ``sweep``: the span kernels, K1 and K2 alone at K=256 on the bench's zipf
 graph at 1/8 scale (``chip_smoke.bench_graph``) for each piece size ``cap``
@@ -75,18 +76,36 @@ alone and with the edge loop alone, in turns (whole, load, loop, loop,
 load, whole; CUDA events, 5 calls after a warm-up), with the microseconds
 of one wave of CTAs on the card. One JSON line.
 
-``probes``: P3 (``span_colsum_cuda`` and ``span_colsum_staged_cuda``) and
-P5's reduce (``slice_gather_cuda``, at ``r5_vmem_expand``'s defaults and
-at 2,049 edges a chunk, past the TF32 path) at their probes' defaults, and
-each plan alone on the card and
-in torch ops: each call's device time kernel by kernel under
-``torch.profiler`` (10 calls after a warm-up) and its host time per call
-(10 calls, no synchronize between them). One JSON line per call. First,
-before anything else fills the process's caching allocator, P5's reduce,
-its plan, its output's allocation alone and P3 on a cold pool
-(:func:`cold_pool`: each call alone after ``empty_cache()``, the
-segments it took from the driver) and on the warm one: a ``COLD`` line
-each.
+``band``: P4 nodot (``band_ablate_cuda("nodot", ...)``) at
+``r4_band_cost``'s defaults, part by part, beside the kernel it had before
+its redesign (``chip_probe_band.cu``, built here into the package's
+``build/chip_probe_band/``, no part of the package): that kernel whole,
+its walk alone (a store only where a count equals a sentinel no input
+reaches) and its fill alone (the same grid storing a constant); fills of
+the same bytes in equal contiguous ranges, one a CTA, by 16-byte streaming
+stores and by bulk stores from shared memory, at 1, 2, 4 and 8 CTAs an
+SM; the one-round count of every tile alone; the package's call; and
+``torch.empty(...).fill_(1.0)``, the card's own store rate on those
+bytes. Each checked (equal to the plain version, or every value stored),
+then its device time under ``torch.profiler`` over 100 calls and CUDA
+events in turns (100 calls each, the order and back); then the wrapper's
+host path stage by stage (checks, allocation, ``_index32``, launch) and
+its whole call back to back (host ns and event ms per call, 300 calls).
+One JSON line.
+
+``probes``: P3 (``span_colsum_cuda`` and ``span_colsum_staged_cuda``),
+P4's three modes (``band_ablate_cuda``) and P5's reduce
+(``slice_gather_cuda``, at ``r5_vmem_expand``'s defaults and at 2,049
+edges a chunk, past the TF32 path) at their probes' defaults, P4's output
+allocation alone, and each plan alone on the card and in torch ops: each
+call's device time kernel by kernel under ``torch.profiler`` (10 calls
+after a warm-up; 100 for P4) and its host time per call (as many calls,
+no synchronize between them). One JSON line per call. First, before
+anything else fills the process's caching allocator, P5's reduce, its
+plan, its output's allocation alone, P3 and P4's output allocation on a
+cold pool (:func:`cold_pool`: each call alone after ``empty_cache()``,
+the segments it took from the driver) and on the warm one: a ``COLD``
+line each.
 
 Each prints the card's ``nvidia-smi`` name and power limit and exits
 non-zero without a card.
@@ -715,6 +734,160 @@ def slice_breakdown(dev: torch.device) -> None:
     print("SLICE " + json.dumps(res) + f" [{card}]", flush=True)
 
 
+BAND_STAGES = ("whole", "walk", "fill", "fill_v4", "fill_bulk", "counts")
+BAND_REPS = 100         # calls a profiled or event-timed loop of ``band``
+BAND_HOST_CALLS = 300   # calls a host-timed loop of ``band`` (< the queue)
+
+
+def _band_host_stages(tb, out):
+    """The statements of ``band_ablate_cuda("nodot", ...)`` on the card, one
+    stage each: its checks (copied here, so that they time the same on any
+    tree), the output's allocation as it was (``torch.empty``) and as it is
+    (``new_empty``), the three ``_index32`` of its tables as they were
+    (copied) and as this tree has them, and the launch (into ``out``, no
+    allocation)."""
+    from paddle_sparse_tpu_torch.ops.kernels import _build
+    from paddle_sparse_tpu_torch.ops.kernels import probes_cuda as pc
+    stream, (tile_ptr, visit) = tb.stream, tb.visits
+    S, BR_pad, E, K, R = tb.S, tb.BR_pad, tb.E, tb.K, tb.R
+    dev = stream.device
+    lib = _build.load_library()
+    ntiles = BR_pad // R
+
+    def checks():
+        if not stream.is_cuda:
+            raise ValueError
+        for t in (tb.cs, tb.cr, tb.cn, tb.bst, tb.ben):
+            if t.device != dev:
+                raise ValueError
+        if stream.dtype != torch.bfloat16 or stream.dim() != 2 or \
+                stream.shape[1] != K:
+            raise TypeError
+        if K % 8 or R != pc.TILE_ROWS or BR_pad % R:
+            raise ValueError
+        s = stream.contiguous()
+        if s.data_ptr() % 16:
+            raise ValueError
+        if tb.cs.numel() * E > s.shape[0] or \
+                tb.bst.numel() != S * BR_pad or tb.ben.numel() != S * BR_pad:
+            raise ValueError
+        if tile_ptr.numel() != ntiles + 1 or tile_ptr.device != dev:
+            raise ValueError
+
+    def index32():
+        return (pc._index32("band_ablate_cuda", "chunk_span", tb.cs),
+                pc._index32("band_ablate_cuda", "bounds_start", tb.bst),
+                pc._index32("band_ablate_cuda", "bounds_end", tb.ben))
+
+    def index32_former():          # a copy of _index32 before the redesign
+        return tuple(t if t.dtype == torch.int32 and t.dim() == 1
+                     and t.is_contiguous() else
+                     t.reshape(-1).to(torch.int32).contiguous()
+                     for t in (tb.cs, tb.bst, tb.ben))
+
+    span, bst, ben = index32()
+    return {
+        "checks": checks,
+        "alloc": lambda: torch.empty((BR_pad, K), dtype=torch.float32,
+                                     device=dev),
+        "alloc_new_empty": lambda: stream.new_empty((BR_pad, K),
+                                                    dtype=torch.float32),
+        "index32_former": index32_former, "index32": index32,
+        "launch": lambda: _build.launch(
+            "band_ablate", lib.psp_band_ablate, dev, 0, tile_ptr.data_ptr(),
+            visit.data_ptr(), span.data_ptr(), bst.data_ptr(),
+            ben.data_ptr(), BR_pad, stream.data_ptr(), None, out.data_ptr(),
+            ntiles, K, E)}
+
+
+def band_breakdown(dev: torch.device) -> None:
+    """P4 nodot part by part (the module docstring's ``band``)."""
+    import chip_smoke as c
+    from paddle_sparse_tpu_torch.experiments import r4_band_cost as rb
+    from paddle_sparse_tpu_torch.ops.kernels import _build
+    from paddle_sparse_tpu_torch.ops.kernels import probes_cuda as pc
+    card = card_line()
+    so = _build.build_library([Path(__file__).resolve().parent
+                               / "chip_probe_band.cu"],
+                              _build.BUILD_DIR / "chip_probe_band")
+    lib = ctypes.CDLL(str(so))
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn = lib.psp_band_stages
+    fn.argtypes = [i32, i64, p, p, p, p, p, i64, p, i64, i64, i64,
+                   ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    tb = rb.tables(device=dev)
+    rb.check_schedule(tb)
+    tile_ptr, visit = tb.visits
+    BR_pad, K, E = tb.BR_pad, tb.K, tb.E
+    ntiles = BR_pad // tb.R
+    out = torch.empty((BR_pad, K), dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def stage(name, grid=1, value=-1.0):
+        # walk: -1 is the sentinel no count reaches; the fills store it
+        return lambda: _build.launch(
+            "band_stages", fn, dev, BAND_STAGES.index(name), grid,
+            tile_ptr.data_ptr(), visit.data_ptr(), tb.cs.data_ptr(),
+            tb.bst.data_ptr(), tb.ben.data_ptr(), BR_pad, out.data_ptr(),
+            ntiles, K, E, value)
+
+    kw = dict(S=tb.S, BR_pad=BR_pad, E=E, K=K, R=tb.R, TMAX=tb.TMAX,
+              visits=tb.visits)
+    args = (tb.cs, tb.cr, tb.cn, tb.bst, tb.ben, tb.stream)
+    want = pc.band_ablate_reference("nodot", *args, **kw)
+    checks = {}
+    stage("whole")()
+    checks["whole_equal_to_plain"] = bool(torch.equal(out, want))
+    checks["package_equal_to_plain"] = bool(torch.equal(
+        pc.band_ablate_cuda("nodot", *args, **kw), want))
+    stage("counts")()
+    checks["counts_equal_to_plain"] = bool(torch.equal(
+        out.view(-1)[:ntiles], want[::tb.R, 0]))
+    for name in ("fill_v4", "fill_bulk"):
+        out.zero_()
+        stage(name, 4 * sms, 1.5)()
+        checks[f"{name}_stores_every_value"] = bool((out == 1.5).all())
+    out.zero_()
+    stage("fill", value=1.5)()
+    checks["fill_stores_every_value"] = bool((out == 1.5).all())
+    res = {"at": f"S={tb.S} BAND={tb.BAND} E={E} K={K} f32 out "
+                 f"({BR_pad * K * 4} B), {tb.nchunks} chunks, {ntiles} "
+                 f"tiles, up to {int(tile_ptr.diff().max())} visits a tile",
+           "sms": sms, "former_grid": ntiles * -(-K // 64), **checks}
+    variants = {"whole": stage("whole"), "walk": stage("walk"),
+                "fill": stage("fill"), "counts": stage("counts")}
+    for per_sm in (1, 2, 4, 8):
+        for name in ("fill_v4", "fill_bulk"):
+            variants[f"{name}_x{per_sm}"] = stage(name, per_sm * sms, 1.5)
+    variants["package_nodot"] = lambda: pc.band_ablate_cuda("nodot", *args,
+                                                            **kw)
+    variants["torch_fill_"] = lambda: torch.empty(
+        (BR_pad, K), dtype=torch.float32, device=dev).fill_(1.0)
+    # device time under the profiler, then CUDA events in turns
+    dev_ms = {}
+    for name, f in variants.items():
+        host, device, rows = _profile(f, BAND_REPS)
+        dev_ms[name] = {"device_ms": device, "host_ms_per_call": host,
+                        "by_kernel": rows[:3]}
+    order = list(variants)
+    turns = {name: [] for name in order}
+    for name in order + order[::-1]:
+        turns[name].append(c.timed(variants[name], BAND_REPS)[0])
+    res["stages"] = {name: {**dev_ms[name], "event_ms_in_turns": turns[name]}
+                     for name in order}
+    # the wrapper's host path, stage by stage, and whole calls back to back
+    empty_ns, _ = per_call(lambda: None, BAND_HOST_CALLS)
+    host = {}
+    for name, f in _band_host_stages(tb, out).items():
+        host[name] = per_call(f, BAND_HOST_CALLS)[0] - empty_ns
+    ns, ms = per_call(variants["package_nodot"], BAND_HOST_CALLS)
+    host["whole_call"] = ns - empty_ns
+    res["host_ns_per_call"] = host
+    res["package_nodot_event_ms_back_to_back"] = ms
+    print("BAND " + json.dumps(res) + f" [{card}]", flush=True)
+
+
 def _profile(fn, reps=10):
     """``(host ms per call, device ms per call, [(ms, launches, kernel)])``
     of ``fn`` after a warm-up: the host clock around ``reps`` calls with no
@@ -741,8 +914,9 @@ def _profile(fn, reps=10):
 
 
 def probe_profiles(dev: torch.device) -> None:
-    """P3's and P5's calls kernel by kernel (the module docstring's
+    """P3's, P4's and P5's calls kernel by kernel (the module docstring's
     ``probes``)."""
+    from paddle_sparse_tpu_torch.experiments import r4_band_cost as rb
     from paddle_sparse_tpu_torch.experiments import r4_dma_issue as rd
     from paddle_sparse_tpu_torch.experiments import r5_vmem_expand as rv
     from paddle_sparse_tpu_torch.ops.kernels import probes_cuda as pc
@@ -765,10 +939,13 @@ def probe_profiles(dev: torch.device) -> None:
             ("slice_reduce_output", lambda: torch.empty(
                 (10_000 * 8, rv.K), dtype=torch.bfloat16, device=dev)),
             ("span_colsum", lambda: pc.span_colsum_cuda(
-                stream, e0, 19, 384, rd.STEPS))):
+                stream, e0, 19, 384, rd.STEPS)),
+            ("band_output", lambda: torch.empty(
+                (rb.BR_pad, rb.K), dtype=torch.float32, device=dev))):
         fn()
         print("COLD " + json.dumps({"call": name, **cold_pool(fn, 5)})
               + f" [{card}]", flush=True)
+    tb = rb.tables(device=dev)
     for name, fn in (
             ("span_colsum", lambda: pc.span_colsum_cuda(
                 stream, e0, 19, 384, rd.STEPS)),
@@ -782,8 +959,14 @@ def probe_profiles(dev: torch.device) -> None:
             ("slice_reduce_e2049", lambda: pc.slice_gather_cuda(
                 fs, cols2, x, rv.R, "onehot_reduce")),
             ("slice_plan", lambda: pc.slice_items(fs, nslices)),
-            ("slice_plan_torch", lambda: pc.slice_items_reference(fs))):
-        host, device, rows = _profile(fn)
+            ("slice_plan_torch", lambda: pc.slice_items_reference(fs)),
+            ("band_nodot", lambda: rb.variant_call("nodot", tb)),
+            ("band_nosel", lambda: rb.variant_call("nosel", tb)),
+            ("band_empty", lambda: rb.variant_call("empty", tb)),
+            ("band_output", lambda: torch.empty(
+                (rb.BR_pad, rb.K), dtype=torch.float32, device=dev))):
+        host, device, rows = _profile(
+            fn, BAND_REPS if name.startswith("band") else 10)
         print("PROBES " + json.dumps({
             "call": name, "host_ms_per_call": host,
             "device_ms_per_call": device, "by_kernel": rows[:8]})
@@ -907,6 +1090,8 @@ def main() -> int:
         launch(torch.device("cuda", 0))
     elif len(sys.argv) == 2 and sys.argv[1] == "slice":
         slice_breakdown(torch.device("cuda", 0))
+    elif len(sys.argv) == 2 and sys.argv[1] == "band":
+        band_breakdown(torch.device("cuda", 0))
     elif len(sys.argv) == 2 and sys.argv[1] == "probes":
         probe_profiles(torch.device("cuda", 0))
     else:

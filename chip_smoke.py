@@ -233,7 +233,9 @@ Phases, one or more printed lines each:
    17 to 300 from unaligned starts, identical, overlapping and shared
    spans, a span ending at the stream's end, 7 steps refused (11c); a small
    band whose tiles several chunks visit, a schedule that misses edges
-   refused, nosel's first pass staged and through the pieces (11d);
+   refused, nosel's first pass staged and through the pieces, nodot's
+   device time under ``torch.profiler`` beside its turns and the card's
+   own ``fill_`` of the same bytes (11d);
    repeated, unsorted and all-equal ``fs``, 10,000 chunks on one slice, K
    200, 40 and 8, R 400, 300, 16 and 799, E 7, 50, 100 and 2,500, ``cols``
    at a 4-byte offset (11e). Each kernel's time beside its plain
@@ -5129,7 +5131,31 @@ def phase11_band(gen, dev, card, run):
             lambda mode=mode: rb.variant_call(mode, tb), 1, 20)
         entry[mode] = _probe_entry((k1 + k2) / 2, (p1 + p2) / 2, None, None,
                                    moved[mode], flops[mode],
-                                   errs[("probe", mode)])
+                                   errs[("probe", mode)],
+                                   kernel_ms_in_turns=[k1, k2])
+    # nodot on the device alone (its calls back to back read the host's
+    # rate), beside the card's own store of the same bytes: fill_ does not
+    # compute nodot, and no PyTorch call does
+    fill = "torch.empty((BR_pad, K), float32).fill_(1.0)"
+    nodot_dev, _ = device_ms(lambda: rb.variant_call("nodot", tb), 100)
+
+    def fill_call():
+        return torch.empty((BR_pad, K), dtype=torch.float32,
+                           device=dev).fill_(1.0)
+
+    fill_dev, _ = device_ms(fill_call, 100)
+    fill_ms, _ = timed(dropped(fill_call), 100)
+    check(nodot_dev is not None and fill_dev is not None,
+          "the profiler saw no device time for nodot or its fill yardstick")
+    e = entry["nodot"]
+    e.update(device_ms=nodot_dev, fill_yardstick=fill,
+             fill_yardstick_device_ms=fill_dev, fill_yardstick_ms=fill_ms)
+    print(f"phase 11d band_ablate nodot: device {nodot_dev:.5f} ms "
+          f"(torch.profiler, 100 calls), in turns "
+          f"{e['kernel_ms_in_turns'][0]:.5f} / "
+          f"{e['kernel_ms_in_turns'][1]:.5f} ms; {fill} device "
+          f"{fill_dev:.5f} ms, events {fill_ms:.5f} ms; bound "
+          f"{e['bound_ms']:.5f} ms ({e['bound_by']}) {card}", flush=True)
     # no PyTorch call computes nosel; one computes its first pass, the
     # chunks' column sums, which nosel takes from the staged span kernel
     # (disjoint spans: each byte once, no plan) and the piece path could
@@ -5399,6 +5425,12 @@ def probe_kernels(probes):
          "replaces_note": "k_nodot, k_nosel, k_empty; k_full and k_untrans "
                           "are K4's function, on band_reduce_call "
                           "(spmm_spans)",
+         "source_note": "nodot redesigned (band_nodot_kernel): each tile's "
+                        "count from one round of loads, one warp a tile and "
+                        "a lane a visit, then an even fill of the band, "
+                        "equal contiguous shares, 4 CTAs an SM, 16-byte "
+                        "streaming stores; nosel and empty walk each tile's "
+                        "visits, one CTA per (tile, 64 columns)",
          "launches": n["band_ablate"],
          "launches_by_path": {"probes": n["band_ablate"]},
          "at": "nosel at r4_band_cost.py's sizes (S=19, BAND=28,672, E=512, "

@@ -44,10 +44,21 @@
 //   + j for j < nj_c (at most TMAX) and adds to each: nodot the edge count of
 //   the tile's row 0 bounds within the chunk, to every entry; nosel the
 //   chunk's column sum, to every row; empty the chunk's first 128 rows. The
-//   TPU walks chunks in order with the band resident in VMEM; here one CTA
-//   owns one tile and 64 columns and walks the tile's visits, sorted on the
-//   device into ascending c (the TPU grid's order), so no atomics and the
-//   same sum order. (k_full and k_untrans are K4's function, on K4's port.)
+//   TPU walks chunks in order with the band resident in VMEM; here the
+//   tile's visits are sorted on the device into ascending c (the TPU grid's
+//   order), so no atomics and the same sum order. nosel and empty: one CTA
+//   owns one tile and 64 columns and walks the tile's visits. nodot
+//   (band_nodot_kernel) moves one number a tile and stores 128 K of it, so
+//   what bounds it is the (BR_pad, K) f32 output, written once (8.8 us at
+//   the probe's defaults); walking 38 visits one after another, three
+//   dependent loads each, in all 256 threads of 4 CTAs a tile cost it 4x
+//   that. The output is one contiguous run of tiles of 128 K f32, so nodot
+//   is a segmented fill: each CTA stores an equal contiguous share of its
+//   16-byte units (within one unit), several CTAs an SM, after the counts
+//   of the tiles its share touches, one warp a tile and a lane for each of
+//   up to 64 visits: the tile's loads in one round, the overlaps added in
+//   f32 in ascending c from shuffles. (k_full and k_untrans are K4's function, on K4's
+//   port.)
 // - slice_gather (experiments/r5_vmem_expand.py:56 kernel, pallas_call :85
 //   in make_call): chunk c's E edges gather rows of one R-row slice of x,
 //   x[fs[c] * R + cols[c * E + e]]; "write" writes each gathered row (an
@@ -520,18 +531,17 @@ constexpr int kModeEmpty = 2;
 constexpr int kBandRows = 128;  // rows of an output tile (the TPU's R)
 constexpr int kBandCols = 64;   // columns of a CTA: 8 lanes of 8 values
 
-// Grid (tiles, column blocks). Thread tid holds column vector tid % 8 of
-// rows tid / 8 + 32 q, q < 4. Visits i in [tile_ptr[tile], tile_ptr[tile+1])
-// name the chunks that visit the tile, in ascending order.
+// nosel and empty: grid (tiles, column blocks). Thread tid holds column
+// vector tid % 8 of rows tid / 8 + 32 q, q < 4. Visits i in [tile_ptr[tile],
+// tile_ptr[tile+1]) name the chunks that visit the tile, in ascending order.
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 band_ablate_kernel(const int* __restrict__ tile_ptr,
                    const int* __restrict__ visit_chunk,
-                   const int* __restrict__ chunk_span,
-                   const int* __restrict__ bst, const int* __restrict__ ben,
-                   long long BR_pad, const __nv_bfloat16* __restrict__ stream,
+                   const __nv_bfloat16* __restrict__ stream,
                    const float* __restrict__ colsum, float* __restrict__ out,
                    int K, int E) {
+  static_assert(MODE == kModeNosel || MODE == kModeEmpty, "nosel or empty");
   const int tile = blockIdx.x;
   const int col = blockIdx.y * kBandCols + (threadIdx.x & 7) * 8;
   const int rl = threadIdx.x >> 3;
@@ -556,7 +566,7 @@ band_ablate_kernel(const int* __restrict__ tile_ptr,
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[q][j] += f[j];
       }
-    } else if constexpr (MODE == kModeNosel) {
+    } else {
       float f[4], g[4];
       load_vec<float, 4>(colsum + c * K + col, f);
       load_vec<float, 4>(colsum + c * K + col + 4, g);
@@ -565,14 +575,6 @@ band_ablate_kernel(const int* __restrict__ tile_ptr,
         acc[0][j] += f[j];
         acc[0][j + 4] += g[j];
       }
-    } else {
-      const long long b =
-          static_cast<long long>(__ldg(chunk_span + c)) * BR_pad +
-          static_cast<long long>(tile) * kBandRows;
-      const long long lo = max(static_cast<long long>(__ldg(bst + b)), c * E);
-      const long long hi =
-          min(static_cast<long long>(__ldg(ben + b)), (c + 1) * E);
-      acc[0][0] += static_cast<float>(hi > lo ? hi - lo : 0);
     }
   }
 #pragma unroll
@@ -580,11 +582,97 @@ band_ablate_kernel(const int* __restrict__ tile_ptr,
     float w[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      w[j] = MODE == kModeEmpty   ? acc[q][j]
-             : MODE == kModeNosel ? acc[0][j]
-                                  : acc[0][0];
+      w[j] = MODE == kModeEmpty ? acc[q][j] : acc[0][j];
     }
     store_vec<float, 8>(o + static_cast<long long>(rl + 32 * q) * K + col, w);
+  }
+}
+
+constexpr int kNodotCtasPerSm = 4;             // CTAs of band_nodot an SM
+constexpr int kNodotWarps = kThreads / 32;     // tiles counted at once
+
+// The overlap of visit i's chunk with the bound at (its span, the tile's
+// first row), as f32; 0 past the tile's last visit v1.
+__device__ __forceinline__ float band_visit_overlap(
+    int i, int v1, long long tile, const int* __restrict__ visit_chunk,
+    const int* __restrict__ chunk_span, const int* __restrict__ bst,
+    const int* __restrict__ ben, long long BR_pad, int E) {
+  if (i >= v1) return 0.0f;
+  const long long c = __ldg(visit_chunk + i);
+  const long long b = static_cast<long long>(__ldg(chunk_span + c)) * BR_pad +
+                      tile * kBandRows;
+  const long long lo = max(static_cast<long long>(__ldg(bst + b)), c * E);
+  const long long hi = min(static_cast<long long>(__ldg(ben + b)), (c + 1) * E);
+  return static_cast<float>(hi > lo ? hi - lo : 0);
+}
+
+// nodot's count of one tile, in every lane of the calling warp: lane l
+// loads visits v0 + l and v0 + 32 + l (+ 64, ... past 64 visits), all in
+// one round, and every lane adds the overlaps in ascending visit order from
+// shuffles: the f32 sum, in the order, of band_ablate_reference.
+__device__ __forceinline__ float band_tile_count(
+    long long tile, const int* __restrict__ tile_ptr,
+    const int* __restrict__ visit_chunk, const int* __restrict__ chunk_span,
+    const int* __restrict__ bst, const int* __restrict__ ben, long long BR_pad,
+    int E) {
+  const int lane = threadIdx.x & 31;
+  const int v0 = __ldg(tile_ptr + tile), v1 = __ldg(tile_ptr + tile + 1);
+  float acc = 0.0f;
+  for (int base = v0; base < v1; base += 64) {
+    const float n0 = band_visit_overlap(base + lane, v1, tile, visit_chunk,
+                                        chunk_span, bst, ben, BR_pad, E);
+    const float n1 = band_visit_overlap(base + 32 + lane, v1, tile,
+                                        visit_chunk, chunk_span, bst, ben,
+                                        BR_pad, E);
+    const int m = v1 - base;
+    for (int j = 0; j < 32 && j < m; ++j) {
+      acc += __shfl_sync(0xffffffffu, n0, j);
+    }
+    for (int j = 0; j < 32 && j < m - 32; ++j) {
+      acc += __shfl_sync(0xffffffffu, n1, j);
+    }
+  }
+  return acc;
+}
+
+// nodot: CTA b of G stores the 16-byte units [U b / G, U (b + 1) / G) of the
+// output (U = ntiles * tile_units, tile_units = 32 K), each unit its tile's
+// count. The tiles its share touches (two at the probe's defaults) are
+// counted kNodotWarps at a time, one warp each, then their units stored
+// with streaming 16-byte stores, the CTA's threads on consecutive units.
+__global__ void __launch_bounds__(kThreads)
+band_nodot_kernel(const int* __restrict__ tile_ptr,
+                  const int* __restrict__ visit_chunk,
+                  const int* __restrict__ chunk_span,
+                  const int* __restrict__ bst, const int* __restrict__ ben,
+                  long long BR_pad, float* __restrict__ out,
+                  long long tile_units, long long units, int E) {
+  __shared__ float count[kNodotWarps];
+  const long long G = gridDim.x, b = blockIdx.x;
+  const long long u0 = units * b / G, u1 = units * (b + 1) / G;
+  if (u0 >= u1) return;
+  const long long t_first = u0 / tile_units, t_last = (u1 - 1) / tile_units;
+  const int warp = threadIdx.x >> 5;
+  float4* o = reinterpret_cast<float4*>(out);
+  for (long long g = t_first; g <= t_last; g += kNodotWarps) {
+    if (g + warp <= t_last) {
+      const float n = band_tile_count(g + warp, tile_ptr, visit_chunk,
+                                      chunk_span, bst, ben, BR_pad, E);
+      if ((threadIdx.x & 31) == 0) count[warp] = n;
+    }
+    __syncthreads();
+    const long long g_end =
+        t_last + 1 < g + kNodotWarps ? t_last + 1 : g + kNodotWarps;
+    for (long long t = g; t < g_end; ++t) {
+      const float v = count[t - g];
+      const float4 w = make_float4(v, v, v, v);
+      const long long a = u0 > t * tile_units ? u0 : t * tile_units;
+      const long long z = u1 < (t + 1) * tile_units ? u1 : (t + 1) * tile_units;
+      for (long long u = a + threadIdx.x; u < z; u += kThreads) {
+        __stcs(o + u, w);
+      }
+    }
+    __syncthreads();  // count[] is written again
   }
 }
 
@@ -1350,27 +1438,33 @@ extern "C" int psp_band_ablate(int mode, const void* tile_ptr,
                                long long ntiles, long long K, long long E,
                                void* stream) {
   if (K % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(ntiles),
-                  static_cast<unsigned>((K + kBandCols - 1) / kBandCols));
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const int* tp = static_cast<const int*>(tile_ptr);
   const int* vc = static_cast<const int*>(visit_chunk);
-  const int* sp = static_cast<const int*>(chunk_span);
-  const int* bs = static_cast<const int*>(bst);
-  const int* be = static_cast<const int*>(ben);
   const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(src);
   const float* cs_ = static_cast<const float*>(colsum);
   float* o = static_cast<float*>(out);
   const int k = static_cast<int>(K), e = static_cast<int>(E);
   if (mode == kModeNodot) {
-    band_ablate_kernel<kModeNodot><<<grid, kThreads, 0, cs>>>(
-        tp, vc, sp, bs, be, BR_pad, s, cs_, o, k, e);
-  } else if (mode == kModeNosel) {
-    band_ablate_kernel<kModeNosel><<<grid, kThreads, 0, cs>>>(
-        tp, vc, sp, bs, be, BR_pad, s, cs_, o, k, e);
+    const long long tile_units = kBandRows * K / 4;
+    const long long units = ntiles * tile_units;
+    long long grid = static_cast<long long>(kNodotCtasPerSm) * sm_count();
+    if (grid > units / kThreads) grid = units / kThreads;  // a unit a thread
+    if (grid < 1) grid = 1;
+    band_nodot_kernel<<<static_cast<unsigned>(grid), kThreads, 0, cs>>>(
+        tp, vc, static_cast<const int*>(chunk_span),
+        static_cast<const int*>(bst), static_cast<const int*>(ben), BR_pad, o,
+        tile_units, units, e);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid(static_cast<unsigned>(ntiles),
+                  static_cast<unsigned>((K + kBandCols - 1) / kBandCols));
+  if (mode == kModeNosel) {
+    band_ablate_kernel<kModeNosel><<<grid, kThreads, 0, cs>>>(tp, vc, s, cs_,
+                                                              o, k, e);
   } else if (mode == kModeEmpty) {
-    band_ablate_kernel<kModeEmpty><<<grid, kThreads, 0, cs>>>(
-        tp, vc, sp, bs, be, BR_pad, s, cs_, o, k, e);
+    band_ablate_kernel<kModeEmpty><<<grid, kThreads, 0, cs>>>(tp, vc, s, cs_,
+                                                              o, k, e);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

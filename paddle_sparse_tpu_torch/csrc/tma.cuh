@@ -1,5 +1,6 @@
 // 2-D TMA loads through a tensor map, shared by the kernels that stage tiles
-// of a row-major array in shared memory (spmm_window.cu, probes.cu).
+// of a row-major array in shared memory (spmm_window.cu, probes.cu); and
+// bulk stores from shared to global memory (chip_probe_band.cu's fills).
 #pragma once
 
 #include <cuda.h>
@@ -48,6 +49,33 @@ __device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0),
       "r"(static_cast<uint32_t>(__cvta_generic_to_shared(bar)))
       : "memory");
+}
+
+// Make this thread's generic writes to shared memory visible to the async
+// proxy (a bulk store's read). Each writing thread runs it, then the CTA
+// synchronises, then one thread issues the stores.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// shared memory to global memory, in this thread's open bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(static_cast<uint32_t>(__cvta_generic_to_shared(src))), "r"(bytes)
+      : "memory");
+}
+
+// Close this thread's bulk group and wait until every bulk store it issued
+// has read its source: shared memory may then be written again, or the CTA
+// exit.
+__device__ __forceinline__ void bulk_commit_and_wait_read() {
+  asm volatile(
+      "cp.async.bulk.commit_group;\n"
+      "cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 }  // namespace psp

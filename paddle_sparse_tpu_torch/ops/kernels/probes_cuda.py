@@ -64,9 +64,10 @@ def _aligned(*tensors) -> bool:
 
 
 def _index32(fn: str, name: str, t: torch.Tensor) -> torch.Tensor:
-    """``t`` as a contiguous 1-D int32 tensor: itself when it is one."""
-    if t.dtype == torch.int32 and t.dim() == 1 and t.is_contiguous():
-        return t
+    """``t`` as a contiguous 1-D int32 tensor: itself when it is one, a flat
+    view when it is a contiguous int32 tensor of another shape."""
+    if t.dtype == torch.int32 and t.is_contiguous():
+        return t if t.dim() == 1 else t.view(-1)
     if t.dtype != torch.int64 and t.dtype != torch.int32:
         raise TypeError(f"{fn}: {name} must be int32 or int64, got {t.dtype}")
     return t.reshape(-1).to(torch.int32).contiguous()
@@ -525,12 +526,16 @@ def band_ablate_cuda(mode: str, chunk_span, chunk_row0, chunk_nj,
                      S: int, BR_pad: int, E: int, K: int,
                      R: int = TILE_ROWS, TMAX: int,
                      visits) -> torch.Tensor:
-    """:func:`band_ablate_reference` through ``psp_band_ablate``: one CTA per
-    (128-row tile, 64 columns) walks the tile's visits (:func:`band_visits`,
-    sorted on the device) in ascending chunk order, no atomics. ``nosel``
-    first takes each chunk's column sum once through
+    """:func:`band_ablate_reference` through ``psp_band_ablate``, each
+    tile's visits (:func:`band_visits`, sorted on the device) added in
+    ascending chunk order, no atomics. ``nosel`` and ``empty``: one CTA per
+    (128-row tile, 64 columns) walks the tile's visits; ``nosel`` first
+    takes each chunk's column sum once through
     :func:`span_colsum_staged_cuda` (one span of ``E`` rows per chunk,
-    disjoint: no plan needed). ``stream``
+    disjoint: no plan needed). ``nodot``, which reads no stream row: a fill
+    of the output in equal contiguous shares, one a CTA, several CTAs an
+    SM, each after the one-round counts of the tiles its share touches
+    (one warp a tile, a lane a visit). ``stream``
     is a bf16 (nchunks * E, K) tensor, K a multiple of 8 (a power of two
     for ``nosel``); the bounds are (S * BR_pad / R, R) int32 absolute
     positions, as the TPU lays them out. ``visits`` is the schedule's
@@ -565,7 +570,7 @@ def band_ablate_cuda(mode: str, chunk_span, chunk_row0, chunk_nj,
                          f"need that many stream rows ({stream.shape[0]}) "
                          f"and the bounds S * BR_pad = {S * BR_pad} entries")
     ntiles = BR_pad // R
-    out = torch.empty((BR_pad, K), dtype=torch.float32, device=dev)
+    out = stream.new_empty((BR_pad, K), dtype=torch.float32)
     if ntiles == 0 or K == 0:
         return out
     tile_ptr, visit = visits

@@ -1966,6 +1966,80 @@ def test_probe_band_variants_vs_plain(dev, kind):
                                                          tb.stream, **kw))
 
 
+NODOT_CTAS_PER_SM = 4    # csrc/probes.cu kNodotCtasPerSm
+BAND_NODOT_CASES = {
+    "defaults": {}, "K8": dict(K=8), "K72": dict(K=72), "K264": dict(K=264),
+    "TMAX1": dict(TMAX=1), "TMAX4": dict(TMAX=4),
+    "mid_tile": dict(S=2, BAND=3712, CAP=4096, K=264)}
+
+
+def _band_random(dev, case, seed=0):
+    """``unvisited``: tiles 2 and 3 of 6 visited by no chunk; ``many``: 72 of
+    96 chunks on tile 1, which has more than 64 visits. Random spans and
+    bounds (a visit's overlap anywhere in [0, E])."""
+    g = torch.Generator().manual_seed(seed)
+    R, E, K, TMAX = 128, 16, 72, 4
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, dtype=torch.int32)
+
+    if case == "unvisited":
+        S, BAND, n = 2, 640, 40
+        cr, cn = ints(0, 2, n) * 4 * R, ints(0, 3, n)
+    else:
+        S, BAND, n = 2, 384, 96
+        cr = torch.where(torch.arange(n) < 72, 1, ints(0, 3, n)) * R
+        cn = ints(1, 3, n)
+    BR_pad, L = BAND + 128, n * E
+    bst = ints(0, L + 1, S * BR_pad)
+    ben = torch.minimum(bst + ints(0, L // 2, S * BR_pad),
+                        torch.tensor(L, dtype=torch.int32))
+    stream = torch.randn(L, K, generator=g).bfloat16()
+    args = tuple(t.to(dev) for t in (ints(0, S, n), cr.int(), cn,
+                                     bst.reshape(-1, R), ben.reshape(-1, R),
+                                     stream))
+    visits = pc.band_visits(args[1], args[2], BR_pad=BR_pad, TMAX=TMAX)
+    return args, dict(S=S, BR_pad=BR_pad, E=E, K=K, TMAX=TMAX,
+                      visits=visits)
+
+
+@pytest.mark.parametrize("case", [*BAND_NODOT_CASES, "unvisited", "many"])
+def test_probe_band_nodot_vs_plain(dev, case):
+    """nodot bit for bit with the plain version: at the probe's defaults,
+    K 8/72/264, TMAX 1 and 4, tiles no chunk visits, a tile of more than 64
+    visits, and a band whose CTA shares cross tile boundaries mid-tile."""
+    if case in BAND_NODOT_CASES:
+        sizes = {} if case == "defaults" else dict(S=3, BAND=640, E=128,
+                                                   K=128, CAP=1024)
+        tb = rb.tables(**{**sizes, **BAND_NODOT_CASES[case]}, device=dev)
+        args = (tb.cs, tb.cr, tb.cn, tb.bst, tb.ben, tb.stream)
+        kw = dict(S=tb.S, BR_pad=tb.BR_pad, E=tb.E, K=tb.K, TMAX=tb.TMAX,
+                  visits=tb.visits)
+    else:
+        args, kw = _band_random(dev, case)
+    counts = kw["visits"][0].diff()
+    if case == "unvisited":
+        assert not counts[2:4].any() and bool(counts.any())
+    if case == "many":
+        assert int(counts.max()) > 64
+    if case in ("defaults", "mid_tile"):
+        # some CTA's share of the 16-byte units starts in one tile and ends
+        # in the next (psp_band_ablate's grid)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        tile_units = 32 * kw["K"]
+        units = counts.numel() * tile_units
+        G = max(1, min(NODOT_CTAS_PER_SM * sms, units // 256))
+        assert any(units * b // G // tile_units
+                   != (units * (b + 1) // G - 1) // tile_units
+                   for b in range(G))
+    before = pc.band_ablate_cuda.launches
+    got = pc.band_ablate_cuda("nodot", *args, **kw)
+    assert pc.band_ablate_cuda.launches == before + 1
+    want = pc.band_ablate_reference("nodot", *args, **kw)
+    assert torch.equal(got, want)
+    assert bool(want.any())
+
+
 @pytest.mark.parametrize("variant", ["onehot_write", "onehot_reduce"])
 @pytest.mark.parametrize("shape", [(256, 512, 2048), (200, 400, 50),
                                    (8, 16, 7), (40, 300, 100),

@@ -494,6 +494,58 @@ def test_band_variants_match_jax(sizes, kind):
         np.testing.assert_allclose(got, want, **F32)
 
 
+def _band_schedule(case, K, seed=0):
+    """A schedule and bounds that ``r4_band_cost.tables`` never makes, for
+    nodot against ``k_nodot``: ``unvisited`` leaves tiles 2 and 3 of 6 to no
+    chunk; ``many`` sends 72 of 96 chunks to tile 1 from its first row, so
+    that it has more than 64 visits (two rounds of a warp's lanes on the
+    card). Spans and bounds are random, so a visit's overlap is anywhere in
+    [0, E]."""
+    rng = np.random.default_rng(seed)
+    R, E, TMAX = 128, 16, 4
+    if case == "unvisited":
+        S, BAND, n = 2, 640, 40
+        cr = rng.choice([0, 4], n) * R
+        cn = rng.integers(0, 3, n)
+    else:
+        S, BAND, n = 2, 384, 96
+        cr = np.where(np.arange(n) < 72, 1, rng.integers(0, 3, n)) * R
+        cn = rng.integers(1, 3, n)
+    BR_pad, L = BAND + 128, n * E
+    bst = rng.integers(0, L + 1, S * BR_pad)
+    ben = np.minimum(bst + rng.integers(0, L // 2, S * BR_pad), L)
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))
+    stream = torch.from_numpy(rng.standard_normal((L, K),
+                                                  np.float32)).bfloat16()
+    tb = dict(cs=i32(rng.integers(0, S, n)), cr=i32(cr), cn=i32(cn),
+              bst=i32(bst).reshape(-1, R), ben=i32(ben).reshape(-1, R),
+              stream=stream)
+    kw = dict(S=S, BR_pad=BR_pad, E=E, K=K, R=R, TMAX=TMAX)
+    return tb, kw, n
+
+
+@pytest.mark.parametrize("K", [8, 72])
+@pytest.mark.parametrize("case", ["unvisited", "many"])
+def test_band_nodot_schedules_match_jax(case, K):
+    """nodot, bit for bit with ``k_nodot`` in interpret mode, on a band with
+    tiles no chunk visits and on a tile of more than 64 visits."""
+    tb, kw, n = _band_schedule(case, K)
+    visits = pc.band_visits(tb["cr"], tb["cn"], BR_pad=kw["BR_pad"],
+                            TMAX=kw["TMAX"])
+    counts = visits[0].diff()
+    if case == "unvisited":
+        assert not counts[2:4].any() and bool(counts.any())
+    else:
+        assert int(counts.max()) > 64
+    args = [tb[k] for k in ("cs", "cr", "cn", "bst", "ben", "stream")]
+    with _interpret():
+        make_call, kernels = _band_variants(nchunks=n, **kw)
+        want = np.asarray(make_call(kernels["nodot"])(*map(_jnp, args)))
+    got = pc.band_ablate_cuda("nodot", *args, **kw, visits=visits)
+    np.testing.assert_array_equal(_np(got), want)
+    assert want[:, 0].any()
+
+
 def _covered_numpy(cs, cr, cn, bst, ben, S, BR_pad, E, R, TMAX):
     """Every edge of every (span, row) bound inside the whole chunks lies in
     a chunk of that span whose tiles include the row."""
