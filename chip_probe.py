@@ -11,6 +11,7 @@ repository root:
     python3 chip_probe.py slice        # P5's per-chunk kernel, part by part
     python3 chip_probe.py band         # P4 nodot, part by part
     python3 chip_probe.py probes       # P3's, P4's and P5's calls, by kernel
+    python3 chip_probe.py gloo         # which collectives gloo runs on CUDA
 
 ``sweep``: the span kernels, K1 and K2 alone at K=256 on the bench's zipf
 graph at 1/8 scale (``chip_smoke.bench_graph``) for each piece size ``cap``
@@ -106,6 +107,14 @@ plan, its output's allocation alone, P3 and P4's output allocation on a
 cold pool (:func:`cold_pool`: each call alone after ``empty_cache()``,
 the segments it took from the driver) and on the warm one: a ``COLD``
 line each.
+
+``gloo``: whether the gloo backend takes CUDA tensors for each collective
+of ``paddle_sparse_tpu_torch/parallel/collectives.py`` (all-gather,
+reduce-scatter, all-to-all, the ring's ``batch_isend_irecv``) and the
+train step's all-reduce and broadcast: for each, two fresh ranks on card 0
+(``torch.multiprocessing`` spawn, a file store, a 30 s timeout) call it
+once; each rank's outcome (ok, or the error it raised), or that a rank
+died. One JSON line.
 
 Each prints the card's ``nvidia-smi`` name and power limit and exits
 non-zero without a card.
@@ -1072,6 +1081,79 @@ def launch(dev: torch.device) -> None:
           flush=True)
 
 
+GLOO_COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor",
+                    "all_to_all_single", "batch_isend_irecv", "all_reduce",
+                    "broadcast")
+
+
+def _gloo_call(name: str, rank: int, dev) -> None:
+    """One call of the collective ``name`` between ranks 0 and 1."""
+    import torch.distributed as dist
+    x = torch.arange(6., device=dev).reshape(3, 2) + 10 * rank
+    if name == "all_gather_into_tensor":
+        dist.all_gather_into_tensor(torch.empty(6, 2, device=dev), x)
+    elif name == "reduce_scatter_tensor":
+        dist.reduce_scatter_tensor(torch.empty(3, 2, device=dev),
+                                   torch.cat([x, x]))
+    elif name == "all_to_all_single":
+        dist.all_to_all_single(torch.empty(4, 2, device=dev),
+                               torch.ones(4, 2, device=dev))
+    elif name == "batch_isend_irecv":
+        peer = 1 - rank
+        for req in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, x.clone(), peer),
+                 dist.P2POp(dist.irecv, torch.empty_like(x), peer)]):
+            req.wait()
+    elif name == "all_reduce":
+        dist.all_reduce(x.clone())
+    else:
+        dist.broadcast(x.clone(), 0)
+
+
+def _gloo_rank(rank: int, name: str, tmp: str) -> None:
+    """A spawned rank of ``gloo``: its outcome into ``tmp/rank<r>.txt``."""
+    import datetime
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=30))
+    try:
+        _gloo_call(name, rank, torch.device("cuda", 0))
+        torch.cuda.synchronize()
+        msg = "ok"
+    except (RuntimeError, ValueError) as e:  # a refusal is what is asked
+        msg = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    with open(f"{tmp}/rank{rank}.txt", "w") as f:
+        f.write(msg)
+
+
+def gloo_check() -> None:
+    """Each of ``GLOO_COLLECTIVES`` on CUDA tensors through gloo, in two
+    fresh ranks on card 0; one JSON line."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    out = {}
+    for name in GLOO_COLLECTIVES:
+        with tempfile.TemporaryDirectory() as tmp:
+            died = None
+            try:
+                mp.spawn(_gloo_rank, args=(name, tmp), nprocs=2)
+            except (mp.ProcessRaisedException,
+                    mp.ProcessExitedException) as e:    # a rank that died
+                died = str(e).strip().splitlines()[-1][:200]
+            got = {}
+            for r in range(2):
+                path = Path(tmp) / f"rank{r}.txt"
+                got[f"rank{r}"] = (path.read_text() if path.exists()
+                                   else "no result")
+        out[name] = {**got, "rank_died": died}
+        print(f"gloo on CUDA tensors, {name}: {out[name]}", flush=True)
+    print(json.dumps({"gloo_cuda": out, "card": card_line()}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_probe: no CUDA device visible", file=sys.stderr)
@@ -1094,6 +1176,8 @@ def main() -> int:
         band_breakdown(torch.device("cuda", 0))
     elif len(sys.argv) == 2 and sys.argv[1] == "probes":
         probe_profiles(torch.device("cuda", 0))
+    elif len(sys.argv) == 2 and sys.argv[1] == "gloo":
+        gloo_check()
     else:
         print(__doc__, file=sys.stderr)
         return 2

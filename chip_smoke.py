@@ -245,6 +245,25 @@ Phases, one or more printed lines each:
    its plan, its piece count and piece-sum memory), ns per edge of the
    slice gather beside random rows of a 64 MB source, the reduce's plan
    and the one-slice case, and the allocator's retries in the turns.
+12. ``parallel/`` at world size 1: an NCCL process group of one rank from a
+   file store and a 1-D mesh (one card runs NCCL at one rank only). 12a
+   the dry run's blocks (``entry.DryRun`` on its toy graph of 64 nodes, GCN
+   16 -> 32 -> 4): the row-sharded GCN step, ring, bucketed ring and halo
+   against the all-gather SpMM, the 2-D SpMM on a (1, 1) grid, the seg2
+   and seg2 x halo steps (more than one segment) and the row-sharded A @ A
+   against dense, each step also with d value; every block's launches
+   exact (``DRYRUN_LAUNCHES``). 12b at full width on phase 4's graph
+   (2,449,029 nodes, 122,451,450 nnz), shards built on the card: phase 5's
+   GCN train step (100 -> 256 -> 256 -> 47, f32, d value) through
+   ``RowShardedAdjacency`` and ``sharded_train_step``, its first step's
+   loss, grads, parameters after SGD and d value against phase 5's
+   unsharded step from the same state (within 1e-6 of each tensor's max,
+   bit for bit reported), 1 warm-up + 3 timed steps beside phase 5's
+   ``step_ms``, peak memory, launches exact (K1 3, K2 1, the fused CSC
+   backward 2 a step); then ``spmm_seg2_allgather`` at K=256 f32, one
+   forward+backward against ``spmm_seg2`` on the same plan (1e-6), 1
+   warm-up + 3 timed beside phase 7c's seg2 f32, launches exact (spans 1,
+   the fused span backward 1 a call).
 
 Every kernel in the JSON line carries its time, launches, plain time,
 bound (the larger of the bytes each input and output moves once over
@@ -5465,6 +5484,308 @@ def probe_kernels(probes):
          **sl["onehot_reduce"]}]
 
 
+# ---- phase 12: parallel/ at world size 1 on NCCL ----------------------------
+
+PARALLEL_REL = 1e-6      # sharded against unsharded: at most 1e-6 relative
+
+# the launches of each block of the dry run on one rank, from the dispatch
+# of _SpmmSum (ops/spmm.py) and _PackedSpmm (ops/spmm_seg2.py): a GCN step
+# whose adjacency values need no grad runs K1 forward in both layers and
+# over the CSC view for layer 1's d x (layer 0 reads the features, no d x);
+# with d value, layer 0 runs K2 alone and layer 1 the fused CSC backward.
+# The seg2 steps add one spans forward (the check against the all-gather
+# SpMM) and, with d value, the span SDDMM for layer 0 and the fused span
+# backward for layer 1. The interchanges run K1 once each (all-gather, ring
+# and bucketed ring of one step, halo); A @ A runs K5 once.
+DRYRUN_LAUNCHES = {
+    "gcn_step": {"spmm_csr": 3},
+    "gcn_step_d_value": {"spmm_csr": 2, "sddmm_csr": 1, "spmm_sddmm_csc": 1},
+    "interchanges": {"spmm_csr": 4},
+    "grid_2d": {"spmm_csr": 1},
+    "seg2_step": {"spmm_spans": 4},
+    "seg2_step_d_value": {"spmm_spans": 3, "sddmm_spans": 1,
+                          "spmm_sddmm_spans": 1},
+    "seg2_halo_step": {"spmm_spans": 4},
+    "seg2_halo_step_d_value": {"spmm_spans": 3, "sddmm_spans": 1,
+                               "spmm_sddmm_spans": 1},
+    "spgemm": {"segcompact": 1},
+}
+
+
+def phase12a_dryrun(dev, mesh):
+    """The dry run's blocks at its toy size on one rank, each with its
+    launch counts set to 0 just before and read just after, held to
+    ``DRYRUN_LAUNCHES`` exactly; the steps also with d value."""
+    from paddle_sparse_tpu_torch.entry import DryRun, dryrun_nodes
+    run = DryRun(mesh, dev, dryrun_nodes(1))
+    blocks = (("gcn_step", run.gcn_step),
+              ("gcn_step_d_value", lambda: run.gcn_step(value_grad=True)),
+              ("interchanges", run.interchanges), ("grid_2d", run.grid_2d),
+              ("seg2_step", run.seg2_step),
+              ("seg2_step_d_value", lambda: run.seg2_step(value_grad=True)),
+              ("seg2_halo_step", run.seg2_halo_step),
+              ("seg2_halo_step_d_value",
+               lambda: run.seg2_halo_step(value_grad=True)),
+              ("spgemm", run.spgemm))
+    launches = {}
+    for name, fn in blocks:
+        _zero_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        want = {k: DRYRUN_LAUNCHES[name].get(k, 0) for k in counts}
+        print(f"phase 12a {name}: launches "
+              + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+              + f" {'ok' if counts == want else 'FAIL'}", flush=True)
+        check(counts == want, f"dry run block {name}: expected launches "
+                              f"{DRYRUN_LAUNCHES[name]}, counted {counts}")
+        if isinstance(res, dict) and "loss" in res:
+            check(bool(torch.isfinite(res["loss"])),
+                  f"dry run block {name}: loss not finite")
+        launches[f"parallel_toy_{name}"] = counts
+    return launches
+
+
+def _rel_diff(got, ref):
+    """Max abs difference and that difference over max |ref|."""
+    err = float((got.double() - ref.double()).abs().max())
+    return err, err / max(float(ref.double().abs().max()), 1e-30)
+
+
+def _same_step(name, got, ref):
+    """Loss, grads, parameters after the step and d value of a sharded step
+    against the unsharded one: each within ``PARALLEL_REL`` of its max
+    |ref|; prints the max abs differences."""
+    pairs = [("loss", got["loss"], ref["loss"])]
+    pairs += [(f"grad {k}", got["grads"][k], ref["grads"][k])
+              for k in ref["grads"]]
+    pairs += [(f"param {k}", got["params"][k], ref["params"][k])
+              for k in ref["params"]]
+    pairs.append(("d value", got["d_value"], ref["d_value"]))
+    worst, bitwise = 0.0, True
+    for what, a, b in pairs:
+        err, rel = _rel_diff(a, b)
+        bitwise &= bool(torch.equal(a, b))
+        worst = max(worst, rel)
+        check(rel <= PARALLEL_REL, f"{name}: {what} differs from the "
+                                   f"unsharded step by {err:.3e} ({rel:.3e} "
+                                   f"of its max)")
+    print(f"phase 12b {name} vs unsharded: loss {float(got['loss']):.8f} / "
+          f"{float(ref['loss']):.8f}; {len(pairs)} tensors (loss, grads, "
+          f"params after SGD, d value), worst max abs diff over max |ref| "
+          f"{worst:.3e} (tolerance {PARALLEL_REL:g}); bit for bit "
+          f"{bitwise}", flush=True)
+    return worst, bitwise
+
+
+def phase12b_gcn(dev, card, mesh, step_ms_phase5):
+    """Phase 5's GCN train step, row-sharded at world size 1 through
+    ``RowShardedAdjacency`` and ``sharded_train_step``, against phase 5's
+    unsharded step on the same inputs: shards built on the card, 1 warm-up
+    (the compared step) + 3 timed steps, exact launches, peak memory."""
+    from paddle_sparse_tpu_torch import (GCN, SparseTensor, gcn_normalize,
+                                         init_gcn, train_step)
+    from paddle_sparse_tpu_torch.entry import sharded_train_step
+    from paddle_sparse_tpu_torch.parallel import (RowShardedAdjacency,
+                                                  shard_padded_coo,
+                                                  shard_rows)
+    from paddle_sparse_tpu_torch.parallel.mesh import axis_rank
+    from paddle_sparse_tpu_torch.parallel.spmm import (
+        block_coo, device_put_sharded_matrix)
+    n = PRODUCTS_NODES
+    group, rank, world = axis_rank(mesh)
+    raw, x = products_graph(dev)
+    adj = gcn_normalize(raw)
+    del raw
+    y = torch.randint(0, GCN_DIMS[2], (n,), generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    state0 = init_gcn(torch.Generator().manual_seed(0), *GCN_DIMS,
+                      num_layers=3, device=dev).state_dict()
+
+    def model():
+        m = GCN(*GCN_DIMS, num_layers=3, device=dev)
+        m.load_state_dict(state0)
+        return m
+
+    # phase 5's step, unsharded, from the same state: the reference
+    ref_model = model()
+    adj.value.requires_grad_()
+    loss = train_step(ref_model, adj, x, y, LR)
+    ref = {"loss": loss, "params": {k: v.clone() for k, v in
+                                    ref_model.state_dict().items()},
+           "grads": {k: p.grad for k, p in ref_model.named_parameters()},
+           "d_value": adj.value.grad}
+    del ref_model
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = SparseTensor(row=adj.row, col=adj.col, value=adj.value.detach(),
+                         sparse_sizes=adj.shape, is_sorted=True,
+                         trust_data=True)
+    mat = shard_padded_coo(eager, world)
+    block = block_coo(device_put_sharded_matrix(mat, rank, dev))
+    # shard_padded_coo left 0 at any padding: the values are the leaf
+    leaf = block.value.detach().requires_grad_()
+    sharded = RowShardedAdjacency(dataclasses.replace(block, value=leaf),
+                                  group)
+    x_local, y_local = (shard_rows(x, world, rank),
+                        shard_rows(y, world, rank))
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    del eager, adj
+
+    m = model()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    times = []
+    for i in range(4):
+        leaf.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sharded_train_step(m, sharded, x_local, y_local, n, LR, group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first = {"loss": res["loss"].clone(),
+                     "grads": {k: v.clone() for k, v in res["grads"].items()},
+                     "params": {k: v.clone()
+                                for k, v in res["params"].items()},
+                     "d_value": leaf.grad.clone()}
+    counts = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms, med_ms = sum(times[1:]) / 3, sorted(times[1:])[1]
+    print(f"phase 12b row-sharded GCN step (world {world}, NCCL; "
+          f"RowShardedAdjacency + GCN, {mat.row.shape[1]} slots a shard, "
+          f"built on the card in {shard_s:.3f} s) ms: warm-up "
+          f"{times[0]:.3f}, timed {' '.join(f'{t:.3f}' for t in times[1:])} "
+          f"(mean {step_ms:.3f}, median {med_ms:.3f}) beside phase 5's "
+          f"unsharded step "
+          f"{step_ms_phase5:.3f} ms; peak mem {peak_gb:.2f} GB {card}",
+          flush=True)
+    want = {k: 0 for k in counts}
+    want.update(spmm_csr=3 * 4, sddmm_csr=1 * 4, spmm_sddmm_csc=2 * 4)
+    print("phase 12b row-sharded GCN launches in 4 steps: "
+          + ", ".join(f"{k} {v}" for k, v in counts.items() if v), flush=True)
+    check(counts == want, f"row-sharded GCN step: expected launches {want}, "
+                          f"counted {counts}")
+    worst, bitwise = _same_step("row-sharded GCN step", first, ref)
+    return mat, {"step_ms": step_ms, "median_ms": med_ms,
+                 "warmup_ms": times[0],
+                 "phase5_step_ms": step_ms_phase5, "shard_s": shard_s,
+                 "peak_gb": peak_gb, "worst_rel_diff": worst,
+                 "bit_for_bit": bitwise, "launches": counts}
+
+
+def phase12b_seg2(dev, card, mesh, mat, seg2_fwd_bwd_ms):
+    """One forward+backward of ``spmm_seg2_allgather`` at K=256 f32 on the
+    row-sharded graph, against ``spmm_seg2`` on the same plan unsharded: the
+    plan built on the card, 1 warm-up (the compared call) + 3 timed, exact
+    launches, beside phase 7c's seg2 f32 forward+backward."""
+    from paddle_sparse_tpu_torch import spmm_seg2
+    from paddle_sparse_tpu_torch.parallel import (device_put_sharded_seg2,
+                                                  make_seg2_plan_sharded,
+                                                  pack_values_sharded,
+                                                  shard_rows,
+                                                  spmm_seg2_allgather)
+    from paddle_sparse_tpu_torch.parallel.mesh import axis_rank
+    _, rank, world = axis_rank(mesh)
+    n, K = PRODUCTS_NODES, 256
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh = make_seg2_plan_sharded(mat, feat_dim=K, ranks=[rank])
+    shard = device_put_sharded_seg2(sh, rank, dev)
+    packed = pack_values_sharded(sh, mat.value)[rank]
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(n, K, generator=gen, device=dev)
+    gw = torch.randn(n, K, generator=gen, device=dev)
+    nnz = shard.structure.col_f.numel()
+
+    def run(fn):
+        pv = packed.detach().clone().requires_grad_()
+        xx = shard_rows(x, world, rank).detach().requires_grad_()
+        out = fn(pv, xx)
+        out.backward(gw)
+        return {"out": out.detach(), "d_x": xx.grad, "d_value": pv.grad}
+
+    ref = run(lambda pv, xx: spmm_seg2(shard.plan, shard.structure,
+                                       pv[:nnz], xx))
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    times = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(lambda pv, xx: spmm_seg2_allgather(mesh, shard, pv, xx))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first = got
+        del got
+    counts = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fb_ms, med_ms = sum(times[1:]) / 3, sorted(times[1:])[1]
+    print(f"phase 12b seg2 all-gather K={K} f32 (world {world}; plan S="
+          f"{shard.plan.S} SR={shard.plan.SR}, built on the card in "
+          f"{plan_s:.3f} s) forward+backward ms: warm-up {times[0]:.3f}, "
+          f"timed {' '.join(f'{t:.3f}' for t in times[1:])} (mean "
+          f"{fb_ms:.3f}, median {med_ms:.3f}) beside phase 7c's seg2 uniform "
+          f"f32 "
+          f"{seg2_fwd_bwd_ms:.3f} ms (its graph: {BENCH_NNZ} nnz); peak mem "
+          f"{peak_gb:.2f} GB {card}", flush=True)
+    want = {k: 0 for k in counts}
+    want.update(spmm_spans=4, spmm_sddmm_spans=4)
+    print("phase 12b seg2 all-gather launches in 4 forward+backwards: "
+          + ", ".join(f"{k} {v}" for k, v in counts.items() if v), flush=True)
+    check(counts == want, f"seg2 all-gather: expected launches {want}, "
+                          f"counted {counts}")
+    worst, bitwise = 0.0, True
+    for what in ("out", "d_x", "d_value"):
+        err, rel = _rel_diff(first[what], ref[what])
+        worst = max(worst, rel)
+        bitwise &= bool(torch.equal(first[what], ref[what]))
+        check(rel <= PARALLEL_REL, f"seg2 all-gather {what} differs from "
+                                   f"the unsharded call by {err:.3e}")
+    print(f"phase 12b seg2 all-gather vs unsharded spmm_seg2: out, d x, d "
+          f"value worst max abs diff over max |ref| {worst:.3e} (tolerance "
+          f"{PARALLEL_REL:g}); bit for bit {bitwise}", flush=True)
+    return {"fwd_bwd_ms": fb_ms, "median_ms": med_ms, "warmup_ms": times[0],
+            "phase7c_fwd_bwd_ms": seg2_fwd_bwd_ms, "plan_s": plan_s,
+            "peak_gb": peak_gb, "worst_rel_diff": worst,
+            "bit_for_bit": bitwise, "launches": counts}
+
+
+def phase12_parallel(dev, card, step_ms_phase5, seg2_fwd_bwd_ms):
+    """``parallel/`` at world size 1: an NCCL process group of one rank
+    from a file store, a 1-D mesh; 12a the dry run's blocks with exact
+    launches, 12b the row-sharded GCN step and seg2 SpMM at full width
+    against their unsharded runs. One card runs NCCL at world size 1
+    only."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from paddle_sparse_tpu_torch.parallel import make_mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1)
+            launches = phase12a_dryrun(dev, mesh)
+            torch.cuda.empty_cache()
+            mat, gcn = phase12b_gcn(dev, card, mesh, step_ms_phase5)
+            torch.cuda.empty_cache()
+            seg2 = phase12b_seg2(dev, card, mesh, mat, seg2_fwd_bwd_ms)
+            del mat
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    launches["parallel_gcn_step_full"] = gcn["launches"]
+    launches["parallel_seg2_allgather_full"] = seg2["launches"]
+    return {"launches": launches, "gcn": gcn, "seg2": seg2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible "
@@ -5630,6 +5951,14 @@ def main() -> int:
     probes = phase11_probes(gen, dev, card)
     stamp("phase 11")
 
+    # ---- phase 12: parallel/ at world size 1 on NCCL ------------------------
+    parallel = phase12_parallel(dev, card, train["step_ms"],
+                                packed_paths["seg2_uniform_f32"]["fwd_bwd_ms"])
+    stamp("phase 12")
+    print("phase 12 summary " + json.dumps(
+        {k: {m: v for m, v in st.items() if m != "launches"}
+         for k, st in parallel.items() if k != "launches"}), flush=True)
+
     launches = {"gcn_forward": fwd["counts"],
                 "gcn_train_step": train["counts"],
                 **{p: v["launches"] for p, v in spgemm.items()},
@@ -5647,7 +5976,8 @@ def main() -> int:
                 **{f"{k}_4_fwd_bwd": v["launches"]
                    for k, v in entry_points.items()},
                 "probes": {k: probes["counts"][k]
-                           for k in _launch_counts()}}
+                           for k in _launch_counts()},
+                **parallel["launches"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in launches.items()}

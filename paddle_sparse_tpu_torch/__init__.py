@@ -69,9 +69,10 @@ from .core.matrix import (PaddedCOO, padded_coo_from_jax,
                           sparse_tensor_from_jax)
 from .core.spgemm import (SpGEMMResult, matmul_padded, spspmm_padded,
                           spspmm_rowblocked, spspmm_rowsorted)
-from .entry import (MODELS, SPMM_BACKENDS, entry, facade_entry,
-                    gcn_loss, gcn_norm, model_entry, sample_entry,
-                    spgemm_entry, spmm_entry, train_entry, train_step)
+from .entry import (MODELS, SPMM_BACKENDS, dryrun_multichip, entry,
+                    facade_entry, gcn_loss, gcn_norm, model_entry,
+                    sample_entry, spgemm_entry, spmm_entry, train_entry,
+                    train_step)
 from .models.gcn import (APPNP, GAT, GCN, GIN, GraphSAGE,
                          appnp_params_from_jax, edge_softmax,
                          gat_params_from_jax, gcn_normalize,
@@ -114,7 +115,7 @@ from .ops.spmm_split import (SplitPlan, SplitStructure, make_split_plan,
                              unpack_values_split)
 from .ops.spspmm import (plan_spgemm, plan_spgemm_blocked, plan_spgemm_rows,
                          spgemm_flops, spspmm_eager)
-from . import core, ops, profiling, runtime
+from . import core, ops, parallel, profiling, runtime
 
 __version__ = "0.1.0"
 
@@ -141,7 +142,8 @@ __all__ = [
     "Seg2Structure", "Seg3Infeasible", "Seg3Plan", "Seg3Structure",
     "SpGEMMResult", "SplitPlan", "SplitStructure", "band_reduce_call",
     "appnp_params_from_jax", "bincount", "compact_runs", "compact_runs_cuda",
-    "compact_runs_reference", "edge_softmax", "entry", "fold_pieces_cuda",
+    "compact_runs_reference", "dryrun_multichip", "edge_softmax", "entry",
+    "fold_pieces_cuda",
     "gat_params_from_jax", "gather_csr", "gather_segments", "gcn_loss",
     "gcn_normalize", "gcn_params_from_jax", "gin_params_from_jax", "ind2ptr",
     "init_appnp", "init_gat", "init_gcn", "init_gin", "init_sage",

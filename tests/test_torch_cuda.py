@@ -2493,3 +2493,155 @@ def test_probe_p1_p2_shapes_and_offsets(dev, double_buffer):
     with pytest.raises(ValueError, match="16-byte"):      # 4-byte offset
         pc.chunk_sum_cuda(ptr2, rows.view(-1)[1:181].view(15, 12), 3,
                           double_buffer)
+
+
+# ---- parallel/ at world size 1 on NCCL -------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A 1-D mesh over an NCCL process group of one rank (file store), for
+    the module; one card runs NCCL at world size 1 only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+    from paddle_sparse_tpu_torch.parallel import make_mesh
+    torch.cuda.set_device(0)
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    yield make_mesh(1)
+    dist.destroy_process_group()
+
+
+def _toy_sharded(dev):
+    """The dry run's toy graph (64 nodes, 256 entries) as a SparseTensor on
+    the CPU, its features (64, 16) and a cotangent, both on ``dev``."""
+    from paddle_sparse_tpu_torch import SparseTensor
+    from paddle_sparse_tpu_torch.entry import _toy_graph
+    row, col, val, x, _ = _toy_graph(num_nodes=64, avg_deg=4, feat=16)
+    adj = SparseTensor(row=torch.as_tensor(row), col=torch.as_tensor(col),
+                       value=torch.as_tensor(val), sparse_sizes=(64, 64))
+    g = torch.Generator().manual_seed(4)
+    return adj, torch.as_tensor(x).to(dev), torch.randn(
+        64, 16, generator=g).to(dev)
+
+
+def _sharded_block(name, adj, mesh, dev):
+    """``(fn(x, value), value)`` of one interchange at world size 1."""
+    from paddle_sparse_tpu_torch import parallel as tpar
+    if name in ("allgather", "ring"):
+        blk = tpar.device_put_sharded_matrix(tpar.shard_padded_coo(adj, 1),
+                                             0, dev)
+        fn = tpar.spmm_allgather if name == "allgather" else tpar.spmm_ring
+    elif name == "ring_bucketed":
+        blk = tpar.device_put_ring(tpar.shard_ring_buckets(adj, 1), 0, dev)
+        fn = tpar.spmm_ring_bucketed
+    elif name == "halo":
+        blk = tpar.device_put_halo(tpar.shard_halo(adj, 1), 0, dev)
+        fn = tpar.spmm_halo
+    else:
+        blk = tpar.device_put_2d(tpar.shard_2d(adj, 1, 1), 0, dev)
+        mesh = tpar.make_mesh_2d(1, 1)
+        fn = tpar.spmm_2d
+    return (lambda x, v: fn(mesh, blk._replace(value=v), x)), blk.value
+
+
+@pytest.mark.parametrize("name", ["allgather", "ring", "ring_bucketed",
+                                  "halo", "2d"])
+def test_parallel_spmm_world1(nccl_mesh, dev, name):
+    """Each interchange at world size 1 on NCCL: output, d x and d value
+    of ``sum(out * g)`` against ``spmm_coo`` over the same entries on the
+    CPU (at one rank every layout keeps the COO order)."""
+    adj, x, g = _toy_sharded(dev)
+    fn, value = _sharded_block(name, adj, nccl_mesh, dev)
+    xx, vv = x.clone().requires_grad_(), value.clone().requires_grad_()
+    out = fn(xx, vv)
+    (out * g).sum().backward()
+    r, c, v = (t.cpu() for t in adj.coo())
+    xh = x.cpu().clone().requires_grad_()
+    vh = v.clone().requires_grad_()
+    ref = spmm_coo(r, c, vh, xh, 64)
+    (ref * g.cpu()).sum().backward()
+    torch.testing.assert_close(out.cpu(), ref.detach(), **F32)
+    torch.testing.assert_close(xx.grad.cpu(), xh.grad, **F32)
+    torch.testing.assert_close(vv.grad.cpu().reshape(-1)[:256], vh.grad,
+                               **F32)
+
+
+@pytest.mark.parametrize("halo", [False, True])
+def test_parallel_seg2_world1(nccl_mesh, dev, halo):
+    """seg2 under the all-gather or the halo all-to-all at world size 1:
+    output, d x and d packed value against ``spmm_seg2`` of the same plan
+    on the CPU."""
+    from paddle_sparse_tpu_torch import parallel as tpar
+    adj, x, g = _toy_sharded(dev)
+    if halo:
+        mat = tpar.shard_halo(adj, 1)
+        sh = tpar.make_seg2_halo_plan(mat, feat_dim=16, sr=32)
+        blk = tpar.device_put_halo(mat, 0, dev)
+
+        def fn(s, v, h):
+            return tpar.spmm_seg2_halo(nccl_mesh, blk, s, v, h)
+    else:
+        mat = tpar.shard_padded_coo(adj, 1)
+        sh = tpar.make_seg2_plan_sharded(mat, feat_dim=16, sr=32)
+
+        def fn(s, v, h):
+            return tpar.spmm_seg2_allgather(nccl_mesh, s, v, h)
+    assert sh.plans[0].S > 1
+    packed = tpar.pack_values_sharded(sh, mat.value)[0]
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        shard = tpar.device_put_sharded_seg2(sh, 0, d)
+        pv = packed.detach().to(d).requires_grad_()
+        xx = x.detach().to(d).requires_grad_()
+        if d.type == "cuda":
+            out = fn(shard, pv, xx)
+        else:        # one rank's halo buffer: the rows it sends itself
+            hx = xx[mat.send_idx.reshape(-1).long()] if halo else xx
+            out = spmm_seg2(shard.plan, shard.structure, pv, hx)
+        (out * g.to(d)).sum().backward()
+        outs.append((out.detach().cpu(), xx.grad.cpu(), pv.grad.cpu()))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, **F32)
+
+
+def test_parallel_spgemm_world1(nccl_mesh, dev):
+    """``spgemm_rowsharded`` at world size 1 (K5 on the card) against
+    ``spspmm_padded`` on the CPU, and its flag at a capacity too small."""
+    from paddle_sparse_tpu_torch import parallel as tpar
+    adj, _, _ = _toy_sharded(dev)
+    blocks, _ = tpar.shard_padded_rows(adj, 1)
+    A = tpar.device_put_blocks(blocks, 0, dev)
+    B = PaddedCOO.from_eager(adj)
+    flop_cap, out_cap = plan_spgemm(B, B)
+    C, over = tpar.spgemm_rowsharded(nccl_mesh, A, B.to(dev), flop_cap,
+                                     out_cap)
+    ref = spspmm_padded(B, B, flop_cap, out_cap)
+    assert over.tolist() == [False] and not ref.overflowed
+    assert C.nnz == ref.matrix.nnz
+    assert torch.equal(C.row.cpu(), ref.matrix.row)
+    assert torch.equal(C.col.cpu(), ref.matrix.col)
+    torch.testing.assert_close(C.value.cpu(), ref.matrix.value, **F32)
+    _, over = tpar.spgemm_rowsharded(nccl_mesh, A, B.to(dev), 8, out_cap)
+    assert over.tolist() == [True]
+
+
+def test_parallel_dryrun_world1(nccl_mesh, dev):
+    """Every block of the dry run at world size 1 on the card passes its
+    own checks, and its three steps' losses agree (one graph, one set of
+    parameters)."""
+    from paddle_sparse_tpu_torch.entry import DryRun, dryrun_nodes
+    res = DryRun(nccl_mesh, dev, dryrun_nodes(1), verbose=False).run()
+    losses = [float(res[k]["loss"]) for k in ("gcn_step", "seg2_step",
+                                              "seg2_halo_step")]
+    assert all(abs(v - losses[0]) <= 1e-5 * abs(losses[0]) for v in losses)
+    assert not res["spgemm"]["overflowed"].any()
+
+
+def test_dryrun_multichip_needs_a_card_per_rank(dev):
+    """More ranks than cards on ``"cuda"``: raises naming the reason
+    before any process starts."""
+    from paddle_sparse_tpu_torch.entry import dryrun_multichip
+    with pytest.raises(RuntimeError, match="one rank per card"):
+        dryrun_multichip(torch.cuda.device_count() + 1, "cuda")

@@ -30,9 +30,12 @@ def test_port_never_imports_jax():
     a partition, RCM, the host runtime and ``spmm_seg``, ``spmm_sell`` and
     ``spmm_chunked`` run, and so do the probes of ``experiments/``
     (``paddle_sparse_tpu_torch.experiments``: the bisect's stages, a span
-    column sum, a band variant, a slice gather); every name of ``__all__``
-    exists, the facade's among them; neither jax nor the JAX package nor
-    ``experiments/`` is loaded."""
+    column sum, a band variant, a slice gather), every module of
+    ``parallel/`` imports and the dry run runs at 2 ranks on gloo (rank 0
+    prints its six lines); every
+    name of ``__all__`` exists, the facade's and ``parallel``'s among them;
+    neither jax nor the JAX package nor ``experiments/`` is loaded. (The
+    spawned ranks of the parallel tests assert that they load no jax.)"""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -108,6 +111,14 @@ def test_port_never_imports_jax():
         "fs, cols, x = r5_vmem_expand.make_inputs(2, 'cpu')\n"
         "assert r5_vmem_expand.make_call('onehot_reduce')(fs, cols, x)"
         ".shape == (16, 256)\n"
+        "import importlib, pkgutil\n"
+        "import paddle_sparse_tpu_torch.parallel as par\n"
+        "for m in pkgutil.iter_modules(par.__path__):\n"
+        "    importlib.import_module(f'{par.__name__}.{m.name}')\n"
+        "missing = [n for n in par.__all__ if not hasattr(par, n)]\n"
+        "assert not missing, missing\n"
+        "res = p.dryrun_multichip(2, 'cpu')\n"
+        "assert float(res['gcn_step']['loss']) > 0\n"
         "missing = [n for n in p.__all__ if not hasattr(p, n)]\n"
         "assert not missing, missing\n"
         "facade = {'SparseTensor', 'SparseStorage', 'matmul', 'spspmm', "
@@ -124,7 +135,10 @@ def test_port_never_imports_jax():
         "print('ok')\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1] == "ok"
+    # rank 0 of the spawned dry run prints its six lines
+    assert sum(ln.startswith("dryrun_multichip(2): ") for ln in lines) == 6
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -145,6 +159,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
                      (p.spgemm_entry, ()), (p.spmm_entry, ("seg2",)),
                      (p.model_entry, ("gat",)), (p.facade_entry, ()),
                      (p.sample_entry, ()), (bp.main, ([],)),
+                     (p.dryrun_multichip, (2,)),
                      (bp.trivial, ()), (bp.dma_copy, (True,)),
                      (bp.spmm, ()), (rd.main, ([],)),
                      (rd.make_inputs, (19, 384)), (rb.main, ()),
