@@ -1071,7 +1071,8 @@ def phase5_train(dev, card, adj, x, model):
                             gather_bound_ms=nnz * hi.shape[1] * 4
                             / HBM_BYTES_PER_S * 1e3)
     fused = phase5_fused(card, adj, value, gs[1], hs[1].detach())
-    return {"spmm_launches": k1_launches, "sddmm_launches": k2_launches,
+    return {"losses": losses,
+            "spmm_launches": k1_launches, "sddmm_launches": k2_launches,
             "fused_launches": fused_launches, "counts": counts,
             "sddmm": sddmm_stats, "fused": fused, "step_ms": step_ms,
             "peak_gb": peak_gb}
@@ -5786,6 +5787,813 @@ def phase12_parallel(dev, card, step_ms_phase5, seg2_fwd_bwd_ms):
     return {"launches": launches, "gcn": gcn, "seg2": seg2}
 
 
+# ---- phase 13: every float dtype of the JAX package on the card -------------
+
+F16_HALF_ULP = 2.0 ** -11
+# f16's subnormal spacing is 2**-24: half of it bounds a tiny output's rounding
+F16_TINY = 2.0 ** -25
+# f64 sums taken in another order: within this share of each entry's sum of
+# |terms| (n * 2**-53 is 1.2e-10 at n = 1.1M in the worst case, ~1e-13
+# typical)
+F64_REL = 1e-12
+PHASE13_K = (1, 3, 47, 64, 100, 256, 300)
+
+
+def _close_in(got, ref, scale):
+    """Max abs error and whether ``got`` is within its dtype's bound of the
+    f64 ``ref``: f64 outputs within F64_REL of each entry's sum of |terms|
+    (``scale``); others within GRAD_REL of it (an f32 sum) plus half an
+    ulp of the output's dtype (one rounding on the store)."""
+    ref = ref.double()
+    err = (got.double() - ref).abs()
+    if got.dtype == torch.float64:
+        bound = F64_REL * scale
+    else:
+        out_rel = {torch.float16: F16_HALF_ULP,
+                   torch.bfloat16: BF16_HALF_ULP}.get(got.dtype, 0.0)
+        tiny = F16_TINY if got.dtype == torch.float16 else 0.0
+        bound = GRAD_REL * scale + out_rel * ref.abs() + tiny
+    ok = bool((err <= bound + 1e-300).all())
+    return (float(err.max()) if err.numel() else 0.0), ok
+
+
+def dtype_graphs(gen, dev):
+    """Phase 2c's graph (3,000 x 2,000, up to 40 edges a row, empty rows
+    and columns, 1,000 pads whose cols are poisoned with 2**30) and the same
+    with a hub row (row 5) and a hub column (column 7) of 1,100,000 edges
+    each, which the kernels cut into pieces; the hub column's rows leave
+    phase 2's empty rows empty."""
+    from paddle_sparse_tpu_torch import PaddedCOO
+    M, N, H = 3000, 2000, 1_100_000
+    rowptr, col, value = random_csr(gen, dev, M, N, 40)
+    row = torch.repeat_interleave(torch.arange(M, device=dev),
+                                  (rowptr[1:] - rowptr[:-1]).long())
+    col = torch.where(col % 97 == 3, 5, col)          # empty columns
+    hub_cols = torch.randint(0, N, (H,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    hub_rows = torch.randint(1, M - 1, (H,), generator=gen, device=dev)
+    hub_rows = torch.where(hub_rows == M // 3, 1, hub_rows)   # keep empty
+    graphs = {}
+    for name, (r, c, v) in {
+            "unsplit": (row, col, value),
+            "hub row and column of 1.1M edges": (
+                torch.cat([row, torch.full((H,), 5, device=dev), hub_rows]),
+                torch.cat([col, hub_cols, torch.full_like(hub_cols, 7)]),
+                torch.cat([value, torch.rand(2 * H, generator=gen,
+                                             device=dev) * 2 - 1]))}.items():
+        order = torch.argsort(r, stable=True)
+        adj = PaddedCOO.from_arrays(r[order], c[order], v[order], (M, N),
+                                    capacity=r.numel() + 1000, device=dev)
+        graphs[name] = dataclasses.replace(adj, col=torch.where(
+            adj.valid_mask(), adj.col, torch.full_like(adj.col, 1 << 30)))
+    return graphs
+
+
+def _tag(*dts):
+    return "/".join("None" if d is None else str(d).replace("torch.", "")
+                    for d in dts)
+
+
+def phase13a_kernels(gen, dev):
+    """K1, K2 and the fused CSC backward in f16, f64 and the mixed pairs,
+    against their plain versions run in f64 on the card, over K in
+    PHASE13_K (the odd K take the scalar path), empty rows and columns,
+    poisoned padding, and a hub row and column of 1.1M edges in pieces
+    (K 3 and 256 there); each call one launch (the counters read before and
+    after). The fused kernel also bit for bit against the pair it replaces
+    (K2 + K1 over the CSC view). Returns the max abs errors by kernel."""
+    from paddle_sparse_tpu_torch import (sddmm_csr_cuda, sddmm_csr_reference,
+                                         spmm_csr_cuda, spmm_csr_reference,
+                                         spmm_sddmm_csc_cuda,
+                                         spmm_sddmm_csc_reference)
+    f16, bf16 = torch.float16, torch.bfloat16
+    f32, f64 = torch.float32, torch.float64
+    k1_pairs = ((f16, f16), (f16, f32), (f32, f16), (f16, bf16), (bf16, f16),
+                (f16, None), (f64, f64), (f64, f32), (f32, f64), (f16, f64),
+                (bf16, f64), (f64, None))             # (x, value)
+    k2_sets = ((f16, f16, f16), (f16, f16, f32), (f32, f16, f32),
+               (f16, f32, f32), (f64, f64, f64), (f64, f32, f64),
+               (f64, f16, f64), (f64, bf16, f64))     # (g, x, d value)
+    fused_sets = ((f16, f16, f16), (f32, f16, f32), (f16, f32, f32),
+                  (bf16, f16, f32), (f16, bf16, f32), (f64, f64, f64),
+                  (f64, f32, f64), (f32, f64, f64),
+                  (f64, f16, f64))                    # (value, x, g)
+    errs = {"spmm_csr": 0.0, "sddmm_csr": 0.0, "spmm_sddmm_csc": 0.0}
+
+    def one_launch(name, fn):
+        before = _launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = _launch_counts()
+        moved = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k] and k != "fold_pieces"}
+        check(moved == {name: 1}, f"expected one {name} launch, counted "
+                                  f"{moved}")
+        return out
+
+    for gname, adj in dtype_graphs(gen, dev).items():
+        s = adj.structure()
+        rowptr, col, nnz = adj.rowptr(), adj.col, adj.nnz
+        M, N = adj.shape
+        Ks = PHASE13_K if gname == "unsplit" else (3, 256)
+        check((s.row_split is None) == (gname == "unsplit")
+              and (s.col_split is None) == (gname == "unsplit"),
+              f"{gname}: split tables {s.row_split is None} "
+              f"{s.col_split is None}")
+        for xdt, vdt in k1_pairs:
+            e = []
+            for K in Ks:
+                x = torch.randn(N, K, generator=gen, device=dev).to(xdt)
+                v = None if vdt is None else adj.value.to(vdt)
+                out = one_launch("spmm_csr", lambda: spmm_csr_cuda(
+                    rowptr, col, v, x, split=s.row_split))
+                want = x.dtype if v is None else torch.promote_types(
+                    v.dtype, x.dtype)
+                check(out.dtype == want, f"K1 {_tag(xdt, vdt)} wrote "
+                                         f"{out.dtype}, not {want}")
+                ref, scale = (spmm_csr_reference(
+                    rowptr, col, None if v is None else f(v.double()),
+                    f(x.double())) for f in (lambda t: t, torch.abs))
+                err, ok = _close_in(out, ref, scale)
+                check(ok, f"{gname}: K1 x/value {_tag(xdt, vdt)} K={K} vs "
+                          f"plain f64 ({err:.3e})")
+                check(not out[[0, M // 3, M - 1]].any(), "empty rows not 0")
+                e.append(err)
+            errs["spmm_csr"] = max(errs["spmm_csr"], *e)
+            print(f"phase 13a {gname}: spmm_csr x/value {_tag(xdt, vdt)} "
+                  f"-> {out.dtype}, K {' '.join(map(str, Ks))}: one launch "
+                  f"each, vs plain f64 max_abs_err {max(e):.3e} ok",
+                  flush=True)
+        for gdt, xdt, odt in k2_sets:
+            e = []
+            for K in Ks:
+                g = torch.randn(M, K, generator=gen, device=dev).to(gdt)
+                x = torch.randn(N, K, generator=gen, device=dev).to(xdt)
+                out = one_launch("sddmm_csr", lambda: sddmm_csr_cuda(
+                    rowptr, col, g, x, out_dtype=odt, split=s.row_split))
+                check(out.dtype == odt and not out[nnz:].any(),
+                      f"K2 {_tag(gdt, xdt, odt)}: dtype {out.dtype} or "
+                      f"padding not 0")
+                ref, scale = (sddmm_csr_reference(
+                    rowptr, col[:nnz], f(g.double()), f(x.double()), f64)
+                    for f in (lambda t: t, torch.abs))
+                err, ok = _close_in(out[:nnz], ref, scale)
+                check(ok, f"{gname}: K2 g/x/dv {_tag(gdt, xdt, odt)} K={K} "
+                          f"vs plain f64 ({err:.3e})")
+                e.append(err)
+            errs["sddmm_csr"] = max(errs["sddmm_csr"], *e)
+            print(f"phase 13a {gname}: sddmm_csr g/x/d value "
+                  f"{_tag(gdt, xdt, odt)}, K {' '.join(map(str, Ks))}: one "
+                  f"launch each, vs plain f64 max_abs_err {max(e):.3e} ok",
+                  flush=True)
+        for vdt, xdt, gdt in fused_sets:
+            e = []
+            for K in Ks:
+                x = torch.randn(N, K, generator=gen, device=dev).to(xdt)
+                g = torch.randn(M, K, generator=gen, device=dev).to(gdt)
+                v = adj.value.to(vdt)
+                got = one_launch("spmm_sddmm_csc", lambda: fused_kernel(
+                    adj, v, g, x, vdt))
+                pair = fused_pair(adj, v, g, x, vdt)
+                dx_dt = torch.promote_types(vdt, gdt)
+                check(got[0].dtype == dx_dt and got[1].dtype == vdt
+                      and not got[1][nnz:].any(),
+                      f"fused {_tag(vdt, xdt, gdt)}: dtypes "
+                      f"{got[0].dtype}/{got[1].dtype} or padding not 0")
+                for what, a, b in zip(("d x", "d value"), got, pair):
+                    check(a.dtype == b.dtype and torch.equal(a, b),
+                          f"{gname} fused {_tag(vdt, xdt, gdt)} K={K}: "
+                          f"{what} differs from the pair's")
+                ref, scale = (spmm_sddmm_csc_reference(
+                    s.colptr, s.col_t, s.perm, f(v.double()), f(g.double()),
+                    f(x.double()), f64) for f in (lambda t: t, torch.abs))
+                for i, out in enumerate(got):
+                    err, ok = _close_in(out, ref[i], scale[i])
+                    check(ok, f"{gname}: fused value/x/g "
+                              f"{_tag(vdt, xdt, gdt)} K={K} "
+                              f"{('d x', 'd value')[i]} vs plain f64 "
+                              f"({err:.3e})")
+                    e.append(err)
+            errs["spmm_sddmm_csc"] = max(errs["spmm_sddmm_csc"], *e)
+            print(f"phase 13a {gname}: spmm_sddmm_csc value/x/g "
+                  f"{_tag(vdt, xdt, gdt)}, K {' '.join(map(str, Ks))}: one "
+                  f"launch each, d x and d value equal to K2 + K1 over the "
+                  f"CSC view bit for bit, vs plain f64 max_abs_err "
+                  f"{max(e):.3e} ok", flush=True)
+    return errs
+
+
+def phase13a_public_path(gen, dev):
+    """The user's call: ``PaddedCOO.spmm`` (the facade's ``A @ x`` runs it)
+    with an f16 ``x`` and an f32 value launches K1 once and allocates no f32
+    copy of ``x`` (the call's peak allocation stays below it); under
+    autograd, f64 and f16 backward passes launch K1 once forward and the
+    fused CSC backward once (no K2, no plain version), with d value in the
+    value's dtype and d x in x's, against f64."""
+    from paddle_sparse_tpu_torch import spmm_sddmm_csc_reference
+    adj = dtype_graphs(gen, dev)["unsplit"]
+    s = adj.structure()
+    M, N = adj.shape
+    x16 = torch.randn(N, 256, generator=gen, device=dev).half()
+    adj.rowptr(), adj.row_split()                 # cached before the call
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = adj.spmm(x16)
+    torch.cuda.synchronize()
+    extra = (torch.cuda.max_memory_allocated() - base
+             - out.numel() * out.element_size())
+    counts = _launch_counts()
+    copy = x16.numel() * 4
+    print(f"phase 13a f16 x @ f32 value (K=256): out {out.dtype}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }, {extra} B allocated "
+          f"during the call besides the output (an f32 copy of x is "
+          f"{copy} B)", flush=True)
+    check(out.dtype == torch.float32 and counts["spmm_csr"] == 1
+          and sum(counts.values()) == 1, f"f16 x: launches {counts}")
+    check(extra < copy // 2, f"f16 x: {extra} B allocated besides the "
+                             f"output; an f32 copy of x takes {copy}")
+    rows = {}
+    for dt in (torch.float64, torch.float16):
+        v = adj.value.to(dt).requires_grad_()
+        x = torch.randn(N, 64, generator=gen, device=dev).to(
+            dt).requires_grad_()
+        gw = torch.randn(M, 64, generator=gen, device=dev).to(dt)
+        _zero_launch_counts()
+        out = adj.with_value(v).spmm(x)
+        (out * gw).sum().backward()
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        check(counts["spmm_csr"] == 1 and counts["spmm_sddmm_csc"] == 1
+              and counts["sddmm_csr"] == 0 and sum(counts.values()) == 2,
+              f"{dt} A @ x forward + backward: launches {counts}")
+        check(out.dtype == dt and v.grad.dtype == dt and x.grad.dtype == dt,
+              f"{dt}: dtypes {out.dtype} {v.grad.dtype} {x.grad.dtype}")
+        ref, scale = (spmm_sddmm_csc_reference(
+            s.colptr, s.col_t, s.perm, f(adj.value.to(dt).double()),
+            f(gw.double()), f(x.detach().double()), torch.float64)
+            for f in (lambda t: t, torch.abs))
+        err_x, ok_x = _close_in(x.grad, ref[0], scale[0])
+        err_v, ok_v = _close_in(v.grad[:adj.nnz], ref[1][:adj.nnz],
+                                scale[1][:adj.nnz])
+        check(ok_x and ok_v, f"{dt} backward vs f64: d x {err_x:.3e}, "
+                             f"d value {err_v:.3e}")
+        rows[str(dt)] = counts
+        print(f"phase 13a {dt} A @ x forward + backward (K=64): launches "
+              f"spmm_csr 1, spmm_sddmm_csc 1, nothing else; d x "
+              f"{x.grad.dtype} max_abs_err {err_x:.3e}, d value "
+              f"{v.grad.dtype} max_abs_err {err_v:.3e} vs f64 ok",
+              flush=True)
+    return rows
+
+
+def phase13a_segcompact(gen, dev):
+    """K5 in every value dtype (f32, bf16, f16, f64, int32, int64) against
+    its plain version in f64 (the ints exact): a flat (row, col)-sorted
+    stream with a run of 1.1M elements across tiles and 1,000 pads, at
+    D = 1 and D = 8 (the trailing-dim pass; also cut at out_capacity), an
+    unsorted (K5 sorts) and a sorted grid, and a sorted grid wider than
+    F_MAX (the stream kernel); structure, seg and count exact, each call
+    one launch. A grid with trailing dims is refused. Returns the max abs
+    error of the float runs."""
+    from paddle_sparse_tpu_torch import (compact_runs_cuda,
+                                         compact_runs_reference)
+    dtypes = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
+              torch.int32, torch.int64)
+
+    def values(shape, dt):
+        if dt.is_floating_point:
+            return torch.randn(shape, generator=gen, device=dev).to(dt)
+        return torch.randint(-100, 101, shape, generator=gen, device=dev,
+                             dtype=dt)
+
+    worst = 0.0
+
+    def compare(name, col, rows, val, shape, cap, **kw):
+        nonlocal worst
+        before = _launch_counts()["segcompact"]
+        got = compact_runs_cuda(col, rows, val, shape, cap, seg=True, **kw)
+        torch.cuda.synchronize()
+        check(_launch_counts()["segcompact"] == before + 1,
+              f"{name}: not one K5 launch")
+        wide = torch.float64 if val.is_floating_point() else torch.int64
+        ref = compact_runs_reference(col, rows, val.to(wide), shape, cap,
+                                     seg=True, **kw)
+        ok = (int(got.count) == int(ref.count)
+              and torch.equal(got.row, ref.row)
+              and torch.equal(got.col, ref.col)
+              and torch.equal(got.seg, ref.seg)
+              and got.value.dtype == val.dtype
+              and got.value.shape == ref.value.shape)
+        if val.is_floating_point():
+            scale = compact_runs_reference(col, rows, val.double().abs(),
+                                           shape, cap, **kw).value
+            err = (got.value.double() - ref.value).abs()
+            rel = 1e-6 if val.dtype != torch.float64 else F64_REL
+            out_rel = {torch.float16: F16_HALF_ULP,
+                       torch.bfloat16: BF16_HALF_ULP}.get(val.dtype, 0.0)
+            ok = ok and bool((err <= rel * scale + out_rel * ref.value.abs()
+                              + (F16_TINY if val.dtype == torch.float16
+                                 else 0.0) + 1e-300).all())
+            err = float(err.max()) if err.numel() else 0.0
+            worst = max(worst, err)
+        else:
+            ok = ok and torch.equal(got.value, ref.value.to(val.dtype))
+            err = 0.0
+        print(f"phase 13a segcompact {name} {_tag(val.dtype)} "
+              f"{tuple(val.shape)}: {int(ref.count)} runs, cap {cap}: one "
+              f"launch, structure and seg exact, max_abs_err {err:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"K5 {name} {val.dtype} {tuple(val.shape)} disagrees with "
+                  f"plain f64")
+
+    # the flat stream: keys sorted, a run of 1.1M equal keys, pads last
+    M, N, L, pads = 50_000, 400, 2_000_000, 1000
+    k = torch.randint(0, M * (N + 1), (L,), generator=gen, device=dev)
+    k = k[(k % (N + 1)) < N]
+    k = torch.cat([k, torch.full((1_100_000,), 777 * (N + 1) + 3,
+                                 device=dev)]).sort().values
+    k = torch.cat([k, torch.full((pads,), M * (N + 1) + N, device=dev)])
+    fcol, frow = (k % (N + 1)).int(), (k // (N + 1)).int()
+    runs = int(compact_runs_reference(fcol, frow, None, (M, N), 1).count)
+    for dt in dtypes:
+        for D in (1, 8):
+            shape = (k.numel(),) if D == 1 else (k.numel(), D)
+            val = values(shape, dt)
+            val[-pads:] = 0
+            compare(f"flat D={D}", fcol, frow, val, (M, N), runs + 5)
+        compare("flat D=8, cut at out_capacity", fcol, frow,
+                values((k.numel(), 8), dt), (M, N), runs // 2)
+    # grids: unsorted (K5 sorts, F <= F_MAX), sorted, and wider than F_MAX
+    for R, F, Ng, sort in ((20_000, 64, 40, False), (20_000, 64, 40, True),
+                           (200, 1500, 300, True)):
+        key = torch.randint(0, Ng, (R, F), generator=gen, device=dev,
+                            dtype=torch.int32)
+        key[:, -3:] = Ng                                  # pads
+        if sort:
+            key = key.sort(dim=1).values.contiguous()
+        rows = torch.arange(R, dtype=torch.int32, device=dev)
+        for dt in dtypes:
+            val = values((R, F), dt)
+            compare(f"grid ({R}, {F}) {'sorted' if sort else 'unsorted'}",
+                    key, rows, val, (R, Ng), int((key < Ng).sum()),
+                    rows_sorted=sort)
+    refused = False
+    try:
+        compact_runs_cuda(key, rows, values((R, F, 2), torch.float32),
+                          (R, Ng), 10)
+    except ValueError:
+        refused = True
+    check(refused, "K5 took trailing dims on a grid")
+    return worst
+
+
+# H100 SXM FP64 outside the tensor cores (NVIDIA's data sheet), for the f64
+# kernels' operation bound; f16 and bf16 are summed in f32 registers
+F64_FLOPS_PER_S = 34e12
+# the f16 step's fixed loss scale: torch.amp.GradScaler's default initial
+# scale, so that grads of a mean over 2.4M nodes stay in f16's normal range
+LOSS_SCALE = 2.0 ** 16
+# the f64 step against the f32 one, per tensor, relative to its max |x|:
+# f32 sums over up to 2.4M terms (the weight grads' GEMMs) in another order
+F32_STEP_REL = 1e-3
+# the f16 step against the f64 step from the same f16 state (weights,
+# features and values rounded to f16, then promoted), per tensor, relative
+# to its max |x|: every layer's activations and grads rounded to f16
+# (2**-11 each) and compounded over 3 layers forward and back
+F16_STEP_REL = 5e-2
+
+
+def _flops_per_s(dtype):
+    return F64_FLOPS_PER_S if dtype == torch.float64 else F32_FLOPS_PER_S
+
+
+def _scaled_step(model, adj, x, y, scale=1.0):
+    """One SGD step of ``gcn_loss`` (lr LR): ``(loss, grads)``, the grads
+    (of every parameter, then of ``adj.value``) as the backward left them.
+    With a ``scale`` (the f16 step), as mixed precision runs it: the loss
+    taken in f32 from the f16 logits (autocast's rule for log_softmax; an
+    f16 loss times 2**16 would overflow f16), multiplied by ``scale``
+    before the backward, the grads divided by it before the update (they
+    are returned still scaled)."""
+    from paddle_sparse_tpu_torch import gcn_loss
+    model.zero_grad(set_to_none=True)
+    adj.value.grad = None
+    if scale == 1.0:
+        loss = gcn_loss(model, adj, x, y)
+    else:
+        logp = torch.log_softmax(model(adj, x).float(), dim=-1)
+        loss = -logp.gather(1, y[:, None]).mean()
+    (loss * scale).backward()
+    with torch.no_grad():
+        for p in model.parameters():
+            p -= LR * (p.grad / scale)
+    return loss.detach(), [p.grad for p in model.parameters()] + [
+        adj.value.grad]
+
+
+def _rel_err(got, ref):
+    """``||got - ref|| / ||ref||`` (2-norms, in f64): a tensor's error as a
+    whole. A few pre-activations that sit at relu's kink and take the other
+    side in another precision change whole terms of the grads below them,
+    so an entrywise max measures those few, and no precision."""
+    ref = ref.double()
+    return float((got.double() - ref).norm() / ref.norm().clamp(
+        min=1e-300))
+
+
+def phase13b_gcn(dev, card, adj, x, model):
+    """Phase 5's GCN train step at ogbn-products width (K1 3, K2 1 and the
+    fused CSC backward 2 a step, d value on) from one state in f32, f64
+    and f16: the f64 step's loss and grads against the f32 step's
+    (F32_STEP_REL); the f16 step's (loss in f32 from f16 logits, scaled by
+    LOSS_SCALE, grads unscaled) against an f64 step from the same state
+    rounded to f16 (F16_STEP_REL); f64 and f16 1 warm-up + 3 timed steps,
+    peak memory and exact launches. Then K1, K2 and the
+    fused CSC backward alone at K=256 on layer 1's input in f16 and f64:
+    kernel vs plain in turns, bounds, library calls."""
+    import copy
+
+    from paddle_sparse_tpu_torch import (sddmm_csr_cuda, sddmm_csr_reference,
+                                         spmm_csr_cuda, spmm_csr_reference,
+                                         spmm_sddmm_csc_reference)
+    n = PRODUCTS_NODES
+    y = torch.randint(0, GCN_DIMS[2], (n,), generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    s = adj.structure()
+    value32 = adj.value.detach()
+    firsts, stats = {}, {}
+    f16_state = "f64 from the f16 state"
+    for dt in (torch.float32, torch.float64, f16_state, torch.float16):
+        via = torch.float16 if dt == f16_state else torch.float32
+        dt_ = torch.float64 if dt == f16_state else dt
+        m = copy.deepcopy(model).to(via).to(dt_)
+        a = adj.with_value(value32.to(via).to(dt_))
+        a.value.requires_grad_()
+        xd = x.to(via).to(dt_)
+        scale = LOSS_SCALE if dt == torch.float16 else 1.0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts()
+        times = []
+        for i in range(4 if dt in (torch.float64, torch.float16) else 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = _scaled_step(m, a, xd, y, scale)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                finite = all(bool(torch.isfinite(g).all()) for g in grads)
+                top = max(float(g.abs().max()) for g in grads)
+                firsts[dt] = (float(loss), [g.double() / scale
+                                            for g in grads])
+        counts = _launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps = len(times)
+        check(finite, f"{dt} step: grads not finite (largest scaled grad "
+                      f"{top:.3e})")
+        check(counts["spmm_csr"] == 3 * steps
+              and counts["sddmm_csr"] == steps
+              and counts["spmm_sddmm_csc"] == 2 * steps
+              and counts["fold_pieces"] == 0
+              and sum(counts.values()) == 6 * steps,
+              f"{dt} step launches {counts}, expected K1 3, K2 1 and the "
+              f"fused CSC backward 2 a step")
+        if len(times) == 1:
+            print(f"phase 13b {dt} step from phase 5's first state: loss "
+                  f"{firsts[dt][0]:.6f}, {times[0]:.3f} ms; launches K1 3, "
+                  f"K2 1, spmm_sddmm_csc 2 {card}", flush=True)
+            del m, a, xd, grads
+            continue
+        step_ms = sum(times[1:]) / 3
+        stats[str(dt)[6:]] = {"step_ms": step_ms, "warm_up_ms": times[0],
+                              "peak_gb": peak, "counts": counts,
+                              "loss_scale": scale}
+        print(f"phase 13b {dt} step (loss scale {scale:g}, largest scaled "
+              f"grad {top:.3e}): warm-up {times[0]:.3f} ms, timed "
+              f"{' '.join(f'{t:.3f}' for t in times[1:])} (mean "
+              f"{step_ms:.3f}); peak mem {peak:.2f} GB; launches in "
+              f"{steps} steps K1 {counts['spmm_csr']}, K2 "
+              f"{counts['sddmm_csr']}, spmm_sddmm_csc "
+              f"{counts['spmm_sddmm_csc']}, nothing else {card}",
+              flush=True)
+        if dt == torch.float64:      # layer 1's input, for the kernels
+            h64 = m, a, xd
+        else:
+            h16 = m, a, xd
+        del grads
+    names = [f"weight {i}" for i in range(len(model.weight))] + [
+        f"bias {i}" for i in range(len(model.bias))] + ["d value"]
+    for dt, ref_dt, rel in ((torch.float64, torch.float32, F32_STEP_REL),
+                            (torch.float16, f16_state, F16_STEP_REL)):
+        (l_got, g_got), (l_ref, g_ref) = firsts[dt], firsts[ref_dt]
+        errs = {nm: _rel_err(g, r) for nm, g, r in zip(names, g_got, g_ref)}
+        l_err = abs(l_got - l_ref) / abs(l_ref)
+        ok = l_err <= rel and all(e <= rel for e in errs.values())
+        stats[str(dt)[6:]].update(
+            loss=l_got, vs=str(ref_dt).replace("torch.", ""),
+            loss_rel_err=l_err, grad_rel_err=max(errs.values()),
+            tolerance=rel)
+        print(f"phase 13b {dt} first step vs the {ref_dt} step from the "
+              f"same state: loss {l_got:.6f} vs {l_ref:.6f} (rel "
+              f"{l_err:.3e}); grads' max |err| / max |ref|: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (tolerance {rel:g}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"the {dt} step disagrees with the {ref_dt} step")
+    stats["float32_loss"] = firsts[torch.float32][0]
+    del firsts
+
+    # the kernels alone at K=256, on layer 1's input in each dtype
+    rowptr, col, nnz = adj.rowptr(), adj.col, adj.nnz
+    kernels = {}
+    for tag, (m, a, xd) in (("float16", h16), ("float64", h64)):
+        dt = xd.dtype
+        with torch.no_grad():
+            h = torch.relu(a.spmm(xd) @ m.weight[0] + m.bias[0]).contiguous()
+        v = a.value.detach()
+        g = torch.randn(h.shape, generator=torch.Generator(
+            device=dev).manual_seed(13), device=dev).to(dt)
+        rate = _flops_per_s(dt)
+        out = {}
+
+        def entry(name, plain, kernel, moved, flops, lib_name, lib,
+                  compare):
+            p1, k1, k2, p2, out_p, out_k = in_turns(plain, kernel, 1, 5)
+            err = compare(out_k, out_p)
+            lib_ms, lib_err = library_timed(lib_name, lib, 3)
+            bound, by = bound_ms(moved, 0.0)
+            t_ops = flops / rate * 1e3
+            if t_ops > bound:
+                bound, by = t_ops, "operations"
+            out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                         "max_abs_err": err, "bound_ms": bound,
+                         "bound_by": by, "library_ms": lib_ms,
+                         "library": lib_name}
+            print(f"phase 13b {name} K=256 {dt}: kernel {k1:.3f} / "
+                  f"{k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms, bound "
+                  f"{bound:.3f} ms ({by}), {lib_name} {lib_ms} ms; kernel "
+                  f"vs plain max_abs_err {err:.3e} {card}", flush=True)
+            del out_p, out_k
+            torch.cuda.empty_cache()
+
+        def max_err(tol_rel):
+            def cmp(k, p):
+                if isinstance(k, tuple):
+                    return max(cmp(a_, b_) for a_, b_ in zip(k, p))
+                e = float((k.double() - p.double()).abs().max())
+                scale_ = float(p.double().abs().max())
+                check(e <= tol_rel * scale_, f"kernel vs plain at scale: "
+                                             f"{e:.3e} of {scale_:.3e}")
+                return e
+            return cmp
+        tol = 1e-12 if dt == torch.float64 else 2.0 ** -10
+        csr = torch.sparse_csr_tensor(rowptr, col[:nnz], v[:nnz], (n, n))
+        with torch.no_grad():
+            entry("spmm_csr",
+                  lambda: spmm_csr_reference(rowptr, col, v, h),
+                  lambda: spmm_csr_cuda(rowptr, col, v, h, split=None),
+                  nbytes(rowptr, col[:nnz], v[:nnz], h, h), 2 * nnz * 256,
+                  "torch.sparse.mm on the CSR",
+                  lambda: torch.sparse.mm(csr, h), max_err(tol))
+            h_t = h.t().contiguous()
+            entry("sddmm_csr",
+                  lambda: sddmm_csr_reference(rowptr, col, g, h, dt),
+                  lambda: sddmm_csr_cuda(rowptr, col, g, h, dt, split=None),
+                  nbytes(rowptr, col[:nnz], g, h, v[:nnz]), 2 * nnz * 256,
+                  "torch.sparse.sampled_addmm on the CSR",
+                  lambda: torch.sparse.sampled_addmm(csr, g, h_t, beta=0.0),
+                  max_err(tol))
+            del h_t, csr
+            csr_t = torch.sparse_csr_tensor(
+                s.colptr, s.col_t[:nnz], v[s.perm[:nnz].long()], (n, n))
+            entry("spmm_sddmm_csc",
+                  lambda: spmm_sddmm_csc_reference(s.colptr, s.col_t, s.perm,
+                                                   v, g, h, dt),
+                  lambda: fused_kernel(a, v, g, h, dt),
+                  nbytes(s.colptr, s.col_t[:nnz], s.perm[:nnz], v[:nnz], g,
+                         h, h, v[:nnz]), 4 * nnz * 256,
+                  "torch.sparse.mm of the transpose's CSR (d x only)",
+                  lambda: torch.sparse.mm(csr_t, g), max_err(tol))
+            del csr_t
+        for k_ in out.values():
+            k_["gather_bound_ms"] = (nnz * 256 * h.element_size()
+                                     / HBM_BYTES_PER_S * 1e3)
+        kernels[tag] = out
+        del h, g, v
+        torch.cuda.empty_cache()
+    stats["kernels"] = kernels
+    return stats
+
+
+def phase13_gcn(dev, card, phase5_loss):
+    """Phase 4's graph, features and model rebuilt from their seeds: the
+    state phase 5's first step starts from (its f32 loss must come out
+    again), then :func:`phase13b_gcn`."""
+    from paddle_sparse_tpu_torch import gcn_normalize, init_gcn
+    raw, x = products_graph(dev)
+    adj = gcn_normalize(raw)
+    del raw
+    model = init_gcn(torch.Generator().manual_seed(0), *GCN_DIMS,
+                     num_layers=3, device=dev)
+    stats = phase13b_gcn(dev, card, adj, x, model)
+    rel = abs(stats["float32_loss"] - phase5_loss) / abs(phase5_loss)
+    print(f"phase 13b f32 loss {stats['float32_loss']:.9f} vs phase 5's "
+          f"first step {phase5_loss:.9f} (rel {rel:.2e}): the same state",
+          flush=True)
+    check(rel <= 1e-6, "phase 13b did not start from phase 5's state")
+    del adj, x, model
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase13c_a_at_a(dev, card):
+    """A @ A on phase 6c's 10M-nnz operand through spspmm_rowsorted with bf16
+    and f16 values: C's structure equal to the f32 run's, its values within
+    5 half-ulps of the narrow dtype of the f32 C (each operand rounded, the
+    product rounded, the f32 sum rounded once; all terms positive; plus
+    4 * F16_TINY for f16's subnormal products), K5 once
+    a call (its row sort too), 1 warm-up + 3 timed calls; then K5 alone on
+    the call's own compress input, kernel vs plain in turns, its bound and
+    its library call ``torch.sparse_coo_tensor(...).coalesce()`` in the same
+    dtype."""
+    from paddle_sparse_tpu_torch import (compact_runs_cuda,
+                                         compact_runs_reference,
+                                         plan_spgemm_rows, spspmm_rowsorted)
+    A = spgemm_operand(dev, 625_000, 16)
+    F, oc = plan_spgemm_rows(A, A)
+    with torch.inference_mode():
+        C32 = spspmm_rowsorted(A, A, F, oc).matrix
+    out = {}
+    for dt, half_ulp in ((torch.bfloat16, BF16_HALF_ULP),
+                         (torch.float16, F16_HALF_ULP)):
+        Ad = A.with_value(A.value.to(dt))
+        _zero_launch_counts()
+        times = []
+        with torch.inference_mode():
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = spspmm_rowsorted(Ad, Ad, F, oc)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        counts = _launch_counts()
+        C = res.matrix
+        n = C.nnz
+        err = (C.value[:n].double() - C32.value[:n].double()).abs()
+        tiny = 4 * F16_TINY if dt == torch.float16 else 0.0  # subnormals
+        ok = (not res.overflowed and n == C32.nnz and C.value.dtype == dt
+              and torch.equal(C.row, C32.row) and torch.equal(C.col, C32.col)
+              and bool((err <= 5 * half_ulp * C32.value[:n].double()
+                        + tiny + 1e-30).all()))
+        check(counts["segcompact"] == 4
+              and counts["segcompact_row_sorted"] == 4,
+              f"{dt} A @ A: K5 launches {counts}")
+        ms = sum(times[1:]) / 3
+        print(f"phase 13c A @ A, 10M nnz, {dt} values: c_nnz {n}, ms per "
+              f"call warm-up {times[0]:.3f}, timed "
+              f"{' '.join(f'{t:.3f}' for t in times[1:])} (mean {ms:.3f}); "
+              f"K5 4 in 4 calls (rows sorted by K5 4); vs the f32 C: "
+              f"structure equal, values max_abs_err {float(err.max()):.3e} "
+              f"{'ok' if ok else 'FAIL'} {card}", flush=True)
+        check(ok, f"{dt} A @ A disagrees with the f32 run")
+        with _RecordCompress() as calls, torch.inference_mode():
+            spspmm_rowsorted(Ad, Ad, F, oc)
+        args, kw = calls[0]
+        kw = dict(kw, seg=False)
+        with torch.inference_mode():
+            p1, k1, k2, p2, out_p, out_k = in_turns(
+                lambda: compact_runs_reference(*args, **kw),
+                lambda: compact_runs_cuda(*args, **kw), 1, 5)
+        m = int(out_k.count)
+        k_err = float((out_k.value[:m].double()
+                       - out_p.value[:m].double()).abs().max())
+        check(torch.equal(out_k.row, out_p.row)
+              and torch.equal(out_k.col, out_p.col)
+              and k_err <= 2 * half_ulp * float(out_p.value[:m].double()
+                                                .abs().max()),
+              f"{dt} K5 vs plain at scale ({k_err:.3e})")
+        col, rows, value = args[:3]
+        cap = int(args[4])
+        bound, by = bound_ms(nbytes(col, rows, value)
+                             + cap * (8 + value.element_size()), 0.0)
+        lib_ms, _, lib_err = k5_library(f"13c {dt}", card, args, kw, out_k)
+        out[str(dt)[6:]] = {
+            "ms_per_call": ms, "launches": counts, "c_nnz": n,
+            "max_abs_err_vs_f32": float(err.max()),
+            "k5": {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                   "max_abs_err": k_err, "bound_ms": bound, "bound_by": by,
+                   "library_ms": lib_ms, "library_max_abs_err": lib_err}}
+        print(f"phase 13c K5 alone {dt} on the call's ({col.shape[0]}, "
+              f"{col.shape[1]}) grid: kernel {k1:.3f} / {k2:.3f} ms, plain "
+              f"{p1:.3f} / {p2:.3f} ms, bound {bound:.3f} ms ({by}), "
+              f"library {lib_ms} ms; max_abs_err vs plain {k_err:.3e} "
+              f"{card}", flush=True)
+        del res, C, Ad, calls, args, out_p, out_k
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase13d_coalesce(dev, card):
+    """``PaddedCOO.coalesce`` of phase 4's 122,451,450 coordinates, sorted
+    by (row, col), with every 10th coordinate made a duplicate of the one
+    before it: once with (capacity, 8) f32 values (ogbn-proteins' 8 edge
+    features, 3.9 GB), once with (capacity,) bf16 values. Each: the
+    whole call 1 warm-up + 3 timed, K5 once a call, the result against the
+    plain version in f64 (structure exact; values within 1e-6 of each
+    entry's sum of |terms| plus half an ulp of the output dtype); K5
+    alone against the plain version in turns, its bound, and its library
+    call ``torch.sparse_coo_tensor(...).coalesce()`` with the same values
+    (a hybrid tensor with a dense dim of 8 for the vectors)."""
+    from paddle_sparse_tpu_torch import (PaddedCOO, compact_runs_cuda,
+                                         compact_runs_reference)
+    n, L = PRODUCTS_NODES, PRODUCTS_NODES * PRODUCTS_DEG
+    g = torch.Generator(device=dev).manual_seed(0)
+    key = (torch.arange(n, device=dev).repeat_interleave(PRODUCTS_DEG)
+           * (n + 1) + torch.randint(0, n, (L,), generator=g, device=dev))
+    key = key.sort().values
+    key[9::10] = key[8::10][:key[9::10].numel()]
+    row, col = (key // (n + 1)).int(), (key % (n + 1)).int()
+    del key
+    out = {}
+    for tag, shape, dt, half_ulp in (
+            ("f32 (capacity, 8)", (L, 8), torch.float32, 0.0),
+            ("bf16 (capacity,)", (L,), torch.bfloat16, BF16_HALF_ULP)):
+        val = torch.randn(shape, generator=g, device=dev).to(dt)
+        A = PaddedCOO.from_arrays(row, col, val, (n, n))
+        _zero_launch_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        with torch.inference_mode():
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                C = A.coalesce()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = _launch_counts()
+        check(counts["segcompact"] == 4 and sum(counts.values()) == 4,
+              f"coalesce {tag}: launches {counts}")
+        args = (A.col, A.row, A.value, A.shape, A.capacity)
+        with torch.inference_mode():
+            p1, k1, k2, p2, out_p, out_k = in_turns(
+                lambda: compact_runs_reference(*args),
+                lambda: compact_runs_cuda(*args), 1, 3)
+            del out_p
+            ref = compact_runs_reference(A.col, A.row, A.value.double(),
+                                         A.shape, A.capacity)
+            scale = compact_runs_reference(A.col, A.row,
+                                           A.value.abs().double(), A.shape,
+                                           A.capacity).value
+        m = int(ref.count)
+        err = (C.value.double() - ref.value).abs()
+        ok = (C.nnz == m and m <= L - L // 10
+              and torch.equal(C.row, ref.row) and torch.equal(C.col, ref.col)
+              and C.value.dtype == dt and C.value.shape == ref.value.shape
+              and bool((err <= 1e-6 * scale + half_ulp * ref.value.abs()
+                        + 1e-30).all())
+              and torch.equal(out_k.value, C.value))
+        ms = sum(times[1:]) / 3
+        print(f"phase 13d coalesce {tag}: {L} entries, {m} unique; ms "
+              f"warm-up {times[0]:.3f}, timed "
+              f"{' '.join(f'{t:.3f}' for t in times[1:])} (mean {ms:.3f}); "
+              f"peak mem {peak:.2f} GB; K5 4 in 4 calls; vs plain f64 "
+              f"max_abs_err {float(err.max()):.3e} "
+              f"{'ok' if ok else 'FAIL'} {card}", flush=True)
+        check(ok, f"coalesce {tag} disagrees with plain f64")
+        del ref, scale, err
+        bound, by = bound_ms(nbytes(A.col, A.row, A.value, C.row, C.col,
+                                    C.value), 0.0)
+        idx = torch.stack([A.row, A.col]).long()
+        with torch.inference_mode():
+            lib_ms, lib_err = library_timed(
+                "torch.sparse_coo_tensor(...).coalesce()",
+                lambda: torch.sparse_coo_tensor(
+                    idx, A.value, (n, n) + tuple(A.value.shape[1:])
+                ).coalesce(), 3,
+                out_k.value[:m])
+        del idx
+        out[tag] = {"ms": ms, "launches": counts, "peak_gb": peak,
+                    "k5": {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                           "max_abs_err": float((out_k.value.double()
+                                                 - C.value.double()).abs()
+                                                .max()),
+                           "bound_ms": bound, "bound_by": by,
+                           "library_ms": lib_ms,
+                           "library_max_abs_err": lib_err}}
+        print(f"phase 13d K5 alone {tag}: kernel {k1:.3f} / {k2:.3f} ms, "
+              f"plain {p1:.3f} / {p2:.3f} ms, bound {bound:.3f} ms ({by}), "
+              f"torch.sparse_coo_tensor(...).coalesce() {lib_ms} ms (vs "
+              f"kernel max_abs_err {lib_err}) {card}", flush=True)
+        del A, C, val, out_k
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible "
@@ -5797,6 +6605,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 h @ w
     torch.backends.cudnn.allow_tf32 = False
+    # phase 13b's f16 GEMMs sum in f32, split-K reductions too
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
@@ -5959,6 +6769,22 @@ def main() -> int:
         {k: {m: v for m, v in st.items() if m != "launches"}
          for k, st in parallel.items() if k != "launches"}), flush=True)
 
+    # ---- phase 13: f16 and f64 on the card ---------------------------------
+    dtypes = {"kernel_max_abs_err": phase13a_kernels(gen, dev),
+              "public_path_launches": phase13a_public_path(gen, dev),
+              "segcompact_max_abs_err": phase13a_segcompact(gen, dev)}
+    stamp("phase 13a")
+    dtypes["gcn"] = phase13_gcn(dev, card, train["losses"][0])
+    stamp("phase 13b")
+    dtypes["a_at_a_10M"] = phase13c_a_at_a(dev, card)
+    stamp("phase 13c")
+    dtypes["coalesce_122M"] = phase13d_coalesce(dev, card)
+    stamp("phase 13d")
+    print("phase 13 summary " + json.dumps(
+        {"gcn": {k: v for k, v in dtypes["gcn"].items() if k != "kernels"},
+         "a_at_a_10M": dtypes["a_at_a_10M"],
+         "coalesce_122M": dtypes["coalesce_122M"]}), flush=True)
+
     launches = {"gcn_forward": fwd["counts"],
                 "gcn_train_step": train["counts"],
                 **{p: v["launches"] for p, v in spgemm.items()},
@@ -5977,10 +6803,29 @@ def main() -> int:
                    for k, v in entry_points.items()},
                 "probes": {k: probes["counts"][k]
                            for k in _launch_counts()},
-                **parallel["launches"]}
+                **parallel["launches"],
+                **{f"gcn_train_step_{dt}": dtypes["gcn"][dt]["counts"]
+                   for dt in ("float64", "float16")},
+                **{f"a_at_a_10M_{dt}": v["launches"]
+                   for dt, v in dtypes["a_at_a_10M"].items()},
+                **{f"coalesce_122M_{dt}": v["launches"]
+                   for dt, v in dtypes["coalesce_122M"].items()}}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in launches.items()}
+
+    def by_dtype(kernel):
+        """Phase 13b's K=256 times of ``kernel`` in f16 and f64, with the
+        launches of that dtype's 4 train steps."""
+        return {dt: {**st[kernel], "launches": dtypes["gcn"][dt]["counts"][
+            kernel], "at": "GCN layer 1's input, K=256, 2,449,029 nodes"}
+            for dt, st in dtypes["gcn"]["kernels"].items()}
+
+    k5_dtypes = {
+        **{f"{dt} A @ A 10M grid": {**v["k5"], "launches": v["launches"][
+            "segcompact"]} for dt, v in dtypes["a_at_a_10M"].items()},
+        **{f"coalesce 122M {tag}": {**v["k5"], "launches": v["launches"][
+            "segcompact"]} for tag, v in dtypes["coalesce_122M"].items()}}
 
     k256 = train["sddmm"][256]
     fused = train["fused"]
@@ -6004,6 +6849,7 @@ def main() -> int:
          "replaces": "paddle_sparse_tpu/ops/kernels/spmm_pallas.py:45",
          "launches": train["spmm_launches"],
          "launches_by_path": by_path("spmm_csr"),
+         "dtypes": by_dtype("spmm_csr"),
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
          "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
          "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
@@ -6054,6 +6900,7 @@ def main() -> int:
                           "its span form is sddmm_spans",
          "launches": train["sddmm_launches"],
          "launches_by_path": by_path("sddmm_csr"),
+         "dtypes": by_dtype("sddmm_csr"),
          "max_abs_err": k256["max_abs_err"], "ms": k256["ms"],
          "plain_ms": k256["plain_ms"], "bound_ms": k256["bound_ms"],
          "bound_by": k256["bound_by"], "library_ms": k256["library_ms"],
@@ -6076,6 +6923,7 @@ def main() -> int:
                           "pallas_call is K1's _reduce_kernel",
          "launches": train["fused_launches"],
          "launches_by_path": by_path("spmm_sddmm_csc"),
+         "dtypes": by_dtype("spmm_sddmm_csc"),
          "max_abs_err": fused["max_abs_err"], "ms": fused["ms"],
          "plain_ms": fused["plain_ms"], "bound_ms": fused["bound_ms"],
          "bound_by": fused["bound_by"], "library_ms": fused["library_ms"],
@@ -6100,6 +6948,7 @@ def main() -> int:
          "launches": sum(v["launches"]["segcompact"]
                          for v in spgemm.values()),
          "launches_by_path": by_path("segcompact"),
+         "dtypes": k5_dtypes,
          "launches_row_sorted_by_path": by_path("segcompact_row_sorted"),
          "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
          "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],

@@ -197,11 +197,13 @@ class PaddedCOO:
         only adjacent duplicates merge, as in the JAX version.
 
         The sum runs through the run-compaction kernel
-        (``ops/kernels/segcompact_cuda.py``) on a CUDA tensor, differentiable
-        in ``value``; the kernel takes 1-D f32/f64 values (the plain version,
-        on a CPU tensor, any float and trailing dims). ``nnz`` is a Python
-        int, so this reads the unique count from the device: one host
-        sync."""
+        (``ops/kernels/segcompact_cuda.py``) on a CUDA tensor, and its plain
+        version on a CPU tensor, differentiable in ``value``: values of
+        shape (capacity,) or (capacity, D...), in f32, bf16, f16, f64, int32
+        or int64, each entry's vector summed lane by lane in position
+        order, f16 and bf16 in f32 and rounded once, the others in their
+        own dtype. ``nnz`` is a Python int, so this reads the unique count
+        from the device: one host sync."""
         mat = self if assume_sorted else self.sort()
         out = compact_runs(mat.col.int().contiguous(),
                            mat.row.int().contiguous(),

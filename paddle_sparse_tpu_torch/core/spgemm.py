@@ -27,8 +27,11 @@ the unique count from the device, and ``overflowed`` is a bool read in that
 same host sync.
 
 Values: ``value=None`` on both sides gives a structural C (``value=None``);
-one-sided None means implicit ones of the other side's dtype. The kernel sums
-f32 or f64 products; other dtypes raise on CUDA tensors. Coordinates are
+one-sided None means implicit ones of the other side's dtype. The products
+are in the operands' promoted dtype, as the JAX package takes them; the
+kernel sums f32, f64, int32 and int64 in their own type and f16 and bf16 in
+f32, rounded once per entry of C (the JAX package's segment sum adds them in
+their own dtype). Coordinates are
 int32 (M and N below 2**31) with 64-bit element offsets.
 """
 from typing import List, NamedTuple, Tuple

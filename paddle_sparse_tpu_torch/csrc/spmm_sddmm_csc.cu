@@ -85,13 +85,24 @@
 //   against 52.4 ms with the relay's scattered 4-byte reads and writes in
 //   here, at full ogbn-products scale, K = 256 f32 (PERF.md, section 6).
 //
+// Dtypes: g and x are read in their own dtypes (no cast copy of either), g
+// of x's dtype or wider, as K2 takes them: f32 or bf16 in both forms; the
+// CSC form also f16 and f64, f32 g over f16 x, and f64 g over any x (the
+// grads of a product in the promoted dtype). d x and the dots are summed in
+// f32 registers, or in f64 when g is f64, and rounded once on the store; V is
+// the narrower 16-byte width of g's and x's types. d x is written in f32
+// (from an f32 g), in g's own dtype or f32 (from bf16 or f16 g), or in f64
+// (from an f64 g). value and d value are in the value's own dtype, read and
+// written through its dtype code (a launch argument: the per-edge access
+// takes a uniform branch, and no instantiation per value dtype).
+//
 // Contract (the Python wrapper, ops/kernels/spmm_sddmm_cuda.py, checks
 // shapes, dtypes, devices and contiguity): the bounds are non-decreasing
 // (CSC) or any int32 spans (span form); every edge position e indexes col_t
 // (and perm), every g row base[s] + col_t[e] lies in [0, M) of the
 // contiguous (M, K) g and every p(e) in [0, P) of value and d value; x and
 // d x are contiguous (N, K). A piece table covers every row's edges once
-// with slots in [0, W) of the contiguous (W, K) f32 workspace. Offsets into
+// with slots in [0, W) of the contiguous (W, K) workspace of the sum's type. Offsets into
 // g, x, d x and the workspace are 64-bit.
 
 #include "spans.cuh"
@@ -99,14 +110,17 @@
 
 namespace {
 
-using psp::aligned16;
+using psp::acc_t;
+using psp::aligned;
+using psp::fma_acc;
 using psp::kFullMask;
+using psp::load_any;
 using psp::load_span_chunk;
 using psp::load_vec;
 using psp::span_edge;
 using psp::SpanChunk;
 using psp::SpanEdge;
-using psp::store_scalar;
+using psp::store_any;
 using psp::store_vec;
 
 constexpr int kWarpsPerBlock = 4;  // one x row (or piece) per warp
@@ -116,41 +130,40 @@ constexpr int kWarpsPerBlock = 4;  // one x row (or piece) per warp
 // (my_val). Each g row is gathered once: into acc, columns c0 + (t * 32 +
 // lane) * V, and, when `dots`, into the edge's dot with x[c, :] (xr in
 // registers, the rest of the row from x_row), which lane j stores at
-// d value[my_dst].
-template <typename TX, typename TD, int V, int NV>
+// d value[my_dst] in dtype code dv_code.
+template <typename TG, typename TX, int V, int NV, typename R>
 __device__ __forceinline__ void take_batch(
-    int n, int my_src, int my_dst, float my_val, const TX* __restrict__ g,
-    const TX* __restrict__ x_row, const float (&xr)[NV][V],
-    float (&acc)[NV][V], bool dots, int c0, int K, int lane,
-    TD* __restrict__ dv) {
+    int n, int my_src, int my_dst, R my_val, const TG* __restrict__ g,
+    const TX* __restrict__ x_row, const R (&xr)[NV][V], R (&acc)[NV][V],
+    bool dots, int c0, int K, int lane, void* __restrict__ dv, int dv_code) {
   constexpr int kCols = 32 * V * NV;
-  float my_out = 0.f;
+  R my_out = R(0);
 #pragma unroll 4
   for (int j = 0; j < n; ++j) {
     const int r = __shfl_sync(kFullMask, my_src, j);
-    const float v = __shfl_sync(kFullMask, my_val, j);
-    const TX* g_row = g + static_cast<int64_t>(r) * K;
-    float part = 0.f;
+    const R v = __shfl_sync(kFullMask, my_val, j);
+    const TG* g_row = g + static_cast<int64_t>(r) * K;
+    R part = R(0);
 #pragma unroll
     for (int t = 0; t < NV; ++t) {
       const int k = c0 + (t * 32 + lane) * V;
       if (k < K) {
-        float gv[V];
-        load_vec<TX, V>(g_row + k, gv);
+        R gv[V];
+        load_vec<TG, V>(g_row + k, gv);
 #pragma unroll
         for (int i = 0; i < V; ++i) {
-          acc[t][i] = fmaf(v, gv[i], acc[t][i]);
-          part = fmaf(xr[t][i], gv[i], part);
+          acc[t][i] = fma_acc(v, gv[i], acc[t][i]);
+          part = fma_acc(xr[t][i], gv[i], part);
         }
       }
     }
     if (dots) {
       for (int k = kCols + lane * V; k < K; k += 32 * V) {  // past regs
-        float xv[V], gv[V];
+        R xv[V], gv[V];
         load_vec<TX, V>(x_row + k, xv);
-        load_vec<TX, V>(g_row + k, gv);
+        load_vec<TG, V>(g_row + k, gv);
 #pragma unroll
-        for (int i = 0; i < V; ++i) part = fmaf(xv[i], gv[i], part);
+        for (int i = 0; i < V; ++i) part = fma_acc(xv[i], gv[i], part);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
@@ -159,34 +172,35 @@ __device__ __forceinline__ void take_batch(
       if (lane == j) my_out = part;
     }
   }
-  if (dots && lane < n) store_scalar<TD>(dv + my_dst, my_out);
+  if (dots && lane < n) store_any(dv, my_dst, dv_code, my_out);
 }
 
-// TX: element type of g and x; TO: of d x; TD: of d value; V: elements per
-// lane load; NV: vectors of x[c] each lane holds, so registers cover
-// 32 * V * NV columns. kPieces false: warp w walks x row w (the table is
-// not read); true: warp w walks piece w of the table (p_row, p_piece,
-// p_slot, cap). kSpans false: the CSC form, start = colptr (end, stride,
-// S and base unread); true: the span form (perm unread).
-template <typename TX, typename TO, typename TD, int V, int NV, bool kPieces,
-          bool kSpans>
+// TG, TX: element types of g and x; TO: of d x; R: the sums' type
+// (acc_t<TG>); V: elements per lane load; NV: vectors of x[c] each lane
+// holds, so registers cover 32 * V * NV columns. kPieces false: warp w walks
+// x row w (the table is not read); true: warp w walks piece w of the table
+// (p_row, p_piece, p_slot, cap). kSpans false: the CSC form, start = colptr
+// (end, stride, S and base unread); true: the span form (perm unread).
+// value (vcode) and dv (dv_code) are typed by their dtype codes.
+template <typename TG, typename TX, typename TO, int V, int NV, bool kPieces,
+          bool kSpans, typename R = acc_t<TG>>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 spmm_sddmm_kernel(const int* __restrict__ start, const int* __restrict__ end,
                   long long stride, int S, const int* __restrict__ col_t,
                   const int* __restrict__ base, const int* __restrict__ perm,
-                  const float* __restrict__ value, const TX* __restrict__ g,
-                  const TX* __restrict__ x, TO* __restrict__ dx,
-                  TD* __restrict__ dv, int units, int K,
-                  const int* __restrict__ p_row,
+                  const void* __restrict__ value, int vcode,
+                  const TG* __restrict__ g, const TX* __restrict__ x,
+                  TO* __restrict__ dx, void* __restrict__ dv, int dv_code,
+                  int units, int K, const int* __restrict__ p_row,
                   const int* __restrict__ p_piece,
                   const int* __restrict__ p_slot, long long cap,
-                  float* __restrict__ ws) {
+                  R* __restrict__ ws) {
   const int lane = threadIdx.x & 31;
   const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (w >= units) return;  // whole warp leaves together
   int c = w;
   long long f0 = 0, f1 = 0;   // a piece's flat edges [f0, f1)
-  float* part_row = nullptr;  // non-NULL: a piece of a split row
+  R* part_row = nullptr;      // non-NULL: a piece of a split row
   if constexpr (kPieces) {
     c = __ldg(p_row + w);
     f0 = static_cast<long long>(__ldg(p_piece + w)) * cap;
@@ -198,7 +212,7 @@ spmm_sddmm_kernel(const int* __restrict__ start, const int* __restrict__ end,
   const TX* x_row = x + static_cast<int64_t>(c) * K;
   TO* dx_row = dx + static_cast<int64_t>(c) * K;
 
-  float xr[NV][V];
+  R xr[NV][V];
 #pragma unroll
   for (int t = 0; t < NV; ++t) {
     const int k = (t * 32 + lane) * V;
@@ -206,17 +220,17 @@ spmm_sddmm_kernel(const int* __restrict__ start, const int* __restrict__ end,
       load_vec<TX, V>(x_row + k, xr[t]);
     } else {
 #pragma unroll
-      for (int i = 0; i < V; ++i) xr[t][i] = 0.f;
+      for (int i = 0; i < V; ++i) xr[t][i] = R(0);
     }
   }
 
   for (int c0 = 0; c0 < K; c0 += kCols) {
     const bool dots = c0 == 0;  // the first pass takes the dots whole
-    float acc[NV][V];
+    R acc[NV][V];
 #pragma unroll
     for (int t = 0; t < NV; ++t) {
 #pragma unroll
-      for (int i = 0; i < V; ++i) acc[t][i] = 0.f;
+      for (int i = 0; i < V; ++i) acc[t][i] = R(0);
     }
 
     if constexpr (!kSpans) {
@@ -231,15 +245,15 @@ spmm_sddmm_kernel(const int* __restrict__ start, const int* __restrict__ end,
       for (long long eb = lo; eb < hi; eb += 32) {
         const int n = static_cast<int>(min(32LL, hi - eb));
         int my_src = 0, my_dst = 0;
-        float my_val = 1.f;
+        R my_val = R(1);
         if (lane < n) {
           const long long e = e0 + eb + lane;
           my_src = __ldg(col_t + e);
           my_dst = __ldg(perm + e);
-          if (value != nullptr) my_val = __ldg(value + my_dst);
+          if (value != nullptr) my_val = load_any<R>(value, my_dst, vcode);
         }
-        take_batch<TX, TD, V, NV>(n, my_src, my_dst, my_val, g, x_row, xr,
-                                  acc, dots, c0, K, lane, dv);
+        take_batch<TG, TX, V, NV>(n, my_src, my_dst, my_val, g, x_row, xr,
+                                  acc, dots, c0, K, lane, dv, dv_code);
       }
     } else {
       long long before = 0;  // a piece: flat edges in the chunks passed
@@ -257,14 +271,14 @@ spmm_sddmm_kernel(const int* __restrict__ start, const int* __restrict__ end,
           const int n = static_cast<int>(min(32LL, hi - eb));
           const SpanEdge se = span_edge(chunk, eb + lane);
           int my_src = 0, my_dst = 0;
-          float my_val = 1.f;
+          R my_val = R(1);
           if (lane < n) {
             my_src = se.base + __ldg(col_t + se.e);
             my_dst = se.e;
-            if (value != nullptr) my_val = __ldg(value + my_dst);
+            if (value != nullptr) my_val = load_any<R>(value, my_dst, vcode);
           }
-          take_batch<TX, TD, V, NV>(n, my_src, my_dst, my_val, g, x_row, xr,
-                                    acc, dots, c0, K, lane, dv);
+          take_batch<TG, TX, V, NV>(n, my_src, my_dst, my_val, g, x_row, xr,
+                                    acc, dots, c0, K, lane, dv, dv_code);
         }
       }
     }
@@ -274,7 +288,7 @@ spmm_sddmm_kernel(const int* __restrict__ start, const int* __restrict__ end,
       const int k = c0 + (t * 32 + lane) * V;
       if (k < K) {
         if (kPieces && part_row != nullptr) {
-          store_vec<float, V>(part_row + k, acc[t]);
+          store_vec<R, V>(part_row + k, acc[t]);
         } else {
           store_vec<TO, V>(dx_row + k, acc[t]);
         }
@@ -292,92 +306,138 @@ struct Args {
   const int* col_t;
   const int* base;
   const int* perm;
-  const float* value;
+  const void* value;
+  int vcode;
+  void* dv;
+  int dv_code;
   int units, K;
   const int* p_row;
   const int* p_piece;
   const int* p_slot;
   long long cap;
-  float* ws;
+  void* ws;  // acc_t<TG>
 };
 
-template <typename TX, typename TO, typename TD, int V, int NV, bool kSpans>
-void launch_nv(const Args& a, const TX* g, const TX* x, TO* dx, TD* dv,
+template <typename TG, typename TX, typename TO, int V, int NV, bool kSpans>
+void launch_nv(const Args& a, const TG* g, const TX* x, TO* dx,
                cudaStream_t stream) {
+  using R = acc_t<TG>;
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((a.units + kWarpsPerBlock - 1) / kWarpsPerBlock);
   if (a.p_row != nullptr) {
-    spmm_sddmm_kernel<TX, TO, TD, V, NV, true, kSpans>
+    spmm_sddmm_kernel<TG, TX, TO, V, NV, true, kSpans>
         <<<grid, block, 0, stream>>>(a.start, a.end, a.stride, a.S, a.col_t,
-                                     a.base, a.perm, a.value, g, x, dx, dv,
-                                     a.units, a.K, a.p_row, a.p_piece,
-                                     a.p_slot, a.cap, a.ws);
+                                     a.base, a.perm, a.value, a.vcode, g, x,
+                                     dx, a.dv, a.dv_code, a.units, a.K,
+                                     a.p_row, a.p_piece, a.p_slot, a.cap,
+                                     static_cast<R*>(a.ws));
   } else {
-    spmm_sddmm_kernel<TX, TO, TD, V, NV, false, kSpans>
+    spmm_sddmm_kernel<TG, TX, TO, V, NV, false, kSpans>
         <<<grid, block, 0, stream>>>(a.start, a.end, a.stride, a.S, a.col_t,
-                                     a.base, a.perm, a.value, g, x, dx, dv,
-                                     a.units, a.K, nullptr, nullptr, nullptr,
-                                     0, nullptr);
+                                     a.base, a.perm, a.value, a.vcode, g, x,
+                                     dx, a.dv, a.dv_code, a.units, a.K,
+                                     nullptr, nullptr, nullptr, 0,
+                                     static_cast<R*>(nullptr));
   }
 }
 
 // NV from K as K1 and K2 choose it, so the dots' lane layout is K2's.
-template <typename TX, typename TO, typename TD, int V, bool kSpans>
-void launch(const Args& a, const TX* g, const TX* x, TO* dx, TD* dv,
+template <typename TG, typename TX, typename TO, int V, bool kSpans>
+void launch(const Args& a, const TG* g, const TX* x, TO* dx,
             cudaStream_t stream) {
   const int lanes_needed = (a.K + V - 1) / V;  // vectors across one row
   if (lanes_needed <= 32) {
-    launch_nv<TX, TO, TD, V, 1, kSpans>(a, g, x, dx, dv, stream);
+    launch_nv<TG, TX, TO, V, 1, kSpans>(a, g, x, dx, stream);
   } else if (lanes_needed <= 64) {
-    launch_nv<TX, TO, TD, V, 2, kSpans>(a, g, x, dx, dv, stream);
+    launch_nv<TG, TX, TO, V, 2, kSpans>(a, g, x, dx, stream);
   } else {
-    launch_nv<TX, TO, TD, V, 4, kSpans>(a, g, x, dx, dv, stream);
+    launch_nv<TG, TX, TO, V, 4, kSpans>(a, g, x, dx, stream);
   }
 }
 
-// The vector width when K and the pointers allow 16-byte accesses, else 1:
-// K2's rule on g and x (d x and the workspace are the wrapper's fresh
-// allocations, always aligned).
-template <typename TX, typename TO, typename TD, bool kSpans>
+// The vector width when K and the pointers allow it, else 1: K2's rule on g
+// and x, the narrower 16-byte width of their types (d x and the workspace
+// are the wrapper's fresh allocations, always aligned).
+template <typename TG, typename TX, typename TO, bool kSpans>
 void dispatch(const Args& a, const void* g, const void* x, void* dx,
-              void* dv, cudaStream_t stream) {
-  constexpr int kVec = sizeof(TX) == 4 ? 4 : 8;  // elements in 16 bytes
-  const TX* gp = static_cast<const TX*>(g);
+              cudaStream_t stream) {
+  constexpr int kVec = psp::vec16<TG> < psp::vec16<TX> ? psp::vec16<TG>
+                                                       : psp::vec16<TX>;
+  const TG* gp = static_cast<const TG*>(g);
   const TX* xp = static_cast<const TX*>(x);
   TO* op = static_cast<TO*>(dx);
-  TD* vp = static_cast<TD*>(dv);
-  if (aligned16(g) && aligned16(x) && aligned16(dx) && aligned16(a.ws) &&
-      a.K % kVec == 0) {
-    launch<TX, TO, TD, kVec, kSpans>(a, gp, xp, op, vp, stream);
+  if (aligned(g, kVec * sizeof(TG)) && aligned(x, kVec * sizeof(TX)) &&
+      psp::aligned16(dx) && psp::aligned16(a.ws) && a.K % kVec == 0) {
+    launch<TG, TX, TO, kVec, kSpans>(a, gp, xp, op, stream);
   } else {
-    launch<TX, TO, TD, 1, kSpans>(a, gp, xp, op, vp, stream);
+    launch<TG, TX, TO, 1, kSpans>(a, gp, xp, op, stream);
   }
 }
 
-template <typename TX, typename TO, bool kSpans>
-void dispatch_dv(const Args& a, const void* g, const void* x, void* dx,
-                 void* dv, int dv_bf16, cudaStream_t stream) {
-  if (dv_bf16) {
-    dispatch<TX, TO, __nv_bfloat16, kSpans>(a, g, x, dx, dv, stream);
-  } else {
-    dispatch<TX, TO, float, kSpans>(a, g, x, dx, dv, stream);
-  }
-}
-
-// The dtype combinations both entry points take; returns
-// cudaGetLastError() after the launch.
+// The dtype combinations (codes of g, x and d x) both forms take: f32 g over
+// f32 or bf16 x into f32 d x; bf16 g and x into bf16 or f32 d x. The CSC
+// form (kSpans false) also takes f32 g over f16 x, f16 g and x into f16 or
+// f32 d x, and f64 g over any x into f64 d x. Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue (no launch) for any other
+// combination.
 template <bool kSpans>
 int dispatch_types(const Args& a, const void* g, const void* x, void* dx,
-                   void* dv, int in_bf16, int dx_bf16, int dv_bf16,
-                   cudaStream_t cs) {
-  if (!in_bf16) {
-    if (dx_bf16) return static_cast<int>(cudaErrorInvalidValue);
-    dispatch_dv<float, float, kSpans>(a, g, x, dx, dv, dv_bf16, cs);
-  } else if (dx_bf16) {
-    dispatch_dv<__nv_bfloat16, __nv_bfloat16, kSpans>(a, g, x, dx, dv,
-                                                      dv_bf16, cs);
+                   int g_code, int x_code, int dx_code, cudaStream_t cs) {
+  using psp::kBF16;
+  using psp::kF16;
+  using psp::kF32;
+  using psp::kF64;
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (a.vcode < kF32 || a.vcode > kF64 || a.dv_code < kF32 ||
+      a.dv_code > kF64) {
+    return bad;
+  }
+  if (g_code == kF32 && dx_code == kF32) {
+    if (x_code == kF32) {
+      dispatch<float, float, float, kSpans>(a, g, x, dx, cs);
+    } else if (x_code == kBF16) {
+      dispatch<float, __nv_bfloat16, float, kSpans>(a, g, x, dx, cs);
+    } else if (x_code == kF16) {
+      if constexpr (kSpans) {
+        return bad;
+      } else {
+        dispatch<float, __half, float, kSpans>(a, g, x, dx, cs);
+      }
+    } else {
+      return bad;
+    }
+  } else if (g_code == kBF16 && x_code == kBF16) {
+    if (dx_code == kBF16) {
+      dispatch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, kSpans>(
+          a, g, x, dx, cs);
+    } else if (dx_code == kF32) {
+      dispatch<__nv_bfloat16, __nv_bfloat16, float, kSpans>(a, g, x, dx, cs);
+    } else {
+      return bad;
+    }
+  } else if constexpr (!kSpans) {
+    if (g_code == kF16 && x_code == kF16 && dx_code == kF16) {
+      dispatch<__half, __half, __half, kSpans>(a, g, x, dx, cs);
+    } else if (g_code == kF16 && x_code == kF16 && dx_code == kF32) {
+      dispatch<__half, __half, float, kSpans>(a, g, x, dx, cs);
+    } else if (g_code == kF64 && dx_code == kF64) {
+      switch (x_code) {
+        case kF32: dispatch<double, float, double, kSpans>(a, g, x, dx, cs);
+          break;
+        case kBF16:
+          dispatch<double, __nv_bfloat16, double, kSpans>(a, g, x, dx, cs);
+          break;
+        case kF16: dispatch<double, __half, double, kSpans>(a, g, x, dx, cs);
+          break;
+        case kF64: dispatch<double, double, double, kSpans>(a, g, x, dx, cs);
+          break;
+        default: return bad;
+      }
+    } else {
+      return bad;
+    }
   } else {
-    dispatch_dv<__nv_bfloat16, float, kSpans>(a, g, x, dx, dv, dv_bf16, cs);
+    return bad;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -385,18 +445,21 @@ int dispatch_types(const Args& a, const void* g, const void* x, void* dx,
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. value may be NULL (ones).
-// in_bf16 selects bf16 (1) or f32 (0) for g and x, dx_bf16 and dv_bf16 the
-// same for d x and d value; f32 g and x take an f32 d x only (the wrapper
-// rounds it after). p_col == NULL launches one warp per x row; else one per
-// piece of the P-piece table (p_col, p_piece, cap, p_slot), pieces of split
-// rows writing to the (W, K) f32 workspace ws, which psp_fold_pieces then
-// folds into dx. Each launches on `stream` and returns cudaGetLastError();
-// 0 means the launch was accepted.
+// g_code, x_code, dx_code, value_code and dv_code are psp::DType codes (0
+// f32, 1 bf16, 2 f16, 3 f64) of g, x, d x, value and d value; the (g, x,
+// d x) combinations are dispatch_types's, the wrapper rounding an f32 d x
+// after where it needs another dtype. p_col == NULL launches one warp per x
+// row; else one per piece of the P-piece table (p_col, p_piece, cap,
+// p_slot), pieces of split rows writing to the (W, K) workspace ws (f64 from
+// an f64 g, else f32), which psp_fold_pieces then folds into dx. Each
+// launches on `stream` and returns cudaGetLastError(); 0 means the launch
+// was accepted.
 extern "C" int psp_spmm_sddmm_csc(const void* colptr, const void* col_t,
                                   const void* perm, const void* value,
-                                  const void* g, const void* x, void* dx,
-                                  void* dv, long long N, long long K,
-                                  int in_bf16, int dx_bf16, int dv_bf16,
+                                  int value_code, const void* g,
+                                  const void* x, void* dx, void* dv,
+                                  long long N, long long K, int g_code,
+                                  int x_code, int dx_code, int dv_code,
                                   const void* p_col, const void* p_piece,
                                   long long P, long long cap,
                                   const void* p_slot, void* ws,
@@ -409,15 +472,18 @@ extern "C" int psp_spmm_sddmm_csc(const void* colptr, const void* col_t,
   a.col_t = static_cast<const int*>(col_t);
   a.base = nullptr;
   a.perm = static_cast<const int*>(perm);
-  a.value = static_cast<const float*>(value);
+  a.value = value;
+  a.vcode = value_code;
+  a.dv = dv;
+  a.dv_code = dv_code;
   a.units = static_cast<int>(p_col != nullptr ? P : N);
   a.K = static_cast<int>(K);
   a.p_row = static_cast<const int*>(p_col);
   a.p_piece = static_cast<const int*>(p_piece);
   a.p_slot = static_cast<const int*>(p_slot);
   a.cap = cap;
-  a.ws = static_cast<float*>(ws);
-  return dispatch_types<false>(a, g, x, dx, dv, in_bf16, dx_bf16, dv_bf16,
+  a.ws = ws;
+  return dispatch_types<false>(a, g, x, dx, g_code, x_code, dx_code,
                                static_cast<cudaStream_t>(stream));
 }
 
@@ -426,14 +492,14 @@ extern "C" int psp_spmm_sddmm_csc(const void* colptr, const void* col_t,
 extern "C" int psp_spmm_sddmm_spans(const void* start, const void* end,
                                     long long stride, const void* col_t,
                                     const void* base, const void* value,
-                                    const void* g, const void* x, void* dx,
-                                    void* dv,
+                                    int value_code, const void* g,
+                                    const void* x, void* dx, void* dv,
                                     long long S, long long N, long long K,
-                                    int in_bf16, int dx_bf16, int dv_bf16,
-                                    const void* p_col, const void* p_piece,
-                                    long long P, long long cap,
-                                    const void* p_slot, void* ws,
-                                    void* stream) {
+                                    int g_code, int x_code, int dx_code,
+                                    int dv_code, const void* p_col,
+                                    const void* p_piece, long long P,
+                                    long long cap, const void* p_slot,
+                                    void* ws, void* stream) {
   Args a;
   a.start = static_cast<const int*>(start);
   a.end = static_cast<const int*>(end);
@@ -442,14 +508,17 @@ extern "C" int psp_spmm_sddmm_spans(const void* start, const void* end,
   a.col_t = static_cast<const int*>(col_t);
   a.base = static_cast<const int*>(base);
   a.perm = nullptr;
-  a.value = static_cast<const float*>(value);
+  a.value = value;
+  a.vcode = value_code;
+  a.dv = dv;
+  a.dv_code = dv_code;
   a.units = static_cast<int>(p_col != nullptr ? P : N);
   a.K = static_cast<int>(K);
   a.p_row = static_cast<const int*>(p_col);
   a.p_piece = static_cast<const int*>(p_piece);
   a.p_slot = static_cast<const int*>(p_slot);
   a.cap = cap;
-  a.ws = static_cast<float*>(ws);
-  return dispatch_types<true>(a, g, x, dx, dv, in_bf16, dx_bf16, dv_bf16,
+  a.ws = ws;
+  return dispatch_types<true>(a, g, x, dx, g_code, x_code, dx_code,
                               static_cast<cudaStream_t>(stream));
 }

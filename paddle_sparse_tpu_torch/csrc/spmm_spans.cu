@@ -56,21 +56,33 @@
 // row, each walking its whole row, through an instantiation that has no
 // piece bookkeeping at all: no workspace and no second pass.
 //
+// Dtypes: src is f32, bf16, f16 or f64; out is f32, or src's own dtype, or
+// f64; v is f32, bf16, f16 or f64, read in its own dtype (a launch argument,
+// not a template parameter: the per-edge load takes a uniform branch). Sums
+// are taken in f32 registers (fmaf), or in f64 (fma) when out is f64, and
+// rounded once on the store: f16 and bf16 sum in f32 as the bf16 path always
+// did, f64 sums in double. A mixed pair follows torch's promotion: f16 src
+// with an f32 v writes f32, gathering the f16 rows as they are.
+//
 // Contract (the Python wrapper checks shapes, dtypes, devices and contiguity):
 // every position e in a span indexes idx and v, every source row
 // base[s] + idx[e] (or base[s] + e) lies in [0, N) of the contiguous (N, K)
 // src, and out is a contiguous (M, K) array. A piece table holds P entries
 // of rows in [0, M), covering every row's flat edges once, and slots in
-// [0, W) of the contiguous (W, K) f32 workspace. Offsets into src, out and
-// the workspace are computed in 64 bits.
+// [0, W) of the contiguous (W, K) workspace of the sum's type (f32, or f64
+// when out is f64). Offsets into src, out and the workspace are computed in
+// 64 bits.
 
 #include "spans.cuh"
 #include "vec_load.cuh"
 
 namespace {
 
-using psp::aligned16;
+using psp::acc_t;
+using psp::aligned;
+using psp::fma_acc;
 using psp::kFullMask;
+using psp::load_any;
 using psp::load_span_chunk;
 using psp::load_vec;
 using psp::span_edge;
@@ -82,28 +94,30 @@ using psp::store_vec;
 constexpr int kWarpsPerBlock = 4;  // one output row (or piece) per warp
 constexpr int kFoldWarps = 8;      // warps of a fold block, one per group
 
-// TX: element type of src; TO: element type of out; V: elements per lane
+// TX: element type of src; TO: element type of out; R: the sum's type
+// (acc_t<TO>: double for an f64 out, else float); V: elements per lane
 // load; NV: vectors per lane held in registers, so one pass over a row's
 // edges covers 32 * V * NV columns. kPieces false: warp w walks row w (the
 // table is not read, and the loop compiles as if it did not exist); true:
 // warp w walks piece w of the table (p_row, p_piece, p_slot, cap).
-template <typename TX, typename TO, int V, int NV, bool kPieces>
+template <typename TX, typename TO, int V, int NV, bool kPieces,
+          typename R = acc_t<TO>>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 spmm_spans_kernel(const int* __restrict__ start, const int* __restrict__ end,
                   long long stride, const int* __restrict__ idx,
-                  const float* __restrict__ value,
+                  const void* __restrict__ value, int vcode,
                   const int* __restrict__ base, const TX* __restrict__ src,
                   TO* __restrict__ out, int S, int units, int K,
                   const int* __restrict__ p_row,
                   const int* __restrict__ p_piece,
                   const int* __restrict__ p_slot, long long cap,
-                  float* __restrict__ ws) {
+                  R* __restrict__ ws) {
   const int lane = threadIdx.x & 31;
   const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (w >= units) return;  // whole warp leaves together
   int row = w;
   long long f0 = 0, f1 = 0;  // a piece's flat edges [f0, f1)
-  float* part = nullptr;     // non-NULL: a piece of a split row
+  R* part = nullptr;         // non-NULL: a piece of a split row
   if constexpr (kPieces) {
     row = __ldg(p_row + w);
     f0 = static_cast<long long>(__ldg(p_piece + w)) * cap;
@@ -115,11 +129,11 @@ spmm_spans_kernel(const int* __restrict__ start, const int* __restrict__ end,
   constexpr int kCols = 32 * V * NV;
 
   for (int c0 = 0; c0 < K; c0 += kCols) {
-    float acc[NV][V];
+    R acc[NV][V];
 #pragma unroll
     for (int t = 0; t < NV; ++t) {
 #pragma unroll
-      for (int i = 0; i < V; ++i) acc[t][i] = 0.f;
+      for (int i = 0; i < V; ++i) acc[t][i] = R(0);
     }
 
     long long before = 0;  // a piece: flat edges in the chunks passed
@@ -137,24 +151,26 @@ spmm_spans_kernel(const int* __restrict__ start, const int* __restrict__ end,
         const int n = static_cast<int>(min(32LL, hi - eb));
         const SpanEdge se = span_edge(chunk, eb + lane);
         int my_row = 0;
-        float my_val = 1.f;
+        R my_val = R(1);
         if (lane < n) {
           my_row = se.base + (idx != nullptr ? __ldg(idx + se.e) : se.e);
-          if (value != nullptr) my_val = __ldg(value + se.e);
+          if (value != nullptr) my_val = load_any<R>(value, se.e, vcode);
         }
 #pragma unroll 4
         for (int j = 0; j < n; ++j) {
           const int r = __shfl_sync(kFullMask, my_row, j);
-          const float v = __shfl_sync(kFullMask, my_val, j);
+          const R v = __shfl_sync(kFullMask, my_val, j);
           const TX* src_row = src + static_cast<int64_t>(r) * K;
 #pragma unroll
           for (int t = 0; t < NV; ++t) {
             const int k = c0 + (t * 32 + lane) * V;
             if (k < K) {
-              float xv[V];
+              R xv[V];
               load_vec<TX, V>(src_row + k, xv);
 #pragma unroll
-              for (int i = 0; i < V; ++i) acc[t][i] = fmaf(v, xv[i], acc[t][i]);
+              for (int i = 0; i < V; ++i) {
+                acc[t][i] = fma_acc(v, xv[i], acc[t][i]);
+              }
             }
           }
         }
@@ -166,7 +182,7 @@ spmm_spans_kernel(const int* __restrict__ start, const int* __restrict__ end,
       const int k = c0 + (t * 32 + lane) * V;
       if (k < K) {
         if (kPieces && part != nullptr) {
-          store_vec<float, V>(part + k, acc[t]);
+          store_vec<R, V>(part + k, acc[t]);
         } else {
           store_vec<TO, V>(out_row + k, acc[t]);
         }
@@ -179,13 +195,14 @@ spmm_spans_kernel(const int* __restrict__ start, const int* __restrict__ end,
 // columns y * 32 + lane (+ gridDim.y * 32 ...) of out row fold_row[r], the
 // sum of workspace rows fold_ptr[r] .. fold_ptr[r+1]-1. Warp g adds every
 // kFoldWarps-th partial from g on, in order, and warp 0 adds the kFoldWarps
-// sums in order: a fixed tree, so the bits do not depend on timing.
-template <typename TO>
+// sums in order: a fixed tree, so the bits do not depend on timing. R is the
+// workspace's type (acc_t<TO>), the sums' too: one rounding, on the store.
+template <typename TO, typename R = acc_t<TO>>
 __global__ void __launch_bounds__(kFoldWarps * 32)
 fold_pieces_kernel(const int* __restrict__ fold_row,
                    const int* __restrict__ fold_ptr,
-                   const float* __restrict__ ws, TO* __restrict__ out, int K) {
-  __shared__ float sums[kFoldWarps][32];
+                   const R* __restrict__ ws, TO* __restrict__ out, int K) {
+  __shared__ R sums[kFoldWarps][32];
   const int lane = threadIdx.x & 31;
   const int g = threadIdx.x >> 5;
   const int r = blockIdx.x;
@@ -193,7 +210,7 @@ fold_pieces_kernel(const int* __restrict__ fold_row,
   TO* out_row = out + static_cast<int64_t>(__ldg(fold_row + r)) * K;
   for (int c0 = blockIdx.y * 32; c0 < K; c0 += gridDim.y * 32) {
     const int k = c0 + lane;
-    float acc = 0.f;
+    R acc = R(0);
     if (k < K) {
 #pragma unroll 4
       for (int p = p0 + g; p < p1; p += kFoldWarps) {
@@ -203,7 +220,7 @@ fold_pieces_kernel(const int* __restrict__ fold_row,
     sums[g][lane] = acc;
     __syncthreads();
     if (g == 0 && k < K) {
-      float total = sums[0][lane];
+      R total = sums[0][lane];
 #pragma unroll
       for (int i = 1; i < kFoldWarps; ++i) total += sums[i][lane];
       store_scalar<TO>(out_row + k, total);
@@ -218,28 +235,32 @@ struct Args {
   const int* end;
   long long stride;
   const int* idx;
-  const float* value;
+  const void* value;
+  int vcode;
   const int* base;
   int S, units, K;
   const int* p_row;
   const int* p_piece;
   const int* p_slot;
   long long cap;
-  float* ws;
+  void* ws;  // acc_t<TO>
 };
 
 template <typename TX, typename TO, int V, int NV>
 void launch_nv(const Args& a, const TX* src, TO* out, cudaStream_t stream) {
+  using R = acc_t<TO>;
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((a.units + kWarpsPerBlock - 1) / kWarpsPerBlock);
   if (a.p_row != nullptr) {
     spmm_spans_kernel<TX, TO, V, NV, true><<<grid, block, 0, stream>>>(
-        a.start, a.end, a.stride, a.idx, a.value, a.base, src, out, a.S,
-        a.units, a.K, a.p_row, a.p_piece, a.p_slot, a.cap, a.ws);
+        a.start, a.end, a.stride, a.idx, a.value, a.vcode, a.base, src, out,
+        a.S, a.units, a.K, a.p_row, a.p_piece, a.p_slot, a.cap,
+        static_cast<R*>(a.ws));
   } else {
     spmm_spans_kernel<TX, TO, V, NV, false><<<grid, block, 0, stream>>>(
-        a.start, a.end, a.stride, a.idx, a.value, a.base, src, out, a.S,
-        a.units, a.K, nullptr, nullptr, nullptr, 0, nullptr);
+        a.start, a.end, a.stride, a.idx, a.value, a.vcode, a.base, src, out,
+        a.S, a.units, a.K, nullptr, nullptr, nullptr, 0,
+        static_cast<R*>(nullptr));
   }
 }
 
@@ -255,14 +276,21 @@ void launch(const Args& a, const TX* src, TO* out, cudaStream_t stream) {
   }
 }
 
-// The vector width when K and the pointers allow 16-byte accesses, else 1.
-template <typename TX, typename TO, int VEC>
+// The vector width when K and the pointers allow it: one 16-byte load of
+// src a lane (V = 4 f32, 8 bf16 or f16, 2 f64), else 1. The stores of out
+// and the workspace take the same V, so their rows must be aligned to
+// V * sizeof of their own types.
+template <typename TX, typename TO>
 void dispatch(const Args& a, const void* src, void* out,
               cudaStream_t stream) {
+  constexpr int V = psp::vec16<TX>;
   const TX* xp = static_cast<const TX*>(src);
   TO* op = static_cast<TO*>(out);
-  if (aligned16(src) && aligned16(out) && aligned16(a.ws) && a.K % VEC == 0) {
-    launch<TX, TO, VEC>(a, xp, op, stream);
+  const int out_bytes = V * static_cast<int>(sizeof(TO));
+  const int ws_bytes = V * static_cast<int>(sizeof(acc_t<TO>));
+  if (aligned(src, 16) && aligned(out, out_bytes < 16 ? out_bytes : 16) &&
+      aligned(a.ws, ws_bytes < 16 ? ws_bytes : 16) && a.K % V == 0) {
+    launch<TX, TO, V>(a, xp, op, stream);
   } else {
     launch<TX, TO, 1>(a, xp, op, stream);
   }
@@ -271,26 +299,34 @@ void dispatch(const Args& a, const void* src, void* out,
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. idx, value and base may be NULL
-// (see above). src_bf16 / out_bf16 select bf16 (1) or f32 (0); f32 src takes
-// an f32 out only. p_row == NULL launches one warp per row; else one per
-// piece of the P-piece table (p_row, p_piece, p_slot, cap), pieces of split
-// rows writing to the (W, K) f32 workspace ws, which psp_fold_pieces then
-// folds into out. Each launches on `stream` and returns cudaGetLastError();
-// 0 means the launch was accepted.
+// (see above). The dtype codes are psp::DType's (0 f32, 1 bf16, 2 f16,
+// 3 f64): src_code and out_code name src's and out's, value_code value's.
+// out is f32, src's own dtype, or f64; any other pair is refused
+// (cudaErrorInvalidValue) before a launch. p_row == NULL launches one warp
+// per row; else one per piece of the P-piece table (p_row, p_piece, p_slot,
+// cap), pieces of split rows writing to the (W, K) workspace ws (f64 when out
+// is f64, else f32), which psp_fold_pieces then folds into out. Each
+// launches on `stream` and returns cudaGetLastError(); 0 means the launch was
+// accepted.
 extern "C" int psp_spmm_spans(const void* start, const void* end,
                               long long stride, const void* idx,
-                              const void* value, const void* base,
-                              const void* src, void* out, long long S,
-                              long long M, long long K, int src_bf16,
-                              int out_bf16, const void* p_row,
+                              const void* value, int value_code,
+                              const void* base, const void* src, void* out,
+                              long long S, long long M, long long K,
+                              int src_code, int out_code, const void* p_row,
                               const void* p_piece, long long P, long long cap,
                               const void* p_slot, void* ws, void* stream) {
+  using psp::kBF16;
+  using psp::kF16;
+  using psp::kF32;
+  using psp::kF64;
   Args a;
   a.start = static_cast<const int*>(start);
   a.end = static_cast<const int*>(end);
   a.stride = stride;
   a.idx = static_cast<const int*>(idx);
-  a.value = static_cast<const float*>(value);
+  a.value = value;
+  a.vcode = value_code;
   a.base = static_cast<const int*>(base);
   a.S = static_cast<int>(S);
   a.units = static_cast<int>(p_row != nullptr ? P : M);
@@ -299,25 +335,42 @@ extern "C" int psp_spmm_spans(const void* start, const void* end,
   a.p_piece = static_cast<const int*>(p_piece);
   a.p_slot = static_cast<const int*>(p_slot);
   a.cap = cap;
-  a.ws = static_cast<float*>(ws);
+  a.ws = ws;
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (!src_bf16) {
-    if (out_bf16) return static_cast<int>(cudaErrorInvalidValue);
-    dispatch<float, float, 4>(a, src, out, cs);
-  } else if (out_bf16) {
-    dispatch<__nv_bfloat16, __nv_bfloat16, 8>(a, src, out, cs);
+  if (value_code < kF32 || value_code > kF64) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (out_code == kF64) {
+    switch (src_code) {
+      case kF32: dispatch<float, double>(a, src, out, cs); break;
+      case kBF16: dispatch<__nv_bfloat16, double>(a, src, out, cs); break;
+      case kF16: dispatch<__half, double>(a, src, out, cs); break;
+      case kF64: dispatch<double, double>(a, src, out, cs); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (out_code == kF32) {
+    switch (src_code) {
+      case kF32: dispatch<float, float>(a, src, out, cs); break;
+      case kBF16: dispatch<__nv_bfloat16, float>(a, src, out, cs); break;
+      case kF16: dispatch<__half, float>(a, src, out, cs); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (out_code == kBF16 && src_code == kBF16) {
+    dispatch<__nv_bfloat16, __nv_bfloat16>(a, src, out, cs);
+  } else if (out_code == kF16 && src_code == kF16) {
+    dispatch<__half, __half>(a, src, out, cs);
   } else {
-    dispatch<__nv_bfloat16, float, 8>(a, src, out, cs);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// out_code as psp_spmm_spans's: ws is f64 when out is f64, else f32.
 extern "C" int psp_fold_pieces(const void* fold_row, const void* fold_ptr,
                                const void* ws, void* out, long long R,
-                               long long K, int out_bf16, void* stream) {
+                               long long K, int out_code, void* stream) {
   const int* fr = static_cast<const int*>(fold_row);
   const int* fp = static_cast<const int*>(fold_ptr);
-  const float* w = static_cast<const float*>(ws);
   const int k = static_cast<int>(K);
   const dim3 block(kFoldWarps * 32);
   const long long col_blocks = (K + 31) / 32;
@@ -325,12 +378,27 @@ extern "C" int psp_fold_pieces(const void* fold_row, const void* fold_ptr,
                   static_cast<unsigned>(col_blocks < 65535 ? col_blocks
                                                            : 65535));
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (out_bf16) {
-    fold_pieces_kernel<__nv_bfloat16><<<grid, block, 0, cs>>>(
-        fr, fp, w, static_cast<__nv_bfloat16*>(out), k);
-  } else {
-    fold_pieces_kernel<float><<<grid, block, 0, cs>>>(
-        fr, fp, w, static_cast<float*>(out), k);
+  const float* w = static_cast<const float*>(ws);
+  switch (out_code) {
+    case psp::kF32:
+      fold_pieces_kernel<float><<<grid, block, 0, cs>>>(
+          fr, fp, w, static_cast<float*>(out), k);
+      break;
+    case psp::kBF16:
+      fold_pieces_kernel<__nv_bfloat16><<<grid, block, 0, cs>>>(
+          fr, fp, w, static_cast<__nv_bfloat16*>(out), k);
+      break;
+    case psp::kF16:
+      fold_pieces_kernel<__half><<<grid, block, 0, cs>>>(
+          fr, fp, w, static_cast<__half*>(out), k);
+      break;
+    case psp::kF64:
+      fold_pieces_kernel<double><<<grid, block, 0, cs>>>(
+          fr, fp, static_cast<const double*>(ws), static_cast<double*>(out),
+          k);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

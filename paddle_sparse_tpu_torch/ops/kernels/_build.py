@@ -37,6 +37,24 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"   # the CUDA toolkit's default
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
+# the dtype codes of the C entry points (csrc/vec_load.cuh::psp::DType, and
+# csrc/segcompact.cuh's value codes past it)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+              torch.float64: 3, torch.int32: 4, torch.int64: 5}
+# the float dtypes the SpMM/SDDMM kernels read and write
+FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    """The C entry points' code of ``dtype``; raises ``TypeError`` for a
+    dtype no kernel takes."""
+    try:
+        return DTYPE_CODE[dtype]
+    except KeyError:
+        raise TypeError(f"no kernel of paddle_sparse_tpu_torch takes "
+                        f"{dtype}") from None
+
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
@@ -109,8 +127,10 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library(sources(), BUILD_DIR)))
             p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            # ..., piece table: row, piece, P, cap (row NULL: none), ...
-            lib.psp_spmm_spans.argtypes = [p, p, i64, p, p, p, p, p, i64,
+            # start, end, stride, idx, value, value code, base, src, out, S,
+            # M, K, src code, out code, piece table: row, piece, P, cap
+            # (row NULL: none), slot; ws, stream
+            lib.psp_spmm_spans.argtypes = [p, p, i64, p, p, i32, p, p, p, i64,
                                            i64, i64, i32, i32, p, p, i64, i64,
                                            p, p, p]
             lib.psp_spmm_spans.restype = ctypes.c_int
@@ -121,40 +141,42 @@ def load_library() -> ctypes.CDLL:
             lib.psp_spmm_window.argtypes = [p, p, p, p, p, p, p, i64, i64,
                                             i64, i64, i64, i64, i32, i32, p]
             lib.psp_spmm_window.restype = ctypes.c_int
+            # start, end, stride, col, base, g, x, dv, S, M, K, g code,
+            # x code, dv code, piece table: row, piece, P, cap; stream
             lib.psp_sddmm_spans.argtypes = [p, p, i64, p, p, p, p, p, i64,
-                                            i64, i64, i32, i32, p, p, i64,
-                                            i64, p]
+                                            i64, i64, i32, i32, i32, p, p,
+                                            i64, i64, p]
             lib.psp_sddmm_spans.restype = ctypes.c_int
-            # colptr, col_t, perm, value, g, x, dx, dv, N, K, in_bf16,
-            # dx_bf16, dv_bf16, piece table: col, piece, P, cap, slot; ws,
-            # stream
-            lib.psp_spmm_sddmm_csc.argtypes = [p, p, p, p, p, p, p, p, i64,
-                                               i64, i32, i32, i32, p, p, i64,
-                                               i64, p, p, p]
-            lib.psp_spmm_sddmm_csc.restype = ctypes.c_int
-            # start, end, stride, col_t, base, value, g, x, dx, dv, S, N, K,
-            # in_bf16, dx_bf16, dv_bf16, piece table: row, piece, P, cap,
+            # colptr, col_t, perm, value, value code, g, x, dx, dv, N, K,
+            # codes of g, x, dx and dv, piece table: col, piece, P, cap,
             # slot; ws, stream
-            lib.psp_spmm_sddmm_spans.argtypes = [p, p, i64, p, p, p, p, p, p,
-                                                 p, i64, i64, i64, i32, i32,
-                                                 i32, p, p, i64, i64, p, p,
-                                                 p]
+            lib.psp_spmm_sddmm_csc.argtypes = [p, p, p, p, i32, p, p, p, p,
+                                               i64, i64, i32, i32, i32, i32,
+                                               p, p, i64, i64, p, p, p]
+            lib.psp_spmm_sddmm_csc.restype = ctypes.c_int
+            # start, end, stride, col_t, base, value, value code, g, x, dx,
+            # dv, S, N, K, codes of g, x, dx and dv, piece table: row,
+            # piece, P, cap, slot; ws, stream
+            lib.psp_spmm_sddmm_spans.argtypes = [p, p, i64, p, p, p, i32, p,
+                                                 p, p, p, i64, i64, i64, i32,
+                                                 i32, i32, i32, p, p, i64,
+                                                 i64, p, p, p]
             lib.psp_spmm_sddmm_spans.restype = ctypes.c_int
             lib.psp_segcompact_f_max.argtypes = []
             lib.psp_segcompact_f_max.restype = i64
             lib.psp_segcompact_tiles.argtypes = [i64, i64, i64, i32]
             lib.psp_segcompact_tiles.restype = i64
-            # col, rows, R, F, M, N, value, f64, sort, cap, outs, seg, count,
-            # ws, stream
+            # col, rows, R, F, M, N, value, value code, sort, cap, outs,
+            # seg, count, ws, stream
             lib.psp_segcompact_rows.argtypes = [p, p, i64, i64, i64, i64, p,
                                                 i32, i32, i64, p, p, p, p, p,
                                                 p, p]
             lib.psp_segcompact_rows.restype = ctypes.c_int
-            # col, rows, row_div, L, M, N, value, f64, cap, outs, seg, count,
-            # ws, meta, part, stream
+            # col, rows, row_div, L, M, N, value, value code, D, cap, outs,
+            # seg, count, ws, meta, part, stream
             lib.psp_segcompact_stream.argtypes = [p, p, i64, i64, i64, i64, p,
-                                                  i32, i64, p, p, p, p, p, p,
-                                                  p, p, p]
+                                                  i32, i64, i64, p, p, p, p,
+                                                  p, p, p, p, p]
             lib.psp_segcompact_stream.restype = ctypes.c_int
             # the probes of experiments/ (csrc/probes.cu), stream last
             lib.psp_scale2.argtypes = [p, p, i64, p]

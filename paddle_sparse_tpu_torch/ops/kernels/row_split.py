@@ -152,23 +152,30 @@ def _table(split: Optional[RowSplit]):
             split.row.numel(), split.cap)
 
 
+def sum_dtype(out_dtype: torch.dtype) -> torch.dtype:
+    """The dtype the SpMM kernels sum into ``out_dtype`` in, their piece
+    workspace's too: f64 for an f64 output, else f32."""
+    return torch.float64 if out_dtype == torch.float64 else torch.float32
+
+
 def launch_spmm_spans(name: str, start, end, idx, value, base,
                       src: torch.Tensor, out: torch.Tensor,
                       split: Optional[RowSplit]) -> None:
     """``csrc/spmm_spans.cu`` over checked int32 (S, M) bounds into
     ``out``: one warp per row when ``split`` is None, else one per piece and
-    then :func:`fold_pieces_cuda`. Raises if a launch fails; the caller
-    counts its launch."""
+    then :func:`fold_pieces_cuda`. ``value`` is read in its own dtype.
+    Raises if a launch fails; the caller counts its launch."""
     (S, M), K = start.shape, src.shape[1]
     ws = (None if split is None else torch.empty(
-        (split.num_slots, K), dtype=torch.float32, device=src.device))
+        (split.num_slots, K), dtype=sum_dtype(out.dtype), device=src.device))
+    code = _build.dtype_code
     _build.launch(
         name, _build.load_library().psp_spmm_spans, src.device,
         start.data_ptr(), end.data_ptr(), start.stride(0), _ptr(idx),
-        _ptr(value), _ptr(base), src.data_ptr(), out.data_ptr(), S, M, K,
-        int(src.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16),
-        *_table(split), None if split is None else split.slot.data_ptr(),
-        _ptr(ws))
+        _ptr(value), 0 if value is None else code(value.dtype), _ptr(base),
+        src.data_ptr(), out.data_ptr(), S, M, K, code(src.dtype),
+        code(out.dtype), *_table(split),
+        None if split is None else split.slot.data_ptr(), _ptr(ws))
     if split is not None:
         fold_pieces_cuda(split, ws, out)
 
@@ -176,14 +183,18 @@ def launch_spmm_spans(name: str, start, end, idx, value, base,
 def fold_pieces_cuda(split: RowSplit, ws: torch.Tensor,
                      out: torch.Tensor) -> None:
     """The second pass of a split SpMM launch (``csrc/spmm_spans.cu``):
-    ``out[fold_row[r]]`` = the sum of the f32 workspace rows
-    ``fold_ptr[r] .. fold_ptr[r+1]-1``, in a fixed order, written in
-    ``out``'s dtype. ``fold_pieces_cuda.launches`` counts its launches."""
+    ``out[fold_row[r]]`` = the sum of the workspace rows
+    ``fold_ptr[r] .. fold_ptr[r+1]-1`` (f32, or f64 for an f64 ``out``), in
+    a fixed order, written in ``out``'s dtype.
+    ``fold_pieces_cuda.launches`` counts its launches."""
+    if ws.dtype != sum_dtype(out.dtype):
+        raise TypeError(f"fold_pieces_cuda sums a {sum_dtype(out.dtype)} "
+                        f"workspace into {out.dtype}, got {ws.dtype}")
     _build.launch("fold_pieces", _build.load_library().psp_fold_pieces,
                   out.device, split.fold_row.data_ptr(),
                   split.fold_ptr.data_ptr(), ws.data_ptr(), out.data_ptr(),
                   split.fold_row.numel(), out.shape[1],
-                  int(out.dtype == torch.bfloat16))
+                  _build.dtype_code(out.dtype))
     fold_pieces_cuda.launches += 1
 
 
@@ -210,13 +221,15 @@ def launch_sddmm_spans(name: str, start, end, col, base, g: torch.Tensor,
                        split: Optional[RowSplit]) -> None:
     """``csrc/sddmm_spans.cu`` over checked int32 (S, M) bounds into
     ``out``: one warp per row when ``split`` is None, else one per piece.
-    Raises if the launch fails; the caller counts it."""
+    ``g`` and ``x`` are read in their own dtypes. Raises if the launch
+    fails; the caller counts it."""
     (S, M), K = start.shape, x.shape[1]
+    code = _build.dtype_code
     _build.launch(name, _build.load_library().psp_sddmm_spans, x.device,
                   start.data_ptr(), end.data_ptr(), start.stride(0),
                   col.data_ptr(), _ptr(base), g.data_ptr(), x.data_ptr(),
-                  out.data_ptr(), S, M, K, int(x.dtype == torch.bfloat16),
-                  int(out.dtype == torch.bfloat16), *_table(split))
+                  out.data_ptr(), S, M, K, code(g.dtype), code(x.dtype),
+                  code(out.dtype), *_table(split))
 
 
 # ---- plain versions that follow the table (tests only) -----------------

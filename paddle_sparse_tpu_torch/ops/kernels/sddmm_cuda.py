@@ -10,11 +10,15 @@ stream exists: the span SDDMM of ``csrc/sddmm_spans.cu`` with one span per row
 ``rowptr = arange(L + 1)`` and ``col = arange(L)`` it is exactly
 ``mul_rowsum_call(g, x)``.
 
-Dtype contract: ``g`` and ``x`` are f32 or bf16 (a mixed pair is computed in
-f32; f64 only in the plain version), dots are summed in f32 (f64 in the plain
-version when an input is f64) and written in ``out_dtype``. The output has
-one slot per entry of ``col``; slots outside ``[rowptr[0], rowptr[M])``, such
-as the padding of a ``PaddedCOO``, are 0.
+Dtype contract: ``g`` and ``x`` are f32, bf16, f16 or f64, each read in its
+own dtype: ``g`` is the grad of an SpMM output, whose dtype is at least
+``x``'s, and the kernel takes ``g`` as wide as ``x`` or wider (a ``g``
+narrower than their promoted dtype is cast up first: that copy is of ``g``,
+never of ``x``). Dots are summed in f32, or in f64 when ``g`` or ``x`` is
+f64, in the kernel and the plain version alike, and written in
+``out_dtype`` (any of the four), rounded once. The output has one slot per
+entry of ``col``; slots outside ``[rowptr[0], rowptr[M])``, such as the
+padding of a ``PaddedCOO``, are 0.
 
 :func:`sddmm_spans_cuda` is the span form, the value gradient of the
 packed-layout SpMMs written in the packed order: it
@@ -30,6 +34,7 @@ from typing import Optional
 import torch
 
 from . import spmm_cuda
+from ._build import FLOAT_DTYPES
 from .row_split import AUTO, launch_sddmm_spans, resolve_split
 from .spmm_spans_cuda import check_span_args, span_windows
 
@@ -59,21 +64,33 @@ def sddmm_csr_reference(rowptr: torch.Tensor, col: torch.Tensor,
     return out.to(out_dtype)
 
 
+def sddmm_operands(fn: str, g: torch.Tensor, x: torch.Tensor,
+                   out_dtype: torch.dtype):
+    """``(g, x)`` as ``csrc/sddmm_spans.cu`` takes them: each f32, bf16, f16
+    or f64 and contiguous 2-D, ``g`` cast up to the promoted dtype of the
+    two where it is narrower (``x`` is never copied); ``out_dtype`` one of
+    the four. Raises ``TypeError``/``ValueError`` otherwise."""
+    for name, t in (("g", g), ("x", x)):
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous 2-D tensor, "
+                             f"got shape {tuple(t.shape)} "
+                             f"(contiguous={t.is_contiguous()})")
+        if t.dtype not in FLOAT_DTYPES:
+            raise TypeError(f"{fn} takes f32, bf16, f16 or f64 {name}, got "
+                            f"{t.dtype}")
+    if out_dtype not in FLOAT_DTYPES:
+        raise TypeError(f"{fn} writes f32, bf16, f16 or f64, not "
+                        f"{out_dtype}")
+    wide = torch.promote_types(g.dtype, x.dtype)
+    return (g if g.dtype == wide else g.to(wide)), x
+
+
 def _check_cuda_args(rowptr, col, g, x, out_dtype):
     dev = x.device
     for name, t in (("rowptr", rowptr), ("col", col), ("g", g)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
-    for name, t in (("g", g), ("x", x)):
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 2-D tensor, got "
-                             f"shape {tuple(t.shape)} "
-                             f"(contiguous={t.is_contiguous()})")
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"sddmm_csr_cuda takes f32 or bf16 {name}, got "
-                            f"{t.dtype}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"sddmm_csr_cuda writes f32 or bf16, not {out_dtype}")
+    g, x = sddmm_operands("sddmm_csr_cuda", g, x, out_dtype)
     if rowptr.dim() != 1 or rowptr.numel() < 1 or col.dim() != 1:
         raise ValueError("rowptr and col must be 1-D, rowptr non-empty")
     if g.shape[0] != rowptr.numel() - 1 or g.shape[1] != x.shape[1]:
@@ -86,6 +103,7 @@ def _check_cuda_args(rowptr, col, g, x, out_dtype):
     if max(col.numel(), x.shape[0], x.shape[1], rowptr.numel()) >= 2 ** 31:
         raise ValueError("sddmm_csr_cuda indexes with int32: nnz, N, K and "
                          "M must each be below 2**31")
+    return g, x
 
 
 def sddmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor, g: torch.Tensor,
@@ -94,7 +112,8 @@ def sddmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor, g: torch.Tensor,
     """CSR SDDMM through the CUDA kernel ``csrc/sddmm_spans.cu`` at S = 1.
 
     ``rowptr`` (M+1,) is a CSR pointer into ``col``; ``g`` is a contiguous
-    (M, K) and ``x`` a contiguous (N, K) tensor, each f32 or bf16, and every
+    (M, K) and ``x`` a contiguous (N, K) tensor, each f32, bf16, f16 or
+    f64, and every
     ``col[e]`` with ``rowptr[0] <= e < rowptr[M]`` lies in ``[0, N)``.
     ``split`` is the pointer's :class:`~.row_split.RowSplit`, ``None`` when
     no row is longer than its cap, or ``"auto"`` to build it here (one host
@@ -106,9 +125,7 @@ def sddmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor, g: torch.Tensor,
         return sddmm_csr_reference(rowptr, col, g, x, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"sddmm_csr_cuda runs on cpu or cuda, not {x.device}")
-    _check_cuda_args(rowptr, col, g, x, out_dtype)
-    if g.dtype != x.dtype:                # a mixed pair is summed in f32
-        g, x = g.float(), x.float()
+    g, x = _check_cuda_args(rowptr, col, g, x, out_dtype)
     out = torch.zeros(col.numel(), dtype=out_dtype, device=x.device)
     M = rowptr.numel() - 1
     if M == 0 or col.numel() == 0:
@@ -157,8 +174,8 @@ def sddmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
     ``start``/``end`` are (S, M) int32 tensors sharing one row stride (the
     (S, M+1) row pointers ``rp`` of a packed layout pass as ``rp[:, :-1]``,
     ``rp[:, 1:]``); ``base`` (S,) or ``None`` for 0; ``g`` a contiguous
-    (M, K) and ``x`` a contiguous (N, K) tensor, each f32 or bf16 (a mixed
-    pair is computed in f32). ``split`` is the bounds'
+    (M, K) and ``x`` a contiguous (N, K) tensor, each f32, bf16, f16 or
+    f64 (:func:`sddmm_operands`). ``split`` is the bounds'
     :class:`~.row_split.RowSplit` (a plan keeps it), ``None`` when no row
     is longer than its cap, or ``"auto"`` to build it here (one host read
     of the longest row). Returns ``(col.numel(),)`` in ``out_dtype``, 0
@@ -173,17 +190,7 @@ def sddmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
     start, end, base = check_span_args("sddmm_spans_cuda", start, end, base,
                                        x.device, ("col", col), ("g", g),
                                        ("x", x))
-    for name, t in (("g", g), ("x", x)):
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 2-D tensor, got "
-                             f"shape {tuple(t.shape)} "
-                             f"(contiguous={t.is_contiguous()})")
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"sddmm_spans_cuda takes f32 or bf16 {name}, "
-                            f"got {t.dtype}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"sddmm_spans_cuda writes f32 or bf16, not "
-                        f"{out_dtype}")
+    g, x = sddmm_operands("sddmm_spans_cuda", g, x, out_dtype)
     (S, M), K = start.shape, x.shape[1]
     if g.shape != (M, K):
         raise ValueError(f"g {tuple(g.shape)} must be (M, K) = ({M}, {K})")
@@ -193,8 +200,6 @@ def sddmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
     if K >= 2 ** 31:
         raise ValueError("sddmm_spans_cuda indexes with int32: K must be "
                          "below 2**31")
-    if g.dtype != x.dtype:                # a mixed pair is summed in f32
-        g, x = g.float(), x.float()
     out = torch.zeros(col.numel(), dtype=out_dtype, device=x.device)
     if S == 0 or M == 0 or col.numel() == 0:
         return out

@@ -23,13 +23,20 @@ becomes one output entry at slot s, the run's index among all runs in
   compaction orders each one itself, stably, as ``torch.sort(stable=True)``
   would.
 
-Dtype contract: ``col`` and ``rows`` int32; values f32 or f64 on the card
-(any float in the plain version), summed in their own type, each run in
-position order (stream order, or a grid row's stable sorted order). Slots
-past the unique count hold the pad ``(M, N, 0)``. ``count`` is the unique
-count, which may exceed ``out_capacity``; it stays on the device. ``seg``
-gives each element's slot in the input's own order.
+Dtype contract: ``col`` and ``rows`` int32; values f32, bf16, f16, f64,
+int32 or int64, on the card and in the plain version alike: f16 and bf16
+summed in f32 and rounded once per run, the others in their own type (ints
+exact, wrapping as torch's do). Each run in position order (stream order, or
+a grid row's stable sorted order; the stream kernel's scalar path sums runs
+of more than 8 elements in a fixed tree). On a flat stream the values may
+have trailing dims, ``(L, D...)``: each run sums its D-vectors lane by lane,
+in position order, in the kernel (``coalesce``'s vector values); the grid
+layouts (SpGEMM) take one value per element. Slots past the unique count
+hold the pad ``(M, N, 0)``. ``count`` is the unique count, which may exceed
+``out_capacity``; it stays on the device. ``seg`` gives each element's slot
+in the input's own order.
 """
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -38,9 +45,19 @@ from torch.autograd.function import once_differentiable
 from . import _build
 
 _INT32_LIMIT = 2 ** 31 - 1
+# the value dtypes the kernels sum (csrc/segcompact.cuh's value codes)
+VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
+                torch.int32, torch.int64)
 # the longest grid row the kernel sorts itself (kFMax in csrc/segcompact.cu):
 # 32 keys a lane of one warp, in registers
 F_MAX = 1024
+
+
+def sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a run of ``dtype`` values is summed in: f32 for f16 and
+    bf16, the dtype itself otherwise."""
+    return (torch.float32 if dtype in (torch.float16, torch.bfloat16)
+            else dtype)
 
 
 class Compacted(NamedTuple):
@@ -67,9 +84,9 @@ def compact_runs_reference(col: torch.Tensor, rows: torch.Tensor,
 
     With ``rows_sorted=False``, a stable sort of each grid row by col (pads
     last) first. Then the run-head mask, ``seg = cumsum(first) - 1``, and
-    ``index_add`` of the values into their slots; ``seg`` is mapped back to
-    the input's order. ``value`` may have trailing dims here (the kernel
-    takes one value per element)."""
+    ``index_add`` of the values into their slots, in :func:`sum_dtype`,
+    rounded once; ``seg`` is mapped back to the input's order. ``value`` may
+    have trailing dims."""
     _check_mode(col, rows_sorted)
     M, N = int(shape[0]), int(shape[1])
     cap = int(out_capacity)
@@ -102,10 +119,11 @@ def compact_runs_reference(col: torch.Tensor, rows: torch.Tensor,
         v = value.reshape((c.numel(),) + tuple(value.shape[col.dim():]))
         mask = keep.reshape((-1,) + (1,) * (v.dim() - 1))
         slot = torch.where(keep, s, cap)            # cap: a dump slot
-        out_val = torch.zeros((cap + 1,) + tuple(v.shape[1:]), dtype=v.dtype,
+        acc = sum_dtype(v.dtype)
+        out_val = torch.zeros((cap + 1,) + tuple(v.shape[1:]), dtype=acc,
                               device=v.device).index_add_(
-            0, slot, torch.where(mask, v, v.new_zeros(())))
-        out_val = out_val[:cap]
+            0, slot, torch.where(mask, v, v.new_zeros(())).to(acc))
+        out_val = out_val[:cap].to(v.dtype)
     seg_t = None
     if seg:
         seg_t = torch.where(keep, s, -1).int()
@@ -136,12 +154,15 @@ def _check_cuda_args(col, rows, value, M, N, out_capacity, rows_sorted):
                          f"{F_MAX} slots, not {col.shape[1]}: sort them first "
                          f"and pass rows_sorted=True")
     if value is not None:
-        if value.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"compact_runs_cuda sums f32 or f64 values, not "
-                            f"{value.dtype}")
-        if value.shape != col.shape:
+        if value.dtype not in VALUE_DTYPES:
+            raise TypeError(f"compact_runs_cuda sums values in {VALUE_DTYPES}"
+                            f", not {value.dtype}")
+        lead = tuple(value.shape[:col.dim()])
+        if lead != tuple(col.shape) or (col.dim() == 2
+                                        and value.dim() != 2):
             raise ValueError(f"value {tuple(value.shape)} must have col's "
-                             f"shape {tuple(col.shape)}")
+                             f"shape {tuple(col.shape)}, or on a flat stream "
+                             f"(L, D...)")
         if value.device != dev or not value.is_contiguous():
             raise ValueError(f"value must be contiguous and on {dev}")
     if not (0 <= M <= _INT32_LIMIT and 0 <= N <= _INT32_LIMIT):
@@ -163,8 +184,10 @@ def compact_runs_cuda(col: torch.Tensor, rows: torch.Tensor,
     """Run compaction through the CUDA kernels of ``csrc/segcompact.cu``.
 
     ``col`` is (L,) with ``rows`` (L,) (flat) or (R, F) with ``rows`` (R,)
-    (grid), both contiguous int32; ``value`` is None or contiguous f32/f64 of
-    ``col``'s shape. ``rows_sorted=False`` (grids of ``F <= F_MAX`` only)
+    (grid), both contiguous int32; ``value`` is None or contiguous, of
+    ``VALUE_DTYPES``, of ``col``'s shape or (flat only) ``(L, D...)``: each
+    run's D-vectors summed lane by lane by the trailing-dim pass after the
+    structure pass. ``rows_sorted=False`` (grids of ``F <= F_MAX`` only)
     lets the kernel sort each grid row. With ``seg`` the kernel also writes
     each element's slot, in input order (-1 for pads and for slots past
     ``out_capacity``), which the value gradient gathers through.
@@ -189,9 +212,16 @@ def compact_runs_cuda(col: torch.Tensor, rows: torch.Tensor,
     L = col.numel()
     out_row = torch.empty(cap, dtype=torch.int32, device=dev)
     out_col = torch.empty(cap, dtype=torch.int32, device=dev)
+    trail = () if value is None else tuple(value.shape[col.dim():])
+    D = math.prod(trail)
     out_val = (None if value is None
-               else torch.empty(cap, dtype=value.dtype, device=dev))
+               else torch.empty((cap,) + trail, dtype=value.dtype,
+                                device=dev))
     seg_t = torch.empty(L, dtype=torch.int32, device=dev) if seg else None
+    if D == 0:                      # (L, 0) values: the structure alone
+        out = compact_runs_cuda(col, rows, None, shape, cap, seg,
+                                rows_sorted)
+        return out._replace(value=out_val)
     if L == 0:
         out_row.fill_(M)
         out_col.fill_(N)
@@ -204,23 +234,27 @@ def compact_runs_cuda(col: torch.Tensor, rows: torch.Tensor,
     R, F = (col.shape[0], col.shape[1]) if col.dim() == 2 else (L, 1)
     tiles = lib.psp_segcompact_tiles(R, F, L, int(rows_kernel))
     count = torch.empty((), dtype=torch.int64, device=dev)
-    f64 = int(value is not None and value.dtype == torch.float64)
+    code = 0 if value is None else _build.dtype_code(value.dtype)
     ws = torch.zeros(tiles + 1, dtype=torch.int64, device=dev)
     if rows_kernel:
         _build.launch("segcompact", lib.psp_segcompact_rows, dev,
                       col.data_ptr(), rows.data_ptr(), R, F, M, N,
-                      _ptr(value), f64, int(not rows_sorted), cap,
+                      _ptr(value), code, int(not rows_sorted), cap,
                       out_row.data_ptr(), out_col.data_ptr(), _ptr(out_val),
                       _ptr(seg_t), count.data_ptr(), ws.data_ptr())
     else:
         meta = part = None
-        if value is not None:
+        seg_ws = seg_t
+        if value is not None and D == 1:
             meta = torch.empty(tiles, dtype=torch.int64, device=dev)
-            part = torch.empty(tiles, dtype=value.dtype, device=dev)
+            part = torch.empty(2 * tiles, dtype=sum_dtype(value.dtype),
+                               device=dev)
+        elif value is not None and seg_ws is None:  # the vector pass reads it
+            seg_ws = torch.empty(L, dtype=torch.int32, device=dev)
         _build.launch("segcompact", lib.psp_segcompact_stream, dev,
                       col.data_ptr(), rows.data_ptr(), F, L, M, N,
-                      _ptr(value), f64, cap, out_row.data_ptr(),
-                      out_col.data_ptr(), _ptr(out_val), _ptr(seg_t),
+                      _ptr(value), code, D, cap, out_row.data_ptr(),
+                      out_col.data_ptr(), _ptr(out_val), _ptr(seg_ws),
                       count.data_ptr(), ws.data_ptr(), _ptr(meta),
                       _ptr(part))
     compact_runs_cuda.launches += 1

@@ -8,16 +8,21 @@ gather, the scale and the row-sum: the multi-span kernel of
 ``csrc/spmm_spans.cu`` with one span per row (S = 1, ``start = rowptr[:-1]``,
 ``end = rowptr[1:]``), which walks a CSR row in edge order.
 
-Dtype contract, as in ``spmm_pallas``: the output has the promoted dtype of
-``value`` and ``x``; sums are taken in f32 (f64 in the plain version when the
-inputs are f64); ``value=None`` means implicit ones; any K works. A row of
-more than ``row_split.CAP`` edges is cut into pieces, one warp each, whose
-partials a second pass sums (``ops/kernels/row_split.py``).
+Dtype contract, as in ``paddle_sparse_tpu/ops/spmm.py::spmm_coo``: the
+output has the promoted dtype of ``value`` and ``x``, each f32, bf16, f16 or
+f64, and each read in its own dtype (an f16 ``x`` with an f32 ``value`` is
+gathered as f16 and writes f32: no f32 copy of ``x``). Sums are taken in f32
+and rounded once on the store, or in f64 when the output is f64, in the
+kernel and in the plain version alike; ``value=None`` means implicit ones;
+any K works. A row of more than ``row_split.CAP`` edges is cut into pieces,
+one warp each, whose partials a second pass sums
+(``ops/kernels/row_split.py``).
 """
 from typing import Optional
 
 import torch
 
+from ._build import FLOAT_DTYPES
 from .row_split import AUTO, launch_spmm_spans, resolve_split
 
 # edges per window of the plain version: bounds its (window, K) product
@@ -28,6 +33,25 @@ _WINDOW_BYTES = 1 << 30
 def _out_dtype(value: Optional[torch.Tensor], x: torch.Tensor) -> torch.dtype:
     return x.dtype if value is None else torch.promote_types(value.dtype,
                                                              x.dtype)
+
+
+def check_spmm_dtypes(fn: str, src: torch.dtype,
+                      value: Optional[torch.dtype], out: torch.dtype) -> None:
+    """The dtypes ``csrc/spmm_spans.cu`` takes: ``src`` and ``value`` each
+    f32, bf16, f16 or f64; ``out`` f64, or f32 from a src other than f64,
+    or src's own dtype, and f64 whenever an input is (the sum's type follows
+    ``out``). Raises ``TypeError`` on anything else."""
+    for name, dt in (("src", src), ("value", value)):
+        if dt is not None and dt not in FLOAT_DTYPES:
+            raise TypeError(f"{fn} takes f32, bf16, f16 or f64 {name}, got "
+                            f"{dt}")
+    if not (out == torch.float64 or out == src
+            or (out == torch.float32 and src != torch.float64)):
+        raise TypeError(f"{fn} writes f64, f32 (from a src narrower than "
+                        f"f64) or src's own dtype; not {out} from {src}")
+    if value == torch.float64 and out != torch.float64:
+        raise TypeError(f"{fn} sums an f64 value in f64: out must be f64, "
+                        f"not {out}")
 
 
 def spmm_csr_reference(rowptr: torch.Tensor, col: torch.Tensor,
@@ -63,8 +87,9 @@ def _check_cuda_args(rowptr, col, value, x):
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous 2-D tensor, got shape "
                          f"{tuple(x.shape)} (contiguous={x.is_contiguous()})")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"spmm_csr_cuda takes f32 or bf16 x, got {x.dtype}")
+    check_spmm_dtypes("spmm_csr_cuda", x.dtype,
+                      None if value is None else value.dtype,
+                      _out_dtype(value, x))
     if rowptr.dim() != 1 or rowptr.numel() < 1 or col.dim() != 1:
         raise ValueError("rowptr and col must be 1-D, rowptr non-empty")
     for name, t in (("rowptr", rowptr), ("col", col)):
@@ -77,9 +102,6 @@ def _check_cuda_args(rowptr, col, value, x):
         if value.shape != col.shape:
             raise ValueError(f"value shape {tuple(value.shape)} != col shape "
                              f"{tuple(col.shape)}")
-        if value.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"spmm_csr_cuda takes f32 or bf16 value, got "
-                            f"{value.dtype}")
 
 
 def spmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor,
@@ -88,7 +110,8 @@ def spmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor,
     """CSR SpMM through the CUDA kernel ``csrc/spmm_spans.cu`` at S = 1.
 
     ``rowptr`` (M+1,) is a canonical CSR pointer into ``col``/``value``;
-    ``x`` is a contiguous (N, K) f32 or bf16 tensor and every ``col[e]`` with
+    ``x`` is a contiguous (N, K) f32, bf16, f16 or f64 tensor, ``value``
+    (any of those dtypes, read as it is) or None, and every ``col[e]`` with
     ``e < rowptr[M]`` lies in ``[0, N)``. ``split`` is the pointer's
     :class:`~.row_split.RowSplit` (``PaddedCOO`` caches it), ``None`` when
     no row is longer than its cap, or ``"auto"`` to build it here (one host
@@ -108,7 +131,7 @@ def spmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor,
     rowptr = rowptr.to(torch.int32).contiguous()
     col = col.to(torch.int32).contiguous()
     if value is not None:
-        value = value.to(torch.float32).contiguous()
+        value = value.contiguous()
     start, end = rowptr[None, :-1], rowptr[None, 1:]
     launch_spmm_spans("spmm_csr", start, end, col, value, None, x, out,
                       resolve_split(split, start, end))

@@ -26,17 +26,24 @@ Arithmetic: ``d x`` in the SpMM's order (f32 ``fmaf`` in edge order, a long
 row's piece partials folded by ``row_split.fold_pieces_cuda``), ``d value``
 in K2's (each lane's share of the dot, then a butterfly), so both equal the
 pair's outputs bit for bit. Dtype contract, as the pair's: ``g`` and ``x``
-are f32 or bf16 (a mixed pair is computed in f32), ``d x`` comes back in the
-promoted dtype of ``value`` and ``g`` (``g``'s when ``value`` is None)
-unless the caller names it, and ``d value`` in ``out_dtype``, 0 at the
-entries no edge reaches (the padding of a ``PaddedCOO``).
+are each read in their own dtype, ``g`` cast up first where it is narrower
+than their promoted dtype (``x`` is never copied; ``value`` and ``d value``
+are read and written in ``value``'s dtype, ``out_dtype``). The CSC form takes
+f32, bf16, f16 and f64 (an f64 ``value`` takes ``g`` to f64 too): sums in
+f32, or in f64 when an input is f64, rounded once. The span form takes f32
+and bf16, what the packed SpMMs gather in. ``d x`` comes back in the promoted
+dtype of ``value`` and ``g`` (``g``'s when ``value`` is None) unless the
+caller names it, and ``d value`` in ``out_dtype``, 0 at the entries no edge
+reaches (the padding of a ``PaddedCOO``).
 """
 from typing import Optional
 
 import torch
 
 from . import _build
-from .row_split import AUTO, RowSplit, fold_pieces_cuda, resolve_split
+from ._build import FLOAT_DTYPES
+from .row_split import (AUTO, RowSplit, fold_pieces_cuda, resolve_split,
+                        sum_dtype)
 from .spmm_cuda import _WINDOW_BYTES, _out_dtype
 from .spmm_spans_cuda import check_span_args, span_windows
 
@@ -79,23 +86,43 @@ def spmm_sddmm_csc_reference(colptr: torch.Tensor, col_t: torch.Tensor,
     return d_x.to(dx_dtype), d_value.to(out_dtype)
 
 
+def fused_operands(fn: str, value, g: torch.Tensor, x: torch.Tensor,
+                   dtypes, dx_dtype, out_dtype):
+    """``(g, kernel_dx_dtype)`` for the fused kernel: ``g``, ``x`` and
+    ``value`` each of ``dtypes`` and ``g``, ``x`` contiguous 2-D, ``d x``
+    and ``d value`` of ``dtypes`` too. ``g`` is cast up to the promoted
+    dtype of ``g`` and ``x`` (to f64 when any input is f64), never ``x``.
+    The kernel writes ``d x`` in the sum's type from an f32 or f64 ``g``,
+    else (bf16 or f16 ``g``) in ``dx_dtype`` where that is ``g``'s or f32,
+    and in f32 otherwise: the caller rounds it once after."""
+    for name, t in (("g", g), ("x", x), ("value", value)):
+        if t is None:
+            continue
+        if name != "value" and (t.dim() != 2 or not t.is_contiguous()):
+            raise ValueError(f"{fn}: {name} must be a contiguous 2-D tensor, "
+                             f"got shape {tuple(t.shape)} "
+                             f"(contiguous={t.is_contiguous()})")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{fn} takes {name} in {dtypes}, got {t.dtype}")
+    for name, dt in (("d x", dx_dtype), ("d value", out_dtype)):
+        if dt not in dtypes:
+            raise TypeError(f"{fn} writes {name} in {dtypes}, not {dt}")
+    wide = torch.promote_types(g.dtype, x.dtype)
+    if torch.float64 in (dx_dtype, None if value is None else value.dtype):
+        wide = torch.float64
+    if g.dtype != wide:
+        g = g.to(wide)
+    if wide in (torch.float32, torch.float64):
+        return g, sum_dtype(wide)
+    return g, dx_dtype if dx_dtype in (wide, torch.float32) else torch.float32
+
+
 def _check_cuda_args(colptr, col_t, perm, value, g, x, out_dtype):
     dev = x.device
     for name, t in (("colptr", colptr), ("col_t", col_t), ("perm", perm),
                     ("value", value), ("g", g)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
-    for name, t in (("g", g), ("x", x)):
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 2-D tensor, got "
-                             f"shape {tuple(t.shape)} "
-                             f"(contiguous={t.is_contiguous()})")
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"spmm_sddmm_csc_cuda takes f32 or bf16 {name}, "
-                            f"got {t.dtype}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"spmm_sddmm_csc_cuda writes f32 or bf16 d value, "
-                        f"not {out_dtype}")
     if colptr.dim() != 1 or colptr.numel() < 1:
         raise ValueError("colptr must be 1-D and non-empty")
     if col_t.dim() != 1 or perm.shape != col_t.shape:
@@ -116,9 +143,6 @@ def _check_cuda_args(colptr, col_t, perm, value, g, x, out_dtype):
         if value.shape != perm.shape:
             raise ValueError(f"value shape {tuple(value.shape)} != perm "
                              f"shape {tuple(perm.shape)}")
-        if value.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"spmm_sddmm_csc_cuda takes f32 or bf16 value, "
-                            f"got {value.dtype}")
 
 
 def _slot_table(split: Optional[RowSplit]):
@@ -145,7 +169,8 @@ def spmm_sddmm_csc_cuda(colptr: torch.Tensor, col_t: torch.Tensor,
     ``colptr``/``col_t``/``perm`` are the CSC view of
     ``ops/spmm.py::SpmmStructure``; ``value`` is in COO order (or None for
     ones); ``g`` is a contiguous (M, K) and ``x`` a contiguous (N, K) tensor,
-    each f32 or bf16. ``split`` is ``colptr``'s
+    each f32, bf16, f16 or f64 (:func:`fused_operands`). ``split`` is
+    ``colptr``'s
     :class:`~.row_split.RowSplit` (``SpmmStructure.col_split``), ``None``
     when no column is longer than its cap, or ``"auto"`` to build it here.
     On a CPU tensor this runs :func:`spmm_sddmm_csc_reference`; on a CUDA
@@ -159,10 +184,9 @@ def spmm_sddmm_csc_cuda(colptr: torch.Tensor, col_t: torch.Tensor,
                          f"{x.device}")
     _check_cuda_args(colptr, col_t, perm, value, g, x, out_dtype)
     dx_dtype = _out_dtype(value, g)
-    if g.dtype != x.dtype:                # a mixed pair is summed in f32
-        g, x = g.float(), x.float()
-    # from f32 g, an f32 d x, rounded after (one rounding, as K1's store)
-    kernel_dx_dtype = torch.float32 if g.dtype == torch.float32 else dx_dtype
+    # from an f32 g, an f32 d x, rounded after (one rounding, as K1's store)
+    g, kernel_dx_dtype = fused_operands("spmm_sddmm_csc_cuda", value, g, x,
+                                        FLOAT_DTYPES, dx_dtype, out_dtype)
     N, K = x.shape
     d_x = torch.empty((N, K), dtype=kernel_dx_dtype, device=x.device)
     d_value = torch.zeros(perm.numel(), dtype=out_dtype, device=x.device)
@@ -172,20 +196,21 @@ def spmm_sddmm_csc_cuda(colptr: torch.Tensor, col_t: torch.Tensor,
     col_t = col_t.to(torch.int32).contiguous()
     perm = perm.to(torch.int32).contiguous()
     if value is not None:
-        value = value.to(torch.float32).contiguous()
+        value = value.contiguous()
     split: Optional[RowSplit] = resolve_split(split, colptr[None, :-1],
                                               colptr[None, 1:])
     ws = (None if split is None else torch.empty(
-        (split.num_slots, K), dtype=torch.float32, device=x.device))
+        (split.num_slots, K), dtype=sum_dtype(kernel_dx_dtype),
+        device=x.device))
+    code = _build.dtype_code
     _build.launch(
         "spmm_sddmm_csc", _build.load_library().psp_spmm_sddmm_csc, x.device,
         colptr.data_ptr(), col_t.data_ptr(), perm.data_ptr(),
-        None if value is None else value.data_ptr(), g.data_ptr(),
+        None if value is None else value.data_ptr(),
+        0 if value is None else code(value.dtype), g.data_ptr(),
         x.data_ptr(), d_x.data_ptr(), d_value.data_ptr(), N, K,
-        int(x.dtype == torch.bfloat16),
-        int(kernel_dx_dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), *_slot_table(split),
-        None if ws is None else ws.data_ptr())
+        code(g.dtype), code(x.dtype), code(kernel_dx_dtype), code(out_dtype),
+        *_slot_table(split), None if ws is None else ws.data_ptr())
     if split is not None:
         fold_pieces_cuda(split, ws, d_x)
     spmm_sddmm_csc_cuda.launches += 1
@@ -193,6 +218,11 @@ def spmm_sddmm_csc_cuda(colptr: torch.Tensor, col_t: torch.Tensor,
 
 
 spmm_sddmm_csc_cuda.launches = 0
+
+
+# the dtypes of the span form: the packed SpMMs gather in f32 or bf16
+# (spmm_spans_cuda.product_dtype), so its backward sees no others
+_SPAN_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def spmm_sddmm_spans_reference(start: torch.Tensor, end: torch.Tensor,
@@ -257,8 +287,9 @@ def spmm_sddmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
     packed backward, ``spmm_seg2.fused_span_backward``, relays the values
     into that order before and reads ``d value`` back after);
     ``g`` a contiguous (M, K) and ``x`` a contiguous (N, K) tensor, each
-    f32 or bf16; ``dx_dtype`` f32 or bf16 (from an f32 ``g``, d x is
-    summed in f32 and rounded once after). ``split`` is the bounds'
+    f32 or bf16 (the packed SpMMs' product dtypes); ``dx_dtype`` f32 or
+    bf16 (from an f32 ``g``, d x is summed in f32 and rounded once after).
+    ``split`` is the bounds'
     :class:`~.row_split.RowSplit` (a plan keeps it as ``split_t``), ``None``
     when no row is longer than its cap, or ``"auto"`` to build it here. On a
     CPU tensor this runs :func:`spmm_sddmm_spans_reference`; on a CUDA
@@ -275,16 +306,9 @@ def spmm_sddmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
     start, end, base = check_span_args(fn, start, end, base, x.device,
                                        ("col", col), ("value", value),
                                        ("g", g))
-    for name, t in (("g", g), ("x", x)):
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be a contiguous 2-D tensor, "
-                             f"got shape {tuple(t.shape)} "
-                             f"(contiguous={t.is_contiguous()})")
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{fn} takes f32 or bf16 {name}, got {t.dtype}")
-    for name, dt in (("d x", dx_dtype), ("d value", out_dtype)):
-        if dt not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{fn} writes f32 or bf16 {name}, not {dt}")
+    # from an f32 g, an f32 d x, rounded after (one rounding, as K1's store)
+    g, kernel_dx_dtype = fused_operands(fn, value, g, x, _SPAN_DTYPES,
+                                        dx_dtype, out_dtype)
     (S, N), K = start.shape, x.shape[1]
     if x.shape[0] != N or g.shape[1] != K:
         raise ValueError(f"{fn}: x {tuple(x.shape)} must be (N, K) with N = "
@@ -292,40 +316,32 @@ def spmm_sddmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
     if col.dim() != 1 or col.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"{fn}: col must be 1-D int32 or int64, got "
                         f"{col.dtype} {tuple(col.shape)}")
-    if value is not None:
-        if value.shape != col.shape:
-            raise ValueError(f"{fn}: value shape {tuple(value.shape)} != col "
-                             f"shape {tuple(col.shape)}")
-        if value.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{fn} takes f32 or bf16 value, got "
-                            f"{value.dtype}")
+    if value is not None and value.shape != col.shape:
+        raise ValueError(f"{fn}: value shape {tuple(value.shape)} != col "
+                         f"shape {tuple(col.shape)}")
     if max(K, g.shape[0]) >= 2 ** 31:
         raise ValueError(f"{fn} indexes with int32: M and K must each be "
                          f"below 2**31")
-    if g.dtype != x.dtype:                # a mixed pair is summed in f32
-        g, x = g.float(), x.float()
-    # from f32 g, an f32 d x, rounded after (one rounding, as K1's store)
-    kernel_dx_dtype = torch.float32 if g.dtype == torch.float32 else dx_dtype
     d_x = torch.empty((N, K), dtype=kernel_dx_dtype, device=x.device)
     d_value = torch.zeros(col.numel(), dtype=out_dtype, device=x.device)
     if N == 0 or K == 0 or S == 0:
         return d_x.zero_().to(dx_dtype), d_value
     col = col.to(torch.int32).contiguous()
     if value is not None:
-        value = value.to(torch.float32).contiguous()
+        value = value.contiguous()
     split: Optional[RowSplit] = resolve_split(split, start, end)
     ws = (None if split is None else torch.empty(
         (split.num_slots, K), dtype=torch.float32, device=x.device))
+    code = _build.dtype_code
     _build.launch(
         "spmm_sddmm_spans", _build.load_library().psp_spmm_sddmm_spans,
         x.device, start.data_ptr(), end.data_ptr(), start.stride(0),
         col.data_ptr(), None if base is None else base.data_ptr(),
-        None if value is None else value.data_ptr(), g.data_ptr(),
+        None if value is None else value.data_ptr(),
+        0 if value is None else code(value.dtype), g.data_ptr(),
         x.data_ptr(), d_x.data_ptr(), d_value.data_ptr(), S, N, K,
-        int(x.dtype == torch.bfloat16),
-        int(kernel_dx_dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), *_slot_table(split),
-        None if ws is None else ws.data_ptr())
+        code(g.dtype), code(x.dtype), code(kernel_dx_dtype), code(out_dtype),
+        *_slot_table(split), None if ws is None else ws.data_ptr())
     if split is not None:
         fold_pieces_cuda(split, ws, d_x)
     spmm_sddmm_spans_cuda.launches += 1

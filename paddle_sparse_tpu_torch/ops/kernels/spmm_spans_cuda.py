@@ -13,8 +13,10 @@ over all spans, and writes each output row once.
 ``start``/``end`` are (S, M) int32 tensors sharing one row stride, so the
 (S, M+1) row pointers ``rp`` of a packed layout pass as ``rp[:, :-1]`` and
 ``rp[:, 1:]`` without a copy. ``idx=None`` is the stream form (``src[base[s]
-+ e]``), ``value=None`` means ones and ``base=None`` means 0. Sums are taken
-in f32 (f64 in the plain version when an input is f64). A row of more than
++ e]``), ``value=None`` means ones and ``base=None`` means 0. The dtypes are
+K1's (``spmm_cuda.check_spmm_dtypes``; the packed SpMMs gather in
+:func:`product_dtype`, f32 or bf16). Sums are taken in f32, or in f64 when
+the output is f64, and rounded once. A row of more than
 ``row_split.CAP`` edges is cut into pieces, one warp each, whose partials a
 second pass sums (``ops/kernels/row_split.py``).
 """
@@ -23,7 +25,7 @@ from typing import Optional
 import torch
 
 from .row_split import AUTO, launch_spmm_spans, resolve_split
-from .spmm_cuda import _WINDOW_BYTES, _out_dtype
+from .spmm_cuda import _WINDOW_BYTES, _out_dtype, check_spmm_dtypes
 
 
 def product_dtype(value: Optional[torch.Tensor], x: torch.Tensor,
@@ -72,7 +74,7 @@ def spmm_spans_reference(start: torch.Tensor, end: torch.Tensor,
     summing in f32, or in f64 when ``value`` or ``src`` is f64."""
     out_dtype = out_dtype or _out_dtype(value, src)
     acc_dtype = (torch.float64 if torch.float64 in (
-        src.dtype, None if value is None else value.dtype)
+        src.dtype, out_dtype, None if value is None else value.dtype)
         else torch.float32)
     K = src.shape[1]
     out = torch.zeros((start.shape[1], K), dtype=acc_dtype,
@@ -139,17 +141,11 @@ def _check_cuda_args(start, end, idx, value, base, src, out_dtype):
         raise ValueError(f"src must be a contiguous 2-D tensor, got shape "
                          f"{tuple(src.shape)} (contiguous="
                          f"{src.is_contiguous()})")
-    if src.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"spmm_spans_cuda takes f32 or bf16 src, got "
-                        f"{src.dtype}")
+    check_spmm_dtypes("spmm_spans_cuda", src.dtype,
+                      None if value is None else value.dtype, out_dtype)
     if max(src.shape) >= 2 ** 31:
         raise ValueError("spmm_spans_cuda indexes with int32: N and K must "
                          "each be below 2**31")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"spmm_spans_cuda writes f32 or bf16, not "
-                        f"{out_dtype}")
-    if out_dtype == torch.bfloat16 and src.dtype == torch.float32:
-        raise TypeError("spmm_spans_cuda writes bf16 only from a bf16 src")
     if idx is not None:
         if idx.dim() != 1 or idx.dtype not in (torch.int32, torch.int64):
             raise TypeError(f"idx must be 1-D int32 or int64, got "
@@ -161,10 +157,7 @@ def _check_cuda_args(start, end, idx, value, base, src, out_dtype):
         if idx is not None and value.shape != idx.shape:
             raise ValueError(f"value shape {tuple(value.shape)} != idx "
                              f"shape {tuple(idx.shape)}")
-        if value.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"spmm_spans_cuda takes f32 or bf16 value, got "
-                            f"{value.dtype}")
-        value = value.to(torch.float32).contiguous()
+        value = value.contiguous()
     return start, end, idx, value, base
 
 
@@ -177,11 +170,12 @@ def spmm_spans_cuda(start: torch.Tensor, end: torch.Tensor,
     """Multi-span SpMM through the CUDA kernel ``csrc/spmm_spans.cu``.
 
     ``start``/``end`` (S, M) int32 (int64 is copied), ``idx``/``value``
-    indexed by edge position, ``base`` (S,), ``src`` a contiguous (N, K) f32
-    or bf16 tensor; every position in a span must index ``idx`` and
-    ``value`` (or ``src`` in the stream form) and every source row must lie
-    in ``[0, N)``. ``out_dtype`` defaults to the promoted dtype of ``value``
-    and ``src``; an f32 ``src`` writes f32 only. ``split`` is the bounds'
+    indexed by edge position, ``base`` (S,), ``src`` a contiguous (N, K)
+    f32, bf16, f16 or f64 tensor; every position in a span must index
+    ``idx`` and ``value`` (or ``src`` in the stream form) and every source
+    row must lie in ``[0, N)``. ``out_dtype`` defaults to the promoted dtype
+    of ``value`` and ``src``; it may be f64, f32 (from a src narrower than
+    f64) or src's own dtype. ``split`` is the bounds'
     :class:`~.row_split.RowSplit` (a plan keeps it), ``None`` when no row
     is longer than its cap, or ``"auto"`` to build it here (one host read
     of the longest row). Returns (M, K). On a CPU tensor this runs

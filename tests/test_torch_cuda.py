@@ -164,14 +164,19 @@ def test_padding_never_read(dev):
                                **F32)
 
 
-@pytest.mark.parametrize("bad", ["f64", "f16", "noncontig", "device", "3d"])
+@pytest.mark.parametrize("bad", ["int32", "int_value", "noncontig", "device",
+                                 "3d"])
 def test_kernel_rejects(dev, bad):
+    """What K1 still refuses: integer operands (the JAX package computes
+    them through XLA; the port leaves them to a later slice), and layouts
+    and devices the kernel cannot read. f16 and f64 are accuracy cases
+    (``test_kernel_dtypes_vs_plain``)."""
     rowptr, col, value, g = _csr(dev)
     x = torch.randn(300, 8, generator=g, device=dev)
-    if bad == "f64":
-        x = x.double()
-    elif bad == "f16":
-        x = x.half()
+    if bad == "int32":
+        x = x.int()
+    elif bad == "int_value":
+        value = value.int()
     elif bad == "noncontig":
         x = torch.randn(8, 300, generator=g, device=dev).t()
     elif bad == "device":
@@ -180,6 +185,110 @@ def test_kernel_rejects(dev, bad):
         x = x.view(300, 2, 4)
     with pytest.raises((TypeError, ValueError)):
         spmm_csr_cuda(rowptr, col, value, x)
+
+
+# (x, value): f16 and f64 alone and their mixed pairs with the others
+NEW_DTYPE_PAIRS = [(torch.float16, torch.float16),
+                   (torch.float16, torch.float32),
+                   (torch.float32, torch.float16),
+                   (torch.float16, torch.bfloat16),
+                   (torch.float16, None), (torch.float64, torch.float64),
+                   (torch.float64, torch.float32),
+                   (torch.float32, torch.float64),
+                   (torch.bfloat16, torch.float64), (torch.float64, None)]
+F16_HALF_ULP, BF16_HALF_ULP = 2.0 ** -11, 2.0 ** -8
+# f64 sums in another order: within this share of each entry's sum of |terms|
+F64_REL = 1e-12
+
+
+def _close_in_dtype(got, ref, scale):
+    """``got`` against its f64 ``ref``: f64 within F64_REL of each entry's
+    sum of |terms| (``scale``); narrower outputs within SUM_REL of it (an
+    f32 sum) plus half an ulp of their dtype (one rounding) and, for f16,
+    half its subnormal spacing."""
+    if got.dtype == torch.float64:
+        err = (got - ref.double()).abs()
+        assert bool((err <= F64_REL * scale.double() + 1e-300).all()), \
+            float(err.max())
+        return
+    out_rel = {torch.float16: F16_HALF_ULP,
+               torch.bfloat16: BF16_HALF_ULP}.get(got.dtype, 0.0)
+    tiny = 2.0 ** -25 if got.dtype == torch.float16 else 0.0
+    ref = ref.double()
+    err = (got.double() - ref).abs()
+    bound = SUM_REL * scale.double() + out_rel * ref.abs() + tiny + 1e-30
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+def _ids(pairs):
+    return ["-".join("none" if d is None else str(d)[6:] for d in p)
+            for p in pairs]
+
+
+@pytest.mark.parametrize("K", [1, 3, 47, 256])
+@pytest.mark.parametrize("xdt,vdt", NEW_DTYPE_PAIRS,
+                         ids=_ids(NEW_DTYPE_PAIRS))
+def test_kernel_dtypes_vs_plain(dev, xdt, vdt, K):
+    """K1 in f16, f64 and the mixed pairs: the output in torch's promoted
+    dtype, one launch, and within its dtype's rounding of the plain version
+    run in f64 (``test_kernel_rejects`` refused f16 and f64 before)."""
+    rowptr, col, value, g = _csr(dev)
+    x = torch.randn(300, K, generator=g, device=dev).to(xdt)
+    v = None if vdt is None else value.to(vdt)
+    n = spmm_csr_cuda.launches
+    out = spmm_csr_cuda(rowptr, col, v, x)
+    torch.cuda.synchronize()
+    assert spmm_csr_cuda.launches == n + 1
+    assert out.dtype == (xdt if v is None else torch.promote_types(vdt, xdt))
+    ref, scale = (spmm_csr_reference(rowptr, col,
+                                     None if v is None else f(v.double()),
+                                     f(x.double()))
+                  for f in (lambda t: t, torch.abs))
+    _close_in_dtype(out, ref, scale)
+
+
+def test_f16_x_with_f32_value_launches_once_without_a_copy(dev):
+    """``PaddedCOO.spmm`` with an f16 ``x`` and an f32 value: one K1
+    launch, an f32 output, and no f32 copy of ``x``: the call allocates
+    less than that copy besides its output."""
+    rowptr, col, value, g = _csr(dev, M=500, N=4000)
+    row = torch.repeat_interleave(torch.arange(500, device=dev),
+                                  (rowptr[1:] - rowptr[:-1]).long())
+    adj = PaddedCOO.from_arrays(row, col, value, (500, 4000))
+    adj.rowptr(), adj.row_split()
+    x = torch.randn(4000, 256, generator=g, device=dev).half()
+    torch.cuda.synchronize()
+    n = spmm_csr_cuda.launches
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = adj.spmm(x)
+    torch.cuda.synchronize()
+    extra = (torch.cuda.max_memory_allocated() - base
+             - out.numel() * out.element_size())
+    assert spmm_csr_cuda.launches == n + 1 and out.dtype == torch.float32
+    assert extra < x.numel() * 4 // 2, extra
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float16])
+def test_backward_launches_fused_once(dev, dt):
+    """``A @ x`` forward and backward with ``value`` and ``x`` requiring
+    grad, in f64 and f16: K1 once forward, the fused CSC backward once, no
+    K2; d value in the value's dtype, d x in x's."""
+    adj = _fused_graph(dev, False)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    v = adj.value.to(dt).requires_grad_()
+    x = torch.randn(adj.N, 64, generator=gen, device=dev).to(
+        dt).requires_grad_()
+    before = (spmm_csr_cuda.launches, sddmm_csr_cuda.launches,
+              spmm_sddmm_csc_cuda.launches)
+    out = adj.with_value(v).spmm(x)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    after = (spmm_csr_cuda.launches, sddmm_csr_cuda.launches,
+             spmm_sddmm_csc_cuda.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 1]
+    assert (out.dtype, v.grad.dtype, x.grad.dtype) == (dt, dt, dt)
 
 
 def test_toy_gcn_card_vs_cpu(dev):
@@ -279,15 +388,18 @@ def test_sddmm_launch_counter(dev):
     assert sddmm_csr_cuda.launches == before + 1
 
 
-@pytest.mark.parametrize("bad", ["f64", "noncontig", "device", "shape",
-                                 "out_f16"])
+@pytest.mark.parametrize("bad", ["int32", "noncontig", "device", "shape",
+                                 "out_int32"])
 def test_sddmm_rejects(dev, bad):
+    """What K2 still refuses: integer inputs or outputs, and layouts and
+    devices it cannot read. f64 and f16 are accuracy cases
+    (``test_sddmm_dtypes_vs_plain``)."""
     rowptr, col, _, g = _csr(dev)
     gm = torch.randn(500, 8, generator=g, device=dev)
     x = torch.randn(300, 8, generator=g, device=dev)
     kw = {}
-    if bad == "f64":
-        x = x.double()
+    if bad == "int32":
+        x = x.int()
     elif bad == "noncontig":
         gm = torch.randn(8, 500, generator=g, device=dev).t()
     elif bad == "device":
@@ -295,9 +407,40 @@ def test_sddmm_rejects(dev, bad):
     elif bad == "shape":
         gm = gm[:, :4].contiguous()
     else:
-        kw["out_dtype"] = torch.float16
+        kw["out_dtype"] = torch.int32
     with pytest.raises((TypeError, ValueError)):
         sddmm_csr_cuda(rowptr, col, gm, x, **kw)
+
+
+# (g, x, d value): f16 and f64, their mixed pairs, and a g narrower than x
+SDDMM_DTYPES = [(torch.float16, torch.float16, torch.float16),
+                (torch.float16, torch.float16, torch.float32),
+                (torch.float32, torch.float16, torch.float32),
+                (torch.float16, torch.float32, torch.float16),
+                (torch.float64, torch.float64, torch.float64),
+                (torch.float64, torch.float32, torch.float64),
+                (torch.float64, torch.bfloat16, torch.float64),
+                (torch.float32, torch.float64, torch.float32)]
+
+
+@pytest.mark.parametrize("K", [1, 3, 47, 256])
+@pytest.mark.parametrize("gdt,xdt,odt", SDDMM_DTYPES,
+                         ids=_ids(SDDMM_DTYPES))
+def test_sddmm_dtypes_vs_plain(dev, gdt, xdt, odt, K):
+    """K2 in f16, f64 and the mixed pairs, d value in ``out_dtype``: one
+    launch, within its dtype's rounding of the plain version in f64
+    (``test_sddmm_rejects`` refused f64 and an f16 output before)."""
+    rowptr, col, _, g = _csr(dev)
+    gm = torch.randn(500, K, generator=g, device=dev).to(gdt)
+    x = torch.randn(300, K, generator=g, device=dev).to(xdt)
+    n = sddmm_csr_cuda.launches
+    out = sddmm_csr_cuda(rowptr, col, gm, x, out_dtype=odt)
+    torch.cuda.synchronize()
+    assert sddmm_csr_cuda.launches == n + 1 and out.dtype == odt
+    ref, scale = (sddmm_csr_reference(rowptr, col, f(gm.double()),
+                                      f(x.double()), torch.float64)
+                  for f in (lambda t: t, torch.abs))
+    _close_in_dtype(out, ref, scale)
 
 
 @pytest.mark.parametrize("with_value", [True, False])
@@ -492,9 +635,10 @@ def test_segcompact_launch_counter(dev):
     assert compact_runs_cuda.launches == before + 1
 
 
-@pytest.mark.parametrize("bad", ["int64", "bf16", "noncontig", "device",
+@pytest.mark.parametrize("bad", ["int64", "int16", "noncontig", "device",
                                  "shape", "rows", "3d", "capacity",
-                                 "unsorted_flat", "unsorted_wide"])
+                                 "unsorted_flat", "unsorted_wide",
+                                 "grid_trailing"])
 def test_segcompact_rejects(dev, bad):
     key, val = _sorted_grid(dev, 50, 16, 20, dtype=torch.float32)
     rows = torch.arange(50, dtype=torch.int32, device=dev)
@@ -509,8 +653,10 @@ def test_segcompact_rejects(dev, bad):
         kw = dict(rows_sorted=False)
     elif bad == "int64":
         key = key.long()
-    elif bad == "bf16":
-        val = val.bfloat16()
+    elif bad == "int16":               # bf16 is an accuracy case now
+        val = val.to(torch.int16)
+    elif bad == "grid_trailing":        # trailing dims: flat streams only
+        val = val[..., None].expand(50, 16, 2).contiguous()
     elif bad == "noncontig":
         key = key.t()
     elif bad == "device":
@@ -525,6 +671,68 @@ def test_segcompact_rejects(dev, bad):
         cap = 2 ** 31
     with pytest.raises((TypeError, ValueError)):
         compact_runs_cuda(key, rows, val, (50, 20), cap, **kw)
+
+
+VALUE_DTYPES = [torch.float32, torch.bfloat16, torch.float16,
+                torch.float64, torch.int32, torch.int64]
+
+
+def _values_like(shape, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    return torch.randint(-100, 101, shape, generator=g, device=dev,
+                         dtype=dtype)
+
+
+@pytest.mark.parametrize("layout", ["flat", "flat_D8", "grid",
+                                    "grid_unsorted", "grid_wide"])
+@pytest.mark.parametrize("dtype", VALUE_DTYPES,
+                         ids=[str(d)[6:] for d in VALUE_DTYPES])
+def test_segcompact_value_dtypes(dev, dtype, layout):
+    """K5 in every value dtype ``coalesce`` and SpGEMM hand it (bf16 was a
+    refusal before): structure and seg exact against the plain version; int
+    sums exact; float sums within 1e-6 of each run's sum of |terms| in f64
+    plus half an ulp of the value's dtype (f16 and bf16 summed in f32 and
+    rounded once); (L, 8) values on a flat stream summed lane by lane."""
+    if layout.startswith("flat"):
+        col, rows, _ = _flat_sorted(dev, 300, 40, 50_000, 77)
+        shape = (col.numel(), 8) if layout == "flat_D8" else (col.numel(),)
+        M, N, kw = 300, 40, {}
+    else:
+        R, F = (200, 1500) if layout == "grid_wide" else (3000, 64)
+        col, _ = _sorted_grid(dev, R, F, 30)
+        if layout == "grid_unsorted":
+            perm = torch.rand(R, F, device=dev).argsort(1)
+            col = col.gather(1, perm).contiguous()
+        rows = torch.arange(R, dtype=torch.int32, device=dev)
+        shape, M, N = (R, F), R, 30
+        kw = {"rows_sorted": layout != "grid_unsorted"}
+    val = _values_like(shape, dtype, dev, 3)
+    cap = int(compact_runs_reference(col, rows, None, (M, N), 1,
+                                     **kw).count) + 3
+    n = compact_runs_cuda.launches
+    got = compact_runs_cuda(col, rows, val, (M, N), cap, seg=True, **kw)
+    torch.cuda.synchronize()
+    assert compact_runs_cuda.launches == n + 1
+    wide = torch.float64 if dtype.is_floating_point else torch.int64
+    ref = compact_runs_reference(col, rows, val.to(wide), (M, N), cap,
+                                 seg=True, **kw)
+    assert got.value.dtype == dtype and got.value.shape == ref.value.shape
+    assert int(got.count) == int(ref.count)
+    assert torch.equal(got.row, ref.row) and torch.equal(got.col, ref.col)
+    assert torch.equal(got.seg, ref.seg)
+    if not dtype.is_floating_point:
+        assert torch.equal(got.value, ref.value.to(dtype))
+        return
+    scale = compact_runs_reference(col, rows, val.double().abs(), (M, N),
+                                   cap, **kw).value
+    out_rel = {torch.float16: F16_HALF_ULP,
+               torch.bfloat16: BF16_HALF_ULP}.get(dtype, 0.0)
+    rel = F64_REL if dtype == torch.float64 else 1e-6
+    err = (got.value.double() - ref.value).abs()
+    assert bool((err <= rel * scale + out_rel * ref.value.abs()
+                 + 2.0 ** -25 + 1e-300).all()), float(err.max())
 
 
 def _shuffled(key, val, seed):
@@ -873,10 +1081,12 @@ def test_spans_launch_counters(dev):
         before[0] + 1, before[1] + 1)
 
 
-@pytest.mark.parametrize("bad", ["f64", "noncontig", "device", "3d",
+@pytest.mark.parametrize("bad", ["int32", "noncontig", "device", "3d",
                                  "f32_to_bf16", "bounds_shape", "base_short",
                                  "value_shape"])
 def test_spans_rejects(dev, bad):
+    """What the multi-span SpMM still refuses (its kernel is K1's: f64 and
+    f16 are accuracy cases, ``test_spans_dtypes_vs_plain``)."""
     rp, g = _span_ptrs(dev, 3, 100, 3)
     nnz = int(rp[-1, -1])
     idx = torch.randint(0, 50, (nnz,), generator=g, device=dev)
@@ -884,8 +1094,8 @@ def test_spans_rejects(dev, bad):
     base = torch.zeros(3, dtype=torch.int32, device=dev)
     x = torch.randn(50, 16, generator=g, device=dev)
     start, end, kw = rp[:, :-1], rp[:, 1:], {}
-    if bad == "f64":
-        x = x.double()
+    if bad == "int32":
+        x = x.int()
     elif bad == "noncontig":
         x = torch.randn(16, 50, generator=g, device=dev).t()
     elif bad == "device":
@@ -904,24 +1114,57 @@ def test_spans_rejects(dev, bad):
         spmm_spans_cuda(start, end, idx, val, base, x, **kw)
 
 
-@pytest.mark.parametrize("bad", ["f64", "g_shape", "device", "out_f16"])
+@pytest.mark.parametrize("bad", ["int32", "g_shape", "device", "out_int32"])
 def test_sddmm_spans_rejects(dev, bad):
+    """What the span SDDMM still refuses (its kernel is K2's: f64 and an
+    f16 output are accuracy cases, ``test_spans_dtypes_vs_plain``)."""
     rp, g = _span_ptrs(dev, 3, 100, 3)
     nnz = int(rp[-1, -1])
     idx = torch.randint(0, 50, (nnz,), generator=g, device=dev)
     x = torch.randn(50, 16, generator=g, device=dev)
     gm = torch.randn(100, 16, generator=g, device=dev)
     kw = {}
-    if bad == "f64":
-        x = x.double()
+    if bad == "int32":
+        x = x.int()
     elif bad == "g_shape":
         gm = gm[:99]
     elif bad == "device":
         gm = gm.cpu()
     else:
-        kw["out_dtype"] = torch.float16
+        kw["out_dtype"] = torch.int32
     with pytest.raises((TypeError, ValueError)):
         sddmm_spans_cuda(rp[:, :-1], rp[:, 1:], idx, None, gm, x, **kw)
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float16])
+def test_spans_dtypes_vs_plain(dev, dt):
+    """The direct span entry points in f64 and f16, which run K1's and K2's
+    kernels: one launch each, within their dtype's rounding of the plain
+    versions in f64 (``test_spans_rejects`` and
+    ``test_sddmm_spans_rejects`` refused them before)."""
+    rp, g = _span_ptrs(dev, 3, 100, 3)
+    nnz = int(rp[-1, -1])
+    idx = torch.randint(0, 50, (nnz,), generator=g, device=dev)
+    val = (torch.rand(nnz, generator=g, device=dev) * 2 - 1).to(dt)
+    x = torch.randn(50, 16, generator=g, device=dev).to(dt)
+    gm = torch.randn(100, 16, generator=g, device=dev).to(dt)
+    start, end = rp[:, :-1], rp[:, 1:]
+    n = (spmm_spans_cuda.launches, sddmm_spans_cuda.launches)
+    out = spmm_spans_cuda(start, end, idx, val, None, x)
+    dv = sddmm_spans_cuda(start, end, idx, None, gm, x, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert (spmm_spans_cuda.launches, sddmm_spans_cuda.launches) == (
+        n[0] + 1, n[1] + 1)
+    assert out.dtype == dt and dv.dtype == dt
+    ref, scale = (spmm_spans_reference(start, end, idx, f(val.double()),
+                                       None, f(x.double()))
+                  for f in (lambda t: t, torch.abs))
+    _close_in_dtype(out, ref, scale)
+    ref, scale = (sddmm_spans_reference(start, end, idx, None,
+                                        f(gm.double()), f(x.double()),
+                                        torch.float64)
+                  for f in (lambda t: t, torch.abs))
+    _close_in_dtype(dv, ref, scale)
 
 
 _PACKED_FNS = {"seg2": spmm_seg2, "seg3": spmm_seg3, "seg2split": spmm_split}
@@ -1154,7 +1397,13 @@ FUSED_DTYPES = {"f32": (torch.float32,) * 4,
                 "bf16_in_f32_out": (torch.float32, torch.bfloat16,
                                     torch.bfloat16, torch.float32),
                 "mixed_g_x": (torch.bfloat16, torch.float32, torch.bfloat16,
-                              torch.bfloat16)}
+                              torch.bfloat16),
+                "f16": (torch.float16,) * 4,
+                "f16_x_f32_value": (torch.float32, torch.float16,
+                                    torch.float32, torch.float32),
+                "f64": (torch.float64,) * 4,
+                "f64_value_f16_x": (torch.float64, torch.float16,
+                                    torch.float64, torch.float64)}
 
 
 def _fused_graph(dev, split, M=3000, N=2000):
@@ -1239,6 +1488,28 @@ def test_fused_vs_plain_f64(dev, K, with_value):
                                  lambda t: t.double().abs()))
     for a, r, sc in zip(got, ref, scale):
         _close_to_sum(a, r, sc)
+
+
+@pytest.mark.parametrize("K", [3, 64, 256])
+@pytest.mark.parametrize("dtypes", ["f16", "f16_x_f32_value", "f64",
+                                    "f64_value_f16_x"])
+def test_fused_dtypes_vs_plain_f64(dev, K, dtypes):
+    """f16, f64 and their mixed pairs against the plain version in f64,
+    split columns included: d x and d value each within their dtype's
+    rounding of it."""
+    adj = _fused_graph(dev, True)
+    s = adj.structure()
+    vdt, xdt, gdt, odt = FUSED_DTYPES[dtypes]
+    gen = torch.Generator(device=dev).manual_seed(K + 2)
+    x = torch.randn(adj.N, K, generator=gen, device=dev).to(xdt)
+    g = torch.randn(adj.M, K, generator=gen, device=dev).to(gdt)
+    v = adj.value.to(vdt)
+    got = _fused(adj, v, g, x, odt)
+    ref, scale = (spmm_sddmm_csc_reference(
+        s.colptr, s.col_t, s.perm, f(v.double()), f(g.double()),
+        f(x.double()), torch.float64) for f in (lambda t: t, torch.abs))
+    for a, r, sc in zip(got, ref, scale):
+        _close_in_dtype(a, r, sc)
 
 
 def test_fused_two_launches_equal(dev):
