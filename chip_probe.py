@@ -4,6 +4,7 @@ repository root:
 
     python3 chip_probe.py sweep        # the long-row cap sweep
     python3 chip_probe.py ab PARENT    # this tree against another, in turns
+    python3 chip_probe.py calls PARENT [PAIRS]   # small calls, in turns
     python3 chip_probe.py gat          # where a GAT step's device time goes
     python3 chip_probe.py sage         # and a GraphSAGE step's
     python3 chip_probe.py window       # the windowed K1 over its plan
@@ -37,6 +38,18 @@ archive`` of the parent commit) and from this tree in turns: parent, this,
 this, parent, each in a process of its own. One JSON line per run, then
 their summary (each output hash: equal in every run, and within each
 side's two runs, or not).
+
+``calls PARENT [PAIRS]``: the small, host-bound calls of ``ab``
+(:func:`small_calls`: K1 at M = N = 256, K = 64 and ``torch.mul`` and
+``view().sum(1)`` beside it, which run no code of the port, host ns and
+CUDA-event ms per back-to-back call; the toy GCN's forward and train step
+ms; and, where the tree has them, the host ns of the checks that integer
+operands added to K1's path, each alone) from ``PARENT`` and from this
+tree, each run a process of its own, in
+``PAIRS`` pairs (default 10) whose first side alternates (parent, this;
+this, parent; ...). One JSON line per run, then their summary: each
+side's runs, their medians, the change of the median, and in how many
+pairs this tree read more than the parent.
 
 ``gat``: ``chip_smoke.py`` phase 8d's GAT (3 layers, 4 heads of 64,
 output 47) on the zipf graph at 1/8 scale: first its gather of 15.76M
@@ -263,6 +276,45 @@ def _ab_run(where: Path) -> dict:
             **{f"{p}_{k}": v[k] for p, v in spgemm.items() for k in v}}
 
 
+def calls(parent: Path, pairs: int) -> None:
+    here = Path(__file__).resolve().parent
+    parent = parent.resolve()
+    card = card_line()
+    runs = []
+    for i in range(pairs):
+        for where in ((parent, here) if i % 2 == 0 else (here, parent)):
+            env = dict(os.environ, PYTHONPATH=str(where))
+            out = subprocess.run([sys.executable, "-c", CALLS_RUN,
+                                  str(Path(__file__).resolve())], cwd=where,
+                                 env=env, capture_output=True, text=True)
+            if out.returncode != 0:
+                raise RuntimeError(f"run in {where} failed:\n"
+                                   f"{out.stdout[-3000:]}\n"
+                                   f"{out.stderr[-3000:]}")
+            r = json.loads(re.search(r"^CALLS (.*)$", out.stdout,
+                                     re.M).group(1))
+            r.update(pair=i, side="parent" if where == parent else "change")
+            runs.append(r)
+            print("CALLS " + json.dumps(r) + f" [{card}]", flush=True)
+    summary = {"pairs": pairs}
+    for k in [k for k in runs[0] if k.endswith(("_ms", "_ns"))]:
+        side = {sd: [r[k] for r in runs if r["side"] == sd]
+                for sd in ("parent", "change")}
+        if None in side["parent"]:          # this tree's code alone
+            summary[k] = {"change": side["change"], "change_median": sorted(
+                side["change"])[pairs // 2]}
+            continue
+        med = {sd: sorted(v)[len(v) // 2] for sd, v in side.items()}
+        summary[k] = {**side, "parent_median": med["parent"],
+                      "change_median": med["change"],
+                      "change_vs_parent_median_pct":
+                      100 * (med["change"] / med["parent"] - 1),
+                      "pairs_change_above": sum(
+                          c > p for p, c in zip(side["parent"],
+                                                side["change"]))}
+    print("CALLS_SUMMARY " + json.dumps(summary) + f" [{card}]", flush=True)
+
+
 def ab(parent: Path) -> None:
     here = Path(__file__).resolve().parent
     card = card_line()
@@ -433,6 +485,17 @@ def sage(dev: torch.device) -> None:
 CALLS = 10_000          # calls per host-timed loop of ``launch``
 
 
+# one run of ``calls``, from the checkout it runs in
+CALLS_RUN = r"""
+import importlib.util, json, sys, torch
+dev = torch.device("cuda", 0)
+spec = importlib.util.spec_from_file_location("probe_here", sys.argv[1])
+probe = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(probe)
+print("CALLS " + json.dumps(probe.small_calls(dev)), flush=True)
+"""
+
+
 def per_call(fn, n=CALLS):
     """``fn``'s host ns and CUDA-event ms per back-to-back call: ``n`` calls
     after 100 of warm-up, the host clock read around the loop, events
@@ -524,19 +587,94 @@ def _sha(t: torch.Tensor) -> str:
                           .tobytes()).hexdigest()[:16]
 
 
+def _toy_calls(dev: torch.device, res: dict) -> None:
+    """The toy GCN of phases 3 and 3b (32 -> 64 -> 8, 256 nodes): forward
+    and train step ms on the host clock over 200 calls ended by a
+    synchronize, and the kernel launches of one call, into ``res``."""
+    import chip_smoke as c
+    from paddle_sparse_tpu_torch import entry, train_entry, train_step
+    model, adj, xt = entry(dev)
+    tmodel, tadj, txt, ty = train_entry(dev)
+    tadj.value.requires_grad_()
+
+    def forward():
+        with torch.inference_mode():
+            return model(adj, xt)
+    for key, fn in (("toy_forward", forward),
+                    ("toy_train_step", lambda: train_step(
+                        tmodel, tadj, txt, ty, c.LR))):
+        fn()
+        torch.cuda.synchronize()
+        c._zero_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        res[f"{key}_launches"] = sum(
+            v for k, v in c._launch_counts().items()
+            if k != "segcompact_row_sorted")
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        res[f"{key}_ms"] = (time.perf_counter() - t0) * 1e3 / 200
+
+
+def _small_k1(dev: torch.device, g: torch.Generator):
+    """K1's small-call inputs: M = N = 256, K = 64, 2,048 edges."""
+    M = N = 256
+    rowptr = torch.arange(0, M * 8 + 1, 8, dtype=torch.int32, device=dev)
+    col = torch.randint(0, N, (M * 8,), generator=g, device=dev,
+                        dtype=torch.int32)
+    val = torch.rand(M * 8, generator=g, device=dev)
+    xk = torch.randn(N, 64, generator=g, device=dev)
+    return rowptr, col, val, xk
+
+
+def small_calls(dev: torch.device) -> dict:
+    """K1 at its small-call shape (``split=None``), ``torch.mul`` on a
+    (256, 128) f32 tensor and ``view().sum(1)`` on P2's probe input (host
+    ns and CUDA-event ms per back-to-back call), and :func:`_toy_calls`;
+    on any tree of the port. Where the tree has them, the host ns of the
+    checks the integer operands added to K1's wrapper
+    (``kernel_operands``) and to the entry (its mixed-pair test) on the
+    same f32 operands, each alone; else None."""
+    from paddle_sparse_tpu_torch import spmm_csr_cuda
+    from paddle_sparse_tpu_torch.experiments import bisect_pallas as bp
+    x = torch.ones((256, 128), device=dev)
+    ptr, src = bp.dma_inputs(dev)
+    T, E, K = bp.T, bp.E, src.shape[1]
+    rowptr, col, val, xk = _small_k1(
+        dev, torch.Generator(device=dev).manual_seed(1))
+    res = {}
+    empty_ns, _ = per_call(lambda: None)
+    for key, fn in (
+            ("k1", lambda: spmm_csr_cuda(rowptr, col, val, xk, split=None)),
+            ("torch_mul", lambda: torch.mul(x, 2.0)),
+            ("view_sum", lambda: src.view(T, bp.CHUNKS_PER_TILE, E, K)
+             .sum(1))):
+        host, ev = per_call(fn)
+        res[f"{key}_host_ns"] = host - empty_ns
+        res[f"{key}_events_ms"] = ev
+    from paddle_sparse_tpu_torch.ops.kernels import spmm_cuda
+    ops = getattr(spmm_cuda, "kernel_operands", None)
+    res["k1_kernel_operands_host_ns"] = None if ops is None else \
+        per_call(lambda: ops(val, xk))[0] - empty_ns
+    res["entry_mixed_pair_test_host_ns"] = None if ops is None else \
+        per_call(lambda: val.is_floating_point()
+                 != xk.is_floating_point())[0] - empty_ns
+    _toy_calls(dev, res)
+    return res
+
+
 def whole_calls(dev: torch.device) -> dict:
     """Whole calls through the public wrappers, on any tree of the port: P1
     and P2 (both depths) at the probe's shapes and their library calls (host
     ns and CUDA-event ms per back-to-back call, ``torch.profiler`` device ms),
     the hash of each probe's output on seeded random inputs of those shapes,
     K1 (``spmm_csr_cuda``, M = N = 256, K = 64, 2,048 edges, ``split=None``)
-    beside ``torch.sparse.mm``, :func:`probe_calls` (P3-P5), and the toy
-    GCN of phases 3 and 3b (32 -> 64 -> 8, 256 nodes): forward and train
-    step ms on the host clock over 200 calls ended by a synchronize, and
-    the kernel launches of one call."""
+    beside ``torch.sparse.mm``, :func:`probe_calls` (P3-P5), and
+    :func:`_toy_calls`."""
     import chip_smoke as c
-    from paddle_sparse_tpu_torch import (entry, spmm_csr_cuda, train_entry,
-                                         train_step)
+    from paddle_sparse_tpu_torch import spmm_csr_cuda
     from paddle_sparse_tpu_torch.experiments import bisect_pallas as bp
     from paddle_sparse_tpu_torch.ops.kernels.probes_cuda import (
         chunk_sum_cuda, scale2_cuda)
@@ -563,13 +701,8 @@ def whole_calls(dev: torch.device) -> dict:
     for db, key in ((False, "p2_one_slot"), (True, "p2_two_slots")):
         res[f"{key}_sha"] = _sha(chunk_sum_cuda(ptr, sr, E, db))
 
-    M = N = 256
-    rowptr = torch.arange(0, M * 8 + 1, 8, dtype=torch.int32, device=dev)
-    col = torch.randint(0, N, (M * 8,), generator=g, device=dev,
-                        dtype=torch.int32)
-    val = torch.rand(M * 8, generator=g, device=dev)
-    xk = torch.randn(N, 64, generator=g, device=dev)
-    A = torch.sparse_csr_tensor(rowptr, col, val, (M, N))
+    rowptr, col, val, xk = _small_k1(dev, g)
+    A = torch.sparse_csr_tensor(rowptr, col, val, (256, 256))
     for key, fn in (("k1", lambda: spmm_csr_cuda(rowptr, col, val, xk,
                                                  split=None)),
                     ("sparse_mm", lambda: torch.sparse.mm(A, xk))):
@@ -578,30 +711,7 @@ def whole_calls(dev: torch.device) -> dict:
         res[f"{key}_events_ms"] = ev
 
     res.update(probe_calls(dev))
-
-    model, adj, xt = entry(dev)
-    tmodel, tadj, txt, ty = train_entry(dev)
-    tadj.value.requires_grad_()
-
-    def forward():
-        with torch.inference_mode():
-            return model(adj, xt)
-    for key, fn in (("toy_forward", forward),
-                    ("toy_train_step", lambda: train_step(
-                        tmodel, tadj, txt, ty, c.LR))):
-        fn()
-        torch.cuda.synchronize()
-        c._zero_launch_counts()
-        fn()
-        torch.cuda.synchronize()
-        res[f"{key}_launches"] = sum(
-            v for k, v in c._launch_counts().items()
-            if k != "segcompact_row_sorted")
-        t0 = time.perf_counter()
-        for _ in range(200):
-            fn()
-        torch.cuda.synchronize()
-        res[f"{key}_ms"] = (time.perf_counter() - t0) * 1e3 / 200
+    _toy_calls(dev, res)
     return res
 
 
@@ -1162,6 +1272,9 @@ def main() -> int:
         sweep()
     elif len(sys.argv) == 3 and sys.argv[1] == "ab":
         ab(Path(sys.argv[2]))
+    elif len(sys.argv) in (3, 4) and sys.argv[1] == "calls":
+        calls(Path(sys.argv[2]),
+              int(sys.argv[3]) if len(sys.argv) == 4 else 10)
     elif len(sys.argv) == 2 and sys.argv[1] == "gat":
         gat(torch.device("cuda", 0))
     elif len(sys.argv) == 2 and sys.argv[1] == "sage":

@@ -263,7 +263,33 @@ Phases, one or more printed lines each:
    backward 2 a step); then ``spmm_seg2_allgather`` at K=256 f32, one
    forward+backward against ``spmm_seg2`` on the same plan (1e-6), 1
    warm-up + 3 timed beside phase 7c's seg2 f32, launches exact (spans 1,
-   the fused span backward 1 a call).
+   the fused span backward 1 a call). Then phase 5's GCN step once with
+   the input-gradient penalty (as 14b) through the row-sharded adjacency,
+   bit for bit against the unsharded penalty step, launches exact.
+13. Every float dtype of the JAX package: 13a K1, K2 and the fused CSC
+   backward in f16, f64 and mixed pairs, and K5 in every value dtype,
+   against plain f64, exact launches; 13b phase 5's GCN step in f64 and
+   f16 against f32, the kernels alone at K=256; 13c ``A @ A`` 10M in bf16
+   and f16; 13d ``coalesce`` of 122M entries with (capacity, 8) f32 and
+   bf16 values.
+14. Integer operands and the double backward. 14a on phase 4's graph as a
+   structural A: ``A @ onehot(labels)`` (47 int32 classes: neighbour-label
+   counts) and the two-hop path counts ``A @ (A @ 1)`` in int64, each K1
+   launch on the main path (``PaddedCOO.spmm``), exact against the plain
+   version on the card, timed in turns beside its bound and
+   ``torch.sparse.mm`` (which refuses ints); int32 values and x of
+   +-2**30 on a small graph with a hub row in pieces, exact, sums wrapped
+   past 2**31. 14b phase 5's GCN with the input-gradient penalty ``CE +
+   lam * |d CE / d x|^2`` (``lam`` a tenth of CE at the start): 1 warm-up
+   + 3 timed steps beside phase 5's, peak memory, launches exact (K1 6,
+   K2 3, the fused CSC backward 6 a step), the step's gradient along three
+   unit directions of the last layer against an f64 central difference
+   (within 1e-5 of the gradient's norm), the penalty's share of it
+   printed beside and above ten times that. 14c in f64 on a small graph with
+   a hub row and column in pieces: HVPs of ``spmm`` in value and x and of
+   SpGEMM values, card against CPU (1e-10 of the largest entry), and the
+   bilinear identity (the mixed second derivative of ``<G, A(v) x>`` is
+   ``<G, A(dv) dx>``, within 1e-11).
 
 Every kernel in the JSON line carries its time, launches, plain time,
 bound (the larger of the bytes each input and output moves once over
@@ -5488,6 +5514,13 @@ def probe_kernels(probes):
 # ---- phase 12: parallel/ at world size 1 on NCCL ----------------------------
 
 PARALLEL_REL = 1e-6      # sharded against unsharded: at most 1e-6 relative
+# one input-gradient penalty step of phase 5's GCN (3 layers, d value on, x
+# a leaf): forward K1 3; d CE / d x under create_graph, the fused CSC pass
+# a layer (d value and d x, as without create_graph); the backward through
+# both: the fused pass for each layer's forward SpMM, and along each fused
+# pass's d x K2 (its d value) and K1 over the CSR (its d g); no fused pass's
+# d value is differentiated again, so no K1 for it
+PENALTY_LAUNCHES = {"spmm_csr": 6, "sddmm_csr": 3, "spmm_sddmm_csc": 6}
 
 # the launches of each block of the dry run on one rank, from the dispatch
 # of _SpmmSum (ops/spmm.py) and _PackedSpmm (ops/spmm_seg2.py): a GCN step
@@ -5579,6 +5612,47 @@ def _same_step(name, got, ref):
     return worst, bitwise
 
 
+def penalty_lambda(model, adj, x, y):
+    """The penalty weight that makes ``lam * |d CE / d x|^2`` a tenth of CE
+    at this state (the gradient of a mean over millions of nodes is tiny,
+    so a fixed weight would leave the penalty out of the step; at a weight
+    that makes it equal to CE, SGD at lr 0.1 diverges within three steps)."""
+    x = x.detach().requires_grad_()
+    logp = torch.log_softmax(model(adj, x), dim=-1)
+    ce = -logp.gather(1, y[:, None]).mean()
+    gx, = torch.autograd.grad(ce, x)
+    return 0.1 * float(ce.detach()) / float(gx.double().square().sum())
+
+
+def penalty_step(model, adj, x, y, num_nodes, lam, group=None):
+    """One SGD step (lr LR) of the input-gradient penalty ``CE + lam * |d
+    CE / d x|^2``, CE the NLL summed over ``adj``'s rows over
+    ``num_nodes``: ``d CE / d x`` under ``create_graph`` (a sharded ``adj``
+    all-gathers, so its backward sums the ranks' shares), then the
+    backward of the sum through it (the double backward of every SpMM);
+    with a ``group``, loss and parameter grads summed over its ranks.
+    Returns ``{"loss", "penalty", "grads", "params", "d_value"}``."""
+    import torch.distributed as dist
+    model.zero_grad(set_to_none=True)
+    x = x.detach().requires_grad_()
+    logp = torch.log_softmax(model(adj, x), dim=-1)
+    ce = -logp.gather(1, y[:, None]).sum() / num_nodes
+    gx, = torch.autograd.grad(ce, x, create_graph=True)
+    pen = lam * gx.square().sum()
+    (ce + pen).backward()
+    parts = torch.stack([ce.detach(), pen.detach()])
+    with torch.no_grad():
+        for prm in model.parameters():
+            if group is not None:
+                dist.all_reduce(prm.grad, group=group)
+            prm -= LR * prm.grad
+    if group is not None:
+        dist.all_reduce(parts, group=group)
+    return {"loss": parts.sum(), "penalty": parts[1],
+            "grads": {k: p.grad for k, p in model.named_parameters()},
+            "params": model.state_dict()}
+
+
 def phase12b_gcn(dev, card, mesh, step_ms_phase5):
     """Phase 5's GCN train step, row-sharded at world size 1 through
     ``RowShardedAdjacency`` and ``sharded_train_step``, against phase 5's
@@ -5617,6 +5691,16 @@ def phase12b_gcn(dev, card, mesh, step_ms_phase5):
            "grads": {k: p.grad for k, p in ref_model.named_parameters()},
            "d_value": adj.value.grad}
     del ref_model
+    # the input-gradient penalty step once, unsharded, from the same state
+    lam = penalty_lambda(model(), adj, x, y)
+    adj.value.grad = None
+    pen_ref = penalty_step(model(), adj, x, y, n, lam)
+    pen_ref = {"loss": pen_ref["loss"], "penalty": pen_ref["penalty"],
+               "grads": {k: v.clone() for k, v in pen_ref["grads"].items()},
+               "params": {k: v.clone() for k, v in pen_ref["params"].items()},
+               "d_value": adj.value.grad}
+    adj.value.grad = None
+    torch.cuda.empty_cache()
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5670,11 +5754,40 @@ def phase12b_gcn(dev, card, mesh, step_ms_phase5):
     check(counts == want, f"row-sharded GCN step: expected launches {want}, "
                           f"counted {counts}")
     worst, bitwise = _same_step("row-sharded GCN step", first, ref)
+    # the penalty step once through the all-gathers (their backward and
+    # its backward at world size 1), against the unsharded penalty step
+    m = model()
+    leaf.grad = None
+    _zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pen = penalty_step(m, sharded, x_local, y_local, n, lam, group)
+    torch.cuda.synchronize()
+    pen_ms = (time.perf_counter() - t0) * 1e3
+    pen["d_value"] = leaf.grad
+    pen_counts = _launch_counts()
+    print(f"phase 12b row-sharded penalty step (lam {lam:.6e}, penalty "
+          f"{float(pen['penalty']):.8f} of loss {float(pen['loss']):.8f}): "
+          f"{pen_ms:.3f} ms, launches "
+          + ", ".join(f"{k} {v}" for k, v in pen_counts.items() if v),
+          flush=True)
+    check(pen_counts == {**{k: 0 for k in pen_counts}, **PENALTY_LAUNCHES},
+          f"row-sharded penalty step: expected launches {PENALTY_LAUNCHES}, "
+          f"counted {pen_counts}")
+    pen_worst, pen_bitwise = _same_step("row-sharded penalty step", pen,
+                                        pen_ref)
+    check(pen_bitwise, "the row-sharded penalty step at world size 1 is not "
+                       "bit for bit the unsharded one")
     return mat, {"step_ms": step_ms, "median_ms": med_ms,
                  "warmup_ms": times[0],
                  "phase5_step_ms": step_ms_phase5, "shard_s": shard_s,
                  "peak_gb": peak_gb, "worst_rel_diff": worst,
-                 "bit_for_bit": bitwise, "launches": counts}
+                 "bit_for_bit": bitwise, "launches": counts,
+                 "penalty": {"lam": lam, "ms": pen_ms,
+                             "loss": float(pen["loss"]),
+                             "worst_rel_diff": pen_worst,
+                             "bit_for_bit": pen_bitwise,
+                             "launches": pen_counts}}
 
 
 def phase12b_seg2(dev, card, mesh, mat, seg2_fwd_bwd_ms):
@@ -5783,6 +5896,7 @@ def phase12_parallel(dev, card, step_ms_phase5, seg2_fwd_bwd_ms):
             dist.destroy_process_group()
     torch.cuda.empty_cache()
     launches["parallel_gcn_step_full"] = gcn["launches"]
+    launches["parallel_penalty_step_full"] = gcn["penalty"]["launches"]
     launches["parallel_seg2_allgather_full"] = seg2["launches"]
     return {"launches": launches, "gcn": gcn, "seg2": seg2}
 
@@ -6594,6 +6708,334 @@ def phase13d_coalesce(dev, card):
     return out
 
 
+# ---- phase 14: integer operands and the double backward ---------------------
+
+INT_WRAP = 2 ** 32
+
+
+def _int_k1_stats(name, card, adj, x, want_dtype):
+    """K1 on an integer ``x`` (structural ``adj``) on the main path
+    (``PaddedCOO.spmm``, one launch), then exactly against its plain
+    version on the card, timed in turns, beside its bound and
+    ``torch.sparse.mm`` on the same operands (or that it refuses)."""
+    from paddle_sparse_tpu_torch import spmm_csr_cuda, spmm_csr_reference
+    rowptr, col, nnz = adj.rowptr(), adj.col, adj.nnz
+    _zero_launch_counts()
+    out = adj.spmm(x)
+    torch.cuda.synchronize()
+    launches = _launch_counts()["spmm_csr"]
+    check(launches == 1 and out.dtype == want_dtype,
+          f"{name}: {launches} K1 launches, dtype {out.dtype}")
+    p1, k1, k2, p2, out_p, out_k = in_turns(
+        lambda: spmm_csr_reference(rowptr, col, None, x),
+        lambda: spmm_csr_cuda(rowptr, col, None, x, split=adj.row_split()),
+        1, 5)
+    exact = bool(torch.equal(out, out_p)) and bool(torch.equal(out_k, out_p))
+    err = float((out.double() - out_p.double()).abs().max())
+    check(exact, f"{name}: K1 differs from its plain version by {err}")
+    bound, by = bound_ms(nbytes(rowptr, col[:nnz], x, out), nnz * x.shape[1])
+    csr = torch.sparse_csr_tensor(rowptr, col[:nnz], torch.ones(
+        nnz, dtype=x.dtype, device=x.device), adj.shape)
+    lib_ms, lib_err = library_timed(f"torch.sparse.mm ({name})",
+                                    lambda: torch.sparse.mm(csr, x), 3, out)
+    del csr
+    print(f"phase 14a {name}: K1 {k1:.3f} / {k2:.3f} ms in turns with the "
+          f"plain version {p1:.3f} / {p2:.3f} ms, exact {exact}; bound "
+          f"{bound:.3f} ms ({by}); torch.sparse.mm "
+          f"{'refuses' if lib_ms is None else f'{lib_ms:.3f} ms'} {card}",
+          flush=True)
+    return out, {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                 "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                 "library_max_abs_err": lib_err, "max_abs_err": err,
+                 "exact": exact, "launches": launches, "K": x.shape[1],
+                 "dtype": str(x.dtype)[6:]}
+
+
+def phase14a_ints(dev, card):
+    """Integer operands through K1 at full width: on phase 4's graph as a
+    structural ``A`` (no value), ``A @ onehot(labels)`` with 47 int32
+    classes (each node's neighbour-label counts) and the two-hop path
+    counts ``A @ (A @ 1)`` in int64, each exactly against the plain version
+    on the card; then int32 values and x of +-2**30 on a small graph with a
+    hub row cut into pieces, whose sums wrap past 2**31."""
+    from paddle_sparse_tpu_torch import (CAP, PaddedCOO, spmm_csr_cuda,
+                                         spmm_csr_reference)
+    n = PRODUCTS_NODES
+    raw, _ = products_graph(dev)
+    adj = PaddedCOO.from_arrays(raw.row, raw.col, None, raw.shape)
+    del raw
+    labels = torch.randint(0, GCN_DIMS[2], (n,), generator=torch.Generator(
+        device=dev).manual_seed(14), device=dev)
+    onehot = torch.nn.functional.one_hot(labels, GCN_DIMS[2]).to(torch.int32)
+    counts, lab = _int_k1_stats("neighbour-label counts int32 K=47", card,
+                                adj, onehot, torch.int32)
+    check(bool((counts.sum(1) == PRODUCTS_DEG).all()),
+          "a node's neighbour-label counts do not sum to its degree")
+    del counts, onehot
+    ones = torch.ones(n, 1, dtype=torch.int64, device=dev)
+    deg, _ = _int_k1_stats("degree int64 K=1", card, adj, ones, torch.int64)
+    check(bool((deg == PRODUCTS_DEG).all()), "A @ 1 is not the degree")
+    two_hop, hop = _int_k1_stats("two-hop path counts int64 K=1", card, adj,
+                                 deg, torch.int64)
+    check(bool((two_hop == PRODUCTS_DEG ** 2).all()),
+          "A @ (A @ 1) is not degree squared on the uniform-degree graph")
+    del deg, two_hop, ones, adj
+    torch.cuda.empty_cache()
+
+    # int32 sums past 2**31 that wrap, with a hub row cut into pieces
+    gen = torch.Generator(device=dev).manual_seed(141)
+    rowptr, col, _ = random_csr(gen, dev, 5000, 3000, 40)
+    deg = torch.diff(rowptr)
+    deg[2500] = 3 * CAP + 7
+    rowptr = torch.zeros_like(rowptr)
+    rowptr[1:] = deg.cumsum(0)
+    col = torch.randint(0, 3000, (int(rowptr[-1]),), generator=gen,
+                        device=dev, dtype=torch.int32)
+    lo, hi = -2 ** 30, 2 ** 30
+    value = torch.randint(lo, hi, (col.numel(),), generator=gen, device=dev,
+                          dtype=torch.int32)
+    wrap = {}
+    for K in (1, 7, 64):
+        x = torch.randint(lo, hi, (3000, K), generator=gen, device=dev,
+                          dtype=torch.int32)
+        _zero_launch_counts()
+        out = spmm_csr_cuda(rowptr, col, value, x)
+        folds = _launch_counts()["fold_pieces"]
+        ref = spmm_csr_reference(rowptr, col, value, x)
+        wide = spmm_csr_reference(rowptr, col, value.long(), x.long())
+        wrapped = int((wide != out.long()).sum())
+        ok = bool(torch.equal(out, ref)) and out.dtype == torch.int32
+        print(f"phase 14a int32 value x int32 x K={K}, hub row of "
+              f"{3 * CAP + 7} edges in pieces (fold launches {folds}): "
+              f"kernel equal to plain {ok}; {wrapped} of {out.numel()} "
+              f"sums wrapped past 2**31", flush=True)
+        check(ok and folds == 1 and wrapped > 0,
+              f"int32 K={K}: exact {ok}, folds {folds}, wrapped {wrapped}")
+        wrap[f"K={K}"] = {"exact": ok, "wrapped": wrapped}
+    return {"label_counts": lab, "two_hop": hop, "wrap": wrap}
+
+
+def _penalty_value(model, adj, x, y, lam):
+    """``CE + lam * |d CE / d x|^2`` (no graph kept)."""
+    x = x.detach().requires_grad_()
+    logp = torch.log_softmax(model(adj, x), dim=-1)
+    ce = -logp.gather(1, y[:, None]).mean()
+    gx, = torch.autograd.grad(ce, x)
+    return float(ce) + lam * float(gx.square().sum())
+
+
+def phase14b_penalty(dev, card, phase5):
+    """Phase 5's GCN (100 -> 256 -> 256 -> 47, f32, d value on) with the
+    input-gradient penalty ``CE + lam * |d CE / d x|^2`` at ogbn-products
+    width: 1 warm-up + 3 timed steps (forward, ``d CE / d x`` under
+    ``create_graph``, backward through it, SGD) beside phase 5's step,
+    peak memory, exact launches a step (``PENALTY_LAUNCHES``); then the
+    step's gradient along three unit directions of the last layer's
+    parameters (the gradient's own, a random one and the penalty's own
+    share, the gradient less CE's) against a central difference of the
+    penalty loss in f64 on the same graph, within 1e-5 of |g|, each beside
+    CE's own directional derivative; the penalty's share along its own
+    direction must exceed ten times that tolerance. Only the last
+    layer: moving earlier weights moves pre-activations across relu's kink,
+    which turns the penalty's ``d x`` on and off there, so its difference
+    quotient is not the derivative."""
+    from paddle_sparse_tpu_torch import GCN, gcn_normalize, init_gcn
+    n = PRODUCTS_NODES
+    raw, x = products_graph(dev)
+    adj = gcn_normalize(raw)
+    del raw
+    y = torch.randint(0, GCN_DIMS[2], (n,), generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    state0 = init_gcn(torch.Generator().manual_seed(0), *GCN_DIMS,
+                      num_layers=3, device=dev).state_dict()
+
+    def model(dtype=torch.float32):
+        m = GCN(*GCN_DIMS, num_layers=3, device=dev)
+        m.load_state_dict(state0)
+        return m.to(dtype)
+
+    lam = penalty_lambda(model(), adj, x, y)
+    adj.value.requires_grad_()
+    torch.cuda.empty_cache()
+    m = model()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    times, losses = [], []
+    for i in range(4):
+        adj.value.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = penalty_step(m, adj, x, y, n, lam)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append((float(res["loss"]), float(res["penalty"])))
+    counts = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = sum(times[1:]) / 3
+    print(f"phase 14b GCN penalty step (lam {lam:.6e}) ms: warm-up "
+          f"{times[0]:.3f}, timed {' '.join(f'{t:.3f}' for t in times[1:])} "
+          f"(mean {step_ms:.3f}), peak mem {peak_gb:.2f} GB, beside phase "
+          f"5's first-order step {phase5['step_ms']:.3f} ms, "
+          f"{phase5['peak_gb']:.2f} GB; (loss, penalty) "
+          + " ".join(f"({a:.6f}, {b:.6f})" for a, b in losses)
+          + f" {card}", flush=True)
+    want = {k: 0 for k in counts}
+    want.update({k: 4 * v for k, v in PENALTY_LAUNCHES.items()})
+    print("phase 14b launches in 4 penalty steps: "
+          + ", ".join(f"{k} {v}" for k, v in counts.items() if v),
+          flush=True)
+    check(counts == want, f"penalty step: expected launches {want}, "
+                          f"counted {counts}")
+    check(all(a == a and b > 0 for a, b in losses),
+          "penalty step loss not finite or penalty 0")
+    del m, res
+
+    # the gradient at the initial state in f32, its last layer
+    m = model()
+    adj.value.grad = None
+    res = penalty_step(m, adj, x, y, n, lam)
+    last = [k for k in res["grads"] if k.endswith(f".{len(m.weight) - 1}")]
+    g32 = torch.cat([res["grads"][k].double().reshape(-1) for k in last])
+    del m, res
+    # CE's own gradient there (first order), so that each direction shows
+    # the penalty's share of the derivative beside the check's tolerance
+    m = model()
+    logp = torch.log_softmax(m(adj, x), dim=-1)
+    ce = -logp.gather(1, y[:, None]).mean()
+    gce = torch.autograd.grad(ce, [p for k, p in m.named_parameters()
+                                   if k in last])
+    gce32 = torch.cat([t.double().reshape(-1) for t in gce])
+    del m, logp, ce, gce
+    adj.value.grad = None
+    adj.value.requires_grad_(False)
+    torch.cuda.empty_cache()
+    # the penalty loss in f64 on the same graph, moved along unit
+    # directions of the last layer
+    adj64 = adj.with_value(adj.value.detach().double())
+    x64 = x.double()
+    del x
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(142)
+    dirs = {"gradient": g32 / g32.norm(),
+            "random": (lambda r: r / r.norm())(torch.randn(
+                g32.numel(), generator=gen, device=dev,
+                dtype=torch.float64)),
+            "penalty": (g32 - gce32) / (g32 - gce32).norm()}
+    eps = 1e-4
+    tol = 1e-5                     # of |g| (the directions are unit)
+    fd = {}
+    for name, d in dirs.items():
+        vals = []
+        for sign in (1.0, -1.0):
+            m64 = model(torch.float64)
+            with torch.no_grad():
+                off = 0
+                for k, prm in m64.named_parameters():
+                    if k in last:
+                        prm += sign * eps * d[off:off + prm.numel()].view(
+                            prm.shape)
+                        off += prm.numel()
+            vals.append(_penalty_value(m64, adj64, x64, y, lam))
+            del m64
+            torch.cuda.empty_cache()
+        diff = (vals[0] - vals[1]) / (2 * eps)
+        dot = float(g32 @ d)
+        dot_ce = float(gce32 @ d)
+        err = abs(diff - dot) / float(g32.norm())
+        share = abs(dot - dot_ce) / float(g32.norm())
+        print(f"phase 14b penalty gradient along the last layer's {name} "
+              f"direction: f32 step {dot:.9e} (CE alone {dot_ce:.9e}, the "
+              f"penalty's share {share:.3e} of |g|), f64 central difference "
+              f"(eps {eps:g}) {diff:.9e}; |diff| / |g| {err:.3e} "
+              f"(tolerance {tol:g}) {card}", flush=True)
+        check(err <= tol, f"penalty gradient along {name}: off the f64 "
+                          f"central difference by {err:.3e} of |g|")
+        fd[name] = {"step": dot, "ce_alone": dot_ce, "penalty_share": share,
+                    "central_difference": diff, "rel_err": err}
+    # the check can see the second derivative: along the penalty's own
+    # gradient, leaving it out would miss by more than the tolerance
+    check(fd["penalty"]["penalty_share"] > 10 * tol,
+          f"the penalty's share of the gradient, "
+          f"{fd['penalty']['penalty_share']:.3e} of |g|, is not above ten "
+          f"times the check's tolerance {tol:g}")
+    return {"lam": lam, "step_ms": step_ms, "warmup_ms": times[0],
+            "peak_gb": peak_gb, "phase5_step_ms": phase5["step_ms"],
+            "phase5_peak_gb": phase5["peak_gb"], "counts": counts,
+            "directional": fd, "losses": losses}
+
+
+def phase14c_small(dev):
+    """On a small graph with a hub row and a hub column in pieces, in f64:
+    HVPs of ``spmm`` with value and x both requiring grad, card against the
+    CPU's plain versions, and against the bilinear identity (the mixed
+    second derivative of ``<G, A(v) x>`` along ``(dv, dx)`` is ``<G, A(dv)
+    dx>``, one forward K1); SpGEMM values' HVP card against CPU."""
+    from paddle_sparse_tpu_torch import (CAP, PaddedCOO, plan_spgemm_rows,
+                                         spgemm_entry, spspmm_rowsorted)
+    g = torch.Generator().manual_seed(143)
+    M_, N_ = 900, 700
+    row = torch.cat([torch.randint(0, M_, (12000,), generator=g),
+                     torch.full((2 * CAP + 9,), 321),
+                     torch.randint(0, M_, (2 * CAP + 9,), generator=g)])
+    col = torch.cat([torch.randint(0, N_, (12000,), generator=g),
+                     torch.randint(0, N_, (2 * CAP + 9,), generator=g),
+                     torch.full((2 * CAP + 9,), 55)])
+    order = torch.argsort(row * N_ + col, stable=True)
+    row, col = row[order].int(), col[order].int()
+    v = torch.randn(row.numel(), generator=g, dtype=torch.float64)
+    x = torch.randn(N_, 33, generator=g, dtype=torch.float64)
+    w = torch.randn(M_, 33, generator=g, dtype=torch.float64)
+    dv = torch.randn(v.shape, generator=g, dtype=torch.float64)
+    dx = torch.randn(x.shape, generator=g, dtype=torch.float64)
+
+    def hvp(d):
+        A = PaddedCOO.from_arrays(row.to(d), col.to(d), None, (M_, N_))
+        tv, tx = v.to(d).requires_grad_(), x.to(d).requires_grad_()
+        f = (w.to(d) * A.with_value(tv).spmm(tx) ** 2).sum()
+        gv, gx = torch.autograd.grad(f, (tv, tx), create_graph=True)
+        hv, hx = torch.autograd.grad(
+            (gv * dv.to(d)).sum() + (gx * dx.to(d)).sum(), (tv, tx))
+        # bilinear: d/dx <d f_lin / d v, dv> along dx = <w, A(dv) dx>
+        lin = (w.to(d) * A.with_value(tv).spmm(tx)).sum()
+        gl, = torch.autograd.grad(lin, tv, create_graph=True)
+        mx, = torch.autograd.grad((gl * dv.to(d)).sum(), tx)
+        once = (w.to(d) * A.with_value(dv.to(d)).spmm(dx.to(d))).sum()
+        return hv.cpu(), hx.cpu(), float((mx * dx.to(d)).sum()), float(once)
+
+    card_hvp, cpu_hvp = hvp(dev), hvp(torch.device("cpu"))
+    errs = []
+    for a, b in zip(card_hvp[:2], cpu_hvp[:2]):
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        errs.append(err)
+        check(err <= F64_REL * 100, f"spmm HVP card vs CPU: {err:.3e}")
+    bil = abs(card_hvp[2] - card_hvp[3]) / abs(card_hvp[3])
+    check(bil <= 1e-11, f"bilinear identity off by {bil:.3e}")
+    B = spgemm_entry(dev)
+    Bc = spgemm_entry("cpu")
+    F, oc = plan_spgemm_rows(Bc, Bc)
+    hs = []
+    for Mx in (B, Bc):
+        val = Mx.value.double().requires_grad_()
+        Mi = Mx.with_value(val)
+        C = spspmm_rowsorted(Mi, Mi, F, oc).matrix.value
+        G = torch.linspace(-1, 1, C.numel(), dtype=torch.float64,
+                           device=C.device)
+        gg, = torch.autograd.grad((G * C ** 2).sum(), val, create_graph=True)
+        u = torch.cos(torch.arange(gg.numel(), dtype=torch.float64,
+                                   device=gg.device))
+        h, = torch.autograd.grad((gg * u).sum(), val)
+        hs.append(h.cpu())
+    sp_err = float((hs[0] - hs[1]).abs().max()) / float(hs[1].abs().max())
+    check(sp_err <= F64_REL * 100, f"SpGEMM value HVP card vs CPU: "
+                                   f"{sp_err:.3e}")
+    print(f"phase 14c f64 HVPs, card vs CPU (max diff over max): spmm d "
+          f"value {errs[0]:.3e}, d x {errs[1]:.3e}; bilinear identity "
+          f"{bil:.3e}; SpGEMM values {sp_err:.3e} (tolerance "
+          f"{F64_REL * 100:g}; identity 1e-11)", flush=True)
+    return {"spmm_hvp_rel": errs, "bilinear_rel": bil, "spgemm_hvp_rel":
+            sp_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible "
@@ -6785,6 +7227,21 @@ def main() -> int:
          "a_at_a_10M": dtypes["a_at_a_10M"],
          "coalesce_122M": dtypes["coalesce_122M"]}), flush=True)
 
+    # ---- phase 14: integer operands and the double backward ---------------
+    ints = phase14a_ints(dev, card)
+    torch.cuda.empty_cache()
+    stamp("phase 14a")
+    penalty = phase14b_penalty(dev, card, train)
+    torch.cuda.empty_cache()
+    stamp("phase 14b")
+    small = phase14c_small(dev)
+    stamp("phase 14c")
+    print("phase 14 summary " + json.dumps(
+        {"ints": ints, "penalty": {k: v for k, v in penalty.items()
+                                   if k != "counts"},
+         "penalty_world1": parallel["gcn"]["penalty"], "small": small}),
+        flush=True)
+
     launches = {"gcn_forward": fwd["counts"],
                 "gcn_train_step": train["counts"],
                 **{p: v["launches"] for p, v in spgemm.items()},
@@ -6809,7 +7266,8 @@ def main() -> int:
                 **{f"a_at_a_10M_{dt}": v["launches"]
                    for dt, v in dtypes["a_at_a_10M"].items()},
                 **{f"coalesce_122M_{dt}": v["launches"]
-                   for dt, v in dtypes["coalesce_122M"].items()}}
+                   for dt, v in dtypes["coalesce_122M"].items()},
+                "gcn_penalty_step": penalty["counts"]}
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in launches.items()}
@@ -6850,6 +7308,10 @@ def main() -> int:
          "launches": train["spmm_launches"],
          "launches_by_path": by_path("spmm_csr"),
          "dtypes": by_dtype("spmm_csr"),
+         "ints": {"int32 K=47": ints["label_counts"],
+                  "int64 K=1": ints["two_hop"],
+                  "at": "phase 4's graph as a structural A, 2,449,029 "
+                        "nodes, 122,451,450 nnz"},
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
          "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
          "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],

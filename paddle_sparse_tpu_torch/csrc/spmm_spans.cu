@@ -62,15 +62,20 @@
 // are taken in f32 registers (fmaf), or in f64 (fma) when out is f64, and
 // rounded once on the store: f16 and bf16 sum in f32 as the bf16 path always
 // did, f64 sums in double. A mixed pair follows torch's promotion: f16 src
-// with an f32 v writes f32, gathering the f16 rows as they are.
+// with an f32 v writes f32, gathering the f16 rows as they are. Integers: src
+// int32 or int64 with v int32, int64 or ones, out int32 or int64 (int64 when
+// src or v is); products and sums in int64 registers mod 2**64 and the store
+// truncated to out, which equals a sum wrapped mod 2**32 at every add when
+// out is int32 (the ring arithmetic agrees). An int never meets a float here:
+// the wrapper casts a mixed pair to the float first.
 //
 // Contract (the Python wrapper checks shapes, dtypes, devices and contiguity):
 // every position e in a span indexes idx and v, every source row
 // base[s] + idx[e] (or base[s] + e) lies in [0, N) of the contiguous (N, K)
 // src, and out is a contiguous (M, K) array. A piece table holds P entries
 // of rows in [0, M), covering every row's flat edges once, and slots in
-// [0, W) of the contiguous (W, K) workspace of the sum's type (f32, or f64
-// when out is f64). Offsets into src, out and the workspace are computed in
+// [0, W) of the contiguous (W, K) workspace of the sum's type (f32, f64
+// when out is f64, int64 when out is an int). Offsets into src, out and the workspace are computed in
 // 64 bits.
 
 #include "spans.cuh"
@@ -82,7 +87,9 @@ using psp::acc_t;
 using psp::aligned;
 using psp::fma_acc;
 using psp::kFullMask;
+using psp::add_acc;
 using psp::load_any;
+using psp::load_int;
 using psp::load_span_chunk;
 using psp::load_vec;
 using psp::span_edge;
@@ -154,7 +161,13 @@ spmm_spans_kernel(const int* __restrict__ start, const int* __restrict__ end,
         R my_val = R(1);
         if (lane < n) {
           my_row = se.base + (idx != nullptr ? __ldg(idx + se.e) : se.e);
-          if (value != nullptr) my_val = load_any<R>(value, se.e, vcode);
+          if (value != nullptr) {
+            if constexpr (std::is_integral<R>::value) {
+              my_val = load_int<R>(value, se.e, vcode);
+            } else {
+              my_val = load_any<R>(value, se.e, vcode);
+            }
+          }
         }
 #pragma unroll 4
         for (int j = 0; j < n; ++j) {
@@ -214,7 +227,7 @@ fold_pieces_kernel(const int* __restrict__ fold_row,
     if (k < K) {
 #pragma unroll 4
       for (int p = p0 + g; p < p1; p += kFoldWarps) {
-        acc += __ldg(ws + static_cast<int64_t>(p) * K + k);
+        acc = add_acc(acc, __ldg(ws + static_cast<int64_t>(p) * K + k));
       }
     }
     sums[g][lane] = acc;
@@ -222,7 +235,9 @@ fold_pieces_kernel(const int* __restrict__ fold_row,
     if (g == 0 && k < K) {
       R total = sums[0][lane];
 #pragma unroll
-      for (int i = 1; i < kFoldWarps; ++i) total += sums[i][lane];
+      for (int i = 1; i < kFoldWarps; ++i) {
+        total = add_acc(total, sums[i][lane]);
+      }
       store_scalar<TO>(out_row + k, total);
     }
     __syncthreads();
@@ -300,14 +315,16 @@ void dispatch(const Args& a, const void* src, void* out,
 
 // Plain C entry points, loaded with ctypes. idx, value and base may be NULL
 // (see above). The dtype codes are psp::DType's (0 f32, 1 bf16, 2 f16,
-// 3 f64): src_code and out_code name src's and out's, value_code value's.
-// out is f32, src's own dtype, or f64; any other pair is refused
+// 3 f64, 4 int32, 5 int64): src_code and out_code name src's and out's,
+// value_code value's. A float out is f32, src's own dtype, or f64, from a
+// float src and value; an int out is int64, or int32 from an int32 src and
+// value, from an int src and value; any other set is refused
 // (cudaErrorInvalidValue) before a launch. p_row == NULL launches one warp
 // per row; else one per piece of the P-piece table (p_row, p_piece, p_slot,
 // cap), pieces of split rows writing to the (W, K) workspace ws (f64 when out
-// is f64, else f32), which psp_fold_pieces then folds into out. Each
-// launches on `stream` and returns cudaGetLastError(); 0 means the launch was
-// accepted.
+// is f64, int64 when out is an int, else f32), which psp_fold_pieces then
+// folds into out. Each launches on `stream` and returns cudaGetLastError();
+// 0 means the launch was accepted.
 extern "C" int psp_spmm_spans(const void* start, const void* end,
                               long long stride, const void* idx,
                               const void* value, int value_code,
@@ -320,6 +337,8 @@ extern "C" int psp_spmm_spans(const void* start, const void* end,
   using psp::kF16;
   using psp::kF32;
   using psp::kF64;
+  using psp::kI32;
+  using psp::kI64;
   Args a;
   a.start = static_cast<const int*>(start);
   a.end = static_cast<const int*>(end);
@@ -337,6 +356,26 @@ extern "C" int psp_spmm_spans(const void* start, const void* end,
   a.cap = cap;
   a.ws = ws;
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const bool int_out = out_code == kI32 || out_code == kI64;
+  if (int_out) {
+    // ints only, and out as wide as the widest of src and value
+    const bool v_ok = value == nullptr || value_code == kI32 ||
+                      value_code == kI64;
+    const bool wide = src_code == kI64 ||
+                      (value != nullptr && value_code == kI64);
+    if (!v_ok || (src_code != kI32 && src_code != kI64) ||
+        (out_code == kI64) != wide) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (src_code == kI64) {
+      dispatch<long long, long long>(a, src, out, cs);
+    } else if (out_code == kI64) {
+      dispatch<int, long long>(a, src, out, cs);
+    } else {
+      dispatch<int, int>(a, src, out, cs);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   if (value_code < kF32 || value_code > kF64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -365,7 +404,8 @@ extern "C" int psp_spmm_spans(const void* start, const void* end,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out_code as psp_spmm_spans's: ws is f64 when out is f64, else f32.
+// out_code as psp_spmm_spans's: ws is f64 when out is f64, int64 when out
+// is int32 or int64, else f32.
 extern "C" int psp_fold_pieces(const void* fold_row, const void* fold_ptr,
                                const void* ws, void* out, long long R,
                                long long K, int out_code, void* stream) {
@@ -396,6 +436,16 @@ extern "C" int psp_fold_pieces(const void* fold_row, const void* fold_ptr,
       fold_pieces_kernel<double><<<grid, block, 0, cs>>>(
           fr, fp, static_cast<const double*>(ws), static_cast<double*>(out),
           k);
+      break;
+    case psp::kI32:
+      fold_pieces_kernel<int><<<grid, block, 0, cs>>>(
+          fr, fp, static_cast<const long long*>(ws), static_cast<int*>(out),
+          k);
+      break;
+    case psp::kI64:
+      fold_pieces_kernel<long long><<<grid, block, 0, cs>>>(
+          fr, fp, static_cast<const long long*>(ws),
+          static_cast<long long*>(out), k);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,7 +1,10 @@
 // Vector loads and stores shared by the kernels: V consecutive elements of an
 // f32, bf16, f16 or f64 row, widened to (or narrowed from) registers of type
 // R: float for the 16- and 32-bit types, double for f64 (a widening load of
-// bf16 or f16 into double goes through float, which holds them exactly).
+// bf16 or f16 into double goes through float, which holds them exactly); or
+// of an int32 or int64 row, widened to long long (K1's integer sums, exact
+// mod 2**64, so a store that truncates to int32 wraps as an int32 sum at
+// every add would).
 // The types are told apart by the type itself, never by its size (bf16 and
 // f16 are both 2 bytes).
 //
@@ -30,10 +33,18 @@ template <typename T>
 constexpr bool is_f32 = std::is_same<T, float>::value;
 template <typename T>
 constexpr bool is_f64 = std::is_same<T, double>::value;
-
-// The register type a kernel sums T in: double for f64, else float.
 template <typename T>
-using acc_t = typename std::conditional<is_f64<T>, double, float>::type;
+constexpr bool is_i32 = std::is_same<T, int>::value;
+template <typename T>
+constexpr bool is_i64 = std::is_same<T, long long>::value;
+
+// The register type a kernel sums T in: double for f64, long long for int32
+// and int64, else float.
+template <typename T>
+using acc_t = typename std::conditional<
+    is_f64<T>, double,
+    typename std::conditional<std::is_integral<T>::value, long long,
+                              float>::type>::type;
 
 // One element, widened to R.
 template <typename R, typename T>
@@ -121,6 +132,20 @@ __device__ __forceinline__ void load_vec(const T* p, R (&v)[V]) {
       v[2 * q] = static_cast<R>(d.x);
       v[2 * q + 1] = static_cast<R>(d.y);
     }
+  } else if constexpr (is_i32<T> && kBytes % 16 == 0) {
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) {
+      const int4 d = __ldg(reinterpret_cast<const int4*>(p) + q);
+      v[4 * q] = static_cast<R>(d.x); v[4 * q + 1] = static_cast<R>(d.y);
+      v[4 * q + 2] = static_cast<R>(d.z); v[4 * q + 3] = static_cast<R>(d.w);
+    }
+  } else if constexpr (is_i64<T> && kBytes % 16 == 0) {
+#pragma unroll
+    for (int q = 0; q < V / 2; ++q) {
+      const longlong2 d = __ldg(reinterpret_cast<const longlong2*>(p) + q);
+      v[2 * q] = static_cast<R>(d.x);
+      v[2 * q + 1] = static_cast<R>(d.y);
+    }
   } else if constexpr ((is_bf16<T> || is_f16<T>) &&
                        (kBytes == 4 || kBytes == 8 || kBytes % 16 == 0)) {
     if constexpr (kBytes <= 16) {
@@ -183,6 +208,19 @@ __device__ __forceinline__ void store_vec(T* p, const R (&v)[V]) {
       q[i] = make_double2(static_cast<double>(v[2 * i]),
                           static_cast<double>(v[2 * i + 1]));
     }
+  } else if constexpr (is_i32<T> && kBytes % 16 == 0) {
+    int4* q = reinterpret_cast<int4*>(p);
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) {
+      q[i] = make_int4(narrow<T>(v[4 * i]), narrow<T>(v[4 * i + 1]),
+                       narrow<T>(v[4 * i + 2]), narrow<T>(v[4 * i + 3]));
+    }
+  } else if constexpr (is_i64<T> && kBytes % 16 == 0) {
+    longlong2* q = reinterpret_cast<longlong2*>(p);
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {
+      q[i] = make_longlong2(narrow<T>(v[2 * i]), narrow<T>(v[2 * i + 1]));
+    }
   } else if constexpr ((is_bf16<T> || is_f16<T>) &&
                        (kBytes == 4 || kBytes == 8 || kBytes % 16 == 0)) {
     if constexpr (kBytes <= 16) {
@@ -203,7 +241,8 @@ __device__ __forceinline__ void store_scalar(T* p, R v) {
 }
 
 // The dtype codes of the C entry points (ops/kernels/_build.py::DTYPE_CODE).
-enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2, kF64 = 3 };
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2, kF64 = 3, kI32 = 4,
+                   kI64 = 5 };
 
 // One element of a per-edge array (value, d value) whose dtype is a launch
 // argument, not a template parameter: the code is the same for the whole
@@ -241,12 +280,41 @@ __device__ __forceinline__ void store_any(void* p, long long i, int code,
   }
 }
 
-// Fused multiply-add in R: fmaf for float, fma for double.
+// One element of an int32 or int64 per-edge array (K1's integer values),
+// widened to R; the code is kI32 or kI64 for the whole launch.
+template <typename R>
+__device__ __forceinline__ R load_int(const void* p, long long i, int code) {
+  if (code == kI64) {
+    return static_cast<R>(__ldg(static_cast<const long long*>(p) + i));
+  }
+  return static_cast<R>(__ldg(static_cast<const int*>(p) + i));
+}
+
+// Fused multiply-add in R: fmaf for float, fma for double; for long long a
+// multiply and an add mod 2**64 (unsigned, so an overflow wraps and is
+// defined).
 __device__ __forceinline__ float fma_acc(float a, float b, float c) {
   return fmaf(a, b, c);
 }
 __device__ __forceinline__ double fma_acc(double a, double b, double c) {
   return fma(a, b, c);
+}
+__device__ __forceinline__ long long fma_acc(long long a, long long b,
+                                             long long c) {
+  return static_cast<long long>(static_cast<unsigned long long>(a) *
+                                    static_cast<unsigned long long>(b) +
+                                static_cast<unsigned long long>(c));
+}
+
+// a + b in R; mod 2**64 for long long, as fma_acc.
+template <typename R>
+__device__ __forceinline__ R add_acc(R a, R b) {
+  if constexpr (std::is_integral<R>::value) {
+    return static_cast<R>(static_cast<unsigned long long>(a) +
+                          static_cast<unsigned long long>(b));
+  } else {
+    return a + b;
+  }
 }
 
 // Elements of T in one 16-byte access.

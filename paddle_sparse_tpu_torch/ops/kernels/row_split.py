@@ -154,7 +154,10 @@ def _table(split: Optional[RowSplit]):
 
 def sum_dtype(out_dtype: torch.dtype) -> torch.dtype:
     """The dtype the SpMM kernels sum into ``out_dtype`` in, their piece
-    workspace's too: f64 for an f64 output, else f32."""
+    workspace's too: f64 for an f64 output, int64 for an integer one, else
+    f32."""
+    if not out_dtype.is_floating_point:
+        return torch.int64
     return torch.float64 if out_dtype == torch.float64 else torch.float32
 
 
@@ -266,15 +269,17 @@ def spmm_spans_piecewise(start, end, idx, value, base, src,
     then each split row's partials added in piece order. Equal to
     ``spmm_spans_reference`` up to rounding, so the tests check the table's
     arithmetic on the CPU with it. Sums in f32 (f64 when ``src`` or
-    ``value`` is); no windows, for small inputs."""
+    ``value`` is, int64 for an integer output); no windows, for small
+    inputs."""
     if split is None:
         from .spmm_spans_cuda import spmm_spans_reference
         return spmm_spans_reference(start, end, idx, value, base, src,
                                     out_dtype)
-    acc = (torch.float64 if torch.float64 in (
-        src.dtype, None if value is None else value.dtype) else torch.float32)
     out_dtype = out_dtype or (src.dtype if value is None else
                               torch.promote_types(value.dtype, src.dtype))
+    acc = (torch.float64 if torch.float64 in (
+        src.dtype, None if value is None else value.dtype)
+        else sum_dtype(out_dtype))
     piece, s, e = _piece_edges(start, end, split)
     r = e if idx is None else idx[e].long()
     if base is not None:
@@ -298,12 +303,13 @@ def sddmm_spans_piecewise(start, end, col, base, g, x,
     """Plain version of a split :func:`~.sddmm_cuda.sddmm_spans_cuda`
     launch that follows ``split``: each piece takes the dot of its row of
     ``g`` (from the table) with the sources of its own edges. Sums in f32
-    (f64 when ``g`` or ``x`` is); no windows, for small inputs."""
+    (f64 when ``g`` or ``x`` is, int64 when both are ints); no windows, for
+    small inputs."""
     if split is None:
         from .sddmm_cuda import sddmm_spans_reference
         return sddmm_spans_reference(start, end, col, base, g, x, out_dtype)
-    acc = (torch.float64 if torch.float64 in (g.dtype, x.dtype)
-           else torch.float32)
+    from .sddmm_cuda import dot_dtype
+    acc = dot_dtype(g.dtype, x.dtype)
     piece, s, e = _piece_edges(start, end, split)
     c = col[e].long()
     if base is not None:

@@ -39,6 +39,17 @@ from .row_split import AUTO, launch_sddmm_spans, resolve_split
 from .spmm_spans_cuda import check_span_args, span_windows
 
 
+def dot_dtype(g: torch.dtype, x: torch.dtype) -> torch.dtype:
+    """The dtype the plain SDDMMs sum a dot in: f64 when ``g`` or ``x`` is
+    f64, int64 when both are integers (exact, as K1's integer sums), else
+    f32."""
+    if torch.float64 in (g, x):
+        return torch.float64
+    if not (g.is_floating_point or x.is_floating_point):
+        return torch.int64
+    return torch.float32
+
+
 def sddmm_csr_reference(rowptr: torch.Tensor, col: torch.Tensor,
                         g: torch.Tensor, x: torch.Tensor,
                         out_dtype: torch.dtype = torch.float32
@@ -46,9 +57,8 @@ def sddmm_csr_reference(rowptr: torch.Tensor, col: torch.Tensor,
     """Plain PyTorch version of :func:`sddmm_csr_cuda`, on any device.
 
     Processes the edges in bounded windows (two row gathers and a row-wise
-    sum per window), summing in f32, or in f64 when ``g`` or ``x`` is f64."""
-    acc_dtype = (torch.float64 if torch.float64 in (g.dtype, x.dtype)
-                 else torch.float32)
+    sum per window), summing in :func:`dot_dtype`."""
+    acc_dtype = dot_dtype(g.dtype, x.dtype)
     out = torch.zeros(col.numel(), dtype=acc_dtype, device=x.device)
     rowptr = rowptr.long()
     e_begin, e_end = int(rowptr[0]), int(rowptr[-1])
@@ -149,9 +159,8 @@ def sddmm_spans_reference(start: torch.Tensor, end: torch.Tensor,
                           ) -> torch.Tensor:
     """Plain PyTorch version of :func:`sddmm_spans_cuda`, on any device:
     each span row in bounded windows, two row gathers and a row-wise sum,
-    in f32, or in f64 when ``g`` or ``x`` is f64."""
-    acc_dtype = (torch.float64 if torch.float64 in (g.dtype, x.dtype)
-                 else torch.float32)
+    in :func:`dot_dtype`."""
+    acc_dtype = dot_dtype(g.dtype, x.dtype)
     out = torch.zeros(col.numel(), dtype=acc_dtype, device=x.device)
     for s, rows, e in span_windows(start, end, 2 * x.shape[1]
                                    * out.element_size()):

@@ -40,7 +40,6 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -267,11 +266,55 @@ compact_runs_cuda.launches = 0
 compact_runs_cuda.launches_row_sorted = 0
 
 
+def _bcast_hit(hit: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    return hit.reshape((-1,) + (1,) * (d.dim() - 1))
+
+
+class _SlotGather(torch.autograd.Function):
+    """``d[e] = g[seg[e]]`` where ``seg[e]`` is a slot (``>= 0``), else 0:
+    the backward of the run compaction. Its own backward is
+    :class:`_SlotScatter`, so the compaction differentiates at any order."""
+
+    @staticmethod
+    def forward(ctx, g, seg):
+        ctx.save_for_backward(seg)
+        ctx.slots = g.shape[0]
+        if g.shape[0] == 0:                 # out_capacity 0: nothing kept
+            return g.new_zeros((seg.numel(),) + tuple(g.shape[1:]))
+        d = g.index_select(0, seg.clamp(min=0).long())
+        return torch.where(_bcast_hit(seg >= 0, d), d,
+                           torch.zeros((), dtype=d.dtype, device=d.device))
+
+    @staticmethod
+    def backward(ctx, gg):
+        seg, = ctx.saved_tensors
+        return _SlotScatter.apply(gg.contiguous(), seg, ctx.slots), None
+
+
+class _SlotScatter(torch.autograd.Function):
+    """The transpose of :class:`_SlotGather`: ``out[j] = sum over e with
+    seg[e] = j of gg[e]``, into ``slots`` rows (an ``index_add_``; the JAX
+    package leaves this transpose to XLA)."""
+
+    @staticmethod
+    def forward(ctx, gg, seg, slots):
+        ctx.save_for_backward(seg)
+        hit = seg >= 0
+        out = gg.new_zeros((slots,) + tuple(gg.shape[1:]))
+        return out.index_add_(0, seg[hit].long(), gg[hit])
+
+    @staticmethod
+    def backward(ctx, g):
+        seg, = ctx.saved_tensors
+        return _SlotGather.apply(g.contiguous(), seg), None, None
+
+
 class _CompactRuns(torch.autograd.Function):
     """:func:`compact_runs_cuda` over ``value``. The JAX VJP
     (``segcompact.py::_compact_runs_bwd``) is one gather,
     ``d value[e] = d out[seg[e]]`` where ``seg[e]`` is a slot, else 0; it is
-    plain PyTorch here as it is XLA there. ``seg`` comes from the forward
+    plain PyTorch here as it is XLA there (:class:`_SlotGather`, which
+    differentiates again). ``seg`` comes from the forward
     kernel, which writes it for 4 bytes an element, instead of being
     recomputed from the keys (a compare, a cumsum and a mask over the whole
     stream, several times those bytes)."""
@@ -286,25 +329,17 @@ class _CompactRuns(torch.autograd.Function):
         return out.row, out.col, out.value, out.count
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g_row, g_col, g_value, g_count):
         seg, = ctx.saved_tensors
-        hit = seg >= 0
-        g = g_value.contiguous()
-        if g.shape[0] == 0:                 # out_capacity 0: nothing kept
-            d = g.new_zeros((seg.numel(),) + tuple(g.shape[1:]))
-        else:
-            d = g.index_select(0, seg.clamp(min=0).long())
-            d = torch.where(hit.reshape((-1,) + (1,) * (d.dim() - 1)), d,
-                            torch.zeros((), dtype=d.dtype, device=d.device))
+        d = _SlotGather.apply(g_value.contiguous(), seg)
         return d.reshape(ctx.value_shape), None, None, None, None, None
 
 
 def compact_runs(col: torch.Tensor, rows: torch.Tensor,
                  value: Optional[torch.Tensor], shape: Tuple[int, int],
                  out_capacity: int, rows_sorted: bool = True) -> Compacted:
-    """:func:`compact_runs_cuda`, differentiable in ``value`` (double
-    backward raises); ``seg`` of the result is None."""
+    """:func:`compact_runs_cuda`, differentiable in ``value`` at any
+    order; ``seg`` of the result is None."""
     if value is None or not (torch.is_grad_enabled() and value.requires_grad):
         return compact_runs_cuda(col, rows, value, shape, out_capacity,
                                  rows_sorted=rows_sorted)

@@ -9,13 +9,21 @@ gather, the scale and the row-sum: the multi-span kernel of
 ``end = rowptr[1:]``), which walks a CSR row in edge order.
 
 Dtype contract, as in ``paddle_sparse_tpu/ops/spmm.py::spmm_coo``: the
-output has the promoted dtype of ``value`` and ``x``, each f32, bf16, f16 or
-f64, and each read in its own dtype (an f16 ``x`` with an f32 ``value`` is
-gathered as f16 and writes f32: no f32 copy of ``x``). Sums are taken in f32
-and rounded once on the store, or in f64 when the output is f64, in the
-kernel and in the plain version alike; ``value=None`` means implicit ones;
-any K works. A row of more than ``row_split.CAP`` edges is cut into pieces,
-one warp each, whose partials a second pass sums
+output has the promoted dtype of ``value`` and ``x``. Floats (f32, bf16, f16
+or f64) are each read in their own dtype (an f16 ``x`` with an f32 ``value``
+is gathered as f16 and writes f32: no f32 copy of ``x``); sums are taken in
+f32 and rounded once on the store, or in f64 when the output is f64, in the
+kernel and in the plain version alike. Integers (int8, int16, int32, int64,
+uint8, and bool beside an int) sum exactly: products and sums in int64, the
+result cast to the promoted dtype, which truncates mod 2**bits and so equals
+JAX's sum wrapped at every add (the ring arithmetic agrees). The kernel reads
+int32 and int64; the wrapper casts a narrower int or a bool to int32 and the
+result back. A mixed int/float pair is summed as the promoted float by the
+plain version; the kernel refuses it (``TypeError``): the entry,
+``ops/spmm.py``, casts such a pair to the float first, as JAX casts both.
+bool with bool (or ``None`` with a bool ``x``) raises ``TypeError``, as
+JAX's add does. ``value=None`` means implicit ones; any K works. A row of more than ``row_split.CAP`` edges is cut
+into pieces, one warp each, whose partials a second pass sums
 (``ops/kernels/row_split.py``).
 """
 from typing import Optional
@@ -23,7 +31,10 @@ from typing import Optional
 import torch
 
 from ._build import FLOAT_DTYPES
-from .row_split import AUTO, launch_spmm_spans, resolve_split
+from .row_split import AUTO, launch_spmm_spans, resolve_split, sum_dtype
+
+# the integer dtypes the kernel reads; narrower ints are cast to int32
+INT_DTYPES = (torch.int32, torch.int64)
 
 # edges per window of the plain version: bounds its (window, K) product
 # stream to about 1 GiB, so it never builds the whole (nnz, K) stream
@@ -31,8 +42,26 @@ _WINDOW_BYTES = 1 << 30
 
 
 def _out_dtype(value: Optional[torch.Tensor], x: torch.Tensor) -> torch.dtype:
-    return x.dtype if value is None else torch.promote_types(value.dtype,
-                                                             x.dtype)
+    out = x.dtype if value is None else torch.promote_types(value.dtype,
+                                                            x.dtype)
+    if out == torch.bool:
+        raise TypeError("spmm does not sum bool operands (JAX's add refuses "
+                        "bool): give value or x a numeric dtype")
+    return out
+
+
+def kernel_operands(value: Optional[torch.Tensor], x: torch.Tensor):
+    """``(value, x, out_dtype)`` as K1 reads them: for an integer output an
+    int32 or int64 pair (a narrower int or a bool cast to int32), anything
+    else as it is; ``out_dtype`` the promoted dtype of the originals."""
+    out = _out_dtype(value, x)
+    if out.is_floating_point:
+        return value, x, out
+    if value is not None and value.dtype not in INT_DTYPES:
+        value = value.to(torch.int32)
+    if x.dtype not in INT_DTYPES:
+        x = x.to(torch.int32)
+    return value, x, out
 
 
 def check_spmm_dtypes(fn: str, src: torch.dtype,
@@ -40,7 +69,17 @@ def check_spmm_dtypes(fn: str, src: torch.dtype,
     """The dtypes ``csrc/spmm_spans.cu`` takes: ``src`` and ``value`` each
     f32, bf16, f16 or f64; ``out`` f64, or f32 from a src other than f64,
     or src's own dtype, and f64 whenever an input is (the sum's type follows
-    ``out``). Raises ``TypeError`` on anything else."""
+    ``out``). Or integers: ``src`` and ``value`` int32 or int64 and ``out``
+    their promoted dtype (the sum in int64). Raises ``TypeError`` on
+    anything else."""
+    if src in INT_DTYPES or value in INT_DTYPES or out in INT_DTYPES:
+        if (src not in INT_DTYPES or value not in INT_DTYPES + (None,)
+                or out != (src if value is None
+                           else torch.promote_types(src, value))):
+            raise TypeError(f"{fn} sums int32/int64 src and value into "
+                            f"their promoted int: not {src} x {value} -> "
+                            f"{out}")
+        return
     for name, dt in (("src", src), ("value", value)):
         if dt is not None and dt not in FLOAT_DTYPES:
             raise TypeError(f"{fn} takes f32, bf16, f16 or f64 {name}, got "
@@ -60,10 +99,11 @@ def spmm_csr_reference(rowptr: torch.Tensor, col: torch.Tensor,
     """Plain PyTorch version of :func:`spmm_csr_cuda`, on any device.
 
     Processes the edges in bounded windows (gather, scale, ``index_add_``),
-    accumulating in f32, or in f64 when the promoted dtype is f64."""
+    accumulating in f32, in f64 when the promoted dtype is f64, and in int64
+    when it is an int (then cast, which wraps as JAX's int sum does)."""
     M, K = rowptr.numel() - 1, x.shape[1]
     out_dtype = _out_dtype(value, x)
-    acc_dtype = torch.float64 if out_dtype == torch.float64 else torch.float32
+    acc_dtype = sum_dtype(out_dtype)
     out = torch.zeros((M, K), dtype=acc_dtype, device=x.device)
     rowptr = rowptr.long()
     e_begin, e_end = int(rowptr[0]), int(rowptr[-1])
@@ -111,8 +151,11 @@ def spmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor,
 
     ``rowptr`` (M+1,) is a canonical CSR pointer into ``col``/``value``;
     ``x`` is a contiguous (N, K) f32, bf16, f16 or f64 tensor, ``value``
-    (any of those dtypes, read as it is) or None, and every ``col[e]`` with
-    ``e < rowptr[M]`` lies in ``[0, N)``. ``split`` is the pointer's
+    (any of those dtypes, read as it is) or None, or both integers
+    (:func:`kernel_operands`: int32 and int64 read as they are, narrower
+    ints cast to int32, the sum in int64 and the result cast to the
+    promoted dtype), and every ``col[e]`` with ``e < rowptr[M]`` lies in
+    ``[0, N)``. ``split`` is the pointer's
     :class:`~.row_split.RowSplit` (``PaddedCOO`` caches it), ``None`` when
     no row is longer than its cap, or ``"auto"`` to build it here (one host
     read of the longest row). On a CPU tensor this runs
@@ -122,12 +165,13 @@ def spmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor,
         return spmm_csr_reference(rowptr, col, value, x)
     if x.device.type != "cuda":
         raise ValueError(f"spmm_csr_cuda runs on cpu or cuda, not {x.device}")
+    value, x, want = kernel_operands(value, x)
     _check_cuda_args(rowptr, col, value, x)
     out_dtype = _out_dtype(value, x)
     M, K = rowptr.numel() - 1, x.shape[1]
     out = torch.empty((M, K), dtype=out_dtype, device=x.device)
     if M == 0 or K == 0:
-        return out
+        return out.to(want)
     rowptr = rowptr.to(torch.int32).contiguous()
     col = col.to(torch.int32).contiguous()
     if value is not None:
@@ -136,7 +180,7 @@ def spmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor,
     launch_spmm_spans("spmm_csr", start, end, col, value, None, x, out,
                       resolve_split(split, start, end))
     spmm_csr_cuda.launches += 1
-    return out
+    return out if out_dtype == want else out.to(want)
 
 
 spmm_csr_cuda.launches = 0

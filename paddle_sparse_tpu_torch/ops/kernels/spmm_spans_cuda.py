@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from .row_split import AUTO, launch_spmm_spans, resolve_split
+from .row_split import AUTO, launch_spmm_spans, resolve_split, sum_dtype
 from .spmm_cuda import _WINDOW_BYTES, _out_dtype, check_spmm_dtypes
 
 
@@ -71,11 +71,12 @@ def spmm_spans_reference(start: torch.Tensor, end: torch.Tensor,
     """Plain PyTorch version of :func:`spmm_spans_cuda`, on any device.
 
     Walks each span row in bounded windows (gather, scale, ``index_add_``),
-    summing in f32, or in f64 when ``value`` or ``src`` is f64."""
+    summing in f32, in f64 when ``value`` or ``src`` is f64, and in int64
+    for an integer output (then cast, which wraps as JAX's int sum does)."""
     out_dtype = out_dtype or _out_dtype(value, src)
     acc_dtype = (torch.float64 if torch.float64 in (
         src.dtype, out_dtype, None if value is None else value.dtype)
-        else torch.float32)
+        else sum_dtype(out_dtype))
     K = src.shape[1]
     out = torch.zeros((start.shape[1], K), dtype=acc_dtype,
                       device=src.device)

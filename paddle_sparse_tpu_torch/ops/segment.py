@@ -240,8 +240,9 @@ def _flat_gather(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 
 
 class _TakeRows(torch.autograd.Function):
-    """``t[index]`` by :func:`_flat_gather`, with an ``index_add`` for its
-    backward."""
+    """``t[index]`` by :func:`_flat_gather`, with an ``index_add``
+    (:class:`_AddRows`) for its backward; the two are each other's
+    backward, so both differentiate at any order."""
 
     @staticmethod
     def forward(ctx, t, index):
@@ -252,8 +253,7 @@ class _TakeRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         index, = ctx.saved_tensors
-        d_t = g.new_zeros((ctx.rows,) + tuple(g.shape[1:]))
-        return d_t.index_add_(0, index, g), None
+        return _AddRows.apply(g, index, ctx.rows), None
 
 
 class _AddRows(torch.autograd.Function):
@@ -269,7 +269,7 @@ class _AddRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         index, = ctx.saved_tensors
-        return _flat_gather(g, index), None, None
+        return _TakeRows.apply(g, index), None, None
 
 
 def take_rows(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

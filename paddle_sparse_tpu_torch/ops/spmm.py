@@ -20,6 +20,19 @@ PyTorch versions.
 * ``d x`` alone, or with ``value`` None: K1 again, over the CSC view
   (``colptr``, ``col_t``, ``value[perm]``).
 
+Double backward (``create_graph=True``, as a gradient penalty, a
+Hessian-vector product or force training takes it) differentiates at any
+order, on the same kernels and with no (nnz, K) tensor: each of the three
+backwards above is a Function whose own backward is built from the same three
+(:class:`_SumGrads`, :class:`_Sddmm`, :func:`_spmm_t`; the transpose's CSC
+view is A's CSR: :func:`transpose_structure`). A first-order backward
+launches the same kernels with or without ``create_graph``.
+
+Dtypes: the output has ``promote_types(value, x)``. A mixed int/float pair
+is cast to the promoted float before the kernels (as JAX casts both), so K2
+and the fused pass see floats only: an int tensor cannot require grad. Two
+ints (or a bool beside an int) sum exactly in K1 (``kernels/spmm_cuda.py``).
+
 Each launch takes the piece table of its pointer
 (:class:`~.kernels.row_split.RowSplit`, ``None`` when no row or column is
 longer than ``row_split.CAP``), so a hub row or column is walked by many
@@ -56,7 +69,6 @@ import weakref
 from typing import Callable, NamedTuple, Optional
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from .convert import ind2ptr, ptr2ind_capped
 from .kernels.row_split import AUTO, RowSplit, resolve_split
@@ -103,43 +115,151 @@ def spmm_structure(rowptr: torch.Tensor, row: torch.Tensor,
         row_split=ptr_split(rowptr, row_split), col_split=ptr_split(colptr))
 
 
+def transpose_structure(s: SpmmStructure, col: torch.Tensor) -> SpmmStructure:
+    """The :class:`SpmmStructure` of ``A^T`` from A's (``col`` A's column
+    indices in COO order): its CSR is A's CSC view, and its CSC view is A's
+    CSR, in A's own entry order (``perm`` the inverse of A's, one scatter,
+    ``col_t`` A's ``col``). Values of ``A^T`` are in A's CSC order,
+    ``value[s.perm]``."""
+    inv = torch.empty_like(s.perm)
+    inv[s.perm.long()] = torch.arange(s.perm.numel(), dtype=s.perm.dtype,
+                                      device=s.perm.device)
+    return SpmmStructure(rowptr=s.colptr, perm=inv, col_t=col,
+                         colptr=s.rowptr, row_split=s.col_split,
+                         col_split=s.row_split)
+
+
+class _Csr(NamedTuple):
+    """What the Functions below close over: the CSR pointer and column
+    indices of A, ``structure_fn`` (gives the :class:`SpmmStructure`, called
+    only when a CSC view is needed) and ``rowptr``'s piece table (or
+    ``"auto"``)."""
+    rowptr: torch.Tensor
+    col: torch.Tensor
+    structure_fn: Callable[[], SpmmStructure]
+    row_split: object
+
+
+def _spmm(a: _Csr, value, x):
+    """``A(value) @ x``, differentiable (K1 over the CSR)."""
+    return _SpmmSum.apply(value, x, a.rowptr, a.col, a.structure_fn,
+                          a.row_split)
+
+
+def _spmm_t(a: _Csr, value, g):
+    """``A(value)^T @ g``, differentiable: :class:`_SpmmSum` over the CSC
+    view (K1), whose own backward sees A's CSR as the transpose's CSC."""
+    s = a.structure_fn()
+    value_t = None if value is None else value.index_select(0, s.perm)
+    return _SpmmSum.apply(value_t, g, s.colptr, s.col_t,
+                          lambda: transpose_structure(a.structure_fn(),
+                                                      a.col),
+                          s.col_split)
+
+
+def _sddmm(a: _Csr, g, x, out_dtype):
+    """``d[e] = g[row[e]] . x[col[e]]``, differentiable (K2)."""
+    return _Sddmm.apply(g, x, a.rowptr, a.col, a.structure_fn, a.row_split,
+                        out_dtype)
+
+
+def _sddmm_vjp(a: _Csr, gg, g, x, need_g, need_x):
+    """The grads of ``_sddmm(a, g, x)`` along ``gg``: ``d g = A(gg) @ x``
+    and ``d x = A(gg)^T @ g``, each a differentiable K1."""
+    d_g = _spmm(a, gg, x).to(g.dtype) if need_g else None
+    d_x = _spmm_t(a, gg, g).to(x.dtype) if need_x else None
+    return d_g, d_x
+
+
 class _SpmmSum(torch.autograd.Function):
     """``A @ x`` over ``(value, x)``; the index structure is closed over.
     ``structure_fn`` gives the :class:`SpmmStructure` and is called only
     when the backward needs ``d x``; ``row_split`` is ``rowptr``'s piece
-    table (or ``"auto"``: built by each launch)."""
+    table (or ``"auto"``: built by each launch). Its backward is
+    :class:`_SumGrads` (both grads), :class:`_Sddmm` (``d value``) or
+    :func:`_spmm_t` (``d x``), so it differentiates at any order."""
 
     @staticmethod
     def forward(ctx, value, x, rowptr, col, structure_fn, row_split):
         ctx.save_for_backward(value, x)
-        ctx.rowptr, ctx.col, ctx.structure_fn = rowptr, col, structure_fn
-        ctx.row_split = row_split
+        ctx.csr = _Csr(rowptr, col, structure_fn, row_split)
         return spmm_csr_cuda(rowptr, col, value, x, split=row_split)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         value, x = ctx.saved_tensors
         g = g.contiguous()       # the grad of a sum is stride-0
+        a = ctx.csr
         d_value = d_x = None
         if ctx.needs_input_grad[0] and ctx.needs_input_grad[1]:
-            # both: one pass over the CSC view gathers g once for the two
-            s = ctx.structure_fn()
-            d_x, d_value = spmm_sddmm_csc_cuda(
-                s.colptr, s.col_t, s.perm, value, g, x,
-                out_dtype=value.dtype, split=s.col_split)
-            return d_value, d_x.to(x.dtype), None, None, None, None
-        if ctx.needs_input_grad[0]:
-            d_value = sddmm_csr_cuda(ctx.rowptr, ctx.col, g, x,
-                                     out_dtype=value.dtype,
-                                     split=ctx.row_split)
-        if ctx.needs_input_grad[1]:
-            s = ctx.structure_fn()
-            value_t = (None if value is None
-                       else value.index_select(0, s.perm))
-            d_x = spmm_csr_cuda(s.colptr, s.col_t, value_t, g,
-                                split=s.col_split).to(x.dtype)
+            d_value, d_x = _SumGrads.apply(value, g, x, a)
+        elif ctx.needs_input_grad[0]:
+            d_value = _sddmm(a, g, x, value.dtype)
+        elif ctx.needs_input_grad[1]:
+            d_x = _spmm_t(a, value, g)
+        if d_x is not None:
+            d_x = d_x.to(x.dtype)
         return d_value, d_x, None, None, None, None
+
+
+class _SumGrads(torch.autograd.Function):
+    """Both grads of :class:`_SpmmSum` at ``g``, ``d x = A(value)^T @ g``
+    and ``d value = g[row] . x[col]`` (0 at padding), in one pass over the
+    CSC view that gathers each row of ``g`` once for both (K2′), as
+    ``(d value, d x)``. Its backward is those two functions' own, each a
+    differentiable Function: along ``gd_x``, ``d value = g[row] .
+    gd_x[col]`` (K2) and ``d g = A(value) @ gd_x`` (K1); along
+    ``gd_value``, :func:`_sddmm_vjp` (K1 twice)."""
+
+    @staticmethod
+    def forward(ctx, value, g, x, a):
+        ctx.save_for_backward(value, g, x)
+        ctx.csr = a
+        ctx.set_materialize_grads(False)
+        s = a.structure_fn()
+        d_x, d_value = spmm_sddmm_csc_cuda(
+            s.colptr, s.col_t, s.perm, value, g, x, out_dtype=value.dtype,
+            split=s.col_split)
+        return d_value, d_x
+
+    @staticmethod
+    def backward(ctx, gd_value, gd_x):
+        value, g, x = ctx.saved_tensors
+        a = ctx.csr
+        need_v, need_g, need_x = ctx.needs_input_grad[:3]
+        d_v = d_g = d_x = None
+        if gd_x is not None:
+            gd_x = gd_x.contiguous()
+            if need_v:
+                d_v = _sddmm(a, g, gd_x, value.dtype)
+            if need_g:
+                d_g = _spmm(a, value, gd_x).to(g.dtype)
+        if gd_value is not None:
+            d_g2, d_x = _sddmm_vjp(a, gd_value.contiguous(), g, x, need_g,
+                                   need_x)
+            d_g = d_g2 if d_g is None else d_g + d_g2
+        return d_v, d_g, d_x, None
+
+
+class _Sddmm(torch.autograd.Function):
+    """``d value[e] = g[row[e]] . x[col[e]]`` (K2, 0 at padding) over
+    ``(g, x)``, in ``out_dtype``: the value gradient of :class:`_SpmmSum`
+    when ``d x`` is not needed. Its backward is :func:`_sddmm_vjp`, K1
+    twice, each a differentiable :class:`_SpmmSum`."""
+
+    @staticmethod
+    def forward(ctx, g, x, rowptr, col, structure_fn, row_split, out_dtype):
+        ctx.save_for_backward(g, x)
+        ctx.csr = _Csr(rowptr, col, structure_fn, row_split)
+        return sddmm_csr_cuda(rowptr, col, g, x, out_dtype=out_dtype,
+                              split=row_split)
+
+    @staticmethod
+    def backward(ctx, gg):
+        g, x = ctx.saved_tensors
+        d_g, d_x = _sddmm_vjp(ctx.csr, gg.contiguous(), g, x,
+                              *ctx.needs_input_grad[:2])
+        return d_g, d_x, None, None, None, None, None
 
 
 def check_backend(backend: str) -> None:
@@ -160,6 +280,11 @@ def spmm_with_structure(rowptr: torch.Tensor, col: torch.Tensor,
         raise ValueError(f"unknown reduction {reduce!r}")
     if value is not None and value.dim() != 1:
         raise ValueError("spmm expects scalar edge values (1-D)")
+    if value is not None and value.is_floating_point() != \
+            x.is_floating_point():
+        # a mixed int/float pair sums as the promoted float, as in JAX
+        common = torch.promote_types(value.dtype, x.dtype)
+        value, x = value.to(common), x.to(common)
     M = rowptr.numel() - 1
     x2 = x.reshape(x.shape[0], -1).contiguous()
     if reduce in ("min", "max"):
@@ -173,8 +298,15 @@ def spmm_with_structure(rowptr: torch.Tensor, col: torch.Tensor,
     else:
         out = _SpmmSum.apply(value, x2, rowptr, col, structure_fn, row_split)
         if reduce == "mean":
-            deg = (rowptr[1:] - rowptr[:-1]).clamp(min=1)
-            out = out / deg[:, None].to(out.dtype)
+            # the degree in the output's dtype, then at least 1, as JAX
+            # counts it; an integer sum divides as a float (f64 from
+            # int64, else f32), as JAX's true divide does
+            deg = (rowptr[1:] - rowptr[:-1]).to(out.dtype).clamp(min=1)
+            if not out.is_floating_point():
+                f = (torch.float64 if out.dtype == torch.int64
+                     else torch.float32)
+                out, deg = out.to(f), deg.to(f)
+            out = out / deg[:, None]
     return out.reshape((M,) + tuple(x.shape[1:]))
 
 

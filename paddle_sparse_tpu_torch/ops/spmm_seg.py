@@ -197,7 +197,8 @@ def spmm_seg(plan: SegPlan, s: SegStructure,
 
     ``packed_value``: values in the packed layout (:func:`pack_values`), or
     None for structural ones; ``x`` (N, K). The output (M, K) has ``x``'s
-    dtype. Double backward raises."""
+    dtype. Double backward raises ``NotImplementedError``, as the JAX
+    package's does."""
     check_operands(plan.num_cols, s.col.numel(), packed_value, x)
     fwd = _layout(s.bounds_f, s.col, plan.seg_rows, s.split_f)
     t = _layout(s.bounds_t, s.col_t, plan.seg_rows, s.split_t)

@@ -45,10 +45,10 @@ counting sort (``_counting_order``, a TPU toolchain workaround) is a stable
 ``torch.argsort``. Gathers run in :func:`~.kernels.spmm_spans_cuda.
 product_dtype` (bf16 with ``stream="bf16"``), multiplied and summed in f32.
 """
+import functools
 from typing import NamedTuple, Optional
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from .kernels.row_split import RowSplit, split_lengths
 from .kernels.sddmm_cuda import sddmm_spans_cuda
@@ -290,6 +290,54 @@ def fused_span_backward(t: SpanLayout, relay: torch.Tensor,
             d_x.to(x.dtype))
 
 
+DOUBLE_BACKWARD_REFUSAL = (
+    "double backward of the packed-layout SpMMs (spmm_seg2, spmm_seg3, "
+    "spmm_split, spmm_seg) is not supported, as in the JAX package, whose "
+    "backward runs a Pallas kernel and raises NotImplementedError "
+    "(pallas_call has no transpose rule); spmm / PaddedCOO.spmm "
+    "differentiate at any order")
+
+
+class _Refused(torch.autograd.Function):
+    """The first ``n`` tensors passed through, attached to the graph of the
+    rest (what they were computed from); differentiating them raises
+    :data:`DOUBLE_BACKWARD_REFUSAL` (``NotImplementedError``)."""
+
+    @staticmethod
+    def forward(ctx, n, *tensors):
+        return tuple(t.view_as(t) for t in tensors[:n])
+
+    @staticmethod
+    def backward(ctx, *_):
+        raise NotImplementedError(DOUBLE_BACKWARD_REFUSAL)
+
+
+def refuse_double_backward(backward):
+    """A backward computed without a graph; under ``create_graph`` its
+    grads are tied to what they depend on (the incoming grads and the saved
+    inputs) through :class:`_Refused`, so that any derivative through them
+    raises ``NotImplementedError`` (``once_differentiable``'s scheme, with
+    the JAX package's error, and reached by ``autograd.grad`` too)."""
+    @functools.wraps(backward)
+    def wrapper(ctx, *args):
+        with torch.no_grad():
+            grads = backward(ctx, *args)
+        if not torch.is_grad_enabled():
+            return grads
+        at = [i for i, t in enumerate(grads) if t is not None]
+        links = [t for t in args + tuple(ctx.saved_tensors)
+                 if isinstance(t, torch.Tensor) and t.requires_grad]
+        if not at or not links:
+            return grads
+        out = _Refused.apply(len(at), *(grads[i] for i in at), *links)
+        out = (out,) if isinstance(out, torch.Tensor) else out
+        grads = list(grads)
+        for i, t in zip(at, out):
+            grads[i] = t
+        return tuple(grads)
+    return wrapper
+
+
 class _PackedSpmm(torch.autograd.Function):
     """``A @ x`` over ``(packed_value, x)`` for a packed layout: ``fwd`` and
     ``t`` (:class:`SpanLayout`) its two orientations, ``relay`` the
@@ -305,7 +353,7 @@ class _PackedSpmm(torch.autograd.Function):
                       product_dtype(packed_value, x, stream))
 
     @staticmethod
-    @once_differentiable
+    @refuse_double_backward
     def backward(ctx, g):
         packed_value, x = ctx.saved_tensors
         fwd, t = ctx.fwd, ctx.t
@@ -364,5 +412,7 @@ def spmm_seg2(plan: Seg2Plan, s: Seg2Structure,
 
     ``packed_value``: values in the forward packed layout
     (:func:`pack_values`), or ``None`` for structural ones. ``x`` is
-    (N, K); the output (M, K) has ``x``'s dtype. Double backward raises."""
+    (N, K); the output (M, K) has ``x``'s dtype. Double backward raises
+    ``NotImplementedError`` (:data:`DOUBLE_BACKWARD_REFUSAL`), as the JAX
+    package's does."""
     return packed_spmm(plan, s, packed_value, x)

@@ -13,6 +13,11 @@ sums the gradient over ranks, which is not ``all_gather``'s transpose.
 * :func:`ring_shift`, the ``ppermute`` ring ``i -> i + 1``: forward
   ``batch_isend_irecv``, backward the same ring the other way.
 
+Each backward calls its sibling Function (all-gather and reduce-scatter,
+all-to-all itself, the ring and its reverse), so under ``create_graph`` the
+gradient stays in the graph and a sharded step differentiates at any order,
+as JAX's collectives transpose at any order.
+
 Each takes rows along dim 0 and a process group; ranks are the group's. The
 tensors stay where they are: a group whose backend cannot take them raises.
 """
@@ -73,7 +78,7 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _scatter_sum(g, ctx.group), None
+        return _ReduceScatter.apply(g, ctx.group), None
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -84,7 +89,7 @@ class _ReduceScatter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _gather(g, ctx.group), None
+        return _AllGather.apply(g, ctx.group), None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -95,18 +100,20 @@ class _AllToAll(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _exchange(g, ctx.group), None
+        return _AllToAll.apply(g, ctx.group), None
 
 
 class _RingShift(torch.autograd.Function):
+    """The ring ``r -> r + step``; its transpose is the ring ``-step``."""
+
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _shift(x, group, 1)
+    def forward(ctx, x, group, step):
+        ctx.group, ctx.step = group, step
+        return _shift(x, group, step)
 
     @staticmethod
     def backward(ctx, g):
-        return _shift(g, ctx.group, -1), None
+        return _RingShift.apply(g, ctx.group, -ctx.step), None, None
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:
@@ -134,4 +141,4 @@ def ring_shift(x: torch.Tensor, group) -> torch.Tensor:
     a group of one rank it is ``x`` itself (no rank sends to itself)."""
     if dist.get_world_size(group) == 1:
         return x
-    return _RingShift.apply(x, group)
+    return _RingShift.apply(x, group, 1)

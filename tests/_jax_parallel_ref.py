@@ -253,6 +253,65 @@ def dryrun_steps(D: int, num_nodes: int) -> dict:
     return jax.tree_util.tree_map(np.asarray, out)
 
 
+def penalty_step(D: int, num_nodes: int, lam: float, params) -> dict:
+    """The dry run's row-sharded GCN step (``dryrun_steps``' ``loss_fn``)
+    with the input-gradient penalty ``loss + lam * |d loss / d x|^2`` under
+    ``shard_map``: each device's ``d loss / d x_local`` by ``jax.grad``
+    inside the map (the whole derivative at its rows), the squares summed
+    over the mesh, then ``jax.grad`` of the sum and ``pmean``, as the dry
+    run's step takes its grads. ``{"loss", "grads", "params"}`` (after SGD
+    at ``DRYRUN_LR``)."""
+    row, col, val, x, y = _toy_graph(num_nodes=num_nodes, avg_deg=4,
+                                     feat=16, classes=4)
+    n = num_nodes
+    mesh = jpar.make_mesh(D)
+    adj = SparseTensor(row=jnp.asarray(row), col=jnp.asarray(col),
+                       value=jnp.asarray(val), sparse_sizes=(n, n))
+    mat = device_put_sharded_matrix(mesh, jpar.shard_padded_coo(adj, D))
+    rows_per = mat.rows_per_shard
+    x_arr = jax.device_put(jnp.asarray(x), NamedSharding(mesh, P("x", None)))
+    y_arr = jax.device_put(jnp.asarray(y), NamedSharding(mesh, P("x")))
+    spec2 = P("x", None)
+
+    def local_spmm(row_l, col_l, val_l, x_full):
+        return spmm_coo(row_l, col_l, val_l, x_full, rows_per + 1,
+                        "sum")[:rows_per]
+
+    def loss_fn(params, row_l, col_l, val_l, x_local, y_local):
+        x_full = jax.lax.all_gather(x_local, "x", tiled=True)
+        h = local_spmm(row_l, col_l, val_l, x_full)
+        h = jax.nn.relu(h @ params["layers"][0]["w"]
+                        + params["layers"][0]["b"])
+        h_full = jax.lax.all_gather(h, "x", tiled=True)
+        out = local_spmm(row_l, col_l, val_l, h_full)
+        out = out @ params["layers"][1]["w"] + params["layers"][1]["b"]
+        logp = jax.nn.log_softmax(out, axis=-1)
+        local_loss = -jnp.take_along_axis(
+            logp, y_local[:, None], axis=1).sum()
+        return jax.lax.psum(local_loss, "x") / (rows_per * D)
+
+    def pen_fn(params, row_l, col_l, val_l, x_local, y_local):
+        gx = jax.grad(loss_fn, argnums=4)(params, row_l, col_l, val_l,
+                                          x_local, y_local)
+        return (loss_fn(params, row_l, col_l, val_l, x_local, y_local)
+                + lam * jax.lax.psum((gx ** 2).sum(), "x"))
+
+    def step_kernel(params, row_b, col_b, val_b, x_local, y_local):
+        loss, grads = jax.value_and_grad(pen_fn)(
+            params, row_b[0], col_b[0], val_b[0], x_local, y_local)
+        grads = jax.tree_util.tree_map(
+            lambda g: jax.lax.pmean(g, "x"), grads)
+        return _new(params, grads), loss, grads
+
+    step = jax.jit(shard_map(
+        step_kernel, mesh=mesh,
+        in_specs=(P(), spec2, spec2, spec2, spec2, P("x")),
+        out_specs=(P(), P(), P())))
+    p1, loss1, g1 = step(params, mat.row, mat.col, mat.value, x_arr, y_arr)
+    return jax.tree_util.tree_map(np.asarray, {"loss": loss1, "params": p1,
+                                               "grads": g1})
+
+
 def c_of(ranks, shape):
     """The port's C as ``gather_blocks`` merges the ranks' blocks."""
     blocks = tpar.RowBlocks(

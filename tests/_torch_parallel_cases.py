@@ -195,6 +195,65 @@ def case_dryrun(mesh, rank, world, d):
     return out
 
 
+def case_penalty_step(mesh, rank, world, d):
+    """The row-sharded GCN step (``DryRun``'s graph and model) with the
+    input-gradient penalty ``CE + lam * |d CE / d x|^2``: each rank takes
+    ``d CE / d x`` at its rows under ``create_graph`` (the all-gathers'
+    backward sums the ranks' shares), adds ``lam`` times its square, and
+    backpropagates; parameter grads summed over the ranks, then SGD."""
+    from paddle_sparse_tpu_torch.entry import DRYRUN_LR
+    from paddle_sparse_tpu_torch.models import GCN
+    from paddle_sparse_tpu_torch.parallel.spmm import (RowShardedAdjacency,
+                                                       block_coo)
+    run = DryRun(mesh, "cpu", int(d["num_nodes"]), d["params"],
+                 verbose=False)
+    model = GCN(16, 32, 4)
+    model.load_state_dict(run.params)
+    adj = RowShardedAdjacency(block_coo(run.blk), run.group)
+    x = run.x.detach().clone().requires_grad_()
+    logp = torch.log_softmax(model(adj, x), dim=-1)
+    local = -logp.gather(1, run.y[:, None]).sum() / run.num_nodes
+    gx, = torch.autograd.grad(local, x, create_graph=True)
+    pen = float(d["lam"]) * gx.square().sum()
+    (local + pen).backward()
+    stats = torch.stack([local.detach(), pen.detach()])
+    dist.all_reduce(stats, group=run.group)
+    grads = {}
+    with torch.no_grad():
+        for k, prm in model.named_parameters():
+            dist.all_reduce(prm.grad, group=run.group)
+            grads[k] = prm.grad
+            prm -= DRYRUN_LR * prm.grad
+    return {"loss": float(stats.sum()), "penalty": float(stats[1]),
+            "grads": grads, "params": model.state_dict()}
+
+
+def case_collectives_grad_of_grad(mesh, rank, world, d):
+    """Each collective's second derivative: ``h = <c, op(x) ** 2>`` summed
+    over the ranks, ``g = d h / d x`` under ``create_graph``, then the grad
+    of ``<g, u>`` (``ggx``); small integers, so the sums are exact."""
+    group, r, W = axis_rank(mesh)
+    gen = torch.Generator().manual_seed(100 + r)
+
+    def ints(shape):
+        return torch.randint(-3, 4, shape, generator=gen).double()
+
+    shapes = {"all_gather": ((3, 2), (W * 3, 2)),
+              "reduce_scatter": ((W * 3, 2), (3, 2)),
+              "all_to_all": ((W, 3, 2), (W, 3, 2)),
+              "ring_shift": ((3, 2), (3, 2))}
+    out = {"x": {}, "c": {}, "u": {}, "ggx": {}}
+    for name, (xs, ys) in shapes.items():
+        fn = getattr(tpar, name)
+        x, c, u = ints(xs).requires_grad_(), ints(ys), ints(xs)
+        h = (c * fn(x, group) ** 2).sum()
+        g, = torch.autograd.grad(h, x, create_graph=True)
+        ggx, = torch.autograd.grad((g * u).sum(), x)
+        out["x"][name], out["c"][name] = x.detach(), c
+        out["u"][name], out["ggx"][name] = u, ggx
+    return out
+
+
 CASES = {
     "allgather": case_allgather,
     "allgather_poisoned": lambda *a: case_allgather(*a, poison=True),
@@ -209,6 +268,8 @@ CASES = {
     "allgather_padded": case_allgather_padded,
     "collectives": case_collectives,
     "dryrun": case_dryrun,
+    "penalty_step": case_penalty_step,
+    "collectives_grad_of_grad": case_collectives_grad_of_grad,
 }
 
 

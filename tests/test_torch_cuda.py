@@ -167,10 +167,10 @@ def test_padding_never_read(dev):
 @pytest.mark.parametrize("bad", ["int32", "int_value", "noncontig", "device",
                                  "3d"])
 def test_kernel_rejects(dev, bad):
-    """What K1 still refuses: integer operands (the JAX package computes
-    them through XLA; the port leaves them to a later slice), and layouts
-    and devices the kernel cannot read. f16 and f64 are accuracy cases
-    (``test_kernel_dtypes_vs_plain``)."""
+    """What K1 refuses: a mixed int/float pair (the entry, ``ops/spmm.py``,
+    casts it to the float first, as JAX does; ``test_int_k1_equals_plain``
+    holds the int pairs), and layouts and devices the kernel cannot read.
+    f16 and f64 are accuracy cases (``test_kernel_dtypes_vs_plain``)."""
     rowptr, col, value, g = _csr(dev)
     x = torch.randn(300, 8, generator=g, device=dev)
     if bad == "int32":
@@ -2916,3 +2916,193 @@ def test_dryrun_multichip_needs_a_card_per_rank(dev):
     from paddle_sparse_tpu_torch.entry import dryrun_multichip
     with pytest.raises(RuntimeError, match="one rank per card"):
         dryrun_multichip(torch.cuda.device_count() + 1, "cuda")
+
+
+# ---- integer K1 and the create_graph backward -------------------------------
+
+INT_RANGE = {torch.int8: (-128, 127), torch.int16: (-2 ** 15, 2 ** 15 - 1),
+             torch.int32: (-2 ** 30, 2 ** 30),
+             torch.int64: (-2 ** 40, 2 ** 40), torch.uint8: (0, 255),
+             torch.bool: (0, 1)}
+INT_CARD_PAIRS = [(torch.int32, torch.int32), (None, torch.int32),
+                  (None, torch.int64), (torch.int64, torch.int64),
+                  (torch.int64, torch.int32), (torch.int32, torch.int64),
+                  (torch.int8, torch.int16), (torch.uint8, torch.uint8),
+                  (torch.bool, torch.int32), (torch.int16, torch.int8)]
+
+
+def _int_rand(g, dtype, shape, dev):
+    lo, hi = INT_RANGE[dtype]
+    return torch.randint(lo, hi + 1, shape, generator=g, device=dev,
+                         dtype=torch.int64).to(dtype)
+
+
+def _hub_csr(dev, hub, M=300, N=200, seed=4):
+    """A CSR of ``M`` rows (empty first and last), with a row of ``3 * CAP
+    + 5`` edges when ``hub`` (pieces and the fold)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    deg = torch.randint(0, 20, (M,), generator=g, device=dev)
+    deg[[0, M - 1]] = 0
+    if hub:
+        deg[M // 2] = 3 * CAP + 5
+    rowptr = torch.zeros(M + 1, dtype=torch.int32, device=dev)
+    rowptr[1:] = deg.cumsum(0)
+    col = torch.randint(0, N, (int(rowptr[-1]),), generator=g, device=dev,
+                        dtype=torch.int32)
+    return rowptr, col, g
+
+
+@pytest.mark.parametrize("K", [1, 5, 47, 64])
+@pytest.mark.parametrize("hub", [False, True], ids=["no_pieces", "pieces"])
+@pytest.mark.parametrize("vdt,xdt", INT_CARD_PAIRS,
+                         ids=["-".join("none" if d is None else str(d)[6:]
+                                       for d in p) for p in INT_CARD_PAIRS])
+def test_int_k1_equals_plain(dev, vdt, xdt, K, hub):
+    """K1 on integer operands equals its plain version exactly (sums in
+    int64, the result in the promoted dtype, wrapped), with and without a
+    row cut into pieces; int32 operands of +-2**30 wrap past 2**31."""
+    rowptr, col, g = _hub_csr(dev, hub)
+    v = None if vdt is None else _int_rand(g, vdt, (col.numel(),), dev)
+    x = _int_rand(g, xdt, (200, K), dev)
+    n, nf = spmm_csr_cuda.launches, fold_pieces_cuda.launches
+    out = spmm_csr_cuda(rowptr, col, v, x)
+    assert spmm_csr_cuda.launches == n + 1
+    assert (fold_pieces_cuda.launches > nf) == hub
+    ref = spmm_csr_reference(rowptr, col, v, x)
+    want = x.dtype if v is None else torch.promote_types(v.dtype, x.dtype)
+    assert out.dtype == ref.dtype == want
+    assert torch.equal(out, ref)
+    assert torch.equal(out.cpu(), spmm_csr_reference(
+        rowptr.cpu(), col.cpu(), None if v is None else v.cpu(), x.cpu()))
+
+
+def test_int_k1_unaligned_and_public_path(dev):
+    """int32 x at a 4-byte offset (scalar loads) and int64 at an 8-byte
+    one; ``spmm_coo`` on the card equal to the CPU's, sum and mean."""
+    rowptr, col, g = _hub_csr(dev, True)
+    for dt in (torch.int32, torch.int64):
+        base = _int_rand(g, dt, (200 * 8 + 1,), dev)
+        x = base[1:].view(200, 8)
+        out = spmm_csr_cuda(rowptr, col, None, x)
+        assert torch.equal(out, spmm_csr_reference(rowptr, col, None, x))
+    row = torch.repeat_interleave(torch.arange(300, device=dev),
+                                  (rowptr[1:] - rowptr[:-1]).long())
+    v = _int_rand(g, torch.int32, (col.numel(),), dev)
+    x = _int_rand(g, torch.int32, (200, 16), dev)
+    for reduce in ("sum", "mean"):
+        got = spmm_coo(row, col, v, x, 300, reduce)
+        want = spmm_coo(row.cpu(), col.cpu(), v.cpu(), x.cpu(), 300, reduce)
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+def _hub_padded(dev, dtype=torch.float32):
+    """A padded ``PaddedCOO`` (400 x 300) with a hub row and a hub column
+    of ``2 * CAP + 5`` edges: both pointers have pieces."""
+    g = torch.Generator().manual_seed(7)
+    row = torch.randint(0, 400, (6000,), generator=g)
+    col = torch.randint(0, 300, (6000,), generator=g)
+    row = torch.cat([row, torch.full((2 * CAP + 5,), 123),
+                     torch.randint(0, 400, (2 * CAP + 5,), generator=g)])
+    col = torch.cat([col, torch.randint(0, 300, (2 * CAP + 5,),
+                                        generator=g),
+                     torch.full((2 * CAP + 5,), 77)])
+    order = torch.argsort(row * 300 + col, stable=True)
+    A = PaddedCOO.from_arrays(row[order].to(torch.int32),
+                              col[order].to(torch.int32), None, (400, 300),
+                              capacity=row.numel() + 9)
+    v = torch.randn(A.capacity, generator=g, dtype=torch.float64)
+    v[A.nnz:] = 0
+    x = torch.randn(300, 24, generator=g, dtype=torch.float64)
+    w = torch.randn(400, 24, generator=g, dtype=torch.float64)
+    return A, v, x, w
+
+
+def _penalty_run(A, v, x, w, dev, dtype):
+    """First-order grads of ``sum(w * (A(v) x) ** 2)`` under
+    ``create_graph``, then the grads of their squared norms; returns both
+    and the launches of each pass."""
+    tv = v.to(dev, dtype).requires_grad_()
+    tx = x.to(dev, dtype).requires_grad_()
+    tw = w.to(dev, dtype)
+    names = ("spmm_csr", "sddmm_csr", "spmm_sddmm_csc")
+    fns = (spmm_csr_cuda, sddmm_csr_cuda, spmm_sddmm_csc_cuda)
+    c0 = [f.launches for f in fns]
+    out = A.with_value(tv).spmm(tx)
+    gv, gx = torch.autograd.grad((tw * out ** 2).sum(), (tv, tx),
+                                 create_graph=True)
+    c1 = [f.launches for f in fns]
+    (gv.square().sum() + gx.square().sum()).backward()
+    c2 = [f.launches for f in fns]
+    first = dict(zip(names, (b - a for a, b in zip(c0, c1))))
+    second = dict(zip(names, (b - a for a, b in zip(c1, c2))))
+    return gv, gx, tv.grad, tx.grad, first, second
+
+
+def test_create_graph_backward_launches_and_values(dev):
+    """Under ``create_graph`` the forward and the first-order grads launch
+    K1 and the fused pass once each, as without it, and the grads equal
+    those of a backward without it bit for bit; the second
+    backward launches K2 and K1 along the fused pass's ``d x``, K1 twice
+    along its ``d value`` and the fused pass once (the forward's); the
+    second-order grads agree with the CPU's in f64 (hub row and column in
+    pieces)."""
+    A, v, x, w = _hub_padded(dev)
+    Ad = PaddedCOO.from_arrays(A.row[:A.nnz].to(dev), A.col[:A.nnz].to(dev),
+                               None, A.shape, capacity=A.capacity)
+    gv, gx, dv, dx, first, second = _penalty_run(Ad, v, x, w, dev,
+                                                 torch.float32)
+    assert first == {"spmm_csr": 1, "sddmm_csr": 0, "spmm_sddmm_csc": 1}
+    assert second == {"spmm_csr": 3, "sddmm_csr": 1, "spmm_sddmm_csc": 1}
+    tv = v.to(dev, torch.float32).requires_grad_()
+    tx = x.to(dev, torch.float32).requires_grad_()
+    out = Ad.with_value(tv).spmm(tx)
+    n = spmm_sddmm_csc_cuda.launches
+    gv0, gx0 = torch.autograd.grad(
+        (w.to(dev, torch.float32) * out ** 2).sum(), (tv, tx))
+    assert spmm_sddmm_csc_cuda.launches == n + 1
+    assert torch.equal(gv.detach(), gv0) and torch.equal(gx.detach(), gx0)
+    _, _, rv, rx, _, _ = _penalty_run(A, v, x, w, torch.device("cpu"),
+                                      torch.float64)
+    for got, ref in ((dv, rv), (dx, rx)):
+        ref = ref.to(dev)
+        torch.testing.assert_close(got.double(), ref, rtol=1e-4,
+                                   atol=1e-4 * float(ref.abs().max()))
+    assert not dv[A.nnz:].any()
+
+
+def test_create_graph_f64_third_order_and_spgemm(dev):
+    """f64 on the card: ``d/dx`` of ``|d^2 f / dx^2 . u|^2`` equal to the
+    CPU's within 1e-10; SpGEMM's value HVP card vs CPU."""
+    A, v, x, w = _hub_padded(dev)
+    u = torch.randn(x.shape, generator=torch.Generator().manual_seed(1),
+                    dtype=torch.float64)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        Ad = PaddedCOO.from_arrays(A.row[:A.nnz].to(d),
+                                   A.col[:A.nnz].to(d), v[:A.nnz].to(d),
+                                   A.shape, capacity=A.capacity)
+        tx = x.to(d).requires_grad_()
+        f = (w.to(d) * Ad.spmm(tx) ** 3).sum()
+        gx, = torch.autograd.grad(f, tx, create_graph=True)
+        hu, = torch.autograd.grad((gx * u.to(d)).sum(), tx,
+                                  create_graph=True)
+        t3, = torch.autograd.grad(hu.square().sum(), tx)
+        res.append(t3.cpu())
+    torch.testing.assert_close(res[0], res[1], rtol=1e-10,
+                               atol=1e-10 * float(res[1].abs().max()))
+    B = spgemm_entry(dev)
+    Bc = spgemm_entry("cpu")
+    F, oc = plan_spgemm_rows(Bc, Bc)
+    hv = []
+    for M_ in (B, Bc):
+        val = M_.value.double().requires_grad_()
+        Mi = M_.with_value(val)
+        C = spspmm_rowsorted(Mi, Mi, F, oc).matrix.value
+        G = torch.linspace(-1, 1, C.numel(), dtype=torch.float64,
+                           device=C.device)
+        g, = torch.autograd.grad((G * C ** 2).sum(), val, create_graph=True)
+        h, = torch.autograd.grad((g * torch.cos(torch.arange(
+            g.numel(), device=g.device, dtype=torch.float64))).sum(), val)
+        hv.append(h.cpu())
+    torch.testing.assert_close(hv[0], hv[1], rtol=1e-10,
+                               atol=1e-10 * float(hv[1].abs().max()))

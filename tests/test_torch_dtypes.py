@@ -465,3 +465,188 @@ def test_segcompact_sum_dtypes():
                                                   (1, 3), 4)
     assert out.value.dtype == F16
     assert torch.equal(out.value, want.value.half())
+
+
+# ---- integer operands: exact, as JAX's wrapped integer sums -----------------
+
+INT_DTYPES = {torch.int8: np.int8, torch.int16: np.int16,
+              torch.int32: np.int32, torch.int64: np.int64,
+              torch.uint8: np.uint8, torch.bool: np.bool_}
+# (value dtype, x dtype): each int alone, the pairs, None and bool values
+INT_PAIRS = [(torch.int8, torch.int8), (torch.int16, torch.int16),
+             (torch.int32, torch.int32), (torch.int64, torch.int64),
+             (torch.uint8, torch.uint8), (None, torch.int32),
+             (None, torch.int64), (None, torch.int8), (None, torch.uint8),
+             (torch.int32, torch.int64), (torch.int64, torch.int32),
+             (torch.uint8, torch.int8), (torch.int8, torch.uint8),
+             (torch.int16, torch.int32), (torch.uint8, torch.int64),
+             (torch.int8, torch.int64), (torch.bool, torch.int32),
+             (torch.int16, torch.bool), (torch.bool, torch.uint8)]
+
+
+def _ints(rng, dtype, shape):
+    """Integers over the dtype's range (int32: +-2**30, int64: +-2**40, so
+    that products and sums pass 2**31 and 2**24)."""
+    if dtype == torch.bool:
+        return rng.integers(0, 2, shape).astype(np.bool_)
+    info = np.iinfo(INT_DTYPES[dtype])
+    lo, hi = max(info.min, -2 ** 40), min(info.max, 2 ** 40)
+    if dtype == torch.int32:
+        lo, hi = -2 ** 30, 2 ** 30
+    return rng.integers(lo, hi, shape, endpoint=True).astype(
+        INT_DTYPES[dtype])
+
+
+def _int_case(vdt, xdt, seed=0, m=30, n=20, nnz=200, k=5):
+    rng = np.random.default_rng(seed)
+    row = np.sort(rng.integers(0, m, nnz)).astype(np.int32)
+    col = rng.integers(0, n, nnz).astype(np.int32)
+    v = None if vdt is None else _ints(rng, vdt, nnz)
+    x = _ints(rng, xdt, (n, k))
+    return row, col, v, x
+
+
+def _int_ids(pairs):
+    return ["-".join("none" if d is None else str(d)[6:] for d in p)
+            for p in pairs]
+
+
+@pytest.mark.parametrize("reduce", ["sum", "min", "max", "mean"])
+@pytest.mark.parametrize("vdt,xdt", INT_PAIRS, ids=_int_ids(INT_PAIRS))
+def test_int_spmm_exact_vs_jax(vdt, xdt, reduce):
+    """Every int dtype and pair (and bool beside an int) through
+    ``spmm_coo``: the dtype and every entry equal to JAX's, whose sums wrap
+    at every add (int32 operands of +-2**30: products and sums past 2**31;
+    int64 past 2**24, where an f32 sum rounds). ``mean`` is a float in both
+    (the wrapped sum over the degree)."""
+    row, col, v, x = _int_case(vdt, xdt)
+    got = spmm_coo(torch.from_numpy(row), torch.from_numpy(col),
+                   None if v is None else torch.from_numpy(v),
+                   torch.from_numpy(x), 30, reduce)
+    want = jspmm.spmm_coo(jnp.asarray(row), jnp.asarray(col),
+                          None if v is None else jnp.asarray(v),
+                          jnp.asarray(x), 30, reduce)
+    assert got.numpy().dtype == np.asarray(want).dtype
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("vdt,xdt", [(torch.bool, torch.bool),
+                                     (None, torch.bool)])
+def test_bool_sum_refused_as_in_jax(vdt, xdt):
+    row, col, v, x = _int_case(vdt, xdt)
+    with pytest.raises(TypeError):
+        jspmm.spmm_coo(jnp.asarray(row), jnp.asarray(col),
+                       None if v is None else jnp.asarray(v),
+                       jnp.asarray(x), 30)
+    with pytest.raises(TypeError, match="bool"):
+        spmm_coo(torch.from_numpy(row), torch.from_numpy(col),
+                 None if v is None else torch.from_numpy(v),
+                 torch.from_numpy(x), 30)
+
+
+def test_int32_sums_wrap_past_2_31_and_int64_past_2_24():
+    """Rows of 2**30 (int32) and of 2**25 + 1 (int64, no value): the int32
+    sums wrap mod 2**32 and the int64 sums are exact, as in JAX; an f32
+    sum would round both."""
+    row = np.repeat(np.arange(4), [3, 5, 0, 9]).astype(np.int32)
+    col = (np.arange(row.size) % 6).astype(np.int32)
+    for dt, val in ((np.int32, 2 ** 30), (np.int64, 2 ** 25 + 1)):
+        x = np.full((6, 3), val, dt)
+        x[::2] -= 1
+        got = spmm_coo(torch.from_numpy(row), torch.from_numpy(col), None,
+                       torch.from_numpy(x), 4).numpy()
+        want = np.asarray(jspmm.spmm_coo(jnp.asarray(row), jnp.asarray(col),
+                                         None, jnp.asarray(x), 4))
+        assert got.dtype == want.dtype == dt
+        np.testing.assert_array_equal(got, want)
+    assert (got[1] > 2 ** 24).all()
+
+
+@pytest.mark.parametrize("vdt,xdt", [(torch.int32, torch.int32),
+                                     (None, torch.int64),
+                                     (torch.int64, torch.int32),
+                                     (torch.uint8, torch.int8)],
+                         ids=_int_ids([(torch.int32, torch.int32),
+                                       (None, torch.int64),
+                                       (torch.int64, torch.int32),
+                                       (torch.uint8, torch.int8)]))
+def test_int_cut_rows_exact_vs_jax(vdt, xdt):
+    """A hub row cut into pieces (degree past ``row_split.CAP``, and the
+    same graph cut at cap 8): the plain version that follows the piece
+    table, its partials summed in int64 in piece order, equals JAX's sum
+    exactly, as does K1's plain version."""
+    from paddle_sparse_tpu_torch.ops.kernels.row_split import (
+        CAP, spmm_spans_piecewise, split_rows)
+    from paddle_sparse_tpu_torch.ops.kernels.spmm_cuda import (
+        kernel_operands, spmm_csr_reference)
+    rng = np.random.default_rng(3)
+    m, n = 12, 40
+    hub = np.full(CAP + 77, 5)
+    row = np.sort(np.concatenate([hub, rng.integers(0, m, 300)])
+                  ).astype(np.int32)
+    col = rng.integers(0, n, row.size).astype(np.int32)
+    v = None if vdt is None else _ints(rng, vdt, row.size)
+    x = _ints(rng, xdt, (n, 7))
+    want = np.asarray(jspmm.spmm_coo(jnp.asarray(row), jnp.asarray(col),
+                                     None if v is None else jnp.asarray(v),
+                                     jnp.asarray(x), m))
+    tv = None if v is None else torch.from_numpy(v)
+    tx = torch.from_numpy(x)
+    rowptr = torch.zeros(m + 1, dtype=torch.int32)
+    rowptr[1:] = torch.bincount(torch.from_numpy(row), minlength=m).cumsum(0)
+    kv, kx, out_dtype = kernel_operands(tv, tx)
+    start, end = rowptr[None, :-1], rowptr[None, 1:]
+    col_t = torch.from_numpy(col)
+    for cap in (CAP, 8):
+        split = split_rows(start, end, cap)
+        assert split is not None and split.num_slots > 0
+        got = spmm_spans_piecewise(start, end, col_t, kv, None, kx, split)
+        assert got.dtype == kx.dtype if kv is None else \
+            torch.promote_types(kv.dtype, kx.dtype)
+        np.testing.assert_array_equal(got.to(out_dtype).numpy(), want)
+    ref = spmm_csr_reference(rowptr, col_t, tv, tx)
+    assert ref.numpy().dtype == want.dtype
+    np.testing.assert_array_equal(ref.numpy(), want)
+
+
+@pytest.mark.parametrize("src,value,out,ok", [
+    (torch.int32, torch.int32, torch.int32, True),
+    (torch.int32, None, torch.int32, True),
+    (torch.int64, None, torch.int64, True),
+    (torch.int32, torch.int64, torch.int64, True),
+    (torch.int64, torch.int32, torch.int64, True),
+    (torch.int32, torch.int64, torch.int32, False),
+    (torch.int64, torch.int64, torch.int32, False),
+    (torch.int16, torch.int32, torch.int32, False),
+    (torch.int32, F32, F32, False), (F32, torch.int32, F32, False),
+    (torch.int32, torch.int32, F32, False)])
+def test_spmm_kernel_int_dtypes(src, value, out, ok):
+    """K1 sums int32 and int64 src and value into their promoted int (in
+    int64); it never mixes an int with a float and takes no narrower int."""
+    if ok:
+        check_spmm_dtypes("k1", src, value, out)
+    else:
+        with pytest.raises(TypeError):
+            check_spmm_dtypes("k1", src, value, out)
+
+
+@pytest.mark.parametrize("vdt,xdt,kv,kx,out", [
+    (torch.int8, torch.int16, torch.int32, torch.int32, torch.int16),
+    (torch.uint8, torch.uint8, torch.int32, torch.int32, torch.uint8),
+    (torch.bool, torch.int64, torch.int32, torch.int64, torch.int64),
+    (None, torch.int16, None, torch.int32, torch.int16),
+    (torch.int64, torch.int32, torch.int64, torch.int32, torch.int64),
+    (torch.int32, F16, torch.int32, F16, F16),
+    (F32, torch.int64, F32, torch.int64, F32),
+    (torch.int64, BF16, torch.int64, BF16, BF16)])
+def test_kernel_operands(vdt, xdt, kv, kx, out):
+    """What K1's wrapper hands the kernel: narrower ints and bool as int32,
+    int32/int64 as they are; a mixed pair as it is (the entry casts it to
+    the float, the kernel's check refuses it); ``out`` the promoted
+    dtype."""
+    from paddle_sparse_tpu_torch.ops.kernels.spmm_cuda import kernel_operands
+    v = None if vdt is None else torch.zeros(4, dtype=vdt)
+    x = torch.zeros(3, 2, dtype=xdt)
+    v2, x2, o = kernel_operands(v, x)
+    assert (None if v2 is None else v2.dtype, x2.dtype, o) == (kv, kx, out)
+    assert (x2 is x) == (kx == xdt)

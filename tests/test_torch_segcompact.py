@@ -242,20 +242,38 @@ def test_value_grad_matches_jax(cap_extra):
 
 
 def test_value_grad_f64_gradcheck_and_no_double_backward():
+    """f64 ``gradcheck`` and ``gradgradcheck``; the double backward that
+    raised before now runs, and the grad of the value-grad penalty
+    ``sum(d loss / d prod ** 2)`` for ``loss = sum(w * valC ** 2)`` equals
+    JAX's ``jax.grad`` of ``jax.grad`` in f32 (the Pallas kernel sums in
+    f32 whatever the dtype: ``rtol = 1e-5``, ``atol`` 1e-5 of the largest
+    entry)."""
     rng = np.random.default_rng(8)
-    M, F, N = 5, 8, 4
+    M, F, N, cap = 5, 8, 4, 12
     key, prod = _random_grid(rng, M, F, N)
     kt, rt = torch.from_numpy(key), torch.arange(M, dtype=torch.int32)
     p = torch.from_numpy(prod).double().requires_grad_()
+    w = rng.standard_normal(cap)
 
     def f(v):
-        return compact_runs(kt, rt, v, (M, N), 12).value
+        return compact_runs(kt, rt, v, (M, N), cap).value
 
     assert torch.autograd.gradcheck(f, (p,))
-    out = f(p)
-    g, = torch.autograd.grad(out.sum(), p, create_graph=True)
-    with pytest.raises(RuntimeError):
-        g.sum().backward()
+    assert torch.autograd.gradgradcheck(f, (p,))
+    p32 = torch.from_numpy(prod).float().requires_grad_()
+    g, = torch.autograd.grad((torch.from_numpy(w).float() * f(p32) ** 2
+                              ).sum(), p32, create_graph=True)
+    (g ** 2).sum().backward()
+
+    def j_loss(v):
+        _, _, valC, _ = j_compact_runs(N, cap, 16, True, jnp.asarray(key), v,
+                                       jnp.asarray(rt.numpy()))
+        return (jnp.asarray(w, jnp.float32) * valC ** 2).sum()
+
+    want = np.asarray(jax.grad(lambda v: (jax.grad(j_loss)(v) ** 2).sum())(
+        jnp.asarray(prod, jnp.float32)))
+    np.testing.assert_allclose(p32.grad.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
 
 
 def test_cpu_takes_the_plain_version():
