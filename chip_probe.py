@@ -11,6 +11,7 @@ repository root:
     python3 chip_probe.py launch       # a kernel launch's host path
     python3 chip_probe.py slice        # P5's per-chunk kernel, part by part
     python3 chip_probe.py band         # P4 nodot, part by part
+    python3 chip_probe.py fused [PARENT]   # the fused backward, by parts
     python3 chip_probe.py probes       # P3's, P4's and P5's calls, by kernel
     python3 chip_probe.py gloo         # which collectives gloo runs on CUDA
 
@@ -25,9 +26,12 @@ event ms per call beside their library calls, P1's and P2's output hashes,
 the toy GCN's forward and train step ms; P3, P4's three modes and P5's two
 variants at their probes' defaults: CUDA-event ms per call and the hash of
 each output), the uniform GCN forward (phase
-4), train step (phase 5) and its peak memory,
-forward and forward+backward ms and peak memory of phase 7c's seg2 f32 and
-bf16 on the uniform graph, split on the clustered graph, seg2 on zipf at
+4), train step (phase 5) and its peak memory, the fused CSC backward's
+pass at K=256 f32 there as phase 5 times it (``k2p_ms``, beside the pair it
+replaced), forward and forward+backward ms and peak memory of phase 7c's
+seg2 f32 and bf16 on the uniform graph (seg2 f32 also the fused span
+backward's launch alone and as routed, ``k2pp_launch_ms`` and
+``k2pp_routed_ms``), split on the clustered graph, seg2 on zipf at
 1/8 (bf16), and seg2 and split on zipf at 1/8 transposed (bf16: its hub
 rows become x rows, cut into pieces, as in a symmetric power-law graph),
 and the four A @ A paths
@@ -107,6 +111,35 @@ host path stage by stage (checks, allocation, ``_index32``, launch) and
 its whole call back to back (host ns and event ms per call, 300 calls).
 One JSON line.
 
+``fused [PARENT]``: the fused CSC backward (K2', ``spmm_sddmm_csc_cuda``)
+at phase 5's graph (``chip_smoke.py``'s GCN-normalized
+ogbn-products-scale graph), K=256 f32, part by part: a copy of the kernel
+as it was before its redesign (``chip_probe_fused.cu``, built here into
+the package's ``build/chip_probe_fused/``, no part of the package) whole;
+with value read, d value written, or both at the CSC position (the values
+relayed before, d value read back after); with the dots off (d x alone);
+with the per-edge butterfly replaced by one halving exchange per batch,
+merged in groups of 4 or over the whole batch in registers; with the
+broadcast shuffles replaced by a shared-memory stage of the batch's (row,
+value); with at most 64 or 72 registers (8 or 7 blocks an SM); with the
+edge loop unrolled 2 times; and combinations. With ``PARENT`` (another
+checkout, e.g. ``git archive`` of the parent commit) also that
+checkout's own ``csrc/spmm_sddmm_csc.cu`` (built alone into
+``build/chip_probe_fused_parent/``): the former kernel as it ran, beside
+its copy. Beside them the package's launch alone (values in CSC order) and
+as the backward runs it (both relays), each relay alone (``value[perm]``,
+``d value_t[inv_perm]``), the zeroed d value buffer, ``invert_perm``, the
+scatter the relay replaces (``index_copy_`` at ``perm``), K1 over the CSC
+view (the same gathered rows, d x alone) and the pair K2' replaced. Then
+the span form (K2'') on phase 7c's seg2 f32 path, values relayed: the
+copy with the per-edge butterfly and with each exchange, the package's
+launch and PARENT's. Each checked once (d x and d value bit for bit equal
+to the copy's whole, which equals the pair's), then its device time under
+``torch.profiler`` and CUDA events in turns (the order and back, 3 calls
+each). Also ``nvcc -Xptxas -v`` of both sources: registers and spills of
+the f32 kernels, the most registers and any spills over all. One JSON
+line.
+
 ``probes``: P3 (``span_colsum_cuda`` and ``span_colsum_staged_cuda``),
 P4's three modes (``band_ablate_cuda``) and P5's reduce
 (``slice_gather_cuda``, at ``r5_vmem_expand``'s defaults and at 2,049
@@ -157,8 +190,10 @@ spec.loader.exec_module(probe)
 print("AB_LAUNCH " + json.dumps(probe.whole_calls(dev)), flush=True)
 adj, x, model, _ = c.phase4_forward(dev, "")
 torch.cuda.empty_cache()
-c.phase5_train(dev, "", adj, x, model)
-del adj, x, model
+fused = c.phase5_train(dev, "", adj, x, model)["fused"]
+print("AB_FUSED " + json.dumps({"k2p_ms": fused["ms"],
+                                "k2p_pair_ms": fused["pair_ms"]}))
+del adj, x, model, fused
 torch.cuda.empty_cache()
 packed = {}
 for key, kind, scale, backend, stream, transpose, kw in (
@@ -179,6 +214,15 @@ for key, kind, scale, backend, stream, transpose, kw in (
     st = c.phase7c_path(dev, "", key, backend, graph, stream, **kw)
     packed[key] = {k: st["stats"][k]
                    for k in ("fwd_ms", "fwd_bwd_ms", "peak_gb")}
+    if key == "seg2_f32":        # K2'', launched alone and as routed
+        args = (st["plan"], st["s"], st["packed"], graph[3], st["gw"])
+        with torch.inference_mode():
+            vt = st["packed"].index_select(0, st["s"].relay_ft)
+            packed[key]["k2pp_launch_ms"] = c.timed(c.dropped(
+                lambda: c.fused_span_kernel(*args, relayed=vt)), 5)[0]
+            packed[key]["k2pp_routed_ms"] = c.timed(c.dropped(
+                lambda: c.fused_span_kernel(*args)), 5)[0]
+        del args, vt
     del graph, st
     torch.cuda.empty_cache()
 print("AB_PACKED " + json.dumps(packed))
@@ -264,6 +308,8 @@ def _ab_run(where: Path) -> dict:
                                     re.M).group(1))
     packed = json.loads(re.search(r"^AB_PACKED (.*)$", out.stdout,
                                   re.M).group(1))
+    fused = json.loads(re.search(r"^AB_FUSED (.*)$", out.stdout,
+                                 re.M).group(1))
     spgemm = json.loads(re.search(r"^AB_SPGEMM (.*)$", out.stdout,
                                   re.M).group(1))
     peak = re.search(r"phase 5 train step ms.*?peak mem ([0-9.]+) GB",
@@ -271,7 +317,7 @@ def _ab_run(where: Path) -> dict:
     return {"tree": str(where), "gcn_forward_ms": mean(r"phase 4 forward ms"),
             "gcn_train_step_ms": mean(r"phase 5 train step ms"),
             "gcn_train_peak_gb": float(peak.group(1)),
-            **launches,
+            **fused, **launches,
             **{f"{p}_{k}": v[k] for p, v in packed.items() for k in v},
             **{f"{p}_{k}": v[k] for p, v in spgemm.items() for k in v}}
 
@@ -1191,6 +1237,343 @@ def launch(dev: torch.device) -> None:
           flush=True)
 
 
+# the variants of chip_probe_fused.cu's former K2' (its MODE bits: 1 value
+# at e, 16 d value at e, 2 no dots, 4 the incremental batch exchange, 32
+# the exchange on a whole batch in registers, 8 (row, value) staged in
+# shared memory, 64 at most 64 registers, 256 at most 72, 128 the edge
+# loop unrolled 2 times)
+FUSED_MODES = {"whole": 0, "value_at_e": 1, "d_value_at_e": 16,
+               "contig": 17, "nodots": 2, "value_at_e_nodots": 3,
+               "batch": 4, "contig_batch": 21, "batch32": 32,
+               "contig_batch32": 49, "smem": 8, "contig_smem": 25,
+               "occupancy": 64, "contig_occupancy": 81,
+               "contig_batch_occupancy": 85, "contig_unroll2": 145,
+               "contig_blocks7": 273, "contig_unroll2_blocks7": 401,
+               "contig_unroll2_occupancy": 209}
+FUSED_REPS = 3          # calls a timed loop of ``fused``
+FUSED_K = 256
+
+
+def _ptxas_start(src: Path):
+    """``nvcc -Xptxas -v`` of ``src`` (compile only), started: the process
+    and its temporary directory, for :func:`_ptxas_read`."""
+    import tempfile
+
+    from paddle_sparse_tpu_torch.ops.kernels import _build
+    tmp = tempfile.TemporaryDirectory()
+    proc = subprocess.Popen(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+         f"{tmp.name}/probe.o", str(src)], stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True, cwd=src.parent)
+    return proc, tmp
+
+
+def _ptxas_read(started, keep):
+    """What ptxas said of each kernel of a :func:`_ptxas_start`: every
+    kernel whose demangled name contains ``keep`` with its registers and
+    spill bytes, and over all kernels the most registers and the spills."""
+    proc, tmp = started
+    err = proc.communicate()[1]
+    tmp.cleanup()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{err[-3000:]}")
+    rows, name = {}, None
+    for line in err.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            rows[name] = {"registers": None, "spill_stores": 0,
+                          "spill_loads": 0}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            rows[name]["spill_stores"] = int(m.group(1))
+            rows[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows[name]["registers"] = int(m.group(1))
+    from paddle_sparse_tpu_torch.ops.kernels import _build
+    filt = Path(_build.find_nvcc()).parent / "cu++filt"
+    names = list(rows)
+    if filt.exists() and names:
+        out = subprocess.run([str(filt)], input="\n".join(names),
+                             capture_output=True, text=True).stdout
+        names = out.splitlines() or names
+    # template arguments without their casts, the parameter list cut off
+    names = [re.sub(r"\((int|bool)\)", "", n).split("(")[0] for n in names]
+    named = dict(zip(names, rows.values()))
+    return {"kernels": len(named),
+            "max_registers": max(r["registers"] or 0 for r in named.values()),
+            "spilling": {n: r for n, r in named.items()
+                         if r["spill_stores"] or r["spill_loads"]},
+            "kept": {n: r for n, r in named.items() if keep in n}}
+
+
+def _parts(dev_ms, turns):
+    return {name: {**dev_ms[name], "event_ms_in_turns": turns[name],
+                   "event_ms": sum(turns[name]) / 2} for name in turns}
+
+
+def _timed_parts(c, variants):
+    """Each of ``variants`` under the profiler, then by CUDA events in
+    turns (the order and back)."""
+    dev_ms = {}
+    for name, f in variants.items():
+        host, device, rows = _profile(f, FUSED_REPS)
+        dev_ms[name] = {"device_ms": device, "host_ms_per_call": host,
+                        "by_kernel": rows[:3]}
+    order = list(variants)
+    turns = {name: [] for name in order}
+    for name in order + order[::-1]:
+        turns[name].append(c.timed(variants[name], FUSED_REPS)[0])
+    return _parts(dev_ms, turns)
+
+
+def _fused_spans(dev, lib, old) -> dict:
+    """K2'' on phase 7c's seg2 f32 path (the uniform graph at full scale,
+    K=256): the former span kernel with the per-edge butterfly, with the
+    incremental batch exchange and with the whole-batch one, the package's
+    launch and (``old``, a :func:`_parent_fused_library`) the parent's, on
+    values already relayed; each checked bit for bit against the per-edge
+    form, then timed."""
+    import chip_smoke as c
+    from paddle_sparse_tpu_torch import make_seg2_plan, pack_values
+    from paddle_sparse_tpu_torch.ops.kernels import _build
+    from paddle_sparse_tpu_torch.ops.kernels.spmm_sddmm_cuda import (
+        spmm_sddmm_spans_cuda)
+    from paddle_sparse_tpu_torch.ops.kernels.spmm_spans_cuda import (
+        check_span_args)
+    from paddle_sparse_tpu_torch.ops.spmm_seg2 import span_layouts
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn = lib.psp_fused_former_spans
+    fn.argtypes = [i32, p, p, i64, i64, p, p, p, p, p, p, p, i64, i64, p]
+    fn.restype = ctypes.c_int
+    row, col, val, x = c.bench_graph(dev, "uniform", 1.0, FUSED_K)
+    n, K = x.shape
+    plan, ss = make_seg2_plan(row, col, n, n, feat_dim=K, stream="f32")
+    t = span_layouts(plan, ss)[1]
+    if t.split is not None:
+        raise RuntimeError("fused: the uniform graph's x rows split")
+    vt = pack_values(ss, val).index_select(0, ss.relay_ft)
+    del row, col, val
+    g = torch.randn(n, K, generator=torch.Generator(device=dev).manual_seed(
+        21), device=dev)
+    start, end, base = check_span_args("fused", t.start, t.end, t.base, dev)
+    col_t = t.col.to(torch.int32).contiguous()
+    dx = torch.empty(n, K, device=dev)
+    dv = torch.zeros(vt.numel(), device=dev)
+
+    def former(mode):
+        return lambda: _build.launch(
+            "fused_former_spans", fn, dev, mode, start.data_ptr(),
+            end.data_ptr(), start.stride(0), start.shape[0],
+            col_t.data_ptr(), None if base is None else base.data_ptr(),
+            vt.data_ptr(), g.data_ptr(), x.data_ptr(), dx.data_ptr(),
+            dv.data_ptr(), n, K)
+
+    def package():
+        return spmm_sddmm_spans_cuda(t.start, t.end, t.col, vt, t.base, g, x,
+                                     split=t.split)
+
+    def parent_launch():
+        _build.launch(
+            "spmm_sddmm_spans", old.psp_spmm_sddmm_spans, dev,
+            start.data_ptr(), end.data_ptr(), start.stride(0),
+            col_t.data_ptr(), None if base is None else base.data_ptr(),
+            vt.data_ptr(), 0, g.data_ptr(), x.data_ptr(), dx.data_ptr(),
+            dv.data_ptr(), start.shape[0], n, K, 0, 0, 0, 0, None, None, 0,
+            0, None, None)
+
+    modes = {"whole": 0, "batch": 4, "batch32": 32}
+    checks = {}
+    with torch.inference_mode():
+        former(0)()
+        ref_dx, ref_dv = dx.clone(), dv.clone()
+        for name, mode in modes.items():
+            dv.zero_()
+            former(mode)()
+            checks[f"{name}_equal"] = bool(torch.equal(dx, ref_dx)
+                                           and torch.equal(dv, ref_dv))
+        got = package()
+        checks["package_equal"] = bool(torch.equal(got[0], ref_dx)
+                                       and torch.equal(got[1], ref_dv))
+        if old is not None:
+            dv.zero_()
+            parent_launch()
+            checks["parent_equal"] = bool(torch.equal(dx, ref_dx)
+                                          and torch.equal(dv, ref_dv))
+        del got, ref_dx, ref_dv
+        variants = {} if old is None else {"parent_launch": parent_launch}
+        variants.update({name: former(mode) for name, mode in modes.items()})
+        variants["package_launch"] = c.dropped(package)
+        parts = _timed_parts(c, variants)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise RuntimeError(f"fused spans: outputs differ: {bad}")
+    return {"at": f"seg2 f32 on the uniform graph ({n} nodes, "
+                  f"{vt.numel()} edges), S_t={plan.S_t}, K={K}, values "
+                  f"relayed", **checks, "parts": parts}
+
+
+def _parent_fused_library(parent: Path):
+    """``PARENT``'s ``csrc/spmm_sddmm_csc.cu`` built alone into
+    ``build/chip_probe_fused_parent/`` and loaded, its two entry points
+    declared as that file has them (the CSC form with ``perm`` and the
+    values in COO order)."""
+    from paddle_sparse_tpu_torch.ops.kernels import _build
+    src = parent / "paddle_sparse_tpu_torch" / "csrc" / "spmm_sddmm_csc.cu"
+    lib = ctypes.CDLL(str(_build.build_library(
+        [src], _build.BUILD_DIR / "chip_probe_fused_parent")))
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.psp_spmm_sddmm_csc.argtypes = [p, p, p, p, i32, p, p, p, p, i64,
+                                       i64, i32, i32, i32, i32, p, p, i64,
+                                       i64, p, p, p]
+    lib.psp_spmm_sddmm_spans.argtypes = [p, p, i64, p, p, p, i32, p, p, p,
+                                         p, i64, i64, i64, i32, i32, i32,
+                                         i32, p, p, i64, i64, p, p, p]
+    for fn in (lib.psp_spmm_sddmm_csc, lib.psp_spmm_sddmm_spans):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def fused_breakdown(dev: torch.device, parent=None) -> None:
+    """K2' part by part (the module docstring's ``fused``)."""
+    import chip_smoke as c
+    from paddle_sparse_tpu_torch import gcn_normalize, spmm_csr_cuda
+    from paddle_sparse_tpu_torch.ops.kernels import _build
+    from paddle_sparse_tpu_torch.ops.kernels.spmm_sddmm_cuda import (
+        invert_perm, spmm_sddmm_csc_cuda)
+    card = card_line()
+    here = Path(__file__).resolve().parent
+    ptx = {"chip_probe_fused.cu": _ptxas_start(here / "chip_probe_fused.cu"),
+           "spmm_sddmm_csc.cu": _ptxas_start(_build.CSRC_DIR
+                                             / "spmm_sddmm_csc.cu")}
+    so = _build.build_library([here / "chip_probe_fused.cu"],
+                              _build.BUILD_DIR / "chip_probe_fused")
+    lib = ctypes.CDLL(str(so))
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn = lib.psp_fused_former
+    fn.argtypes = [i32, p, p, p, p, p, p, p, p, i64, i64, p]
+    fn.restype = ctypes.c_int
+    pkg = _build.load_library()
+    old = None if parent is None else _parent_fused_library(parent)
+
+    raw, _ = c.products_graph(dev)
+    adj = gcn_normalize(raw)
+    del raw
+    s = adj.structure()
+    n, nnz, P, K = adj.shape[1], adj.nnz, s.perm.numel(), FUSED_K
+    gen = torch.Generator(device=dev).manual_seed(20)
+    g = torch.randn(adj.shape[0], K, generator=gen, device=dev)
+    x = torch.randn(n, K, generator=gen, device=dev)
+    value = adj.value
+    colptr = s.colptr.to(torch.int32).contiguous()
+    col_t = s.col_t.to(torch.int32).contiguous()
+    value_t = value.index_select(0, s.perm)
+    dx = torch.empty(n, K, device=dev)
+    dv = torch.zeros(P, device=dev)
+    dx_t = torch.empty(n, K, device=dev)
+    dv_t = torch.zeros(P, device=dev)
+
+    def former(mode):
+        v = value_t if mode & 1 else value
+        return lambda: _build.launch(
+            "fused_former", fn, dev, mode, colptr.data_ptr(),
+            col_t.data_ptr(), s.perm.data_ptr(), v.data_ptr(), g.data_ptr(),
+            x.data_ptr(), dx.data_ptr(), dv.data_ptr(), n, K)
+
+    def package_kernel():       # the launch alone, values in CSC order
+        _build.launch(
+            "spmm_sddmm_csc", pkg.psp_spmm_sddmm_csc, dev, colptr.data_ptr(),
+            col_t.data_ptr(), value_t.data_ptr(), 0, g.data_ptr(),
+            x.data_ptr(), dx_t.data_ptr(), dv_t.data_ptr(), n, K, 0, 0, 0, 0,
+            None, None, 0, 0, None, None)
+
+    def package_routed():       # as the backward runs it
+        return spmm_sddmm_csc_cuda(s.colptr, s.col_t, s.perm, value, g, x,
+                                   split=s.col_split, inv_perm=s.inv_perm)
+
+    def parent_kernel():        # PARENT's own kernel, as it ran
+        _build.launch(
+            "spmm_sddmm_csc", old.psp_spmm_sddmm_csc, dev, colptr.data_ptr(),
+            col_t.data_ptr(), s.perm.data_ptr(), value.data_ptr(), 0,
+            g.data_ptr(), x.data_ptr(), dx.data_ptr(), dv.data_ptr(), n, K,
+            0, 0, 0, 0, None, None, 0, 0, None, None)
+
+    # each variant once: d x and d value against the former kernel whole
+    checks = {}
+    with torch.inference_mode():
+        want = c.fused_pair(adj, value, g, x, torch.float32)
+        former(0)()
+        torch.cuda.synchronize()
+        checks["whole_equal_to_pair"] = bool(
+            torch.equal(dx, want[0]) and torch.equal(dv, want[1]))
+        ref_dx, ref_dv = dx.clone(), dv.clone()
+        del want
+        for name, mode in FUSED_MODES.items():
+            dv.zero_()
+            former(mode)()
+            got_dv = dv.index_select(0, s.inv_perm) if mode & 16 else dv
+            checks[f"{name}_equal"] = bool(torch.equal(dx, ref_dx)) and (
+                bool(mode & 2) or bool(torch.equal(got_dv, ref_dv)))
+        if old is not None:
+            dv.zero_()
+            parent_kernel()
+            checks["parent_kernel_equal"] = bool(
+                torch.equal(dx, ref_dx) and torch.equal(dv, ref_dv))
+        package_kernel()
+        checks["package_kernel_equal"] = bool(
+            torch.equal(dx_t, ref_dx)
+            and torch.equal(dv_t.index_select(0, s.inv_perm), ref_dv))
+        got = package_routed()
+        checks["package_routed_equal"] = bool(
+            torch.equal(got[0], ref_dx) and torch.equal(got[1], ref_dv))
+        checks["inv_perm_inverts_perm"] = bool(torch.equal(
+            s.inv_perm[s.perm.long()],
+            torch.arange(P, device=dev, dtype=s.inv_perm.dtype)))
+        del got, ref_dx, ref_dv
+        torch.cuda.empty_cache()
+
+        perm_l = s.perm.long()
+        variants = {} if old is None else {"parent_kernel": parent_kernel}
+        variants.update({name: former(mode)
+                         for name, mode in FUSED_MODES.items()})
+        variants.update({
+            "package_kernel": package_kernel,
+            "package_routed": c.dropped(package_routed),
+            "value_relay": c.dropped(lambda: value.index_select(0, s.perm)),
+            "d_value_relay": c.dropped(
+                lambda: dv_t.index_select(0, s.inv_perm)),
+            "d_value_zeros": c.dropped(lambda: torch.zeros(P, device=dev)),
+            "inv_perm_build": c.dropped(lambda: invert_perm(s.perm)),
+            "d_value_scatter": c.dropped(
+                lambda: torch.empty_like(dv).index_copy_(0, perm_l, dv_t)),
+            "k1_over_csc": c.dropped(lambda: spmm_csr_cuda(
+                colptr, col_t, value_t, g, split=s.col_split)),
+            "pair": c.dropped(lambda: c.fused_pair(adj, value, g, x,
+                                                    torch.float32))})
+        parts = _timed_parts(c, variants)
+    gather = nnz * K * 4 / c.HBM_BYTES_PER_S * 1e3
+    res = {"at": f"phase 5's graph ({n} nodes, {nnz} nnz), K={K} f32, "
+                 f"value and x from seed 20",
+           "gather_bound_ms": gather, **checks, "parts": parts}
+    del adj, s, g, x, value, colptr, col_t, value_t, dx, dv, dx_t, dv_t
+    del perm_l, variants
+    torch.cuda.empty_cache()
+    res["spans"] = _fused_spans(dev, lib, old)
+    res["ptxas"] = {
+        "chip_probe_fused.cu": _ptxas_read(ptx["chip_probe_fused.cu"],
+                                           "former_fused_kernel<2,"),
+        "spmm_sddmm_csc.cu": _ptxas_read(
+            ptx["spmm_sddmm_csc.cu"],
+            "<float, float, float, 4, 2,")}
+    print("FUSED " + json.dumps(res) + f" [{card}]", flush=True)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise RuntimeError(f"fused: outputs differ: {bad}")
+
+
 GLOO_COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor",
                     "all_to_all_single", "batch_isend_irecv", "all_reduce",
                     "broadcast")
@@ -1287,6 +1670,9 @@ def main() -> int:
         slice_breakdown(torch.device("cuda", 0))
     elif len(sys.argv) == 2 and sys.argv[1] == "band":
         band_breakdown(torch.device("cuda", 0))
+    elif len(sys.argv) in (2, 3) and sys.argv[1] == "fused":
+        fused_breakdown(torch.device("cuda", 0),
+                        Path(sys.argv[2]) if len(sys.argv) == 3 else None)
     elif len(sys.argv) == 2 and sys.argv[1] == "probes":
         probe_profiles(torch.device("cuda", 0))
     elif len(sys.argv) == 2 and sys.argv[1] == "gloo":

@@ -22,7 +22,8 @@ Phases, one or more printed lines each:
    300 520, f32, bf16, bf16 x with f32 value, bf16 g and value with f32 x,
    ``value=None``, empty
    columns, poisoned padding and a hub column split into pieces; two
-   launches bit for bit.
+   launches bit for bit; the launch alone (``csc_order_cuda``, values and
+   d value in CSC order) equal to the routed call read in CSC order.
 3. Toy slice: ``entry("cuda")``'s GCN forward against the same model run on
    the CPU through the plain path.
 3b. Toy train step: ``train_entry("cuda")`` against ``train_entry("cpu")``:
@@ -43,7 +44,9 @@ Phases, one or more printed lines each:
    pair it replaces (K2, ``value[perm]``, K1 over the CSC view), d x and d
    value equal to the pair's bit for bit, against its plain version, its
    bounds and its library calls (``torch.sparse.mm`` of the transpose,
-   ``sampled_addmm``).
+   ``sampled_addmm``); then its parts: the launch alone (values and d value
+   in CSC order) and each relay alone (``value[perm]`` before, ``d
+   value_t[inv_perm]`` after).
 4c. K1 on ``bench.py``'s clustered graph at full scale (2,449,029 nodes,
    122,451,450 nnz, 80% of each row's edges inside its 2,048-node
    community), at K=256 f32, K=100 f32 and K=256 bf16 (value and x): the
@@ -598,7 +601,8 @@ def fused_kernel(adj, value, g, x, out_dtype):
     from paddle_sparse_tpu_torch import spmm_sddmm_csc_cuda
     s = adj.structure()
     return spmm_sddmm_csc_cuda(s.colptr, s.col_t, s.perm, value, g, x,
-                               out_dtype=out_dtype, split=s.col_split)
+                               out_dtype=out_dtype, split=s.col_split,
+                               inv_perm=s.inv_perm)
 
 
 def phase2c_fused(gen, dev):
@@ -608,6 +612,8 @@ def phase2c_fused(gen, dev):
     padding and a column split into pieces; two launches bit for bit."""
     from paddle_sparse_tpu_torch import (CAP, PaddedCOO,
                                          spmm_sddmm_csc_reference)
+    from paddle_sparse_tpu_torch.ops.kernels.spmm_sddmm_cuda import (
+        csc_order_cuda)
     M, N = 3000, 2000
     rowptr, col, value = random_csr(gen, dev, M, N, 40)
     row = torch.repeat_interleave(torch.arange(M, device=dev),
@@ -649,7 +655,14 @@ def phase2c_fused(gen, dev):
                 got = fused_kernel(adj, v, g, x, odt)
                 want = fused_pair(adj, v, g, x, odt)
                 again = fused_kernel(adj, v, g, x, odt)
+                alone = csc_order_cuda(
+                    s.colptr, s.col_t, None if v is None
+                    else v.index_select(0, s.perm), g, x, odt, s.col_split)
                 torch.cuda.synchronize()
+                check(torch.equal(alone[0], got[0]) and torch.equal(
+                    alone[1], got[1].index_select(0, s.perm)),
+                      f"{name} {tag} K={K}: the launch alone differs from "
+                      f"the routed call")
                 for what, a, b, c in zip(("d x", "d value"), got, want,
                                          again):
                     check(a.dtype == b.dtype and torch.equal(a, b),
@@ -660,7 +673,7 @@ def phase2c_fused(gen, dev):
                 check(not got[1][nnz:].any(), "fused d value at padding")
                 f64 = [spmm_sddmm_csc_reference(
                     s.colptr, s.col_t, s.perm, None if v is None else f(v),
-                    f(g), f(x), torch.float64)
+                    f(g), f(x), torch.float64, s.inv_perm)
                     for f in (torch.Tensor.double,
                               lambda t: t.double().abs())]
                 for i, out in enumerate(got):
@@ -673,8 +686,9 @@ def phase2c_fused(gen, dev):
                     errs.append(err)
             print(f"phase 2c fused CSC backward, {name}, {tag}, K 1 3 47 64 "
                   f"100 256 300 520: d x and d value equal to K2 + K1 over "
-                  f"the CSC view bit for bit, two launches equal, vs plain "
-                  f"f64 max_abs_err {max(errs):.3e} ok", flush=True)
+                  f"the CSC view bit for bit, two launches equal, the "
+                  f"launch alone equal in CSC order, vs plain f64 "
+                  f"max_abs_err {max(errs):.3e} ok", flush=True)
 
 
 def phase3_toy(dev):
@@ -1108,10 +1122,14 @@ def phase5_fused(card, adj, value, g, h):
     """The fused CSC backward at K=256 f32 on the full graph, on layer 1's
     g and input: in turns with the pair it replaces (K2, ``value[perm]``,
     K1 over the CSC view), both outputs equal bit for bit; against its
-    plain version in turns; its two bounds; and the two library calls that
+    plain version in turns; its two bounds; the two library calls that
     compute its outputs, ``torch.sparse.mm`` of the transpose for d x and
-    ``sampled_addmm`` for d value, each in turns with it."""
+    ``sampled_addmm`` for d value, each in turns with it; and its parts:
+    the launch alone on values in CSC order (equal to the routed call) and
+    each relay alone."""
     from paddle_sparse_tpu_torch import spmm_sddmm_csc_reference
+    from paddle_sparse_tpu_torch.ops.kernels.spmm_sddmm_cuda import (
+        csc_order_cuda)
     s, n, nnz, K = adj.structure(), adj.shape[0], adj.nnz, h.shape[1]
     with torch.no_grad():
         q1, f1, f2, q2, out_q, out_f = in_turns(
@@ -1128,7 +1146,8 @@ def phase5_fused(card, adj, value, g, h):
         del out_q
         p1, k1, k2, p2, out_p, _ = in_turns(
             lambda: spmm_sddmm_csc_reference(s.colptr, s.col_t, s.perm,
-                                             value, g, h),
+                                             value, g, h,
+                                             inv_perm=s.inv_perm),
             lambda: fused_kernel(adj, value, g, h, value.dtype), 1, 3)
         errs = [float((a - b).abs().max()) for a, b in zip(out_f, out_p)]
         scale = float(out_p[1].abs().max())
@@ -1160,17 +1179,25 @@ def phase5_fused(card, adj, value, g, h):
             out_f[1][:nnz])
         del csr, h_t
         torch.cuda.empty_cache()
-        # the fused walk's scattered accesses alone: value read and d value
-        # written at perm, one 4-byte element per edge
-        perm_l = s.perm[:nnz].long()
-        dv = out_f[1][:nnz]
-        gather_ms, _ = timed(lambda: value.index_select(0, perm_l), 3)
-        scatter_ms, _ = timed(lambda: torch.empty_like(dv).index_copy_(
-            0, perm_l, dv), 3)
-        del perm_l, dv
-    print(f"phase 5 spmm_sddmm_csc K={K}: its scattered accesses alone, "
-          f"value[perm] {gather_ms:.3f} ms, d value[perm] = ... "
-          f"{scatter_ms:.3f} ms {card}", flush=True)
+        # the pass's parts: the launch alone on values in CSC order, and
+        # the two relays around it (value[perm] before, d value read back
+        # through inv_perm after), each one gather of 4-byte elements
+        value_t = value.index_select(0, s.perm)
+        launch_ms, out_t = timed(lambda: csc_order_cuda(
+            s.colptr, s.col_t, value_t, g, h, split=s.col_split), 3)
+        check(torch.equal(out_t[0], out_f[0]) and torch.equal(
+            out_t[1].index_select(0, s.inv_perm), out_f[1]),
+            "the fused kernel's launch alone differs from its routed call")
+        dv_t = out_t[1]
+        del out_t
+        gather_ms, _ = timed(dropped(lambda: value.index_select(0, s.perm)),
+                             3)
+        relay_ms, _ = timed(dropped(lambda: dv_t.index_select(
+            0, s.inv_perm)), 3)
+        del value_t, dv_t
+    print(f"phase 5 spmm_sddmm_csc K={K}: the launch alone {launch_ms:.3f} "
+          f"ms, its relays value[perm] {gather_ms:.3f} ms and d value_t"
+          f"[inv_perm] {relay_ms:.3f} ms {card}", flush=True)
     moved = nbytes(g, h, out_f[0], s.colptr, s.col_t[:nnz], s.perm[:nnz],
                    value[:nnz], out_f[1][:nnz])
     bound, by = bound_ms(moved, 4 * nnz * K)
@@ -1186,8 +1213,8 @@ def phase5_fused(card, adj, value, g, h):
             "max_abs_err": max(errs), "bound_ms": bound, "bound_by": by,
             "gather_bound_ms": gather, "library_ms": lib_dx,
             "library_d_value_ms": lib_dv, "bit_equal_to_pair": same,
-            "value_perm_gather_ms": gather_ms,
-            "d_value_perm_scatter_ms": scatter_ms}
+            "launch_ms": launch_ms, "value_relay_ms": gather_ms,
+            "d_value_relay_ms": relay_ms}
 
 
 # ---- phase 4c: K1 on the clustered graph, register walk and windowed ------
@@ -6080,7 +6107,8 @@ def phase13a_kernels(gen, dev):
                           f"{what} differs from the pair's")
                 ref, scale = (spmm_sddmm_csc_reference(
                     s.colptr, s.col_t, s.perm, f(v.double()), f(g.double()),
-                    f(x.double()), f64) for f in (lambda t: t, torch.abs))
+                    f(x.double()), f64, s.inv_perm)
+                    for f in (lambda t: t, torch.abs))
                 for i, out in enumerate(got):
                     err, ok = _close_in(out, ref[i], scale[i])
                     check(ok, f"{gname}: fused value/x/g "
@@ -6147,8 +6175,8 @@ def phase13a_public_path(gen, dev):
               f"{dt}: dtypes {out.dtype} {v.grad.dtype} {x.grad.dtype}")
         ref, scale = (spmm_sddmm_csc_reference(
             s.colptr, s.col_t, s.perm, f(adj.value.to(dt).double()),
-            f(gw.double()), f(x.detach().double()), torch.float64)
-            for f in (lambda t: t, torch.abs))
+            f(gw.double()), f(x.detach().double()), torch.float64,
+            s.inv_perm) for f in (lambda t: t, torch.abs))
         err_x, ok_x = _close_in(x.grad, ref[0], scale[0])
         err_v, ok_v = _close_in(v.grad[:adj.nnz], ref[1][:adj.nnz],
                                 scale[1][:adj.nnz])
@@ -6485,7 +6513,7 @@ def phase13b_gcn(dev, card, adj, x, model):
                 s.colptr, s.col_t[:nnz], v[s.perm[:nnz].long()], (n, n))
             entry("spmm_sddmm_csc",
                   lambda: spmm_sddmm_csc_reference(s.colptr, s.col_t, s.perm,
-                                                   v, g, h, dt),
+                                                   v, g, h, dt, s.inv_perm),
                   lambda: fused_kernel(a, v, g, h, dt),
                   nbytes(s.colptr, s.col_t[:nnz], s.perm[:nnz], v[:nnz], g,
                          h, h, v[:nnz]), 4 * nnz * 256,
@@ -7393,6 +7421,11 @@ def main() -> int:
                     "sampled_addmm for d value in library_d_value_ms",
          "library_d_value_ms": fused["library_d_value_ms"],
          "pair_ms": fused["pair_ms"],
+         "ms_note": "as the backward runs it: the two relays around the "
+                    "launch, whose own time is launch_ms",
+         "launch_ms": fused["launch_ms"],
+         "value_relay_ms": fused["value_relay_ms"],
+         "d_value_relay_ms": fused["d_value_relay_ms"],
          "gather_bound_ms": fused["gather_bound_ms"], "K": 256,
          "at": "GCN layer 1's backward (K=256 f32, 2,449,029 nodes), "
                "uniform graph",

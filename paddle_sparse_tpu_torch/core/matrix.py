@@ -164,7 +164,8 @@ class PaddedCOO:
         if backend == "sell":
             return _sell(self.row, self.col, self.value, x, self.M, reduce)
         return spmm_with_structure(self.rowptr(), self.col, self.value, x,
-                                   self.structure, reduce, self.row_split())
+                                   self.structure, reduce, self.row_split(),
+                                   relays=self._cache)
 
     def transpose(self) -> "PaddedCOO":
         """Swap axes, re-sorted canonically: a stable sort by ``(col, row)``

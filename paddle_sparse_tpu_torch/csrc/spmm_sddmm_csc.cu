@@ -1,20 +1,22 @@
 // Fused backward of an SpMM out = A @ x for Hopper (sm_90a): d x and d value
 // from one gather of g = d out, over the transpose of A's layout.
 //
-//   d_x[c, :]         = sum_{s < S} sum_{start[s, c] <= e < end[s, c]}
-//                           value[p(e)] * g[base[s] + col_t[e], :]
-//   d_value[p(e)]     = g[base[s] + col_t[e], :] . x[c, :]   for the same e
+//   d_x[c, :]    = sum_{s < S} sum_{start[s, c] <= e < end[s, c]}
+//                      value[e] * g[base[s] + col_t[e], :]
+//   d_value[e]   = g[base[s] + col_t[e], :] . x[c, :]   for the same e
 //
-// with value = NULL meaning ones and base = NULL meaning 0. Two forms of the
-// same kernel:
+// with value = NULL meaning ones and base = NULL meaning 0. value and
+// d value are in the transpose's own edge order in both forms: the caller
+// relays them (one gather before, one after). Two forms of the same kernel:
 // - the CSC form (S = 1): colptr (N+1) is the CSC pointer of A's real
-//   entries, col_t = row[perm] their rows in column order and p(e) =
-//   perm[e] the CSC -> COO position map, as ops/spmm.py::spmm_structure
-//   builds them;
+//   entries and col_t = row[perm] their rows in column order, as
+//   ops/spmm.py::spmm_structure builds them; value is value[perm] (CSC
+//   order) and d value comes back in CSC order, which the wrapper reads
+//   back into COO order through the inverse permutation;
 // - the span form: the (S, N) span bounds of a packed layout's transpose
 //   (ops/spmm_seg2.py: rp_t's start and end views, read at s * stride + c),
-//   col_t the slice-local g rows, base = sbase_t, and p(e) = e: value and
-//   d value are in the transpose's order (the caller relays them).
+//   col_t the slice-local g rows, base = sbase_t; the packed backward relays
+//   the values (relay_ft before, relay_tf after).
 //
 // Replaces the pair that an SpMM backward ran when it needed both grads:
 // K2 for d value (sddmm_spans.cu: over the CSR at S = 1, over the forward
@@ -37,9 +39,7 @@
 // 37 ms at the published 3.35 TB/s), where the pair gathered that twice.
 // Each byte once is about 9.5 GB (g, x, d x, and the index, value and
 // d value arrays; the span form adds its (S, N) bounds): 2.8-2.9 ms. Four
-// flops per gathered element: memory-bound. In the CSC form value[perm[e]]
-// and d value[perm[e]] are scattered 4-byte accesses, one 32-byte sector
-// each.
+// flops per gathered element: memory-bound.
 //
 // Design:
 // - One warp per x row (or per piece of a long one). The warp loads x[c, :]
@@ -49,17 +49,37 @@
 // - The edges go 32 at a time: a CSC column's contiguous range, or the span
 //   form's spans flattened 32 at a time (spans.cuh), as spmm_spans.cu walks
 //   them, so a row's edges come in span order and, within a span, in
-//   position order. Lane j loads the g row, p(e) and value[p(e)] of edge j
-//   of the batch (the CSC form never materialises value[perm]). For each edge
-//   the lanes gather the row of g once, with 16-byte read-only loads where
-//   K and alignment allow, and take from it
+//   position order. Lane j loads the g row and the value of edge j of the
+//   batch, in the CSC form from consecutive positions (one coalesced load).
+//   For each edge the lanes gather the row of g once, with 16-byte
+//   read-only loads where K and alignment allow, and take from it
 //     acc  = fmaf(v, g_row, acc)     K1's order: d x in edge order;
 //     part = fmaf(x_c, g_row, part)  K2's order, then K2's __shfl_xor_sync
 //                                    butterfly: the edge's dot.
 //   fmaf is symmetric in its first two operands, so both outputs equal the
-//   pair's bit for bit. Lane j keeps edge j's dot, and the batch writes
-//   d value at p(e) (write-through, no atomics) into a buffer the wrapper
-//   zeroes, so padding entries read 0.
+//   pair's bit for bit. Lane j keeps edge j's dot, and the batch writes its
+//   dots (write-through, no atomics) into a buffer the wrapper zeroes, so
+//   positions no column reaches read 0.
+// - No scattered access in the CSC form: it once read value[perm[e]] and
+//   wrote d value[perm[e]] here, a 4-byte access to its own 32-byte sector
+//   each, which cost 7.5 ms of a 54.4 ms pass at full ogbn-products scale,
+//   K = 256 f32 (overlapped with the gather: 13.3 ms alone). Now lane j
+//   reads value_t[e0 + j] and the batch's dots leave as one coalesced store
+//   at e0 .. e0 + n - 1: 45.1 ms at 7 blocks an SM (kTight), against K1's
+//   42.1 over the same rows. The wrapper relays the values (one gather,
+//   4.2 ms, which its caller keeps for the other passes of a backward on
+//   the same values) and reads d value back through the inverse
+//   permutation (one gather, 3.9 ms): 53.3 ms routed with both, 49.0 with
+//   the values kept, against the former kernel's 54.6 (PERF.md, section 6).
+// - The dots are reduced per edge, as K2 does. One halving exchange per
+//   batch (each lane's partials of the batch's edges merged at lane offsets
+//   16, 8, 4, 2, 1: 31 shuffles a batch for 32 x 5, the same lane pairs in
+//   the same order, so the same bits) measured slower: +0.5 ms with the
+//   partials merged in groups of 4 as they come, +5.1 ms with the batch's
+//   32 partials held in registers; a shared-memory stage of the batch's
+//   (row, value) in place of the broadcast shuffles saved 0.05 ms. The
+//   gather, not the shuffles, bounds the pass (PERF.md, section 5;
+//   chip_probe_fused.cu keeps those variants).
 // - The lanes' own loads, not a staging ring: a ring of bulk async copies
 //   per warp in shared memory (cp.async.bulk, one row per copy, completing
 //   on mbarriers) took 5% less at K = 256 f32 on the uniform graph but
@@ -79,11 +99,6 @@
 //   needs no second pass.
 // - The S = 1 CSC form is its own instantiation (kSpans false): no span
 //   bookkeeping, a column's edges read straight from colptr.
-// - The span form takes no relay: the packed SpMMs' backward puts the values
-//   into transpose order by one gather before and reads d value back into
-//   the packed order by one gather after. On the H100 that took 47.1 ms
-//   against 52.4 ms with the relay's scattered 4-byte reads and writes in
-//   here, at full ogbn-products scale, K = 256 f32 (PERF.md, section 6).
 //
 // Dtypes: g and x are read in their own dtypes (no cast copy of either), g
 // of x's dtype or wider, as K2 takes them: f32 or bf16 in both forms; the
@@ -98,12 +113,12 @@
 //
 // Contract (the Python wrapper, ops/kernels/spmm_sddmm_cuda.py, checks
 // shapes, dtypes, devices and contiguity): the bounds are non-decreasing
-// (CSC) or any int32 spans (span form); every edge position e indexes col_t
-// (and perm), every g row base[s] + col_t[e] lies in [0, M) of the
-// contiguous (M, K) g and every p(e) in [0, P) of value and d value; x and
-// d x are contiguous (N, K). A piece table covers every row's edges once
-// with slots in [0, W) of the contiguous (W, K) workspace of the sum's type. Offsets into
-// g, x, d x and the workspace are 64-bit.
+// (CSC) or any int32 spans (span form); every edge position e indexes col_t,
+// value and d value, and every g row base[s] + col_t[e] lies in [0, M) of the
+// contiguous (M, K) g; x and d x are contiguous (N, K). A piece table covers
+// every row's edges once with slots in [0, W) of the contiguous (W, K)
+// workspace of the sum's type. Offsets into g, x, d x and the workspace are
+// 64-bit.
 
 #include "spans.cuh"
 #include "vec_load.cuh"
@@ -125,20 +140,33 @@ using psp::store_vec;
 
 constexpr int kWarpsPerBlock = 4;  // one x row (or piece) per warp
 
+// The CSC form with sums of 4 bytes and at most 8 columns a lane (f32 to
+// K = 256, bf16 and f16 to K = 256 at 8 a load) is compiled for 7 blocks of
+// 4 warps an SM (at most 72 registers) with the edge loop unrolled 2 times,
+// where ptxas alone chose 80 registers (6 blocks) and an unroll of 4: the
+// pass is bound by how many row gathers are in flight, so more warps with
+// fewer loads each win (PERF.md, section 5). Wider rows and f64 sums would
+// spill and keep the compiler's choice, as does the span form, whose span
+// bookkeeping spilled at 64 registers and ran 0.7 ms slower.
+template <typename R, int V, int NV, bool kSpans>
+constexpr bool kTight = !kSpans && sizeof(R) == 4 && V * NV <= 8;
+constexpr int kTightBlocks = 7;
+
 // One batch of n <= 32 edges of the warp's x row: lane j < n holds edge j's
-// g row (my_src), its value and d value slot (my_dst) and its value
-// (my_val). Each g row is gathered once: into acc, columns c0 + (t * 32 +
-// lane) * V, and, when `dots`, into the edge's dot with x[c, :] (xr in
-// registers, the rest of the row from x_row), which lane j stores at
-// d value[my_dst] in dtype code dv_code.
-template <typename TG, typename TX, int V, int NV, typename R>
+// g row (my_src), its value (my_val) and its d value position (my_dst).
+// Each g row is gathered once: into acc, columns c0 + (t * 32 + lane) * V,
+// and, when `dots`, into the edge's dot with x[c, :] (xr in registers, the
+// rest of the row from x_row), which lane j stores at d value[my_dst] in
+// dtype code dv_code.
+template <typename TG, typename TX, int V, int NV, bool kSpans, typename R>
 __device__ __forceinline__ void take_batch(
     int n, int my_src, int my_dst, R my_val, const TG* __restrict__ g,
     const TX* __restrict__ x_row, const R (&xr)[NV][V], R (&acc)[NV][V],
     bool dots, int c0, int K, int lane, void* __restrict__ dv, int dv_code) {
   constexpr int kCols = 32 * V * NV;
+  constexpr int kUnroll = kTight<R, V, NV, kSpans> ? 2 : 4;
   R my_out = R(0);
-#pragma unroll 4
+#pragma unroll(kUnroll)
   for (int j = 0; j < n; ++j) {
     const int r = __shfl_sync(kFullMask, my_src, j);
     const R v = __shfl_sync(kFullMask, my_val, j);
@@ -180,21 +208,19 @@ __device__ __forceinline__ void take_batch(
 // holds, so registers cover 32 * V * NV columns. kPieces false: warp w walks
 // x row w (the table is not read); true: warp w walks piece w of the table
 // (p_row, p_piece, p_slot, cap). kSpans false: the CSC form, start = colptr
-// (end, stride, S and base unread); true: the span form (perm unread).
-// value (vcode) and dv (dv_code) are typed by their dtype codes.
+// (end, stride, S and base unread); true: the span form. value (vcode) and
+// dv (dv_code), both in the bounds' edge order, are typed by their dtype
+// codes.
 template <typename TG, typename TX, typename TO, int V, int NV, bool kPieces,
-          bool kSpans, typename R = acc_t<TG>>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-spmm_sddmm_kernel(const int* __restrict__ start, const int* __restrict__ end,
-                  long long stride, int S, const int* __restrict__ col_t,
-                  const int* __restrict__ base, const int* __restrict__ perm,
-                  const void* __restrict__ value, int vcode,
-                  const TG* __restrict__ g, const TX* __restrict__ x,
-                  TO* __restrict__ dx, void* __restrict__ dv, int dv_code,
-                  int units, int K, const int* __restrict__ p_row,
-                  const int* __restrict__ p_piece,
-                  const int* __restrict__ p_slot, long long cap,
-                  R* __restrict__ ws) {
+          bool kSpans, typename R>
+__device__ __forceinline__ void fused_body(
+    const int* __restrict__ start, const int* __restrict__ end,
+    long long stride, int S, const int* __restrict__ col_t,
+    const int* __restrict__ base, const void* __restrict__ value, int vcode,
+    const TG* __restrict__ g, const TX* __restrict__ x, TO* __restrict__ dx,
+    void* __restrict__ dv, int dv_code, int units, int K,
+    const int* __restrict__ p_row, const int* __restrict__ p_piece,
+    const int* __restrict__ p_slot, long long cap, R* __restrict__ ws) {
   const int lane = threadIdx.x & 31;
   const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (w >= units) return;  // whole warp leaves together
@@ -246,14 +272,14 @@ spmm_sddmm_kernel(const int* __restrict__ start, const int* __restrict__ end,
         const int n = static_cast<int>(min(32LL, hi - eb));
         int my_src = 0, my_dst = 0;
         R my_val = R(1);
-        if (lane < n) {
-          const long long e = e0 + eb + lane;
-          my_src = __ldg(col_t + e);
-          my_dst = __ldg(perm + e);
+        if (lane < n) {  // consecutive positions: coalesced
+          my_dst = static_cast<int>(e0 + eb + lane);
+          my_src = __ldg(col_t + my_dst);
           if (value != nullptr) my_val = load_any<R>(value, my_dst, vcode);
         }
-        take_batch<TG, TX, V, NV>(n, my_src, my_dst, my_val, g, x_row, xr,
-                                  acc, dots, c0, K, lane, dv, dv_code);
+        take_batch<TG, TX, V, NV, kSpans>(n, my_src, my_dst, my_val, g,
+                                          x_row, xr, acc, dots, c0, K, lane,
+                                          dv, dv_code);
       }
     } else {
       long long before = 0;  // a piece: flat edges in the chunks passed
@@ -277,8 +303,9 @@ spmm_sddmm_kernel(const int* __restrict__ start, const int* __restrict__ end,
             my_dst = se.e;
             if (value != nullptr) my_val = load_any<R>(value, my_dst, vcode);
           }
-          take_batch<TG, TX, V, NV>(n, my_src, my_dst, my_val, g, x_row, xr,
-                                    acc, dots, c0, K, lane, dv, dv_code);
+          take_batch<TG, TX, V, NV, kSpans>(n, my_src, my_dst, my_val, g,
+                                            x_row, xr, acc, dots, c0, K,
+                                            lane, dv, dv_code);
         }
       }
     }
@@ -297,6 +324,36 @@ spmm_sddmm_kernel(const int* __restrict__ start, const int* __restrict__ end,
   }
 }
 
+#define PSP_FUSED_PARAMS                                                     \
+  const int *__restrict__ start, const int *__restrict__ end,                \
+      long long stride, int S, const int *__restrict__ col_t,                \
+      const int *__restrict__ base, const void *__restrict__ value,          \
+      int vcode, const TG *__restrict__ g, const TX *__restrict__ x,         \
+      TO *__restrict__ dx, void *__restrict__ dv, int dv_code, int units,    \
+      int K, const int *__restrict__ p_row, const int *__restrict__ p_piece, \
+      const int *__restrict__ p_slot, long long cap, R *__restrict__ ws
+#define PSP_FUSED_ARGS                                                  \
+  start, end, stride, S, col_t, base, value, vcode, g, x, dx, dv, dv_code, \
+      units, K, p_row, p_piece, p_slot, cap, ws
+
+// The kernel as ptxas chooses its registers, and (kTight) for
+// kTightBlocks blocks an SM.
+template <typename TG, typename TX, typename TO, int V, int NV, bool kPieces,
+          bool kSpans, typename R = acc_t<TG>>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+spmm_sddmm_kernel(PSP_FUSED_PARAMS) {
+  fused_body<TG, TX, TO, V, NV, kPieces, kSpans, R>(PSP_FUSED_ARGS);
+}
+
+template <typename TG, typename TX, typename TO, int V, int NV, bool kPieces,
+          bool kSpans, typename R = acc_t<TG>>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kTightBlocks)
+spmm_sddmm_kernel_tight(PSP_FUSED_PARAMS) {
+  fused_body<TG, TX, TO, V, NV, kPieces, kSpans, R>(PSP_FUSED_ARGS);
+}
+#undef PSP_FUSED_PARAMS
+#undef PSP_FUSED_ARGS
+
 // The kernel's arguments past its template parameters, passed through.
 struct Args {
   const int* start;
@@ -305,7 +362,6 @@ struct Args {
   int S;
   const int* col_t;
   const int* base;
-  const int* perm;
   const void* value;
   int vcode;
   void* dv;
@@ -324,21 +380,31 @@ void launch_nv(const Args& a, const TG* g, const TX* x, TO* dx,
   using R = acc_t<TG>;
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((a.units + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  if (a.p_row != nullptr) {
-    spmm_sddmm_kernel<TG, TX, TO, V, NV, true, kSpans>
-        <<<grid, block, 0, stream>>>(a.start, a.end, a.stride, a.S, a.col_t,
-                                     a.base, a.perm, a.value, a.vcode, g, x,
-                                     dx, a.dv, a.dv_code, a.units, a.K,
-                                     a.p_row, a.p_piece, a.p_slot, a.cap,
-                                     static_cast<R*>(a.ws));
+  // one of the two kernels, by kTight, with or without the piece table
+  const bool pieces = a.p_row != nullptr;
+  const int* p_row = pieces ? a.p_row : nullptr;
+  const int* p_piece = pieces ? a.p_piece : nullptr;
+  const int* p_slot = pieces ? a.p_slot : nullptr;
+  const long long cap = pieces ? a.cap : 0;
+  R* ws = pieces ? static_cast<R*>(a.ws) : nullptr;
+#define PSP_LAUNCH(kernel, kp)                                               \
+  kernel<TG, TX, TO, V, NV, kp, kSpans><<<grid, block, 0, stream>>>(         \
+      a.start, a.end, a.stride, a.S, a.col_t, a.base, a.value, a.vcode, g, x, \
+      dx, a.dv, a.dv_code, a.units, a.K, p_row, p_piece, p_slot, cap, ws)
+  if constexpr (kTight<R, V, NV, kSpans>) {
+    if (pieces) {
+      PSP_LAUNCH(spmm_sddmm_kernel_tight, true);
+    } else {
+      PSP_LAUNCH(spmm_sddmm_kernel_tight, false);
+    }
   } else {
-    spmm_sddmm_kernel<TG, TX, TO, V, NV, false, kSpans>
-        <<<grid, block, 0, stream>>>(a.start, a.end, a.stride, a.S, a.col_t,
-                                     a.base, a.perm, a.value, a.vcode, g, x,
-                                     dx, a.dv, a.dv_code, a.units, a.K,
-                                     nullptr, nullptr, nullptr, 0,
-                                     static_cast<R*>(nullptr));
+    if (pieces) {
+      PSP_LAUNCH(spmm_sddmm_kernel, true);
+    } else {
+      PSP_LAUNCH(spmm_sddmm_kernel, false);
+    }
   }
+#undef PSP_LAUNCH
 }
 
 // NV from K as K1 and K2 choose it, so the dots' lane layout is K2's.
@@ -444,8 +510,9 @@ int dispatch_types(const Args& a, const void* g, const void* x, void* dx,
 
 }  // namespace
 
-// Plain C entry points, loaded with ctypes. value may be NULL (ones).
-// g_code, x_code, dx_code, value_code and dv_code are psp::DType codes (0
+// Plain C entry points, loaded with ctypes. value may be NULL (ones); value
+// and d value are in the bounds' edge order (the CSC form: CSC order, the
+// wrapper relaying them). g_code, x_code, dx_code, value_code and dv_code are psp::DType codes (0
 // f32, 1 bf16, 2 f16, 3 f64) of g, x, d x, value and d value; the (g, x,
 // d x) combinations are dispatch_types's, the wrapper rounding an f32 d x
 // after where it needs another dtype. p_col == NULL launches one warp per x
@@ -455,8 +522,7 @@ int dispatch_types(const Args& a, const void* g, const void* x, void* dx,
 // launches on `stream` and returns cudaGetLastError(); 0 means the launch
 // was accepted.
 extern "C" int psp_spmm_sddmm_csc(const void* colptr, const void* col_t,
-                                  const void* perm, const void* value,
-                                  int value_code, const void* g,
+                                  const void* value, int value_code, const void* g,
                                   const void* x, void* dx, void* dv,
                                   long long N, long long K, int g_code,
                                   int x_code, int dx_code, int dv_code,
@@ -471,7 +537,6 @@ extern "C" int psp_spmm_sddmm_csc(const void* colptr, const void* col_t,
   a.S = 1;
   a.col_t = static_cast<const int*>(col_t);
   a.base = nullptr;
-  a.perm = static_cast<const int*>(perm);
   a.value = value;
   a.vcode = value_code;
   a.dv = dv;
@@ -507,7 +572,6 @@ extern "C" int psp_spmm_sddmm_spans(const void* start, const void* end,
   a.S = static_cast<int>(S);
   a.col_t = static_cast<const int*>(col_t);
   a.base = static_cast<const int*>(base);
-  a.perm = nullptr;
   a.value = value;
   a.vcode = value_code;
   a.dv = dv;

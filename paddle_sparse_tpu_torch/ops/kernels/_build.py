@@ -147,10 +147,10 @@ def load_library() -> ctypes.CDLL:
                                             i64, i64, i32, i32, i32, p, p,
                                             i64, i64, p]
             lib.psp_sddmm_spans.restype = ctypes.c_int
-            # colptr, col_t, perm, value, value code, g, x, dx, dv, N, K,
-            # codes of g, x, dx and dv, piece table: col, piece, P, cap,
-            # slot; ws, stream
-            lib.psp_spmm_sddmm_csc.argtypes = [p, p, p, p, i32, p, p, p, p,
+            # colptr, col_t, value, value code, g, x, dx, dv (value and dv
+            # in CSC order), N, K, codes of g, x, dx and dv, piece table:
+            # col, piece, P, cap, slot; ws, stream
+            lib.psp_spmm_sddmm_csc.argtypes = [p, p, p, i32, p, p, p, p,
                                                i64, i64, i32, i32, i32, i32,
                                                p, p, i64, i64, p, p, p]
             lib.psp_spmm_sddmm_csc.restype = ctypes.c_int

@@ -13,7 +13,11 @@ after materialising the values in transpose order, the SpMM over the
 transpose for ``d x``). Two forms:
 
 * :func:`spmm_sddmm_csc_cuda`, over the CSC view of a CSR SpMM: it replaces
-  K2 over the CSR plus K1 over the CSC view;
+  K2 over the CSR plus K1 over the CSC view. The kernel reads the values and
+  writes ``d value`` in CSC order; the wrapper relays them, as the span
+  form's caller does: ``value[perm]`` before, one gather, and ``d value``
+  back into COO order through the inverse permutation after, another
+  gather (no scattered 4-byte access in the kernel);
 * :func:`spmm_sddmm_spans_cuda`, over the transpose layout of a packed SpMM
   (``ops/spmm_seg2.py``: ``rp_t``, ``col_t``, ``sbase_t``), on values in
   the transpose's order, ``d value`` written there too: it replaces the
@@ -48,27 +52,37 @@ from .spmm_cuda import _WINDOW_BYTES, _out_dtype
 from .spmm_spans_cuda import check_span_args, span_windows
 
 
-def spmm_sddmm_csc_reference(colptr: torch.Tensor, col_t: torch.Tensor,
-                             perm: torch.Tensor,
-                             value: Optional[torch.Tensor], g: torch.Tensor,
-                             x: torch.Tensor,
-                             out_dtype: torch.dtype = torch.float32):
-    """Plain PyTorch version of :func:`spmm_sddmm_csc_cuda`, on any device:
-    ``(d x, d value)``.
+def invert_perm(perm: torch.Tensor) -> torch.Tensor:
+    """The inverse of the permutation ``perm`` (``inv[perm[i]] = i``), in
+    ``perm``'s dtype and on its device: one scatter. For the CSC view's
+    ``perm`` it maps each COO entry to its CSC position."""
+    inv = torch.empty_like(perm)
+    inv[perm.long()] = torch.arange(perm.numel(), dtype=perm.dtype,
+                                    device=perm.device)
+    return inv
+
+
+def csc_order_reference(colptr: torch.Tensor, col_t: torch.Tensor,
+                        value_t: Optional[torch.Tensor], g: torch.Tensor,
+                        x: torch.Tensor,
+                        out_dtype: torch.dtype = torch.float32):
+    """Plain PyTorch version of the kernel itself, on any device: ``(d x,
+    d value)`` with ``value_t`` and ``d value`` in CSC order, 0 at the
+    positions no column reaches.
 
     Walks the CSC edges in bounded windows: one gather of ``g[col_t]`` per
-    window, scaled by ``value[perm]`` and added into ``d x``
+    window, scaled by the window's values and added into ``d x``
     (``index_add_``, as ``spmm_csr_reference`` sums), and its row-wise dot
-    with ``x[c]``, written at ``perm``. Sums in f32, or in f64 when the
-    output's inputs are f64 (``d x``: ``value`` or ``g``; ``d value``: ``g``
-    or ``x``)."""
+    with ``x[c]``, written at the window's positions. Sums in f32, or in f64
+    when the output's inputs are f64 (``d x``: ``value`` or ``g``; ``d
+    value``: ``g`` or ``x``)."""
     N, K = colptr.numel() - 1, x.shape[1]
-    dx_dtype = _out_dtype(value, g)
+    dx_dtype = _out_dtype(value_t, g)
     dx_acc = torch.float64 if dx_dtype == torch.float64 else torch.float32
     dv_acc = (torch.float64 if torch.float64 in (g.dtype, x.dtype)
               else torch.float32)
     d_x = torch.zeros((N, K), dtype=dx_acc, device=x.device)
-    d_value = torch.zeros(perm.numel(), dtype=dv_acc, device=x.device)
+    dv_t = torch.zeros(col_t.numel(), dtype=dv_acc, device=x.device)
     colptr = colptr.long()
     e_begin, e_end = int(colptr[0]), int(colptr[-1])
     step = max(1, _WINDOW_BYTES // max(1, K * d_x.element_size()))
@@ -76,14 +90,58 @@ def spmm_sddmm_csc_reference(colptr: torch.Tensor, col_t: torch.Tensor,
         t = min(s + step, e_end)
         edges = torch.arange(s, t, device=x.device)
         cols = torch.searchsorted(colptr, edges, right=True) - 1
-        dst = perm[s:t].long()
         g_rows = g[col_t[s:t].long()]
-        d_value[dst] = (g_rows.to(dv_acc) * x[cols].to(dv_acc)).sum(1)
+        dv_t[s:t] = (g_rows.to(dv_acc) * x[cols].to(dv_acc)).sum(1)
         prod = g_rows.to(dx_acc)          # may be g_rows itself
-        if value is not None:
-            prod *= value[dst, None].to(dx_acc)
+        if value_t is not None:
+            prod *= value_t[s:t, None].to(dx_acc)
         d_x.index_add_(0, cols, prod)
-    return d_x.to(dx_dtype), d_value.to(out_dtype)
+    return d_x.to(dx_dtype), dv_t.to(out_dtype)
+
+
+def _relayed(csc_fn, colptr, col_t, perm, value, g, x, out_dtype,
+             inv_perm, value_t=None):
+    """``csc_fn`` (the kernel's wrapper or its plain version, on values and
+    ``d value`` in CSC order) between the two relays: ``value[perm]``
+    before (``value_t`` when the caller has it), ``d value_t[inv_perm]``
+    after (``inv_perm`` built here when None): ``(d x, d value)`` in COO
+    order."""
+    if inv_perm is None:
+        inv_perm = invert_perm(perm)
+    for name, t in (("perm", perm), ("inv_perm", inv_perm)):
+        if t.dtype not in (torch.int32, torch.int64) \
+                or t.shape != col_t.shape or t.device != x.device:
+            raise ValueError(f"{name} must be int32 or int64 of col_t's "
+                             f"shape {tuple(col_t.shape)} on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if value is not None and value.shape != perm.shape:
+        raise ValueError(f"value shape {tuple(value.shape)} != perm shape "
+                         f"{tuple(perm.shape)}")
+    if value is None:
+        value_t = None
+    elif value_t is None:
+        value_t = value.index_select(0, perm)
+    elif value_t.shape != value.shape or value_t.dtype != value.dtype:
+        raise ValueError(f"value_t {value_t.dtype} {tuple(value_t.shape)} "
+                         f"is not value[perm] of value {value.dtype} "
+                         f"{tuple(value.shape)}")
+    d_x, dv_t = csc_fn(colptr, col_t, value_t, g, x, out_dtype)
+    return d_x, dv_t.index_select(0, inv_perm)
+
+
+def spmm_sddmm_csc_reference(colptr: torch.Tensor, col_t: torch.Tensor,
+                             perm: torch.Tensor,
+                             value: Optional[torch.Tensor], g: torch.Tensor,
+                             x: torch.Tensor,
+                             out_dtype: torch.dtype = torch.float32,
+                             inv_perm: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of :func:`spmm_sddmm_csc_cuda`, on any device:
+    ``(d x, d value)``, through the same relays: ``value[perm]`` into CSC
+    order, :func:`csc_order_reference`, and ``d value`` read back into COO
+    order at ``inv_perm`` (the inverse of ``perm``, built here when
+    None)."""
+    return _relayed(csc_order_reference, colptr, col_t, perm, value, g, x,
+                    out_dtype, inv_perm)
 
 
 def fused_operands(fn: str, value, g: torch.Tensor, x: torch.Tensor,
@@ -117,32 +175,28 @@ def fused_operands(fn: str, value, g: torch.Tensor, x: torch.Tensor,
     return g, dx_dtype if dx_dtype in (wide, torch.float32) else torch.float32
 
 
-def _check_cuda_args(colptr, col_t, perm, value, g, x, out_dtype):
+def _check_cuda_args(colptr, col_t, value_t, g, x):
     dev = x.device
-    for name, t in (("colptr", colptr), ("col_t", col_t), ("perm", perm),
-                    ("value", value), ("g", g)):
+    for name, t in (("colptr", colptr), ("col_t", col_t),
+                    ("value", value_t), ("g", g)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
-    if colptr.dim() != 1 or colptr.numel() < 1:
-        raise ValueError("colptr must be 1-D and non-empty")
-    if col_t.dim() != 1 or perm.shape != col_t.shape:
-        raise ValueError(f"col_t {tuple(col_t.shape)} and perm "
-                         f"{tuple(perm.shape)} must be 1-D of one shape")
-    for name, t in (("colptr", colptr), ("col_t", col_t), ("perm", perm)):
+    if colptr.dim() != 1 or colptr.numel() < 1 or col_t.dim() != 1:
+        raise ValueError("colptr must be 1-D and non-empty, col_t 1-D")
+    for name, t in (("colptr", colptr), ("col_t", col_t)):
         if t.dtype not in (torch.int32, torch.int64):
             raise TypeError(f"{name} must be int32 or int64, got {t.dtype}")
     if x.shape[0] != colptr.numel() - 1 or g.shape[1] != x.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} must be (N, K) with N = "
                          f"{colptr.numel() - 1} columns and g's K = "
                          f"{g.shape[1]}")
-    if max(perm.numel(), g.shape[0], x.shape[0], x.shape[1],
+    if max(col_t.numel(), g.shape[0], x.shape[0], x.shape[1],
            colptr.numel()) >= 2 ** 31:
         raise ValueError("spmm_sddmm_csc_cuda indexes with int32: nnz, M, "
                          "N, K and N + 1 must each be below 2**31")
-    if value is not None:
-        if value.shape != perm.shape:
-            raise ValueError(f"value shape {tuple(value.shape)} != perm "
-                             f"shape {tuple(perm.shape)}")
+    if value_t is not None and value_t.shape != col_t.shape:
+        raise ValueError(f"value shape {tuple(value_t.shape)} != col_t "
+                         f"shape {tuple(col_t.shape)}")
 
 
 def _slot_table(split: Optional[RowSplit]):
@@ -153,50 +207,34 @@ def _slot_table(split: Optional[RowSplit]):
             split.cap, split.slot.data_ptr())
 
 
-def spmm_sddmm_csc_cuda(colptr: torch.Tensor, col_t: torch.Tensor,
-                        perm: torch.Tensor, value: Optional[torch.Tensor],
-                        g: torch.Tensor, x: torch.Tensor,
-                        out_dtype: torch.dtype = torch.float32,
-                        split=AUTO):
-    """``(d x, d value)`` of ``out = A @ x`` given ``g = d out``, through the
-    CUDA kernel ``csrc/spmm_sddmm_csc.cu``:
-
-    * ``d x[c] = sum_{colptr[c] <= e < colptr[c+1]} value[perm[e]] *
-      g[col_t[e]]``, (N, K) in the promoted dtype of ``value`` and ``g``;
-    * ``d value[perm[e]] = g[col_t[e]] . x[c]`` for the same ``e``,
-      ``(perm.numel(),)`` in ``out_dtype``, 0 at entries no column reaches.
-
-    ``colptr``/``col_t``/``perm`` are the CSC view of
-    ``ops/spmm.py::SpmmStructure``; ``value`` is in COO order (or None for
-    ones); ``g`` is a contiguous (M, K) and ``x`` a contiguous (N, K) tensor,
-    each f32, bf16, f16 or f64 (:func:`fused_operands`). ``split`` is
-    ``colptr``'s
-    :class:`~.row_split.RowSplit` (``SpmmStructure.col_split``), ``None``
-    when no column is longer than its cap, or ``"auto"`` to build it here.
-    On a CPU tensor this runs :func:`spmm_sddmm_csc_reference`; on a CUDA
-    tensor it launches the kernel (and, over split columns, the fold pass)
-    or raises. ``spmm_sddmm_csc_cuda.launches`` counts kernel launches."""
+def csc_order_cuda(colptr: torch.Tensor, col_t: torch.Tensor,
+                   value_t: Optional[torch.Tensor], g: torch.Tensor,
+                   x: torch.Tensor, out_dtype: torch.dtype = torch.float32,
+                   split=AUTO):
+    """The launch of :func:`spmm_sddmm_csc_cuda` alone: ``(d x, d value)``
+    with ``value_t`` and ``d value`` in CSC order (0 at the positions no
+    column reaches). On a CPU tensor :func:`csc_order_reference`; on a CUDA
+    tensor the kernel (and, over split columns, the fold pass), counted in
+    ``spmm_sddmm_csc_cuda.launches``, or a raise."""
     if x.device.type == "cpu":
-        return spmm_sddmm_csc_reference(colptr, col_t, perm, value, g, x,
-                                        out_dtype)
+        return csc_order_reference(colptr, col_t, value_t, g, x, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"spmm_sddmm_csc_cuda runs on cpu or cuda, not "
                          f"{x.device}")
-    _check_cuda_args(colptr, col_t, perm, value, g, x, out_dtype)
-    dx_dtype = _out_dtype(value, g)
+    _check_cuda_args(colptr, col_t, value_t, g, x)
+    dx_dtype = _out_dtype(value_t, g)
     # from an f32 g, an f32 d x, rounded after (one rounding, as K1's store)
-    g, kernel_dx_dtype = fused_operands("spmm_sddmm_csc_cuda", value, g, x,
+    g, kernel_dx_dtype = fused_operands("spmm_sddmm_csc_cuda", value_t, g, x,
                                         FLOAT_DTYPES, dx_dtype, out_dtype)
     N, K = x.shape
     d_x = torch.empty((N, K), dtype=kernel_dx_dtype, device=x.device)
-    d_value = torch.zeros(perm.numel(), dtype=out_dtype, device=x.device)
+    dv_t = torch.zeros(col_t.numel(), dtype=out_dtype, device=x.device)
     if N == 0 or K == 0:
-        return d_x.to(dx_dtype), d_value
+        return d_x.to(dx_dtype), dv_t
     colptr = colptr.to(torch.int32).contiguous()
     col_t = col_t.to(torch.int32).contiguous()
-    perm = perm.to(torch.int32).contiguous()
-    if value is not None:
-        value = value.contiguous()
+    if value_t is not None:
+        value_t = value_t.contiguous()
     split: Optional[RowSplit] = resolve_split(split, colptr[None, :-1],
                                               colptr[None, 1:])
     ws = (None if split is None else torch.empty(
@@ -205,16 +243,51 @@ def spmm_sddmm_csc_cuda(colptr: torch.Tensor, col_t: torch.Tensor,
     code = _build.dtype_code
     _build.launch(
         "spmm_sddmm_csc", _build.load_library().psp_spmm_sddmm_csc, x.device,
-        colptr.data_ptr(), col_t.data_ptr(), perm.data_ptr(),
-        None if value is None else value.data_ptr(),
-        0 if value is None else code(value.dtype), g.data_ptr(),
-        x.data_ptr(), d_x.data_ptr(), d_value.data_ptr(), N, K,
+        colptr.data_ptr(), col_t.data_ptr(),
+        None if value_t is None else value_t.data_ptr(),
+        0 if value_t is None else code(value_t.dtype), g.data_ptr(),
+        x.data_ptr(), d_x.data_ptr(), dv_t.data_ptr(), N, K,
         code(g.dtype), code(x.dtype), code(kernel_dx_dtype), code(out_dtype),
         *_slot_table(split), None if ws is None else ws.data_ptr())
     if split is not None:
         fold_pieces_cuda(split, ws, d_x)
     spmm_sddmm_csc_cuda.launches += 1
-    return d_x.to(dx_dtype), d_value
+    return d_x.to(dx_dtype), dv_t
+
+
+def spmm_sddmm_csc_cuda(colptr: torch.Tensor, col_t: torch.Tensor,
+                        perm: torch.Tensor, value: Optional[torch.Tensor],
+                        g: torch.Tensor, x: torch.Tensor,
+                        out_dtype: torch.dtype = torch.float32,
+                        split=AUTO, inv_perm: Optional[torch.Tensor] = None,
+                        value_t: Optional[torch.Tensor] = None):
+    """``(d x, d value)`` of ``out = A @ x`` given ``g = d out``, through the
+    CUDA kernel ``csrc/spmm_sddmm_csc.cu``:
+
+    * ``d x[c] = sum_{colptr[c] <= e < colptr[c+1]} value[perm[e]] *
+      g[col_t[e]]``, (N, K) in the promoted dtype of ``value`` and ``g``;
+    * ``d value[perm[e]] = g[col_t[e]] . x[c]`` for the same ``e``,
+      ``(perm.numel(),)`` in ``out_dtype``, 0 at entries no column reaches.
+
+    ``colptr``/``col_t``/``perm``/``inv_perm`` are the CSC view of
+    ``ops/spmm.py::SpmmStructure`` (``inv_perm`` the inverse of ``perm``,
+    built here by one scatter when None); ``value`` is in COO order (or None
+    for ones); ``g`` is a contiguous (M, K) and ``x`` a contiguous (N, K)
+    tensor, each f32, bf16, f16 or f64 (:func:`fused_operands`). The values
+    go into CSC order by one gather (``value[perm]``, or ``value_t`` when
+    the caller already has it), the kernel reads them and writes ``d
+    value`` there (:func:`csc_order_cuda`), and ``d value`` comes back by
+    another gather (``d value_t[inv_perm]``): no scattered access in the
+    kernel. ``split`` is ``colptr``'s
+    :class:`~.row_split.RowSplit` (``SpmmStructure.col_split``), ``None``
+    when no column is longer than its cap, or ``"auto"`` to build it here.
+    On a CPU tensor this runs the plain version between the same relays
+    (:func:`spmm_sddmm_csc_reference`); on a CUDA tensor it launches the
+    kernel or raises. ``spmm_sddmm_csc_cuda.launches`` counts kernel
+    launches."""
+    return _relayed(lambda *args: csc_order_cuda(*args, split=split),
+                    colptr, col_t, perm, value, g, x, out_dtype, inv_perm,
+                    value_t)
 
 
 spmm_sddmm_csc_cuda.launches = 0

@@ -14,11 +14,13 @@ PyTorch versions.
   . x[col[e]]`` (0 at padding) in one pass over the CSC view of
   :class:`SpmmStructure`, which gathers each row of ``g`` once for both
   (:func:`~.kernels.spmm_sddmm_cuda.spmm_sddmm_csc_cuda`, as the JAX
-  package's ``_spmm_chunked_bwd`` fuses them);
+  package's ``_spmm_chunked_bwd`` fuses them), on the values in CSC order
+  (:func:`csc_values`: relayed once per backward and value) with ``d
+  value`` read back through the structure's ``inv_perm``;
 * ``d value`` alone: the SDDMM kernel
   (:func:`~.kernels.sddmm_cuda.sddmm_csr_cuda`) over the CSR;
 * ``d x`` alone, or with ``value`` None: K1 again, over the CSC view
-  (``colptr``, ``col_t``, ``value[perm]``).
+  (``colptr``, ``col_t``, ``value[perm]`` from :func:`csc_values`).
 
 Double backward (``create_graph=True``, as a gradient penalty, a
 Hessian-vector product or force training takes it) differentiates at any
@@ -74,14 +76,15 @@ from .convert import ind2ptr, ptr2ind_capped
 from .kernels.row_split import AUTO, RowSplit, resolve_split
 from .kernels.sddmm_cuda import sddmm_csr_cuda
 from .kernels.spmm_cuda import spmm_csr_cuda
-from .kernels.spmm_sddmm_cuda import spmm_sddmm_csc_cuda
+from .kernels.spmm_sddmm_cuda import invert_perm, spmm_sddmm_csc_cuda
 from .segment import segment_csr
 
 
 class SpmmStructure(NamedTuple):
     """CSR pointer and CSC view of one sparse structure, as the reference's
-    ``_spmm_structure`` builds it: the CSC view is the CSR of ``A^T``; and
-    the piece tables of both pointers.
+    ``_spmm_structure`` builds it: the CSC view is the CSR of ``A^T``; the
+    piece tables of both pointers; and ``perm``'s inverse, through which the
+    fused backward reads ``d value`` back from CSC order.
 
     Entries with ``row >= num_rows`` are padding: they lie past
     ``rowptr[num_rows]``, sort last in the CSC view and lie past
@@ -92,6 +95,7 @@ class SpmmStructure(NamedTuple):
     colptr: torch.Tensor   # (N+1,) over the real columns
     row_split: Optional[RowSplit]   # rowptr's long rows, None if none
     col_split: Optional[RowSplit]   # colptr's long columns, None if none
+    inv_perm: torch.Tensor  # (capacity,) int32, each entry's CSC position
 
 
 def ptr_split(ptr: torch.Tensor, split=AUTO) -> Optional[RowSplit]:
@@ -112,49 +116,79 @@ def spmm_structure(rowptr: torch.Tensor, row: torch.Tensor,
     colptr = ind2ptr(key[perm], num_cols)
     return SpmmStructure(
         rowptr=rowptr, perm=perm, col_t=row[perm], colptr=colptr,
-        row_split=ptr_split(rowptr, row_split), col_split=ptr_split(colptr))
+        row_split=ptr_split(rowptr, row_split), col_split=ptr_split(colptr),
+        inv_perm=invert_perm(perm))
 
 
 def transpose_structure(s: SpmmStructure, col: torch.Tensor) -> SpmmStructure:
     """The :class:`SpmmStructure` of ``A^T`` from A's (``col`` A's column
     indices in COO order): its CSR is A's CSC view, and its CSC view is A's
-    CSR, in A's own entry order (``perm`` the inverse of A's, one scatter,
-    ``col_t`` A's ``col``). Values of ``A^T`` are in A's CSC order,
-    ``value[s.perm]``."""
-    inv = torch.empty_like(s.perm)
-    inv[s.perm.long()] = torch.arange(s.perm.numel(), dtype=s.perm.dtype,
-                                      device=s.perm.device)
-    return SpmmStructure(rowptr=s.colptr, perm=inv, col_t=col,
+    CSR, in A's own entry order (``perm`` A's ``inv_perm`` and ``inv_perm``
+    A's ``perm``, ``col_t`` A's ``col``): no sort, no scatter. Values of
+    ``A^T`` are in A's CSC order, ``value[s.perm]``."""
+    return SpmmStructure(rowptr=s.colptr, perm=s.inv_perm, col_t=col,
                          colptr=s.rowptr, row_split=s.col_split,
-                         col_split=s.row_split)
+                         col_split=s.row_split, inv_perm=s.perm)
 
 
 class _Csr(NamedTuple):
     """What the Functions below close over: the CSR pointer and column
     indices of A, ``structure_fn`` (gives the :class:`SpmmStructure`, called
-    only when a CSC view is needed) and ``rowptr``'s piece table (or
-    ``"auto"``)."""
+    only when a CSC view is needed), ``rowptr``'s piece table (or
+    ``"auto"``) and the caller's ``relays`` dict (:func:`csc_values`; None:
+    nothing kept)."""
     rowptr: torch.Tensor
     col: torch.Tensor
     structure_fn: Callable[[], SpmmStructure]
     row_split: object
+    relays: Optional[dict] = None
 
 
 def _spmm(a: _Csr, value, x):
     """``A(value) @ x``, differentiable (K1 over the CSR)."""
     return _SpmmSum.apply(value, x, a.rowptr, a.col, a.structure_fn,
-                          a.row_split)
+                          a.row_split, a.relays)
+
+
+_CSC_VALUES = "csc_values"   # the key of a relays dict's one entry
+
+
+def csc_values(value: Optional[torch.Tensor], perm: torch.Tensor,
+               relays: Optional[dict]) -> Optional[torch.Tensor]:
+    """``value.index_select(0, perm)``: A's values in CSC order, kept in
+    the caller's ``relays`` dict and served again while ``value`` is the
+    same tensor, unwritten (its version counter), relayed through the same
+    ``perm``, so the passes of one backward that share A's values (GCN's and
+    GraphSAGE's layers, APPNP's steps) relay them once. The forward entry
+    (:func:`spmm_with_structure`) empties the dict, so the entry lives from
+    a backward's first relay to the next forward: a write the version
+    counter does not see (through ``.data``) between steps is never served
+    stale. Not kept with ``relays`` None, or where autograd records the
+    gather (grad mode on and ``value`` requiring grad: a double backward
+    differentiates through it)."""
+    if value is None:
+        return None
+    if relays is None or (torch.is_grad_enabled() and value.requires_grad):
+        return value.index_select(0, perm)
+    ent = relays.get(_CSC_VALUES)
+    if (ent is not None and ent[0]() is value and ent[1] == value._version
+            and ent[2]() is perm):
+        return ent[3]
+    value_t = value.index_select(0, perm)
+    relays[_CSC_VALUES] = (weakref.ref(value), value._version,
+                           weakref.ref(perm), value_t)
+    return value_t
 
 
 def _spmm_t(a: _Csr, value, g):
     """``A(value)^T @ g``, differentiable: :class:`_SpmmSum` over the CSC
     view (K1), whose own backward sees A's CSR as the transpose's CSC."""
     s = a.structure_fn()
-    value_t = None if value is None else value.index_select(0, s.perm)
+    value_t = csc_values(value, s.perm, a.relays)
     return _SpmmSum.apply(value_t, g, s.colptr, s.col_t,
                           lambda: transpose_structure(a.structure_fn(),
                                                       a.col),
-                          s.col_split)
+                          s.col_split, None)
 
 
 def _sddmm(a: _Csr, g, x, out_dtype):
@@ -175,14 +209,16 @@ class _SpmmSum(torch.autograd.Function):
     """``A @ x`` over ``(value, x)``; the index structure is closed over.
     ``structure_fn`` gives the :class:`SpmmStructure` and is called only
     when the backward needs ``d x``; ``row_split`` is ``rowptr``'s piece
-    table (or ``"auto"``: built by each launch). Its backward is
+    table (or ``"auto"``: built by each launch); ``relays`` the caller's
+    dict for :func:`csc_values`, or None. Its backward is
     :class:`_SumGrads` (both grads), :class:`_Sddmm` (``d value``) or
     :func:`_spmm_t` (``d x``), so it differentiates at any order."""
 
     @staticmethod
-    def forward(ctx, value, x, rowptr, col, structure_fn, row_split):
+    def forward(ctx, value, x, rowptr, col, structure_fn, row_split,
+                relays=None):
         ctx.save_for_backward(value, x)
-        ctx.csr = _Csr(rowptr, col, structure_fn, row_split)
+        ctx.csr = _Csr(rowptr, col, structure_fn, row_split, relays)
         return spmm_csr_cuda(rowptr, col, value, x, split=row_split)
 
     @staticmethod
@@ -199,14 +235,15 @@ class _SpmmSum(torch.autograd.Function):
             d_x = _spmm_t(a, value, g)
         if d_x is not None:
             d_x = d_x.to(x.dtype)
-        return d_value, d_x, None, None, None, None
+        return d_value, d_x, None, None, None, None, None
 
 
 class _SumGrads(torch.autograd.Function):
     """Both grads of :class:`_SpmmSum` at ``g``, ``d x = A(value)^T @ g``
     and ``d value = g[row] . x[col]`` (0 at padding), in one pass over the
-    CSC view that gathers each row of ``g`` once for both (K2′), as
-    ``(d value, d x)``. Its backward is those two functions' own, each a
+    CSC view that gathers each row of ``g`` once for both (K2′, on the
+    values in CSC order from :func:`csc_values`), as ``(d value, d x)``.
+    Its backward is those two functions' own, each a
     differentiable Function: along ``gd_x``, ``d value = g[row] .
     gd_x[col]`` (K2) and ``d g = A(value) @ gd_x`` (K1); along
     ``gd_value``, :func:`_sddmm_vjp` (K1 twice)."""
@@ -219,7 +256,8 @@ class _SumGrads(torch.autograd.Function):
         s = a.structure_fn()
         d_x, d_value = spmm_sddmm_csc_cuda(
             s.colptr, s.col_t, s.perm, value, g, x, out_dtype=value.dtype,
-            split=s.col_split)
+            split=s.col_split, inv_perm=s.inv_perm,
+            value_t=csc_values(value, s.perm, a.relays))
         return d_value, d_x
 
     @staticmethod
@@ -272,10 +310,15 @@ def check_backend(backend: str) -> None:
 def spmm_with_structure(rowptr: torch.Tensor, col: torch.Tensor,
                         value: Optional[torch.Tensor], x: torch.Tensor,
                         structure_fn: Callable[[], SpmmStructure],
-                        reduce: str = "sum", row_split=AUTO) -> torch.Tensor:
+                        reduce: str = "sum", row_split=AUTO,
+                        relays: Optional[dict] = None) -> torch.Tensor:
     """:func:`spmm_csr`, taking the CSC view from ``structure_fn`` when the
     backward needs it and ``rowptr``'s piece table from ``row_split`` (a
-    ``PaddedCOO`` passes its cached ones)."""
+    ``PaddedCOO`` passes its cached ones, and its cache dict as ``relays``,
+    where the backward keeps the values in CSC order: :func:`csc_values`;
+    this forward empties it)."""
+    if relays is not None:
+        relays.pop(_CSC_VALUES, None)
     if reduce not in ("sum", "add", "mean", "min", "max"):
         raise ValueError(f"unknown reduction {reduce!r}")
     if value is not None and value.dim() != 1:
@@ -296,7 +339,8 @@ def spmm_with_structure(rowptr: torch.Tensor, col: torch.Tensor,
             prod = prod * value[:nnz, None]
         out = segment_csr(prod, rowptr, reduce)
     else:
-        out = _SpmmSum.apply(value, x2, rowptr, col, structure_fn, row_split)
+        out = _SpmmSum.apply(value, x2, rowptr, col, structure_fn, row_split,
+                             relays)
         if reduce == "mean":
             # the degree in the output's dtype, then at least 1, as JAX
             # counts it; an integer sum divides as a float (f64 from

@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from .ops.convert import ind2ptr, ptr2ind
+from .ops.kernels.spmm_sddmm_cuda import invert_perm
 from .ops.segment import scatter_reduce, segment_csr
 from .ops.spmm import SpmmStructure, ptr_split
 from .utils import (as_device, as_index_array, is_row_col_sorted,
@@ -356,20 +357,22 @@ class SparseStorage:
 
     def spmm_structure(self) -> SpmmStructure:
         """The CSC view the SpMM backward takes, from the cached ``csr2csc``
-        (a stable argsort of ``col``, the structure's ``perm``) and
-        ``colptr``, in int32, with both pointers' piece tables. Cached like
-        :meth:`kernel_csr`; built outside inference mode, because autograd
-        refuses to use inference tensors a forward under
+        (a stable argsort of ``col``, the structure's ``perm``), its inverse
+        and ``colptr``, in int32, with both pointers' piece tables. Cached
+        like :meth:`kernel_csr`; built outside inference mode, because
+        autograd refuses to use inference tensors a forward under
         ``torch.inference_mode()`` would leave here."""
         if "structure" not in self._kernel:
             rowptr, _, row_split = self.kernel_csr()
             with torch.inference_mode(False):
                 perm = self.csr2csc()
+                perm32 = perm.to(torch.int32)
                 colptr = self.colptr().to(torch.int32)
                 self._kernel["structure"] = SpmmStructure(
-                    rowptr=rowptr, perm=perm.to(torch.int32),
+                    rowptr=rowptr, perm=perm32,
                     col_t=self.row()[perm].to(torch.int32), colptr=colptr,
-                    row_split=row_split, col_split=ptr_split(colptr))
+                    row_split=row_split, col_split=ptr_split(colptr),
+                    inv_perm=invert_perm(perm32))
         return self._kernel["structure"]
 
     def host_csr(self):

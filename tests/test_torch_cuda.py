@@ -7,7 +7,10 @@ kernels, split rows too) against plain f64, min and max on the card against
 the CPU, and each model family's toy forward and grads, card against CPU,
 with GAT's per-head launches; the fused CSC backward
 (``spmm_sddmm_csc_cuda``) equal to the pair it replaces (K2 and K1 over
-the CSC view) bit for bit, within SUM_REL of f64, two launches equal;
+the CSC view) bit for bit, at every batch size and on offset views,
+within SUM_REL of f64, two launches equal, its launch alone
+(``csc_order_cuda``, CSC order) against its plain version in every dtype,
+and its launches per GCN step;
 its span form (``spmm_sddmm_spans_cuda``) over seg2's transpose layout
 equal to the pair it replaces (the span SDDMM over the forward layout and
 the spans SpMM over the transpose) bit for bit through the backward's own
@@ -1431,7 +1434,8 @@ def _fused_graph(dev, split, M=3000, N=2000):
 def _fused(adj, v, g, x, out_dtype):
     s = adj.structure()
     return spmm_sddmm_csc_cuda(s.colptr, s.col_t, s.perm, v, g, x,
-                               out_dtype=out_dtype, split=s.col_split)
+                               out_dtype=out_dtype, split=s.col_split,
+                               inv_perm=s.inv_perm)
 
 
 def _pair(adj, v, g, x, out_dtype):
@@ -1529,6 +1533,118 @@ def test_fused_two_launches_equal(dev):
             torch.cuda.synchronize()
             assert all(torch.equal(p, q) for p, q in zip(a, b))
             assert all(torch.equal(p, q) for p, q in zip(a, want))
+
+
+def _every_batch_graph(dev, M=900, N=150):
+    """A ``PaddedCOO`` on the card whose column c holds ``c % 75`` edges
+    (every batch size 1-32 as a first batch, and past 32 as a second),
+    columns 150 apart from them empty, poisoned padding; no column split."""
+    g = torch.Generator().manual_seed(14)
+    deg = torch.arange(N) % 75
+    col = torch.repeat_interleave(torch.arange(N), deg)
+    row = torch.randint(0, M, (col.numel(),), generator=g)
+    order = torch.argsort(row, stable=True)
+    val = torch.rand(col.numel(), generator=g) * 2 - 1
+    adj = PaddedCOO.from_arrays(row[order], col[order], val, (M, N),
+                                capacity=col.numel() + 64, device=dev)
+    adj = dataclasses.replace(adj, col=torch.where(
+        adj.valid_mask(), adj.col, torch.full_like(adj.col, 1 << 30)))
+    assert adj.structure().col_split is None
+    return adj
+
+
+@pytest.mark.parametrize("dtypes", ["f32", "bf16", "f16", "f64"])
+@pytest.mark.parametrize("K", [3, 47, 256, 520])
+def test_fused_every_batch_size(dev, K, dtypes):
+    """Columns of 0-74 edges, so every partial batch (1-31 edges: the
+    batch exchange over 1, 2, 4 or 8 groups of 4, then an xor butterfly on
+    what is left) and full ones: d x and d value equal the pair's bit for
+    bit, odd K through the scalar loads, K past ``32 * V * NV`` (520)
+    re-walking the edges."""
+    adj = _every_batch_graph(dev)
+    vdt, xdt, gdt, odt = FUSED_DTYPES[dtypes]
+    gen = torch.Generator(device=dev).manual_seed(K + 7)
+    x = torch.randn(adj.N, K, generator=gen, device=dev).to(xdt)
+    g = torch.randn(adj.M, K, generator=gen, device=dev).to(gdt)
+    v = adj.value.to(vdt)
+    got = _fused(adj, v, g, x, odt)
+    want = _pair(adj, v, g, x, odt)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert not got[1][adj.nnz:].any()
+
+
+def test_fused_offset_views(dev):
+    """``value``, ``x`` and ``g`` as views at storage offsets (``x`` and
+    ``g`` off 16-byte alignment: the scalar loads) and ``value`` a strided
+    view: equal to the pair bit for bit; the relays take any view."""
+    adj = _fused_graph(dev, True)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    M, N, K = adj.M, adj.N, 64
+    x = torch.randn(N * K + 1, generator=gen, device=dev)[1:].view(N, K)
+    g = torch.randn(M * K + 3, generator=gen, device=dev)[3:].view(M, K)
+    cap = adj.value.numel()
+    for v in (torch.randn(cap + 5, generator=gen, device=dev)[5:],
+              torch.randn(2 * cap, generator=gen, device=dev)[::2]):
+        got = _fused(adj, v, g, x, torch.float32)
+        want = _pair(adj, v, g, x, torch.float32)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtypes", list(FUSED_DTYPES))
+@pytest.mark.parametrize("K", [5, 300])
+def test_fused_launch_alone_vs_plain(dev, K, dtypes):
+    """The launch alone (``csc_order_cuda``: values and d value in CSC
+    order, split columns) in every dtype against its plain version
+    (``csc_order_reference``) run in f64 on the card: each entry within its
+    dtype's rounding of the sum; and the routed call's d value is the
+    launch's read back through ``inv_perm``."""
+    from paddle_sparse_tpu_torch.ops.kernels.spmm_sddmm_cuda import (
+        csc_order_cuda, csc_order_reference)
+    adj = _fused_graph(dev, True)
+    s = adj.structure()
+    vdt, xdt, gdt, odt = FUSED_DTYPES[dtypes]
+    gen = torch.Generator(device=dev).manual_seed(K + 3)
+    x = torch.randn(adj.N, K, generator=gen, device=dev).to(xdt)
+    g = torch.randn(adj.M, K, generator=gen, device=dev).to(gdt)
+    v_t = adj.value.to(vdt).index_select(0, s.perm)
+    got = csc_order_cuda(s.colptr, s.col_t, v_t, g, x, odt, s.col_split)
+    ref, scale = (csc_order_reference(
+        s.colptr, s.col_t, f(v_t.double()), f(g.double()), f(x.double()),
+        torch.float64) for f in (lambda t: t, torch.abs))
+    for a, r, sc in zip(got, ref, scale):
+        _close_in_dtype(a, r, sc)
+    routed = _fused(adj, adj.value.to(vdt), g, x, odt)
+    torch.cuda.synchronize()
+    assert torch.equal(routed[0], got[0])
+    assert torch.equal(routed[1], got[1].index_select(0, s.inv_perm))
+
+
+@pytest.mark.parametrize("layers", [2, 3])
+def test_gcn_step_launches(dev, layers):
+    """A GCN train step with ``value`` requiring grad, as phase 5 of
+    ``chip_smoke.py`` runs it at scale: per step K1 once per layer
+    (forward), K2 once (the first layer's d value: its input needs no
+    grad) and the fused CSC backward once per later layer; no fold."""
+    from paddle_sparse_tpu_torch import init_gcn
+    _, adj, x, y = model_entry("gcn", dev)
+    model = init_gcn(torch.Generator().manual_seed(0), 32, 64, 8,
+                     num_layers=layers, device=dev)
+    adj.value.requires_grad_()
+    for _ in range(2):
+        b = (spmm_csr_cuda.launches, sddmm_csr_cuda.launches,
+             spmm_sddmm_csc_cuda.launches, fold_pieces_cuda.launches)
+        adj.value.grad = None
+        train_step(model, adj, x, y, 0.1)
+        torch.cuda.synchronize()
+        assert (spmm_csr_cuda.launches - b[0], sddmm_csr_cuda.launches - b[1],
+                spmm_sddmm_csc_cuda.launches - b[2],
+                fold_pieces_cuda.launches - b[3]) == (layers, 1,
+                                                      layers - 1, 0)
+        assert adj.value.grad is not None and bool(
+            torch.isfinite(adj.value.grad).all())
 
 
 # ---- the fused span backward of the packed SpMMs ---------------------------

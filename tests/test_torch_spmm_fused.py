@@ -305,6 +305,174 @@ def test_backward_dispatch(monkeypatch, wrt):
         _close(v.grad.numpy(), jdv, F32)
 
 
+# (dtype of value, x and g, tolerance against JAX in f64 from the same
+# rounded inputs): each entry within ``rel`` of its sum of |terms| plus
+# ``out`` of |itself| (the output's one rounding) and ``tiny``
+VJP_DTYPES = {torch.float16: dict(rel=1e-5, out=2.0 ** -11, tiny=2.0 ** -25),
+              torch.bfloat16: dict(rel=1e-5, out=2.0 ** -8, tiny=0.0),
+              torch.float32: dict(rel=1e-5, out=0.0, tiny=1e-30),
+              torch.float64: dict(rel=1e-12, out=0.0, tiny=1e-300)}
+JAX_DT = {torch.float16: jnp.float16, torch.bfloat16: jnp.bfloat16,
+          torch.float32: jnp.float32, torch.float64: jnp.float64}
+HUB = 1100                                # column 5: past CAP, in pieces
+PAD = 37                                  # padding entries (row = M)
+
+
+def _jax_vjp(row, col, val, x, g):
+    """``(d value, d x)`` by ``jax.vjp`` of JAX's ``spmm_coo`` (the XLA
+    path) at ``g``, all f64; entries with ``row >= M`` are padding."""
+    r, c = jnp.asarray(row), jnp.asarray(col)
+    _, vjp = jax.vjp(lambda v, xx: jspmm.spmm_coo(r, c, v, xx, M),
+                     jnp.asarray(val), jnp.asarray(x))
+    return [np.asarray(t, np.float64) for t in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("k", [1, 5, 47, 256, 300])
+@pytest.mark.parametrize("dtype", list(VJP_DTYPES), ids=lambda d: str(d)[6:])
+def test_sum_grads_vs_jax_vjp(monkeypatch, dtype, k):
+    """Both grads of ``spmm_coo`` (``_SumGrads``: the fused pass once, the
+    values relayed into CSC order and ``d value`` read back through
+    ``inv_perm``) against ``jax.vjp`` of JAX's ``spmm_coo`` from the same
+    seeded inputs rounded to ``dtype``, in f64: padding entries (``d
+    value`` 0), empty columns (``d x`` 0), a hub column of 1,100 edges past
+    ``CAP`` (its piece table built), K past ``32 * V * NV`` (300)."""
+    from paddle_sparse_tpu_torch import CAP
+    row, col, val, x, g = _graph(seed=8, hub=HUB, dtype=np.float64, k=k)
+    row = np.concatenate([row, np.full(PAD, M, np.int32)])   # padding
+    col = np.concatenate([col, np.arange(PAD, dtype=np.int32)])
+    val = np.concatenate([val, np.random.default_rng(9).standard_normal(
+        PAD)])
+    tv, tx, tg = (_t(a).to(dtype) for a in (val, x, g))
+    rounded = [t.double().numpy() for t in (tv, tx, tg)]
+    spy = _Spy(monkeypatch)
+    tv.requires_grad_()
+    tx.requires_grad_()
+    out = spmm_coo(_t(row), _t(col), tv, tx, M)
+    (out * tg).sum().backward()
+    assert spy.calls == {"fused": 1, "k2": 0, "k1": 1}
+    assert tv.grad.dtype == tx.grad.dtype == dtype
+    rowptr = tspmm.ind2ptr(_t(row), M)
+    s = tspmm.spmm_structure(rowptr, _t(row), _t(col), N)
+    assert s.col_split is not None and HUB > CAP
+    assert 5 in s.col_split.fold_row.tolist()
+    want = _jax_vjp(row, col, *rounded)
+    scale = _jax_vjp(row, col, *(np.abs(a) for a in rounded))
+    tol = VJP_DTYPES[dtype]
+    for got, ref, sc in zip((tv.grad, tx.grad), want, scale):
+        err = np.abs(got.double().numpy() - ref)
+        bound = tol["rel"] * sc + tol["out"] * np.abs(ref) + tol["tiny"]
+        assert (err <= bound).all(), float((err - bound).max())
+    assert not tv.grad[-PAD:].any()                    # padding
+    assert not tx.grad[list(EMPTY_COLS)].any()         # empty columns
+
+
+def test_relay_inverts_perm():
+    """The relay's ``inv_perm`` is the inverse of ``perm`` for a padded
+    ``PaddedCOO``'s structure, the facade's and the transpose's (whose
+    ``perm`` and ``inv_perm`` are A's, swapped); the wrapper builds the
+    same one when none is given; the launch alone (``csc_order_cuda``,
+    values and ``d value`` in CSC order) gives the routed call's outputs
+    read in CSC order, 0 past ``colptr[N]``."""
+    from paddle_sparse_tpu_torch import SparseTensor
+    from paddle_sparse_tpu_torch.ops.kernels.spmm_sddmm_cuda import (
+        csc_order_cuda, invert_perm)
+    row, col, val, x, g = _graph(seed=10, hub=40)
+    A = PaddedCOO.from_arrays(row, col, _t(val), (M, N),
+                              capacity=row.size + PAD)
+    s = A.structure()
+    T = SparseTensor(row=_t(row).long(), col=_t(col).long(), value=_t(val),
+                     sparse_sizes=(M, N))
+    st = tspmm.transpose_structure(s, A.col)
+    for perm, inv in ((s.perm, s.inv_perm), (st.perm, st.inv_perm),
+                      (T.storage.spmm_structure().perm,
+                       T.storage.spmm_structure().inv_perm)):
+        ids = torch.arange(perm.numel(), dtype=perm.dtype)
+        assert inv.dtype == perm.dtype == torch.int32
+        assert torch.equal(inv[perm.long()], ids)
+        assert torch.equal(perm[inv.long()], ids)
+        assert torch.equal(invert_perm(perm), inv)
+    assert torch.equal(st.perm, s.inv_perm) and torch.equal(st.inv_perm,
+                                                            s.perm)
+    routed = spmm_sddmm_csc_cuda(s.colptr, s.col_t, s.perm, A.value, _t(g),
+                                 _t(x), split=s.col_split,
+                                 inv_perm=s.inv_perm)
+    built = spmm_sddmm_csc_cuda(s.colptr, s.col_t, s.perm, A.value, _t(g),
+                                _t(x), split=s.col_split)
+    d_x, dv_t = csc_order_cuda(s.colptr, s.col_t,
+                               A.value.index_select(0, s.perm), _t(g), _t(x))
+    assert all(torch.equal(a, b) for a, b in zip(routed, built))
+    assert torch.equal(d_x, routed[0])
+    assert torch.equal(dv_t, routed[1].index_select(0, s.perm))
+    assert not dv_t[int(s.colptr[-1]):].any() and not routed[1][-PAD:].any()
+
+
+class _CountingDict(dict):
+    """A ``dict`` that counts its stores: the relays ``csc_values`` made."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.stores = 0
+
+    def __setitem__(self, key, value):
+        if key == "csc_values":
+            self.stores += 1
+        super().__setitem__(key, value)
+
+
+def test_csc_values_cache_and_invalidation():
+    """``csc_values`` serves ``value[perm]`` again from the caller's dict
+    for the same unwritten tensor and ``perm``; an in-place write (its
+    version counter) or another ``perm`` relays again; nothing is kept
+    without a dict or where autograd records the gather. Through a
+    ``PaddedCOO`` (its cache dict is the one passed): a backward through
+    two layers on one value (``A @ (A @ x)``, both grads) relays once, the
+    next forward empties the entry, and a write through ``.data`` between
+    steps (no version bump) is seen."""
+    row, col, val, x, g = _graph(seed=11)
+    A = PaddedCOO.from_arrays(row, col, _t(val), (M, N))
+    s = A.structure()
+    relays = _CountingDict()
+    v = _t(val).clone()
+    first = tspmm.csc_values(v, s.perm, relays)
+    assert tspmm.csc_values(v, s.perm, relays) is first
+    assert relays.stores == 1
+    other = s.perm.flip(0)
+    assert torch.equal(tspmm.csc_values(v, other, relays), v[other.long()])
+    assert tspmm.csc_values(v, s.perm, relays) is not first  # perm changed
+    kept = tspmm.csc_values(v, s.perm, relays)
+    v.mul_(2)                                             # version bump
+    again = tspmm.csc_values(v, s.perm, relays)
+    assert again is not kept and torch.equal(again, v[s.perm.long()])
+    assert tspmm.csc_values(v, s.perm, None) is not again  # no dict
+    w = _t(val).clone().requires_grad_()
+    before = relays.stores
+    with torch.enable_grad():
+        t = tspmm.csc_values(w, s.perm, relays)
+    assert t.requires_grad and relays.stores == before    # recorded
+    # two layers on one value through a PaddedCOO: one relay a backward
+    keep = row < N                      # A @ (A @ x): a square A
+    r2, c2 = _t(row[keep]).long(), _t(col[keep]).long()
+    adj = PaddedCOO.from_arrays(r2, c2, _t(val[keep]), (N, N))
+    adj.value.requires_grad_()
+    counting = _CountingDict(adj._cache)
+    object.__setattr__(adj, "_cache", counting)
+    xx = _t(x).requires_grad_()
+    w = _t(x[:, :1])
+    for step in range(2):
+        if step:
+            adj.value.data.mul_(3)                        # no version bump
+        adj.value.grad = xx.grad = None
+        before = counting.stores
+        out = adj.spmm(adj.spmm(xx))
+        assert "csc_values" not in counting               # the forward
+        (out * w).sum().backward()
+        assert counting.stores - before == 1
+        dense = torch.zeros(N, N).index_put((r2, c2), adj.value.detach(),
+                                            accumulate=True)
+        want = dense.t() @ dense.t() @ w.expand(-1, x.shape[1])
+        assert torch.allclose(xx.grad, want, rtol=1e-5, atol=1e-4)
+
+
 def test_set_testing_device():
     """``testing.set_testing_device`` makes new tensors land on the device
     given, as the reference's sets JAX's default device; ``None`` puts the

@@ -163,7 +163,8 @@ def _piecewise_kernels(monkeypatch, seen):
     """Replace the kernel wrappers that ``ops/spmm.py`` calls by the plain
     versions that follow the piece table, as the kernels do (the fused
     backward: its d x as K1's pieces over the CSC view, its d value as the
-    SDDMM's over the same pieces, written at ``perm``)."""
+    SDDMM's over the same pieces, read back through ``inv_perm``, as the
+    wrapper relays it)."""
     def spmm(rowptr, col, value, x, split=AUTO):
         start, end = rowptr[None, :-1], rowptr[None, 1:]
         split = resolve_split(split, start, end)
@@ -177,16 +178,17 @@ def _piecewise_kernels(monkeypatch, seen):
         return sddmm_spans_piecewise(start, end, col, None, g, x, split,
                                      out_dtype)
     def fused(colptr, col_t, perm, value, g, x, out_dtype=torch.float32,
-              split=AUTO):
+              split=AUTO, inv_perm=None, value_t=None):
         start, end = colptr[None, :-1], colptr[None, 1:]
         split = resolve_split(split, start, end)
         seen.append(split)
-        value_t = None if value is None else value.index_select(0, perm)
+        if value_t is None and value is not None:
+            value_t = value.index_select(0, perm)
         d_x = spmm_spans_piecewise(start, end, col_t, value_t, None, g,
                                    split)
         dv_t = sddmm_spans_piecewise(start, end, col_t, None, x, g, split,
                                      out_dtype)
-        return d_x, torch.zeros_like(dv_t).index_copy_(0, perm.long(), dv_t)
+        return d_x, dv_t.index_select(0, inv_perm)
     monkeypatch.setattr(tspmm, "spmm_csr_cuda", spmm)
     monkeypatch.setattr(tspmm, "sddmm_csr_cuda", sddmm)
     monkeypatch.setattr(tspmm, "spmm_sddmm_csc_cuda", fused)
