@@ -44,6 +44,7 @@ from typing import Optional
 
 import torch
 
+from ...profiling import scope
 from . import _build
 from ._build import FLOAT_DTYPES
 from .row_split import (AUTO, RowSplit, fold_pieces_cuda, resolve_split,
@@ -105,7 +106,8 @@ def _relayed(csc_fn, colptr, col_t, perm, value, g, x, out_dtype,
     ``d value`` in CSC order) between the two relays: ``value[perm]``
     before (``value_t`` when the caller has it), ``d value_t[inv_perm]``
     after (``inv_perm`` built here when None): ``(d x, d value)`` in COO
-    order."""
+    order. The gathers run in the spans ``psp.spmm.relay`` and
+    ``psp.spmm.readback``."""
     if inv_perm is None:
         inv_perm = invert_perm(perm)
     for name, t in (("perm", perm), ("inv_perm", inv_perm)):
@@ -120,13 +122,15 @@ def _relayed(csc_fn, colptr, col_t, perm, value, g, x, out_dtype,
     if value is None:
         value_t = None
     elif value_t is None:
-        value_t = value.index_select(0, perm)
+        with scope("psp.spmm.relay"):
+            value_t = value.index_select(0, perm)
     elif value_t.shape != value.shape or value_t.dtype != value.dtype:
         raise ValueError(f"value_t {value_t.dtype} {tuple(value_t.shape)} "
                          f"is not value[perm] of value {value.dtype} "
                          f"{tuple(value.shape)}")
     d_x, dv_t = csc_fn(colptr, col_t, value_t, g, x, out_dtype)
-    return d_x, dv_t.index_select(0, inv_perm)
+    with scope("psp.spmm.readback"):
+        return d_x, dv_t.index_select(0, inv_perm)
 
 
 def spmm_sddmm_csc_reference(colptr: torch.Tensor, col_t: torch.Tensor,

@@ -30,6 +30,15 @@ backwards above is a Function whose own backward is built from the same three
 view is A's CSR: :func:`transpose_structure`). A first-order backward
 launches the same kernels with or without ``create_graph``.
 
+Spans (``profiling.scope``, recorded only while a profiler records):
+``psp.spmm.forward`` and ``psp.spmm.backward`` around :class:`_SpmmSum`'s,
+``psp.spmm.transpose`` around :func:`_spmm_t`, ``psp.spmm.sum_grads``,
+``psp.spmm.sddmm`` and their ``.backward`` around the other Functions', and
+``psp.spmm.relay`` around each gather of the values into CSC order that
+runs (a :func:`csc_values` hit opens none), ``psp.spmm.readback`` around
+``d value``'s gather back into COO order
+(``kernels/spmm_sddmm_cuda.py::_relayed``).
+
 Dtypes: the output has ``promote_types(value, x)``. A mixed int/float pair
 is cast to the promoted float before the kernels (as JAX casts both), so K2
 and the fused pass see floats only: an int tensor cannot require grad. Two
@@ -72,6 +81,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..profiling import scope
 from .convert import ind2ptr, ptr2ind_capped
 from .kernels.row_split import AUTO, RowSplit, resolve_split
 from .kernels.sddmm_cuda import sddmm_csr_cuda
@@ -165,30 +175,35 @@ def csc_values(value: Optional[torch.Tensor], perm: torch.Tensor,
     counter does not see (through ``.data``) between steps is never served
     stale. Not kept with ``relays`` None, or where autograd records the
     gather (grad mode on and ``value`` requiring grad: a double backward
-    differentiates through it)."""
+    differentiates through it). Each gather runs in a ``psp.spmm.relay``
+    span; a served entry opens none."""
     if value is None:
         return None
-    if relays is None or (torch.is_grad_enabled() and value.requires_grad):
-        return value.index_select(0, perm)
-    ent = relays.get(_CSC_VALUES)
-    if (ent is not None and ent[0]() is value and ent[1] == value._version
-            and ent[2]() is perm):
-        return ent[3]
-    value_t = value.index_select(0, perm)
-    relays[_CSC_VALUES] = (weakref.ref(value), value._version,
-                           weakref.ref(perm), value_t)
+    keep = relays is not None and not (torch.is_grad_enabled()
+                                       and value.requires_grad)
+    if keep:
+        ent = relays.get(_CSC_VALUES)
+        if (ent is not None and ent[0]() is value
+                and ent[1] == value._version and ent[2]() is perm):
+            return ent[3]
+    with scope("psp.spmm.relay"):
+        value_t = value.index_select(0, perm)
+    if keep:
+        relays[_CSC_VALUES] = (weakref.ref(value), value._version,
+                               weakref.ref(perm), value_t)
     return value_t
 
 
 def _spmm_t(a: _Csr, value, g):
     """``A(value)^T @ g``, differentiable: :class:`_SpmmSum` over the CSC
     view (K1), whose own backward sees A's CSR as the transpose's CSC."""
-    s = a.structure_fn()
-    value_t = csc_values(value, s.perm, a.relays)
-    return _SpmmSum.apply(value_t, g, s.colptr, s.col_t,
-                          lambda: transpose_structure(a.structure_fn(),
-                                                      a.col),
-                          s.col_split, None)
+    with scope("psp.spmm.transpose"):
+        s = a.structure_fn()
+        value_t = csc_values(value, s.perm, a.relays)
+        return _SpmmSum.apply(value_t, g, s.colptr, s.col_t,
+                              lambda: transpose_structure(a.structure_fn(),
+                                                          a.col),
+                              s.col_split, None)
 
 
 def _sddmm(a: _Csr, g, x, out_dtype):
@@ -217,25 +232,27 @@ class _SpmmSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, value, x, rowptr, col, structure_fn, row_split,
                 relays=None):
-        ctx.save_for_backward(value, x)
-        ctx.csr = _Csr(rowptr, col, structure_fn, row_split, relays)
-        return spmm_csr_cuda(rowptr, col, value, x, split=row_split)
+        with scope("psp.spmm.forward"):
+            ctx.save_for_backward(value, x)
+            ctx.csr = _Csr(rowptr, col, structure_fn, row_split, relays)
+            return spmm_csr_cuda(rowptr, col, value, x, split=row_split)
 
     @staticmethod
     def backward(ctx, g):
-        value, x = ctx.saved_tensors
-        g = g.contiguous()       # the grad of a sum is stride-0
-        a = ctx.csr
-        d_value = d_x = None
-        if ctx.needs_input_grad[0] and ctx.needs_input_grad[1]:
-            d_value, d_x = _SumGrads.apply(value, g, x, a)
-        elif ctx.needs_input_grad[0]:
-            d_value = _sddmm(a, g, x, value.dtype)
-        elif ctx.needs_input_grad[1]:
-            d_x = _spmm_t(a, value, g)
-        if d_x is not None:
-            d_x = d_x.to(x.dtype)
-        return d_value, d_x, None, None, None, None, None
+        with scope("psp.spmm.backward"):
+            value, x = ctx.saved_tensors
+            g = g.contiguous()       # the grad of a sum is stride-0
+            a = ctx.csr
+            d_value = d_x = None
+            if ctx.needs_input_grad[0] and ctx.needs_input_grad[1]:
+                d_value, d_x = _SumGrads.apply(value, g, x, a)
+            elif ctx.needs_input_grad[0]:
+                d_value = _sddmm(a, g, x, value.dtype)
+            elif ctx.needs_input_grad[1]:
+                d_x = _spmm_t(a, value, g)
+            if d_x is not None:
+                d_x = d_x.to(x.dtype)
+            return d_value, d_x, None, None, None, None, None
 
 
 class _SumGrads(torch.autograd.Function):
@@ -250,33 +267,36 @@ class _SumGrads(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, value, g, x, a):
-        ctx.save_for_backward(value, g, x)
-        ctx.csr = a
-        ctx.set_materialize_grads(False)
-        s = a.structure_fn()
-        d_x, d_value = spmm_sddmm_csc_cuda(
-            s.colptr, s.col_t, s.perm, value, g, x, out_dtype=value.dtype,
-            split=s.col_split, inv_perm=s.inv_perm,
-            value_t=csc_values(value, s.perm, a.relays))
-        return d_value, d_x
+        with scope("psp.spmm.sum_grads"):
+            ctx.save_for_backward(value, g, x)
+            ctx.csr = a
+            ctx.set_materialize_grads(False)
+            s = a.structure_fn()
+            d_x, d_value = spmm_sddmm_csc_cuda(
+                s.colptr, s.col_t, s.perm, value, g, x,
+                out_dtype=value.dtype, split=s.col_split,
+                inv_perm=s.inv_perm,
+                value_t=csc_values(value, s.perm, a.relays))
+            return d_value, d_x
 
     @staticmethod
     def backward(ctx, gd_value, gd_x):
-        value, g, x = ctx.saved_tensors
-        a = ctx.csr
-        need_v, need_g, need_x = ctx.needs_input_grad[:3]
-        d_v = d_g = d_x = None
-        if gd_x is not None:
-            gd_x = gd_x.contiguous()
-            if need_v:
-                d_v = _sddmm(a, g, gd_x, value.dtype)
-            if need_g:
-                d_g = _spmm(a, value, gd_x).to(g.dtype)
-        if gd_value is not None:
-            d_g2, d_x = _sddmm_vjp(a, gd_value.contiguous(), g, x, need_g,
-                                   need_x)
-            d_g = d_g2 if d_g is None else d_g + d_g2
-        return d_v, d_g, d_x, None
+        with scope("psp.spmm.sum_grads.backward"):
+            value, g, x = ctx.saved_tensors
+            a = ctx.csr
+            need_v, need_g, need_x = ctx.needs_input_grad[:3]
+            d_v = d_g = d_x = None
+            if gd_x is not None:
+                gd_x = gd_x.contiguous()
+                if need_v:
+                    d_v = _sddmm(a, g, gd_x, value.dtype)
+                if need_g:
+                    d_g = _spmm(a, value, gd_x).to(g.dtype)
+            if gd_value is not None:
+                d_g2, d_x = _sddmm_vjp(a, gd_value.contiguous(), g, x,
+                                       need_g, need_x)
+                d_g = d_g2 if d_g is None else d_g + d_g2
+            return d_v, d_g, d_x, None
 
 
 class _Sddmm(torch.autograd.Function):
@@ -287,17 +307,19 @@ class _Sddmm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, g, x, rowptr, col, structure_fn, row_split, out_dtype):
-        ctx.save_for_backward(g, x)
-        ctx.csr = _Csr(rowptr, col, structure_fn, row_split)
-        return sddmm_csr_cuda(rowptr, col, g, x, out_dtype=out_dtype,
-                              split=row_split)
+        with scope("psp.spmm.sddmm"):
+            ctx.save_for_backward(g, x)
+            ctx.csr = _Csr(rowptr, col, structure_fn, row_split)
+            return sddmm_csr_cuda(rowptr, col, g, x, out_dtype=out_dtype,
+                                  split=row_split)
 
     @staticmethod
     def backward(ctx, gg):
-        g, x = ctx.saved_tensors
-        d_g, d_x = _sddmm_vjp(ctx.csr, gg.contiguous(), g, x,
-                              *ctx.needs_input_grad[:2])
-        return d_g, d_x, None, None, None, None, None
+        with scope("psp.spmm.sddmm.backward"):
+            g, x = ctx.saved_tensors
+            d_g, d_x = _sddmm_vjp(ctx.csr, gg.contiguous(), g, x,
+                                  *ctx.needs_input_grad[:2])
+            return d_g, d_x, None, None, None, None, None
 
 
 def check_backend(backend: str) -> None:
