@@ -752,6 +752,32 @@ def products_graph(dev):
     return PaddedCOO.from_arrays(row, col, val, (n, n)), x
 
 
+def gcn_layer(adj, h, w, b, relu, ev):
+    """One layer of ``GCN.forward`` in its order (``models/gcn.py``: ``w``
+    applied before the SpMM where it narrows, ``_transform_first``), with
+    the events ``ev[0]`` to ``ev[3]`` recorded at the layer's start, the
+    SpMM's start and end, and the layer's end. Returns the SpMM's operand,
+    its output and the layer's output."""
+    from paddle_sparse_tpu_torch.models.gcn import _transform_first
+    first = _transform_first(w)
+    ev[0].record()
+    op = h @ w if first else h
+    ev[1].record()
+    s = adj.spmm(op)
+    ev[2].record()
+    out = (s if first else s @ w) + b
+    if relu:
+        out = torch.relu(out)
+    ev[3].record()
+    return op, s, out
+
+
+def _layer_ms(ev):
+    """(SpMM ms, dense ms) of a layer timed by :func:`gcn_layer`."""
+    return (ev[1].elapsed_time(ev[2]),
+            ev[0].elapsed_time(ev[1]) + ev[2].elapsed_time(ev[3]))
+
+
 def phase4_forward(dev, card):
     from paddle_sparse_tpu_torch import (CAP, gcn_normalize, init_gcn,
                                          spmm_csr_cuda, spmm_csr_reference)
@@ -824,28 +850,22 @@ def phase4_forward(dev, card):
     sub_col = torch.arange(edge.numel(), device=dev)
     sub_val = adj.value[edge].double()
     h = x
-    layer_inputs = []
-    ev = [_event() for _ in range(3)]
+    layer_inputs = []                   # each SpMM's operand
+    ev = [_event() for _ in range(4)]
     with torch.inference_mode():
         for i, (w, b) in enumerate(zip(model.weight, model.bias)):
-            layer_inputs.append(h)
-            ev[0].record()
-            s = adj.spmm(h)
-            ev[1].record()
-            h = s @ w + b
-            if i < len(model.weight) - 1:
-                h = torch.relu(h)
-            ev[2].record()
+            op, s, h = gcn_layer(adj, h, w, b, i < len(model.weight) - 1,
+                                 ev)
+            layer_inputs.append(op)
             torch.cuda.synchronize()
             ref = spmm_csr_reference(sub_ptr, sub_col, sub_val,
-                                     layer_inputs[-1][adj.col[edge].long()]
-                                     .double())
+                                     op[adj.col[edge].long()].double())
             got = s[rows].double()
             err = float((got - ref).abs().max())
             ok = bool(torch.allclose(got, ref, **F32_TOL))
+            sp_ms, dense_ms = _layer_ms(ev)
             print(f"phase 4 layer {i}: spmm K={s.shape[1]} "
-                  f"{ev[0].elapsed_time(ev[1]):.3f} ms, dense "
-                  f"{ev[1].elapsed_time(ev[2]):.3f} ms; {SAMPLED_ROWS} "
+                  f"{sp_ms:.3f} ms, dense {dense_ms:.3f} ms; {SAMPLED_ROWS} "
                   f"sampled rows vs f64 max_abs_err {err:.3e} "
                   f"{'ok' if ok else 'FAIL'} {card}", flush=True)
             check(ok, f"layer {i} SpMM disagrees with f64 on sampled rows")
@@ -983,26 +1003,21 @@ def phase5_train(dev, card, adj, x, model):
     # around each part; the SpMM outputs and inputs keep their grads
     model.zero_grad(set_to_none=True)
     adj.value.grad = None
-    ev = [_event() for _ in range(2 * L + 3)]
-    hs, ss = [], []
+    ev = [[_event() for _ in range(4)] for _ in range(L)]
+    ev_loss = [_event() for _ in range(2)]
+    hs, ss = [], []                     # each SpMM's operand and output
     h = x
-    ev[0].record()
     for i, (w, b) in enumerate(zip(model.weight, model.bias)):
-        hs.append(h)
-        if h.requires_grad:
-            h.retain_grad()
-        sp = adj.spmm(h)
+        op, sp, h = gcn_layer(adj, h, w, b, i < L - 1, ev[i])
+        if op.requires_grad:
+            op.retain_grad()
         sp.retain_grad()
+        hs.append(op)
         ss.append(sp)
-        ev[2 * i + 1].record()
-        h = sp @ w + b
-        if i < L - 1:
-            h = torch.relu(h)
-        ev[2 * i + 2].record()
     loss = -torch.log_softmax(h, dim=-1).gather(1, y[:, None]).mean()
-    ev[2 * L + 1].record()
+    ev_loss[0].record()
     loss.backward()
-    ev[2 * L + 2].record()
+    ev_loss[1].record()
     torch.cuda.synchronize()
     check(torch.allclose(loss.detach(),
                          gcn_loss(model, adj, x, y).detach(), rtol=1e-6,
@@ -1010,13 +1025,12 @@ def phase5_train(dev, card, adj, x, model):
           "layer-by-layer loss disagrees with gcn_loss")
     fwd_parts = []
     for i in range(L):
-        fwd_parts.append((f"fwd layer {i} spmm K={hs[i].shape[1]}",
-                          ev[2 * i].elapsed_time(ev[2 * i + 1])))
-        fwd_parts.append((f"fwd layer {i} dense",
-                          ev[2 * i + 1].elapsed_time(ev[2 * i + 2])))
+        sp_ms, dense_ms = _layer_ms(ev[i])
+        fwd_parts.append((f"fwd layer {i} spmm K={hs[i].shape[1]}", sp_ms))
+        fwd_parts.append((f"fwd layer {i} dense", dense_ms))
     fwd_parts.append(("loss (log_softmax + nll)",
-                      ev[2 * L].elapsed_time(ev[2 * L + 1])))
-    bwd_ms = ev[2 * L + 1].elapsed_time(ev[2 * L + 2])
+                      ev[L - 1][3].elapsed_time(ev_loss[0])))
+    bwd_ms = ev_loss[0].elapsed_time(ev_loss[1])
 
     # the backward's kernels replayed alone on this step's own inputs
     rowptr, col = adj.rowptr(), adj.col
@@ -1408,18 +1422,12 @@ def phase4c_gcn(dev, card, adj, x):
             times.append((time.perf_counter() - t0) * 1e3)
         counts = _launch_counts()
         h, layer_ms = h0, []
-        ev = [_event() for _ in range(3)]
+        ev = [_event() for _ in range(4)]
         for i, (w, bias) in enumerate(zip(model.weight, model.bias)):
-            ev[0].record()
-            s = norm.spmm(h)
-            ev[1].record()
-            h = s @ w + bias
-            if i < len(model.weight) - 1:
-                h = torch.relu(h)
-            ev[2].record()
+            _, _, h = gcn_layer(norm, h, w, bias,
+                                i < len(model.weight) - 1, ev)
             torch.cuda.synchronize()
-            layer_ms.append((ev[0].elapsed_time(ev[1]),
-                             ev[1].elapsed_time(ev[2])))
+            layer_ms.append(_layer_ms(ev))
     ms = sum(times) / len(times)
     print(f"phase 4c GCN forward on the clustered graph, main path: "
           f"{' '.join(f'{t:.3f}' for t in times)} ms (mean {ms:.3f}); "

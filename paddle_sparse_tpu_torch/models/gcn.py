@@ -12,7 +12,10 @@ load without a transpose.
 
 Every aggregation is ``PaddedCOO.spmm``: the sum (GCN, GIN, APPNP) and the
 mean (GraphSAGE) run the SpMM kernel forward and for ``d x`` and the SDDMM
-kernel for ``d value`` on a CUDA tensor; GAT aggregates each head as an SpMM
+kernel for ``d value`` on a CUDA tensor. GCN and GraphSAGE run each layer's
+``A @ h @ W`` at the narrower of ``W``'s widths (:func:`_aggregate`): the
+same product as the JAX layer's ``(A @ h) @ W``, its f32 sums in another
+order where ``W`` narrows; GAT aggregates each head as an SpMM
 whose values are that head's attention weights, so the same kernels carry
 it. Edge softmax is plain torch, as the reference leaves it to XLA.
 
@@ -31,6 +34,7 @@ from torch.nn import functional as F
 from ..core.matrix import PaddedCOO
 from ..ops.segment import (grouped_gather, grouped_max, grouped_sum,
                            take_rows)
+from ..profiling import scope
 
 
 def gcn_normalize(adj: PaddedCOO, add_self_loops: bool = False) -> PaddedCOO:
@@ -87,11 +91,34 @@ def _dense_state(state: Dict[str, torch.Tensor], weight: str, bias: str,
         state[f"{bias}.{i}"] = _t(layer["b"])
 
 
+def _transform_first(w: torch.Tensor) -> bool:
+    """Whether a layer of weight ``w`` (``(d_in, d_out)``) multiplies by
+    ``w`` before it aggregates: where ``w`` narrows, so that the SpMM
+    gathers ``d_out`` columns. Ties aggregate first."""
+    d_in, d_out = w.shape
+    return d_out < d_in
+
+
+def _aggregate(adj, h: torch.Tensor, w: torch.Tensor, **reduce
+               ) -> torch.Tensor:
+    """``adj.spmm(h, **reduce) @ w``, the SpMM at the narrower of ``w``'s
+    widths: as ``adj.spmm(h @ w)`` inside the span
+    ``psp.model.transform_first`` where :func:`_transform_first`, else
+    aggregating first. The SpMM is linear in its dense operand, the mean's
+    divide included, so both orders give the same product; the GEMM's
+    shape is the same either way."""
+    if _transform_first(w):
+        with scope("psp.model.transform_first"):
+            return adj.spmm(h @ w, **reduce)
+    return adj.spmm(h, **reduce) @ w
+
+
 # ---- GCN -------------------------------------------------------------------
 
 class GCN(nn.Module):
     """Kipf-Welling GCN: ``H' = relu(A_norm @ H @ W + b)`` stacked, no relu
-    after the last layer. ``weight[i]`` is ``(d_in, d_out)``."""
+    after the last layer, ``A_norm @ H @ W`` at the narrower of ``W``'s
+    widths (:func:`_aggregate`). ``weight[i]`` is ``(d_in, d_out)``."""
 
     def __init__(self, in_dim: int, hidden: int, out_dim: int,
                  num_layers: int = 2, device=None):
@@ -104,8 +131,7 @@ class GCN(nn.Module):
         h = x
         n = len(self.weight)
         for i, (w, b) in enumerate(zip(self.weight, self.bias)):
-            h = adj.spmm(h)
-            h = h @ w + b
+            h = _aggregate(adj, h, w) + b
             if i < n - 1:
                 h = torch.relu(h)
         return h
@@ -136,7 +162,8 @@ class GraphSAGE(nn.Module):
     """GraphSAGE with the mean aggregator: ``H' = relu(H @ W_self + b_self +
     mean_neighbours(H) @ W_neigh + b_neigh)`` stacked, no relu after the
     last layer; the mean is ``adj.spmm(h, reduce="mean")`` (the row sum over
-    the row's entry count)."""
+    the row's entry count), ``mean_neighbours(H) @ W_neigh`` at the narrower
+    of ``W_neigh``'s widths (:func:`_aggregate`)."""
 
     def __init__(self, in_dim: int, hidden: int, out_dim: int,
                  num_layers: int = 2, device=None):
@@ -151,9 +178,9 @@ class GraphSAGE(nn.Module):
         h = x
         n = len(self.self_weight)
         for i in range(n):
-            agg = adj.spmm(h, reduce="mean")
-            h = (h @ self.self_weight[i] + self.self_bias[i]
-                 + agg @ self.neigh_weight[i] + self.neigh_bias[i])
+            agg = _aggregate(adj, h, self.neigh_weight[i], reduce="mean")
+            h = (h @ self.self_weight[i] + self.self_bias[i] + agg
+                 + self.neigh_bias[i])
             if i < n - 1:
                 h = torch.relu(h)
         return h

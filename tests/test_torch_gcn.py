@@ -3,7 +3,9 @@ paddle_sparse_tpu.models on the same numpy graph and the same (JAX-initialised)
 params: forward at f32 with ``rtol=atol=1e-5``; loss and gradients (every
 param and ``adj.value``) against ``jax.value_and_grad`` with
 ``rtol=atol=1e-5``, and SGD trajectories, where f32 rounding compounds over
-the steps, with ``rtol=atol=1e-4``.
+the steps, with ``rtol=atol=1e-4``. The port runs a layer whose weight
+narrows as ``A @ (h @ W)`` where JAX runs ``(A @ h) @ W``: the same
+tolerances hold with layers that narrow, widen and keep their width.
 
 Both run their matrix products in full f32 on the CPU. On a CUDA card the
 port's ``h @ w`` is full f32 only while
@@ -173,6 +175,32 @@ def test_gcn_loss_and_grads(num_layers, with_value):
     jloss, jgrads = _jax_value_and_grad(params, jn, jnp.asarray(x),
                                         jnp.asarray(y))
     model = _load_jax_params(params, num_layers)
+    tn.value.requires_grad_()
+    loss = gcn_loss(model, tn, torch.from_numpy(x), torch.from_numpy(y))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), **TOL)
+    _check_grads(model, tn, jgrads)
+
+
+@pytest.mark.parametrize("in_dim,hidden,out_dim", [(12, 16, 5),
+                                                    (16, 12, 20)])
+def test_gcn_each_layer_order(in_dim, hidden, out_dim):
+    """Layers that widen, keep and narrow (12-16-16-5: the last narrows;
+    16-12-12-20: the first): the port runs a narrowing layer as ``A @ (h @
+    W)`` where JAX runs ``(A @ h) @ W``. Forward, loss and every grad,
+    ``adj.value`` included, agree as in the tests above."""
+    t, j, x = _graph(feat=in_dim)
+    tn, jn = gcn_normalize(t), j_normalize(j)
+    y = np.random.default_rng(in_dim).integers(0, out_dim, 150)
+    params = j_init(jax.random.PRNGKey(in_dim), in_dim, hidden, out_dim,
+                    num_layers=3)
+    model = _load_jax_params(params, 3)
+    with torch.inference_mode():
+        out = model(tn, torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(
+        jGCN(params, jn, jnp.asarray(x))), **TOL)
+    jloss, jgrads = _jax_value_and_grad(params, jn, jnp.asarray(x),
+                                        jnp.asarray(y))
     tn.value.requires_grad_()
     loss = gcn_loss(model, tn, torch.from_numpy(x), torch.from_numpy(y))
     loss.backward()

@@ -5,7 +5,9 @@ numpy graph, with the JAX ``init_*`` params carried over by the
 parameter, GIN's ``eps`` included, and ``adj.value`` where the model reads
 it) against ``jax.value_and_grad``, SGD steps, ``edge_softmax`` and its
 gradient, GAT's refusal of a rectangular adjacency, and the toy set-ups of
-``model_entry``.
+``model_entry``. GraphSAGE also where a layer narrows, widens or keeps its
+width (the port aggregates a narrowing layer after ``h @ W_neigh``), and
+GCN's and GraphSAGE's SpMMs each at min(d_in, d_out) columns.
 
 Tolerances: forward, loss and gradients ``rtol=atol=1e-5`` in f32, as
 ``tests/test_torch_gcn.py``; SGD trajectories, where f32 rounding compounds
@@ -28,7 +30,7 @@ from paddle_sparse_tpu.models import edge_softmax as j_edge_softmax
 from paddle_sparse_tpu.models import gcn_normalize as j_normalize
 from paddle_sparse_tpu.models import (init_appnp, init_gat, init_gcn,
                                       init_gin, init_sage)
-from paddle_sparse_tpu_torch import (APPNP, GAT, GIN, MODELS, GraphSAGE,
+from paddle_sparse_tpu_torch import (APPNP, GAT, GCN, GIN, MODELS, GraphSAGE,
                                      PaddedCOO, appnp_params_from_jax,
                                      edge_softmax, gat_params_from_jax,
                                      gcn_loss, gcn_normalize,
@@ -37,6 +39,7 @@ from paddle_sparse_tpu_torch import (APPNP, GAT, GIN, MODELS, GraphSAGE,
                                      train_step)
 from paddle_sparse_tpu_torch import init_appnp as t_init_appnp
 from paddle_sparse_tpu_torch import init_gat as t_init_gat
+from paddle_sparse_tpu_torch import init_gcn as t_init_gcn
 from paddle_sparse_tpu_torch import init_gin as t_init_gin
 from paddle_sparse_tpu_torch import init_sage as t_init_sage
 from paddle_sparse_tpu_torch.core import matrix as tmatrix
@@ -49,7 +52,7 @@ IN, HID, OUT, HEADS = 12, 16, 5, 3
 KINDS = ["sage", "gin", "appnp", "gat"]
 
 
-def _graph(n=150, nnz=900, capacity=1100, seed=3):
+def _graph(n=150, nnz=900, capacity=1100, seed=3, feat=IN):
     """A random row-sorted graph with duplicate entries and empty rows,
     padded, in both packages; and features."""
     rng = np.random.default_rng(seed)
@@ -58,7 +61,7 @@ def _graph(n=150, nnz=900, capacity=1100, seed=3):
     order = np.lexsort((col, row))
     row, col = row[order].astype(np.int32), col[order].astype(np.int32)
     val = rng.random(nnz).astype(np.float32)
-    x = rng.standard_normal((n, IN)).astype(np.float32)
+    x = rng.standard_normal((n, feat)).astype(np.float32)
     t = PaddedCOO.from_arrays(row, col, val, (n, n), capacity=capacity)
     j = JPaddedCOO.from_arrays(jnp.asarray(row), jnp.asarray(col),
                                jnp.asarray(val), (n, n), capacity=capacity)
@@ -173,6 +176,75 @@ def _check_loss_and_grads(kind, num_layers):
         np.testing.assert_allclose(t.value.grad.numpy(), np.asarray(jv),
                                    **TOL)
         assert not t.value.grad[t.nnz:].any()
+
+
+@pytest.mark.parametrize("in_dim,hidden,out_dim", [(12, 16, 5),
+                                                    (16, 12, 20)])
+def test_sage_each_layer_order(in_dim, hidden, out_dim):
+    """Layers that widen, keep and narrow (12-16-16-5: the last narrows;
+    16-12-12-20: the first): the port takes a narrowing layer's mean of
+    ``h @ W_neigh`` where JAX takes ``mean(h) @ W_neigh``. Forward, loss
+    and every grad, ``adj.value`` included, agree as in the tests above."""
+    params = init_sage(jax.random.PRNGKey(in_dim), in_dim, hidden, out_dim,
+                       num_layers=3)
+    model = GraphSAGE(in_dim, hidden, out_dim, 3)
+    model.load_state_dict(sage_params_from_jax(_np(params)))
+    t, j, x = _graph(feat=in_dim)
+    with torch.inference_mode():
+        out = model(t, torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(
+        jSAGE(params, j, jnp.asarray(x))), **TOL)
+    y = np.random.default_rng(in_dim).integers(0, out_dim, 150)
+    jloss, (jp, jv) = _jax_value_and_grad(jSAGE, params, j, x, y)
+    t.value.requires_grad_()
+    loss = gcn_loss(model, t, torch.from_numpy(x), torch.from_numpy(y))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), **TOL)
+    got = dict(model.named_parameters())
+    for name, g in sage_params_from_jax(_np(jp)).items():
+        np.testing.assert_allclose(got[name].grad.numpy(), g.numpy(),
+                                   err_msg=name, **TOL)
+    np.testing.assert_allclose(t.value.grad.numpy(), np.asarray(jv), **TOL)
+
+
+class _WidthRecorder:
+    """An adjacency for ``GCN``/``GraphSAGE.forward`` that records the
+    width of each dense operand ``spmm`` receives."""
+
+    def __init__(self, adj):
+        self.adj, self.widths = adj, []
+
+    def spmm(self, x, **reduce):
+        self.widths.append(x.shape[-1])
+        return self.adj.spmm(x, **reduce)
+
+
+@pytest.mark.parametrize("model", [GCN, GraphSAGE])
+@pytest.mark.parametrize("dims", [(12, 16, 16, 5), (16, 12, 12, 20),
+                                  (12, 16, 16, 16), (16, 16, 16, 16)])
+def test_each_layer_aggregates_at_its_narrower_width(model, dims):
+    """Each layer's SpMM gets ``min(d_in, d_out)`` columns, ties at
+    ``d_in``, and the forward equals the aggregate-first order's."""
+    t, _, x = _graph(feat=dims[0])
+    init = t_init_gcn if model is GCN else t_init_sage
+    m = init(torch.Generator().manual_seed(0), dims[0], dims[1], dims[-1],
+             len(dims) - 1)
+    if model is GCN:
+        t = gcn_normalize(t)
+    adj = _WidthRecorder(t)
+    with torch.inference_mode():
+        out = m(adj, torch.from_numpy(x))
+        h = torch.from_numpy(x)
+        for i in range(len(dims) - 1):       # aggregate first throughout
+            if model is GCN:
+                h = t.spmm(h) @ m.weight[i] + m.bias[i]
+            else:
+                h = (h @ m.self_weight[i] + m.self_bias[i]
+                     + t.spmm(h, reduce="mean") @ m.neigh_weight[i]
+                     + m.neigh_bias[i])
+            h = torch.relu(h) if i < len(dims) - 2 else h
+    assert adj.widths == [min(a, b) for a, b in zip(dims, dims[1:])]
+    torch.testing.assert_close(out, h, **TOL)
 
 
 @pytest.mark.parametrize("kind", KINDS)

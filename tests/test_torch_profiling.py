@@ -9,7 +9,10 @@ The layer's spans (``psp.spmm.*``, ``ops/spmm.py`` and
 same Functions run the kernels' plain versions: per GCN step with edge-value
 grads, per GraphSAGE step without, per forward under ``no_grad``, and
 through a double backward; each ``relay`` span is a gather done, so a
-``csc_values`` cache hit opens none."""
+``csc_values`` cache hit opens none. The model step's span
+``psp.model.transform_first`` (``models/gcn.py``) opens once per layer whose
+weight narrows (F -> H -> H -> C here: the last) and never where no width
+shrinks."""
 import collections
 import importlib
 
@@ -24,6 +27,7 @@ from paddle_sparse_tpu_torch.ops.kernels import spmm_sddmm_cuda
 entry = importlib.import_module("paddle_sparse_tpu_torch.entry")
 
 N, NNZ, F, H, C = 40, 200, 6, 8, 3
+TRANSFORM_FIRST = "psp.model.transform_first"
 
 
 def _profile(fn):
@@ -118,13 +122,14 @@ def test_gcn_step_with_value_grads(steps):
     torch.manual_seed(0)
     model = psp.GCN(F, H, C, 3, device="cpu")
     _, ev = _profile(lambda: _steps(model, adj, x, y, steps))
-    # per step: 3 forwards; backward: both grads twice (K2′, one relay, the
-    # second served by csc_values, each d value read back), d value alone
-    # at the first layer (K2)
+    # per step: 3 forwards, the last layer's transform first; backward:
+    # both grads twice (K2′, one relay, the second served by csc_values,
+    # each d value read back), d value alone at the first layer (K2)
     assert _counts(ev) == {k: v * steps for k, v in {
         "psp.spmm.forward": 3, "psp.spmm.backward": 3,
         "psp.spmm.sum_grads": 2, "psp.spmm.sddmm": 1,
-        "psp.spmm.relay": 1, "psp.spmm.readback": 2}.items()}
+        "psp.spmm.relay": 1, "psp.spmm.readback": 2,
+        TRANSFORM_FIRST: 1}.items()}
     for e in ev:
         if e.name in ("psp.spmm.relay", "psp.spmm.readback"):
             up = [a for a in _ancestors(e) if a.startswith("psp.")]
@@ -138,16 +143,21 @@ def test_sage_step_without_value_grads():
     torch.manual_seed(0)
     model = psp.GraphSAGE(F, H, C, 3, device="cpu")
     _, ev = _profile(lambda: _steps(model, adj, x, y, 1))
-    # 3 forwards; d x over the CSC view at the two layers above the first,
-    # each a K1 forward of its own, the values relayed once
+    # 3 forwards, the last layer's transform first; d x over the CSC view
+    # at the two layers above the first, each a K1 forward of its own, the
+    # values relayed once
     assert _counts(ev) == {"psp.spmm.forward": 5, "psp.spmm.backward": 2,
-                           "psp.spmm.transpose": 2, "psp.spmm.relay": 1}
+                           "psp.spmm.transpose": 2, "psp.spmm.relay": 1,
+                           TRANSFORM_FIRST: 1}
+    ups = []
     for e in ev:
         up = [a for a in _ancestors(e) if a.startswith("psp.")]
         if e.name == "psp.spmm.relay":
             assert up == ["psp.spmm.transpose", "psp.spmm.backward"]
         if e.name == "psp.spmm.forward" and up:
-            assert up == ["psp.spmm.transpose", "psp.spmm.backward"]
+            ups.append(up)
+    assert sorted(ups) == [[TRANSFORM_FIRST]] + [
+        ["psp.spmm.transpose", "psp.spmm.backward"]] * 2
 
 
 def test_forward_under_no_grad_opens_forward_spans_only():
@@ -157,7 +167,23 @@ def test_forward_under_no_grad_opens_forward_spans_only():
     with torch.no_grad():
         out, ev = _profile(lambda: model(adj, x))
     assert out.shape == (N, C)
-    assert _counts(ev) == {"psp.spmm.forward": 3}
+    assert _counts(ev) == {"psp.spmm.forward": 3, TRANSFORM_FIRST: 1}
+    inner = [e for e in ev if e.name == "psp.spmm.forward"
+             and TRANSFORM_FIRST in _ancestors(e)]
+    assert len(inner) == 1
+
+
+@pytest.mark.parametrize("model", [psp.GCN, psp.GraphSAGE])
+@pytest.mark.parametrize("dims", [(F, H, H), (F, F, F)])
+def test_no_transform_first_span_where_no_width_shrinks(model, dims):
+    """Widths that only grow or stay (ties aggregate first): a step opens
+    every layer's SpMM spans and no ``psp.model.transform_first``."""
+    adj, x, y = _graph(model is psp.GCN, False)
+    torch.manual_seed(0)
+    m = model(*dims, 3, device="cpu")
+    _, ev = _profile(lambda: _steps(m, adj, x, y % dims[2], 1))
+    counts = _counts(ev)
+    assert TRANSFORM_FIRST not in counts and counts["psp.spmm.forward"] == 5
 
 
 def test_fused_backward_relays_its_own_values():
