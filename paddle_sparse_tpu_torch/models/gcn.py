@@ -264,47 +264,79 @@ def edge_softmax(adj: PaddedCOO, logits: torch.Tensor) -> torch.Tensor:
     ``adj.row_groups()`` (``ops/segment.py``), so that a hub row's edges
     never pile on one address: straight ``scatter_reduce``, ``index_add``
     and ``t[row]`` serialized a row of 10M edges on the card, and the
-    backward of ``t[row]`` alone took seconds per GAT step."""
-    groups = adj.row_groups()
-    vmask = adj.valid_mask().reshape((-1,) + (1,) * (logits.dim() - 1))
-    masked = torch.where(vmask, logits, torch.full(
-        (), -1e30, dtype=logits.dtype, device=logits.device))
-    # the max only shifts each row's logits, which the softmax does not
-    # see: its gradient is 0 in exact arithmetic (PyG's softmax detaches it
-    # too), and skipping it skips two E-sized gathers per call
-    row_max = grouped_max(masked.detach(), groups)
-    row_max = torch.where(torch.isfinite(row_max), row_max,
-                          torch.zeros((), dtype=row_max.dtype,
-                                      device=row_max.device))
-    e = torch.where(vmask, torch.exp(masked - grouped_gather(row_max, groups)),
-                    torch.zeros((), dtype=masked.dtype, device=masked.device))
-    denom = grouped_sum(e, groups)
-    return e / grouped_gather(denom, groups).clamp(min=1e-16)
+    backward of ``t[row]`` alone took seconds per GAT step. Runs inside
+    the span ``psp.model.edge_softmax``."""
+    with scope("psp.model.edge_softmax"):
+        groups = adj.row_groups()
+        vmask = adj.valid_mask().reshape((-1,) + (1,) * (logits.dim() - 1))
+        masked = torch.where(vmask, logits, torch.full(
+            (), -1e30, dtype=logits.dtype, device=logits.device))
+        # the max only shifts each row's logits, which the softmax does not
+        # see: its gradient is 0 in exact arithmetic (PyG's softmax detaches
+        # it too), and skipping it skips two E-sized gathers per call
+        row_max = grouped_max(masked.detach(), groups)
+        row_max = torch.where(torch.isfinite(row_max), row_max,
+                              torch.zeros((), dtype=row_max.dtype,
+                                          device=row_max.device))
+        e = torch.where(vmask,
+                        torch.exp(masked - grouped_gather(row_max, groups)),
+                        torch.zeros((), dtype=masked.dtype,
+                                    device=masked.device))
+        denom = grouped_sum(e, groups)
+        return e / grouped_gather(denom, groups).clamp(min=1e-16)
 
 
 class GAT(nn.Module):
     """Velickovic-style graph attention network.
 
     Per layer and head: ``hw = h @ W`` split into heads, edge logits
-    ``leaky_relu(a_dst . hw[row] + a_src . hw[col])``, attention weights from
-    :func:`edge_softmax`, and each head aggregated as
-    ``adj.with_value(att[:, k]).spmm(hw[:, k])``: the same function as the
-    JAX per-head ``segment_sum`` of ``(E, H, D)`` messages, without the
-    messages (``with_value`` shares the cached CSC view, built once per
-    graph). Heads are concatenated with ``elu`` on hidden layers and
-    averaged on the output layer. The adjacency must be square."""
+    ``leaky_relu(a_dst . hw[row] + a_src . hw[col])`` (span
+    ``psp.model.gat.scores``), attention weights from :func:`edge_softmax`,
+    and each head aggregated as ``adj.with_value(att[:, k]).spmm(hw[:, k])``
+    (span ``psp.model.gat.heads``, with the heads' concat or mean): the
+    same function as the JAX per-head ``segment_sum`` of ``(E, H, D)``
+    messages, without the messages (``with_value`` shares the cached CSC
+    view, built once per graph). Heads are concatenated on hidden layers
+    and averaged on the output layer, then ``elu`` on hidden layers. The
+    adjacency must be square.
+
+    The defaults are the JAX package's layer: one output head, no bias, no
+    skip. PyG's ``GATConv`` as its ogbn-products example stacks it
+    (``examples/ogbn_products_gat.py``) is ``out_heads=heads, bias=True,
+    skip=True``: ``out_heads`` heads averaged on the output layer; ``bias``
+    a bias per layer (``bias[i]``, the layer's output width), added after
+    the concat or mean; ``skip`` a linear map of the layer's input
+    (``skip_weight[i]``, ``(d_in, d_out)``, and ``skip_bias[i]``) added
+    before ``elu``."""
 
     def __init__(self, in_dim: int, hidden: int, out_dim: int,
                  heads: int = 4, num_layers: int = 2,
-                 negative_slope: float = 0.2, device=None):
+                 negative_slope: float = 0.2, device=None,
+                 out_heads: int = 1, bias: bool = False,
+                 skip: bool = False):
         super().__init__()
         self.negative_slope = negative_slope
         dims = [in_dim] + [hidden * heads] * (num_layers - 1) + [out_dim]
-        hd = [(heads, hidden)] * (num_layers - 1) + [(1, out_dim)]
+        hd = [(heads, hidden)] * (num_layers - 1) + [(out_heads, out_dim)]
         self.weight = _zeros(((d, h * o) for d, (h, o) in zip(dims, hd)),
                              device)
         self.a_src = _zeros(hd, device)
         self.a_dst = _zeros(hd, device)
+        self.bias = _zeros(((d,) for d in dims[1:]), device) if bias \
+            else None
+        self.skip_weight = _zeros(zip(dims[:-1], dims[1:]), device) if skip \
+            else None
+        self.skip_bias = _zeros(((d,) for d in dims[1:]), device) if skip \
+            else None
+
+    def _scores(self, groups, col, hw, a_src, a_dst) -> torch.Tensor:
+        """The ``(E, H)`` edge logits of ``hw`` (``(N, H, D)``)."""
+        with scope("psp.model.gat.scores"):
+            alpha_dst = (hw * a_dst).sum(-1)                # (N, H)
+            alpha_src = (hw * a_src).sum(-1)
+            return F.leaky_relu(grouped_gather(alpha_dst, groups)
+                                + take_rows(alpha_src, col),
+                                self.negative_slope)        # (E, H)
 
     def forward(self, adj: PaddedCOO, x: torch.Tensor) -> torch.Tensor:
         # after the first layer hw has adj.M rows but is gathered by col
@@ -320,27 +352,35 @@ class GAT(nn.Module):
                                                   self.a_dst)):
             H, D = a_src.shape
             hw = (h @ w).reshape(-1, H, D)                  # (N, H, D)
-            alpha_dst = (hw * a_dst).sum(-1)                # (N, H)
-            alpha_src = (hw * a_src).sum(-1)
-            logits = F.leaky_relu(grouped_gather(alpha_dst, groups)
-                                  + take_rows(alpha_src, col),
-                                  self.negative_slope)      # (E, H)
-            att = edge_softmax(adj, logits)
-            out = torch.stack([adj.with_value(att[:, k]).spmm(hw[:, k])
-                               for k in range(H)], dim=1)   # (M, H, D)
-            h = F.elu(out.reshape(-1, H * D)) if i < n - 1 else out.mean(1)
+            att = edge_softmax(adj, self._scores(groups, col, hw, a_src,
+                                                 a_dst))
+            with scope("psp.model.gat.heads"):
+                out = torch.stack([adj.with_value(att[:, k]).spmm(hw[:, k])
+                                   for k in range(H)], dim=1)  # (M, H, D)
+                out = out.reshape(-1, H * D) if i < n - 1 else out.mean(1)
+            del att, hw       # freed before the skip's GEMM under no_grad
+            if self.bias is not None:
+                out = out + self.bias[i]
+            if self.skip_weight is not None:
+                out = out + (h @ self.skip_weight[i] + self.skip_bias[i])
+            h = F.elu(out) if i < n - 1 else out
         return h
 
 
 def init_gat(generator: torch.Generator, in_dim: int, hidden: int,
              out_dim: int, heads: int = 4, num_layers: int = 2,
-             device=None) -> GAT:
+             device=None, out_heads: int = 1, bias: bool = False,
+             skip: bool = False) -> GAT:
     """A GAT whose weights and attention vectors are N(0, 2 / d_in) draws
     from ``generator``, ``d_in`` the layer's input width, as the JAX
-    ``init_gat``."""
-    model = GAT(in_dim, hidden, out_dim, heads, num_layers, device=device)
+    ``init_gat``; with ``skip``, the skip weights drawn after those the
+    same way, and every bias zero."""
+    model = GAT(in_dim, hidden, out_dim, heads, num_layers, device=device,
+                out_heads=out_heads, bias=bias, skip=skip)
     for w, a_src, a_dst in zip(model.weight, model.a_src, model.a_dst):
         _he_normal_(generator, (w, a_src, a_dst), fan_in=w.shape[0])
+    if skip:
+        _he_normal_(generator, model.skip_weight)
     return model
 
 
