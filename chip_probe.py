@@ -55,8 +55,17 @@ this, parent; ...). One JSON line per run, then their summary: each
 side's runs, their medians, the change of the median, and in how many
 pairs this tree read more than the parent.
 
-``gat``: ``chip_smoke.py`` phase 8d's GAT (3 layers, 4 heads of 64,
-output 47) on the zipf graph at 1/8 scale: first its gather of 15.76M
+``gat``: first the attention pass (``gat_attention_cuda``: node scores,
+then each row's edge softmax) at the shapes of the benchmark's
+``gat-products.eval`` (the uniform graph of ``chip_smoke.products_graph``,
+2,449,029 nodes of degree 50; 4 heads of 128, then 4 of 47):
+``chip_smoke.gat_attention_check``'s CUDA-event ms of the call, of the
+node scores and of the edge pass alone, its bound, the plain version's ms
+and the two compared; one JSON line a shape; then the cell's model (PyG's
+3 layers of 4 heads, the output heads averaged, bias and skips) on that
+graph: the host ms of a forward under ``no_grad`` and its attention passes
+and K1 launches (3 and 12). Then ``chip_smoke.py`` phase 8d's GAT (3 layers, 4
+heads of 64, output 47) on the zipf graph at 1/8 scale: its gather of 15.76M
 rows of 4 floats by the row groups' entry index, ``index_select`` against
 ``take_rows``, each timed alone with CUDA events; then, after a warm-up, one
 forward
@@ -385,11 +394,55 @@ def ab(parent: Path) -> None:
     print("AB_SUMMARY " + json.dumps(summary) + f" [{card}]", flush=True)
 
 
+GAT_CELL_SHAPES = ((4, 128), (4, 47))    # gat-products: hidden, last layer
+
+
+def gat_attention_cell(dev: torch.device, card: str) -> None:
+    """The attention pass at ``gat-products.eval``'s shapes against its
+    bound and its plain version (``chip_smoke.gat_attention_check``), one
+    JSON line a shape; then the cell's model: a forward's host ms, its
+    attention passes and K1 launches."""
+    import chip_smoke as c
+    from paddle_sparse_tpu_torch import (gat_attention_cuda, init_gat,
+                                         spmm_csr_cuda)
+    adj, x = c.products_graph(dev)
+    adj = adj.with_value(None)
+    for H, D in GAT_CELL_SHAPES:
+        res = c.gat_attention_check("probe", card, adj, H, D)
+        print("GAT_ATTENTION " + json.dumps({
+            "nodes": adj.N, "entries": adj.capacity, "heads": H,
+            "channels": D, **res}) + f" [{card}]", flush=True)
+        torch.cuda.empty_cache()
+    # the cell's model: PyG's stacking, forwards under no_grad
+    model = init_gat(torch.Generator().manual_seed(0), c.GCN_DIMS[0], 128,
+                     c.GCN_DIMS[2], heads=4, num_layers=3, device=dev,
+                     out_heads=4, bias=True, skip=True)
+    with torch.no_grad():
+        model(adj, x)
+        torch.cuda.synchronize()
+        before = (gat_attention_cuda.launches, spmm_csr_cuda.launches)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            model(adj, x)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    per = [(gat_attention_cuda.launches - before[0]) / 3,
+           (spmm_csr_cuda.launches - before[1]) / 3]
+    print("GAT_CELL_FORWARD " + json.dumps({
+        "ms": ms, "attention_passes": per[0], "k1": per[1]})
+        + f" [{card}]", flush=True)
+    c.check(per == [3, 12], f"the cell's forward: {per} attention passes "
+                            f"and K1 launches, not 3 and 12")
+    del adj, x, model
+    torch.cuda.empty_cache()
+
+
 def gat(dev: torch.device) -> None:
     import chip_smoke as c
 
     from paddle_sparse_tpu_torch import PaddedCOO, init_gat
     card = card_line()
+    gat_attention_cell(dev, card)
     row, col, val, x = c.bench_graph(dev, "zipf", 0.125, c.GCN_DIMS[0])
     n = x.shape[0]
     adj = PaddedCOO.from_arrays(row, col, val, (n, n))

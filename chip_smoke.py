@@ -154,16 +154,23 @@ Phases, one or more printed lines each:
    step; K2 1 and the fused CSC backward 2 per step; no fold), the times
    beside phase 4's and 5's GCN,
    and every SpMM's sampled rows and d value on sampled edges against f64
-   (the calls recorded during one more step).
+   (the calls recorded during one more step); then GAT's attention pass
+   alone on that graph at ``gat-products.eval``'s shapes, 4 heads of 128
+   and 4 of 47, against its plain version and itself, its ms beside its
+   bound and the plain version's (the 4 x 128 run is the ``kernels``
+   line's ``gat_attention`` entry).
 8d. On ``bench_graph``'s zipf graph at 1/8 scale with 100 features (hub row
    of 10M edges, split): GIN 100 -> 256 -> 256 -> 47 and APPNP 100 -> 256
    -> 47 (k = 10, alpha = 0.1) on the ``gcn_normalize``-d adjacency with
    its values requiring grad, and GAT (3 layers, 4 heads of 64, output 47)
    on the raw one: times, peak memory, launch counts (GAT: K1 sum(H) and
-   the fused CSC backward sum(H) per step; the fold after every K1 over the
-   split rows and every fused pass over split columns),
+   the fused CSC backward sum(H) per step, the attention pass once a layer
+   in forwards and steps; the fold after every K1 over the split rows and
+   every fused pass over split columns),
    sampled rows of every SpMM, GIN's and APPNP's d value and GAT's d att
-   of every head and layer against f64.
+   of every head and layer against f64; then GAT's attention pass alone at
+   the model's shapes, 4 heads of 64 and 1 of 47, on that graph (split
+   rows), as in 8c.
 9a. The eager ``SparseTensor`` facade on ``facade_entry``'s toy graph
    (int64 indices, no value): ``gcn_norm``, ``A @ x`` with d value and d x,
    ``adj_t[idx]``, ``narrow``, ``t()``, ``masked_select`` and ``A @ A``,
@@ -1447,6 +1454,7 @@ def phase4c_gcn(dev, card, adj, x):
 
 def _launch_counts():
     from paddle_sparse_tpu_torch import (compact_runs_cuda, fold_pieces_cuda,
+                                         gat_attention_cuda,
                                          sddmm_csr_cuda, sddmm_spans_cuda,
                                          spmm_csr_cuda, spmm_sddmm_csc_cuda,
                                          spmm_sddmm_spans_cuda,
@@ -1460,11 +1468,13 @@ def _launch_counts():
             "spmm_spans": spmm_spans_cuda.launches,
             "sddmm_spans": sddmm_spans_cuda.launches,
             "spmm_sddmm_spans": spmm_sddmm_spans_cuda.launches,
-            "fold_pieces": fold_pieces_cuda.launches}
+            "fold_pieces": fold_pieces_cuda.launches,
+            "gat_attention": gat_attention_cuda.launches}
 
 
 def _zero_launch_counts():
     from paddle_sparse_tpu_torch import (compact_runs_cuda, fold_pieces_cuda,
+                                         gat_attention_cuda,
                                          sddmm_csr_cuda, sddmm_spans_cuda,
                                          spmm_csr_cuda, spmm_sddmm_csc_cuda,
                                          spmm_sddmm_spans_cuda,
@@ -1475,6 +1485,7 @@ def _zero_launch_counts():
     compact_runs_cuda.launches = fold_pieces_cuda.launches = 0
     compact_runs_cuda.launches_row_sorted = 0
     spmm_spans_cuda.launches = sddmm_spans_cuda.launches = 0
+    gat_attention_cuda.launches = 0
 
 
 def _same_compacted(got, ref, tol):
@@ -3281,6 +3292,7 @@ def phase7c_zipf_fused(card, run, graph):
 # ---- phase 8: SpMM mean/min/max and the other model families --------------
 
 GAT_HEADS, GAT_HIDDEN = 4, 64           # 3 layers: 4 x 64, 4 x 64, 1 x 47
+GAT_PRODUCTS_SHAPES = ((4, 128), (4, 47))  # gat-products: hidden, last
 APPNP_K, APPNP_ALPHA = 10, 0.1
 REDUCE_NODES = 4000
 
@@ -3651,15 +3663,19 @@ def time_model(name, card, model, adj, x, y, reps=3):
 
 
 def check_launches(name, res, fwd_spmm, dx_spmm, dv, fused, folds_fwd,
-                   folds_step):
+                   folds_step, attention=0):
     """The forward runs ``fwd_spmm`` K1; a step adds ``dx_spmm`` K1 for
     d x alone, ``dv`` K2 for d value alone and ``fused`` fused CSC
-    backwards for both; the fold as given; nothing else."""
+    backwards for both; the fold as given; GAT's attention pass
+    ``attention`` times in the forward and in the step alike; nothing
+    else."""
     for part, want in (
-            ("forward", {"spmm_csr": fwd_spmm, "fold_pieces": folds_fwd}),
+            ("forward", {"spmm_csr": fwd_spmm, "fold_pieces": folds_fwd,
+                         "gat_attention": attention}),
             ("train_step", {"spmm_csr": fwd_spmm + dx_spmm,
                             "sddmm_csr": dv, "spmm_sddmm_csc": fused,
-                            "fold_pieces": folds_step})):
+                            "fold_pieces": folds_step,
+                            "gat_attention": attention})):
         runs, got = res[part]["runs"], res[part]["launches"]
         want = {k: v * runs for k, v in want.items()}
         check(all(got[k] == want.get(k, 0) for k in got),
@@ -3672,7 +3688,9 @@ def phase8c_sage(dev, card, gcn_fwd_ms, gcn_step_ms):
     graph at ogbn-products scale, ``adj.value`` requiring grad: times,
     peak memory, exact launches (K1 3 per forward and per step; K2 1 and
     the fused CSC backward 2 per step; no fold), sampled rows of each
-    layer's mean and d value against f64."""
+    layer's mean and d value against f64; then GAT's attention pass alone
+    on that graph at ``gat-products.eval``'s shapes
+    (:func:`gat_attention_check`)."""
     from paddle_sparse_tpu_torch import gcn_loss, init_sage
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3706,9 +3724,65 @@ def phase8c_sage(dev, card, gcn_fwd_ms, gcn_step_ms):
                                                rows)
     res["d_value_max_abs_err"] = check_d_value("8c GraphSAGE", adj,
                                                rec.calls, adj.value.grad)
-    del rec, adj, x, model
+    del rec, x, model
+    adj.value.grad = None
+    torch.cuda.empty_cache()
+    # GAT's attention pass at gat-products.eval's shapes on this graph
+    res["attention"] = {
+        f"{H}x{D}": gat_attention_check("8c", card, adj, H, D)
+        for H, D in GAT_PRODUCTS_SHAPES}
+    del adj
     torch.cuda.empty_cache()
     return res
+
+
+def gat_attention_check(phase, card, adj, H, D, reps=5):
+    """GAT's attention pass (``gat_attention_cuda``: the node scores, then
+    each row's edge softmax, split rows through their pieces) on ``adj`` at
+    ``H`` heads of ``D``: against its plain version on the card
+    (``gat_attention_reference``, f32 ``rtol=1e-5, atol=1e-6``), two
+    launches bit for bit, its CUDA-event ms beside its bound (each byte
+    once over 3.35 TB/s: ``hw``, the attention vectors, the row pointer and
+    ``col`` read, the scores and the weights written), the node scores'
+    and the edge pass's ms each alone, and the plain version's ms."""
+    from paddle_sparse_tpu_torch import (gat_attention_cuda,
+                                         gat_attention_reference)
+    from paddle_sparse_tpu_torch.ops.kernels.gat_attention_cuda import (
+        gat_scores_cuda, gat_softmax_cuda)
+    N, E = adj.N, adj.capacity
+    g = torch.Generator(device=adj.col.device).manual_seed(11)
+    hw = torch.randn(N, H, D, generator=g, device=adj.col.device)
+    a_src, a_dst = (torch.randn(H, D, generator=g, device=adj.col.device)
+                    * (2 / D) ** 0.5 for _ in range(2))
+    args = (adj.rowptr(), adj.col, hw, a_src, a_dst, 0.2, adj.row_split())
+    ms, got = timed(lambda: gat_attention_cuda(*args), reps)
+    again = gat_attention_cuda(*args)
+    parts = {"scores": timed(lambda: gat_scores_cuda(hw, a_src, a_dst),
+                               reps)[0],
+               "edge_pass": timed(lambda: gat_softmax_cuda(
+                   args[0], adj.col, got[1], got[2], 0.2, args[6]),
+                   reps)[0]}
+    with torch.no_grad():
+        plain_ms, want = timed(lambda: gat_attention_reference(
+            adj, hw, a_src, a_dst, 0.2), 2)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    ok = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+             for a, b in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    nbytes = 4 * (N * H * D + 2 * H * D + adj.M + 1 + E + 2 * N * H + E * H)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase {phase} GAT attention H={H} D={D} ({N} nodes, {E} "
+          f"entries, split rows: {adj.row_split() is not None}): "
+          f"{ms:.3f} ms (alone: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f"), bound {bound:.3f} ms (bytes once), plain "
+          f"{plain_ms:.3f} ms; vs plain max_abs_err {err:.3e} "
+          f"{'ok' if ok else 'FAIL'}, two launches "
+          f"{'equal' if same else 'DIFFER'} {card}", flush=True)
+    check(ok and same, f"phase {phase}: the attention pass disagrees with "
+                       f"its plain version or itself")
+    return {"ms": ms, "parts_ms": parts, "bound_ms": bound,
+            "plain_ms": plain_ms, "max_abs_err": err}
 
 
 def phase8d_models(dev, card):
@@ -3739,23 +3813,28 @@ def phase8d_models(dev, card):
     col_fold = int(s.col_split is not None)
     gen = torch.Generator().manual_seed(0)
     # (forward K1, then per step: K1 for d x alone, K2 for d value alone,
-    # the fused CSC backward for both); GIN's first layer reads the
-    # features (no d x)
+    # the fused CSC backward for both; the attention pass a forward and a
+    # step); GIN's first layer reads the features (no d x)
     specs = {
         "gin": (init_gin(gen, *GCN_DIMS, num_layers=3, device=dev), norm,
-                (3, 0, 1, 2)),
+                (3, 0, 1, 2, 0)),
         "appnp": (init_appnp(gen, GCN_DIMS[0], GCN_DIMS[1], GCN_DIMS[2],
                              k=APPNP_K, alpha=APPNP_ALPHA, device=dev),
-                  norm, (APPNP_K, 0, 0, APPNP_K)),
+                  norm, (APPNP_K, 0, 0, APPNP_K, 0)),
         "gat": (init_gat(gen, GCN_DIMS[0], GAT_HIDDEN, GCN_DIMS[2],
                          heads=GAT_HEADS, num_layers=3, device=dev), raw,
-                (2 * GAT_HEADS + 1, 0, 0, 2 * GAT_HEADS + 1)),
+                (2 * GAT_HEADS + 1, 0, 0, 2 * GAT_HEADS + 1, 3)),
     }
     out = {}
-    for kind, (model, adj, (fwd, dx, dv, fused)) in specs.items():
+    for kind, (model, adj, (fwd, dx, dv, fused, att)) in specs.items():
         res = time_model(f"8d {kind}", card, model, adj, x, y)
         check_launches(kind, res, fwd, dx, dv, fused, fwd,
-                       fwd + col_fold * (dx + fused))
+                       fwd + col_fold * (dx + fused), att)
+        if kind == "gat":
+            # the model's hidden layers and its output layer (1 x 47)
+            res["attention"] = {
+                f"{H}x{D}": gat_attention_check("8d", card, adj, H, D)
+                for H, D in ((GAT_HEADS, GAT_HIDDEN), (1, GCN_DIMS[2]))}
         check(res["train_step"]["launches"]["fold_pieces"] > 0,
               f"{kind}: the hub row did not run the split pieces")
         model.zero_grad(set_to_none=True)
@@ -7322,6 +7401,7 @@ def main() -> int:
             "segcompact"]} for tag, v in dtypes["coalesce_122M"].items()}}
 
     k256 = train["sddmm"][256]
+    ga = models["sage"]["attention"]["4x128"]
     fused = train["fused"]
     sp, sd = span_k["spmm_spans"], span_k["sddmm_spans"]
     fs = span_k["spmm_sddmm_spans"]
@@ -7549,6 +7629,29 @@ def main() -> int:
          "library": "index_add_ of the partials into their rows",
          "at": f"zipf 1/8 forward's {fold['rows']} split rows, "
                f"{fold['slots']} partials, K=256 f32"},
+        {"name": "gat_attention", "route": "cuda",
+         "source": "paddle_sparse_tpu_torch/csrc/gat_attention.cu",
+         "source_note": "gat_node_scores_kernel, then gat_edge_softmax_"
+                        "kernel (with split rows gat_fold_kernel and a "
+                        "write pass), through gat_attention_cuda",
+         "replaces": None,
+         "replaces_note": "XLA fuses the JAX GAT's scores and edge_softmax "
+                          "(paddle_sparse_tpu/models/gcn.py); no "
+                          "pallas_call",
+         "launches": models["gat"]["train_step"]["launches"][
+             "gat_attention"],
+         "launches_by_path": by_path("gat_attention"),
+         **{k: ga[k] for k in ("ms", "plain_ms", "bound_ms",
+                               "max_abs_err", "parts_ms")},
+         "bound_by": "bytes once over 3.35 TB/s",
+         "library": None, "library_note": "no PyTorch call computes the "
+                                          "edge softmax",
+         "at": "gat-products.eval's hidden layer, 4 x 128 f32, on phase 4's "
+               "graph (2,449,029 nodes, 122,451,450 entries)",
+         "shapes": {**{f"products {k}": v
+                       for k, v in models["sage"]["attention"].items()},
+                    **{f"zipf 1/8 {k}": v
+                       for k, v in models["gat"]["attention"].items()}}},
         *probe_kernels(probes)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

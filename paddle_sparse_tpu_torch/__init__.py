@@ -5,8 +5,10 @@ packed-layout SpMMs: index conversions and segment reductions, the padded COO
 core with its cached CSC view, ``sort`` and ``coalesce``; SpMM (sum and mean
 differentiable in ``value`` and ``x`` through two hand-written CUDA kernels
 for Hopper, the CSR SpMM for the forward and ``d x`` and the CSR SDDMM for
-``d value``; min and max in plain torch); the GCN, GraphSAGE, GIN, GAT (with
-``edge_softmax``) and APPNP models, a loss and an SGD step; sparse @ sparse
+``d value``; min and max in plain torch); the GCN, GraphSAGE, GIN, GAT (whose
+attention weights, node scores and each row's edge softmax, run two
+hand-written kernels, ``gat_attention_cuda``; ``edge_softmax`` stays the
+plain version's) and APPNP models, a loss and an SGD step; sparse @ sparse
 products on ``PaddedCOO`` (three padded variants, their capacity planners and
 an exact eager one), differentiable in the values, whose compress runs
 through a third hand-written kernel (run compaction); and
@@ -75,11 +77,13 @@ from .entry import (MODELS, SPMM_BACKENDS, dryrun_multichip, entry,
                     train_step)
 from .models.gcn import (APPNP, GAT, GCN, GIN, GraphSAGE,
                          appnp_params_from_jax, edge_softmax,
+                         gat_attention, gat_attention_reference,
                          gat_params_from_jax, gcn_normalize,
                          gcn_params_from_jax, gin_params_from_jax, init_appnp,
                          init_gat, init_gcn, init_gin, init_sage,
                          sage_params_from_jax)
 from .ops.convert import ind2ptr, ptr2ind, ptr2ind_capped
+from .ops.kernels.gat_attention_cuda import gat_attention_cuda
 from .ops.kernels.row_split import (CAP, RowSplit, fold_pieces_cuda,
                                     split_long_rows, split_rows)
 from .ops.kernels.row_window import RowWindow, window_plan
@@ -143,8 +147,8 @@ __all__ = [
     "SpGEMMResult", "SplitPlan", "SplitStructure", "band_reduce_call",
     "appnp_params_from_jax", "bincount", "compact_runs", "compact_runs_cuda",
     "compact_runs_reference", "dryrun_multichip", "edge_softmax", "entry",
-    "fold_pieces_cuda",
-    "gat_params_from_jax", "gather_csr", "gather_segments", "gcn_loss",
+    "fold_pieces_cuda", "gat_attention", "gat_attention_cuda",
+    "gat_attention_reference", "gat_params_from_jax", "gather_csr", "gather_segments", "gcn_loss",
     "gcn_normalize", "gcn_params_from_jax", "gin_params_from_jax", "ind2ptr",
     "init_appnp", "init_gat", "init_gcn", "init_gin", "init_sage",
     "make_seg_plan", "make_sell_plan", "make_spmm_plan", "pad_values",

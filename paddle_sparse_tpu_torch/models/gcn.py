@@ -17,7 +17,11 @@ kernel for ``d value`` on a CUDA tensor. GCN and GraphSAGE run each layer's
 same product as the JAX layer's ``(A @ h) @ W``, its f32 sums in another
 order where ``W`` narrows; GAT aggregates each head as an SpMM
 whose values are that head's attention weights, so the same kernels carry
-it. Edge softmax is plain torch, as the reference leaves it to XLA.
+it. GAT's attention weights (the per-node scores and each row's edge
+softmax) run two hand-written kernels on a CUDA tensor
+(:func:`gat_attention`), where the reference leaves them to XLA;
+:func:`edge_softmax` stays plain torch, and with it the plain version
+(:func:`gat_attention_reference`) that the CPU runs.
 
 Under autograd, every parameter gets its gradient (GIN's ``eps`` too), and
 so does ``adj.value`` when the caller sets ``requires_grad`` on it (before or
@@ -32,8 +36,10 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..core.matrix import PaddedCOO
-from ..ops.segment import (grouped_gather, grouped_max, grouped_sum,
-                           take_rows)
+from ..ops.kernels.gat_attention_cuda import (gat_scores_cuda,
+                                               gat_softmax_cuda)
+from ..ops.segment import (_AddRows, grouped_gather, grouped_max,
+                           grouped_sum, take_rows)
 from ..profiling import scope
 
 
@@ -286,13 +292,105 @@ def edge_softmax(adj: PaddedCOO, logits: torch.Tensor) -> torch.Tensor:
         return e / grouped_gather(denom, groups).clamp(min=1e-16)
 
 
+def gat_attention_reference(adj: PaddedCOO, hw: torch.Tensor,
+                            a_src: torch.Tensor, a_dst: torch.Tensor,
+                            negative_slope: float = 0.2):
+    """Plain version of :func:`gat_attention`, on any device and
+    differentiable: ``(att, s_dst, s_src)``, the ``(E, H)`` attention
+    weights of one GAT layer and the ``(N, H)`` node scores of ``hw``
+    (``(N, H, D)``). The scores and the edge logits ``leaky_relu(s_dst[row]
+    + s_src[col])`` (through the row groups, inside the span
+    ``psp.model.gat.scores``), then :func:`edge_softmax`: the JAX layer's
+    arithmetic in plain torch."""
+    with scope("psp.model.gat.scores"):
+        s_dst = (hw * a_dst).sum(-1)                    # (N, H)
+        s_src = (hw * a_src).sum(-1)
+        col = adj.col.long().clamp(0, adj.N - 1)
+        logits = F.leaky_relu(grouped_gather(s_dst, adj.row_groups())
+                              + take_rows(s_src, col), negative_slope)
+    return edge_softmax(adj, logits), s_dst, s_src
+
+
+class _GatAttention(torch.autograd.Function):
+    """One GAT layer's attention weights from ``hw``, ``a_src`` and
+    ``a_dst``: on a CUDA tensor the node-score kernel inside the span
+    ``psp.model.gat.scores`` and the edge pass inside
+    ``psp.model.edge_softmax`` (``ops/kernels/gat_attention_cuda.py``),
+    else :func:`gat_attention_reference` computed without grad. The backward is
+    plain torch over the grouped row ops, and differentiable (each op in it
+    is), so a double backward goes through it:
+
+    ``t = att * g``; ``d logit = t - att * sum_row(t)``, times the slope
+    where the pre-activation ``s_dst[row] + s_src[col]`` is not above 0
+    (``leaky_relu``'s backward); ``d s_dst = sum_row(d logit)``, ``d s_src
+    = sum over col(d logit)``; then ``d hw = d s_dst a_dst + d s_src a_src``
+    and ``d a = sum_n hw d s``."""
+
+    @staticmethod
+    def forward(ctx, hw, a_src, a_dst, adj, negative_slope):
+        if hw.device.type == "cuda":
+            rowptr, split = adj.rowptr(), adj.row_split()
+            with scope("psp.model.gat.scores"):
+                s_dst, s_src = gat_scores_cuda(hw, a_src, a_dst)
+            with scope("psp.model.edge_softmax"):
+                att = gat_softmax_cuda(rowptr, adj.col, s_dst, s_src,
+                                       negative_slope, split)
+        else:
+            att, s_dst, s_src = gat_attention_reference(
+                adj, hw, a_src, a_dst, negative_slope)
+        ctx.save_for_backward(hw, a_src, a_dst, att)
+        ctx.adj, ctx.slope, ctx.scores = adj, negative_slope, (s_dst, s_src)
+        return att
+
+    @staticmethod
+    def backward(ctx, g):
+        hw, a_src, a_dst, att = ctx.saved_tensors
+        adj, (s_dst, s_src) = ctx.adj, ctx.scores
+        groups = adj.row_groups()
+        col = adj.col.long().clamp(0, adj.N - 1)
+        t = att * g
+        d_logit = t - att * grouped_gather(grouped_sum(t, groups), groups)
+        pre = grouped_gather(s_dst, groups) + take_rows(s_src, col)
+        d_logit = torch.where(pre > 0, d_logit, d_logit * ctx.slope)
+        d_dst = grouped_sum(d_logit, groups)[..., None]          # (N, H, 1)
+        d_src = _AddRows.apply(d_logit, col, adj.N)[..., None]
+        d_hw = d_a_src = d_a_dst = None
+        if ctx.needs_input_grad[0]:
+            d_hw = d_dst * a_dst + d_src * a_src
+        if ctx.needs_input_grad[1]:
+            d_a_src = (hw * d_src).sum(0)
+        if ctx.needs_input_grad[2]:
+            d_a_dst = (hw * d_dst).sum(0)
+        return d_hw, d_a_src, d_a_dst, None, None
+
+
+def gat_attention(adj: PaddedCOO, hw: torch.Tensor, a_src: torch.Tensor,
+                  a_dst: torch.Tensor, negative_slope: float = 0.2
+                  ) -> torch.Tensor:
+    """The ``(E, H)`` attention weights of one GAT layer: per head the
+    softmax over each row's entries of ``leaky_relu(hw[row] . a_dst +
+    hw[col] . a_src)``, 0 at padding (``hw``: ``(N, H, D)``, the adjacency
+    square). On the card two hand-written kernels, the scores inside the
+    span ``psp.model.gat.scores`` and the softmax inside
+    ``psp.model.edge_softmax``, the weights the view of a head-major
+    buffer (``att[:, k]`` contiguous); on the CPU
+    :func:`gat_attention_reference`. Differentiable in ``hw``, ``a_src``
+    and ``a_dst``."""
+    # the scores of hw's N rows are gathered by row and by col alike
+    if adj.M != adj.N:
+        raise ValueError(f"gat_attention requires a square adjacency, got "
+                         f"{tuple(adj.shape)}")
+    return _GatAttention.apply(hw, a_src, a_dst, adj, negative_slope)
+
+
 class GAT(nn.Module):
     """Velickovic-style graph attention network.
 
     Per layer and head: ``hw = h @ W`` split into heads, edge logits
     ``leaky_relu(a_dst . hw[row] + a_src . hw[col])`` (span
-    ``psp.model.gat.scores``), attention weights from :func:`edge_softmax`,
-    and each head aggregated as ``adj.with_value(att[:, k]).spmm(hw[:, k])``
+    ``psp.model.gat.scores``) and their softmax over each row (span
+    ``psp.model.edge_softmax``), both :func:`gat_attention`, and each head
+    aggregated as ``adj.with_value(att[:, k]).spmm(hw[:, k])``
     (span ``psp.model.gat.heads``, with the heads' concat or mean): the
     same function as the JAX per-head ``segment_sum`` of ``(E, H, D)``
     messages, without the messages (``with_value`` shares the cached CSC
@@ -329,31 +427,19 @@ class GAT(nn.Module):
         self.skip_bias = _zeros(((d,) for d in dims[1:]), device) if skip \
             else None
 
-    def _scores(self, groups, col, hw, a_src, a_dst) -> torch.Tensor:
-        """The ``(E, H)`` edge logits of ``hw`` (``(N, H, D)``)."""
-        with scope("psp.model.gat.scores"):
-            alpha_dst = (hw * a_dst).sum(-1)                # (N, H)
-            alpha_src = (hw * a_src).sum(-1)
-            return F.leaky_relu(grouped_gather(alpha_dst, groups)
-                                + take_rows(alpha_src, col),
-                                self.negative_slope)        # (E, H)
-
     def forward(self, adj: PaddedCOO, x: torch.Tensor) -> torch.Tensor:
         # after the first layer hw has adj.M rows but is gathered by col
         # (range adj.N): a rectangular adjacency would read wrong rows
         if adj.M != adj.N:
             raise ValueError(f"GAT requires a square adjacency, got "
                              f"{tuple(adj.shape)}")
-        groups = adj.row_groups()
-        col = adj.col.long().clamp(0, adj.N - 1)
         h = x
         n = len(self.weight)
         for i, (w, a_src, a_dst) in enumerate(zip(self.weight, self.a_src,
                                                   self.a_dst)):
             H, D = a_src.shape
             hw = (h @ w).reshape(-1, H, D)                  # (N, H, D)
-            att = edge_softmax(adj, self._scores(groups, col, hw, a_src,
-                                                 a_dst))
+            att = gat_attention(adj, hw, a_src, a_dst, self.negative_slope)
             with scope("psp.model.gat.heads"):
                 out = torch.stack([adj.with_value(att[:, k]).spmm(hw[:, k])
                                    for k in range(H)], dim=1)  # (M, H, D)

@@ -162,6 +162,18 @@ def load_library() -> ctypes.CDLL:
                                                  i32, i32, i32, p, p, i64,
                                                  i64, p, p, p]
             lib.psp_spmm_sddmm_spans.restype = ctypes.c_int
+            # hw, a_src, a_dst, s_src, s_dst, N, H, D, code, stream
+            lib.psp_gat_node_scores.argtypes = [p, p, p, p, p, i64, i64, i64,
+                                                i32, p]
+            lib.psp_gat_node_scores.restype = ctypes.c_int
+            # rowptr, col, s_dst, s_src, out, ld, M, H, slope, code, piece
+            # table: row, piece, slot, P, cap, fold_ptr, R (row NULL:
+            # none); ws, stream
+            lib.psp_gat_edge_softmax.argtypes = [p, p, p, p, p, i64, i64,
+                                                 i64, ctypes.c_double, i32,
+                                                 p, p, p, i64, i64, p, i64,
+                                                 p, p]
+            lib.psp_gat_edge_softmax.restype = ctypes.c_int
             lib.psp_segcompact_f_max.argtypes = []
             lib.psp_segcompact_f_max.restype = i64
             lib.psp_segcompact_tiles.argtypes = [i64, i64, i64, i32]

@@ -5,7 +5,9 @@ split (pieces of a ``RowSplit`` table and the fold pass) against the plain
 versions, bit for bit from launch to launch; SpMM mean (through the same
 kernels, split rows too) against plain f64, min and max on the card against
 the CPU, and each model family's toy forward and grads, card against CPU,
-with GAT's per-head launches; the fused CSC backward
+with GAT's per-head launches; GAT's attention kernels (node scores, edge
+softmax; split rows, non-finite logits, head groups, f64) against their
+plain version, and PyG's GAT on split rows card against CPU; the fused CSC backward
 (``spmm_sddmm_csc_cuda``) equal to the pair it replaces (K2 and K1 over
 the CSC view) bit for bit, at every batch size and on offset views,
 within SUM_REL of f64, two launches equal, its launch alone
@@ -44,7 +46,8 @@ import torch
 from paddle_sparse_tpu_torch import (CAP, MODELS, PaddedCOO,
                                      band_reduce_call, compact_runs_cuda,
                                      compact_runs_reference, entry,
-                                     fold_pieces_cuda, gcn_loss,
+                                     fold_pieces_cuda, gat_attention_cuda,
+                                     gat_attention_reference, gcn_loss,
                                      make_seg2_plan, model_entry,
                                      pack_values, plan_spgemm,
                                      plan_spgemm_blocked, plan_spgemm_rows,
@@ -1957,6 +1960,152 @@ def test_model_launches_per_step(dev):
                 spmm_sddmm_csc_cuda.launches - b[2]) == counts, kind
 
 
+# ---- GAT's attention kernels (csrc/gat_attention.cu) ------------------------
+# The node scores and each row's edge softmax on the card against the plain
+# version (``gat_attention_reference``, run on the card): f32 within
+# ``rtol=1e-5, atol=1e-6`` (scores summed in another order, the sums of
+# exp in another order), f64 within 1e-12.
+
+GAT_N = 3000
+
+
+def _gat_graph(dev, kind, seed=0):
+    """A square ``PaddedCOO`` on ``dev``, padded past its entries, no
+    values: ``uniform`` rows of 0-90 entries (empty rows; rows past 64 take
+    the online sweep) and no piece table; ``zipf`` the same with a hub row
+    of ``2 * CAP + 5`` entries and rows of ``CAP`` and ``CAP + 1``, so rows
+    8 (one piece) and 7, 9 (split) are cut by the table."""
+    g = torch.Generator().manual_seed(seed)
+    deg = torch.randint(0, 91, (GAT_N,), generator=g)
+    deg[[0, 500, GAT_N - 1]] = 0
+    if kind == "zipf":
+        deg[7], deg[8], deg[9] = 2 * CAP + 5, CAP, CAP + 1
+    row = torch.repeat_interleave(torch.arange(GAT_N), deg)
+    col = torch.randint(0, GAT_N, (row.numel(),), generator=g)
+    adj = PaddedCOO.from_arrays(row, col, None, (GAT_N, GAT_N),
+                                capacity=row.numel() + 37, device=dev)
+    assert (adj.row_split() is None) == (kind == "uniform")
+    return adj
+
+
+def _gat_inputs(dev, H, D, dtype=torch.float32, seed=1):
+    """``hw`` (N, H, D) and ``a_src``, ``a_dst`` (H, D): scores of about
+    N(0, 4), so each row's softmax is far from flat."""
+    g = torch.Generator().manual_seed(seed)
+    hw = torch.randn(GAT_N, H, D, generator=g, dtype=dtype)
+    a = torch.randn(2, H, D, generator=g, dtype=dtype) * 2 / D ** 0.5
+    return hw.to(dev), a[0].to(dev), a[1].to(dev)
+
+
+def _gat_args(adj, hw, a_src, a_dst):
+    return (adj.rowptr(), adj.col, hw, a_src, a_dst, 0.2, adj.row_split())
+
+
+@pytest.mark.parametrize("kind", ["uniform", "zipf"])
+@pytest.mark.parametrize("H,D", [(1, 47), (4, 47), (1, 128), (4, 128)])
+def test_gat_attention_kernels_vs_plain(dev, kind, H, D):
+    """Weights and scores against the plain version; padding entries 0;
+    the weights an (E, H) view of head-major storage; two launches equal
+    bit for bit; one count a call."""
+    adj = _gat_graph(dev, kind)
+    hw, a_src, a_dst = _gat_inputs(dev, H, D)
+    before = gat_attention_cuda.launches
+    got = gat_attention_cuda(*_gat_args(adj, hw, a_src, a_dst))
+    assert gat_attention_cuda.launches - before == 1
+    want = gat_attention_reference(adj, hw, a_src, a_dst, 0.2)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    att = got[0]
+    assert att.shape == (adj.capacity, H)
+    assert att.stride() == (1, adj.capacity) and att.t().is_contiguous()
+    assert not att[adj.nnz:].any()
+    again = gat_attention_cuda(*_gat_args(adj, hw, a_src, a_dst))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("H", [2, 3, 8, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gat_attention_head_groups_and_f64(dev, H, dtype):
+    """Head counts other than 4, which run in groups of four and then one
+    head at a time (2 = 1 + 1, 3 = 1 + 1 + 1, 8 = 4 + 4, 9 = 4 + 4 + 1),
+    split rows, f32 and f64."""
+    adj = _gat_graph(dev, "zipf", seed=2)
+    hw, a_src, a_dst = _gat_inputs(dev, H, 24, dtype)
+    got = gat_attention_cuda(*_gat_args(adj, hw, a_src, a_dst))
+    want = gat_attention_reference(adj, hw, a_src, a_dst, 0.2)
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32
+           else dict(rtol=1e-12, atol=1e-14))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g, w, **tol)
+
+
+def test_gat_attention_nonfinite_rows(dev):
+    """Scores of +inf, NaN and -inf at three nodes, so that rows in the
+    register, online and split paths hold a +inf or a NaN logit, and the
+    rows of the -inf node (one of them split) only -inf logits: the plain
+    version's weights (NaN where it gives NaN, 0 where its max was -inf)."""
+    adj = _gat_graph(dev, "zipf", seed=3)
+    hw, a_src, a_dst = _gat_inputs(dev, 4, 16)
+    a_src[:, 0] = a_src[:, 0].abs() + 0.1
+    a_dst[:, 0] = a_dst[:, 0].abs() + 0.1
+    rp = adj.rowptr()
+    n_inf = int(adj.col[int(rp[7]) + 5])           # in the hub row
+    n_nan = int(adj.col[int(rp[8]) + 3])           # in the row of CAP
+    hw[n_inf, :, 0] = float("inf")
+    hw[n_nan, :, 0] = float("nan")
+    hw[[9, 10], :, 0] = float("-inf")              # rows of -inf logits
+    got = gat_attention_cuda(*_gat_args(adj, hw, a_src, a_dst))[0]
+    want = gat_attention_reference(adj, hw, a_src, a_dst, 0.2)[0]
+    assert want.isnan().any() and (want == 0).any()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
+                               equal_nan=True)
+
+
+def test_gat_attention_launches_per_layer(dev):
+    """A forward and a train step of the toy GAT (2 layers): one call of
+    the pair a layer each, K1 once a head as before."""
+    model, adj, x, y = model_entry("gat", "cuda")
+    b = (gat_attention_cuda.launches, spmm_csr_cuda.launches)
+    with torch.no_grad():
+        model(adj, x)
+    train_step(model, adj, x, y, 0.1)
+    torch.cuda.synchronize()
+    heads = 2 + 1
+    assert (gat_attention_cuda.launches - b[0],
+            spmm_csr_cuda.launches - b[1]) == (2 * 2, 2 * heads)
+
+
+def test_gat_pyg_split_rows_card_vs_cpu(dev):
+    """PyG's stacking (3 layers of 4 heads, the output heads averaged, bias
+    and skips) on the graph with split rows: forward, loss and every
+    parameter's grad on the card against the CPU."""
+    from paddle_sparse_tpu_torch import init_gat
+    runs = {}
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(GAT_N, 16, generator=g)
+    y = torch.randint(0, 5, (GAT_N,), generator=g)
+    for where in ("cuda", "cpu"):
+        model = init_gat(torch.Generator().manual_seed(0), 16, 8, 5,
+                         heads=4, num_layers=3, device=where, out_heads=4,
+                         bias=True, skip=True)
+        adj = _gat_graph(where, "zipf")
+        xx, yy = x.to(where), y.to(where)
+        with torch.no_grad():
+            out = model(adj, xx).cpu()
+        loss = gcn_loss(model, adj, xx, yy)
+        loss.backward()
+        runs[where] = (out, float(loss.detach()),
+                       {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (oc, lc, gc), (oh, lh, gh) = runs["cuda"], runs["cpu"]
+    torch.testing.assert_close(oc, oh, **F32)
+    assert abs(lc - lh) < 1e-5
+    assert gc.keys() == gh.keys()
+    for name in gc:
+        torch.testing.assert_close(gc[name], gh[name], **F32, msg=name)
+
+
 # ---- the eager facade on the card ------------------------------------------
 
 def _facade_pipeline(where):
@@ -2768,6 +2917,11 @@ def _site(dev, site):
                 [packed.clone(), torch.randn(3000, 64, generator=g,
                                              device=dev),
                  torch.randn(2000, 64, generator=g, device=dev)])
+    if site == "gat_attention":
+        adj = _gat_graph(dev, "zipf")
+        hw, a_src, a_dst = _gat_inputs(dev, 4, 64)
+        return (lambda h: gat_attention_cuda(*_gat_args(adj, h, a_src,
+                                                        a_dst)), [hw])
     if site in ("spmm_window", "fold_pieces"):
         rowptr, col, value, _, split, plan = _window_plan(dev)
         x = torch.randn(5000, 64, generator=g, device=dev)
@@ -2801,7 +2955,7 @@ LAUNCH_SITES = ("scale2", "chunk_sum", "span_colsum", "span_colsum_staged",
                 "band_ablate", "slice_gather", "slice_reduce",
                 "spmm_sddmm_csc", "spmm_sddmm_spans",
                 "spmm_window", "spmm_spans", "fold_pieces", "sddmm_spans",
-                "segcompact_rows", "segcompact_stream")
+                "segcompact_rows", "segcompact_stream", "gat_attention")
 
 
 @pytest.mark.parametrize("site", LAUNCH_SITES)
