@@ -7,7 +7,6 @@ repository root:
     python3 chip_probe.py calls PARENT [PAIRS]   # small calls, in turns
     python3 chip_probe.py gat          # where a GAT step's device time goes
     python3 chip_probe.py sage         # and a GraphSAGE step's
-    python3 chip_probe.py window       # the windowed K1 over its plan
     python3 chip_probe.py launch       # a kernel launch's host path
     python3 chip_probe.py slice        # P5's per-chunk kernel, part by part
     python3 chip_probe.py band         # P4 nodot, part by part
@@ -76,14 +75,6 @@ launched the most (their device time, children included).
 
 ``sage``: the same profile of ``chip_smoke.py`` phase 8c's GraphSAGE
 (100 -> 256 -> 256 -> 47, mean) at ogbn-products scale.
-
-``window``: ``chip_smoke.py`` phase 4c's windowed K1 (``spmm_window_cuda``)
-on the clustered graph at K=256 f32, for window plans of tile rows 512,
-1,024 and 2,048 and window rows 1,728 (the default), 1,216, 832 and 448,
-each plan's in-window share printed; then at the default plan on two
-copies of the graph, its residual edges moved into their communities, and
-every edge moved into its tile's window. Each in turns with the register
-walk (``spmm_csr_cuda`` without a plan), bit for bit; one JSON line each.
 
 ``launch``: the host path from a wrapper to ``cudaLaunchKernel``, stage by
 stage, for P1 (``scale2_cuda`` at (256, 128) f32) and P2 (``chunk_sum_cuda``
@@ -514,56 +505,6 @@ def profile_model(name, card, model, adj, x, y) -> None:
                         for e in kernels[:15]],
             "aten_ops": [[e.key, e.device_time_total / 1e3, e.count]
                          for e in ops[:15]]}) + f" [{card}]", flush=True)
-
-
-WINDOW_PLANS = ((512, 1728), (1024, 1728), (2048, 1728), (2048, 1216),
-                (2048, 832), (2048, 448))
-
-
-def window(dev: torch.device) -> None:
-    import chip_smoke as c
-    from paddle_sparse_tpu_torch import (spmm_csr_cuda, spmm_window_cuda,
-                                         window_plan)
-    card = card_line()
-    adj, x = c.clustered_graph(dev)
-    rowptr, n, nnz = adj.rowptr(), adj.M, adj.nnz
-    rows, value = adj.row[:nnz], adj.value
-    g = torch.Generator(device=dev).manual_seed(5)
-
-    def moved(span, width):
-        return torch.clamp(rows // span * span + torch.randint(
-            0, width, (nnz,), generator=g, device=dev, dtype=torch.int32),
-            max=n - 1)
-    graphs = [("clustered", adj.col, WINDOW_PLANS)]
-    home = moved(c.COMMUNITY, c.COMMUNITY)
-    graphs.append(("residual moved into communities",
-                   torch.where(rows // c.COMMUNITY
-                               != adj.col[:nnz] // c.COMMUNITY, home,
-                               adj.col[:nnz]), WINDOW_PLANS[2:3]))
-    del home
-    graphs.append(("every edge in its tile's window", moved(2048, 1728),
-                   WINDOW_PLANS[2:3]))
-    with torch.inference_mode():
-        for name, col, plans in graphs:
-            for T, W in plans:
-                plan = window_plan(rowptr, col, n, None, T, W)
-                share = float(plan.in_window[plan.flagged].sum()) / nnz
-                p1, k1, k2, p2, out_p, out_k = c.in_turns(
-                    lambda: spmm_csr_cuda(rowptr, col, value, x,
-                                          split=None),
-                    lambda: spmm_window_cuda(rowptr, col, value, x, plan),
-                    5, 5)
-                c.check(torch.equal(out_p, out_k),
-                        f"windowed K1 differs on {name}, T={T} W={W}")
-                print("WINDOW " + json.dumps(
-                    {"graph": name, "K": 256, "tile_rows": T,
-                     "window_rows": W, "tiles_flagged": plan.tiles.numel(),
-                     "tiles": plan.flagged.numel(),
-                     "in_window_share": share,
-                     "windowed_ms": [k1, k2], "register_walk_ms": [p1, p2],
-                     "bit_for_bit": True}) + f" [{card}]", flush=True)
-                del plan, out_p, out_k
-                torch.cuda.empty_cache()
 
 
 def sage(dev: torch.device) -> None:
@@ -1494,9 +1435,10 @@ def fused_breakdown(dev: torch.device, parent=None) -> None:
     """K2' part by part (the module docstring's ``fused``)."""
     import chip_smoke as c
     from paddle_sparse_tpu_torch import gcn_normalize, spmm_csr_cuda
+    from paddle_sparse_tpu_torch.ops.convert import invert_perm
     from paddle_sparse_tpu_torch.ops.kernels import _build
     from paddle_sparse_tpu_torch.ops.kernels.spmm_sddmm_cuda import (
-        invert_perm, spmm_sddmm_csc_cuda)
+        spmm_sddmm_csc_cuda)
     card = card_line()
     here = Path(__file__).resolve().parent
     ptx = {"chip_probe_fused.cu": _ptxas_start(here / "chip_probe_fused.cu"),
@@ -1715,8 +1657,6 @@ def main() -> int:
         gat(torch.device("cuda", 0))
     elif len(sys.argv) == 2 and sys.argv[1] == "sage":
         sage(torch.device("cuda", 0))
-    elif len(sys.argv) == 2 and sys.argv[1] == "window":
-        window(torch.device("cuda", 0))
     elif len(sys.argv) == 2 and sys.argv[1] == "launch":
         launch(torch.device("cuda", 0))
     elif len(sys.argv) == 2 and sys.argv[1] == "slice":

@@ -30,8 +30,8 @@ Phases, one or more printed lines each:
    loss, every parameter's grad and d value, then 20 SGD steps.
 4. GCN inference at ogbn-products scale (2,449,029 nodes, degree 50, the OGB
    products GCN baseline 100 -> 256 -> 256 -> 47): 1 warm-up and 3 timed
-   forwards, the kernel's launch count, the window plan of its graph (no
-   tile flagged), per-layer times, a sampled-row check against f64, and
+   forwards, the kernel's launch count, per-layer times, a sampled-row
+   check against f64, and
    the K=256 SpMM timed through the kernel and the plain version.
 5. GCN train step at the same scale, on phase 4's graph, features and model,
    with labels and ``adj.value.requires_grad_()``: the CSC view's build time,
@@ -50,17 +50,12 @@ Phases, one or more printed lines each:
 4c. K1 on ``bench.py``'s clustered graph at full scale (2,449,029 nodes,
    122,451,450 nnz, 80% of each row's edges inside its 2,048-node
    community), at K=256 f32, K=100 f32 and K=256 bf16 (value and x): the
-   register walk (``spmm_csr_cuda`` without a plan) beside its three
+   register walk (``spmm_csr_cuda``) beside its three
    bounds (each byte once, the gathered rows, and the residual bound: each
    byte once plus one row per edge outside its community) and
-   ``torch.sparse.mm``; the window plan (tiles flagged, in-window share,
-   build time; every tile flagged); the windowed kernel
-   (``spmm_window_cuda`` over the plan) in turns with the register walk,
-   bit for bit at each setting, against its plain version in f64 at K=256
-   f32, and on a diagnostic copy of the graph with every column moved into
-   its tile's window; then phase 4's GCN forward on the clustered graph's
-   normalized adjacency, on the main path (which builds no plan: launch
-   counts exact, K1 3 and windowed 0 per forward), with per-layer times.
+   ``torch.sparse.mm``; then phase 4's GCN forward on the clustered
+   graph's normalized adjacency, on the main path (launch counts exact, K1
+   3 per forward), with per-layer times.
 6a. Run compaction (K5) vs plain: ``compact_runs_cuda`` against
    ``compact_runs_reference`` in f64 on the card, over per-row-sorted grids,
    a row block's grid, a flat (row, col)-sorted stream, runs across many
@@ -830,16 +825,6 @@ def phase4_forward(dev, card):
                              f"counted {launches} in 4 forwards")
     check(sddmm_launches == 0, f"the forward launched the SDDMM kernel "
                                f"{sddmm_launches} times")
-    # the window plan that a routed forward would take: nothing to stage
-    from paddle_sparse_tpu_torch import window_plan
-    from paddle_sparse_tpu_torch.ops.kernels.row_window import MIN_GAIN
-    wp = window_plan(adj.rowptr(), adj.col, n, split)
-    print(f"phase 4 window plan: {wp.tiles.numel()} of {wp.flagged.numel()} "
-          f"tiles flagged; best window {int(wp.in_window.max())} edges, the "
-          f"rule asks {MIN_GAIN * wp.window_rows}", flush=True)
-    check(wp.tiles.numel() == 0, "the window plan flagged tiles of the "
-                                 "uniform graph")
-    del wp
     check(out.shape == (n, GCN_DIMS[2]) and bool(torch.isfinite(out).all()),
           f"forward output not finite or of shape {tuple(out.shape)}")
 
@@ -1238,7 +1223,7 @@ def phase5_fused(card, adj, value, g, h):
             "d_value_relay_ms": relay_ms}
 
 
-# ---- phase 4c: K1 on the clustered graph, register walk and windowed ------
+# ---- phase 4c: K1 on the clustered graph ----------------------------------
 
 # (K, dtype of x and value) of the clustered graph's K1 settings
 CLUSTERED_SETTINGS = ((256, torch.float32), (100, torch.float32),
@@ -1260,8 +1245,7 @@ def k1_bounds(adj, xs, value):
     """K1's three bounds over ``xs`` in ms: each byte once (pointer, col,
     value, x read, out written), the gathered rows (one row of x per
     edge), and the residual bound: each byte once plus one row per edge
-    whose column lies outside its row's community, which no window
-    holds."""
+    whose column lies outside its row's community."""
     nnz, K, elt = adj.nnz, xs.shape[1], xs.element_size()
     once = nbytes(adj.rowptr(), adj.col[:nnz], value[:nnz], xs) \
         + adj.M * K * elt
@@ -1276,9 +1260,9 @@ def k1_bounds(adj, xs, value):
 
 
 def phase4c_register_walk(dev, card, adj, x):
-    """Today's K1 (``spmm_csr_cuda`` without a window plan) on the
-    clustered graph at each of ``CLUSTERED_SETTINGS``, beside its three
-    bounds and ``torch.sparse.mm`` on the same CSR."""
+    """K1's register walk (``spmm_csr_cuda``) on the clustered graph at
+    each of ``CLUSTERED_SETTINGS``, beside its three bounds and
+    ``torch.sparse.mm`` on the same CSR."""
     from paddle_sparse_tpu_torch import spmm_csr_cuda
     rowptr, nnz, n = adj.rowptr(), adj.nnz, adj.M
     res = {}
@@ -1307,111 +1291,11 @@ def phase4c_register_walk(dev, card, adj, x):
     return res
 
 
-def phase4c_windowed(dev, card, adj, x, walk):
-    """The windowed kernel (``spmm_window_cuda`` over the graph's window
-    plan, which flags every tile) in turns with the register walk at each
-    of ``CLUSTERED_SETTINGS``: times beside the three bounds and
-    ``torch.sparse.mm``, bit for bit at full scale; at K=256 f32 against
-    its plain version and, as a diagnostic, on the same rows with every
-    column moved into its tile's window."""
-    from paddle_sparse_tpu_torch import (spmm_csr_cuda, spmm_window_cuda,
-                                         spmm_window_reference, window_plan)
-    from paddle_sparse_tpu_torch.ops.kernels.row_window import MIN_GAIN
-    rowptr, col, n = adj.rowptr(), adj.col, adj.M
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plan = window_plan(rowptr, col, n, adj.row_split())
-    torch.cuda.synchronize()
-    plan_s = time.perf_counter() - t0
-    flagged = plan.flagged
-    share = float(plan.in_window[flagged].sum()) / max(
-        1, int(plan.edges[flagged].sum()))
-    print(f"phase 4c window plan: tiles of {plan.tile_rows} rows, windows "
-          f"of {plan.window_rows}; {plan.tiles.numel()} of {flagged.numel()} "
-          f"tiles flagged (rule: in-window edges >= {MIN_GAIN} x window), "
-          f"{share:.4f} of their edges in their windows; built in "
-          f"{plan_s:.3f} s {card}", flush=True)
-    # every tile flagged: the windowed kernel alone computes every row, so
-    # its time and output stand beside the register walk's over all rows
-    check(plan.tiles.numel() == flagged.numel(),
-          "the plan left tiles of the clustered graph unflagged")
-    res = {"plan_s": plan_s, "in_window_share": share,
-           "tiles": flagged.numel(), "flagged": plan.tiles.numel()}
-    for K, dt in CLUSTERED_SETTINGS:
-        tag = f"K={K} {str(dt).split('.')[-1]}"
-        xs = x[:, :K].to(dt).contiguous()
-        value = adj.value.to(dt)
-        with torch.inference_mode():
-            p1, k1, k2, p2, out_p, out_k = in_turns(
-                lambda: spmm_csr_cuda(rowptr, col, value, xs, split=None),
-                lambda: spmm_window_cuda(rowptr, col, value, xs, plan), 5, 5)
-        same = torch.equal(out_k, out_p)
-        b = walk[tag]
-        print(f"phase 4c K1 clustered {tag}: windowed {k1:.3f} / {k2:.3f} "
-              f"ms, register walk {p1:.3f} / {p2:.3f} ms in turns; bit for "
-              f"bit {'equal' if same else 'DIFFERENT'}; bounds: bytes once "
-              f"{b['bytes_once_ms']:.3f}, gathered rows "
-              f"{b['gather_bound_ms']:.3f}, residual "
-              f"{b['residual_bound_ms']:.3f} ms; torch.sparse.mm "
-              f"{b['library_ms']} ms {card}", flush=True)
-        check(same, f"windowed K1 differs from the register walk ({tag})")
-        res[tag] = {"ms": (k1 + k2) / 2, "register_walk_ms": (p1 + p2) / 2,
-                    **{k: b[k] for k in ("bytes_once_ms", "gather_bound_ms",
-                                         "residual_bound_ms", "library_ms")}}
-        if K == 256 and dt == torch.float32:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ref = spmm_window_reference(rowptr, col, value.double(),
-                                        xs.double(), plan)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            err = float((out_k.double() - ref).abs().max())
-            ok = bool(torch.allclose(out_k.double(), ref, **F32_TOL))
-            print(f"phase 4c windowed {tag} vs its plain version in f64 "
-                  f"({plain_ms:.3f} ms): max_abs_err {err:.3e} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            check(ok, "windowed K1 disagrees with its plain version")
-            res["max_abs_err"], res["plain_ms"] = err, plain_ms
-            del ref
-            # every column moved into its tile's window: no read leaves
-            # shared memory, and the register walk's rows all sit in L2
-            g = torch.Generator(device=dev).manual_seed(5)
-            rows = adj.row[:adj.nnz]
-            near = torch.clamp(rows // plan.tile_rows * plan.tile_rows
-                               + torch.randint(0, plan.window_rows,
-                                               (adj.nnz,), generator=g,
-                                               device=dev,
-                                               dtype=torch.int32),
-                               max=n - 1)
-            p_near = window_plan(rowptr, near, n)
-            with torch.inference_mode():
-                q1, w1, w2, q2, o_p, o_k = in_turns(
-                    lambda: spmm_csr_cuda(rowptr, near, value, xs,
-                                          split=None),
-                    lambda: spmm_window_cuda(rowptr, near, value, xs,
-                                             p_near), 5, 5)
-            share_near = float(p_near.in_window.sum()) / adj.nnz
-            print(f"phase 4c diagnostic, every edge in its tile's window "
-                  f"({share_near:.4f}): windowed {w1:.3f} / {w2:.3f} ms, "
-                  f"register walk {q1:.3f} / {q2:.3f} ms, bit for bit "
-                  f"{'equal' if torch.equal(o_p, o_k) else 'DIFFERENT'} "
-                  f"{card}", flush=True)
-            check(torch.equal(o_p, o_k), "windowed K1 differs on the "
-                                         "diagnostic graph")
-            res["all_in_window"] = {"ms": (w1 + w2) / 2,
-                                    "register_walk_ms": (q1 + q2) / 2}
-            del near, p_near, o_p, o_k
-        del xs, value, out_p, out_k
-        torch.cuda.empty_cache()
-    return res
-
-
 def phase4c_gcn(dev, card, adj, x):
     """Phase 4's GCN (100 -> 256 -> 256 -> 47, seed 0) forward on the
     clustered graph's ``gcn_normalize``-d adjacency, on the main path
-    (which builds no window plan: K1's register walk): 1 warm-up + 3
-    forwards with counts zeroed just before and read just after, then
-    per-layer times."""
+    (K1's register walk): 1 warm-up + 3 forwards with counts zeroed just
+    before and read just after, then per-layer times."""
     from paddle_sparse_tpu_torch import gcn_normalize, init_gcn
     norm = gcn_normalize(adj)
     model = init_gcn(torch.Generator().manual_seed(0), *GCN_DIMS,
@@ -1446,8 +1330,7 @@ def phase4c_gcn(dev, card, adj, x):
     check(out.shape == (adj.M, GCN_DIMS[2])
           and bool(torch.isfinite(out).all()),
           "clustered GCN forward not finite or misshapen")
-    check(counts["spmm_csr"] == 9 and counts["spmm_window"] == 0
-          and counts["fold_pieces"] == 0,
+    check(counts["spmm_csr"] == 9 and counts["fold_pieces"] == 0,
           f"the clustered forward launched {counts}")
     return {"ms": ms, "launches": counts, "layer_ms": layer_ms}
 
@@ -1458,9 +1341,8 @@ def _launch_counts():
                                          sddmm_csr_cuda, sddmm_spans_cuda,
                                          spmm_csr_cuda, spmm_sddmm_csc_cuda,
                                          spmm_sddmm_spans_cuda,
-                                         spmm_spans_cuda, spmm_window_cuda)
+                                         spmm_spans_cuda)
     return {"spmm_csr": spmm_csr_cuda.launches,
-            "spmm_window": spmm_window_cuda.launches,
             "sddmm_csr": sddmm_csr_cuda.launches,
             "spmm_sddmm_csc": spmm_sddmm_csc_cuda.launches,
             "segcompact": compact_runs_cuda.launches,
@@ -1478,9 +1360,8 @@ def _zero_launch_counts():
                                          sddmm_csr_cuda, sddmm_spans_cuda,
                                          spmm_csr_cuda, spmm_sddmm_csc_cuda,
                                          spmm_sddmm_spans_cuda,
-                                         spmm_spans_cuda, spmm_window_cuda)
+                                         spmm_spans_cuda)
     spmm_csr_cuda.launches = sddmm_csr_cuda.launches = 0
-    spmm_window_cuda.launches = 0
     spmm_sddmm_csc_cuda.launches = spmm_sddmm_spans_cuda.launches = 0
     compact_runs_cuda.launches = fold_pieces_cuda.launches = 0
     compact_runs_cuda.launches_row_sorted = 0
@@ -7207,18 +7088,16 @@ def main() -> int:
 
     stamp("phases 4-5")
 
-    # ---- phase 4c: K1 on the clustered graph, register walk and windowed --
+    # ---- phase 4c: K1 on the clustered graph -----------------------------
     adj, x = clustered_graph(dev)
     walk = phase4c_register_walk(dev, card, adj, x)
-    windowed = phase4c_windowed(dev, card, adj, x, walk)
-    windowed["gcn"] = phase4c_gcn(dev, card, adj, x)
+    gcn = phase4c_gcn(dev, card, adj, x)
     del adj, x
     torch.cuda.empty_cache()
     print("phase 4c summary " + json.dumps(
         {"register_walk": walk,
-         "windowed": {k: v for k, v in windowed.items() if k != "gcn"},
-         "gcn_forward": {k: windowed["gcn"][k] for k in ("ms", "layer_ms")}
-         }), flush=True)
+         "gcn_forward": {k: gcn[k] for k in ("ms", "layer_ms")}}),
+          flush=True)
 
     stamp("phase 4c")
 
@@ -7436,37 +7315,6 @@ def main() -> int:
          "ms_on_seg2_graph": sp["k1_same_graph_ms"],
          "zipf_1_8": zipf_1_8("spmm_csr"),
          "clustered": walk},
-        {"name": "spmm_window", "route": "cuda",
-         "source": "paddle_sparse_tpu_torch/csrc/spmm_window.cu",
-         "source_note": "K1 redesigned as a window-staged walk: each "
-                        "flagged tile's window of x rows in shared memory "
-                        "by TMA, through spmm_window_cuda over a window "
-                        "plan; no path builds a plan (slower than the "
-                        "register walk at every setting measured)",
-         "replaces": "paddle_sparse_tpu/ops/kernels/spmm_pallas.py:45",
-         "launches": windowed["gcn"]["launches"]["spmm_window"],
-         "launches_note": "3 forwards of phase 4c's GCN on the clustered "
-                          "graph, the main path, which builds no plan",
-         "launches_by_path": {**by_path("spmm_window"),
-                              "gcn_forward_clustered": windowed["gcn"][
-                                  "launches"]["spmm_window"]},
-         "max_abs_err": windowed["max_abs_err"],
-         "ms": windowed["K=256 float32"]["ms"],
-         "plain_ms": windowed["plain_ms"],
-         "bound_ms": walk["K=256 float32"]["bytes_once_ms"],
-         "bound_by": walk["K=256 float32"]["bound_by"],
-         "library_ms": walk["K=256 float32"]["library_ms"],
-         "library": "torch.sparse.mm on the CSR",
-         "register_walk_ms": windowed["K=256 float32"]["register_walk_ms"],
-         "gather_bound_ms": walk["K=256 float32"]["gather_bound_ms"],
-         "residual_bound_ms": walk["K=256 float32"]["residual_bound_ms"],
-         "K": 256,
-         "at": "bench.py's clustered graph at full scale (2,449,029 nodes, "
-               "122,451,450 nnz), K=256 f32, every tile flagged",
-         "settings": {k: v for k, v in windowed.items()
-                      if k.startswith("K=")},
-         "all_in_window": windowed["all_in_window"],
-         "in_window_share": windowed["in_window_share"]},
         {"name": "sddmm_csr", "route": "cuda",
          "source": "paddle_sparse_tpu_torch/csrc/sddmm_spans.cu",
          "source_note": "the span SDDMM at S = 1 over the CSR pointer, "

@@ -16,11 +16,7 @@ the packed (segment, row)-sorted SpMMs ``spmm_seg2``, ``spmm_seg3`` and
 ``spmm_split``, planned once per graph, whose forward and ``d x`` run a
 multi-span SpMM kernel and whose ``d value`` runs its span-SDDMM kernel.
 Both span kernels cut rows of more than ``CAP`` edges across warps, from a
-piece table (``RowSplit``) that structures and plans build once. A window
-plan (``window_plan``) picks tiles of rows that share a range of ``x`` rows,
-and a windowed SpMM kernel (``spmm_window_cuda``) stages each range in
-shared memory; no path takes them, since the card measured the kernel
-slower than the register walk. The other
+piece table (``RowSplit``) that structures and plans build once. The other
 SpMM entry points of the JAX package (``spmm_chunked``, ``spmm_seg``,
 ``spmm_sell`` and ``backend="sell"``) run on the same kernels.
 
@@ -86,7 +82,6 @@ from .ops.convert import ind2ptr, ptr2ind, ptr2ind_capped
 from .ops.kernels.gat_attention_cuda import gat_attention_cuda
 from .ops.kernels.row_split import (CAP, RowSplit, fold_pieces_cuda,
                                     split_long_rows, split_rows)
-from .ops.kernels.row_window import RowWindow, window_plan
 from .ops.kernels.sddmm_cuda import (sddmm_csr_cuda, sddmm_csr_reference,
                                      sddmm_spans_cuda, sddmm_spans_reference)
 from .ops.kernels.segcompact_cuda import (compact_runs, compact_runs_cuda,
@@ -96,8 +91,6 @@ from .ops.kernels.spmm_sddmm_cuda import (spmm_sddmm_csc_cuda,
                                           spmm_sddmm_csc_reference,
                                           spmm_sddmm_spans_cuda,
                                           spmm_sddmm_spans_reference)
-from .ops.kernels.spmm_window_cuda import (spmm_window_cuda,
-                                           spmm_window_reference)
 from .ops.kernels.spmm_spans_cuda import (band_reduce_call, product_dtype,
                                           segment_rows_matmul,
                                           spmm_spans_cuda,
@@ -139,7 +132,7 @@ __all__ = [
     "facade_entry", "gcn_norm", "sample_entry", "__version__",
     # the padded core, kernels, models and entry points
     "APPNP", "CAP", "GAT", "GCN", "GIN", "GraphSAGE", "MODELS", "PaddedCOO",
-    "REDUCTIONS", "RowSplit", "RowWindow", "SPMM_BACKENDS",
+    "REDUCTIONS", "RowSplit", "SPMM_BACKENDS",
     "ChunkedStructure",
     "PaddedAdj", "SegPlan", "SegStructure", "SellPlan", "SellStructure",
     "SpmmPlan", "Seg2Plan",
@@ -168,9 +161,9 @@ __all__ = [
     "spmm_sddmm_csc_reference", "spmm_sddmm_spans_cuda",
     "spmm_sddmm_spans_reference", "spmm_seg2", "spmm_seg3",
     "spmm_spans_cuda", "spmm_spans_reference", "spmm_split",
-    "spmm_window_cuda", "spmm_window_reference", "split_long_rows",
+    "split_long_rows",
     "split_rows", "spspmm_eager",
     "spspmm_padded", "spspmm_rowblocked", "spspmm_rowsorted",
     "tilespan_call", "tilespan_tables", "train_entry", "train_step",
-    "unpack_values", "unpack_values_split", "window_plan",
+    "unpack_values", "unpack_values_split",
 ]

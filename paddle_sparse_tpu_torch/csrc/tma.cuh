@@ -1,6 +1,6 @@
-// 2-D TMA loads through a tensor map, shared by the kernels that stage tiles
-// of a row-major array in shared memory (spmm_window.cu, probes.cu); and
-// bulk stores from shared to global memory (chip_probe_band.cu's fills).
+// 2-D TMA loads through a tensor map, for the kernels that stage tiles of a
+// row-major array in shared memory (probes.cu); and bulk stores from shared
+// to global memory (chip_probe_band.cu's fills).
 #pragma once
 
 #include <cuda.h>

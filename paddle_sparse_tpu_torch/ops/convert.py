@@ -1,10 +1,13 @@
-"""Index-format conversions: COO row indices <-> CSR row pointers.
+"""Index-format conversions: COO row indices <-> CSR row pointers, and the
+inverse of a permutation.
 
 Port of ``paddle_sparse_tpu/ops/convert.py``. Both directions are one
 ``torch.searchsorted``:
 
 * ``ind2ptr(row, M)``: for sorted ``row``, ``ptr[i] = #{k : row[k] < i}``.
 * ``ptr2ind(ptr, E)``: ``ind[e] = max{i < len(ptr) - 1 : ptr[i] <= e}``.
+
+``invert_perm(perm)`` is one scatter: ``inv[perm[i]] = i``.
 
 Outputs keep the input's integer dtype and device. Empty inputs are allowed.
 """
@@ -17,6 +20,16 @@ def ind2ptr(row: torch.Tensor, M: int) -> torch.Tensor:
     return torch.searchsorted(row, positions,
                               out_int32=row.dtype == torch.int32
                               ).to(row.dtype)
+
+
+def invert_perm(perm: torch.Tensor) -> torch.Tensor:
+    """The inverse of the permutation ``perm`` (``inv[perm[i]] = i``), in
+    ``perm``'s dtype and on its device: one scatter. For the CSC view's
+    ``perm`` it maps each COO entry to its CSC position."""
+    inv = torch.empty_like(perm)
+    inv[perm.long()] = torch.arange(perm.numel(), dtype=perm.dtype,
+                                    device=perm.device)
+    return inv
 
 
 def _expand_ptr(ptr: torch.Tensor, E: int) -> torch.Tensor:

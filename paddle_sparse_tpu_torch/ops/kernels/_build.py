@@ -136,11 +136,6 @@ def load_library() -> ctypes.CDLL:
             lib.psp_spmm_spans.restype = ctypes.c_int
             lib.psp_fold_pieces.argtypes = [p, p, p, p, i64, i64, i32, p]
             lib.psp_fold_pieces.restype = ctypes.c_int
-            # rowptr, col, value, x, out, tiles, tile_w0, F, M, N, K, T, W,
-            # src_bf16, out_bf16, stream
-            lib.psp_spmm_window.argtypes = [p, p, p, p, p, p, p, i64, i64,
-                                            i64, i64, i64, i64, i32, i32, p]
-            lib.psp_spmm_window.restype = ctypes.c_int
             # start, end, stride, col, base, g, x, dv, S, M, K, g code,
             # x code, dv code, piece table: row, piece, P, cap; stream
             lib.psp_sddmm_spans.argtypes = [p, p, i64, p, p, p, p, p, i64,

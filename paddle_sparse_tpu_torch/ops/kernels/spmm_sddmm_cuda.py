@@ -45,22 +45,13 @@ from typing import Optional
 import torch
 
 from ...profiling import scope
+from ..convert import invert_perm
 from . import _build
 from ._build import FLOAT_DTYPES
 from .row_split import (AUTO, RowSplit, fold_pieces_cuda, resolve_split,
                         sum_dtype)
 from .spmm_cuda import _WINDOW_BYTES, _out_dtype
 from .spmm_spans_cuda import check_span_args, span_windows
-
-
-def invert_perm(perm: torch.Tensor) -> torch.Tensor:
-    """The inverse of the permutation ``perm`` (``inv[perm[i]] = i``), in
-    ``perm``'s dtype and on its device: one scatter. For the CSC view's
-    ``perm`` it maps each COO entry to its CSC position."""
-    inv = torch.empty_like(perm)
-    inv[perm.long()] = torch.arange(perm.numel(), dtype=perm.dtype,
-                                    device=perm.device)
-    return inv
 
 
 def csc_order_reference(colptr: torch.Tensor, col_t: torch.Tensor,

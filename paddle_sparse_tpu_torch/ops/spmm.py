@@ -82,11 +82,11 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..profiling import scope
-from .convert import ind2ptr, ptr2ind_capped
+from .convert import ind2ptr, invert_perm, ptr2ind_capped
 from .kernels.row_split import AUTO, RowSplit, resolve_split
 from .kernels.sddmm_cuda import sddmm_csr_cuda
 from .kernels.spmm_cuda import spmm_csr_cuda
-from .kernels.spmm_sddmm_cuda import invert_perm, spmm_sddmm_csc_cuda
+from .kernels.spmm_sddmm_cuda import spmm_sddmm_csc_cuda
 from .segment import segment_csr
 
 

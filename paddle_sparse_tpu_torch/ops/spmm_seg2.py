@@ -50,6 +50,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .convert import invert_perm
 from .kernels.row_split import RowSplit, split_lengths
 from .kernels.sddmm_cuda import sddmm_spans_cuda
 from .kernels.spmm_sddmm_cuda import spmm_sddmm_spans_cuda
@@ -164,20 +165,13 @@ def _segment_size(sr: Optional[int], num_src_rows: int, feat_dim: int,
     return SR
 
 
-def _inverse(perm: torch.Tensor) -> torch.Tensor:
-    inv = torch.empty(perm.numel(), dtype=torch.int32, device=perm.device)
-    inv[perm.long()] = torch.arange(perm.numel(), dtype=torch.int32,
-                                    device=perm.device)
-    return inv
-
-
 def relays(perm_f: torch.Tensor, perm_t: torch.Tensor):
     """``(relay_ft, relay_tf)`` of a forward and a transpose order of the
     same COO entries (each packed position -> COO position):
     ``relay_ft[e]`` is the forward position of transpose position ``e``,
     ``relay_tf`` its inverse."""
-    relay_ft = _inverse(perm_f)[perm_t.long()]
-    return relay_ft, _inverse(relay_ft)
+    relay_ft = invert_perm(perm_f.to(torch.int32))[perm_t.long()]
+    return relay_ft, invert_perm(relay_ft)
 
 
 def build_layouts(row: torch.Tensor, col: torch.Tensor, M: int, N: int, *,

@@ -29,8 +29,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from .ops.convert import ind2ptr, ptr2ind
-from .ops.kernels.spmm_sddmm_cuda import invert_perm
+from .ops.convert import ind2ptr, invert_perm, ptr2ind
 from .ops.segment import scatter_reduce, segment_csr
 from .ops.spmm import SpmmStructure, ptr_split
 from .utils import (as_device, as_index_array, is_row_col_sorted,
@@ -326,11 +325,7 @@ class SparseStorage:
 
     def csc2csr(self) -> torch.Tensor:
         if self._csc2csr is None:
-            perm = self.csr2csc()
-            inv = torch.empty_like(perm)
-            inv[perm.long()] = torch.arange(perm.numel(), dtype=perm.dtype,
-                                            device=perm.device)
-            self._csc2csr = inv
+            self._csc2csr = invert_perm(self.csr2csc())
         return self._csc2csr
 
     # ------------------------------------------------------------------

@@ -103,10 +103,14 @@ def dev():
     return torch.device("cuda")
 
 
-def _csr(dev, M=500, N=300, max_deg=30, seed=0):
+def _csr(dev, M=500, N=300, max_deg=30, seed=0, long_row=0):
+    """A random CSR with rows 0 and M - 1 empty and, if ``long_row``, row
+    M // 2 of that many edges."""
     g = torch.Generator(device=dev).manual_seed(seed)
     deg = torch.randint(0, max_deg + 1, (M,), generator=g, device=dev)
     deg[[0, M - 1]] = 0
+    if long_row:
+        deg[M // 2] = long_row
     rowptr = torch.zeros(M + 1, dtype=torch.int32, device=dev)
     rowptr[1:] = deg.cumsum(0)
     nnz = int(rowptr[-1])
@@ -2684,175 +2688,6 @@ def test_probe_entry_points_card_vs_cpu(dev):
         torch.testing.assert_close(got.cpu(), want, **F32)
 
 
-# ---- the windowed K1 (csrc/spmm_window.cu) --------------------------------
-
-WIN_T, WIN_W = 512, 256      # small tiles and windows: some tiles flagged
-
-
-def _window_csr(dev, M=6000, N=5000, seed=0):
-    """Tiles of WIN_T rows: 0-3 clustered (degree 40, 85% inside a
-    256-column community), 4-5 sparse and uniform (degree 5: unflagged),
-    6 clustered with a row of 3,000 edges (split at CAP), 7-10 clustered,
-    and the last (partial) tile reading the last columns, so its window
-    is [N - W, N). Empty rows among them."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    tile = torch.arange(M, device=dev) // WIN_T
-    deg = torch.where((tile == 4) | (tile == 5), 5, 40)
-    deg[[0, 700, 2999, M - 1]] = 0
-    deg[6 * WIN_T + 17] = 3000
-    rowptr = torch.zeros(M + 1, dtype=torch.int32, device=dev)
-    rowptr[1:] = deg.cumsum(0)
-    nnz = int(rowptr[-1])
-    row = torch.repeat_interleave(torch.arange(M, device=dev), deg)
-    home = (row * N // M) // 256 * 256
-    last = row // WIN_T == (M - 1) // WIN_T
-    home = torch.where(last, torch.full_like(home, N - 256), home)
-    near = torch.clamp(home + torch.randint(0, 256, (nnz,), generator=g,
-                                            device=dev), max=N - 1)
-    far = torch.randint(0, N, (nnz,), generator=g, device=dev)
-    sparse = (row // WIN_T == 4) | (row // WIN_T == 5)
-    inside = (torch.rand(nnz, generator=g, device=dev) < 0.85) & ~sparse
-    col = torch.where(inside, near, far).to(torch.int32)
-    value = torch.rand(nnz, generator=g, device=dev) * 2 - 1
-    return rowptr, col, value, g
-
-
-def _window_plan(dev):
-    from paddle_sparse_tpu_torch import window_plan
-    rowptr, col, value, g = _window_csr(dev)
-    split = split_rows(rowptr[None, :-1], rowptr[None, 1:])
-    plan = window_plan(rowptr, col, 5000, split, WIN_T, WIN_W)
-    return rowptr, col, value, g, split, plan
-
-
-def _flagged_rows(plan):
-    return plan.flagged.repeat_interleave(plan.tile_rows)[:plan.num_rows]
-
-
-def test_window_plan_mixes_tiles(dev):
-    """The card's plan flags the clustered tiles, leaves the sparse ones
-    and the split row's tile out, and clamps the last tile's window at N;
-    one launch of the windowed kernel gives the flagged tiles' rows of K1
-    (with its pieces and fold) bit for bit and 0 on the others, and
-    launches nothing else."""
-    from paddle_sparse_tpu_torch import spmm_window_cuda
-    rowptr, col, value, g, split, plan = _window_plan(dev)
-    assert plan.flagged.tolist() == [True] * 4 + [False] * 3 + [True] * 5
-    assert int(plan.tile_w0[-1]) == 5000 - WIN_W
-    x = torch.randn(5000, 64, generator=g, device=dev)
-    want = spmm_csr_cuda(rowptr, col, value, x, split=split)
-    before = (spmm_csr_cuda.launches, spmm_window_cuda.launches,
-              fold_pieces_cuda.launches)
-    got = spmm_window_cuda(rowptr, col, value, x, plan)
-    after = (spmm_csr_cuda.launches, spmm_window_cuda.launches,
-             fold_pieces_cuda.launches)
-    assert tuple(b - a for a, b in zip(before, after)) == (0, 1, 0)
-    rows = _flagged_rows(plan)
-    assert torch.equal(got[rows], want[rows])
-    assert not bool(got[~rows].any())
-    torch.testing.assert_close(got[rows].double(),
-                               _ref(rowptr, col, value, x)[rows], **F32)
-
-
-@pytest.mark.parametrize("K", [1, 3, 47, 64, 100, 256, 300, 520])
-@pytest.mark.parametrize("dtypes", ["f32", "bf16_x", "bf16"])
-def test_window_equals_k1_bitwise(dev, K, dtypes):
-    """The windowed kernel's rows (the flagged tiles) equal K1's with its
-    piece table bit for bit, with and without ``value``, and twice the
-    same; where ``K * elt`` breaks TMA's 16-byte rule (K 1, 3 and 47 in
-    f32) the plan does not apply and the wrapper raises, launching
-    nothing. Launch counts exact."""
-    from paddle_sparse_tpu_torch import spmm_window_cuda
-    from paddle_sparse_tpu_torch.ops.kernels.row_window import applies
-    rowptr, col, value, g, split, plan = _window_plan(dev)
-    x = torch.randn(5000, K, generator=g, device=dev)
-    if dtypes != "f32":
-        x = x.bfloat16()
-    v = value.bfloat16() if dtypes == "bf16" else value
-    windowed = (K * x.element_size()) % 16 == 0
-    assert applies(plan, x) == windowed
-    rows = _flagged_rows(plan)
-    for vv in (v, None):
-        before = spmm_window_cuda.launches
-        if not windowed:
-            with pytest.raises(ValueError):
-                spmm_window_cuda(rowptr, col, vv, x, plan)
-            assert spmm_window_cuda.launches == before
-            continue
-        want = spmm_csr_cuda(rowptr, col, vv, x, split=split)
-        a = spmm_window_cuda(rowptr, col, vv, x, plan)
-        b = spmm_window_cuda(rowptr, col, vv, x, plan)
-        assert spmm_window_cuda.launches == before + 2
-        assert a.dtype == want.dtype and torch.equal(a[rows], want[rows])
-        assert torch.equal(a, b)
-
-
-def test_window_kernel_vs_plain_and_window_past_n(dev):
-    """The kernel's own wrapper against its plain version in f64, on the
-    test graph and on one whose default 1,728-row window reaches past N
-    (the TMA boxes past the end land as zeros): there every tile is
-    flagged and the output is K1's bit for bit."""
-    from paddle_sparse_tpu_torch import (spmm_window_cuda,
-                                         spmm_window_reference, window_plan)
-    rowptr, col, value, g, split, plan = _window_plan(dev)
-    x = torch.randn(5000, 100, generator=g, device=dev)
-    got = spmm_window_cuda(rowptr, col, value, x, plan)
-    want = spmm_window_reference(rowptr, col, value.double(), x.double(),
-                                 plan)
-    torch.testing.assert_close(got.double(), want, **F32)
-    rowptr, col, value, g = _csr(dev, M=3000, N=900, max_deg=40)
-    small = window_plan(rowptr, col, 900)
-    assert small.window_rows > 900 and bool(small.flagged.all())
-    assert int(small.tile_w0.max()) == 0
-    x = torch.randn(900, 256, generator=g, device=dev)
-    for vv in (value, None):
-        assert torch.equal(spmm_window_cuda(rowptr, col, vv, x, small),
-                           spmm_csr_cuda(rowptr, col, vv, x))
-
-
-def test_window_rejects(dev):
-    """The wrapper raises on a plan that does not apply (K=3 f32: rows of
-    12 bytes; a plan that flags nothing) and on another matrix's plan; it
-    launches nothing then."""
-    from paddle_sparse_tpu_torch import spmm_window_cuda, window_plan
-    rowptr, col, value, g, split, plan = _window_plan(dev)
-    none = window_plan(rowptr, col, 5000, split, WIN_T, 100_000)
-    assert none.tiles.numel() == 0
-    before = spmm_window_cuda.launches
-    with pytest.raises(ValueError):
-        spmm_window_cuda(rowptr, col, value,
-                         torch.randn(5000, 3, device=dev), plan)
-    with pytest.raises(ValueError):
-        spmm_window_cuda(rowptr, col, value,
-                         torch.randn(4000, 64, device=dev), plan)
-    with pytest.raises(ValueError):
-        spmm_window_cuda(rowptr, col, value,
-                         torch.randn(5000, 64, device=dev), none)
-    assert spmm_window_cuda.launches == before
-
-
-def test_padded_coo_forward_takes_no_window(dev):
-    """``PaddedCOO.spmm`` on a clustered graph whose tiles a window plan
-    would all flag runs the register walk alone: one K1 launch, none of
-    the windowed kernel."""
-    from paddle_sparse_tpu_torch import spmm_window_cuda, window_plan
-    M = N = 6144
-    g = torch.Generator(device=dev).manual_seed(3)
-    row = torch.arange(M, device=dev).repeat_interleave(12)
-    col = torch.clamp(row // 512 * 512 + torch.randint(
-        0, 512, (row.numel(),), generator=g, device=dev), max=N - 1)
-    val = torch.rand(row.numel(), generator=g, device=dev)
-    x = torch.randn(N, 64, generator=g, device=dev)
-    adj = PaddedCOO.from_arrays(row, col, val, (M, N))
-    assert bool(window_plan(adj.rowptr(), adj.col, N).flagged.all())
-    before = (spmm_csr_cuda.launches, spmm_window_cuda.launches)
-    out = adj.spmm(x)
-    assert (spmm_csr_cuda.launches - before[0],
-            spmm_window_cuda.launches - before[1]) == (1, 0)
-    torch.testing.assert_close(out.double(),
-                               _ref(adj.rowptr(), adj.col, val, x), **F32)
-
-
 # ---- the launch path (ops/kernels/_build.launch) ---------------------------
 # Every kernel launches on PyTorch's current stream of its tensors' device.
 # Each launch site below runs once on the default stream and once on a side
@@ -2871,7 +2706,6 @@ def _tensors(out):
 
 def _site(dev, site):
     """``(fn, data)``: one launch site's call over its float inputs."""
-    from paddle_sparse_tpu_torch import spmm_window_cuda
     g = torch.Generator(device=dev).manual_seed(5)
     if site == "scale2":
         return pc.scale2_cuda, [torch.randn(256, 128, generator=g,
@@ -2922,13 +2756,12 @@ def _site(dev, site):
         hw, a_src, a_dst = _gat_inputs(dev, 4, 64)
         return (lambda h: gat_attention_cuda(*_gat_args(adj, h, a_src,
                                                         a_dst)), [hw])
-    if site in ("spmm_window", "fold_pieces"):
-        rowptr, col, value, _, split, plan = _window_plan(dev)
-        x = torch.randn(5000, 64, generator=g, device=dev)
-        if site == "spmm_window":
-            return (lambda v, xx: spmm_window_cuda(rowptr, col, v, xx, plan),
-                    [value, x])
+    if site == "fold_pieces":
+        rowptr, col, value, _ = _csr(dev, M=6000, N=5000, max_deg=40,
+                                     long_row=3000)
+        split = split_rows(rowptr[None, :-1], rowptr[None, 1:])
         assert split is not None
+        x = torch.randn(5000, 64, generator=g, device=dev)
         return (lambda v, xx: spmm_csr_cuda(rowptr, col, v, xx,
                                             split=split), [value, x])
     rowptr, col, value, _ = _csr(dev)
@@ -2954,7 +2787,7 @@ def _site(dev, site):
 LAUNCH_SITES = ("scale2", "chunk_sum", "span_colsum", "span_colsum_staged",
                 "band_ablate", "slice_gather", "slice_reduce",
                 "spmm_sddmm_csc", "spmm_sddmm_spans",
-                "spmm_window", "spmm_spans", "fold_pieces", "sddmm_spans",
+                "spmm_spans", "fold_pieces", "sddmm_spans",
                 "segcompact_rows", "segcompact_stream", "gat_attention")
 
 

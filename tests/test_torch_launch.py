@@ -21,7 +21,7 @@ from paddle_sparse_tpu_torch.ops.kernels import probes_cuda as pc
 KERNELS_DIR = Path(_build.__file__).resolve().parent
 # the modules that launch kernels, each through _build.launch
 LAUNCH_MODULES = ("gat_attention_cuda", "probes_cuda", "row_split",
-                  "segcompact_cuda", "spmm_sddmm_cuda", "spmm_window_cuda")
+                  "segcompact_cuda", "spmm_sddmm_cuda")
 # C functions of the library that run on the host only and launch nothing
 HOST_ONLY = {"psp_segcompact_tiles", "psp_segcompact_f_max",
              "psp_plan_ws_bytes"}

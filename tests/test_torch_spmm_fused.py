@@ -374,8 +374,9 @@ def test_relay_inverts_perm():
     values and ``d value`` in CSC order) gives the routed call's outputs
     read in CSC order, 0 past ``colptr[N]``."""
     from paddle_sparse_tpu_torch import SparseTensor
+    from paddle_sparse_tpu_torch.ops.convert import invert_perm
     from paddle_sparse_tpu_torch.ops.kernels.spmm_sddmm_cuda import (
-        csc_order_cuda, invert_perm)
+        csc_order_cuda)
     row, col, val, x, g = _graph(seed=10, hub=40)
     A = PaddedCOO.from_arrays(row, col, _t(val), (M, N),
                               capacity=row.size + PAD)
