@@ -13,6 +13,7 @@ repository root:
     python3 chip_probe.py fused [PARENT]   # the fused backward, by parts
     python3 chip_probe.py probes       # P3's, P4's and P5's calls, by kernel
     python3 chip_probe.py gloo         # which collectives gloo runs on CUDA
+    python3 chip_probe.py strided      # K1 on GAT's head views vs copies
 
 ``sweep``: the span kernels, K1 and K2 alone at K=256 on the bench's zipf
 graph at 1/8 scale (``chip_smoke.bench_graph``) for each piece size ``cap``
@@ -161,6 +162,14 @@ train step's all-reduce and broadcast: for each, two fresh ranks on card 0
 (``torch.multiprocessing`` spawn, a file store, a 30 s timeout) call it
 once; each rank's outcome (ok, or the error it raised), or that a rank
 died. One JSON line.
+
+``strided``: K1 (``spmm_csr_cuda``) on GAT's head views against the same
+launch on contiguous operands, on a uniform graph of ``gat-products.eval``'s
+size (2,449,029 rows of 50 entries, seed 3), at D = 47 and 128 with H = 4:
+``x`` contiguous or the view ``hw[:, 1]`` (row stride H * D, or 2 * D),
+``out`` contiguous or the view ``buf[:, 1]``; CUDA-event ms a launch (8
+launches after a warm-up) in 3 rounds of every case in turn. One line a
+case, then one JSON line.
 
 Each prints the card's ``nvidia-smi`` name and power limit and exits
 non-zero without a card.
@@ -1642,6 +1651,56 @@ def gloo_check() -> None:
     print(json.dumps({"gloo_cuda": out, "card": card_line()}), flush=True)
 
 
+def strided(dev: torch.device) -> None:
+    """The ``strided`` probe (module docstring)."""
+    from paddle_sparse_tpu_torch import spmm_csr_cuda
+    n, deg = 2_449_029, 50
+    g = torch.Generator(device=dev).manual_seed(3)
+    rowptr = torch.arange(n + 1, device=dev, dtype=torch.int32) * deg
+    col = torch.randint(0, n, (n * deg,), generator=g, device=dev,
+                        dtype=torch.int32)
+    val = torch.rand(n * deg, generator=g, device=dev)
+
+    def timed(fn, reps=8):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        fn()
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(reps):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / reps
+
+    res = {}
+    for D, H in ((47, 4), (128, 4)):
+        hw = torch.randn(n, H, D, generator=g, device=dev)
+        hw2 = torch.randn(n, 2, D, generator=g, device=dev)
+        buf = torch.empty(n, H, D, device=dev)
+        xc = hw[:, 1].contiguous()
+        oc = torch.empty(n, D, device=dev)
+        cases = {
+            "x contiguous, out contiguous": (xc, oc),
+            f"x view ld {H * D}, out contiguous": (hw[:, 1], oc),
+            f"x contiguous, out view ld {H * D}": (xc, buf[:, 1]),
+            f"x view ld {H * D}, out view ld {H * D}": (hw[:, 1], buf[:, 1]),
+            f"x view ld {2 * D}, out contiguous": (hw2[:, 1], oc),
+        }
+        ms = {k: [] for k in cases}
+        for _ in range(3):
+            for k, (x, o) in cases.items():
+                ms[k].append(timed(lambda: spmm_csr_cuda(
+                    rowptr, col, val, x, split=None, out=o)))
+        for k, v in ms.items():
+            print(f"K1 D={D}: {k}: ms {' '.join(f'{t:.3f}' for t in v)}",
+                  flush=True)
+            res[f"D={D}: {k}"] = v
+        del hw, hw2, buf, xc, oc
+        torch.cuda.empty_cache()
+    print(json.dumps({"strided_k1_ms": res, "card": card_line()}),
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_probe: no CUDA device visible", file=sys.stderr)
@@ -1670,6 +1729,8 @@ def main() -> int:
         probe_profiles(torch.device("cuda", 0))
     elif len(sys.argv) == 2 and sys.argv[1] == "gloo":
         gloo_check()
+    elif len(sys.argv) == 2 and sys.argv[1] == "strided":
+        strided(torch.device("cuda", 0))
     else:
         print(__doc__, file=sys.stderr)
         return 2

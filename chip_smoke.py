@@ -153,14 +153,20 @@ Phases, one or more printed lines each:
    alone on that graph at ``gat-products.eval``'s shapes, 4 heads of 128
    and 4 of 47, against its plain version and itself, its ms beside its
    bound and the plain version's (the 4 x 128 run is the ``kernels``
-   line's ``gat_attention`` entry).
+   line's ``gat_attention`` entry); and the heads aggregated by those
+   weights as the model runs them (``adj.spmm(hw, value=att)``: a K1 a
+   head on the views ``hw[:, k]`` and ``out[:, k]``, row stride 512, the
+   vector path, and 188, the scalar one): sampled rows of each head
+   against f64, H ``spmm_csr`` launches all on strided views, and its ms.
 8d. On ``bench_graph``'s zipf graph at 1/8 scale with 100 features (hub row
    of 10M edges, split): GIN 100 -> 256 -> 256 -> 47 and APPNP 100 -> 256
    -> 47 (k = 10, alpha = 0.1) on the ``gcn_normalize``-d adjacency with
    its values requiring grad, and GAT (3 layers, 4 heads of 64, output 47)
    on the raw one: times, peak memory, launch counts (GAT: K1 sum(H) and
    the fused CSC backward sum(H) per step, the attention pass once a layer
-   in forwards and steps; the fold after every K1 over the split rows and
+   in forwards and steps, and K1 on strided views, ``spmm_csr_cuda.
+   strided``, 8 a forward and a step: the hidden heads read and write
+   their columns in place; the fold after every K1 over the split rows and
    every fused pass over split columns),
    sampled rows of every SpMM, GIN's and APPNP's d value and GAT's d att
    of every head and layer against f64; then GAT's attention pass alone at
@@ -3178,12 +3184,52 @@ APPNP_K, APPNP_ALPHA = 10, 0.1
 REDUCE_NODES = 4000
 
 
+class SpmmCall:
+    """One recorded SpMM: ``adj``, the ``value`` it multiplied by (its
+    own, or the call's ``value=``), ``x``, ``reduce`` and ``out``; for one
+    head of a per-head call (``value`` (E, H): GAT's heads) ``head`` is
+    its index, and the properties below give that head's part."""
+
+    def __init__(self, adj, value, x, reduce, out, head=None):
+        self.adj, self.value, self.x, self.reduce, self.out = (
+            adj, value, x, reduce, out)
+        self.head = head
+
+    def _part(self, t):
+        """A head's columns of an (R, H * D) tensor; all of it else."""
+        t = t.reshape(t.shape[0], -1)
+        if self.head is None:
+            return t
+        return t.reshape(t.shape[0], self.value.shape[1], -1)[:, self.head]
+
+    @property
+    def vals(self):
+        return self.value if self.head is None else self.value[:, self.head]
+
+    @property
+    def xs(self):
+        return self._part(self.x.detach())
+
+    @property
+    def outs(self):
+        return self._part(self.out.detach())
+
+    @property
+    def d_out(self):
+        return None if self.out.grad is None else self._part(self.out.grad)
+
+    @property
+    def d_value(self):
+        g = self.value.grad
+        return g if g is None or self.head is None else g[:, self.head]
+
+
 class SpmmCalls:
     """Records every ``PaddedCOO.spmm`` call made inside the ``with``
-    block: ``(adj, x, reduce, out)``, the grads of the output and of a
-    non-leaf ``adj.value`` (GAT's per-head attention column) retained, so
-    that sampled rows and ``d value`` can be checked against f64
-    afterwards."""
+    block as :class:`SpmmCall` s, one a head of a per-head call, the grads
+    of the output and of a non-leaf value (GAT's attention weights)
+    retained, so that sampled rows and ``d value`` can be checked against
+    f64 afterwards."""
 
     def __init__(self):
         self.calls = []
@@ -3193,14 +3239,16 @@ class SpmmCalls:
         self._orig = orig = PaddedCOO.spmm
         calls = self.calls
 
-        def spmm(adj, x, reduce="sum", backend="auto"):
-            out = orig(adj, x, reduce, backend)
+        def spmm(adj, x, reduce="sum", backend="auto", value=None):
+            out = orig(adj, x, reduce, backend, value)
             if out.requires_grad:
                 out.retain_grad()
-            v = adj.value
+            v = adj.value if value is None else value
             if v is not None and v.requires_grad and not v.is_leaf:
                 v.retain_grad()
-            calls.append((adj, x, reduce, out))
+            heads = [None] if v is None or v.dim() == 1 else range(
+                v.shape[1])
+            calls.extend(SpmmCall(adj, v, x, reduce, out, k) for k in heads)
             return out
         PaddedCOO.spmm = spmm
         return self
@@ -3226,19 +3274,19 @@ def check_spmm_calls(name, calls, rows):
     only where the sampled edges read them."""
     from paddle_sparse_tpu_torch import spmm_csr_reference
     worst, ok_all, n_edges = 0.0, True, 0
-    for adj, xin, reduce, out in calls:
-        rowptr = adj.rowptr()
+    for c in calls:
+        rowptr = c.adj.rowptr()
         edge, sub_ptr = _sub_csr(rowptr, rows)
         n_edges = max(n_edges, edge.numel())
-        uc, sub_col = torch.unique(adj.col[edge], return_inverse=True)
-        xd = xin.detach().reshape(xin.shape[0], -1)[uc.long()].double()
-        val = adj.value[edge].detach().double()
+        uc, sub_col = torch.unique(c.adj.col[edge], return_inverse=True)
+        xd = c.xs[uc.long()].double()
+        val = c.vals[edge].detach().double()
         ref = spmm_csr_reference(sub_ptr, sub_col, val, xd)
         scale = spmm_csr_reference(sub_ptr, sub_col, val.abs(), xd.abs())
-        if reduce == "mean":
+        if c.reduce == "mean":
             deg = (sub_ptr[1:] - sub_ptr[:-1]).clamp(min=1)[:, None]
             ref, scale = ref / deg, scale / deg
-        got = out.detach().reshape(out.shape[0], -1)[rows]
+        got = c.outs[rows]
         err, ok = _grad_close(got, ref, scale)
         worst, ok_all = max(worst, err), ok_all and ok
     print(f"phase 8 {name}: {len(calls)} SpMMs of the forward, "
@@ -3264,12 +3312,11 @@ def _d_value_err(adj, calls, d_value):
     deg = (rowptr[1:] - rowptr[:-1]).clamp(min=1)[er].double()
     ref = torch.zeros(SAMPLED_EDGES, dtype=torch.float64, device=e.device)
     scale = torch.zeros_like(ref)
-    for _, xin, reduce, out in calls:
-        if out.grad is None:
+    for c in calls:
+        if c.d_out is None:
             continue
-        terms = (out.grad.reshape(out.shape[0], -1)[er].double()
-                 * xin.detach().reshape(xin.shape[0], -1)[ec].double())
-        if reduce == "mean":
+        terms = c.d_out[er].double() * c.xs[ec].double()
+        if c.reduce == "mean":
             terms = terms / deg[:, None]
         ref += terms.sum(1)
         scale += terms.abs().sum(1)
@@ -3289,13 +3336,12 @@ def check_d_value(name, adj, calls, d_value):
 
 
 def check_call_d_values(name, calls):
-    """``d value`` of each call's own value tensor (GAT's ``d att``, one
-    K2 launch per head and layer) on sampled edges against that call's f64
+    """``d value`` of each call's own values (GAT's ``d att``, one call
+    a head and layer) on sampled edges against that call's f64
     ``g[row] . x[col]`` (:func:`_d_value_err`)."""
-    check(len(calls) > 0 and all(c[0].value.grad is not None
-                                 for c in calls),
+    check(len(calls) > 0 and all(c.d_value is not None for c in calls),
           f"{name}: a recorded SpMM has no value grad")
-    res = [_d_value_err(c[0], [c], c[0].value.grad) for c in calls]
+    res = [_d_value_err(c.adj, [c], c.d_value) for c in calls]
     err = max(r[0] for r in res)
     ok = all(r[1] for r in res)
     print(f"phase 8 {name}: d value of each of {len(res)} SpMMs on "
@@ -3509,13 +3555,15 @@ def time_model(name, card, model, adj, x, y, reps=3):
     """1 warm-up + ``reps`` forwards (inference mode) and train steps, each
     timed on the host clock around work that ends in a synchronize; the
     launch counts and peak memory of each, counts zeroed just before and
-    read just after."""
-    from paddle_sparse_tpu_torch import train_step
+    read just after, and the K1 launches on strided views
+    (``spmm_csr_cuda.strided``: GAT's heads)."""
+    from paddle_sparse_tpu_torch import spmm_csr_cuda, train_step
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     res = {}
     for part in ("forward", "train_step"):
         _zero_launch_counts()
+        strided = spmm_csr_cuda.strided
         times = []
         for _ in range(reps + 1):
             adj.value.grad = None
@@ -3533,11 +3581,13 @@ def time_model(name, card, model, adj, x, y, reps=3):
               f"{name} {part}: output or loss not finite")
         res[part] = {"ms": sum(times[1:]) / reps, "times_ms": times,
                      "launches": counts, "runs": reps + 1,
+                     "strided": spmm_csr_cuda.strided - strided,
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         print(f"phase 8 {name} {part} ms: warm-up {times[0]:.3f}, timed "
               f"{' '.join(f'{t:.3f}' for t in times[1:])} (mean "
               f"{res[part]['ms']:.3f}); launches in {reps + 1}: "
               + ", ".join(f"{k} {v}" for k, v in counts.items())
+              + f", of spmm_csr on strided views {res[part]['strided']}"
               + f"; peak mem {res[part]['peak_gb']:.2f} GB {card}",
               flush=True)
     return res
@@ -3571,7 +3621,8 @@ def phase8c_sage(dev, card, gcn_fwd_ms, gcn_step_ms):
     the fused CSC backward 2 per step; no fold), sampled rows of each
     layer's mean and d value against f64; then GAT's attention pass alone
     on that graph at ``gat-products.eval``'s shapes
-    (:func:`gat_attention_check`)."""
+    (:func:`gat_attention_check`), and its heads' aggregation on strided
+    views there (:func:`gat_heads_check`)."""
     from paddle_sparse_tpu_torch import gcn_loss, init_sage
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3662,8 +3713,38 @@ def gat_attention_check(phase, card, adj, H, D, reps=5):
           f"{'equal' if same else 'DIFFER'} {card}", flush=True)
     check(ok and same, f"phase {phase}: the attention pass disagrees with "
                        f"its plain version or itself")
+    heads = gat_heads_check(phase, card, adj, hw, got[0], reps)
     return {"ms": ms, "parts_ms": parts, "bound_ms": bound,
-            "plain_ms": plain_ms, "max_abs_err": err}
+            "plain_ms": plain_ms, "max_abs_err": err, "heads": heads}
+
+
+def gat_heads_check(phase, card, adj, hw, att, reps):
+    """GAT's aggregation of ``hw`` (N, H, D) by the head-major weights
+    ``att`` (E, H), as the model runs it (``adj.spmm(hw, value=att)``: one
+    K1 a head on the views ``hw[:, k]`` and ``out[:, k]``, row stride
+    H * D): sampled rows of each head against f64
+    (:func:`check_spmm_calls`), exactly H ``spmm_csr`` launches, each on
+    strided views where H > 1 (one head's are contiguous), and the call's
+    CUDA-event ms."""
+    from paddle_sparse_tpu_torch import spmm_csr_cuda
+    H, D = hw.shape[1:]
+    before = spmm_csr_cuda.launches, spmm_csr_cuda.strided
+    with torch.no_grad(), SpmmCalls() as rec:
+        adj.spmm(hw, value=att)
+    counts = (spmm_csr_cuda.launches - before[0],
+              spmm_csr_cuda.strided - before[1])
+    err = check_spmm_calls(f"{phase} GAT heads {H}x{D} (row stride "
+                           f"{H * D})", rec.calls, sampled_rows(adj.rowptr()))
+    del rec
+    with torch.no_grad():
+        ms = timed(lambda: adj.spmm(hw, value=att), reps)[0]
+    want = (H, H if H > 1 else 0)
+    print(f"phase {phase} GAT heads {H}x{D}: spmm_csr launches {counts[0]}, "
+          f"of them on strided views {counts[1]} (expected {want[0]} and "
+          f"{want[1]}); {ms:.3f} ms a call {card}", flush=True)
+    check(counts == want, f"phase {phase}: GAT's heads at {H}x{D} ran "
+                          f"{counts} (spmm_csr, strided), not {want}")
+    return {"ms": ms, "max_abs_err": err, "launches": counts}
 
 
 def phase8d_models(dev, card):
@@ -3711,6 +3792,14 @@ def phase8d_models(dev, card):
         res = time_model(f"8d {kind}", card, model, adj, x, y)
         check_launches(kind, res, fwd, dx, dv, fused, fwd,
                        fwd + col_fold * (dx + fused), att)
+        # GAT's hidden heads read and write strided views (its one output
+        # head is contiguous); a step's backward runs on copies
+        views = 2 * GAT_HEADS if kind == "gat" else 0
+        check(all(res[p]["strided"] == views * res[p]["runs"]
+                  for p in ("forward", "train_step")),
+              f"{kind}: K1 on strided views "
+              f"{[res[p]['strided'] for p in ('forward', 'train_step')]}, "
+              f"expected {views} a forward and a step")
         if kind == "gat":
             # the model's hidden layers and its output layer (1 x 47)
             res["attention"] = {
@@ -3987,8 +4076,8 @@ def phase9b_gcn_norm(dev, card, row, col, x):
           f"{csc_builds}")
 
     # d value on sampled edges and d x on sampled columns against f64
-    err_dv, ok_dv, dv_max = _d_value_err(P, [(P, xg, "sum", out_g)],
-                                         value.grad)
+    err_dv, ok_dv, dv_max = _d_value_err(
+        P, [SpmmCall(P, P.value, xg, "sum", out_g)], value.grad)
     cols = torch.randperm(n, generator=torch.Generator().manual_seed(7)
                           )[:SAMPLED_COLS].to(dev)
     err_dx, ok_dx, dx_max, n_edges = _d_x_err(P.rowptr(), P.col,

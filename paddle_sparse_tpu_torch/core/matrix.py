@@ -152,19 +152,34 @@ class PaddedCOO:
             value=None if self.value is None else self.value.to(device))
 
     def spmm(self, x: torch.Tensor, reduce: str = "sum",
-             backend: str = "auto") -> torch.Tensor:
+             backend: str = "auto",
+             value: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``self @ x`` for dense ``x`` of shape (N, ...), differentiable in
         ``value`` and ``x``; the backward's ``d x`` runs over the cached CSC
         view. ``reduce``: ``"sum"``/``"add"``, ``"mean"``, ``"min"`` or
         ``"max"``, over the real entries only. ``backend``: ``"auto"``,
         ``"pallas"`` and ``"xla"`` all run the port's one path; ``"sell"``
         runs :func:`~..ops.spmm_sell.spmm_sell` on a plan cached per index
-        structure (``reduce="sum"`` only; :func:`~..ops.spmm.spmm_csr`)."""
+        structure (``reduce="sum"`` only; :func:`~..ops.spmm.spmm_csr`).
+
+        ``value``, if given, is a value per entry and head, (capacity, H),
+        multiplied in place of ``self.value`` and read at the real entries
+        only (its padding need not be 0, so no ``with_value`` copy is
+        made): x's columns sum in H blocks, block k with ``value[:, k]``
+        (GAT's heads, concatenated: one kernel a head, each reading its
+        block of ``x`` and writing its block of the output in place;
+        :func:`~..ops.spmm.spmm_with_structure`). ``"sell"`` refuses it."""
         check_backend(backend)
+        if value is not None and (value.dim() != 2 or backend == "sell"):
+            raise ValueError(f"value= takes per-head values (capacity, H) "
+                             f"on a backend other than 'sell', got shape "
+                             f"{tuple(value.shape)} on {backend!r}")
         if backend == "sell":
             return _sell(self.row, self.col, self.value, x, self.M, reduce)
-        return spmm_with_structure(self.rowptr(), self.col, self.value, x,
-                                   self.structure, reduce, self.row_split(),
+        return spmm_with_structure(self.rowptr(), self.col,
+                                   self.value if value is None else value,
+                                   x, self.structure, reduce,
+                                   self.row_split(),
                                    relays=self._cache)
 
     def transpose(self) -> "PaddedCOO":
@@ -218,8 +233,8 @@ class PaddedCOO:
     def with_value(self, value: Optional[torch.Tensor]) -> "PaddedCOO":
         """Replace the values, zeroing them at padding entries. The structure
         is unchanged, so the copy shares the cache dict itself: what either
-        builds later (the CSC view, say) serves both, as GAT's per-head
-        copies need."""
+        builds later (the CSC view, say) serves both, as ``gcn_normalize``'s
+        normalized copy uses it."""
         if value is not None:
             mask = self.valid_mask().reshape((-1,) + (1,) * (value.dim() - 1))
             value = torch.where(mask, value, torch.zeros((), dtype=value.dtype,

@@ -69,10 +69,20 @@
 // out is int32 (the ring arithmetic agrees). An int never meets a float here:
 // the wrapper casts a mixed pair to the float first.
 //
-// Contract (the Python wrapper checks shapes, dtypes, devices and contiguity):
+// Row strides: src row r starts at src + r * ld_src and out row m at
+// out + m * ld_out (in elements, each at least K and below 2**31), so a
+// column slice of a wider array, as one head of GAT's (N, H, D) operand and
+// of its (M, H, D) output, is read and written in place. A contiguous
+// caller passes K. The 16-byte path needs both strides, not only K, to keep
+// rows aligned. The strides are ints, as K is: a row's offset is one 32 x
+// 32 -> 64-bit multiply in the per-edge loop, where a 64-bit stride would
+// take three.
+//
+// Contract (the Python wrapper checks shapes, dtypes, devices and strides):
 // every position e in a span indexes idx and v, every source row
-// base[s] + idx[e] (or base[s] + e) lies in [0, N) of the contiguous (N, K)
-// src, and out is a contiguous (M, K) array. A piece table holds P entries
+// base[s] + idx[e] (or base[s] + e) lies in [0, N) of the (N, K) src of row
+// stride ld_src, and out is an (M, K) array of row stride ld_out, last
+// stride 1 both. A piece table holds P entries
 // of rows in [0, M), covering every row's flat edges once, and slots in
 // [0, W) of the contiguous (W, K) workspace of the sum's type (f32, f64
 // when out is f64, int64 when out is an int). Offsets into src, out and the workspace are computed in
@@ -115,6 +125,7 @@ spmm_spans_kernel(const int* __restrict__ start, const int* __restrict__ end,
                   const void* __restrict__ value, int vcode,
                   const int* __restrict__ base, const TX* __restrict__ src,
                   TO* __restrict__ out, int S, int units, int K,
+                  int ld_src, int ld_out,
                   const int* __restrict__ p_row,
                   const int* __restrict__ p_piece,
                   const int* __restrict__ p_slot, long long cap,
@@ -132,7 +143,7 @@ spmm_spans_kernel(const int* __restrict__ start, const int* __restrict__ end,
     const int slot = __ldg(p_slot + w);
     if (slot >= 0) part = ws + static_cast<int64_t>(slot) * K;
   }
-  TO* out_row = out + static_cast<int64_t>(row) * K;
+  TO* out_row = out + static_cast<int64_t>(row) * ld_out;
   constexpr int kCols = 32 * V * NV;
 
   for (int c0 = 0; c0 < K; c0 += kCols) {
@@ -173,7 +184,7 @@ spmm_spans_kernel(const int* __restrict__ start, const int* __restrict__ end,
         for (int j = 0; j < n; ++j) {
           const int r = __shfl_sync(kFullMask, my_row, j);
           const R v = __shfl_sync(kFullMask, my_val, j);
-          const TX* src_row = src + static_cast<int64_t>(r) * K;
+          const TX* src_row = src + static_cast<int64_t>(r) * ld_src;
 #pragma unroll
           for (int t = 0; t < NV; ++t) {
             const int k = c0 + (t * 32 + lane) * V;
@@ -205,7 +216,8 @@ spmm_spans_kernel(const int* __restrict__ start, const int* __restrict__ end,
 }
 
 // The second pass over a split launch's workspace: block (r, y) writes the
-// columns y * 32 + lane (+ gridDim.y * 32 ...) of out row fold_row[r], the
+// columns y * 32 + lane (+ gridDim.y * 32 ...) of out row fold_row[r] (row
+// stride ld_out; the workspace is a contiguous (W, K)), the
 // sum of workspace rows fold_ptr[r] .. fold_ptr[r+1]-1. Warp g adds every
 // kFoldWarps-th partial from g on, in order, and warp 0 adds the kFoldWarps
 // sums in order: a fixed tree, so the bits do not depend on timing. R is the
@@ -214,13 +226,14 @@ template <typename TO, typename R = acc_t<TO>>
 __global__ void __launch_bounds__(kFoldWarps * 32)
 fold_pieces_kernel(const int* __restrict__ fold_row,
                    const int* __restrict__ fold_ptr,
-                   const R* __restrict__ ws, TO* __restrict__ out, int K) {
+                   const R* __restrict__ ws, TO* __restrict__ out, int K,
+                   int ld_out) {
   __shared__ R sums[kFoldWarps][32];
   const int lane = threadIdx.x & 31;
   const int g = threadIdx.x >> 5;
   const int r = blockIdx.x;
   const int p0 = __ldg(fold_ptr + r), p1 = __ldg(fold_ptr + r + 1);
-  TO* out_row = out + static_cast<int64_t>(__ldg(fold_row + r)) * K;
+  TO* out_row = out + static_cast<int64_t>(__ldg(fold_row + r)) * ld_out;
   for (int c0 = blockIdx.y * 32; c0 < K; c0 += gridDim.y * 32) {
     const int k = c0 + lane;
     R acc = R(0);
@@ -254,6 +267,7 @@ struct Args {
   int vcode;
   const int* base;
   int S, units, K;
+  int ld_src, ld_out;  // row strides of src and out, in elements
   const int* p_row;
   const int* p_piece;
   const int* p_slot;
@@ -269,12 +283,13 @@ void launch_nv(const Args& a, const TX* src, TO* out, cudaStream_t stream) {
   if (a.p_row != nullptr) {
     spmm_spans_kernel<TX, TO, V, NV, true><<<grid, block, 0, stream>>>(
         a.start, a.end, a.stride, a.idx, a.value, a.vcode, a.base, src, out,
-        a.S, a.units, a.K, a.p_row, a.p_piece, a.p_slot, a.cap,
+        a.S, a.units, a.K, a.ld_src, a.ld_out, a.p_row, a.p_piece, a.p_slot,
+        a.cap,
         static_cast<R*>(a.ws));
   } else {
     spmm_spans_kernel<TX, TO, V, NV, false><<<grid, block, 0, stream>>>(
         a.start, a.end, a.stride, a.idx, a.value, a.vcode, a.base, src, out,
-        a.S, a.units, a.K, nullptr, nullptr, nullptr, 0,
+        a.S, a.units, a.K, a.ld_src, a.ld_out, nullptr, nullptr, nullptr, 0,
         static_cast<R*>(nullptr));
   }
 }
@@ -291,10 +306,11 @@ void launch(const Args& a, const TX* src, TO* out, cudaStream_t stream) {
   }
 }
 
-// The vector width when K and the pointers allow it: one 16-byte load of
-// src a lane (V = 4 f32, 8 bf16 or f16, 2 f64), else 1. The stores of out
-// and the workspace take the same V, so their rows must be aligned to
-// V * sizeof of their own types.
+// The vector width when K, the pointers and the row strides allow it: one
+// 16-byte load of src a lane (V = 4 f32, 8 bf16 or f16, 2 f64), else 1.
+// The stores of out and the workspace take the same V, so their rows must
+// be aligned to V * sizeof of their own types (up to 16 bytes): each base
+// pointer and each row stride in bytes.
 template <typename TX, typename TO>
 void dispatch(const Args& a, const void* src, void* out,
               cudaStream_t stream) {
@@ -303,8 +319,13 @@ void dispatch(const Args& a, const void* src, void* out,
   TO* op = static_cast<TO*>(out);
   const int out_bytes = V * static_cast<int>(sizeof(TO));
   const int ws_bytes = V * static_cast<int>(sizeof(acc_t<TO>));
-  if (aligned(src, 16) && aligned(out, out_bytes < 16 ? out_bytes : 16) &&
-      aligned(a.ws, ws_bytes < 16 ? ws_bytes : 16) && a.K % V == 0) {
+  const int out_align = out_bytes < 16 ? out_bytes : 16;
+  const bool rows_aligned =
+      a.ld_src * static_cast<long long>(sizeof(TX)) % 16 == 0 &&
+      a.ld_out * static_cast<long long>(sizeof(TO)) % out_align == 0;
+  if (aligned(src, 16) && aligned(out, out_align) &&
+      aligned(a.ws, ws_bytes < 16 ? ws_bytes : 16) && a.K % V == 0 &&
+      rows_aligned) {
     launch<TX, TO, V>(a, xp, op, stream);
   } else {
     launch<TX, TO, 1>(a, xp, op, stream);
@@ -314,7 +335,9 @@ void dispatch(const Args& a, const void* src, void* out,
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. idx, value and base may be NULL
-// (see above). The dtype codes are psp::DType's (0 f32, 1 bf16, 2 f16,
+// (see above); ld_src and ld_out are the row strides of src and out in
+// elements (K for a contiguous array), each at least K and below 2**31, or
+// the call is refused (cudaErrorInvalidValue) before a launch. The dtype codes are psp::DType's (0 f32, 1 bf16, 2 f16,
 // 3 f64, 4 int32, 5 int64): src_code and out_code name src's and out's,
 // value_code value's. A float out is f32, src's own dtype, or f64, from a
 // float src and value; an int out is int64, or int32 from an int32 src and
@@ -330,6 +353,7 @@ extern "C" int psp_spmm_spans(const void* start, const void* end,
                               const void* value, int value_code,
                               const void* base, const void* src, void* out,
                               long long S, long long M, long long K,
+                              long long ld_src, long long ld_out,
                               int src_code, int out_code, const void* p_row,
                               const void* p_piece, long long P, long long cap,
                               const void* p_slot, void* ws, void* stream) {
@@ -349,7 +373,13 @@ extern "C" int psp_spmm_spans(const void* start, const void* end,
   a.base = static_cast<const int*>(base);
   a.S = static_cast<int>(S);
   a.units = static_cast<int>(p_row != nullptr ? P : M);
+  if (ld_src < K || ld_out < K || ld_src >= (1LL << 31) ||
+      ld_out >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   a.K = static_cast<int>(K);
+  a.ld_src = static_cast<int>(ld_src);
+  a.ld_out = static_cast<int>(ld_out);
   a.p_row = static_cast<const int*>(p_row);
   a.p_piece = static_cast<const int*>(p_piece);
   a.p_slot = static_cast<const int*>(p_slot);
@@ -404,14 +434,20 @@ extern "C" int psp_spmm_spans(const void* start, const void* end,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out_code as psp_spmm_spans's: ws is f64 when out is f64, int64 when out
-// is int32 or int64, else f32.
+// out_code and ld_out as psp_spmm_spans's (ld_out from K to 2**31 - 1, or
+// the call is refused): ws is a contiguous (W, K), f64 when out is f64,
+// int64 when out is int32 or int64, else f32.
 extern "C" int psp_fold_pieces(const void* fold_row, const void* fold_ptr,
                                const void* ws, void* out, long long R,
-                               long long K, int out_code, void* stream) {
+                               long long K, long long ld_out, int out_code,
+                               void* stream) {
+  if (ld_out < K || ld_out >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int* fr = static_cast<const int*>(fold_row);
   const int* fp = static_cast<const int*>(fold_ptr);
   const int k = static_cast<int>(K);
+  const int ld = static_cast<int>(ld_out);
   const dim3 block(kFoldWarps * 32);
   const long long col_blocks = (K + 31) / 32;
   const dim3 grid(static_cast<unsigned>(R),
@@ -422,30 +458,30 @@ extern "C" int psp_fold_pieces(const void* fold_row, const void* fold_ptr,
   switch (out_code) {
     case psp::kF32:
       fold_pieces_kernel<float><<<grid, block, 0, cs>>>(
-          fr, fp, w, static_cast<float*>(out), k);
+          fr, fp, w, static_cast<float*>(out), k, ld);
       break;
     case psp::kBF16:
       fold_pieces_kernel<__nv_bfloat16><<<grid, block, 0, cs>>>(
-          fr, fp, w, static_cast<__nv_bfloat16*>(out), k);
+          fr, fp, w, static_cast<__nv_bfloat16*>(out), k, ld);
       break;
     case psp::kF16:
       fold_pieces_kernel<__half><<<grid, block, 0, cs>>>(
-          fr, fp, w, static_cast<__half*>(out), k);
+          fr, fp, w, static_cast<__half*>(out), k, ld);
       break;
     case psp::kF64:
       fold_pieces_kernel<double><<<grid, block, 0, cs>>>(
           fr, fp, static_cast<const double*>(ws), static_cast<double*>(out),
-          k);
+          k, ld);
       break;
     case psp::kI32:
       fold_pieces_kernel<int><<<grid, block, 0, cs>>>(
           fr, fp, static_cast<const long long*>(ws), static_cast<int*>(out),
-          k);
+          k, ld);
       break;
     case psp::kI64:
       fold_pieces_kernel<long long><<<grid, block, 0, cs>>>(
           fr, fp, static_cast<const long long*>(ws),
-          static_cast<long long*>(out), k);
+          static_cast<long long*>(out), k, ld);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -15,9 +15,11 @@ mean (GraphSAGE) run the SpMM kernel forward and for ``d x`` and the SDDMM
 kernel for ``d value`` on a CUDA tensor. GCN and GraphSAGE run each layer's
 ``A @ h @ W`` at the narrower of ``W``'s widths (:func:`_aggregate`): the
 same product as the JAX layer's ``(A @ h) @ W``, its f32 sums in another
-order where ``W`` narrows; GAT aggregates each head as an SpMM
-whose values are that head's attention weights, so the same kernels carry
-it. GAT's attention weights (the per-node scores and each row's edge
+order where ``W`` narrows; GAT aggregates each head as an SpMM whose
+values are that head's attention weights (``adj.spmm(hw, value=att)``:
+one launch a head, each reading its columns of the layer's operand and
+writing its columns of the layer's output in place), so the same kernels
+carry it. GAT's attention weights (the per-node scores and each row's edge
 softmax) run two hand-written kernels on a CUDA tensor
 (:func:`gat_attention`), where the reference leaves them to XLA;
 :func:`edge_softmax` stays plain torch, and with it the plain version
@@ -389,13 +391,16 @@ class GAT(nn.Module):
     Per layer and head: ``hw = h @ W`` split into heads, edge logits
     ``leaky_relu(a_dst . hw[row] + a_src . hw[col])`` (span
     ``psp.model.gat.scores``) and their softmax over each row (span
-    ``psp.model.edge_softmax``), both :func:`gat_attention`, and each head
-    aggregated as ``adj.with_value(att[:, k]).spmm(hw[:, k])``
-    (span ``psp.model.gat.heads``, with the heads' concat or mean): the
-    same function as the JAX per-head ``segment_sum`` of ``(E, H, D)``
-    messages, without the messages (``with_value`` shares the cached CSC
-    view, built once per graph). Heads are concatenated on hidden layers
-    and averaged on the output layer, then ``elu`` on hidden layers. The
+    ``psp.model.edge_softmax``), both :func:`gat_attention`, and the heads
+    aggregated by ``adj.spmm(hw, value=att)`` (span
+    ``psp.model.gat.heads``, with the heads' mean on the output layer):
+    one K1 a head, which reads the head's columns of ``hw`` and writes its
+    columns of the layer's one output in place, with no ``with_value``
+    copy, and the adjacency's cached CSC view, built once per graph, in
+    the backward. The same function as the JAX per-head ``segment_sum``
+    of ``(E, H, D)`` messages, without the messages. Heads are
+    concatenated on hidden layers (the output as it is, (M, H * D)) and
+    averaged on the output layer, then ``elu`` on hidden layers. The
     adjacency must be square.
 
     The defaults are the JAX package's layer: one output head, no bias, no
@@ -438,12 +443,15 @@ class GAT(nn.Module):
         for i, (w, a_src, a_dst) in enumerate(zip(self.weight, self.a_src,
                                                   self.a_dst)):
             H, D = a_src.shape
-            hw = (h @ w).reshape(-1, H, D)                  # (N, H, D)
-            att = gat_attention(adj, hw, a_src, a_dst, self.negative_slope)
+            hw = h @ w                                      # (N, H * D)
+            att = gat_attention(adj, hw.view(-1, H, D), a_src, a_dst,
+                                self.negative_slope)
             with scope("psp.model.gat.heads"):
-                out = torch.stack([adj.with_value(att[:, k]).spmm(hw[:, k])
-                                   for k in range(H)], dim=1)  # (M, H, D)
-                out = out.reshape(-1, H * D) if i < n - 1 else out.mean(1)
+                # head k: columns k * D .. of hw with att[:, k], which is 0
+                # at padding already, written in place: (M, H * D)
+                out = adj.spmm(hw, value=att)
+                if i == n - 1:
+                    out = out.view(-1, H, D).mean(1)
             del att, hw       # freed before the skip's GEMM under no_grad
             if self.bias is not None:
                 out = out + self.bias[i]

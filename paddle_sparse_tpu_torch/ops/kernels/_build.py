@@ -128,13 +128,16 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_library(sources(), BUILD_DIR)))
             p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
             # start, end, stride, idx, value, value code, base, src, out, S,
-            # M, K, src code, out code, piece table: row, piece, P, cap
-            # (row NULL: none), slot; ws, stream
+            # M, K, src and out row strides, src code, out code, piece
+            # table: row, piece, P, cap (row NULL: none), slot; ws, stream
             lib.psp_spmm_spans.argtypes = [p, p, i64, p, p, i32, p, p, p, i64,
-                                           i64, i64, i32, i32, p, p, i64, i64,
-                                           p, p, p]
+                                           i64, i64, i64, i64, i32, i32, p, p,
+                                           i64, i64, p, p, p]
             lib.psp_spmm_spans.restype = ctypes.c_int
-            lib.psp_fold_pieces.argtypes = [p, p, p, p, i64, i64, i32, p]
+            # fold row, fold ptr, ws, out, R, K, out row stride, out code,
+            # stream
+            lib.psp_fold_pieces.argtypes = [p, p, p, p, i64, i64, i64, i32,
+                                            p]
             lib.psp_fold_pieces.restype = ctypes.c_int
             # start, end, stride, col, base, g, x, dv, S, M, K, g code,
             # x code, dv code, piece table: row, piece, P, cap; stream

@@ -144,6 +144,13 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _row_stride(t: torch.Tensor) -> int:
+    """The row stride in elements the span kernels take for a 2-D operand
+    whose rows are contiguous: ``t.stride(0)``, or the row length where
+    only one row is read (a contiguous (1, K) may carry any stride)."""
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+
 def _table(split: Optional[RowSplit]):
     """The C entry points' piece arguments: row, piece, P, cap."""
     if split is None:
@@ -166,8 +173,9 @@ def launch_spmm_spans(name: str, start, end, idx, value, base,
                       split: Optional[RowSplit]) -> None:
     """``csrc/spmm_spans.cu`` over checked int32 (S, M) bounds into
     ``out``: one warp per row when ``split`` is None, else one per piece and
-    then :func:`fold_pieces_cuda`. ``value`` is read in its own dtype.
-    Raises if a launch fails; the caller counts its launch."""
+    then :func:`fold_pieces_cuda`. ``value`` is read in its own dtype;
+    ``src`` and ``out`` at their row strides (:func:`_row_stride`, last
+    stride 1). Raises if a launch fails; the caller counts its launch."""
     (S, M), K = start.shape, src.shape[1]
     ws = (None if split is None else torch.empty(
         (split.num_slots, K), dtype=sum_dtype(out.dtype), device=src.device))
@@ -176,8 +184,8 @@ def launch_spmm_spans(name: str, start, end, idx, value, base,
         name, _build.load_library().psp_spmm_spans, src.device,
         start.data_ptr(), end.data_ptr(), start.stride(0), _ptr(idx),
         _ptr(value), 0 if value is None else code(value.dtype), _ptr(base),
-        src.data_ptr(), out.data_ptr(), S, M, K, code(src.dtype),
-        code(out.dtype), *_table(split),
+        src.data_ptr(), out.data_ptr(), S, M, K, _row_stride(src),
+        _row_stride(out), code(src.dtype), code(out.dtype), *_table(split),
         None if split is None else split.slot.data_ptr(), _ptr(ws))
     if split is not None:
         fold_pieces_cuda(split, ws, out)
@@ -188,7 +196,7 @@ def fold_pieces_cuda(split: RowSplit, ws: torch.Tensor,
     """The second pass of a split SpMM launch (``csrc/spmm_spans.cu``):
     ``out[fold_row[r]]`` = the sum of the workspace rows
     ``fold_ptr[r] .. fold_ptr[r+1]-1`` (f32, or f64 for an f64 ``out``), in
-    a fixed order, written in ``out``'s dtype.
+    a fixed order, written in ``out``'s dtype at its row stride.
     ``fold_pieces_cuda.launches`` counts its launches."""
     if ws.dtype != sum_dtype(out.dtype):
         raise TypeError(f"fold_pieces_cuda sums a {sum_dtype(out.dtype)} "
@@ -196,7 +204,7 @@ def fold_pieces_cuda(split: RowSplit, ws: torch.Tensor,
     _build.launch("fold_pieces", _build.load_library().psp_fold_pieces,
                   out.device, split.fold_row.data_ptr(),
                   split.fold_ptr.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                  split.fold_row.numel(), out.shape[1],
+                  split.fold_row.numel(), out.shape[1], _row_stride(out),
                   _build.dtype_code(out.dtype))
     fold_pieces_cuda.launches += 1
 

@@ -25,6 +25,12 @@ bool with bool (or ``None`` with a bool ``x``) raises ``TypeError``, as
 JAX's add does. ``value=None`` means implicit ones; any K works. A row of more than ``row_split.CAP`` edges is cut
 into pieces, one warp each, whose partials a second pass sums
 (``ops/kernels/row_split.py``).
+
+Strided operands: ``x`` may be a view whose rows are contiguous and lie
+further apart than K (last stride 1, row stride at least K), as one head
+``hw[:, k]`` of GAT's (N, H, D) operand is; and ``out=`` takes such a view
+to write into, as one head of the layer's (M, H, D) output. The kernel
+reads and writes them in place at their row strides; no copy is made.
 """
 from typing import Optional
 
@@ -119,14 +125,51 @@ def spmm_csr_reference(rowptr: torch.Tensor, col: torch.Tensor,
     return out.to(out_dtype)
 
 
+def _rows_contiguous(t: torch.Tensor) -> bool:
+    """A 2-D tensor whose rows the kernel reads at a row stride: last
+    stride 1 and rows at least K apart (where more than one of each)."""
+    return (t.dim() == 2 and (t.shape[1] <= 1 or t.stride(1) == 1)
+            and (t.shape[0] <= 1 or t.stride(0) >= t.shape[1]))
+
+
+def _span(t: torch.Tensor):
+    """The bytes ``[lo, hi)`` a non-empty 2-D tensor's elements lie in."""
+    last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    return t.data_ptr(), t.data_ptr() + (last + 1) * t.element_size()
+
+
+def _check_out(out: torch.Tensor, x: torch.Tensor, M: int,
+               dtype: torch.dtype) -> None:
+    """What ``out=`` takes: an (M, K) tensor of the output's dtype on x's
+    device, rows contiguous, whose memory does not meet x's."""
+    K = x.shape[1]
+    if out.device != x.device:
+        raise ValueError(f"out is on {out.device}, x on {x.device}")
+    if out.dtype != dtype:
+        raise TypeError(f"out must have the output's dtype {dtype}, got "
+                        f"{out.dtype}")
+    if not (dtype.is_floating_point or dtype in INT_DTYPES):
+        raise TypeError(f"out= takes the kernel's own output dtype: int32, "
+                        f"int64 or a float, not {dtype}")
+    if tuple(out.shape) != (M, K) or not _rows_contiguous(out):
+        raise ValueError(f"out must be an ({M}, {K}) tensor with last stride "
+                         f"1 and row stride at least {K}, got shape "
+                         f"{tuple(out.shape)} strides {out.stride()}")
+    if out.numel() and x.numel():
+        (a0, a1), (b0, b1) = _span(out), _span(x)
+        if a0 < b1 and b0 < a1:
+            raise ValueError("out overlaps x in memory")
+
+
 def _check_cuda_args(rowptr, col, value, x):
     dev = x.device
     for name, t in (("rowptr", rowptr), ("col", col), ("value", value)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
-    if x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous 2-D tensor, got shape "
-                         f"{tuple(x.shape)} (contiguous={x.is_contiguous()})")
+    if not _rows_contiguous(x):
+        raise ValueError(f"x must be a 2-D tensor with last stride 1 and row "
+                         f"stride at least its width, got shape "
+                         f"{tuple(x.shape)} strides {x.stride()}")
     check_spmm_dtypes("spmm_csr_cuda", x.dtype,
                       None if value is None else value.dtype,
                       _out_dtype(value, x))
@@ -135,9 +178,10 @@ def _check_cuda_args(rowptr, col, value, x):
     for name, t in (("rowptr", rowptr), ("col", col)):
         if t.dtype not in (torch.int32, torch.int64):
             raise TypeError(f"{name} must be int32 or int64, got {t.dtype}")
-    if max(col.numel(), x.shape[0], x.shape[1], rowptr.numel()) >= 2 ** 31:
-        raise ValueError("spmm_csr_cuda indexes with int32: nnz, N, K and M "
-                         "must each be below 2**31")
+    if max(col.numel(), x.shape[0], x.shape[1], x.stride(0),
+           rowptr.numel()) >= 2 ** 31:
+        raise ValueError("spmm_csr_cuda indexes with int32: nnz, N, K, M "
+                         "and x's row stride must each be below 2**31")
     if value is not None:
         if value.shape != col.shape:
             raise ValueError(f"value shape {tuple(value.shape)} != col shape "
@@ -146,11 +190,14 @@ def _check_cuda_args(rowptr, col, value, x):
 
 def spmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor,
                   value: Optional[torch.Tensor], x: torch.Tensor,
-                  split=AUTO) -> torch.Tensor:
+                  split=AUTO, out: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """CSR SpMM through the CUDA kernel ``csrc/spmm_spans.cu`` at S = 1.
 
     ``rowptr`` (M+1,) is a canonical CSR pointer into ``col``/``value``;
-    ``x`` is a contiguous (N, K) f32, bf16, f16 or f64 tensor, ``value``
+    ``x`` is an (N, K) f32, bf16, f16 or f64 tensor, rows contiguous (last
+    stride 1, row stride at least K: a column slice of a wider array is
+    read in place), ``value``
     (any of those dtypes, read as it is) or None, or both integers
     (:func:`kernel_operands`: int32 and int64 read as they are, narrower
     ints cast to int32, the sum in int64 and the result cast to the
@@ -158,18 +205,30 @@ def spmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor,
     ``[0, N)``. ``split`` is the pointer's
     :class:`~.row_split.RowSplit` (``PaddedCOO`` caches it), ``None`` when
     no row is longer than its cap, or ``"auto"`` to build it here (one host
-    read of the longest row). On a CPU tensor this runs
-    :func:`spmm_csr_reference`; on a CUDA tensor it launches the kernel or
-    raises. ``spmm_csr_cuda.launches`` counts kernel launches."""
+    read of the longest row). ``out``, if given, is the (M, K) tensor
+    written and returned: the output's dtype (the kernel's own: a float,
+    int32 or int64), rows contiguous as ``x``'s, its memory apart from
+    ``x``'s. On a CPU tensor this runs :func:`spmm_csr_reference`; on a
+    CUDA tensor it launches the kernel or raises.
+    ``spmm_csr_cuda.launches`` counts kernel launches and
+    ``spmm_csr_cuda.strided`` those of them whose ``x`` or ``out`` was not
+    contiguous."""
+    M = rowptr.numel() - 1
+    if out is not None:
+        _check_out(out, x, M, _out_dtype(value, x))
     if x.device.type == "cpu":
-        return spmm_csr_reference(rowptr, col, value, x)
+        res = spmm_csr_reference(rowptr, col, value, x)
+        return res if out is None else out.copy_(res)
     if x.device.type != "cuda":
         raise ValueError(f"spmm_csr_cuda runs on cpu or cuda, not {x.device}")
     value, x, want = kernel_operands(value, x)
     _check_cuda_args(rowptr, col, value, x)
     out_dtype = _out_dtype(value, x)
-    M, K = rowptr.numel() - 1, x.shape[1]
-    out = torch.empty((M, K), dtype=out_dtype, device=x.device)
+    K = x.shape[1]
+    strided = not x.is_contiguous() or (out is not None
+                                        and not out.is_contiguous())
+    if out is None:
+        out = torch.empty((M, K), dtype=out_dtype, device=x.device)
     if M == 0 or K == 0:
         return out.to(want)
     rowptr = rowptr.to(torch.int32).contiguous()
@@ -180,7 +239,9 @@ def spmm_csr_cuda(rowptr: torch.Tensor, col: torch.Tensor,
     launch_spmm_spans("spmm_csr", start, end, col, value, None, x, out,
                       resolve_split(split, start, end))
     spmm_csr_cuda.launches += 1
+    spmm_csr_cuda.strided += strided
     return out if out_dtype == want else out.to(want)
 
 
 spmm_csr_cuda.launches = 0
+spmm_csr_cuda.strided = 0

@@ -22,6 +22,12 @@ PyTorch versions.
 * ``d x`` alone, or with ``value`` None: K1 again, over the CSC view
   (``colptr``, ``col_t``, ``value[perm]`` from :func:`csc_values`).
 
+Per-head values: an (E, H) ``value`` splits ``x``'s K columns into H
+blocks of K / H and sums block k with ``value[:, k]`` (GAT's heads,
+concatenated): :class:`_HeadsSpmm`, one K1 a head, which reads the head's
+column block of ``x`` and writes its block of the one output in place;
+each head's backward is the one above.
+
 Double backward (``create_graph=True``, as a gradient penalty, a
 Hessian-vector product or force training takes it) differentiates at any
 order, on the same kernels and with no (nnz, K) tensor: each of the three
@@ -31,7 +37,8 @@ view is A's CSR: :func:`transpose_structure`). A first-order backward
 launches the same kernels with or without ``create_graph``.
 
 Spans (``profiling.scope``, recorded only while a profiler records):
-``psp.spmm.forward`` and ``psp.spmm.backward`` around :class:`_SpmmSum`'s,
+``psp.spmm.forward`` and ``psp.spmm.backward`` around :class:`_SpmmSum`'s
+(and around each head's in :class:`_HeadsSpmm`),
 ``psp.spmm.transpose`` around :func:`_spmm_t`, ``psp.spmm.sum_grads``,
 ``psp.spmm.sddmm`` and their ``.backward`` around the other Functions', and
 ``psp.spmm.relay`` around each gather of the values into CSC order that
@@ -76,6 +83,7 @@ The other reductions, as the reference's XLA path computes them
   gradient is split evenly among tied entries, as JAX's ``segment_max``
   splits it. The products are an (nnz, K) tensor.
 """
+import math
 import weakref
 from typing import Callable, NamedTuple, Optional
 
@@ -241,18 +249,66 @@ class _SpmmSum(torch.autograd.Function):
     def backward(ctx, g):
         with scope("psp.spmm.backward"):
             value, x = ctx.saved_tensors
-            g = g.contiguous()       # the grad of a sum is stride-0
-            a = ctx.csr
-            d_value = d_x = None
-            if ctx.needs_input_grad[0] and ctx.needs_input_grad[1]:
-                d_value, d_x = _SumGrads.apply(value, g, x, a)
-            elif ctx.needs_input_grad[0]:
-                d_value = _sddmm(a, g, x, value.dtype)
-            elif ctx.needs_input_grad[1]:
-                d_x = _spmm_t(a, value, g)
-            if d_x is not None:
-                d_x = d_x.to(x.dtype)
+            d_value, d_x = _sum_vjp(ctx.csr, value, x, g,
+                                    *ctx.needs_input_grad[:2])
             return d_value, d_x, None, None, None, None, None
+
+
+def _sum_vjp(a: _Csr, value, x, g, need_value: bool, need_x: bool):
+    """The grads of ``A(value) @ x`` along ``g``, ``(d value, d x)`` (None
+    where not needed): :class:`_SumGrads` for both, :class:`_Sddmm` for
+    ``d value`` alone, :func:`_spmm_t` for ``d x`` alone."""
+    g = g.contiguous()       # the grad of a sum is stride-0
+    d_value = d_x = None
+    if need_value and need_x:
+        d_value, d_x = _SumGrads.apply(value, g, x, a)
+    elif need_value:
+        d_value = _sddmm(a, g, x, value.dtype)
+    elif need_x:
+        d_x = _spmm_t(a, value, g)
+    if d_x is not None:
+        d_x = d_x.to(x.dtype)
+    return d_value, d_x
+
+
+class _HeadsSpmm(torch.autograd.Function):
+    """``out[:, k] = A(value[:, k]) @ x[:, k]`` for each of the H heads of
+    ``value`` (E, H) and ``x`` (N, H, D), into one (M, H, D) output: the
+    same as the H products stacked, bit for bit. Each head's K1 (inside
+    ``psp.spmm.forward``) gathers from the view ``x[:, k]`` and writes the
+    view ``out[:, k]`` at their row strides, and reads ``value[:, k]``,
+    contiguous where ``value`` is the view of a head-major (H, E) buffer.
+    Its backward is :class:`_SpmmSum`'s head by head (:func:`_sum_vjp`,
+    inside ``psp.spmm.backward``), on the heads' contiguous copies of ``x``
+    and ``g``, the grads stacked."""
+
+    @staticmethod
+    def forward(ctx, value, x, rowptr, col, structure_fn, row_split):
+        ctx.save_for_backward(value, x)
+        ctx.csr = _Csr(rowptr, col, structure_fn, row_split)
+        M, (H, D) = rowptr.numel() - 1, x.shape[1:]
+        out = torch.empty((M, H, D), device=x.device,
+                          dtype=torch.promote_types(value.dtype, x.dtype))
+        for k in range(H):
+            with scope("psp.spmm.forward"):
+                spmm_csr_cuda(rowptr, col, value[:, k], x[:, k],
+                              split=row_split, out=out[:, k])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        value, x = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        d_value, d_x = [], []
+        for k in range(x.shape[1]):
+            with scope("psp.spmm.backward"):
+                dv, dx = _sum_vjp(ctx.csr, value[:, k],
+                                  x[:, k].contiguous(), g[:, k], *need)
+            d_value.append(dv)
+            d_x.append(dx)
+        return (torch.stack(d_value, 1) if need[0] else None,
+                torch.stack(d_x, 1) if need[1] else None,
+                None, None, None, None)
 
 
 class _SumGrads(torch.autograd.Function):
@@ -338,19 +394,43 @@ def spmm_with_structure(rowptr: torch.Tensor, col: torch.Tensor,
     backward needs it and ``rowptr``'s piece table from ``row_split`` (a
     ``PaddedCOO`` passes its cached ones, and its cache dict as ``relays``,
     where the backward keeps the values in CSC order: :func:`csc_values`;
-    this forward empties it)."""
+    this forward empties it).
+
+    ``value`` is (E,), or (E, H), a value per entry and head: then ``x``'s
+    K columns (its trailing dims flattened) are H blocks of K / H, block k
+    of the output is the sum of block k of ``x`` with ``value[:, k]``
+    (``reduce`` ``"sum"``), equal bit for bit to the H blocks summed apart
+    and concatenated, and made by :class:`_HeadsSpmm` with no copy of
+    ``x`` and no per-head output (a float sum: an integer pair is
+    refused)."""
     if relays is not None:
         relays.pop(_CSC_VALUES, None)
     if reduce not in ("sum", "add", "mean", "min", "max"):
         raise ValueError(f"unknown reduction {reduce!r}")
-    if value is not None and value.dim() != 1:
-        raise ValueError("spmm expects scalar edge values (1-D)")
+    heads = value is not None and value.dim() == 2
+    if value is not None and value.dim() != 1 and not heads:
+        raise ValueError("spmm expects a value per entry (E,), or per entry "
+                         "and head (E, H)")
+    if heads and (reduce not in ("sum", "add")
+                  or math.prod(x.shape[1:]) % value.shape[1]):
+        raise ValueError(f"per-head values {tuple(value.shape)} sum "
+                         f"(reduce='sum') blocks of x's columns: "
+                         f"{tuple(x.shape[1:])} do not split into "
+                         f"{value.shape[1]}")
     if value is not None and value.is_floating_point() != \
             x.is_floating_point():
         # a mixed int/float pair sums as the promoted float, as in JAX
         common = torch.promote_types(value.dtype, x.dtype)
         value, x = value.to(common), x.to(common)
+    if heads and not x.is_floating_point():
+        raise TypeError(f"per-head values sum in a float dtype, got "
+                        f"{value.dtype} values and {x.dtype} x")
     M = rowptr.numel() - 1
+    if heads:
+        out = _HeadsSpmm.apply(value, x.reshape(x.shape[0], value.shape[1],
+                                                -1),
+                               rowptr, col, structure_fn, row_split)
+        return out.reshape((M,) + tuple(x.shape[1:]))
     x2 = x.reshape(x.shape[0], -1).contiguous()
     if reduce in ("min", "max"):
         # the products of the real entries only (one host read of

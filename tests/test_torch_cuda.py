@@ -7,7 +7,10 @@ kernels, split rows too) against plain f64, min and max on the card against
 the CPU, and each model family's toy forward and grads, card against CPU,
 with GAT's per-head launches; GAT's attention kernels (node scores, edge
 softmax; split rows, non-finite logits, head groups, f64) against their
-plain version, and PyG's GAT on split rows card against CPU; the fused CSC backward
+plain version, and PyG's GAT on split rows card against CPU; K1 on strided
+views (GAT's heads in place, ``out=``) bit for bit against contiguous
+copies, its refusals, and PyG's GAT against its former stacked heads,
+``spmm_csr_cuda.strided`` per model; the fused CSC backward
 (``spmm_sddmm_csc_cuda``) equal to the pair it replaces (K2 and K1 over
 the CSC view) bit for bit, at every batch size and on offset views,
 within SUM_REL of f64, two launches equal, its launch alone
@@ -74,6 +77,7 @@ from paddle_sparse_tpu_torch.ops.kernels import probes_cuda as pc
 from paddle_sparse_tpu_torch.ops.kernels.segcompact_cuda import F_MAX
 from paddle_sparse_tpu_torch.ops.spmm_seg2 import (fused_span_backward,
                                                    span_layouts)
+from stacked_heads import stacked_spmm
 
 pytestmark = pytest.mark.cuda
 
@@ -2108,6 +2112,163 @@ def test_gat_pyg_split_rows_card_vs_cpu(dev):
     assert gc.keys() == gh.keys()
     for name in gc:
         torch.testing.assert_close(gc[name], gh[name], **F32, msg=name)
+
+
+# ---- K1 on strided views: GAT's heads in place ------------------------------
+# Each head's launch reads ``hw[:, k]`` (row stride H * D) and writes
+# ``out[:, k]`` of one (M, H, D) output at its row stride: bit for bit the
+# launch on contiguous copies, which sums each column in the same order.
+
+def _strided_k1(adj, value, hw):
+    """Per head: the launch on the views, and on contiguous copies."""
+    rowptr, split = adj.rowptr(), adj.row_split()
+    out = torch.full((adj.M,) + tuple(hw.shape[1:]), float("nan"),
+                     dtype=torch.promote_types(value.dtype, hw.dtype),
+                     device=hw.device)
+    want = []
+    for k in range(hw.shape[1]):
+        got = spmm_csr_cuda(rowptr, adj.col, value[:, k], hw[:, k],
+                            split=split, out=out[:, k])
+        assert got.data_ptr() == out[:, k].data_ptr()
+        want.append(spmm_csr_cuda(rowptr, adj.col,
+                                  value[:, k].contiguous(),
+                                  hw[:, k].contiguous(), split=split))
+    return out, torch.stack(want, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["uniform", "zipf"])
+@pytest.mark.parametrize("H,D", [(4, 128), (4, 47)])
+def test_strided_k1_equals_contiguous(dev, H, D, kind, dtype):
+    """4 x 128 at row stride 512 (the 16-byte path), 4 x 47 at row stride
+    188 (odd heads misaligned: the scalar path); ``zipf`` with split rows
+    (the workspace and the fold pass into the strided output); f32 and
+    bf16 (weights, operand and output). Each launch counted once, and
+    those on views as strided; against plain f64 too."""
+    adj = _gat_graph(dev, kind)
+    g = torch.Generator().manual_seed(5)
+    hw = torch.randn(GAT_N, H, D, generator=g).to(dev, dtype)
+    value = torch.rand(H, adj.capacity, generator=g).to(dev, dtype).t()
+    b = (spmm_csr_cuda.launches, spmm_csr_cuda.strided,
+         fold_pieces_cuda.launches)
+    got, want = _strided_k1(adj, value, hw)
+    torch.cuda.synchronize()
+    assert (spmm_csr_cuda.launches - b[0], spmm_csr_cuda.strided - b[1],
+            fold_pieces_cuda.launches - b[2]) == (
+                2 * H, H, 2 * H * (kind == "zipf"))
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+    ref = torch.stack([_ref(adj.rowptr(), adj.col, value[:, k], hw[:, k])
+                       for k in range(H)], 1)
+    torch.testing.assert_close(got.double(), ref,
+                               **(F32 if dtype == torch.float32 else BF16))
+
+
+def test_strided_k1_vector_path_by_strides(dev):
+    """The kernel's instantiation under the profiler: V = 4 for f32 rows
+    of 128 at row stride 512 (16-byte aligned bases and rows), V = 1 for a
+    row stride of 130 (rows misaligned, though K = 128 divides)."""
+    from torch.profiler import ProfilerActivity, profile
+    adj = _gat_graph(dev, "uniform")
+    g = torch.Generator().manual_seed(6)
+    value = torch.rand(adj.capacity, generator=g).to(dev)
+    names = {}
+    for ld in (512, 130):
+        x = torch.randn(GAT_N, ld, generator=g).to(dev)[:, :128]
+        out = torch.empty(GAT_N, ld, device=dev)[:, :128]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            spmm_csr_cuda(adj.rowptr(), adj.col, value, x, out=out)
+            torch.cuda.synchronize()
+        names[ld] = [e.key for e in prof.key_averages()
+                     if "spmm_spans_kernel" in e.key]
+        torch.testing.assert_close(
+            out, spmm_csr_cuda(adj.rowptr(), adj.col, value, x.contiguous()),
+            rtol=0, atol=0)
+    assert len(names[512]) == 1 and "<float, float, 4," in names[512][0]
+    assert len(names[130]) == 1 and "<float, float, 1," in names[130][0]
+
+
+@pytest.mark.parametrize("bad", ["overlap", "alias", "x_last_stride",
+                                 "out_last_stride", "x_rows"])
+def test_strided_k1_refuses(dev, bad):
+    """An ``out`` whose memory meets ``x``'s, a last stride other than 1
+    (``x`` or ``out``), rows of ``x`` closer than K."""
+    rowptr, col, value, g = _csr(dev)
+    hw = torch.randn(300, 4, 8, generator=g, device=dev)
+    x, out = hw[:, 1], torch.empty(500, 4, 8, device=dev)[:, 0]
+    if bad == "overlap":
+        x = torch.randn(500, 4, 8, generator=g, device=dev)[:, 1, :]
+        out = x.as_strided((500, 8), (32, 1), x.storage_offset() + 8)
+    elif bad == "alias":
+        x = out = torch.randn(500, 4, 8, generator=g, device=dev)[:, 1]
+    elif bad == "x_last_stride":
+        x = torch.randn(300, 16, generator=g, device=dev)[:, ::2]
+    elif bad == "out_last_stride":
+        out = torch.empty(500, 16, device=dev)[:, ::2]
+    else:
+        x = torch.randn(300 * 4 + 8, generator=g, device=dev).as_strided(
+            (300, 8), (4, 1))
+    with pytest.raises(ValueError):
+        spmm_csr_cuda(rowptr, col, value, x, out=out)
+
+
+def test_gat_heads_in_place_equal_the_stack(dev, monkeypatch):
+    """PyG's stacking (3 layers of 4 heads, the output heads averaged,
+    bias, skips) on split rows: the forward bit for bit as the former
+    stack of per-head SpMMs gives it, and its 12 K1 launches all strided
+    (the stack's none); every parameter's grad within F32 of the stack's
+    (the attention's backward sums columns with ``index_add_``, whose
+    atomic adds take another order on each run)."""
+    from paddle_sparse_tpu_torch import init_gat
+    adj = _gat_graph(dev, "zipf")
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(GAT_N, 16, generator=g).to(dev)
+    w = torch.randn(GAT_N, 5, generator=g).to(dev)
+    model = init_gat(torch.Generator().manual_seed(0), 16, 8, 5, heads=4,
+                     num_layers=3, device=dev, out_heads=4, bias=True,
+                     skip=True)
+    runs = []
+    for patch in (False, True):
+        if patch:
+            monkeypatch.setattr(PaddedCOO, "spmm",
+                                stacked_spmm(PaddedCOO.spmm))
+        b = (spmm_csr_cuda.launches, spmm_csr_cuda.strided)
+        with torch.no_grad():
+            out = model(adj, x)
+        torch.cuda.synchronize()
+        counts = (spmm_csr_cuda.launches - b[0],
+                  spmm_csr_cuda.strided - b[1])
+        model.zero_grad(set_to_none=True)
+        (model(adj, x) * w).sum().backward()
+        runs.append((out, counts,
+                     {n: p.grad for n, p in model.named_parameters()}))
+    (got, got_n, got_g), (want, want_n, want_g) = runs
+    assert (got_n, want_n) == ((12, 12), (12, 0))
+    assert torch.equal(got, want)
+    for name in got_g:
+        torch.testing.assert_close(got_g[name], want_g[name], **F32,
+                                   msg=name)
+
+
+def test_strided_counter_per_model_forward(dev):
+    """One forward: PyG's GAT (3 layers x 4 heads) adds 12 to
+    ``spmm_csr_cuda.strided``, the toy GCN, GraphSAGE and APPNP 0."""
+    from paddle_sparse_tpu_torch import init_gat
+    adj = _gat_graph(dev, "uniform")
+    x = torch.randn(GAT_N, 16, generator=torch.Generator().manual_seed(7))
+    runs = {"gat": (init_gat(torch.Generator().manual_seed(0), 16, 8, 5,
+                             heads=4, num_layers=3, device=dev, out_heads=4,
+                             bias=True, skip=True), adj, x.to(dev))}
+    for kind in ("gcn", "sage", "appnp"):
+        model, a, xx, _ = model_entry(kind, "cuda")
+        runs[kind] = (model, a, xx)
+    added = {}
+    for kind, (model, a, xx) in runs.items():
+        b = spmm_csr_cuda.strided
+        with torch.no_grad():
+            model(a, xx)
+        added[kind] = spmm_csr_cuda.strided - b
+    assert added == {"gat": 12, "gcn": 0, "sage": 0, "appnp": 0}
 
 
 # ---- the eager facade on the card ------------------------------------------

@@ -39,6 +39,7 @@ from bench_port.models import gat as gat_model
 from bench_port.reference import gat as gat_blocked
 from bench_port.reference import sparse as ref_sparse
 from paddle_sparse_tpu_torch import GAT, PaddedCOO, init_gat
+from stacked_heads import stacked_spmm
 
 ROOT = Path(__file__).resolve().parent.parent
 BENCH = ROOT / "bench_port"
@@ -115,6 +116,38 @@ def test_every_parameter_gradient_matches_the_reference(num_layers, dtype):
     assert len(got) == 6 * num_layers
     for k, p in got.items():
         assert _rel(p.grad, leaves[k].grad) <= GRAD_TOL[dtype], k
+
+
+@pytest.mark.parametrize("out_heads", [1, 4])
+def test_the_heads_equal_the_stacked_heads(monkeypatch, out_heads):
+    """A hidden layer of 4 heads and an output layer of ``out_heads``,
+    with bias and skips, in f32: the logits bit for bit, and every
+    parameter's grad within f32 rounding, as the former per-head
+    ``with_value`` SpMMs and their stack give them."""
+    adj, _, _ = _graph(seed=8)
+    g = torch.Generator().manual_seed(9)
+    model = GAT(IN, HID, OUT, heads=4, num_layers=2, out_heads=out_heads,
+                bias=True, skip=True)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+    x = _features(torch.float32, seed=10)
+    w = torch.randn(N, OUT, generator=g)
+    runs = []
+    for patch in (False, True):
+        if patch:
+            monkeypatch.setattr(PaddedCOO, "spmm",
+                                stacked_spmm(PaddedCOO.spmm))
+        model.zero_grad(set_to_none=True)
+        logits = model(adj, x)
+        (logits * w).sum().backward()
+        runs.append((logits.detach(),
+                     {k: p.grad for k, p in model.named_parameters()}))
+    (got, got_g), (want, want_g) = runs
+    assert torch.equal(got, want)
+    assert got_g.keys() == want_g.keys()
+    for k in got_g:
+        torch.testing.assert_close(got_g[k], want_g[k], msg=k)
 
 
 def _count(model):

@@ -321,8 +321,9 @@ def test_gat_refuses_rectangular_adjacency():
 
 
 def test_gat_builds_the_csc_view_once(monkeypatch):
-    """Every head aggregates through ``adj.with_value``, which shares the
-    adjacency's cache: one CSC view per graph for all layers and heads."""
+    """Every head aggregates over the adjacency itself (``adj.spmm(hw,
+    value=att)``), whose cache keeps the CSC view: one per graph for all
+    layers and heads."""
     calls = []
     real = tmatrix.spmm_structure
     monkeypatch.setattr(tmatrix, "spmm_structure",
